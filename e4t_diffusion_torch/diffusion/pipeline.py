@@ -1,0 +1,310 @@
+"""StableDiffusionE4TPipeline: E4T sampling on PyTorch.
+
+Counterpart of ``e4t_diffusion_tpu/diffusion/pipeline.py`` on its bf16/f32
+path. Per sampling run: the E4T weight offsets are folded into the UNet's
+attention projections once, the ViT-H image branch is encoded once, and the
+"" text states are computed once. Per denoise step: the uncond UNet pass
+also yields the E4T tap (``return_encoder_outputs="with_eps"``), the E4T
+encoder fuses it into the domain embedding, that embedding is written into
+the placeholder slot of the prompt embeddings, CLIP text encodes them, the
+cond UNet pass runs, then CFG and the scheduler step. The VAE decodes at the
+end.
+
+Entry points run on ``cuda`` unless the caller passes another device
+(``device="cpu"``); without a GPU and without that request they raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from e4t_diffusion_torch.diffusion.schedulers import (
+    DDIMScheduler, NoiseScheduleConfig, SCHEDULER_MAPPING)
+from e4t_diffusion_torch.models import weight_offsets as wo
+from e4t_diffusion_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+from e4t_diffusion_torch.models.e4t_encoder import E4TEncoder, E4TEncoderConfig
+from e4t_diffusion_torch.models.unet import (
+    UNet2DConditionModel, UNetConfig, pool_encoder_features, tap_feature_dim)
+from e4t_diffusion_torch.models.vae import AutoencoderKL, VAEConfig
+
+
+def resolve_device(device: Union[str, torch.device, None] = None
+                   ) -> torch.device:
+    """``cuda`` unless the caller names a device; raises if CUDA is asked
+    for and absent, so nothing carries on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' "
+                           "(--device cpu) to run on the CPU")
+    return dev
+
+
+def resolve_dtype(name: str, device: torch.device) -> torch.dtype:
+    """``auto`` is bf16 on the GPU and f32 on the CPU. fp32 on the GPU is
+    refused: the UNet's large self-attention sites route to the low-dim
+    flash kernel, which takes bf16 only."""
+    if name == "auto":
+        return torch.bfloat16 if device.type == "cuda" else torch.float32
+    if name == "fp32" and device.type == "cuda":
+        raise ValueError("fp32 is not served on the GPU yet: the flash "
+                         "attention kernel takes bf16 only; use --dtype "
+                         "bf16 (or auto), or --device cpu for fp32")
+    return {"bf16": torch.bfloat16, "fp32": torch.float32}[name]
+
+
+@dataclasses.dataclass
+class E4TModules:
+    """The four networks of E4T sampling, weights included."""
+    unet: UNet2DConditionModel
+    vae: AutoencoderKL
+    text_encoder: CLIPTextModel
+    e4t_encoder: E4TEncoder
+
+    @classmethod
+    def create(cls, unet_config: UNetConfig = None,
+               vae_config: VAEConfig = None,
+               text_config: CLIPTextConfig = None,
+               e4t_config: E4TEncoderConfig = None,
+               dtype: torch.dtype = torch.float32,
+               device: Union[str, torch.device, None] = None
+               ) -> "E4TModules":
+        """Randomly initialised modules (seed with ``torch.manual_seed``),
+        built directly on ``device`` and cast to ``dtype``."""
+        dev = resolve_device(device)
+        with torch.device(dev):
+            mods = cls(
+                unet=UNet2DConditionModel(unet_config or UNetConfig()),
+                vae=AutoencoderKL(vae_config or VAEConfig()),
+                text_encoder=CLIPTextModel(text_config or CLIPTextConfig()),
+                e4t_encoder=E4TEncoder(e4t_config or E4TEncoderConfig()),
+            )
+        for m in mods.all():
+            m.to(dtype).eval().requires_grad_(False)
+        return mods
+
+    @classmethod
+    def tiny(cls, dtype: torch.dtype = torch.float32,
+             device: Union[str, torch.device, None] = None) -> "E4TModules":
+        """Matched tiny configs for tests: the UNet tap feeds the encoder."""
+        ucfg = UNetConfig.tiny()
+        tcfg = CLIPTextConfig.tiny()
+        ecfg = E4TEncoderConfig.tiny(word_embedding_dim=tcfg.hidden_size,
+                                     unet_feature_dim=tap_feature_dim(ucfg))
+        return cls.create(ucfg, VAEConfig.tiny(), tcfg, ecfg, dtype, device)
+
+    def all(self):
+        return (self.unet, self.vae, self.text_encoder, self.e4t_encoder)
+
+    def load_state_dicts(self, sds: Dict[str, Dict[str, torch.Tensor]]
+                         ) -> None:
+        """Strictly load {"unet", "vae", "text", "e4t"} state dicts (any
+        subset), each cast to the module's dtype and device."""
+        targets = {"unet": self.unet, "vae": self.vae,
+                   "text": self.text_encoder, "e4t": self.e4t_encoder}
+        for name, sd in sds.items():
+            targets[name].load_state_dict(sd, strict=True)
+
+
+def preprocess_image(image) -> np.ndarray:
+    """PIL / uint8 HWC array -> float32 NCHW in [-1, 1]."""
+    arr = np.asarray(image)
+    if arr.ndim == 3:
+        arr = arr[None]
+    arr = arr.astype(np.float32) / 255.0
+    return 2.0 * arr.transpose(0, 3, 1, 2) - 1.0
+
+
+def make_sample_fn(modules: E4TModules, scheduler, num_inference_steps: int,
+                   guidance_scale: float, domain_embed_scale: float,
+                   return_latents: bool = False, eta: float = 0.0
+                   ) -> Callable:
+    """The end-to-end sampling function ``sample(offsets, latents,
+    pixel_values, inputs_embeds, placeholder_idx, uncond_ids, class_embed,
+    generator=None)`` -> images in [0, 1] (or the final latents).
+
+    ``offsets``: the weight-offset bank; ``latents`` (B, 4, h, w) f32;
+    ``pixel_values`` (1, 3, H, W) in [-1, 1]; ``inputs_embeds`` (1 or B, L,
+    D) raw prompt token embeddings; ``placeholder_idx`` (B,) positions;
+    ``uncond_ids`` (1, L) ids of ""; ``class_embed`` (D,) the domain class
+    token's embedding; ``generator`` draws the per-step noise of eta > 0."""
+    do_cfg = guidance_scale > 1.0
+    step_kwargs = ({"eta": eta} if eta > 0.0
+                   and isinstance(scheduler, DDIMScheduler) else {})
+    unet, text, e4t = modules.unet, modules.text_encoder, modules.e4t_encoder
+
+    @torch.inference_mode()
+    def sample(offsets, latents, pixel_values, inputs_embeds,
+               placeholder_idx, uncond_ids, class_embed, generator=None):
+        device = latents.device
+        state = scheduler.init(num_inference_steps, device)
+        if hasattr(scheduler, "init_noise_sigma"):
+            latents = latents * scheduler.init_noise_sigma(state)
+        folded = wo.fold_offset_bank(unet, offsets)
+
+        def unet_apply(*args, **kwargs):
+            return torch.func.functional_call(unet, folded, args, kwargs)
+
+        bsz = latents.shape[0]
+        uncond_states, _ = text(uncond_ids)
+        uncond_b = uncond_states.expand(bsz, -1, -1)
+        clip_feats = e4t.encode_image(
+            pixel_values.expand(bsz, -1, -1, -1))
+        rows = torch.arange(bsz, device=device)
+        for i, t in enumerate(state["timesteps"]):
+            t_b = t.expand(bsz)
+            latents_in = scheduler.scale_model_input(state, i, latents)
+            if do_cfg:
+                eps_u, tap = unet_apply(latents_in, t_b, uncond_b,
+                                        return_encoder_outputs="with_eps")
+            else:
+                tap = unet_apply(latents_in, t_b, uncond_b,
+                                 return_encoder_outputs=True)
+            domain_embed = e4t.fuse(clip_feats, pool_encoder_features(tap))
+            word = class_embed[None] + domain_embed_scale * domain_embed
+            embeds = inputs_embeds.expand(bsz, -1, -1).clone()
+            embeds[rows, placeholder_idx] = word.to(embeds.dtype)
+            cond_states, _ = text(inputs_embeds=embeds)
+            eps_c = unet_apply(latents_in, t_b,
+                               cond_states.to(uncond_b.dtype))
+            eps = eps_u + guidance_scale * (eps_c - eps_u) if do_cfg else eps_c
+            noise = (torch.randn(latents.shape, generator=generator,
+                                 device=device, dtype=latents.dtype)
+                     if step_kwargs else None)
+            state, latents = scheduler.step(state, i, eps, latents,
+                                            noise=noise, **step_kwargs)
+        if return_latents:
+            return latents
+        images = modules.vae.decode(latents / modules.vae.config.scaling_factor)
+        return (images / 2.0 + 0.5).clamp(0.0, 1.0)
+
+    return sample
+
+
+class StableDiffusionE4TPipeline:
+    """Host-side orchestration: tokenize, seed, call the sampler.
+
+    Registers the placeholder token (unless already added), resolves the
+    domain-class token's id and takes domain_embed_scale from the E4T
+    config. ``offsets`` is the weight-offset bank for ``modules.unet``."""
+
+    def __init__(self, modules: E4TModules, offsets: Dict[str, torch.Tensor],
+                 tokenizer, e4t_config, scheduler=None,
+                 already_added_placeholder_token: bool = False):
+        self.modules = modules
+        self.device = modules.unet.conv_in.weight.device
+        wo.check_bank(offsets, modules.unet.config)
+        self.offsets = {k: v.to(self.device) for k, v in offsets.items()}
+        self.tokenizer = tokenizer
+        self.e4t_config = e4t_config
+        self.scheduler = scheduler or DDIMScheduler(NoiseScheduleConfig())
+        if not already_added_placeholder_token:
+            if tokenizer.add_tokens(e4t_config.placeholder_token) == 0:
+                raise ValueError(
+                    f"The tokenizer already contains the token "
+                    f"{e4t_config.placeholder_token}.")
+        rows = modules.text_encoder.text_model.embeddings.token_embedding \
+            .num_embeddings
+        if len(tokenizer) > rows:
+            raise ValueError(
+                f"the tokenizer has {len(tokenizer)} ids but the text "
+                f"encoder {rows} embedding rows; resize its token embeddings")
+        self.placeholder_token = e4t_config.placeholder_token
+        self.placeholder_token_id = tokenizer.convert_tokens_to_ids(
+            e4t_config.placeholder_token)
+        class_ids = tokenizer(e4t_config.domain_class_token,
+                              add_special_tokens=False,
+                              padding=None)["input_ids"][0]
+        if len(class_ids) != 1:
+            raise ValueError(f"domain_class_token "
+                             f"{e4t_config.domain_class_token!r} must be one "
+                             f"token (got {len(class_ids)})")
+        self.class_token_id = class_ids[0]
+        self.domain_embed_scale = e4t_config.domain_embed_scale
+
+    def _prepare_prompt(self, prompt: str):
+        tok = self.tokenizer
+        input_ids = tok(prompt, padding="max_length", truncation=True,
+                        max_length=tok.model_max_length)["input_ids"][0]
+        if self.placeholder_token_id not in input_ids:
+            raise ValueError(f"Your prompt may not have the placeholder_token="
+                             f"{self.placeholder_token}")
+        return input_ids, input_ids.index(self.placeholder_token_id)
+
+    def __call__(self, prompt: Union[str, Sequence[str]], image,
+                 num_inference_steps: int = 50,
+                 guidance_scale: float = 7.5,
+                 num_images_per_prompt: int = 1,
+                 eta: float = 0.0,
+                 height: Optional[int] = None,
+                 width: Optional[int] = None,
+                 seed: Optional[int] = None,
+                 latents=None,
+                 domain_embed_scale: Optional[float] = None,
+                 scheduler_type: Optional[str] = None,
+                 output_type: str = "np"):
+        """``prompt`` may be a list of distinct prompts, batched into one
+        sampling run with per-sample prompt embeddings; each prompt's block
+        gets the same seeded initial noise a standalone run would draw.
+        ``latents`` (B, 4, h, w) replaces that noise. ``output_type``:
+        "np" (float32 NCHW in [0, 1]), "pil" or "latent"."""
+        if output_type not in ("np", "pil", "latent"):
+            raise ValueError(f"output_type {output_type!r}")
+        modules, dev = self.modules, self.device
+        ucfg = modules.unet.config
+        vae_scale = 2 ** (len(modules.vae.config.block_out_channels) - 1)
+        height = height or ucfg.sample_size * vae_scale
+        width = width or ucfg.sample_size * vae_scale
+        des = (self.domain_embed_scale if domain_embed_scale is None
+               else domain_embed_scale)
+        scheduler = self.scheduler
+        if scheduler_type is not None:
+            scheduler = SCHEDULER_MAPPING[scheduler_type](NoiseScheduleConfig())
+
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        prepared = [self._prepare_prompt(p) for p in prompts]
+        uncond_ids = self.tokenizer(
+            "", padding="max_length", truncation=True,
+            max_length=self.tokenizer.model_max_length)["input_ids"]
+        b = len(prompts) * num_images_per_prompt
+        seed = 0 if seed is None else seed
+        if latents is None:
+            gen = torch.Generator(dev).manual_seed(seed)
+            shape1 = (num_images_per_prompt, ucfg.in_channels,
+                      height // vae_scale, width // vae_scale)
+            latents = torch.randn(shape1, generator=gen, device=dev)
+            latents = latents.repeat(len(prompts), 1, 1, 1)
+        latents = torch.as_tensor(latents, dtype=torch.float32, device=dev)
+        if latents.shape[0] != b:
+            raise ValueError(f"latents hold {latents.shape[0]} samples; "
+                             f"{len(prompts)} prompts x "
+                             f"{num_images_per_prompt} images need {b}")
+
+        text = modules.text_encoder
+        with torch.inference_mode():
+            ids = torch.tensor([ids for ids, _ in prepared], device=dev)
+            if len(prompts) > 1:  # per-sample embeddings, repeated per image
+                ids = ids.repeat_interleave(num_images_per_prompt, dim=0)
+            inputs_embeds = text.embed_tokens(ids)
+            class_embed = text.embed_tokens(
+                torch.tensor([self.class_token_id], device=dev))[0]
+        ph_idx = torch.tensor(np.repeat([i for _, i in prepared],
+                                        num_images_per_prompt), device=dev)
+        pixel = torch.from_numpy(preprocess_image(image)).to(dev)
+        noise_gen = torch.Generator(dev).manual_seed(seed ^ 0x5DEECE66D)
+
+        fn = make_sample_fn(modules, scheduler, num_inference_steps,
+                            guidance_scale, des,
+                            return_latents=output_type == "latent", eta=eta)
+        out = fn(self.offsets, latents, pixel, inputs_embeds, ph_idx,
+                 torch.tensor([uncond_ids[0]], device=dev), class_embed,
+                 noise_gen)
+        if output_type == "pil":
+            from PIL import Image
+
+            arr = (out.float() * 255.0).round().to(torch.uint8)
+            return [Image.fromarray(a) for a in
+                    arr.permute(0, 2, 3, 1).cpu().numpy()]
+        return out.float().cpu().numpy()

@@ -1,0 +1,114 @@
+"""E4T inference CLI: ``python -m e4t_diffusion_torch.inference``.
+
+Loads a tuned or pretrained E4T artifact directory, builds the sampling
+pipeline on the GPU (``--device cpu`` to run on the CPU) and renders the
+prompts to a grid image. '::' splits several prompts; ``--batch_prompts``
+samples them as one batch.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from e4t_diffusion_torch.config import (get_e4t_config, getattr_from_config,
+                                        load_config)
+from e4t_diffusion_torch.diffusion.pipeline import (
+    E4TModules, StableDiffusionE4TPipeline, resolve_device, resolve_dtype)
+from e4t_diffusion_torch.diffusion.schedulers import SCHEDULER_MAPPING
+from e4t_diffusion_torch.utils import artifacts
+from e4t_diffusion_torch.utils.image import image_grid, load_image
+from e4t_diffusion_torch.utils.tokenizer import CLIPTokenizer
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--pretrained_model_name_or_path", type=str,
+                        required=True,
+                        help="artifact dir with config.json, encoder.pt and "
+                             "weight_offsets.pt or unet.pt")
+    parser.add_argument("--image_path_or_url", type=str, required=True,
+                        help="path to the input image")
+    parser.add_argument("--prompt", type=str, nargs="?",
+                        default="a photo of *s", help="the prompt to render")
+    parser.add_argument("--num_inference_steps", type=int, default=50)
+    parser.add_argument("--guidance_scale", type=float, default=1.0)
+    parser.add_argument("--num_images_per_prompt", type=int, default=1)
+    parser.add_argument("--height", type=int, default=512)
+    parser.add_argument("--width", type=int, default=512)
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--scheduler_type", type=str, default="ddim",
+                        choices=sorted(SCHEDULER_MAPPING))
+    parser.add_argument("--batch_prompts", action="store_true",
+                        help="run all '::'-separated prompts as one batched "
+                             "sampling run")
+    parser.add_argument("--dtype", type=str, default="auto",
+                        choices=["auto", "bf16", "fp32"],
+                        help="compute dtype (auto = bf16 on the GPU, fp32 "
+                             "on the CPU; fp32 runs on the CPU only)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; runs on the GPU unless 'cpu' "
+                             "is given")
+    parser.add_argument("--output", type=str, default="grid.png")
+    return parser.parse_args(argv)
+
+
+def build_pipeline(args) -> StableDiffusionE4TPipeline:
+    """Load the artifact directory named by ``args`` into a pipeline."""
+    dtype = resolve_dtype(args.dtype, torch.device(args.device))
+    device = resolve_device(args.device)
+    config = load_config(args.pretrained_model_name_or_path)
+    sd_path = getattr_from_config(config, "pretrained_model_name_or_path")
+    e4t_config = get_e4t_config(config)
+    base = artifacts.load_sd_base(sd_path)
+    enc_cfg = artifacts.e4t_encoder_config_from_args(
+        e4t_config, word_embedding_dim=base["text_config"].hidden_size,
+        unet_config=base["unet_config"])
+    loaded = artifacts.load_e4t_weights(args.pretrained_model_name_or_path,
+                                        base)
+    modules = E4TModules.create(base["unet_config"], base["vae_config"],
+                                base["text_config"], enc_cfg, dtype=dtype,
+                                device=device)
+    tokenizer = CLIPTokenizer.from_pretrained(
+        base["tokenizer_dir"],
+        model_max_length=base["text_config"].max_position_embeddings)
+    if tokenizer.add_tokens(e4t_config.placeholder_token) == 0:
+        raise ValueError(f"The tokenizer already contains the token "
+                         f"{e4t_config.placeholder_token}.")
+    text_rows = loaded["text"][
+        "text_model.embeddings.token_embedding.weight"].shape[0]
+    modules.text_encoder.resize_token_embeddings(text_rows)
+    modules.load_state_dicts({k: loaded[k]
+                              for k in ("unet", "vae", "text", "e4t")})
+    # placeholder registration grows the vocab (new rows never reach the
+    # encoder: the placeholder slot is overwritten before encoding)
+    modules.text_encoder.resize_token_embeddings(
+        len(tokenizer), torch.Generator(device).manual_seed(0))
+    scheduler = SCHEDULER_MAPPING[args.scheduler_type](
+        base["schedule_config"])
+    return StableDiffusionE4TPipeline(modules, loaded["offsets"], tokenizer,
+                                      e4t_config, scheduler=scheduler,
+                                      already_added_placeholder_token=True)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    pipe = build_pipeline(args)
+    image = load_image(args.image_path_or_url)
+    prompts = args.prompt.split("::")
+    kwargs = dict(num_inference_steps=args.num_inference_steps,
+                  guidance_scale=args.guidance_scale,
+                  num_images_per_prompt=args.num_images_per_prompt,
+                  height=args.height, width=args.width, seed=args.seed,
+                  output_type="pil")
+    if args.batch_prompts and len(prompts) > 1:
+        all_images = pipe(prompts, image, **kwargs)
+    else:
+        all_images = [img for p in prompts for img in pipe(p, image, **kwargs)]
+    image_grid(all_images, len(prompts),
+               args.num_images_per_prompt).save(args.output)
+    print(f"DONE! See `{args.output}` for the results!")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,77 @@
+"""Build the port's CUDA sources with nvcc and load them through ctypes.
+
+Each ``csrc/<name>.cu`` compiles to a shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), at first use,
+into ``build/e4t_torch_kernels/`` at the root of the checkout. The file
+name carries a hash of the source and the flags, so an edited source
+rebuilds and a stale library is never loaded.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "e4t_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, else nvcc on PATH, else the
+    toolkit's default install location."""
+    cuda_home = os.environ.get("CUDA_HOME")
+    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if os.path.isfile(path):
+            return path
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
+    Returns the compiler output (ptxas register and shared-memory counts,
+    also kept in ``<lib>.log``), or the kept log when nothing was built.
+    Raises if the compile fails."""
+    lib = library_path(name)
+    log_path = Path(str(lib) + ".log")
+    if lib.exists():
+        return log_path.read_text() if log_path.exists() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    log_path.write_text(proc.stdout)
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
+    return proc.stdout
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    if name not in _loaded:
+        build(name)
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return _loaded[name]

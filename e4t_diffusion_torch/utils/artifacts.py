@@ -1,0 +1,197 @@
+"""Artifact loading: local diffusers-format SD checkpoints and the E4T
+``.pt`` artifacts.
+
+Counterpart of the load half of ``e4t_diffusion_tpu/utils/artifacts.py``.
+An SD base directory holds ``unet/ vae/ text_encoder/ tokenizer/
+scheduler/`` subfolders (``.bin`` or ``.safetensors``). An E4T artifact
+directory holds ``config.json``, ``encoder.pt`` and either
+``weight_offsets.pt`` (pretraining) or ``unet.pt`` (tuning: the whole UNet
+with the offsets embedded), plus an optional ``text_encoder.pt``. The
+state dicts returned here load strictly into the port's modules.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Any, Dict, Optional
+
+from e4t_diffusion_torch.config import AttributeDict
+from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
+from e4t_diffusion_torch.models.clip_text import CLIPTextConfig
+from e4t_diffusion_torch.models.e4t_encoder import E4TEncoderConfig
+from e4t_diffusion_torch.models.unet import UNetConfig, tap_feature_dim
+from e4t_diffusion_torch.models.vae import VAEConfig
+from e4t_diffusion_torch.models.vit import ViTConfig
+from e4t_diffusion_torch.utils.convert import load_state_dict_file
+
+_VAE_ATTN_RENAME = {"to_q": "query", "to_k": "key", "to_v": "value",
+                    "to_out.0": "proj_attn"}
+
+
+def _read_json(path: str) -> dict:
+    with open(path, "r", encoding="utf-8") as f:
+        return json.load(f)
+
+
+def unet_config_from_diffusers(cfg: dict) -> UNetConfig:
+    heads = cfg.get("attention_head_dim", 8)
+    if (isinstance(heads, (list, tuple)) or cfg.get("use_linear_projection")
+            or cfg.get("class_embed_type")):
+        raise NotImplementedError(
+            "only the SD v1 UNet is ported (one head count for every block, "
+            "conv projections, no class embedding)")
+    return UNetConfig(
+        sample_size=cfg.get("sample_size", 64),
+        in_channels=cfg.get("in_channels", 4),
+        out_channels=cfg.get("out_channels", 4),
+        center_input_sample=cfg.get("center_input_sample", False),
+        down_block_types=tuple(cfg["down_block_types"]),
+        mid_block_type=cfg.get("mid_block_type", "UNetMidBlock2DCrossAttn"),
+        up_block_types=tuple(cfg["up_block_types"]),
+        block_out_channels=tuple(cfg["block_out_channels"]),
+        layers_per_block=cfg.get("layers_per_block", 2),
+        attention_head_dim=heads,
+        cross_attention_dim=cfg.get("cross_attention_dim", 768),
+        norm_num_groups=cfg.get("norm_num_groups", 32),
+        norm_eps=cfg.get("norm_eps", 1e-5),
+        flip_sin_to_cos=cfg.get("flip_sin_to_cos", True),
+        freq_shift=cfg.get("freq_shift", 0),
+    )
+
+
+def vae_config_from_diffusers(cfg: dict) -> VAEConfig:
+    return VAEConfig(
+        in_channels=cfg.get("in_channels", 3),
+        out_channels=cfg.get("out_channels", 3),
+        latent_channels=cfg.get("latent_channels", 4),
+        block_out_channels=tuple(cfg["block_out_channels"]),
+        layers_per_block=cfg.get("layers_per_block", 2),
+        norm_num_groups=cfg.get("norm_num_groups", 32),
+        sample_size=cfg.get("sample_size", 512),
+        scaling_factor=cfg.get("scaling_factor", 0.18215),
+    )
+
+
+def text_config_from_hf(cfg: dict) -> CLIPTextConfig:
+    return CLIPTextConfig(
+        vocab_size=cfg.get("vocab_size", 49408),
+        hidden_size=cfg.get("hidden_size", 768),
+        num_layers=cfg.get("num_hidden_layers", 12),
+        num_heads=cfg.get("num_attention_heads", 12),
+        intermediate_size=cfg.get("intermediate_size", 3072),
+        max_position_embeddings=cfg.get("max_position_embeddings", 77),
+        layer_norm_eps=cfg.get("layer_norm_eps", 1e-5),
+        hidden_act=cfg.get("hidden_act", "quick_gelu"),
+    )
+
+
+def schedule_config_from_diffusers(cfg: dict) -> NoiseScheduleConfig:
+    return NoiseScheduleConfig(
+        num_train_timesteps=cfg.get("num_train_timesteps", 1000),
+        beta_start=cfg.get("beta_start", 0.00085),
+        beta_end=cfg.get("beta_end", 0.012),
+        beta_schedule=cfg.get("beta_schedule", "scaled_linear"),
+        prediction_type=cfg.get("prediction_type", "epsilon"),
+        steps_offset=cfg.get("steps_offset", 1),
+        set_alpha_to_one=cfg.get("set_alpha_to_one", False),
+        clip_sample=cfg.get("clip_sample", False),
+    )
+
+
+def _load_weights(subdir: str) -> dict:
+    """The weight file of a diffusers / transformers model folder."""
+    for name in ("diffusion_pytorch_model.safetensors",
+                 "diffusion_pytorch_model.bin", "model.safetensors",
+                 "pytorch_model.bin"):
+        path = os.path.join(subdir, name)
+        if os.path.exists(path):
+            return load_state_dict_file(path)
+    raise FileNotFoundError(f"no weight file in {subdir}")
+
+
+def _text_state_dict(sd: dict) -> dict:
+    # transformers keeps a non-parameter position_ids buffer in the file
+    return {k: v for k, v in sd.items() if not k.endswith("position_ids")}
+
+
+def _vae_state_dict(sd: dict) -> dict:
+    out = {}
+    for k, v in sd.items():
+        m = re.match(r"^(.*\.attentions\.\d+)\.(to_q|to_k|to_v|to_out\.0)"
+                     r"\.(weight|bias)$", k)
+        if m:
+            k = f"{m.group(1)}.{_VAE_ATTN_RENAME[m.group(2)]}.{m.group(3)}"
+        out[k] = v
+    return out
+
+
+def load_sd_base(path: str) -> Dict[str, Any]:
+    """Configs + state dicts + tokenizer path of a local diffusers-format
+    SD v1 checkpoint directory."""
+    out: Dict[str, Any] = {}
+    out["unet_config"] = unet_config_from_diffusers(
+        _read_json(os.path.join(path, "unet", "config.json")))
+    out["unet"] = _load_weights(os.path.join(path, "unet"))
+    out["vae_config"] = vae_config_from_diffusers(
+        _read_json(os.path.join(path, "vae", "config.json")))
+    out["vae"] = _vae_state_dict(_load_weights(os.path.join(path, "vae")))
+    out["text_config"] = text_config_from_hf(
+        _read_json(os.path.join(path, "text_encoder", "config.json")))
+    out["text"] = _text_state_dict(
+        _load_weights(os.path.join(path, "text_encoder")))
+    out["schedule_config"] = schedule_config_from_diffusers(
+        _read_json(os.path.join(path, "scheduler", "scheduler_config.json")))
+    out["tokenizer_dir"] = os.path.join(path, "tokenizer")
+    return out
+
+
+def e4t_encoder_config_from_args(args: AttributeDict,
+                                 word_embedding_dim: int = 768,
+                                 unet_config: Optional[UNetConfig] = None,
+                                 unet_feature_dim: Optional[int] = None
+                                 ) -> E4TEncoderConfig:
+    """The encoder config of a saved run. Only ViT-H-14 geometry is
+    bundled (the reference's tuning/inference paths always use it);
+    ``vit_config: "tiny"`` selects the test geometry."""
+    if unet_feature_dim is None:
+        unet_feature_dim = tap_feature_dim(unet_config) if unet_config else 10880
+    if getattr(args, "vit_config", None) == "tiny":
+        vit = ViTConfig.tiny()
+    else:
+        vit = ViTConfig.vit_h_14()
+        arch = None
+        if args.clip_model_name_or_path:
+            arch = str(args.clip_model_name_or_path).split("::")[0]
+        if arch not in (None, "ViT-H-14") and args.n_odd_layers is None:
+            raise ValueError("You must specify `n_odd_layers`!")
+    return E4TEncoderConfig(word_embedding_dim=word_embedding_dim,
+                            unet_feature_dim=unet_feature_dim, vit=vit)
+
+
+def load_e4t_weights(artifact_dir: str, base: Dict[str, Any]
+                     ) -> Dict[str, Any]:
+    """Overlay an E4T artifact directory onto the SD base: returns ``base``
+    with "unet" (from ``unet.pt`` when present), "offsets" (the bank),
+    "e4t", and "text" when the artifact carries a text encoder."""
+    out = dict(base)
+    unet_path = os.path.join(artifact_dir, "unet.pt")
+    wo_path = os.path.join(artifact_dir, "weight_offsets.pt")
+    if os.path.exists(unet_path):
+        sd = load_state_dict_file(unet_path)
+        out["unet"] = {k: v for k, v in sd.items() if ".wo_" not in k}
+        out["offsets"] = {k: v for k, v in sd.items() if ".wo_" in k}
+    elif os.path.exists(wo_path):
+        out["offsets"] = load_state_dict_file(wo_path)
+    else:
+        raise FileNotFoundError(
+            f"neither unet.pt nor weight_offsets.pt in {artifact_dir}")
+    enc = load_state_dict_file(os.path.join(artifact_dir, "encoder.pt"))
+    # the reference saves its CLIP normalization buffers and the unused
+    # open_clip projection alongside the encoder
+    out["e4t"] = {k: v for k, v in enc.items()
+                  if not re.match(r"^(mean|std|clip_vision\.proj)$", k)}
+    te_path = os.path.join(artifact_dir, "text_encoder.pt")
+    if os.path.exists(te_path):
+        out["text"] = _text_state_dict(load_state_dict_file(te_path))
+    return out

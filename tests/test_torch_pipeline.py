@@ -1,0 +1,213 @@
+"""The whole slice on the CPU: the port's tiny StableDiffusionE4TPipeline
+against the JAX pipeline on the same weights and injected latents, and the
+port's inference CLI on a tiny artifact directory written by the JAX
+package's own helpers."""
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from e4t_diffusion_tpu.config import AttributeDict as JaxAttributeDict
+from e4t_diffusion_tpu.diffusion.pipeline import (
+    StableDiffusionE4TPipeline as JaxPipeline)
+from e4t_diffusion_tpu.utils import artifacts as jax_artifacts
+from e4t_diffusion_tpu.utils.tokenizer import (
+    CLIPTokenizer as JaxTokenizer, make_tiny_tokenizer_files)
+
+from e4t_diffusion_torch.config import AttributeDict
+from e4t_diffusion_torch.diffusion.pipeline import (
+    E4TModules, StableDiffusionE4TPipeline)
+from e4t_diffusion_torch.utils.tokenizer import CLIPTokenizer
+
+from test_artifacts import _write_sd_base
+from torch_parity import jax_tiny, port_tiny
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+E4T_CONFIG = {"placeholder_token": "*s", "domain_class_token": "face",
+              "domain_embed_scale": 0.1}
+WORDS = ["photo", "of", "a", "face"]
+PROMPTS = ["a photo of *s", "a *s face"]
+# images in [0, 1] after 3 f32 denoise steps and a VAE decode; the two
+# stacks agree to ~4e-6, so 1e-3 leaves room for summation-order drift
+IMAGE_TOL = 1e-3
+
+
+@pytest.fixture(scope="module")
+def pipes(tmp_path_factory):
+    jm, params = jax_tiny(seed=1)
+    modules, sds = port_tiny(params)
+    tok_dir = make_tiny_tokenizer_files(
+        str(tmp_path_factory.mktemp("tok")), extra_words=WORDS)
+    jax_pipe = JaxPipeline(jm, params,
+                           JaxTokenizer.from_pretrained(tok_dir,
+                                                        model_max_length=16),
+                           JaxAttributeDict(E4T_CONFIG))
+    pipe = StableDiffusionE4TPipeline(
+        modules, sds["offsets"],
+        CLIPTokenizer.from_pretrained(tok_dir, model_max_length=16),
+        AttributeDict(E4T_CONFIG))
+    image = np.random.default_rng(0).uniform(0, 255, (32, 32, 3)).astype(
+        np.uint8)
+    return jax_pipe, pipe, image
+
+
+def _latents(n, seed=2):
+    return np.random.default_rng(seed).standard_normal((n, 4, 8, 8)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("scheduler_type,guidance", [
+    ("ddim", 7.5), ("dpm_solver++", 7.5), ("ddim", 1.0)])
+def test_pipeline_matches_jax(pipes, scheduler_type, guidance):
+    jax_pipe, pipe, image = pipes
+    kwargs = dict(num_inference_steps=3, guidance_scale=guidance,
+                  num_images_per_prompt=2, latents=_latents(4),
+                  scheduler_type=scheduler_type)
+    ref = np.asarray(jax_pipe(PROMPTS, image, **kwargs))
+    out = pipe(PROMPTS, image, **kwargs)
+    assert out.shape == ref.shape == (4, 3, 16, 16)
+    assert np.abs(out - ref).max() <= IMAGE_TOL
+    assert not np.allclose(out[0], out[2])  # the two prompts differ
+
+
+def test_pipeline_seeded_noise_and_batching(pipes):
+    """Same seed -> same images; in a batched call each prompt's block
+    draws the noise its standalone run would."""
+    _, pipe, image = pipes
+    a = pipe(PROMPTS, image, num_inference_steps=2, seed=9)
+    b = pipe(PROMPTS, image, num_inference_steps=2, seed=9)
+    np.testing.assert_array_equal(a, b)
+    solo = pipe(PROMPTS[1], image, num_inference_steps=2, seed=9)
+    np.testing.assert_allclose(a[1], solo[0], atol=1e-5)
+
+
+def test_pipeline_output_types(pipes):
+    _, pipe, image = pipes
+    arr = pipe(PROMPTS[0], image, num_inference_steps=2, seed=3)
+    pils = pipe(PROMPTS[0], image, num_inference_steps=2, seed=3,
+                output_type="pil")
+    lat = pipe(PROMPTS[0], image, num_inference_steps=2, seed=3,
+               output_type="latent")
+    assert lat.shape == (1, 4, 8, 8)
+    assert pils[0].size == (16, 16)
+    want = (arr[0].transpose(1, 2, 0) * 255).round()
+    assert np.abs(np.asarray(pils[0]).astype(np.float64) - want).max() <= 1.0
+
+
+def test_pipeline_requires_placeholder(pipes):
+    _, pipe, image = pipes
+    with pytest.raises(ValueError, match="placeholder"):
+        pipe("a photo of face", image, num_inference_steps=1)
+
+
+def test_entry_points_need_a_gpu_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        E4TModules.tiny()
+
+
+@pytest.fixture(scope="module")
+def artifact_dir(tmp_path_factory):
+    """A tiny pretrain artifact dir, written by the JAX package."""
+    root = tmp_path_factory.mktemp("cli")
+    jm, params = jax_tiny(seed=3)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    sd_dir = _write_sd_base(str(root / "sd"), jm, params)
+    make_tiny_tokenizer_files(os.path.join(sd_dir, "tokenizer"),
+                              extra_words=WORDS)
+    config = dict(E4T_CONFIG, pretrained_model_name_or_path=sd_dir,
+                  vit_config="tiny")
+    out = jax_artifacts.save_e4t_weights(
+        str(root / "run"), 2, config, params["e4t"],
+        jm.e4t_encoder.config, offsets=params["offsets"])
+    Image.fromarray(np.random.default_rng(4).integers(
+        0, 255, (40, 40, 3), dtype=np.uint8)).save(root / "in.png")
+    return root, out
+
+
+def _cli(root, out_dir, *extra):
+    cmd = [sys.executable, "-m", "e4t_diffusion_torch.inference",
+           "--pretrained_model_name_or_path", out_dir,
+           "--image_path_or_url", str(root / "in.png"),
+           "--prompt", "::".join(PROMPTS), "--num_inference_steps", "2",
+           "--guidance_scale", "2.0", "--num_images_per_prompt", "2",
+           "--height", "16", "--width", "16", "--seed", "1", *extra]
+    return subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_inference_cli_on_cpu(artifact_dir):
+    root, out_dir = artifact_dir
+    grids = []
+    for extra in ((), ("--batch_prompts",)):
+        path = root / f"grid{len(extra)}.png"
+        proc = _cli(root, out_dir, "--device", "cpu", "--output", str(path),
+                    *extra)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        grid = Image.open(path)
+        assert grid.size == (32, 32)  # 2 images per prompt x 2 prompts
+        grids.append(np.asarray(grid).astype(np.int16))
+    # one batched run reproduces the per-prompt runs (deterministic DDIM)
+    assert np.abs(grids[0] - grids[1]).max() <= 1
+
+
+def test_inference_cli_refuses_without_gpu(artifact_dir):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    root, out_dir = artifact_dir
+    proc = _cli(root, out_dir, "--output", str(root / "never.png"))
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert not (root / "never.png").exists()
+
+
+def test_inference_cli_refuses_fp32_on_gpu(tmp_path):
+    """fp32 on the GPU would reach the bf16-only flash kernel at the first
+    large self-attention site; the CLI refuses it before loading weights."""
+    from e4t_diffusion_torch import inference
+    from e4t_diffusion_torch.diffusion.pipeline import resolve_dtype
+
+    assert resolve_dtype("fp32", torch.device("cpu")) == torch.float32
+    assert resolve_dtype("auto", torch.device("cuda")) == torch.bfloat16
+    with pytest.raises(ValueError, match="bf16 only"):
+        resolve_dtype("fp32", torch.device("cuda"))
+    with pytest.raises(ValueError, match="bf16 only"):
+        inference.main(["--pretrained_model_name_or_path",
+                        str(tmp_path / "missing"), "--image_path_or_url",
+                        str(tmp_path / "in.png"), "--dtype", "fp32",
+                        "--output", str(tmp_path / "never.png")])
+    assert not (tmp_path / "never.png").exists()
+
+
+def test_tuned_artifact_loads_strictly(artifact_dir):
+    """A tuning artifact (unet.pt with the offsets embedded, plus
+    text_encoder.pt) written by the JAX package loads into the port."""
+    from e4t_diffusion_torch.models import weight_offsets as wo
+    from e4t_diffusion_torch.utils import artifacts
+
+    root, _ = artifact_dir
+    jm, params = jax_tiny(seed=5)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    config = {"pretrained_args": dict(
+        E4T_CONFIG, pretrained_model_name_or_path=str(root / "sd"),
+        vit_config="tiny")}
+    out = jax_artifacts.save_e4t_weights(
+        str(root / "tuned"), 30, config, params["e4t"],
+        jm.e4t_encoder.config, offsets=params["offsets"],
+        unet_params=params["unet"], text_params=params["text"],
+        text_num_layers=jm.text_encoder.config.num_layers)
+    base = artifacts.load_sd_base(str(root / "sd"))
+    loaded = artifacts.load_e4t_weights(out, base)
+    modules, sds = port_tiny(params)
+    modules.load_state_dicts({k: loaded[k]
+                              for k in ("unet", "vae", "text", "e4t")})
+    wo.check_bank(loaded["offsets"], modules.unet.config)
+    for name in ("unet", "text", "e4t"):
+        for k, v in sds[name].items():
+            torch.testing.assert_close(loaded[name][k], v, msg=k)

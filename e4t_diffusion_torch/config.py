@@ -1,8 +1,8 @@
 """Config system: permissive attribute dicts + config.json reading.
 
-The port's own copy of ``e4t_diffusion_tpu/config.py`` (the read half):
-artifact directories persist their run config verbatim as ``config.json``,
-tuned artifacts nest the pretraining config under ``pretrained_args``, and
+The port's own copy of ``e4t_diffusion_tpu/config.py``: artifact
+directories persist their run config verbatim as ``config.json``, tuned
+artifacts nest the pretraining config under ``pretrained_args``, and
 missing keys read as ``None``.
 """
 from __future__ import annotations
@@ -38,6 +38,19 @@ class AttributeDict:
 
     def __repr__(self) -> str:
         return f"AttributeDict({self.obj!r})"
+
+    def to_dict(self) -> dict:
+        return dict(self.obj)
+
+
+def save_config(config: Mapping[str, Any], save_dir: str) -> str:
+    """Write ``config`` as ``config.json`` into ``save_dir`` (created if
+    needed), in the JAX package's format (indent 2, str for the rest)."""
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, "config.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(config, f, indent=2, default=str)
+    return path
 
 
 def load_config(path_or_dir: str) -> AttributeDict:

@@ -1,12 +1,13 @@
-"""Diffusion noise schedulers for sampling: DDIM and DPM-Solver++ (2M).
+"""Diffusion noise schedulers: DDPM's forward process for training, and
+DDIM and DPM-Solver++ (2M) for sampling.
 
 Counterpart of ``e4t_diffusion_tpu/diffusion/schedulers.py`` (diffusers
 v0.14 numerics: scaled_linear betas, rounded timestep grids with
 steps_offset, final_alpha_cumprod handling). A scheduler's ``init(n,
 device)`` builds its per-step tables in numpy (float64) and stores them as
 f32 tensors; ``step(state, i, model_output, sample)`` computes the update
-in f32 and returns it in the sample's dtype. PNDM, LMS, Euler,
-Euler-ancestral and the training-side DDPM come in a later slice.
+in f32 and returns it in the sample's dtype. PNDM, LMS, Euler and
+Euler-ancestral come in a later slice.
 """
 from __future__ import annotations
 
@@ -49,6 +50,41 @@ def make_betas(cfg: NoiseScheduleConfig) -> np.ndarray:
 
 def alphas_cumprod(cfg: NoiseScheduleConfig) -> np.ndarray:
     return np.cumprod(1.0 - make_betas(cfg))
+
+
+class DDPMScheduler:
+    """The training-time forward process: diffusers DDPMScheduler
+    ``add_noise`` / ``get_velocity`` and the loss target. Coefficients are
+    gathered from f32 alphas_cumprod and computed in the sample's dtype."""
+
+    def __init__(self, config: NoiseScheduleConfig = NoiseScheduleConfig()):
+        self.config = config
+        self._ac = torch.as_tensor(alphas_cumprod(config), dtype=torch.float32)
+
+    def _coeffs(self, x: torch.Tensor, timesteps: torch.Tensor):
+        ac = self._ac.to(x.device)[timesteps.long()].to(x.dtype)
+        shape = (-1,) + (1,) * (x.dim() - 1)
+        return ac.sqrt().reshape(shape), (1.0 - ac).sqrt().reshape(shape)
+
+    def add_noise(self, original: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        sqrt_ac, sqrt_1m = self._coeffs(original, timesteps)
+        return sqrt_ac * original + sqrt_1m * noise
+
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                     timesteps: torch.Tensor) -> torch.Tensor:
+        sqrt_ac, sqrt_1m = self._coeffs(sample, timesteps)
+        return sqrt_ac * noise - sqrt_1m * sample
+
+    def target(self, latents: torch.Tensor, noise: torch.Tensor,
+               timesteps: torch.Tensor) -> torch.Tensor:
+        """The epsilon or v target of ``prediction_type``."""
+        if self.config.prediction_type == "epsilon":
+            return noise
+        if self.config.prediction_type == "v_prediction":
+            return self.get_velocity(latents, noise, timesteps)
+        raise ValueError(
+            f"Unknown prediction type {self.config.prediction_type}")
 
 
 def _timestep_grid(cfg: NoiseScheduleConfig, num_steps: int) -> np.ndarray:

@@ -6,8 +6,10 @@ Counterpart of ``e4t_diffusion_tpu/models/clip_text.py``, with Hugging Face
 state dict and the reference's ``text_encoder.pt`` load strictly once the
 non-parameter ``position_ids`` buffer is dropped. The forward accepts
 pre-computed ``inputs_embeds`` so the E4T domain embedding can be written
-into the placeholder slot, and the pooled output is hidden_state[:, 0]
-(the reference fork's quirk), not the eot-token pooling of stock CLIP.
+into the placeholder slot (training differentiates through it, and
+through the token table when the text encoder is trained), and the pooled
+output is hidden_state[:, 0] (the reference fork's quirk), not the
+eot-token pooling of stock CLIP.
 """
 from __future__ import annotations
 
@@ -151,7 +153,8 @@ class CLIPTextModel(nn.Module):
                                 ) -> None:
         """Grow the vocab (placeholder-token registration). New rows are
         N(0, 0.02); the placeholder slot is overwritten by the predicted
-        domain embedding before encoding, so their values never matter."""
+        domain embedding before encoding, so their values never matter.
+        The grown table keeps the old one's dtype and requires_grad."""
         emb = self.text_model.embeddings.token_embedding
         old, dim = emb.weight.shape
         if new_size <= old:
@@ -161,4 +164,5 @@ class CLIPTextModel(nn.Module):
         grown = nn.Embedding(new_size, dim, device=emb.weight.device,
                              dtype=emb.weight.dtype)
         grown.weight.copy_(torch.cat([emb.weight, rows.to(emb.weight.dtype)]))
+        grown.weight.requires_grad_(emb.weight.requires_grad)
         self.text_model.embeddings.token_embedding = grown

@@ -4,9 +4,10 @@ Counterpart of ``e4t_diffusion_tpu/models/vae.py``, with diffusers v0.14
 parameter names (the mid-block attention's ``query``/``key``/``value``/
 ``proj_attn``), so a diffusers ``vae`` state dict loads strictly; the
 loader renames the later ``to_q``/``to_k``/``to_v``/``to_out.0`` naming.
-The whole module is present, encoder included, so the state dict is
-complete; this slice runs ``decode`` only (``encode`` comes with the
-training port). The mid-block attention is single-head einsum math.
+``encode`` gives the posterior's (mean, logvar) for training, ``decode``
+the image for sampling; ``sample_latent`` draws from the posterior with
+noise the caller passes in. The mid-block attention is single-head einsum
+math.
 """
 from __future__ import annotations
 
@@ -100,6 +101,9 @@ class VAEDownsample(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
 
 class VAEUpsample(nn.Module):
     def __init__(self, channels: int):
@@ -119,6 +123,13 @@ class _DownBlock(nn.Module):
             for i in range(layers))
         self.downsamplers = (nn.ModuleList([VAEDownsample(out_ch)])
                              if add_downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for resnet in self.resnets:
+            x = resnet(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+        return x
 
 
 class _UpBlock(nn.Module):
@@ -140,7 +151,7 @@ class _UpBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-    """The encoder's parameters (its forward is ported with training)."""
+    """Image -> the posterior's 2 x latent_channels moments."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -157,6 +168,13 @@ class Encoder(nn.Module):
         self.conv_norm_out = nn.GroupNorm(g, ch[-1], eps=1e-6)
         self.conv_out = nn.Conv2d(ch[-1], 2 * cfg.latent_channels, 3,
                                   padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(x)
+        for block in self.down_blocks:
+            x = block(x)
+        x = self.mid_block(x)
+        return self.conv_out(group_norm_act(x, self.conv_norm_out, "silu"))
 
 
 class Decoder(nn.Module):
@@ -183,7 +201,8 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """decode(z NCHW latents) -> NCHW RGB in [-1, 1] (unclipped)."""
+    """encode(x NCHW RGB in [-1, 1]) -> (mean, logvar) of the latent
+    posterior; decode(z NCHW latents) -> NCHW RGB in [-1, 1] (unclipped)."""
 
     def __init__(self, config: VAEConfig):
         super().__init__()
@@ -195,6 +214,20 @@ class AutoencoderKL(nn.Module):
         self.post_quant_conv = nn.Conv2d(config.latent_channels,
                                          config.latent_channels, 1)
 
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        moments = self.quant_conv(
+            self.encoder(x.to(self.quant_conv.weight.dtype)))
+        mean, logvar = moments.chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         z = z.to(self.post_quant_conv.weight.dtype)
         return self.decoder(self.post_quant_conv(z))
+
+
+def sample_latent(mean: torch.Tensor, logvar: torch.Tensor,
+                  noise: torch.Tensor) -> torch.Tensor:
+    """Reparameterised draw from the diagonal Gaussian posterior; ``noise``
+    is a standard normal draw of ``mean``'s shape (from the caller's
+    ``torch.Generator``)."""
+    return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)

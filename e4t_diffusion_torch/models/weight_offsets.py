@@ -9,7 +9,8 @@ transformer block: 96 sites in SD v1) owns a no-input hypernetwork
 
 whose output O multiplies the projection weight: W_eff = W * (1 + O).
 The offsets depend only on their own parameters, so they are folded once
-per sampling run, not per attention call.
+per sampling run, not per attention call; training folds once per step,
+inside the differentiated region.
 
 The bank is a flat state dict in the reference's ``weight_offsets.pt``
 layout (``<site>.wo_q.v``, ``<site>.wo_q.linear1.weight``, ...). Torch
@@ -126,19 +127,24 @@ def compute_offsets(bank: Dict[str, torch.Tensor],
     return c.transpose(1, 2)                                 # (n, col, row)
 
 
-def fold_offset_bank(unet: torch.nn.Module, bank: Dict[str, torch.Tensor]
+def fold_offset_bank(unet: torch.nn.Module, bank: Dict[str, torch.Tensor],
+                     weights: Optional[Dict[str, torch.Tensor]] = None,
+                     dtype: Optional[torch.dtype] = None
                      ) -> Dict[str, torch.Tensor]:
     """Effective projection weights W * (1 + O) for every site, as
     {parameter name: tensor} for ``torch.func.functional_call``. The 96
     hypernetworks are evaluated batched by offset shape (6 groups in SD v1);
-    the fold is computed in f32 and cast to the UNet's weight dtype."""
+    the fold is computed in f32 and cast to ``dtype`` (default: the
+    weight's). ``weights`` supplies W (default: the UNet's own parameters);
+    training passes its f32 trainables, and the fold is differentiable in
+    both W and the bank."""
     groups: Dict[Tuple[int, int], List[str]] = {}
     for key, t in bank.items():
         if key.endswith(".linear1.weight"):
             prefix = key[: -len(".linear1.weight")]
             shape = (t.shape[0], bank[f"{prefix}.linear2.weight"].shape[0])
             groups.setdefault(shape, []).append(prefix)
-    params = dict(unet.named_parameters())
+    params = dict(unet.named_parameters()) if weights is None else weights
     folded = {}
     for members in groups.values():
         offs = compute_offsets(bank, members)
@@ -146,5 +152,6 @@ def fold_offset_bank(unet: torch.nn.Module, bank: Dict[str, torch.Tensor]
             site, wo = prefix.rsplit(".", 1)
             name = f"{site}.{_WO_TO_PROJ[wo]}.weight"
             w = params[name]
-            folded[name] = (w.float() * (1.0 + o.to(w.device))).to(w.dtype)
+            folded[name] = (w.float() * (1.0 + o.to(w.device))).to(
+                dtype or w.dtype)
     return folded

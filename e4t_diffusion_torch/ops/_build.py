@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles to a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), at first use,
 into ``build/e4t_torch_kernels/`` at the root of the checkout. The file
-name carries a hash of the source and the flags, so an edited source
-rebuilds and a stale library is never loaded.
+name carries a hash of the source, the shared ``csrc/*.cuh`` headers and
+the flags, so an edited source rebuilds and a stale library is never
+loaded.
 """
 from __future__ import annotations
 
@@ -41,8 +42,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,24 +1,30 @@
-"""Attention ops: einsum softmax attention and the low-dim flash kernel,
-routed by one rule.
+"""Attention ops: einsum softmax attention and the flash kernels, routed by
+one rule.
 
 Counterpart of ``e4t_diffusion_tpu/ops/attention.py``. Tensors are
 (batch, heads, seq, head_dim) ["BHSD"].
 
 - ``einsum_attention``: f32 scores and softmax, p cast to q's dtype before
   P@V; the only masked / causal path.
-- ``flash_attention``: the hand-written CUDA low-dim forward
-  (``ops/flash_lowdim.py``) for head_dim rounded up to 8 below 128. The
-  d >= 128 flash route of the reference is not ported yet and raises.
-- ``dot_product_attention``: picks between them with ``flash_route``.
+- ``flash_attention``: ``FlashAttention``, an autograd Function over the
+  hand-written CUDA kernels: the forward of ``ops/flash_lowdim.py`` and
+  the backward of ``ops/flash_bwd.py``, both for head_dim up to 256.
+  head_dim is zero-padded to a multiple of 8.
+- ``dot_product_attention``: picks between them with ``flash_route``;
+  ``flash_threshold`` overrides the score-size threshold (training runs
+  all-flash under ``flash_threshold(0)``, as the JAX train step traces).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import torch
 
-from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd_lowdim
+from e4t_diffusion_torch.ops.flash_bwd import flash_bwd
+from e4t_diffusion_torch.ops.flash_lowdim import MAX_D, flash_fwd
 
 # Score-tensor size above which self-attention goes to flash, and the
 # shortest sequence that may. Both are the TPU reference's constants
@@ -26,6 +32,10 @@ from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd_lowdim
 FLASH_SCORE_BYTES = 128 * 1024 ** 2
 FLASH_MIN_SEQ = 128
 _NEG_INF = -1e30
+
+# the threshold flash_threshold() put in force in this context, if any
+_THRESHOLD_OVERRIDE: contextvars.ContextVar = contextvars.ContextVar(
+    "flash_threshold", default=None)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -52,28 +62,73 @@ def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p.to(q.dtype), v)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Flash attention over (BH, S, D) tensors, D a multiple of 8 up to
+    256: the flash forward and backward kernels. Saves (q, k, v, out,
+    lse), as the reference's custom VJPs do (flash_kernels.py:698-742). On
+    the CPU both directions run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        out, lse = flash_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(),
+                               ctx.scale)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Flash attention on BHSD tensors (no mask). head_dim is zero-padded
-    to a multiple of 8; heads at or above 128 wide are not ported yet."""
+    """Flash attention on BHSD tensors (no mask), differentiable. head_dim
+    is zero-padded to a multiple of 8 (the padding changes nothing); heads
+    wider than 256 are not taken."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     d_sub = _round_up(d, 8)
-    if d_sub >= 128:
+    if d_sub > MAX_D:
         raise NotImplementedError(
-            f"flash attention for head_dim {d} (the d >= 128 route) is not "
-            f"ported yet")
+            f"flash attention for head_dim {d}: the kernels take up to "
+            f"{MAX_D}")
     qf = q.reshape(b * h, sq, d)
     kf = k.reshape(b * h, sk, d)
     vf = v.reshape(b * h, sk, d)
     if d_sub != d:
         pad = (0, d_sub - d)
         qf, kf, vf = (torch.nn.functional.pad(t, pad) for t in (qf, kf, vf))
-    out, _ = flash_fwd_lowdim(qf.contiguous(), kf.contiguous(),
-                              vf.contiguous(), scale)
+    out = FlashAttention.apply(qf.contiguous(), kf.contiguous(),
+                               vf.contiguous(), scale)
     return out[..., :d].reshape(b, h, sq, d)
+
+
+@contextlib.contextmanager
+def flash_threshold(score_bytes: Optional[int]) -> Iterator[None]:
+    """While active, ``flash_route`` compares score tensors with
+    ``score_bytes`` instead of ``FLASH_SCORE_BYTES`` (``None``: no change).
+    The tuning step runs under ``flash_threshold(0)``: every site that is
+    not causal, has no bias and has seq >= 128 goes to flash, whose
+    backward keeps no score tensor."""
+    if score_bytes is None:
+        yield
+        return
+    token = _THRESHOLD_OVERRIDE.set(score_bytes)
+    try:
+        yield
+    finally:
+        _THRESHOLD_OVERRIDE.reset(token)
+
+
+def flash_threshold_bytes() -> int:
+    """The score-size threshold ``flash_route`` applies in this context."""
+    override = _THRESHOLD_OVERRIDE.get()
+    return FLASH_SCORE_BYTES if override is None else override
 
 
 def flash_route(q_shape: Sequence[int], k_shape: Sequence[int],
@@ -81,13 +136,14 @@ def flash_route(q_shape: Sequence[int], k_shape: Sequence[int],
                 causal: bool = False) -> bool:
     """True where ``dot_product_attention`` sends a site to flash: a CUDA
     device, no bias, not causal, seq >= 128 and an f32 score tensor above
-    128 MiB. The reference's rule with ``device.type == "cuda"`` in place
-    of ``default_backend() == "tpu"``."""
+    the threshold in force (128 MiB unless ``flash_threshold`` says
+    otherwise). The reference's rule with ``device.type == "cuda"`` in
+    place of ``default_backend() == "tpu"``."""
     b, h, sq = q_shape[0], q_shape[1], q_shape[2]
     score_bytes = b * h * sq * k_shape[2] * 4
     return (torch.device(device).type == "cuda" and not has_bias
             and not causal and sq >= FLASH_MIN_SEQ
-            and score_bytes > FLASH_SCORE_BYTES)
+            and score_bytes > flash_threshold_bytes())
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

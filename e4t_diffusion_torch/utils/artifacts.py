@@ -1,13 +1,16 @@
-"""Artifact loading: local diffusers-format SD checkpoints and the E4T
-``.pt`` artifacts.
+"""Artifacts: local diffusers-format SD checkpoints and the E4T ``.pt``
+artifacts, loaded and saved.
 
-Counterpart of the load half of ``e4t_diffusion_tpu/utils/artifacts.py``.
+Counterpart of ``e4t_diffusion_tpu/utils/artifacts.py`` without its
+resumable training state (that comes with pretraining).
 An SD base directory holds ``unet/ vae/ text_encoder/ tokenizer/
 scheduler/`` subfolders (``.bin`` or ``.safetensors``). An E4T artifact
 directory holds ``config.json``, ``encoder.pt`` and either
 ``weight_offsets.pt`` (pretraining) or ``unet.pt`` (tuning: the whole UNet
-with the offsets embedded), plus an optional ``text_encoder.pt``. The
-state dicts returned here load strictly into the port's modules.
+with the offsets embedded), plus an optional ``text_encoder.pt`` and
+``domain.png``. The state dicts returned here load strictly into the
+port's modules, and what ``save_e4t_weights`` writes (a tuning run's
+artifacts) loads strictly into the port and into the JAX package.
 """
 from __future__ import annotations
 
@@ -16,7 +19,9 @@ import os
 import re
 from typing import Any, Dict, Optional
 
-from e4t_diffusion_torch.config import AttributeDict
+import torch
+
+from e4t_diffusion_torch.config import AttributeDict, save_config
 from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
 from e4t_diffusion_torch.models.clip_text import CLIPTextConfig
 from e4t_diffusion_torch.models.e4t_encoder import E4TEncoderConfig
@@ -167,6 +172,35 @@ def e4t_encoder_config_from_args(args: AttributeDict,
             raise ValueError("You must specify `n_odd_layers`!")
     return E4TEncoderConfig(word_embedding_dim=word_embedding_dim,
                             unet_feature_dim=unet_feature_dim, vit=vit)
+
+
+def _save_state_dict(sd: Dict[str, torch.Tensor], path: str) -> None:
+    """f32 CPU tensors, as the reference's artifacts hold."""
+    torch.save({k: v.detach().to("cpu", torch.float32).contiguous()
+                for k, v in sd.items()}, path)
+
+
+def save_e4t_weights(save_dir: str, step: int, config: Dict[str, Any],
+                     e4t_state: Dict[str, torch.Tensor],
+                     unet_state: Dict[str, torch.Tensor],
+                     offsets: Dict[str, torch.Tensor],
+                     text_state: Optional[Dict[str, torch.Tensor]] = None,
+                     domain_image=None) -> str:
+    """Write a tuning run's ``save_dir/<step>/`` in the reference layout:
+    ``config.json``, ``encoder.pt`` (the encoder's state dict,
+    ``first_linears.{i}`` keys), ``unet.pt`` (the whole UNet with the
+    offset bank's keys added), optionally ``text_encoder.pt`` and
+    ``domain.png`` (a PIL image). Returns the directory."""
+    out = os.path.join(save_dir, str(step))
+    os.makedirs(out, exist_ok=True)
+    save_config(config, out)
+    _save_state_dict({**unet_state, **offsets}, os.path.join(out, "unet.pt"))
+    _save_state_dict(e4t_state, os.path.join(out, "encoder.pt"))
+    if text_state is not None:
+        _save_state_dict(text_state, os.path.join(out, "text_encoder.pt"))
+    if domain_image is not None:
+        domain_image.save(os.path.join(out, "domain.png"))
+    return out
 
 
 def load_e4t_weights(artifact_dir: str, base: Dict[str, Any]

@@ -1,7 +1,7 @@
 """Image utilities: grids and local image loading.
 
-The port's own copy of ``e4t_diffusion_tpu/utils/image.py`` and of the two
-transforms it uses from ``e4t_diffusion_tpu/data/dataset.py``.
+The port's own copy of ``e4t_diffusion_tpu/utils/image.py``; its two
+transforms come from ``data/dataset.py``.
 """
 from __future__ import annotations
 
@@ -10,25 +10,7 @@ from typing import Optional
 import numpy as np
 from PIL import Image
 
-
-def smallest_max_size(image: np.ndarray, size: int) -> np.ndarray:
-    """Resize so the SHORTER side == size (albumentations SmallestMaxSize),
-    cv2.INTER_AREA interpolation."""
-    import cv2
-
-    h, w = image.shape[:2]
-    scale = size / min(h, w)
-    if scale == 1.0:
-        return image
-    new_w, new_h = round(w * scale), round(h * scale)
-    return cv2.resize(image, (new_w, new_h), interpolation=cv2.INTER_AREA)
-
-
-def center_crop(image: np.ndarray, size: int) -> np.ndarray:
-    h, w = image.shape[:2]
-    top = (h - size) // 2
-    left = (w - size) // 2
-    return image[top:top + size, left:left + size]
+from e4t_diffusion_torch.data.dataset import center_crop, smallest_max_size
 
 
 def image_grid(imgs, rows: int, cols: int) -> Image.Image:

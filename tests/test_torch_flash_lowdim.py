@@ -1,4 +1,4 @@
-"""The port's low-dim flash forward and attention routing against JAX.
+"""The port's flash forward and attention routing against JAX.
 
 On the CPU the wrapper runs its plain version, which is held here against
 the TPU kernel ``_flash_fwd_lowdim`` (run in Pallas interpret mode, as the
@@ -35,8 +35,8 @@ def test_reference_matches_tpu_kernel(d, sk):
     scale = d ** -0.5
     jo, jl = _flash_fwd_lowdim(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                scale, 128, 128)
-    to, tl = fl.flash_fwd_lowdim(torch.from_numpy(q), torch.from_numpy(k),
-                                 torch.from_numpy(v), scale)
+    to, tl = fl.flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), scale)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
 
@@ -112,22 +112,32 @@ def test_routing_matches_jax_dispatcher(monkeypatch, q_shape, k_shape, bias,
 
 
 def test_flash_attention_wide_heads_not_ported():
-    q = torch.zeros(1, 1, 128, 160)
-    with pytest.raises(NotImplementedError, match="head_dim 160"):
-        attention.flash_attention(q, q, q)
+    """head_dim 160 (the d >= 128 route) is ported: it matches JAX's
+    flash_attention; only heads wider than the kernels' 256 raise."""
+    q, k, v = (_rand((1, 2, 130, 160), i) for i in (7, 8, 9))
+    ref = jax_attention.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), block_q=128,
+                                        block_k=128)
+    out = attention.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    wide = torch.zeros(1, 1, 128, 264)
+    with pytest.raises(NotImplementedError, match="head_dim 264"):
+        attention.flash_attention(wide, wide, wide)
 
 
 def test_cpu_path_does_not_count_launches():
-    before = fl.flash_fwd_lowdim.launches
-    q = torch.from_numpy(_rand((2, 64, 40), 6))
-    fl.flash_fwd_lowdim(q, q, q, 0.1)
-    assert fl.flash_fwd_lowdim.launches == before
+    before = dict(fl.flash_fwd.launches)
+    for d in (40, 160):
+        q = torch.from_numpy(_rand((2, 64, d), 6))
+        fl.flash_fwd(q, q, q, 0.1)
+    assert fl.flash_fwd.launches == before
 
 
 @pytest.mark.parametrize("bad,error", [
     (dict(dtype=torch.float32), TypeError),
     (dict(d=36), ValueError),
-    (dict(d=128), ValueError),
+    (dict(d=264), ValueError),
     (dict(noncontiguous=True), ValueError),
 ])
 def test_kernel_input_checks(bad, error):

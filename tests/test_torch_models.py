@@ -284,3 +284,83 @@ def test_published_layouts_load_strictly(family):
     tol = CONV_TOL if family in ("unet", "vae") else TRANSFORMER_TOL
     for ours, theirs in pairs:
         assert rel_l2(ours, theirs) <= tol
+
+
+def test_vae_encode_and_sample_latent(tiny):
+    """encode -> (mean, logvar) and the posterior draw with the same
+    injected noise (the JAX draw's normal deviates, fed to the port)."""
+    from e4t_diffusion_tpu.models.vae import sample_latent as jax_sample
+    from e4t_diffusion_torch.models.vae import sample_latent
+
+    jm, params, modules, _ = tiny
+    x = np.random.default_rng(9).uniform(-1, 1, (2, 3, 32, 32)).astype(
+        np.float32)
+    jmean, jlogvar = jm.vae.apply({"params": params["vae"]}, jnp.asarray(x),
+                                  method=JaxAutoencoderKL.encode)
+    mean, logvar = modules.vae.encode(torch.from_numpy(x))
+    assert mean.shape == logvar.shape == (2, 4, 16, 16)
+    assert rel_l2(mean.detach(), jmean) <= CONV_TOL
+    assert rel_l2(logvar.detach(), jlogvar) <= CONV_TOL
+    key = jax.random.PRNGKey(4)
+    noise = jax.random.normal(key, jmean.shape, jmean.dtype)
+    ref = jax_sample(jmean, jlogvar, key)
+    got = sample_latent(mean, logvar, torch.from_numpy(np.asarray(noise)))
+    assert rel_l2(got.detach(), ref) <= CONV_TOL
+
+
+@pytest.mark.parametrize("name", ["constant", "constant_with_warmup",
+                                  "linear", "cosine", "cosine_with_restarts",
+                                  "polynomial"])
+@pytest.mark.parametrize("warmup", [0, 3])
+def test_lr_schedules_match_optax(name, warmup):
+    from e4t_diffusion_tpu.training.setup import (
+        make_lr_schedule as jax_schedule)
+    from e4t_diffusion_torch.training.setup import make_lr_schedule
+
+    # optax evaluates in f32: near a cosine's end 1 + cos(pi x) cancels to
+    # ~1e-6 relative error, so 1e-5 of the peak lr absolute
+    lr = 2e-4
+    want = np.asarray(jax_schedule(name, lr, warmup, 20)(jnp.arange(25)))
+    got = make_lr_schedule(name, lr, warmup, 20)
+    np.testing.assert_allclose([got(n) for n in range(25)], want, rtol=1e-6,
+                               atol=1e-5 * lr)
+
+
+def test_template_sampler_and_transform_draw_like_jax(tmp_path):
+    """The same seed gives the JAX package's template draws, crops and
+    flips (numpy default_rng in the same order), resize included."""
+    from e4t_diffusion_tpu.data.dataset import make_transform as jax_tf
+    from e4t_diffusion_tpu.training.setup import (
+        TemplateSampler as JaxSampler)
+    from e4t_diffusion_tpu.utils.tokenizer import (
+        CLIPTokenizer as JaxTokenizer, make_tiny_tokenizer_files)
+    from e4t_diffusion_torch.data.dataset import make_transform
+    from e4t_diffusion_torch.templates import resolve_templates
+    from e4t_diffusion_torch.training.setup import TemplateSampler
+    from e4t_diffusion_torch.utils.tokenizer import CLIPTokenizer
+
+    tok_dir = make_tiny_tokenizer_files(str(tmp_path),
+                                        extra_words=["photo", "of", "a"])
+    templates = resolve_templates("a photo of {placeholder_token}") + [
+        "a {placeholder_token}", "{placeholder_token} photo"]
+    samplers = []
+    for cls in (JaxTokenizer, CLIPTokenizer):
+        tok = cls.from_pretrained(tok_dir, model_max_length=16)
+        tok.add_tokens("*s")
+        sampler_cls = JaxSampler if cls is JaxTokenizer else TemplateSampler
+        samplers.append(sampler_cls(templates, tok, "*s",
+                                    tok.convert_tokens_to_ids("*s"), seed=3))
+    np.testing.assert_array_equal(samplers[0].uncond_ids,
+                                  samplers[1].uncond_ids)
+    for _ in range(3):
+        (jids, jph), (ids, ph) = (s.sample(5) for s in samplers)
+        np.testing.assert_array_equal(ids, jids)
+        np.testing.assert_array_equal(ph, jph)
+
+    image = np.random.default_rng(2).integers(0, 256, (40, 56, 3),
+                                              dtype=np.uint8)
+    for crop in (True, False):
+        jt, tt = (f(32, random_crop_flag=crop, seed=11)
+                  for f in (jax_tf, make_transform))
+        for _ in range(4):
+            np.testing.assert_array_equal(tt(image), jt(image))

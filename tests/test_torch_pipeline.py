@@ -211,3 +211,123 @@ def test_tuned_artifact_loads_strictly(artifact_dir):
     for name in ("unet", "text", "e4t"):
         for k, v in sds[name].items():
             torch.testing.assert_close(loaded[name][k], v, msg=k)
+
+
+def _tune_cli(root, src, out, *extra):
+    cmd = [sys.executable, "-m", "e4t_diffusion_torch.tuning_e4t",
+           "--pretrained_model_name_or_path", src,
+           "--train_image_path", str(root / "in.png"),
+           "--prompt_template", "a photo of {placeholder_token}",
+           "--resolution", "32", "--train_batch_size", "2",
+           "--max_train_steps", "2", "--output_dir", str(out), "--seed", "0",
+           *extra]
+    return subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_tuning_cli_on_cpu(artifact_dir):
+    """Two tuning steps on the CPU from a JAX-written pretrain artifact; the
+    output loads strictly into the JAX package and samples through the
+    port's inference CLI."""
+    import json
+
+    from e4t_diffusion_tpu.models import weight_offsets as jax_wo
+
+    root, src = artifact_dir
+    proc = _tune_cli(root, src, root / "tuned_cli", "--device", "cpu",
+                     "--train_text_encoder", "--lr_scheduler", "cosine",
+                     "--lr_warmup_steps", "1")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "step 2: loss" in proc.stdout
+    run = root / "tuned_cli" / "2"
+    assert sorted(os.listdir(run)) == ["config.json", "domain.png",
+                                       "encoder.pt", "text_encoder.pt",
+                                       "unet.pt"]
+    with open(run / "config.json", encoding="utf-8") as f:
+        config = json.load(f)
+    assert config["max_train_steps"] == 2
+    assert config["pretrained_args"]["placeholder_token"] == "*s"
+    assert Image.open(run / "domain.png").size == (32, 32)
+
+    base = jax_artifacts.load_sd_base(str(root / "sd"))
+    enc_cfg = jax_artifacts.e4t_encoder_config_from_args(
+        JaxAttributeDict(config["pretrained_args"]),
+        word_embedding_dim=base["text_config"].hidden_size,
+        unet_config=base["unet_config"])
+    loaded = jax_artifacts.load_e4t_weights(str(run), base, enc_cfg)
+    assert len(loaded["offsets"]) == len(
+        jax_wo.attention_sites(base["unet_config"]))
+    assert "text" in loaded
+
+    proc = _cli(root, str(run), "--device", "cpu", "--output",
+                str(root / "tuned.png"))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert Image.open(root / "tuned.png").size == (32, 32)
+
+
+def test_tuning_cli_saves_frozen_vit_as_loaded(artifact_dir, tmp_path):
+    """In bf16 the frozen ViT tower is held in bf16 while tuning; encoder.pt
+    carries it exactly as loaded (f32), and the trained head as trained."""
+    from e4t_diffusion_torch import tuning_e4t
+    from e4t_diffusion_torch.utils import artifacts
+
+    root, src = artifact_dir
+    tuning_e4t.main([
+        "--pretrained_model_name_or_path", src,
+        "--train_image_path", str(root / "in.png"),
+        "--prompt_template", "a photo of {placeholder_token}",
+        "--resolution", "32", "--train_batch_size", "1",
+        "--max_train_steps", "1", "--output_dir", str(tmp_path),
+        "--mixed_precision", "bf16", "--device", "cpu"])
+    base = artifacts.load_sd_base(str(root / "sd"))
+    given = artifacts.load_e4t_weights(src, base)["e4t"]
+    saved = torch.load(tmp_path / "1" / "encoder.pt")
+    assert set(saved) == set(given)
+    vit = [k for k in given if k.startswith("clip_vision.")]
+    assert vit and all(saved[k].dtype == torch.float32 for k in saved)
+    for k in vit:
+        assert torch.equal(saved[k], given[k]), k
+    assert any(not torch.equal(saved[k], given[k])
+               for k in given if not k.startswith("clip_vision."))
+
+
+def test_tuning_cli_refuses_without_gpu(artifact_dir):
+    from e4t_diffusion_torch import tuning_e4t
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    root, src = artifact_dir
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tuning_e4t.main(["--pretrained_model_name_or_path", src,
+                         "--train_image_path", str(root / "in.png"),
+                         "--mixed_precision", "bf16",
+                         "--output_dir", str(root / "never")])
+    assert not (root / "never").exists()
+
+
+def test_tuning_cli_flags(tmp_path):
+    """f32 on the GPU is refused before anything loads; the flags of later
+    slices are unknown to argparse; the reference's ignored flags parse."""
+    from e4t_diffusion_torch import tuning_e4t
+
+    assert tuning_e4t.resolve_train_dtype("no", torch.device("cpu")) == \
+        torch.float32
+    for name in ("bf16", "fp16"):
+        assert tuning_e4t.resolve_train_dtype(
+            name, torch.device("cuda")) == torch.bfloat16
+    required = ["--pretrained_model_name_or_path", str(tmp_path / "missing"),
+                "--train_image_path", str(tmp_path / "in.png")]
+    with pytest.raises(ValueError, match="bf16 only"):
+        tuning_e4t.main(required + ["--output_dir", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+    for later in (["--use_8bit_adam"], ["--tensor_parallel", "2"],
+                  ["--profile_steps", "2"], ["--report_to", "tensorboard"],
+                  ["--remat_policy", "dots"]):
+        with pytest.raises(SystemExit):
+            tuning_e4t.parse_args(required + later)
+    args = tuning_e4t.parse_args(required + [
+        "--enable_xformers_memory_efficient_attention",
+        "--dataloader_num_workers", "4", "--revision", "main",
+        "--local_rank", "0", "--logging_dir", "x"])
+    assert (args.train_batch_size, args.max_train_steps, args.resolution,
+            args.device) == (16, 15, 512, "cuda")

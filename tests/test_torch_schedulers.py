@@ -82,3 +82,27 @@ def test_ddim_eta_needs_noise():
     x = torch.zeros(1, 4, 2, 2)
     with pytest.raises(ValueError, match="noise"):
         ts.step(ts.init(2), 0, x, x, eta=0.5)
+
+
+@pytest.mark.parametrize("cfg", sorted(CONFIGS))
+def test_ddpm_forward_process_matches(cfg):
+    """add_noise, get_velocity and the loss target (epsilon or v) at
+    timesteps across the schedule."""
+    js = jax_sched.DDPMScheduler(jax_sched.NoiseScheduleConfig(**CONFIGS[cfg]))
+    ts = sched.DDPMScheduler(sched.NoiseScheduleConfig(**CONFIGS[cfg]))
+    x, noise = _latents(4, (3, 4, 8, 8)), _latents(5, (3, 4, 8, 8))
+    t = np.array([0, 421, 999])
+    jargs = (jnp.asarray(x), jnp.asarray(noise), jnp.asarray(t))
+    targs = (torch.from_numpy(x), torch.from_numpy(noise), torch.from_numpy(t))
+    for name in ("add_noise", "get_velocity", "target"):
+        want = np.asarray(getattr(js, name)(*jargs))
+        got = getattr(ts, name)(*targs).numpy()
+        np.testing.assert_allclose(got, want, atol=TOL, err_msg=name)
+
+
+def test_ddpm_rejects_unknown_prediction_type():
+    ts = sched.DDPMScheduler(sched.NoiseScheduleConfig(
+        prediction_type="sample"))
+    x = torch.zeros(1, 4, 2, 2)
+    with pytest.raises(ValueError, match="prediction type"):
+        ts.target(x, x, torch.tensor([3]))

@@ -13,17 +13,24 @@ Phases (any failure exits non-zero; each prints its wall seconds):
 4. sampling: StableDiffusionE4TPipeline at full SD-v1 width (UNet, VAE,
    CLIP-L text, ViT-H-14 E4T encoder) with seeded random bf16 weights,
    two prompts x 4 images at 512px, CFG 7.5, DDIM and DPM++ 2M;
-5. tuning: phase-2 E4T tuning (``tuning_e4t.tune``, what the CLI runs
+5. int8_sampling: the same pipeline serving the UNet in int8: static
+   activation scales (calibrated on the first call) under DDIM and DPM++,
+   then dynamic scales with the int8 attention kernel in "qk" and "qkpv"
+   mode; the UNet's eps on the kernels against the same int8 path on the
+   plain versions, and the int8 error against bf16;
+6. tuning: phase-2 E4T tuning (``tuning_e4t.tune``, what the CLI runs
    after loading) at the same width, f32 trainables, bf16 compute, the
    reference defaults (batch 16, 512px), 3 steps;
-6. the tiny pipeline on the card against the same pipeline on the CPU.
-In phases 4 and 5 the kernels' launch counters, set to 0 just before and
-read just after, must show the path went through every kernel it routes
-to, as many times as its attention sites give.
+7. the tiny pipeline on the card against the same pipeline on the CPU, in
+   f32 and in static int8.
+In phases 4 to 6 the kernels' launch counters, set to 0 just before each
+run and read just after, must show the path went through every kernel it
+routes to, as many times as its attention and conv sites give.
 
 The second-to-last line of output is a JSON ``kernels`` record, the last
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import json
 import math
 import os
@@ -50,6 +57,29 @@ UNET_ROUTE_REL_L2 = 2e-2
 RERUN_MAX_ABS = 1e-2
 # tiny pipeline, f32 with TF32 off, card vs CPU, images in [0, 1]
 TINY_CARD_VS_CPU_MAX_ABS = 1e-3
+# the calibrated activation ranges, card vs CPU, relative to each site's
+# range (a few f32 steps of summation-order drift; 1e-5 holds on the CPU
+# against JAX)
+TINY_AMAX_REL = 1e-5
+# int8 runs of the same inputs on two f32 implementations differ where an
+# ulp moves a value across an int8 rounding boundary, and the difference
+# grows downstream; it stays below the int8 error itself
+INT8_SPREAD_OF_ERROR = 1.0
+# int8 attention kernel against its plain version on the same int8
+# operands: bf16 output rounding, and exp2 against exp moving a few
+# round(p * 127) by one in "qkpv"
+INT8_FLASH_REL_L2 = 1e-2
+# the UNet's eps with an int8 kernel vs the same path on its plain version:
+# the conv kernel is exact, so its int8 UNet is held to this too; the
+# attention kernel rounds its bf16 output apart from the plain version's,
+# which a downstream int8 site amplifies to the size of the int8 error
+# itself (0.058 against an int8 error of 0.052, measured), so it is held on
+# the otherwise bf16 UNet, where it rounds as the bf16 flash kernel does
+# against einsum (0.012, measured)
+UNET_INT8_PLAIN_REL_L2 = 2e-2
+# int8 against bf16, eps and final latents: PTQ error is a few percent; a
+# wrong scale or layout gives O(1)
+INT8_VS_BF16_REL_L2 = 0.25
 
 STEPS = 4
 PROMPTS = ["a photo of *s", "a *s face in monet style"]
@@ -63,6 +93,7 @@ TUNING_STEPS = 3
 # 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 EXP_PER_S = 16 * 132 * 1.98e9
 
 
@@ -124,9 +155,11 @@ def phase_environment():
 
 def phase_build():
     """One nvcc per kernel source, all started together."""
-    from e4t_diffusion_torch.ops import _build, flash_bwd, flash_lowdim
+    from e4t_diffusion_torch.ops import (_build, flash_bwd, flash_int8,
+                                         flash_lowdim, int8_conv)
 
-    sources = [flash_lowdim.SOURCE, flash_bwd.SOURCE]
+    sources = [flash_lowdim.SOURCE, flash_bwd.SOURCE, flash_int8.SOURCE,
+               int8_conv.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = list(pool.map(_build.build, sources))
@@ -135,9 +168,11 @@ def phase_build():
     for src, log in zip(sources, logs):
         usage[src], name = [], "?"
         for ln in log.splitlines():
-            m = re.search(r"\d(flash_[a-z_]+?_kernel)ILi(\d+)E", ln)
+            m = re.search(r"\d((?:flash|int8)[a-z0-9_]*?_kernel)I(\w+?)E[Ev]",
+                          ln)
             if m:
-                name = f"{m.group(1)}<{m.group(2)}>"
+                args = re.findall(r"L[a-z](\d+)E", m.group(2) + "E")
+                name = f"{m.group(1)}<{','.join(args) or m.group(2)}>"
             elif "registers" in ln or ("spill" in ln and
                                         "0 bytes spill stores" not in ln):
                 usage[src].append(f"{name}: {ln.split(':', 1)[-1].strip()}")
@@ -145,15 +180,18 @@ def phase_build():
                       "seconds": round(seconds, 3), "ptxas": usage}))
 
 
-def _bound(n_bytes, flops, exps):
+def _bound(n_bytes, flops, exps, int8_ops=0):
     """The least time of the work on the card: bytes over the memory rate
-    against the larger of flops over the bf16 tensor-core rate and
-    exponentials over the special-function units' rate."""
+    against the larger of the tensor-core time (bf16 flops over the bf16
+    rate plus int8 operations over the int8 rate) and exponentials over the
+    special-function units' rate."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / BF16_FLOP_PER_S, exps / EXP_PER_S) * 1e3
+    t_ops = max(flops / BF16_FLOP_PER_S + int8_ops / INT8_OP_PER_S,
+                exps / EXP_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bytes": n_bytes, "flops": flops, "exps": exps}
+            "bytes": n_bytes, "flops": flops, "int8_ops": int8_ops,
+            "exps": exps}
 
 
 def _rel(a, b):
@@ -252,6 +290,144 @@ def _bwd_case(bh, sq, sk, d, gen, timed):
     return case
 
 
+def _int8_flash_case(bh, sq, sk, d, mode, gen, timed):
+    """The int8 attention kernel against its plain version at the kernel's
+    kv tile, on int8 operands quantized from bf16 q/k/v as the attention
+    route does; timed: kernel, plain, the route (quantization + kernel),
+    SDPA's bf16 forward on the bf16 q/k/v, and the bound of the kernel's
+    work from the int8 operands."""
+    import torch
+    import torch.nn.functional as F
+
+    from e4t_diffusion_torch.ops import attention
+    from e4t_diffusion_torch.ops import flash_int8 as fi
+
+    q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen)
+               .to(torch.bfloat16) for s in (sq, sk, sk))
+    k = k + 0.5  # keys with a channel mean, as the centring expects
+    scale = 1.0 / math.sqrt(d)
+    ops = attention.int8_attention_operands(q, k, v, scale, mode)
+    out, lse = fi.flash_fwd_int8(*ops, mode, torch.bfloat16)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fi.flash_fwd_int8_reference(*ops, mode, torch.float32)
+    rel = _rel(out, ref_out)
+    lse_err = (lse - ref_lse).abs().max().item()
+    case = {"kernel": "flash_fwd_int8", "mode": mode, "bh": bh, "sq": sq,
+            "sk": sk, "d": d, "out_rel_l2": rel,
+            "out_max_abs": (out.float() - ref_out).abs().max().item(),
+            "lse_max_abs": lse_err}
+    del ref_out, ref_lse
+    if not (rel <= INT8_FLASH_REL_L2 and lse_err <= KERNEL_LSE_MAX_ABS):
+        fail(f"flash_fwd_int8 disagrees with its plain version: {case}")
+    if timed:
+        pv = mode == "qkpv"
+        case.update(
+            ms=cuda_time_ms(lambda: fi.flash_fwd_int8(*ops, mode,
+                                                      torch.bfloat16)),
+            plain_ms=cuda_time_ms(lambda: fi.flash_fwd_int8_reference(
+                *ops, mode, torch.float32), reps=3),
+            route_ms=cuda_time_ms(lambda: attention._int8_lowdim_path(
+                q, k, v, scale, mode)),
+            library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], scale=scale)),
+            library="scaled_dot_product_attention, bf16",
+            **_bound(bh * sq * d + bh * sk * d * (2 if pv else 3) + 8 * bh
+                     + 2 * bh * sq * d + 4 * bh * sq,
+                     0 if pv else 2 * bh * sq * sk * d, bh * sq * sk,
+                     int8_ops=(4 if pv else 2) * bh * sq * sk * d))
+    del q, k, v, ops, out, lse
+    torch.cuda.empty_cache()
+    return case
+
+
+def _unet_conv_shapes(batch, resolution):
+    """{(C, O, H, W, k, stride, pad): sites} of the quantized UNet convs in
+    one SD-v1 forward, read off a forward on the meta device."""
+    import torch
+
+    from e4t_diffusion_torch.models.unet import (UNet2DConditionModel,
+                                                 UNetConfig)
+    from e4t_diffusion_torch.ops import quant
+
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(UNetConfig())
+    quantized = quant.quantize_params(dict(unet.named_parameters()))
+    shapes = {}
+
+    def record(mod, args):
+        x = args[0]
+        key = (x.shape[1], mod.out_channels, x.shape[2], x.shape[3],
+               mod.kernel_size[0], mod.stride[0], mod.padding[0])
+        shapes[key] = shapes.get(key, 0) + 1
+
+    for name, m in quant.site_modules(unet).items():
+        if isinstance(m, quant.Conv2d) and name in quantized:
+            m.register_forward_pre_hook(record)
+    side = resolution // 8
+    with torch.device("meta"):
+        unet(torch.zeros(batch, 4, side, side), torch.zeros(batch),
+             torch.zeros(batch, 77, unet.config.cross_attention_dim))
+    return shapes
+
+
+def _conv_case(n, c, o, h, w, k, stride, pad, gen, timed, sites=None):
+    """The int8 conv kernel against its plain version (they agree exactly);
+    timed: kernel, plain, the route from a bf16 NCHW activation
+    (quantization, NHWC permute, kernel), cuDNN's bf16 conv2d of the same
+    shapes, and the bound of the kernel's work."""
+    import torch
+    import torch.nn.functional as F
+
+    from e4t_diffusion_torch.ops import int8_conv as ic
+    from e4t_diffusion_torch.ops import quant
+
+    x = torch.randint(-127, 128, (n, h, w, c), device="cuda", generator=gen,
+                      dtype=torch.int8)
+    wt = torch.randint(-127, 128, (o, k, k, c), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    scale = torch.rand(o, device="cuda", generator=gen) * 1e-4
+    bias = torch.randn(o, device="cuda", generator=gen).to(torch.bfloat16)
+    out = ic.int8_conv(x, wt, scale, bias, torch.bfloat16, stride, pad)
+    torch.cuda.synchronize()
+    ref = ic.int8_conv_reference(x, wt, scale, bias, torch.bfloat16, stride,
+                                 pad)
+    case = {"kernel": "int8_conv", "n": n, "c": c, "o": o, "h": h, "w": w,
+            "k": k, "stride": stride, "pad": pad,
+            "out_max_abs": (out.float() - ref.float()).abs().max().item()}
+    if sites is not None:
+        case["sites_per_unet_pass"] = sites
+    exact = torch.equal(out, ref)
+    del ref
+    if not exact:
+        fail(f"int8_conv disagrees with its plain version: {case}")
+    if timed:
+        ho, wo = out.shape[2:]
+        xb = torch.randn(n, c, h, w, device="cuda", generator=gen,
+                         dtype=torch.bfloat16)
+        wb = torch.randn(o, c, k, k, device="cuda", generator=gen,
+                         dtype=torch.bfloat16)
+        site = quant.quantize_kernel(wb)
+        site["q"] = site["q"].permute(0, 2, 3, 1).contiguous()
+        case.update(
+            ms=cuda_time_ms(lambda: ic.int8_conv(x, wt, scale, bias,
+                                                 torch.bfloat16, stride,
+                                                 pad)),
+            plain_ms=cuda_time_ms(lambda: ic.int8_conv_reference(
+                x, wt, scale, bias, torch.bfloat16, stride, pad), reps=3),
+            route_ms=cuda_time_ms(lambda: quant.int8_conv2d(
+                xb, site, bias, stride, pad)),
+            library_ms=cuda_time_ms(lambda: F.conv2d(
+                xb, wb, bias, stride=stride, padding=pad)),
+            library="torch.nn.functional.conv2d (cuDNN), bf16",
+            **_bound(n * h * w * c + o * k * k * c + 6 * o
+                     + 2 * n * o * ho * wo, 0, 0,
+                     int8_ops=2 * n * ho * wo * o * k * k * c))
+        del xb, wb, site
+    del x, wt, scale, bias, out
+    torch.cuda.empty_cache()
+    return case
+
+
 # the tuning step's attention sites at 512px, batch 16 (BH = 16 x 8 heads):
 # (Sq, Sk, d) of UNet self and cross attention at three resolutions
 TUNING_SITES = ((4096, 4096, 40), (4096, 77, 40), (1024, 1024, 80),
@@ -285,8 +461,28 @@ def phase_kernels():
     for d, sq, sk in ((8, 65, 33), (24, 100, 130), (64, 128, 257),
                       (120, 257, 77), (136, 200, 90), (256, 129, 300)):
         ragged.append(_bwd_case(2, sq, sk, d, gen, timed=False))
+    # int8 serving: the two low-dim flash sites in both modes, and every
+    # distinct quantized conv of a batch-8 512px UNet forward
+    int8_flash = [_int8_flash_case(64, s_, s_, d, mode, gen, timed=True)
+                  for mode in ("qk", "qkpv")
+                  for s_, d in ((4096, 40), (1024, 80))]
+    for mode in ("qk", "qkpv"):
+        for d, sq, sk in ((8, 65, 33), (40, 300, 200), (80, 128, 257),
+                          (120, 70, 90)):
+            ragged.append(_int8_flash_case(2, sq, sk, d, mode, gen,
+                                           timed=False))
+    n = len(PROMPTS) * IMAGES_PER_PROMPT
+    int8_conv = [_conv_case(n, *key, gen, timed=True, sites=sites)
+                 for key, sites in sorted(
+                     _unet_conv_shapes(n, RESOLUTION).items())]
+    for c, o, h, w, k, stride, pad in ((48, 40, 9, 7, 3, 1, 1),
+                                       (32, 72, 11, 10, 3, 2, 1),
+                                       (16, 24, 5, 13, 1, 1, 0)):
+        ragged.append(_conv_case(3, c, o, h, w, k, stride, pad, gen,
+                                 timed=False))
     cases = {"sampling": sampling, "tuning_fwd": tuning_fwd, "grid": grid,
              "tuning_bwd": tuning_bwd, "grid_bwd": grid_bwd,
+             "int8_flash": int8_flash, "int8_conv": int8_conv,
              "ragged": ragged}
     print(json.dumps({"phase": "kernels", **cases}))
     return cases
@@ -333,27 +529,45 @@ def _full_width_pipeline(tok_dir):
 # the kernels line's rows: the forward wrapper counts its d < 128 launches
 # (_flash_fwd_lowdim) and its d >= 128 launches (_flash_fwd_kvres and
 # _flash_fwd) apart
-KERNEL_ROWS = ("flash_fwd_lowdim", "flash_fwd_wide", "flash_bwd")
+KERNEL_ROWS = ("flash_fwd_lowdim", "flash_fwd_wide", "flash_bwd",
+               "flash_fwd_int8", "int8_conv")
+# low-dim flash sites per sampling step at batch >= 5: 10 per UNet forward,
+# two forwards a step; the d=160 sites stay on einsum below 128 MiB
+LOWDIM_SITES_PER_STEP = 20
 
 
 def _reset_launches():
     from e4t_diffusion_torch.ops.flash_bwd import flash_bwd
+    from e4t_diffusion_torch.ops.flash_int8 import flash_fwd_int8
     from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd
+    from e4t_diffusion_torch.ops.int8_conv import int8_conv
 
     flash_fwd.launches = {"lowdim": 0, "wide": 0}
     flash_bwd.launches = 0
+    flash_fwd_int8.launches = 0
+    int8_conv.launches = 0
 
 
 def _read_launches():
     from e4t_diffusion_torch.ops.flash_bwd import flash_bwd
+    from e4t_diffusion_torch.ops.flash_int8 import flash_fwd_int8
     from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd
+    from e4t_diffusion_torch.ops.int8_conv import int8_conv
 
     return {"flash_fwd_lowdim": flash_fwd.launches["lowdim"],
             "flash_fwd_wide": flash_fwd.launches["wide"],
-            "flash_bwd": flash_bwd.launches}
+            "flash_bwd": flash_bwd.launches,
+            "flash_fwd_int8": flash_fwd_int8.launches,
+            "int8_conv": int8_conv.launches}
 
 
-def _sample(pipe, image, scheduler_type, seed=0):
+def _want(**counts):
+    return {**dict.fromkeys(KERNEL_ROWS, 0), **counts}
+
+
+def _sample(pipe, image, scheduler_type, want, seed=0):
+    """One batch-8 512px CFG-7.5 run, its launch counts checked against
+    ``want``."""
     import numpy as np
     import torch
 
@@ -374,10 +588,6 @@ def _sample(pipe, image, scheduler_type, seed=0):
         fail(f"{scheduler_type}: non-finite images")
     if images.min() < 0.0 or images.max() > 1.0:
         fail(f"{scheduler_type}: images outside [0, 1]")
-    # 10 low-dim flash sites per UNet forward at batch >= 5, two forwards
-    # a step; the d=160 sites stay on einsum below the 128 MiB threshold
-    want = {"flash_fwd_lowdim": 20 * STEPS, "flash_fwd_wide": 0,
-            "flash_bwd": 0}
     if launches != want:
         fail(f"{scheduler_type}: launches {launches}, expected {want}")
     return images, seconds, launches
@@ -412,7 +622,7 @@ def _profile(run):
             "device_busy_share": busy_us / wall_us,
             "top": [{"kernel": k, "ms": us / 1e3, "count": c,
                      "share_of_busy": us / busy_us}
-                    for us, k, c in rows[:12]]}
+                    for us, k, c in rows[:16]]}
 
 
 def _unet_route_check(pipe, gen):
@@ -447,14 +657,15 @@ def phase_main_path(smi):
     image = np.random.default_rng(0).integers(
         0, 256, (RESOLUTION, RESOLUTION, 3), dtype=np.uint8)
 
-    first, first_s, launches = _sample(pipe, image, "ddim")
+    want = _want(flash_fwd_lowdim=LOWDIM_SITES_PER_STEP * STEPS)
+    first, first_s, launches = _sample(pipe, image, "ddim", want)
     torch.cuda.reset_peak_memory_stats()
-    second, second_s, launches2 = _sample(pipe, image, "ddim")
+    second, second_s, launches2 = _sample(pipe, image, "ddim", want)
     peak = torch.cuda.max_memory_allocated()
     rerun = float(np.abs(first - second).max())
     if not rerun <= RERUN_MAX_ABS:
         fail(f"two same-seed DDIM runs differ by {rerun}")
-    _, dpm_s, dpm_launches = _sample(pipe, image, "dpm_solver++")
+    _, dpm_s, dpm_launches = _sample(pipe, image, "dpm_solver++", want)
     route_rel = _unet_route_check(pipe, torch.Generator("cuda").manual_seed(2))
     prof = _profile(lambda: pipe(
         PROMPTS, image, num_inference_steps=STEPS, guidance_scale=7.5,
@@ -472,7 +683,160 @@ def phase_main_path(smi):
         "rerun_max_abs": rerun, "unet_kernel_vs_einsum_rel_l2": route_rel,
         "launches": [launches, launches2, dpm_launches],
         "profile": prof}))
-    return launches
+    return launches, pipe, image
+
+
+@contextlib.contextmanager
+def _plain_versions():
+    """The int8 kernels' wrappers replaced by their plain versions (the
+    attention one at the kernel's kv tile), for a comparison on the card."""
+    from e4t_diffusion_torch.ops import flash_int8 as fi
+    from e4t_diffusion_torch.ops import int8_conv as ic
+
+    conv, flash = ic.int8_conv, fi.flash_fwd_int8
+    ic.int8_conv = (lambda x, w, scale, bias, out_dtype, stride=1, padding=0:
+                    ic.int8_conv_reference(x, w, scale, bias, out_dtype,
+                                           stride, padding))
+    fi.flash_fwd_int8 = fi.flash_fwd_int8_reference
+    try:
+        yield
+    finally:
+        ic.int8_conv, fi.flash_fwd_int8 = conv, flash
+
+
+def _unet_int8_checks(pipe, act_amax, gen):
+    """One batch-8 512px UNet forward in bf16 and on int8 paths: static int8
+    weights and activations (the serving flavor, the pipeline's calibrated
+    ranges), int8 attention alone in each mode, and dynamic int8 with
+    "qkpv" attention. Each kernel's path against the same path on the plain
+    versions; the int8 serving paths against bf16."""
+    import torch
+
+    from e4t_diffusion_torch.diffusion.pipeline import _static_exclude_for
+    from e4t_diffusion_torch.ops import quant
+    from e4t_diffusion_torch.ops.attention import int8_flash_attention
+
+    unet = pipe.modules.unet
+    n = len(PROMPTS) * IMAGES_PER_PROMPT
+    x = torch.randn(n, 4, RESOLUTION // 8, RESOLUTION // 8, device="cuda",
+                    generator=gen)
+    ctx = torch.randn(n, 77, unet.config.cross_attention_dim, device="cuda",
+                      generator=gen)
+    t = torch.full((n,), 500, device="cuda")
+    params = dict(unet.named_parameters())
+    paths = {
+        "static": (quant.quantize_params(
+            params, act_amax=act_amax,
+            static_exclude=_static_exclude_for(False)), None),
+        "attn_qk": ({}, "qk"), "attn_qkpv": ({}, "qkpv"),
+        "dynamic_qkpv": (quant.quantize_params(params), "qkpv")}
+
+    def run(sites, attn):
+        with torch.inference_mode(), quant.int8_sites(unet, sites), (
+                int8_flash_attention(attn) if attn
+                else contextlib.nullcontext()):
+            return unet(x, t, ctx).float()
+
+    with torch.inference_mode():
+        eps = unet(x, t, ctx).float()
+    kernel = {k: run(*v) for k, v in paths.items()}
+    held = ("static", "attn_qk", "attn_qkpv")
+    with _plain_versions():
+        plain = {k: run(*paths[k]) for k in held}
+    out = {f"eps_{k}_kernel_vs_plain_rel_l2": _rel(kernel[k], plain[k])
+           for k in held}
+    out.update({f"eps_{k}_vs_bf16_rel_l2": _rel(kernel[k], eps)
+                for k in kernel})
+    if not (all(out[f"eps_{k}_kernel_vs_plain_rel_l2"]
+                <= UNET_INT8_PLAIN_REL_L2 for k in held)
+            and all(out[f"eps_{k}_vs_bf16_rel_l2"] <= INT8_VS_BF16_REL_L2
+                    for k in kernel)):
+        fail(f"UNet eps on the int8 paths: {out}")
+    return out
+
+
+def phase_int8_sampling(smi, pipe, image):
+    """The full-width pipeline serving its UNet in int8: static activation
+    scales (the first call calibrates with E4T_INT8_CALIB_STEPS bf16 steps)
+    under DDIM and DPM++, then dynamic scales with the int8 attention
+    kernel in "qk" and "qkpv" mode. Launches are derived from the UNet's
+    quantized conv sites and its low-dim flash sites and checked run by
+    run."""
+    import numpy as np
+    import torch
+
+    from e4t_diffusion_torch.diffusion.pipeline import (
+        StableDiffusionE4TPipeline)
+
+    n = len(PROMPTS) * IMAGES_PER_PROMPT
+    conv_sites = sum(_unet_conv_shapes(n, RESOLUTION).values())
+    calib_steps = int(os.environ.get("E4T_INT8_CALIB_STEPS", "8"))
+    # two full UNet passes a step (CFG: the uncond pass with the tap, and
+    # the cond pass)
+    conv_run = 2 * conv_sites * STEPS
+    lowdim_run = LOWDIM_SITES_PER_STEP * STEPS
+
+    def make(int8, attn=False):
+        return StableDiffusionE4TPipeline(
+            pipe.modules, pipe.offsets, pipe.tokenizer, pipe.e4t_config,
+            already_added_placeholder_token=True, int8=int8, int8_attn=attn)
+
+    total = _want()
+    report = {"phase": "int8_sampling", "card": smi, "batch": n,
+              "resolution": RESOLUTION, "steps": STEPS, "guidance": 7.5,
+              "calib_steps": calib_steps,
+              "conv_sites_per_unet_pass": conv_sites, "runs": {}}
+
+    def sample(name, p, scheduler_type, want):
+        if name.endswith("warm"):
+            torch.cuda.reset_peak_memory_stats()
+        images, seconds, launches = _sample(p, image, scheduler_type, want)
+        for k, v in launches.items():
+            total[k] += v
+        report["runs"][name] = {
+            "s": seconds, "images_per_s": n / seconds, "launches": launches,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9}
+        return images
+
+    static = make("static")
+    serve = _want(flash_fwd_lowdim=lowdim_run, int8_conv=conv_run)
+    first = sample("static_ddim_first", static, "ddim", _want(
+        flash_fwd_lowdim=LOWDIM_SITES_PER_STEP * (calib_steps + STEPS),
+        int8_conv=conv_run))
+    second = sample("static_ddim_warm", static, "ddim", serve)
+    report["static_rerun_max_abs"] = float(np.abs(first - second).max())
+    sample("static_dpm_warm", static, "dpm_solver++", serve)
+    for mode in ("qk", "qkpv"):
+        p = make(True, mode)
+        want = _want(flash_fwd_int8=lowdim_run, int8_conv=conv_run)
+        a = sample(f"{mode}_ddim_first", p, "ddim", want)
+        b = sample(f"{mode}_ddim_warm", p, "ddim", want)
+        report[f"{mode}_rerun_max_abs"] = float(np.abs(a - b).max())
+    for key in ("static_rerun_max_abs", "qk_rerun_max_abs",
+                "qkpv_rerun_max_abs"):
+        if not report[key] <= RERUN_MAX_ABS:
+            fail(f"int8 sampling: two same-seed runs differ: {report}")
+
+    kwargs = dict(num_inference_steps=STEPS, guidance_scale=7.5,
+                  num_images_per_prompt=IMAGES_PER_PROMPT, height=RESOLUTION,
+                  width=RESOLUTION, seed=0, output_type="latent")
+    lat_bf16 = torch.from_numpy(pipe(PROMPTS, image, **kwargs))
+    lat_int8 = torch.from_numpy(static(PROMPTS, image, **kwargs))
+    report["final_latents_static_vs_bf16_rel_l2"] = _rel(lat_int8, lat_bf16)
+    if not (torch.isfinite(lat_int8).all() and
+            report["final_latents_static_vs_bf16_rel_l2"] <=
+            INT8_VS_BF16_REL_L2):
+        fail(f"int8 sampling: final latents against bf16: {report}")
+    report.update(_unet_int8_checks(pipe, static.act_amax,
+                                    torch.Generator("cuda").manual_seed(3)))
+    report["profile_static_ddim"] = _profile(lambda: static(
+        PROMPTS, image, num_inference_steps=STEPS, guidance_scale=7.5,
+        num_images_per_prompt=IMAGES_PER_PROMPT, height=RESOLUTION,
+        width=RESOLUTION, seed=0))
+    report["launches_total"] = total
+    print(json.dumps(report))
+    return total
 
 
 def _expected_tuning_launches(ucfg, vit_cfg, resolution):
@@ -617,7 +981,8 @@ def phase_tuning(smi):
 
 
 def phase_tiny_vs_cpu():
-    """The tiny pipeline, f32, on the card and on the CPU."""
+    """The tiny pipeline, f32, on the card and on the CPU; then in static
+    int8, each side calibrating on its first call."""
     import numpy as np
     import torch
 
@@ -642,21 +1007,121 @@ def phase_tiny_vs_cpu():
                                               dtype=np.uint8)
     latents = np.random.default_rng(6).standard_normal(
         (4, 4, 8, 8)).astype(np.float32)
-    outs = []
+    outs, outs8, amax = [], [], []
     with tempfile.TemporaryDirectory() as tok_dir:
         make_tiny_tokenizer_files(tok_dir, extra_words=["a", "photo", "of",
                                                         "face"])
         for mods in (cpu, card):
-            pipe = StableDiffusionE4TPipeline(
-                mods, offsets, CLIPTokenizer.from_pretrained(
-                    tok_dir, model_max_length=16), cfg)
-            outs.append(pipe(PROMPTS[:1] + ["a *s face"], image,
-                             num_inference_steps=3, guidance_scale=7.5,
-                             num_images_per_prompt=2, latents=latents))
+            for int8, dst in ((False, outs), ("static", outs8)):
+                pipe = StableDiffusionE4TPipeline(
+                    mods, offsets, CLIPTokenizer.from_pretrained(
+                        tok_dir, model_max_length=16), cfg, int8=int8)
+                dst.append(pipe(PROMPTS[:1] + ["a *s face"], image,
+                                num_inference_steps=3, guidance_scale=7.5,
+                                num_images_per_prompt=2, latents=latents))
+            amax.append(pipe.act_amax)
     err = float(np.abs(outs[0] - outs[1]).max())
     if not err <= TINY_CARD_VS_CPU_MAX_ABS:
         fail(f"tiny pipeline, card vs CPU: max-abs {err}")
-    print(json.dumps({"phase": "tiny_card_vs_cpu", "max_abs": err}))
+    amax_err = max(
+        float((amax[1][name][k].cpu() - v).abs().max() / v.abs().max())
+        for name, site in amax[0].items() for k, v in site.items())
+    if set(amax[0]) != set(amax[1]) or not amax_err <= TINY_AMAX_REL:
+        fail(f"tiny int8 calibration, card vs CPU: {amax_err}")
+    err8 = float(np.abs(outs8[0] - outs8[1]).max())
+    int8_err = float(np.abs(outs8[0] - outs[0]).max())
+    if not (np.isfinite(outs8[1]).all()
+            and err8 <= INT8_SPREAD_OF_ERROR * int8_err):
+        fail(f"tiny int8 pipeline, card vs CPU: max-abs {err8} against an "
+             f"int8 error of {int8_err}")
+    print(json.dumps({"phase": "tiny_card_vs_cpu", "max_abs": err,
+                      "int8_calibration_rel": amax_err,
+                      "int8_max_abs": err8,
+                      "int8_vs_f32_max_abs_cpu": int8_err}))
+
+
+def kernels_line(cases, paths):
+    """The kernels record: one row per kernel, its launches on each path
+    (``paths``: launch counts by path) and its times at the main path's
+    heaviest site, with every timed site beside it."""
+    fwd_cases = cases["sampling"] + cases["tuning_fwd"] + [cases["grid"]] + [
+        c for c in cases["ragged"] if c["kernel"] != "flash_bwd"]
+    bwd_cases = cases["tuning_bwd"] + [cases["grid_bwd"]] + [
+        c for c in cases["ragged"] if c["kernel"] == "flash_bwd"]
+    timed_keys = ("bh", "sq", "sk", "d", "ms", "plain_ms", "bound_ms",
+                  "bound_by", "library_ms")
+
+    def entry(name, source, replaces, site, errors, per_site):
+        return {
+            "name": name, "route": "cuda",
+            "source": f"e4t_diffusion_torch/csrc/{source}",
+            "replaces": f"e4t_diffusion_tpu/ops/flash_kernels.py:{replaces}",
+            "launches": sum(p[name] for p in paths.values()),
+            "launches_by_path": {k: p[name] for k, p in paths.items()},
+            "max_abs_err": max(errors), "ms": site["ms"],
+            "plain_ms": site["plain_ms"], "bound_ms": site["bound_ms"],
+            "bound_by": site["bound_by"], "library_ms": site["library_ms"],
+            "at": f"BH={site['bh']} Sq={site['sq']} Sk={site['sk']} "
+                  f"D={site['d']} bf16",
+            "per_site": [{k: c[k] for k in timed_keys} for c in per_site]}
+
+    low = [c for c in fwd_cases if c["kernel"] == "flash_fwd_lowdim"]
+    wide = [c for c in fwd_cases if c["kernel"] == "flash_fwd_wide"]
+    int8_flash = cases["int8_flash"] + [
+        c for c in cases["ragged"] if c["kernel"] == "flash_fwd_int8"]
+    convs = cases["int8_conv"] + [
+        c for c in cases["ragged"] if c["kernel"] == "int8_conv"]
+    kernels = [
+        entry("flash_fwd_lowdim", "flash_fwd_lowdim.cu", 286,
+              cases["sampling"][0], [c["out_max_abs"] for c in low],
+              [c for c in low if "ms" in c]),
+        entry("flash_fwd_wide", "flash_fwd_lowdim.cu", 196,
+              next(c for c in cases["tuning_fwd"] if c["sq"] == c["sk"]
+                   and c["d"] >= 128),
+              [c["out_max_abs"] for c in wide],
+              [c for c in wide if "ms" in c]),
+        entry("flash_bwd", "flash_bwd.cu", 503, cases["tuning_bwd"][0],
+              [c[f"{g}_max_abs"] for c in bwd_cases
+               for g in ("dq", "dk", "dv")],
+              cases["tuning_bwd"] + [cases["grid_bwd"]]),
+        entry("flash_fwd_int8", "flash_fwd_int8.cu", 813,
+              cases["int8_flash"][0], [c["out_max_abs"] for c in int8_flash],
+              cases["int8_flash"])]
+    kernels[1]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:95"
+    kernels[2]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:582"
+    kernels[3]["at"] = kernels[3]["at"].replace(
+        "bf16", "int8 q/k, bf16 v, mode qk")
+    kernels[3]["per_site"] = [
+        {k: c[k] for k in ("mode",) + timed_keys + ("route_ms",)}
+        for c in cases["int8_flash"]]
+    conv_keys = ("c", "o", "h", "w", "k", "stride", "pad",
+                 "sites_per_unet_pass", "ms", "plain_ms", "route_ms",
+                 "bound_ms", "bound_by", "library_ms")
+    site = max(cases["int8_conv"],
+               key=lambda c: c["sites_per_unet_pass"] * c["ms"])
+    kernels.append({
+        "name": "int8_conv", "route": "cuda",
+        "source": "e4t_diffusion_torch/csrc/int8_conv.cu",
+        "replaces": "e4t_diffusion_tpu/ops/quant.py:276",
+        "replaces_note": "an XLA convolution in the JAX package; PyTorch "
+                         "has no int8 conv2d on CUDA",
+        "launches": sum(p["int8_conv"] for p in paths.values()),
+        "launches_by_path": {k: p["int8_conv"] for k, p in paths.items()},
+        "max_abs_err": max(c["out_max_abs"] for c in convs),
+        "ms": site["ms"], "plain_ms": site["plain_ms"],
+        "bound_ms": site["bound_ms"], "bound_by": site["bound_by"],
+        "library_ms": site["library_ms"], "library": site["library"],
+        "at": f"N={site['n']} {site['c']}->{site['o']} at "
+              f"{site['h']}x{site['w']} {site['k']}x{site['k']} stride "
+              f"{site['stride']} int8 NHWC, bf16 out (the largest share "
+              f"of a UNet pass)",
+        "per_unet_pass": {
+            key: sum(c["sites_per_unet_pass"] * c[key]
+                     for c in cases["int8_conv"])
+            for key in ("ms", "route_ms", "library_ms", "bound_ms")},
+        "per_site": [{k: c[k] for k in conv_keys}
+                     for c in cases["int8_conv"]]})
+    return kernels
 
 
 def main():
@@ -685,51 +1150,18 @@ def main():
     smi = run("environment", phase_environment)
     run("build", phase_build)
     cases = run("kernels", phase_kernels)
-    sampling = run("sampling", phase_main_path, smi)
+    sampling, pipe, image = run("sampling", phase_main_path, smi)
+    int8_sampling = run("int8_sampling", phase_int8_sampling, smi, pipe,
+                        image)
+    del pipe
     torch.cuda.empty_cache()
     tuning = run("tuning", phase_tuning, smi)
     torch.cuda.empty_cache()
     run("tiny_card_vs_cpu", phase_tiny_vs_cpu)
+    paths = {"sampling": sampling, "int8_sampling": int8_sampling,
+             "tuning": tuning}
 
-    fwd_cases = cases["sampling"] + cases["tuning_fwd"] + [cases["grid"]] + [
-        c for c in cases["ragged"] if c["kernel"] != "flash_bwd"]
-    bwd_cases = cases["tuning_bwd"] + [cases["grid_bwd"]] + [
-        c for c in cases["ragged"] if c["kernel"] == "flash_bwd"]
-    timed_keys = ("bh", "sq", "sk", "d", "ms", "plain_ms", "bound_ms",
-                  "bound_by", "library_ms")
-
-    def entry(name, source, replaces, site, errors, per_site):
-        return {
-            "name": name, "route": "cuda",
-            "source": f"e4t_diffusion_torch/csrc/{source}",
-            "replaces": f"e4t_diffusion_tpu/ops/flash_kernels.py:{replaces}",
-            "launches": sampling[name] + tuning[name],
-            "launches_by_path": {"sampling": sampling[name],
-                                 "tuning": tuning[name]},
-            "max_abs_err": max(errors), "ms": site["ms"],
-            "plain_ms": site["plain_ms"], "bound_ms": site["bound_ms"],
-            "bound_by": site["bound_by"], "library_ms": site["library_ms"],
-            "at": f"BH={site['bh']} Sq={site['sq']} Sk={site['sk']} "
-                  f"D={site['d']} bf16",
-            "per_site": [{k: c[k] for k in timed_keys} for c in per_site]}
-
-    low = [c for c in fwd_cases if c["kernel"] == "flash_fwd_lowdim"]
-    wide = [c for c in fwd_cases if c["kernel"] == "flash_fwd_wide"]
-    kernels = [
-        entry("flash_fwd_lowdim", "flash_fwd_lowdim.cu", 286,
-              cases["sampling"][0], [c["out_max_abs"] for c in low],
-              [c for c in low if "ms" in c]),
-        entry("flash_fwd_wide", "flash_fwd_lowdim.cu", 196,
-              next(c for c in cases["tuning_fwd"] if c["sq"] == c["sk"]
-                   and c["d"] >= 128),
-              [c["out_max_abs"] for c in wide],
-              [c for c in wide if "ms" in c]),
-        entry("flash_bwd", "flash_bwd.cu", 503, cases["tuning_bwd"][0],
-              [c[f"{g}_max_abs"] for c in bwd_cases
-               for g in ("dq", "dk", "dv")],
-              cases["tuning_bwd"] + [cases["grid_bwd"]])]
-    kernels[1]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:95"
-    kernels[2]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:582"
+    kernels = kernels_line(cases, paths)
     print(json.dumps({"phase_seconds": timings}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,12 @@
-// Building blocks shared by the port's flash-attention kernels (sm_90a):
-// bf16 mma.sync m16n8k16 with f32 accumulators, fragment loads from padded
-// shared tiles, and tile staging with zero padding of ragged rows and of the
-// head dim. Included by flash_fwd_lowdim.cu and flash_bwd.cu; each of them
-// compiles to its own shared library.
+// Building blocks shared by the port's kernels (sm_90a): bf16 mma.sync
+// m16n8k16 with f32 accumulators and s8 mma.sync m16n8k16 / m16n8k32 with s32
+// accumulators, fragment loads from padded shared tiles, and tile staging
+// with zero padding of ragged rows and of the head dim. Included by every
+// source in this directory; each of them compiles to its own shared library.
+//
+// In bytes, an s8 fragment has the bf16 fragment's geometry: thread (g, t4)
+// of a warp holds the 4 bytes at byte column 4 * t4 of row g (and g + 8), so
+// the same padded shared tiles and 32-bit loads serve both types.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,12 +31,43 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a (16x16 s8, row-major) * b (16x8 s8, column-major), s32 accumulate.
+__device__ __forceinline__ void mma_s8_16816(int (&d)[4], const uint32_t (&a)[2],
+                                             uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
+// d += a (16x32 s8, row-major) * b (32x8 s8, column-major), s32 accumulate.
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four int8 values (each in [-128, 127]) into one register, the first in the
+// lowest byte: the element order of an s8 fragment register.
+__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) |
+         ((uint32_t)(c & 0xff) << 16) | ((uint32_t)(d & 0xff) << 24);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 

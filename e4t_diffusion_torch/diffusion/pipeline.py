@@ -1,21 +1,25 @@
 """StableDiffusionE4TPipeline: E4T sampling on PyTorch.
 
 Counterpart of ``e4t_diffusion_tpu/diffusion/pipeline.py`` on its bf16/f32
-path. Per sampling run: the E4T weight offsets are folded into the UNet's
-attention projections once, the ViT-H image branch is encoded once, and the
-"" text states are computed once. Per denoise step: the uncond UNet pass
-also yields the E4T tap (``return_encoder_outputs="with_eps"``), the E4T
-encoder fuses it into the domain embedding, that embedding is written into
-the placeholder slot of the prompt embeddings, CLIP text encodes them, the
-cond UNet pass runs, then CFG and the scheduler step. The VAE decodes at the
-end.
+and int8 paths. Per sampling run: the E4T weight offsets are folded into the
+UNet's attention projections once, the ViT-H image branch is encoded once,
+and the "" text states are computed once. Per denoise step: the uncond UNet
+pass also yields the E4T tap (``return_encoder_outputs="with_eps"``), the
+E4T encoder fuses it into the domain embedding, that embedding is written
+into the placeholder slot of the prompt embeddings, CLIP text encodes them,
+the cond UNet pass runs, then CFG and the scheduler step. The VAE decodes
+at the end. With int8 serving the folded UNet weights are quantized once
+per run, after the fold (``ops/quant.py``), and the static modes calibrate
+their activation ranges once, on the pipeline's first call.
 
 Entry points run on ``cuda`` unless the caller passes another device
 (``device="cpu"``); without a GPU and without that request they raise.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -29,6 +33,8 @@ from e4t_diffusion_torch.models.e4t_encoder import E4TEncoder, E4TEncoderConfig
 from e4t_diffusion_torch.models.unet import (
     UNet2DConditionModel, UNetConfig, pool_encoder_features, tap_feature_dim)
 from e4t_diffusion_torch.models.vae import AutoencoderKL, VAEConfig
+from e4t_diffusion_torch.ops import quant
+from e4t_diffusion_torch.ops.attention import int8_flash_attention
 
 
 def resolve_device(device: Union[str, torch.device, None] = None
@@ -117,36 +123,24 @@ def preprocess_image(image) -> np.ndarray:
     return 2.0 * arr.transpose(0, 3, 1, 2) - 1.0
 
 
-def make_sample_fn(modules: E4TModules, scheduler, num_inference_steps: int,
-                   guidance_scale: float, domain_embed_scale: float,
-                   return_latents: bool = False, eta: float = 0.0
-                   ) -> Callable:
-    """The end-to-end sampling function ``sample(offsets, latents,
-    pixel_values, inputs_embeds, placeholder_idx, uncond_ids, class_embed,
-    generator=None)`` -> images in [0, 1] (or the final latents).
-
-    ``offsets``: the weight-offset bank; ``latents`` (B, 4, h, w) f32;
-    ``pixel_values`` (1, 3, H, W) in [-1, 1]; ``inputs_embeds`` (1 or B, L,
-    D) raw prompt token embeddings; ``placeholder_idx`` (B,) positions;
-    ``uncond_ids`` (1, L) ids of ""; ``class_embed`` (D,) the domain class
-    token's embedding; ``generator`` draws the per-step noise of eta > 0."""
+def _build_denoise_loop(modules: E4TModules, scheduler, num_steps: int,
+                        guidance_scale: float, domain_embed_scale: float,
+                        eta: float) -> Callable:
+    """The one denoise loop of sampling and calibration:
+    ``run_loop(unet_apply, latents, pixel_values, inputs_embeds,
+    placeholder_idx, uncond_ids, class_embed, generator) -> latents``, where
+    ``unet_apply`` calls the UNet on the run's folded weights."""
     do_cfg = guidance_scale > 1.0
     step_kwargs = ({"eta": eta} if eta > 0.0
                    and isinstance(scheduler, DDIMScheduler) else {})
-    unet, text, e4t = modules.unet, modules.text_encoder, modules.e4t_encoder
+    text, e4t = modules.text_encoder, modules.e4t_encoder
 
-    @torch.inference_mode()
-    def sample(offsets, latents, pixel_values, inputs_embeds,
-               placeholder_idx, uncond_ids, class_embed, generator=None):
+    def run_loop(unet_apply, latents, pixel_values, inputs_embeds,
+                 placeholder_idx, uncond_ids, class_embed, generator):
         device = latents.device
-        state = scheduler.init(num_inference_steps, device)
+        state = scheduler.init(num_steps, device)
         if hasattr(scheduler, "init_noise_sigma"):
             latents = latents * scheduler.init_noise_sigma(state)
-        folded = wo.fold_offset_bank(unet, offsets)
-
-        def unet_apply(*args, **kwargs):
-            return torch.func.functional_call(unet, folded, args, kwargs)
-
         bsz = latents.shape[0]
         uncond_states, _ = text(uncond_ids)
         uncond_b = uncond_states.expand(bsz, -1, -1)
@@ -159,7 +153,7 @@ def make_sample_fn(modules: E4TModules, scheduler, num_inference_steps: int,
             if do_cfg:
                 eps_u, tap = unet_apply(latents_in, t_b, uncond_b,
                                         return_encoder_outputs="with_eps")
-            else:
+            else:  # the tap pass exits after the mid block
                 tap = unet_apply(latents_in, t_b, uncond_b,
                                  return_encoder_outputs=True)
             domain_embed = e4t.fuse(clip_feats, pool_encoder_features(tap))
@@ -175,12 +169,134 @@ def make_sample_fn(modules: E4TModules, scheduler, num_inference_steps: int,
                      if step_kwargs else None)
             state, latents = scheduler.step(state, i, eps, latents,
                                             noise=noise, **step_kwargs)
-        if return_latents:
-            return latents
-        images = modules.vae.decode(latents / modules.vae.config.scaling_factor)
+        return latents
+
+    return run_loop
+
+
+INT8_MODES = (False, True, "static", "static_pc")
+INT8_ATTN_MODES = (False, True, "qk", "qkpv")
+
+
+def _static_exclude_for(act_pc: bool) -> Optional[tuple]:
+    """Which UNet sites keep dynamic activation scales under static-act
+    int8: ``quant.UNET_STATIC_EXCLUDE`` in every regime (the JAX package's
+    measured serving default), none under the per-channel flavor (which
+    serves every site on its static scale), and ``None`` (so
+    ``quantize_params`` reads it) when ``E4T_INT8_STATIC_EXCLUDE`` is set."""
+    if "E4T_INT8_STATIC_EXCLUDE" in os.environ:
+        return None
+    return () if act_pc else quant.UNET_STATIC_EXCLUDE
+
+
+def _serving_int8_mode(int8: Union[bool, str]) -> Union[bool, str]:
+    """The static-int8 flavor a pipeline serves: ``int8="static"`` becomes
+    ``"static_pc"`` or stays ``"static"`` as ``E4T_INT8_ACT_PC`` says, when
+    that is set; every other mode is served as given."""
+    if int8 == "static" and "E4T_INT8_ACT_PC" in os.environ:
+        return "static_pc" if quant.env_truthy("E4T_INT8_ACT_PC") else "static"
+    return int8
+
+
+def _folded_apply(unet, offsets):
+    folded = wo.fold_offset_bank(unet, offsets)
+
+    def unet_apply(*args, **kwargs):
+        return torch.func.functional_call(unet, folded, args, kwargs)
+
+    return folded, unet_apply
+
+
+def make_sample_fn(modules: E4TModules, scheduler, num_inference_steps: int,
+                   guidance_scale: float, domain_embed_scale: float,
+                   return_latents: bool = False, eta: float = 0.0,
+                   int8: Union[bool, str] = False,
+                   int8_attn: Union[bool, str] = False) -> Callable:
+    """The end-to-end sampling function ``sample(offsets, latents,
+    pixel_values, inputs_embeds, placeholder_idx, uncond_ids, class_embed,
+    generator=None, act_amax=None)`` -> images in [0, 1] (or the final
+    latents).
+
+    ``offsets``: the weight-offset bank; ``latents`` (B, 4, h, w) f32;
+    ``pixel_values`` (1, 3, H, W) in [-1, 1]; ``inputs_embeds`` (1 or B, L,
+    D) raw prompt token embeddings; ``placeholder_idx`` (B,) positions;
+    ``uncond_ids`` (1, L) ids of ""; ``class_embed`` (D,) the domain class
+    token's embedding; ``generator`` draws the per-step noise of eta > 0.
+
+    ``int8``: quantize the offset-folded UNet weights once per run
+    (``ops/quant.py``) and serve the UNet's linear and conv sites in int8,
+    with dynamic activation scales (True), calibrated static ones
+    (``"static"``, with ``quant.UNET_STATIC_EXCLUDE`` kept dynamic) or
+    calibrated per-channel static ones (``"static_pc"``); the static modes
+    take ``act_amax`` from ``make_calibration_fn`` or
+    ``quant.load_act_scales``.
+    ``int8_attn``: run the low-head-dim flash sites on the int8 attention
+    kernel (True or "qk": int8 QK^T; "qkpv": P@V too)."""
+    if int8 not in INT8_MODES:
+        raise ValueError(f"int8={int8!r}: one of {INT8_MODES}")
+    if int8_attn not in INT8_ATTN_MODES:
+        raise ValueError(f"int8_attn={int8_attn!r}: one of {INT8_ATTN_MODES}")
+    static_act = int8 in ("static", "static_pc")
+    attn_mode = "qk" if int8_attn is True else int8_attn
+    run_loop = _build_denoise_loop(modules, scheduler, num_inference_steps,
+                                   guidance_scale, domain_embed_scale, eta)
+    unet = modules.unet
+
+    @torch.inference_mode()
+    def sample(offsets, latents, pixel_values, inputs_embeds,
+               placeholder_idx, uncond_ids, class_embed, generator=None,
+               act_amax=None):
+        if static_act != (act_amax is not None):
+            want = "calibrated ranges" if static_act else "None"
+            raise ValueError(f"int8={int8!r} takes act_amax={want}")
+        folded, unet_apply = _folded_apply(unet, offsets)
+        sites = {}
+        if int8:  # once per run, outside the step loop
+            sites = quant.quantize_params(
+                {**dict(unet.named_parameters()), **folded},
+                act_amax=act_amax, act_pc=int8 == "static_pc",
+                static_exclude=_static_exclude_for(int8 == "static_pc"))
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(quant.int8_sites(unet, sites))
+            if attn_mode:
+                stack.enter_context(int8_flash_attention(attn_mode))
+            latents = run_loop(unet_apply, latents, pixel_values,
+                               inputs_embeds, placeholder_idx, uncond_ids,
+                               class_embed, generator)
+            if return_latents:
+                return latents
+            images = modules.vae.decode(
+                latents / modules.vae.config.scaling_factor)
         return (images / 2.0 + 0.5).clamp(0.0, 1.0)
 
     return sample
+
+
+def make_calibration_fn(modules: E4TModules, scheduler, num_calib_steps: int,
+                        guidance_scale: float, domain_embed_scale: float,
+                        eta: float = 0.0) -> Callable:
+    """Activation-range calibration for static-act int8 serving: a
+    ``num_calib_steps`` sampling run in the compute type through the same
+    loop as ``make_sample_fn``, recording every UNet site's abs-max
+    (``quant.calibration``: the running max over both CFG passes, or the
+    tap and cond passes without CFG, and every step). Returns
+    ``calibrate(offsets, latents, pixel_values, inputs_embeds,
+    placeholder_idx, uncond_ids, class_embed, generator=None)`` -> the
+    ``act_amax`` of an ``int8="static"`` sample function."""
+    run_loop = _build_denoise_loop(modules, scheduler, num_calib_steps,
+                                   guidance_scale, domain_embed_scale, eta)
+    unet = modules.unet
+
+    @torch.inference_mode()
+    def calibrate(offsets, latents, pixel_values, inputs_embeds,
+                  placeholder_idx, uncond_ids, class_embed, generator=None):
+        _, unet_apply = _folded_apply(unet, offsets)
+        with quant.calibration(unet) as amax:
+            run_loop(unet_apply, latents, pixel_values, inputs_embeds,
+                     placeholder_idx, uncond_ids, class_embed, generator)
+        return amax
+
+    return calibrate
 
 
 class StableDiffusionE4TPipeline:
@@ -188,11 +304,27 @@ class StableDiffusionE4TPipeline:
 
     Registers the placeholder token (unless already added), resolves the
     domain-class token's id and takes domain_embed_scale from the E4T
-    config. ``offsets`` is the weight-offset bank for ``modules.unet``."""
+    config. ``offsets`` is the weight-offset bank for ``modules.unet``.
+
+    int8 serving (``make_sample_fn``): ``int8`` False | True (dynamic
+    activation scales) | "static" | "static_pc" (calibrated activation
+    ranges: ``act_scales`` from ``quant.load_act_scales``, or a calibration
+    run of ``E4T_INT8_CALIB_STEPS`` steps (default 8) on the first call,
+    kept in ``act_amax`` and reused by every later call); ``int8_attn``
+    False | True ("qk") | "qkpv"."""
 
     def __init__(self, modules: E4TModules, offsets: Dict[str, torch.Tensor],
                  tokenizer, e4t_config, scheduler=None,
-                 already_added_placeholder_token: bool = False):
+                 already_added_placeholder_token: bool = False,
+                 int8: Union[bool, str] = False,
+                 int8_attn: Union[bool, str] = False, act_scales=None):
+        if int8 not in INT8_MODES:
+            raise ValueError(f"int8={int8!r}: one of {INT8_MODES}")
+        if int8_attn not in INT8_ATTN_MODES:
+            raise ValueError(f"int8_attn={int8_attn!r}: one of "
+                             f"{INT8_ATTN_MODES}")
+        self.int8, self.int8_attn = int8, int8_attn
+        self.act_amax = act_scales
         self.modules = modules
         self.device = modules.unet.conv_in.weight.device
         wo.check_bank(offsets, modules.unet.config)
@@ -295,12 +427,25 @@ class StableDiffusionE4TPipeline:
         pixel = torch.from_numpy(preprocess_image(image)).to(dev)
         noise_gen = torch.Generator(dev).manual_seed(seed ^ 0x5DEECE66D)
 
+        common = (self.offsets, latents, pixel, inputs_embeds, ph_idx,
+                  torch.tensor([uncond_ids[0]], device=dev), class_embed)
+        act_amax = None
+        if self.int8 in ("static", "static_pc"):
+            if self.act_amax is None:
+                calibrate = make_calibration_fn(
+                    modules, scheduler,
+                    int(os.environ.get("E4T_INT8_CALIB_STEPS", "8")),
+                    guidance_scale, des, eta=eta)
+                self.act_amax = calibrate(
+                    *common, torch.Generator(dev).manual_seed(
+                        seed ^ 0x5DEECE66D))
+            act_amax = self.act_amax
         fn = make_sample_fn(modules, scheduler, num_inference_steps,
                             guidance_scale, des,
-                            return_latents=output_type == "latent", eta=eta)
-        out = fn(self.offsets, latents, pixel, inputs_embeds, ph_idx,
-                 torch.tensor([uncond_ids[0]], device=dev), class_embed,
-                 noise_gen)
+                            return_latents=output_type == "latent", eta=eta,
+                            int8=_serving_int8_mode(self.int8),
+                            int8_attn=self.int8_attn)
+        out = fn(*common, noise_gen, act_amax=act_amax)
         if output_type == "pil":
             from PIL import Image
 

@@ -3,11 +3,14 @@
 Loads a tuned or pretrained E4T artifact directory, builds the sampling
 pipeline on the GPU (``--device cpu`` to run on the CPU) and renders the
 prompts to a grid image. '::' splits several prompts; ``--batch_prompts``
-samples them as one batch.
+samples them as one batch. ``--int8`` (with ``--int8_static_act``,
+``--int8_pc_act``, ``--act_scales``) serves the UNet in int8,
+``--int8_attn`` its large self-attention sites too.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -16,6 +19,7 @@ from e4t_diffusion_torch.config import (get_e4t_config, getattr_from_config,
 from e4t_diffusion_torch.diffusion.pipeline import (
     E4TModules, StableDiffusionE4TPipeline, resolve_device, resolve_dtype)
 from e4t_diffusion_torch.diffusion.schedulers import SCHEDULER_MAPPING
+from e4t_diffusion_torch.ops import quant
 from e4t_diffusion_torch.utils import artifacts
 from e4t_diffusion_torch.utils.image import image_grid, load_image
 from e4t_diffusion_torch.utils.tokenizer import CLIPTokenizer
@@ -49,8 +53,43 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; runs on the GPU unless 'cpu' "
                              "is given")
+    parser.add_argument("--int8", action="store_true",
+                        help="quantize the offset-folded UNet weights to "
+                             "int8 once per run and serve its linear and "
+                             "conv sites in int8 (ops/quant.py), with "
+                             "dynamic activation scales")
+    parser.add_argument("--int8_static_act", action="store_true",
+                        help="implies --int8: static activation scales, "
+                             "calibrated on a short trajectory at the first "
+                             "prompt (E4T_INT8_CALIB_STEPS, default 8); the "
+                             "residual-conv sites stay dynamic "
+                             "(E4T_INT8_STATIC_EXCLUDE overrides the list)")
+    parser.add_argument("--int8_pc_act", action="store_true",
+                        help="implies --int8_static_act: per-channel "
+                             "calibrated activation scales folded into the "
+                             "int8 weights (E4T_INT8_PC_ALPHA tunes the "
+                             "fold); every site static")
+    parser.add_argument("--act_scales", type=str, default=None,
+                        help="with --int8_static_act: JSON file of "
+                             "calibrated activation ranges (the JAX "
+                             "package's format); loaded if it exists, else "
+                             "written after the first prompt's calibration")
+    parser.add_argument("--int8_attn", choices=["qk", "qkpv"], default=None,
+                        help="run the low-head-dim flash-attention sites on "
+                             "the int8 kernel: per-head q/k quantization "
+                             "with k mean-centred ('qkpv': P@V in int8 "
+                             "too); independent of --int8")
     parser.add_argument("--output", type=str, default="grid.png")
     return parser.parse_args(argv)
+
+
+def int8_mode(args):
+    """--int8_pc_act implies --int8_static_act, which implies --int8."""
+    if args.int8_pc_act:
+        return "static_pc"
+    if args.int8_static_act:
+        return "static"
+    return args.int8
 
 
 def build_pipeline(args) -> StableDiffusionE4TPipeline:
@@ -86,9 +125,16 @@ def build_pipeline(args) -> StableDiffusionE4TPipeline:
         len(tokenizer), torch.Generator(device).manual_seed(0))
     scheduler = SCHEDULER_MAPPING[args.scheduler_type](
         base["schedule_config"])
+    act_scales = None
+    if args.act_scales and os.path.exists(args.act_scales):
+        act_scales = quant.load_act_scales(args.act_scales, device=device)
+        print(f"loaded activation ranges from {args.act_scales}")
     return StableDiffusionE4TPipeline(modules, loaded["offsets"], tokenizer,
                                       e4t_config, scheduler=scheduler,
-                                      already_added_placeholder_token=True)
+                                      already_added_placeholder_token=True,
+                                      int8=int8_mode(args),
+                                      int8_attn=args.int8_attn or False,
+                                      act_scales=act_scales)
 
 
 def main(argv=None):
@@ -105,6 +151,10 @@ def main(argv=None):
         all_images = pipe(prompts, image, **kwargs)
     else:
         all_images = [img for p in prompts for img in pipe(p, image, **kwargs)]
+    if (args.act_scales and pipe.act_amax is not None
+            and not os.path.exists(args.act_scales)):
+        quant.save_act_scales(pipe.act_amax, args.act_scales)
+        print(f"saved activation ranges to {args.act_scales}")
     image_grid(all_images, len(prompts),
                args.num_images_per_prompt).save(args.output)
     print(f"DONE! See `{args.output}` for the results!")

@@ -8,9 +8,14 @@ the reference's ``unet.pt``) loads strictly. NCHW throughout.
 the E4T tap (conv_in output, every down-block residual and downsampler
 output, the mid output); ``"with_eps"`` runs the full forward and returns
 ``(eps, tap)``. ``pool_encoder_features`` mean-pools the tap to the
-10,880-dim feature of SD v1. The attention projections are plain
-``nn.Linear``s; the E4T weight offsets are folded into them from outside
-(``models/weight_offsets.py``).
+10,880-dim feature of SD v1. The E4T weight offsets are folded into the
+attention projections from outside (``models/weight_offsets.py``).
+
+Every linear and conv site is a ``quant.Linear`` / ``quant.Conv2d``
+(``nn.Linear`` / ``nn.Conv2d`` with the same parameters): it runs int8 while
+``quant.int8_sites`` holds its quantized weights, and records its
+activation range under ``quant.calibration``; otherwise it is the plain
+layer.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from e4t_diffusion_torch.models.norm import group_norm_act
+from e4t_diffusion_torch.ops import quant
 from e4t_diffusion_torch.ops.attention import dot_product_attention
 
 
@@ -91,8 +97,8 @@ def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
 class TimestepEmbedding(nn.Module):
     def __init__(self, in_dim: int, dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, dim)
-        self.linear_2 = nn.Linear(dim, dim)
+        self.linear_1 = quant.Linear(in_dim, dim)
+        self.linear_2 = quant.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(x)))
@@ -103,11 +109,11 @@ class ResnetBlock2D(nn.Module):
                  eps: float):
         super().__init__()
         self.norm1 = nn.GroupNorm(groups, in_ch, eps=eps)
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-        self.time_emb_proj = nn.Linear(temb_ch, out_ch)
+        self.conv1 = quant.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.time_emb_proj = quant.Linear(temb_ch, out_ch)
         self.norm2 = nn.GroupNorm(groups, out_ch, eps=eps)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
-        self.conv_shortcut = (nn.Conv2d(in_ch, out_ch, 1)
+        self.conv2 = quant.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv_shortcut = (quant.Conv2d(in_ch, out_ch, 1)
                               if in_ch != out_ch else None)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
@@ -127,10 +133,10 @@ class Attention(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.to_q = quant.Linear(query_dim, inner, bias=False)
+        self.to_k = quant.Linear(context_dim, inner, bias=False)
+        self.to_v = quant.Linear(context_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([quant.Linear(inner, query_dim)])
 
     def forward(self, x: torch.Tensor, context: torch.Tensor = None
                 ) -> torch.Tensor:
@@ -148,7 +154,7 @@ class Attention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = quant.Linear(dim, inner * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         hidden, gate = self.proj(x).chunk(2, dim=-1)
@@ -161,7 +167,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Dropout(0.0),
-                                  nn.Linear(dim * mult, dim)])
+                                  quant.Linear(dim * mult, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[0](x))
@@ -191,10 +197,10 @@ class Transformer2DModel(nn.Module):
                  groups: int):
         super().__init__()
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = quant.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(
             channels, context_dim, heads, channels // heads)])
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = quant.Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
@@ -209,7 +215,7 @@ class Transformer2DModel(nn.Module):
 class Downsample2D(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.conv = quant.Conv2d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
@@ -218,7 +224,7 @@ class Downsample2D(nn.Module):
 class Upsample2D(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = quant.Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -320,7 +326,7 @@ class UNet2DConditionModel(nn.Module):
         heads = cfg.attention_head_dim
         cad = cfg.cross_attention_dim
         groups, eps = cfg.norm_num_groups, cfg.norm_eps
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in = quant.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch[0], temb_ch)
 
         down = []
@@ -349,7 +355,7 @@ class UNet2DConditionModel(nn.Module):
             prev_ch = out_ch
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = nn.GroupNorm(groups, ch[0], eps=eps)
-        self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        self.conv_out = quant.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,

@@ -13,6 +13,9 @@ Counterpart of ``e4t_diffusion_tpu/ops/attention.py``. Tensors are
 - ``dot_product_attention``: picks between them with ``flash_route``;
   ``flash_threshold`` overrides the score-size threshold (training runs
   all-flash under ``flash_threshold(0)``, as the JAX train step traces).
+- ``int8_flash_attention(mode)``: while active, flash sites with a head dim
+  below 128 quantize q/k (and v in "qkpv" mode) per head and run the int8
+  kernel of ``ops/flash_int8.py`` (serving only; forward only).
 """
 from __future__ import annotations
 
@@ -23,8 +26,9 @@ from typing import Iterator, Optional, Sequence
 
 import torch
 
+from e4t_diffusion_torch.ops import flash_int8
 from e4t_diffusion_torch.ops.flash_bwd import flash_bwd
-from e4t_diffusion_torch.ops.flash_lowdim import MAX_D, flash_fwd
+from e4t_diffusion_torch.ops.flash_lowdim import MAX_D, WIDE_MIN_D, flash_fwd
 
 # Score-tensor size above which self-attention goes to flash, and the
 # shortest sequence that may. Both are the TPU reference's constants
@@ -36,6 +40,9 @@ _NEG_INF = -1e30
 # the threshold flash_threshold() put in force in this context, if any
 _THRESHOLD_OVERRIDE: contextvars.ContextVar = contextvars.ContextVar(
     "flash_threshold", default=None)
+# the mode int8_flash_attention() put in force in this context, if any
+_INT8_MODE: contextvars.ContextVar = contextvars.ContextVar(
+    "int8_flash_attention", default=None)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -103,9 +110,70 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d_sub != d:
         pad = (0, d_sub - d)
         qf, kf, vf = (torch.nn.functional.pad(t, pad) for t in (qf, kf, vf))
-    out = FlashAttention.apply(qf.contiguous(), kf.contiguous(),
-                               vf.contiguous(), scale)
+    mode = _INT8_MODE.get()
+    if mode is not None and d_sub < WIDE_MIN_D:
+        if q.requires_grad or k.requires_grad or v.requires_grad:
+            raise RuntimeError("int8 flash attention is forward-only: leave "
+                               "int8_flash_attention() to differentiate")
+        out = _int8_lowdim_path(qf, kf, vf, scale, mode)
+    else:
+        out = FlashAttention.apply(qf.contiguous(), kf.contiguous(),
+                                   vf.contiguous(), scale)
     return out[..., :d].reshape(b, h, sq, d)
+
+
+def _quantize_per_head(x32: torch.Tensor):
+    """Symmetric int8 per head (dim 0) of an f32 (BH, S, D) tensor -> (int8
+    values, (BH,) f32 scales)."""
+    s = torch.clamp(x32.abs().amax(dim=(1, 2)), min=1e-8) / 127.0
+    xi = torch.clamp(torch.round(x32 / s[:, None, None]), -127, 127)
+    return xi.to(torch.int8), s
+
+
+def int8_attention_operands(qf, kf, vf, scale: float, mode: str):
+    """The quantization in front of the int8 kernel (attention.py:130-160 of
+    the JAX package): q, k and (mode "qkpv") v per head, k centred on its
+    mean over the Sk tokens first (a per-head constant key shift moves each
+    score row by a constant, so the softmax is exactly invariant). qf (BH,
+    Sq, D), kf/vf (BH, Sk, D) -> (qi, ki, v operand, sc (BH, 2) f32)."""
+    q32 = qf.float()
+    k32 = kf.float()
+    k32 = k32 - k32.mean(dim=1, keepdim=True)
+    qi, qs = _quantize_per_head(q32)
+    ki, ks = _quantize_per_head(k32)
+    if mode == "qkpv":
+        v_op, vs = _quantize_per_head(vf.float())
+        v_c = vs / 127.0
+    else:
+        v_op = vf.contiguous()
+        v_c = torch.ones_like(qs)
+    sc = torch.stack([qs * ks * scale, v_c], dim=1)
+    return qi, ki, v_op, sc
+
+
+def _int8_lowdim_path(qf, kf, vf, scale: float, mode: str) -> torch.Tensor:
+    """Quantize per head and call the int8 kernel; qf (BH, Sq, D_sub),
+    kf/vf (BH, Sk, D_sub) -> out (BH, Sq, D_sub) in qf's dtype."""
+    qi, ki, v_op, sc = int8_attention_operands(qf, kf, vf, scale, mode)
+    out, _ = flash_int8.flash_fwd_int8(qi, ki, v_op, sc, mode, qf.dtype)
+    return out
+
+
+@contextlib.contextmanager
+def int8_flash_attention(mode: str = "qk") -> Iterator[None]:
+    """While active, the flash sites with ``round_up(head_dim, 8) < 128``
+    (the UNet's 4096-token d=40 and 1024-token d=80 self-attention at
+    512px) run the int8 kernel: "qk" quantizes q and k (P@V stays bf16),
+    "qkpv" v too. Einsum sites and wider heads are unchanged. Forward only:
+    a q/k/v that requires grad raises."""
+    if mode not in flash_int8.MODES:
+        raise ValueError(f"int8 attention mode {mode!r}: one of "
+                         f"{flash_int8.MODES}")
+    token = _INT8_MODE.set(mode)
+    try:
+        yield
+    finally:
+        _INT8_MODE.reset(token)
 
 
 @contextlib.contextmanager

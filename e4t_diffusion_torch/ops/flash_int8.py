@@ -1,0 +1,169 @@
+"""int8 flash-attention forward: the CUDA kernel, its wrapper and its plain
+version.
+
+``csrc/flash_fwd_int8.cu`` (nvcc for sm_90a, called through ctypes)
+replaces the TPU kernel ``_flash_fwd_lowdim_int8`` of
+``e4t_diffusion_tpu/ops/flash_kernels.py``: int8 QK^T with per-head scales,
+an online f32 softmax, and P@V in bf16 (mode "qk") or in int8 with p scaled
+by 127 (mode "qkpv"). The quantization of q, k and v stays in plain PyTorch
+(``ops/attention._int8_lowdim_path``), as the JAX package leaves it to XLA.
+Forward only: serving runs it under ``attention.int8_flash_attention``.
+
+``flash_fwd_int8`` launches the kernel for CUDA tensors, raises on anything
+the kernel does not take, and counts its launches
+(``flash_fwd_int8.launches``). For CPU tensors it runs
+``flash_fwd_int8_reference`` at the kernel's kv tile, the plain PyTorch
+version the tests hold against JAX and ``chip_smoke.py`` holds the kernel
+against. The source note gives the bound on the H100 and how the design
+meets it.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from e4t_diffusion_torch.ops import _build
+
+SOURCE = "flash_fwd_int8"
+MODES = ("qk", "qkpv")
+# kv rows per tile in the kernel: in "qkpv" mode p is quantized against the
+# running max of the tiles seen so far, so the result depends on it
+KERNEL_BLOCK_K = 64
+# head dims (multiples of 8) the kernel takes: the low-dim route
+MAX_D = 120
+_NEG_INF = -1e30
+
+
+def flash_fwd_int8_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, sc: torch.Tensor, mode: str,
+                             out_dtype: torch.dtype,
+                             block_k: int = KERNEL_BLOCK_K
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The TPU kernel's loop (flash_kernels.py:760-810) over kv tiles of
+    ``block_k`` rows: q (BH, Sq, D) and k (BH, Sk, D) int8, v int8 ("qkpv")
+    or the compute type ("qk"), sc (BH, 2) f32 -> (out (BH, Sq, D) in
+    ``out_dtype``, lse (BH, Sq) f32). Scores are the exact int32 q k^T times
+    ``sc[:, 0]``; p = exp(s - running max); l sums the f32 p; P@V adds
+    ``round(p * 127) @ v`` in int32 ("qkpv") or p rounded to v's type times
+    v ("qk"); out = acc / l * ``sc[:, 1]``."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: one of {MODES}")
+    bh, sq, _ = q.shape
+    sk = k.shape[1]
+    qk_c = sc[:, 0].float()[:, None, None]
+    v_c = sc[:, 1].float()[:, None, None]
+    # int8 products in float64 are exact (|sum| <= 127**2 * D)
+    q64 = q.double()
+    m = torch.full((bh, sq, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((bh, sq, 1), device=q.device)
+    acc = torch.zeros((bh, sq, v.shape[2]), device=q.device)
+    for off in range(0, sk, block_k):
+        kb = k[:, off:off + block_k]
+        vb = v[:, off:off + block_k]
+        s = torch.matmul(q64, kb.double().transpose(1, 2)).float() * qk_c
+        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(s - m_next)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        if mode == "qkpv":
+            contrib = torch.matmul(torch.round(p * 127.0).double(),
+                                   vb.double()).float()
+        else:
+            contrib = torch.matmul(p.to(vb.dtype).float(), vb.float())
+        acc = acc * alpha + contrib
+        m = m_next
+    inv = torch.where(l > 0.0, 1.0 / l, torch.zeros_like(l))
+    out = (acc * (inv * v_c)).to(out_dtype)
+    lse = (m + torch.log(torch.clamp(l, min=1e-37)))[..., 0]
+    return out, lse
+
+
+def _check(q, k, v, sc, mode) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: one of {MODES}")
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("q, k, v must be (BH, S, D)")
+    if (k.shape != v.shape or q.shape[0] != k.shape[0]
+            or q.shape[2] != k.shape[2]):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if sc.shape != (q.shape[0], 2):
+        raise ValueError(f"sc must be ({q.shape[0]}, 2), got "
+                         f"{tuple(sc.shape)}")
+    if not (q.device == k.device == v.device == sc.device):
+        raise ValueError("q, k, v, sc must be on one device")
+    if q.shape[1] == 0 or k.shape[1] == 0:
+        raise ValueError("empty sequence")
+
+
+def _check_kernel_inputs(q, k, v, sc, mode, out_dtype) -> None:
+    """What the kernel takes, checked on CUDA tensors before a launch."""
+    bh, _, d = q.shape
+    if d % 8 != 0 or not 8 <= d <= MAX_D:
+        raise ValueError(f"head dim {d}: the kernel takes multiples of 8 up "
+                         f"to {MAX_D}")
+    if bh > 65535:
+        raise ValueError(f"BH={bh} exceeds the kernel's grid (65535)")
+    v_dtype = torch.int8 if mode == "qkpv" else torch.bfloat16
+    for name, t, want in (("q", q, torch.int8), ("k", k, torch.int8),
+                          ("v", v, v_dtype), ("sc", sc, torch.float32)):
+        if t.dtype != want:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes {want} "
+                            f"in mode {mode!r}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16 != 0:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"output {out_dtype}: the kernel writes bfloat16")
+
+
+def _kernel():
+    lib = _build.load_library(SOURCE)
+    fn = lib.e4t_flash_fwd_int8
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.e4t_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.e4t_cuda_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def flash_fwd_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   sc: torch.Tensor, mode: str, out_dtype: torch.dtype
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Non-causal int8 attention forward -> (out (BH, Sq, D) in
+    ``out_dtype``, lse (BH, Sq) f32); ``flash_fwd_int8_reference`` gives the
+    arithmetic.
+
+    CUDA tensors: contiguous, 16-byte aligned int8 q/k, v int8 ("qkpv") or
+    bf16 ("qk"), f32 sc, D a multiple of 8 up to 120, bf16 out; launches the
+    kernel on the current stream and counts it on
+    ``flash_fwd_int8.launches``. CPU tensors: the plain version at the
+    kernel's kv tile."""
+    _check(q, k, v, sc, mode)
+    if q.device.type == "cpu":
+        return flash_fwd_int8_reference(q, k, v, sc, mode, out_dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_kernel_inputs(q, k, v, sc, mode, out_dtype)
+    bh, sq, d = q.shape
+    out = torch.empty((bh, sq, d), dtype=out_dtype, device=q.device)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    lib, fn = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), sc.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1], d,
+                int(mode == "qkpv"), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd_int8 launch failed: "
+                           f"{lib.e4t_cuda_error_string(rc).decode()}")
+    flash_fwd_int8.launches += 1
+    return out, lse
+
+
+flash_fwd_int8.launches = 0

@@ -1,0 +1,357 @@
+"""int8 serving quantization for the UNet's linear and conv sites.
+
+Counterpart of ``e4t_diffusion_tpu/ops/quant.py``, with the same scheme
+(standard symmetric post-training quantization):
+
+- weights: static per-output-channel int8, ``s = max(|w|, 1e-8) / 127``,
+  quantized once per sampling run on the offset-folded weights;
+- activations: dynamic per-tensor int8 (scale from the live abs-max), or a
+  calibrated static per-tensor scale (``"sa"``), or calibrated static
+  per-input-channel scales (``"sac"``) folded into the weight's input axis
+  before it is quantized (``x @ W = (x / s_c) @ (W * s_c)``), with the
+  SmoothQuant-style exponent ``E4T_INT8_PC_ALPHA`` (default 0.75);
+- norms, SiLU, softmax and attention stay in the compute type.
+
+The mechanism is weight-driven, as in the JAX package: ``quantize_params``
+turns a UNet state dict into ``{module name: {"q", "s", ["sa" | "sac"]}}``
+for the sites it quantizes, and the ``Linear`` / ``Conv2d`` drop-ins below
+(used by ``models/unet.py`` in place of ``nn.Linear`` / ``nn.Conv2d``, same
+parameters and state-dict keys) run the int8 path while ``int8_sites``
+holds a quantized entry for them. ``calibration`` records each site's
+activation abs-max (``"amax"``) and per-input-channel abs-max (``"amax_c"``)
+instead.
+
+Names: the port keys sites by torch module name ("down_blocks.0.resnets.0
+.conv1"); the exclusion lists and the act-scales file use the JAX package's
+module paths ("down_blocks_0/resnets_0/conv1"), so a list or a file means the
+same sites in both packages.
+
+int8 products: ``torch._int_mm`` for every linear site (a plain large
+product, as XLA's dot is on the TPU) and the hand-written kernel of
+``ops/int8_conv.py`` for every conv site.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import json
+import os
+from typing import Dict, Iterator, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from e4t_diffusion_torch.ops import int8_conv as _conv
+from e4t_diffusion_torch.utils.convert import unet_component
+
+_EPS = 1e-8
+ACT_SCALES_FORMAT = "e4t-act-amax-v1"
+
+# Module subtrees kept in full precision by default: the first and last convs
+# and the timestep-embedding MLP (standard diffusion PTQ). E4T_INT8_EXCLUDE
+# (comma list of JAX module names; empty = quantize all) overrides.
+DEFAULT_EXCLUDE = ("conv_in", "conv_out", "time_embedding")
+
+# UNet sites kept on dynamic activation scales under static-act serving (the
+# weights still int8): the residual-carrying convs, whose live ranges
+# outgrow a short calibration (the JAX package's measured attribution).
+# E4T_INT8_STATIC_EXCLUDE (set, possibly empty) overrides.
+UNET_STATIC_EXCLUDE = ("conv_shortcut", "downsamplers", "upsamplers")
+
+QSite = Dict[str, torch.Tensor]
+
+# {module: its quantized entry} while int8_sites() is active
+_SITES: contextvars.ContextVar = contextvars.ContextVar("int8_sites",
+                                                        default=None)
+# (modules -> name, the amax dict being filled) while calibration() is active
+_CALIB: contextvars.ContextVar = contextvars.ContextVar("calibration",
+                                                        default=None)
+
+
+def env_truthy(name: str, default: str = "0") -> bool:
+    """The int8 env knobs' truthiness: anything but 0/false/empty."""
+    return os.environ.get(name, default).lower() not in ("0", "false", "")
+
+
+def jax_path(module_name: str) -> str:
+    """A UNet module name in the JAX package's path form:
+    "down_blocks.0.attentions.0.transformer_blocks.0.ff.net.0.proj" ->
+    "down_blocks_0/attentions_0/transformer_blocks_0/ff/net_0_proj"."""
+    parts = []
+    for p in module_name.split("."):
+        if p.isdigit() or (p == "proj" and parts and parts[-1] == "net_0"):
+            parts[-1] = f"{parts[-1]}_{p}"
+        else:
+            parts.append(p)
+    return "/".join(parts)
+
+
+def module_name(path: Sequence[str]) -> str:
+    """Inverse of ``jax_path``: JAX path components -> the torch module name,
+    through ``utils/convert``'s component mapping."""
+    return ".".join(unet_component(c) for c in path)
+
+
+def quantize_kernel(w: torch.Tensor) -> QSite:
+    """Symmetric per-output-channel int8 of a torch weight ((O, I) or (O, I,
+    kh, kw)): the output channel is dim 0, the scale reduces over the rest."""
+    w32 = w.float()
+    s = torch.clamp(w32.abs().amax(dim=tuple(range(1, w.dim()))), min=_EPS)
+    s = s / 127.0
+    shape = (-1,) + (1,) * (w.dim() - 1)
+    q = torch.clamp(torch.round(w32 / s.reshape(shape)), -127, 127)
+    return {"q": q.to(torch.int8), "s": s}
+
+
+def _env_list(name: str, default):
+    env = os.environ.get(name)
+    if env is None:
+        return default
+    return tuple(x for x in env.split(",") if x)
+
+
+def quantize_params(state_dict: Dict[str, torch.Tensor],
+                    act_amax: Optional[Dict[str, QSite]] = None,
+                    act_headroom: Optional[float] = None,
+                    exclude: Optional[Sequence[str]] = None,
+                    static_exclude: Optional[Sequence[str]] = None,
+                    act_pc: Optional[bool] = None) -> Dict[str, QSite]:
+    """The int8 form of every linear / conv weight (ndim 2 or 4) of a UNet
+    state dict whose module is not excluded -> ``{module name: {"q": int8,
+    "s": (O,) f32, ["sa": () f32 | "sac": (I,) f32]}}``. Linear "q" is
+    (O, I); conv "q" is (O, kh, kw, I), the layout of the int8 conv kernel.
+
+    The rules of the JAX package's ``quantize_params``:
+    ``exclude`` (default ``E4T_INT8_EXCLUDE``, else ``DEFAULT_EXCLUDE``)
+    names whole JAX module-path components; ``act_amax`` (``{module name:
+    {"amax", "amax_c"}}`` from ``calibration``) gives each site a static
+    scale ``"sa" = max(amax * headroom, 1e-8) / 127`` unless a substring of
+    ``static_exclude`` (default ``E4T_INT8_STATIC_EXCLUDE``, else none) is
+    in its JAX path; ``act_pc`` (default ``E4T_INT8_ACT_PC``) folds the
+    per-channel ``"sac" = a_c ** alpha * max(a_c ** (1 - alpha)) / 127``
+    into the weight's input axis (dim 1) before quantizing, where the site's
+    calibration has ``"amax_c"``. ``act_headroom`` defaults to
+    ``E4T_INT8_CALIB_HEADROOM`` (1.0)."""
+    if act_headroom is None:
+        act_headroom = float(os.environ.get("E4T_INT8_CALIB_HEADROOM", "1.0"))
+    if act_pc is None:
+        act_pc = env_truthy("E4T_INT8_ACT_PC")
+    pc_alpha = float(os.environ.get("E4T_INT8_PC_ALPHA", "0.75"))
+    if exclude is None:
+        exclude = _env_list("E4T_INT8_EXCLUDE", DEFAULT_EXCLUDE)
+    if static_exclude is None:
+        static_exclude = _env_list("E4T_INT8_STATIC_EXCLUDE", ())
+    act_amax = act_amax or {}
+
+    out: Dict[str, QSite] = {}
+    for key, w in state_dict.items():
+        if not key.endswith(".weight") or w.dim() not in (2, 4):
+            continue
+        name = key[: -len(".weight")]
+        path = jax_path(name)
+        if any(c in exclude for c in path.split("/") + ["kernel"]):
+            continue
+        calib = act_amax.get(name, {})
+        static_here = ("amax" in calib and not any(
+            p in f"{path}/kernel" for p in static_exclude))
+        if static_here and act_pc and "amax_c" in calib:
+            amax_c = torch.clamp(calib["amax_c"].float().to(w.device)
+                                 * act_headroom, min=_EPS)
+            sac = (amax_c ** pc_alpha
+                   * torch.max(amax_c ** (1.0 - pc_alpha)) / 127.0)
+            shape = (1, -1) + (1,) * (w.dim() - 2)
+            site = quantize_kernel(w.float() * sac.reshape(shape))
+            site["sac"] = sac
+        else:
+            site = quantize_kernel(w)
+            if static_here:
+                amax = calib["amax"].float().to(w.device)
+                site["sa"] = torch.clamp(amax * act_headroom, min=_EPS) / 127.0
+        if w.dim() == 4:
+            site["q"] = site["q"].permute(0, 2, 3, 1).contiguous()
+        out[name] = site
+    return out
+
+
+def quantize_activation(x: torch.Tensor, site: QSite, channel_dim: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 activation (quant.py:251-265 of the JAX package) ->
+    (int8 values, f32 dequantization factor): the per-channel ``"sac"``
+    along ``channel_dim`` (whose magnitude is folded into the weight, so the
+    factor is 1), the static ``"sa"``, or the live abs-max."""
+    x32 = x.float()
+    sac = site.get("sac")
+    if sac is not None:
+        shape = [1] * x.dim()
+        shape[channel_dim] = -1
+        q = torch.clamp(torch.round(x32 / sac.reshape(shape)), -127, 127)
+        return q.to(torch.int8), torch.ones((), device=x.device)
+    s = site.get("sa")
+    if s is None:
+        s = torch.clamp(x32.abs().amax(), min=_EPS) / 127.0
+    q = torch.clamp(torch.round(x32 / s), -127, 127)
+    return q.to(torch.int8), s
+
+
+# torch._int_mm on CUDA takes more than 16 rows (and K, N multiples of 8,
+# which every UNet width is); fewer rows are zero-padded up to this
+_INT_MM_MIN_ROWS = 32
+
+
+def _int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (N, K)^T int8 -> (M, N) exact int32."""
+    m = a.shape[0]
+    if m < _INT_MM_MIN_ROWS:
+        a = F.pad(a, (0, 0, 0, _INT_MM_MIN_ROWS - m))
+    return torch._int_mm(a, w.t())[:m]
+
+
+def int8_linear(x: torch.Tensor, site: QSite,
+                bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``int8_dense`` of the JAX package: int8 x @ q^T in int32, times
+    ``sx * s`` in f32, cast to x's dtype, then the bias in that dtype."""
+    xq, sx = quantize_activation(x, site, -1)
+    q = site["q"]
+    acc = _int_mm(xq.reshape(-1, q.shape[1]), q)
+    y = (acc.float() * (sx * site["s"])).to(x.dtype)
+    y = y.reshape(*x.shape[:-1], q.shape[0])
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y
+
+
+def int8_conv2d(x: torch.Tensor, site: QSite, bias: Optional[torch.Tensor],
+                stride: int, padding: int) -> torch.Tensor:
+    """``int8_conv`` of the JAX package on NCHW: quantize, permute to NHWC,
+    then the int8 conv kernel (``ops/int8_conv.py``) with its fused
+    rescale and bias; channels are zero-padded to the kernel's multiple of
+    16 where needed (conv_in's 4, when it is not excluded)."""
+    xq, sx = quantize_activation(x, site, 1)
+    xq = xq.permute(0, 2, 3, 1)
+    q = site["q"]
+    pad = -xq.shape[3] % _conv.CHANNEL_ALIGN
+    if pad:
+        xq = F.pad(xq, (0, pad))
+        q = F.pad(q, (0, pad))
+    scale = (sx * site["s"]).float()
+    b = bias.to(x.dtype) if bias is not None else None
+    return _conv.int8_conv(xq.contiguous(), q, scale, b, x.dtype, stride,
+                           padding)
+
+
+def _site(module: nn.Module) -> Optional[QSite]:
+    sites = _SITES.get()
+    return None if sites is None else sites.get(module)
+
+
+def _observe(module: nn.Module, x: torch.Tensor, channel_dim: int) -> None:
+    """Under ``calibration``: fold this call's abs-max and per-input-channel
+    abs-max into the site's running max."""
+    calib = _CALIB.get()
+    if calib is None:
+        return
+    names, amax = calib
+    name = names.get(module)
+    if name is None:
+        return
+    ax = x.detach().float().abs()
+    dims = tuple(i for i in range(x.dim()) if i != channel_dim % x.dim())
+    cur = {"amax": ax.amax(), "amax_c": ax.amax(dim=dims)}
+    prev = amax.get(name)
+    amax[name] = cur if prev is None else {
+        k: torch.maximum(prev[k], v) for k, v in cur.items()}
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` (same parameters) that runs ``int8_linear`` while
+    ``int8_sites`` holds an entry for it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        site = _site(self)
+        if site is not None:
+            return int8_linear(x, site, self.bias)
+        _observe(self, x, -1)
+        return super().forward(x)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters; square kernels, one int stride and
+    padding, as the UNet's) that runs ``int8_conv2d`` while ``int8_sites``
+    holds an entry for it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        site = _site(self)
+        if site is not None:
+            return int8_conv2d(x, site, self.bias, self.stride[0],
+                               self.padding[0])
+        _observe(self, x, 1)
+        return super().forward(x)
+
+
+def site_modules(model: nn.Module) -> Dict[str, nn.Module]:
+    """{module name: module} of ``model``'s int8-capable sites."""
+    return {name: m for name, m in model.named_modules()
+            if isinstance(m, (Linear, Conv2d))}
+
+
+@contextlib.contextmanager
+def int8_sites(model: nn.Module, sites: Dict[str, QSite]) -> Iterator[None]:
+    """While active, the sites of ``model`` named in ``sites`` (from
+    ``quantize_params``) run int8; every other site is unchanged."""
+    modules = site_modules(model)
+    unknown = sorted(set(sites) - set(modules))
+    if unknown:
+        raise KeyError(f"no int8-capable site named {unknown[:4]}")
+    token = _SITES.set({modules[name]: site for name, site in sites.items()})
+    try:
+        yield
+    finally:
+        _SITES.reset(token)
+
+
+@contextlib.contextmanager
+def calibration(model: nn.Module) -> Iterator[Dict[str, QSite]]:
+    """Record activation ranges: yields ``{module name: {"amax": () f32,
+    "amax_c": (C_in,) f32}}``, the running max over every call of each
+    site of ``model`` while the context is active (the JAX package's
+    "calib" collection, max-reduced over passes and steps)."""
+    amax: Dict[str, QSite] = {}
+    names = {m: name for name, m in site_modules(model).items()}
+    token = _CALIB.set((names, amax))
+    try:
+        yield amax
+    finally:
+        _CALIB.reset(token)
+
+
+# ---- calibration-scale files --------------------------------------------
+
+def save_act_scales(act_amax: Dict[str, QSite], path: str) -> None:
+    """Write calibrated ranges in the JAX package's ``e4t-act-amax-v1`` JSON:
+    ``{"format", "scales": {"<JAX module path>/amax": float,
+    ".../amax_c": [floats]}}``, readable by either package."""
+    flat = {}
+    for name, site in act_amax.items():
+        for key, v in site.items():
+            arr = v.detach().float().cpu()
+            flat[f"{jax_path(name)}/{key}"] = (arr.tolist() if arr.dim()
+                                               else float(arr))
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({"format": ACT_SCALES_FORMAT, "scales": flat}, f,
+                  indent=0, sort_keys=True)
+
+
+def load_act_scales(path: str, device=None) -> Dict[str, QSite]:
+    """Inverse of ``save_act_scales`` (and of the JAX package's) ->
+    ``{module name: {"amax", "amax_c"}}`` of f32 tensors."""
+    with open(path, encoding="utf-8") as f:
+        payload = json.load(f)
+    if payload.get("format") != ACT_SCALES_FORMAT:
+        raise ValueError(f"{path}: not an {ACT_SCALES_FORMAT} file")
+    out: Dict[str, QSite] = {}
+    for key, v in payload["scales"].items():
+        *path_parts, leaf = key.split("/")
+        out.setdefault(module_name(path_parts), {})[leaf] = torch.tensor(
+            v, dtype=torch.float32, device=device)
+    return out

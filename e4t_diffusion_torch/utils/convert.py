@@ -55,7 +55,9 @@ def _walk(node: Mapping, path: list, rename, out: StateDict) -> None:
             _leaf(out, ".".join(path), k, v)
 
 
-def _unet_component(comp: str) -> str:
+def unet_component(comp: str) -> str:
+    """One JAX UNet module-name component -> its torch form
+    ("down_blocks_0" -> "down_blocks.0", "net_0_proj" -> "net.0.proj")."""
     if comp == "net_0_proj":
         return "net.0.proj"
     if comp == "net_2":
@@ -75,7 +77,7 @@ def _vae_component(comp: str) -> str:
 
 def unet_from_jax(params: Mapping) -> StateDict:
     out: StateDict = {}
-    _walk(params, [], _unet_component, out)
+    _walk(params, [], unet_component, out)
     return out
 
 

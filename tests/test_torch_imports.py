@@ -1,6 +1,6 @@
 """Guard: the port and chip_smoke.py import nothing of JAX or of the JAX
 package, by source scan and by importing every module in a fresh
-interpreter."""
+interpreter, which also builds and loads no kernel."""
 import ast
 import os
 import subprocess
@@ -56,8 +56,12 @@ def test_importing_the_port_loads_no_jax():
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
-        f"print(sorted(new & set({FORBIDDEN!r})))\n")
+        f"print(sorted(new & set({FORBIDDEN!r})))\n"
+        "from e4t_diffusion_torch.ops import _build\n"
+        "print(sorted(_build._loaded), 'triton' in sys.modules)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.strip() == "[]"
+    # no JAX; and no kernel library built or loaded, nor triton imported,
+    # until a wrapper first launches on a CUDA tensor
+    assert proc.stdout.split("\n")[:2] == ["[]", "[] False"]

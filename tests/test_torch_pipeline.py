@@ -25,7 +25,7 @@ from e4t_diffusion_torch.diffusion.pipeline import (
 from e4t_diffusion_torch.utils.tokenizer import CLIPTokenizer
 
 from test_artifacts import _write_sd_base
-from torch_parity import jax_tiny, port_tiny
+from torch_parity import jax_tiny, port_tiny, rel_l2
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E4T_CONFIG = {"placeholder_token": "*s", "domain_class_token": "face",
@@ -331,3 +331,77 @@ def test_tuning_cli_flags(tmp_path):
         "--local_rank", "0", "--logging_dir", "x"])
     assert (args.train_batch_size, args.max_train_steps, args.resolution,
             args.device) == (16, 15, 512, "cuda")
+
+
+def test_pipeline_int8_static_matches_jax(pipes, monkeypatch, tmp_path):
+    """int8="static" with injected latents: the first call calibrates as the
+    JAX pipeline does (every site's range to 1e-5 of that range) and later
+    calls reuse the ranges; the images carry an int8 error of the size of
+    JAX's. They are not compared value by value: over three steps and two
+    UNet passes each, f32 ulps that move values across int8 rounding
+    boundaries grow into differences of the size of the int8 error itself
+    (tests/test_torch_quant.py holds the UNet site by site)."""
+    from e4t_diffusion_tpu.ops import quant as jax_quant
+
+    from e4t_diffusion_torch.ops import quant
+
+    monkeypatch.setenv("E4T_INT8_CALIB_STEPS", "2")
+    jax_pipe, pipe, image = pipes
+    kwargs = dict(num_inference_steps=3, guidance_scale=7.5,
+                  num_images_per_prompt=2, latents=_latents(4),
+                  scheduler_type="ddim")
+    jax8 = JaxPipeline(jax_pipe.modules, jax_pipe.params, jax_pipe.tokenizer,
+                       jax_pipe.e4t_config, int8="static",
+                       already_added_placeholder_token=True)
+    port8 = StableDiffusionE4TPipeline(
+        pipe.modules, pipe.offsets, pipe.tokenizer, pipe.e4t_config,
+        already_added_placeholder_token=True, int8="static")
+    ref8 = np.asarray(jax8(PROMPTS, image, **kwargs))
+    out8 = port8(PROMPTS, image, **kwargs)
+    ref = np.asarray(jax_pipe(PROMPTS, image, **kwargs))
+
+    path = str(tmp_path / "jax_scales.json")
+    jax_quant.save_act_scales(jax.device_get(jax8._act_amax), path)
+    want = quant.load_act_scales(path)
+    assert set(port8.act_amax) == set(want)
+    for name, site in want.items():
+        for k, v in site.items():
+            np.testing.assert_allclose(port8.act_amax[name][k].numpy(),
+                                       v.numpy(), rtol=0,
+                                       atol=1e-5 * float(v.max()))
+    jax_err, port_err = rel_l2(ref8, ref), rel_l2(out8, ref)
+    assert 1e-3 < jax_err < 0.2
+    assert 0.5 * jax_err < port_err < 1.5 * jax_err
+    amax = port8.act_amax
+    port8(PROMPTS[0], image, num_inference_steps=1)
+    assert port8.act_amax is amax
+
+
+def test_inference_cli_int8_act_scales(artifact_dir):
+    """--int8_static_act --act_scales: the first run calibrates and writes
+    the file (which the JAX package reads), the second reads it and renders
+    the same grid; --int8_attn parses (the CPU has no flash site)."""
+    from e4t_diffusion_tpu.ops import quant as jax_quant
+
+    from e4t_diffusion_torch import inference
+
+    root, out_dir = artifact_dir
+    scales = root / "scales.json"
+    grids = []
+    for i in range(2):
+        path = root / f"int8_{i}.png"
+        proc = _cli(root, out_dir, "--device", "cpu", "--output", str(path),
+                    "--int8", "--int8_static_act", "--act_scales",
+                    str(scales), "--int8_attn", "qkpv")
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert (("saved" if i == 0 else "loaded") + " activation ranges"
+                in proc.stdout)
+        grids.append(np.asarray(Image.open(path)))
+    np.testing.assert_array_equal(grids[0], grids[1])
+    assert len(jax_quant.load_act_scales(str(scales))) > 0
+    for flags, mode in (([], False), (["--int8"], True),
+                        (["--int8_static_act"], "static"),
+                        (["--int8_pc_act"], "static_pc")):
+        args = inference.parse_args(["--pretrained_model_name_or_path", "-",
+                                     "--image_path_or_url", "-", *flags])
+        assert inference.int8_mode(args) == mode

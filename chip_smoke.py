@@ -18,14 +18,22 @@ Phases (any failure exits non-zero; each prints its wall seconds):
    then dynamic scales with the int8 attention kernel in "qk" and "qkpv"
    mode; the UNet's eps on the kernels against the same int8 path on the
    plain versions, and the int8 error against bf16;
-6. tuning: phase-2 E4T tuning (``tuning_e4t.tune``, what the CLI runs
+6. routes_sampling: phase 4's pipeline with the two opt-in routes on,
+   ``E4T_FUSED_GN=1`` (every UNet and VAE GroupNorm on the GroupNorm
+   kernel) and ``E4T_SHORTSEQ_MH_ATTN=8`` (the ViT-H's 257-token sites on
+   the short-sequence kernel): DDIM twice, the UNet's eps against the
+   routes off;
+7. tuning: phase-2 E4T tuning (``tuning_e4t.tune``, what the CLI runs
    after loading) at the same width, f32 trainables, bf16 compute, the
    reference defaults (batch 16, 512px), 3 steps;
-7. the tiny pipeline on the card against the same pipeline on the CPU, in
-   f32 and in static int8.
-In phases 4 to 6 the kernels' launch counters, set to 0 just before each
+8. routes_tuning: the same from the same weights with both routes on, 2
+   steps, the first step's loss and grad norm against phase 7's;
+9. the tiny pipeline on the card against the same pipeline on the CPU, in
+   f32, in static int8 and in f32 with ``E4T_FUSED_GN=1``.
+In phases 4 to 8 the kernels' launch counters, set to 0 just before each
 run and read just after, must show the path went through every kernel it
-routes to, as many times as its attention and conv sites give.
+routes to, as many times as its attention, conv and GroupNorm sites give.
+The two routes are off by default, and off in every other phase.
 
 The second-to-last line of output is a JSON ``kernels`` record, the last
 ``{"ok": true, "device": {...}}``.
@@ -80,6 +88,18 @@ UNET_INT8_PLAIN_REL_L2 = 2e-2
 # int8 against bf16, eps and final latents: PTQ error is a few percent; a
 # wrong scale or layout gives O(1)
 INT8_VS_BF16_REL_L2 = 0.25
+# GroupNorm kernel against its f32 plain version: bf16 output rounding
+# (rel-L2 ~2e-3); in f32 only the order of the f32 sums differs
+GN_BF16_REL_L2 = 1e-2
+GN_F32_MAX_ABS = 1e-4
+# the UNet's eps with both opt-in routes on vs off uses UNET_ROUTE_REL_L2:
+# the GroupNorm kernel and ATen's group_norm round their bf16 outputs apart
+# the first tuning step's loss and grad norm with both routes on vs off,
+# same weights and data: bf16 rounding apart at 61 GroupNorm sites a pass
+# and the ViT's 32 attention sites
+TUNING_ROUTE_REL = 5e-2
+# the knobs and the values the opt-in phases set
+ROUTE_KNOBS = {"E4T_FUSED_GN": "1", "E4T_SHORTSEQ_MH_ATTN": "8"}
 
 STEPS = 4
 PROMPTS = ["a photo of *s", "a *s face in monet style"]
@@ -130,6 +150,30 @@ def cuda_time_ms(fn, reps=20):
     return times[len(times) // 2]
 
 
+def device_ms(fn, reps=20):
+    """Device time of one call: the kernels' device time summed under
+    ``torch.profiler`` over ``reps`` calls (after one warm-up), over
+    ``reps``. A small kernel's CUDA-event time is its launch overhead on the
+    host; this is the time the card spends."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(evt.self_device_time_total for evt in prof.key_averages()
+             if evt.device_type == DeviceType.CUDA
+             and not getattr(evt, "is_user_annotation", False))
+    if us <= 0:
+        fail("torch.profiler recorded no device time")
+    return us / reps / 1e3
+
+
 def phase_environment():
     import torch
 
@@ -156,10 +200,11 @@ def phase_environment():
 def phase_build():
     """One nvcc per kernel source, all started together."""
     from e4t_diffusion_torch.ops import (_build, flash_bwd, flash_int8,
-                                         flash_lowdim, int8_conv)
+                                         flash_lowdim, groupnorm, int8_conv,
+                                         shortseq)
 
     sources = [flash_lowdim.SOURCE, flash_bwd.SOURCE, flash_int8.SOURCE,
-               int8_conv.SOURCE]
+               int8_conv.SOURCE, groupnorm.SOURCE, shortseq.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = list(pool.map(_build.build, sources))
@@ -168,8 +213,8 @@ def phase_build():
     for src, log in zip(sources, logs):
         usage[src], name = [], "?"
         for ln in log.splitlines():
-            m = re.search(r"\d((?:flash|int8)[a-z0-9_]*?_kernel)I(\w+?)E[Ev]",
-                          ln)
+            m = re.search(r"\d((?:flash|int8|group_norm|shortseq)[a-z0-9_]*?"
+                          r"_kernel)I(\w+?)E[Ev]", ln)
             if m:
                 args = re.findall(r"L[a-z](\d+)E", m.group(2) + "E")
                 name = f"{m.group(1)}<{','.join(args) or m.group(2)}>"
@@ -428,6 +473,156 @@ def _conv_case(n, c, o, h, w, k, stride, pad, gen, timed, sites=None):
     return case
 
 
+def _group_norm_sites(unet_config, vae_config, batch, resolution,
+                      device="meta"):
+    """{"unet", "unet_tap", "vae_decode", "vae_encode": {(C, H, W, groups,
+    eps, act, layout): sites}}: the GroupNorm sites of one UNet pass (full,
+    and the tap pass that stops after the mid block), one VAE decode and
+    one VAE encode, read off forwards of bf16 models on ``device``.
+    The layout ("nchw" or "nhwc", channels-last memory) is the one a site's
+    input has on the card: the meta device does not carry it ("nchw")."""
+    import torch
+
+    from e4t_diffusion_torch.models import unet as unet_mod
+    from e4t_diffusion_torch.models import vae as vae_mod
+
+    with torch.device(device):
+        unet = unet_mod.UNet2DConditionModel(unet_config).to(torch.bfloat16)
+        vae = vae_mod.AutoencoderKL(vae_config).to(torch.bfloat16)
+    plain = unet_mod.group_norm_act
+    sites = {}
+    current = {}
+
+    def record(x, norm, act=None):
+        key = (x.shape[1], x.shape[2], x.shape[3], norm.num_groups,
+               norm.eps, act, "nchw" if x.is_contiguous() else "nhwc")
+        current[key] = current.get(key, 0) + 1
+        return plain(x, norm, act)
+
+    side = resolution // 8
+    runs = {
+        "unet": lambda: unet(torch.zeros(batch, 4, side, side),
+                             torch.zeros(batch), torch.zeros(
+                                 batch, 77, unet_config.cross_attention_dim)),
+        "unet_tap": lambda: unet(torch.zeros(batch, 4, side, side),
+                                 torch.zeros(batch), torch.zeros(
+                                     batch, 77,
+                                     unet_config.cross_attention_dim),
+                                 return_encoder_outputs=True),
+        "vae_decode": lambda: vae.decode(torch.zeros(batch, 4, side, side)),
+        "vae_encode": lambda: vae.encode(
+            torch.zeros(batch, 3, resolution, resolution))}
+    unet_mod.group_norm_act = vae_mod.group_norm_act = record
+    try:
+        for name, run in runs.items():
+            current = sites[name] = {}
+            with torch.device(device), torch.inference_mode():
+                run()
+    finally:
+        unet_mod.group_norm_act = vae_mod.group_norm_act = plain
+    del unet, vae
+    return sites
+
+
+def _gn_case(n, c, h, w, groups, eps, act, layout, dtype, gen, timed,
+             sites=None):
+    """The GroupNorm kernel against its plain version in f32 on the same
+    input, in memory ``layout`` ("nchw", or "nhwc": channels-last); timed
+    (device time, and the kernel's and the library's CUDA-event time per
+    call, ``wall_ms``): kernel, plain, ``F.group_norm`` (then ``F.silu``)
+    with the same weights, and the bound: x read once, y written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from e4t_diffusion_torch.ops import groupnorm as gn
+
+    x = (torch.randn(n, c, h, w, device="cuda", generator=gen) * 2
+         + 0.5).to(dtype)
+    if layout == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+    # the modules' parameters are in the compute dtype
+    weight = (torch.rand(c, device="cuda", generator=gen) + 0.5).to(dtype)
+    bias = (torch.randn(c, device="cuda", generator=gen) * 0.5).to(dtype)
+    out = gn.fused_group_norm(x, weight, bias, groups, eps, act)
+    torch.cuda.synchronize()
+    ref = gn.group_norm_reference(x.float(), weight, bias, groups, eps, act)
+    case = {"kernel": "group_norm", "n": n, "c": c, "h": h, "w": w,
+            "groups": groups, "act": act, "layout": layout,
+            "dtype": str(dtype),
+            "out_rel_l2": _rel(out, ref),
+            "out_max_abs": (out.float() - ref).abs().max().item()}
+    if sites is not None:
+        case["sites"] = sites
+    del ref
+    ok = (case["out_rel_l2"] <= GN_BF16_REL_L2 if dtype == torch.bfloat16
+          else case["out_max_abs"] <= GN_F32_MAX_ABS)
+    if not ok:
+        fail(f"group_norm disagrees with its plain version: {case}")
+    if timed:
+        def kernel():
+            return gn.fused_group_norm(x, weight, bias, groups, eps, act)
+
+        def library():
+            y = F.group_norm(x, groups, weight, bias, eps)
+            return F.silu(y) if act == "silu" else y
+
+        case.update(
+            ms=device_ms(kernel), wall_ms=cuda_time_ms(kernel),
+            plain_ms=device_ms(lambda: gn.group_norm_reference(
+                x.float(), weight, bias, groups, eps, act), reps=3),
+            library_ms=device_ms(library), library_wall_ms=cuda_time_ms(
+                library),
+            library="F.group_norm then F.silu, bf16",
+            **_bound(2 * x.numel() * x.element_size()
+                     + 2 * c * weight.element_size(), 0, 0))
+    del x, out
+    torch.cuda.empty_cache()
+    return case
+
+
+def _shortseq_case(bh, s, d, g, gen, timed):
+    """The short-sequence kernel against its plain version in f32 on the
+    same bf16 inputs; timed (device time, and CUDA-event time per call,
+    ``wall_ms``): kernel, plain, SDPA's forward and the bound of the work
+    (as for the flash forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from e4t_diffusion_torch.ops import shortseq
+
+    q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    out = shortseq.flash_fwd_shortseq(q, k, v, scale, g)
+    torch.cuda.synchronize()
+    ref = shortseq.flash_fwd_shortseq_reference(q.float(), k.float(),
+                                                v.float(), scale)
+    case = {"kernel": "flash_fwd_shortseq", "bh": bh, "sq": s, "sk": s,
+            "d": d, "g": g, "out_rel_l2": _rel(out, ref),
+            "out_max_abs": (out.float() - ref).abs().max().item()}
+    del ref
+    if not case["out_rel_l2"] <= KERNEL_OUT_REL_L2:
+        fail(f"flash_fwd_shortseq disagrees with its plain version: {case}")
+    if timed:
+        def kernel():
+            return shortseq.flash_fwd_shortseq(q, k, v, scale, g)
+
+        def library():
+            return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                  scale=scale)
+
+        case.update(
+            ms=device_ms(kernel), wall_ms=cuda_time_ms(kernel),
+            plain_ms=device_ms(lambda: shortseq.flash_fwd_shortseq_reference(
+                q.float(), k.float(), v.float(), scale)),
+            library_ms=device_ms(library), library_wall_ms=cuda_time_ms(
+                library),
+            **_bound(2 * 4 * bh * s * d, 4 * bh * s * s * d, bh * s * s))
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return case
+
+
 # the tuning step's attention sites at 512px, batch 16 (BH = 16 x 8 heads):
 # (Sq, Sk, d) of UNet self and cross attention at three resolutions
 TUNING_SITES = ((4096, 4096, 40), (4096, 77, 40), (1024, 1024, 80),
@@ -480,9 +675,42 @@ def phase_kernels():
                                        (16, 24, 5, 13, 1, 1, 0)):
         ragged.append(_conv_case(3, c, o, h, w, k, stride, pad, gen,
                                  timed=False))
+    # the opt-in routes: every distinct GroupNorm site of a batch-8 512px
+    # UNet pass and VAE decode, and the ViT-H's attention sites when
+    # sampling (BH = 8 x 16 heads) and tuning (16 x 16)
+    from e4t_diffusion_torch.models.unet import UNetConfig
+    from e4t_diffusion_torch.models.vae import VAEConfig
+
+    # the sites' layouts as the card gives them at this batch (at batch 1
+    # every UNet site is NCHW; from batch 2 most are channels-last)
+    gn_sites = _group_norm_sites(UNetConfig(), VAEConfig(), n, RESOLUTION,
+                                 "cuda")
+    group_norm = {
+        part: [_gn_case(n, c, h, w, groups, eps, act, layout, torch.bfloat16,
+                        gen, timed=True, sites=count)
+               for (c, h, w, groups, eps, act, layout), count in sorted(
+                   gn_sites[part].items(), key=str)]
+        for part in ("unet", "vae_decode")}
+    torch.cuda.empty_cache()
+    for n_, c, h, w, groups, act, layout, dtype in (
+            (1, 32, 7, 9, 32, "silu", "nchw", torch.float32),  # C/G = 1
+            (3, 40, 7, 9, 8, "silu", "nchw", torch.bfloat16),  # odd H*W
+            (3, 40, 7, 9, 8, "silu", "nhwc", torch.bfloat16),  # C/G = 5
+            (1, 96, 33, 33, 32, None, "nhwc", torch.bfloat16),  # C/G = 3
+            (2, 64, 16, 16, 32, None, "nhwc", torch.float32),
+            (1, 320, 64, 64, 32, "silu", "nchw", torch.float32),
+            (1, 960, 64, 64, 32, "silu", "nhwc", torch.float32)):
+        ragged.append(_gn_case(n_, c, h, w, groups, 1e-5, act, layout, dtype,
+                               gen, timed=False))
+    short = [_shortseq_case(bh, 257, 80, 8, gen, timed=True)
+             for bh in (8 * 16, 16 * 16)]
+    for bh, s_, d, g in ((2, 129, 8, 1), (4, 200, 40, 2), (16, 384, 64, 8),
+                         (32, 512, 120, 16)):
+        ragged.append(_shortseq_case(bh, s_, d, g, gen, timed=False))
     cases = {"sampling": sampling, "tuning_fwd": tuning_fwd, "grid": grid,
              "tuning_bwd": tuning_bwd, "grid_bwd": grid_bwd,
              "int8_flash": int8_flash, "int8_conv": int8_conv,
+             "group_norm": group_norm, "shortseq": short,
              "ragged": ragged}
     print(json.dumps({"phase": "kernels", **cases}))
     return cases
@@ -530,7 +758,8 @@ def _full_width_pipeline(tok_dir):
 # (_flash_fwd_lowdim) and its d >= 128 launches (_flash_fwd_kvres and
 # _flash_fwd) apart
 KERNEL_ROWS = ("flash_fwd_lowdim", "flash_fwd_wide", "flash_bwd",
-               "flash_fwd_int8", "int8_conv")
+               "flash_fwd_int8", "int8_conv", "group_norm",
+               "flash_fwd_shortseq")
 # low-dim flash sites per sampling step at batch >= 5: 10 per UNet forward,
 # two forwards a step; the d=160 sites stay on einsum below 128 MiB
 LOWDIM_SITES_PER_STEP = 20
@@ -540,25 +769,49 @@ def _reset_launches():
     from e4t_diffusion_torch.ops.flash_bwd import flash_bwd
     from e4t_diffusion_torch.ops.flash_int8 import flash_fwd_int8
     from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd
+    from e4t_diffusion_torch.ops.groupnorm import fused_group_norm
     from e4t_diffusion_torch.ops.int8_conv import int8_conv
+    from e4t_diffusion_torch.ops.shortseq import flash_fwd_shortseq
 
     flash_fwd.launches = {"lowdim": 0, "wide": 0}
     flash_bwd.launches = 0
     flash_fwd_int8.launches = 0
     int8_conv.launches = 0
+    fused_group_norm.launches = 0
+    flash_fwd_shortseq.launches = 0
 
 
 def _read_launches():
     from e4t_diffusion_torch.ops.flash_bwd import flash_bwd
     from e4t_diffusion_torch.ops.flash_int8 import flash_fwd_int8
     from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd
+    from e4t_diffusion_torch.ops.groupnorm import fused_group_norm
     from e4t_diffusion_torch.ops.int8_conv import int8_conv
+    from e4t_diffusion_torch.ops.shortseq import flash_fwd_shortseq
 
     return {"flash_fwd_lowdim": flash_fwd.launches["lowdim"],
             "flash_fwd_wide": flash_fwd.launches["wide"],
             "flash_bwd": flash_bwd.launches,
             "flash_fwd_int8": flash_fwd_int8.launches,
-            "int8_conv": int8_conv.launches}
+            "int8_conv": int8_conv.launches,
+            "group_norm": fused_group_norm.launches,
+            "flash_fwd_shortseq": flash_fwd_shortseq.launches}
+
+
+@contextlib.contextmanager
+def _routes_on():
+    """Both opt-in routes on (``ROUTE_KNOBS``) for the block, then the
+    environment as it was."""
+    saved = {k: os.environ.get(k) for k in ROUTE_KNOBS}
+    os.environ.update(ROUTE_KNOBS)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _want(**counts):
@@ -683,7 +936,78 @@ def phase_main_path(smi):
         "rerun_max_abs": rerun, "unet_kernel_vs_einsum_rel_l2": route_rel,
         "launches": [launches, launches2, dpm_launches],
         "profile": prof}))
-    return launches, pipe, image
+    return launches, pipe, image, second_s
+
+
+def _vit_shortseq_sites(vit_cfg, batch):
+    """The ViT-H's attention sites that take the short-sequence route (all
+    of its layers, or none), decided by the port's own route with both
+    opt-in routes on."""
+    from e4t_diffusion_torch.ops.attention import shortseq_route
+
+    shape = (batch, vit_cfg.num_heads, vit_cfg.grid ** 2 + 1,
+             vit_cfg.width // vit_cfg.num_heads)
+    with _routes_on():
+        routed = shortseq_route(shape, shape, "cuda")
+    return vit_cfg.num_layers if routed else 0
+
+
+def phase_routes_sampling(smi, pipe, image, bf16_warm_s):
+    """Phase 4's pipeline with ``E4T_FUSED_GN=1 E4T_SHORTSEQ_MH_ATTN=8``:
+    two same-seed DDIM-4 runs, launches derived from the GroupNorm and
+    attention sites, and one UNet pass with the routes on against off."""
+    import numpy as np
+    import torch
+
+    from e4t_diffusion_torch.models.vae import VAEConfig
+
+    n = len(PROMPTS) * IMAGES_PER_PROMPT
+    unet = pipe.modules.unet
+    gn_sites = _group_norm_sites(unet.config, VAEConfig(), 1, RESOLUTION)
+    per_pass = sum(gn_sites["unet"].values())
+    # two full UNet passes a step, one VAE decode a run; the ViT runs once
+    want = _want(
+        flash_fwd_lowdim=LOWDIM_SITES_PER_STEP * STEPS,
+        group_norm=2 * STEPS * per_pass + sum(gn_sites["vae_decode"].values()),
+        flash_fwd_shortseq=_vit_shortseq_sites(
+            pipe.modules.e4t_encoder.config.vit, n))
+    with _routes_on():
+        first, first_s, launches = _sample(pipe, image, "ddim", want)
+        torch.cuda.reset_peak_memory_stats()
+        second, second_s, launches2 = _sample(pipe, image, "ddim", want)
+        peak = torch.cuda.max_memory_allocated()
+        prof = _profile(lambda: pipe(
+            PROMPTS, image, num_inference_steps=STEPS, guidance_scale=7.5,
+            num_images_per_prompt=IMAGES_PER_PROMPT, height=RESOLUTION,
+            width=RESOLUTION, seed=0))
+    rerun = float(np.abs(first - second).max())
+    if not rerun <= RERUN_MAX_ABS:
+        fail(f"routes on: two same-seed DDIM runs differ by {rerun}")
+
+    gen = torch.Generator("cuda").manual_seed(4)
+    x = torch.randn(n, 4, RESOLUTION // 8, RESOLUTION // 8, device="cuda",
+                    generator=gen)
+    ctx = torch.randn(n, 77, unet.config.cross_attention_dim, device="cuda",
+                      generator=gen)
+    t = torch.full((n,), 500, device="cuda")
+    with torch.inference_mode():
+        eps_off = unet(x, t, ctx).float()
+        with _routes_on():
+            eps_on = unet(x, t, ctx).float()
+    route_rel = _rel(eps_on, eps_off)
+    if not route_rel <= UNET_ROUTE_REL_L2:
+        fail(f"UNet eps, routes on vs off: rel-L2 {route_rel}")
+    print(json.dumps({
+        "phase": "routes_sampling", "card": smi, "knobs": ROUTE_KNOBS,
+        "batch": n, "resolution": RESOLUTION, "steps": STEPS,
+        "guidance": 7.5, "group_norm_sites_per_unet_pass": per_pass,
+        "ddim_first_s": first_s, "ddim_warm_s": second_s,
+        "ddim_images_per_s": n / second_s,
+        "bf16_ddim_warm_s_routes_off": bf16_warm_s,
+        "max_memory_allocated_gb": peak / 1e9, "rerun_max_abs": rerun,
+        "unet_routes_on_vs_off_rel_l2": route_rel,
+        "launches": [launches, launches2], "profile": prof}))
+    return launches
 
 
 @contextlib.contextmanager
@@ -839,12 +1163,14 @@ def phase_int8_sampling(smi, pipe, image):
     return total
 
 
-def _expected_tuning_launches(ucfg, vit_cfg, resolution):
-    """Launches per tuning step, derived from the attention sites. Every
-    site whose query has >= FLASH_MIN_SEQ tokens goes to flash (the step
-    is all-flash); the tap pass runs the down and mid blocks, the full
-    pass every block; whole-UNet remat runs each pass's forward twice,
-    its backward once. The frozen ViT runs forward only."""
+def _expected_tuning_launches(ucfg, vit_cfg, resolution, routes=False):
+    """Launches per tuning step, derived from the attention sites (and,
+    with the opt-in routes on, the GroupNorm sites). Every site whose query
+    has >= FLASH_MIN_SEQ tokens goes to flash (the step is all-flash) but
+    the ViT's, which take the short-sequence kernel with the routes on; the
+    tap pass runs the down and mid blocks, the full pass every block;
+    whole-UNet remat runs each pass's forward twice, its backward once.
+    The frozen ViT runs forward only."""
     from e4t_diffusion_torch.models.weight_offsets import attention_sites
     from e4t_diffusion_torch.ops.attention import FLASH_MIN_SEQ
     from e4t_diffusion_torch.ops.flash_lowdim import launch_route
@@ -863,14 +1189,26 @@ def _expected_tuning_launches(ucfg, vit_cfg, resolution):
         d = dim // ucfg.attention_head_dim
         want[f"flash_fwd_{launch_route(d)}"] += 2 * passes
         want["flash_bwd"] += passes
+    vit_short = _vit_shortseq_sites(vit_cfg, 1) if routes else 0
+    want["flash_fwd_shortseq"] += vit_short
     if vit_cfg.grid ** 2 + 1 >= FLASH_MIN_SEQ:
-        want["flash_fwd_lowdim"] += vit_cfg.num_layers
+        want["flash_fwd_lowdim"] += vit_cfg.num_layers - vit_short
+    if routes:
+        from e4t_diffusion_torch.models.vae import VAEConfig
+
+        sites = _group_norm_sites(ucfg, VAEConfig(), 1, resolution)
+        want["group_norm"] += 2 * (sum(sites["unet_tap"].values())
+                                   + sum(sites["unet"].values()))
     return want
 
 
-def phase_tuning(smi):
+def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None):
     """Phase-2 tuning at full width through ``tuning_e4t.tune`` with the
-    CLI's defaults (batch 16, 512px, lr 1.6e-5, clip 1.0) and bf16."""
+    CLI's defaults (batch 16, 512px, lr 1.6e-5, clip 1.0) and bf16, from
+    seeded weights. ``routes``: both opt-in routes on, and the first step's
+    loss and grad norm held against ``routes_off``, the first step's
+    metrics of a run with the routes off. Returns (launches, the first
+    step's metrics)."""
     import numpy as np
     import torch
 
@@ -887,13 +1225,13 @@ def phase_tuning(smi):
     from e4t_diffusion_torch.utils.tokenizer import (
         CLIPTokenizer, make_tiny_tokenizer_files)
 
-    def cli_args(steps):
+    def cli_args(max_steps):
         return tuning_e4t.parse_args([
             "--pretrained_model_name_or_path", "-", "--train_image_path",
-            "-", "--max_train_steps", str(steps), "--mixed_precision",
+            "-", "--max_train_steps", str(max_steps), "--mixed_precision",
             "bf16"])
 
-    args = cli_args(TUNING_STEPS)
+    args = cli_args(steps)
     ucfg, ecfg = UNetConfig(), E4TEncoderConfig()
     torch.manual_seed(0)
     t0 = time.perf_counter()
@@ -935,7 +1273,8 @@ def phase_tuning(smi):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result = run(args)
+    with _routes_on() if routes else contextlib.nullcontext():
+        result = run(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches()
@@ -948,7 +1287,7 @@ def phase_tuning(smi):
              "vit": sums(e4t.clip_vision.parameters()),
              "vae": sums(modules.vae.parameters())}
     metrics = result["metrics"]
-    if len(metrics) != TUNING_STEPS or not all(
+    if len(metrics) != steps or not all(
             math.isfinite(m[k]) for m in metrics
             for k in ("loss", "loss_diff", "loss_reg", "grad_norm")):
         fail(f"tuning: non-finite or missing metrics {metrics}")
@@ -958,31 +1297,47 @@ def phase_tuning(smi):
     for group in ("vit", "vae"):
         if not torch.equal(before[group], after[group]):
             fail(f"tuning: frozen group {group} changed")
-    per_step = _expected_tuning_launches(ucfg, ecfg.vit, args.resolution)
-    want = {k: TUNING_STEPS * v for k, v in per_step.items()}
+    per_step = _expected_tuning_launches(ucfg, ecfg.vit, args.resolution,
+                                         routes)
+    want = {k: steps * v for k, v in per_step.items()}
+    if routes:
+        # the replicated image is VAE-encoded once a run
+        want["group_norm"] += sum(_group_norm_sites(
+            ucfg, VAEConfig(), 1, args.resolution)["vae_encode"].values())
     if launches != want:
         fail(f"tuning: launches {launches}, expected {want} "
              f"({per_step} per step)")
+    report = {}
+    if routes:
+        report["first_step_vs_routes_off_rel"] = rel = {
+            k: abs(metrics[0][k] - routes_off[k]) / abs(routes_off[k])
+            for k in ("loss", "grad_norm")}
+        if not max(rel.values()) <= TUNING_ROUTE_REL:
+            fail(f"tuning, routes on vs off, first step: {rel} "
+                 f"({metrics[0]} against {routes_off})")
+    else:
+        report["profile"] = _profile(lambda: run(cli_args(1)))
     steady = result["step_seconds"][1:]
     s_per_step = sum(steady) / len(steady)
-    prof = _profile(lambda: run(cli_args(1)))
     print(json.dumps({
-        "phase": "tuning", "card": smi, "setup_s": setup_s,
+        "phase": "routes_tuning" if routes else "tuning", "card": smi,
+        "knobs": ROUTE_KNOBS if routes else {}, "setup_s": setup_s,
         "batch": args.train_batch_size, "resolution": args.resolution,
-        "steps": TUNING_STEPS, "wall_s": wall,
+        "steps": steps, "wall_s": wall,
         "trainable_params": sum(t.numel() for g in trained.values()
                                 for t in g.values()),
         "step_seconds": result["step_seconds"], "s_per_step": s_per_step,
         "samples_per_s": args.train_batch_size / s_per_step,
         "max_memory_allocated_gb": peak / 1e9, "metrics": metrics,
-        "launches": launches, "launches_per_step": per_step,
-        "profile": prof}))
-    return launches
+        "launches": launches, "launches_per_step": per_step, **report}))
+    return launches, metrics[0]
 
 
 def phase_tiny_vs_cpu():
     """The tiny pipeline, f32, on the card and on the CPU; then in static
-    int8, each side calibrating on its first call."""
+    int8, each side calibrating on its first call; then in f32 with
+    ``E4T_FUSED_GN=1`` (the GroupNorm kernel in f32 on the card, its plain
+    version on the CPU), its launches derived from the sites."""
     import numpy as np
     import torch
 
@@ -1007,19 +1362,38 @@ def phase_tiny_vs_cpu():
                                               dtype=np.uint8)
     latents = np.random.default_rng(6).standard_normal(
         (4, 4, 8, 8)).astype(np.float32)
-    outs, outs8, amax = [], [], []
+    steps = 3
+    outs, outs8, outs_gn, amax = [], [], [], []
     with tempfile.TemporaryDirectory() as tok_dir:
         make_tiny_tokenizer_files(tok_dir, extra_words=["a", "photo", "of",
                                                         "face"])
         for mods in (cpu, card):
-            for int8, dst in ((False, outs), ("static", outs8)):
+            for int8, dst in ((False, outs), ("static", outs8),
+                              (False, outs_gn)):
                 pipe = StableDiffusionE4TPipeline(
                     mods, offsets, CLIPTokenizer.from_pretrained(
                         tok_dir, model_max_length=16), cfg, int8=int8)
-                dst.append(pipe(PROMPTS[:1] + ["a *s face"], image,
-                                num_inference_steps=3, guidance_scale=7.5,
-                                num_images_per_prompt=2, latents=latents))
-            amax.append(pipe.act_amax)
+                routes = dst is outs_gn
+                _reset_launches()
+                with _routes_on() if routes else contextlib.nullcontext():
+                    dst.append(pipe(PROMPTS[:1] + ["a *s face"], image,
+                                    num_inference_steps=steps,
+                                    guidance_scale=7.5,
+                                    num_images_per_prompt=2,
+                                    latents=latents))
+                gn_launches = _read_launches()["group_norm"]
+                if int8:
+                    amax.append(pipe.act_amax)
+    sites = _group_norm_sites(cpu.unet.config, cpu.vae.config, 1,
+                              8 * latents.shape[-1])
+    want_gn = (2 * steps * sum(sites["unet"].values())
+               + sum(sites["vae_decode"].values()))
+    if gn_launches != want_gn:
+        fail(f"tiny pipeline, E4T_FUSED_GN=1 on the card: {gn_launches} "
+             f"GroupNorm launches, expected {want_gn}")
+    err_gn = float(np.abs(outs_gn[0] - outs_gn[1]).max())
+    if not err_gn <= TINY_CARD_VS_CPU_MAX_ABS:
+        fail(f"tiny pipeline, E4T_FUSED_GN=1, card vs CPU: max-abs {err_gn}")
     err = float(np.abs(outs[0] - outs[1]).max())
     if not err <= TINY_CARD_VS_CPU_MAX_ABS:
         fail(f"tiny pipeline, card vs CPU: max-abs {err}")
@@ -1037,7 +1411,11 @@ def phase_tiny_vs_cpu():
     print(json.dumps({"phase": "tiny_card_vs_cpu", "max_abs": err,
                       "int8_calibration_rel": amax_err,
                       "int8_max_abs": err8,
-                      "int8_vs_f32_max_abs_cpu": int8_err}))
+                      "int8_vs_f32_max_abs_cpu": int8_err,
+                      "fused_gn_max_abs": err_gn,
+                      "fused_gn_launches": gn_launches,
+                      "fused_gn_vs_off_max_abs_cpu": float(
+                          np.abs(outs_gn[0] - outs[0]).max())}))
 
 
 def kernels_line(cases, paths):
@@ -1121,6 +1499,49 @@ def kernels_line(cases, paths):
             for key in ("ms", "route_ms", "library_ms", "bound_ms")},
         "per_site": [{k: c[k] for k in conv_keys}
                      for c in cases["int8_conv"]]})
+
+    gn = cases["group_norm"]
+    gn_all = gn["unet"] + gn["vae_decode"] + [
+        c for c in cases["ragged"] if c["kernel"] == "group_norm"]
+    gn_keys = ("n", "c", "h", "w", "groups", "act", "layout", "sites", "ms",
+               "wall_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+               "library_wall_ms")
+    site = max(gn["unet"], key=lambda c: c["sites"] * c["ms"])
+
+    def per_run(part):
+        return {key: sum(c["sites"] * c[key] for c in gn[part])
+                for key in ("ms", "wall_ms", "plain_ms", "library_ms",
+                            "library_wall_ms", "bound_ms")}
+
+    kernels.append({
+        "name": "group_norm", "route": "cuda",
+        "source": "e4t_diffusion_torch/csrc/group_norm.cu",
+        "replaces": "e4t_diffusion_tpu/ops/groupnorm.py:117",
+        "launches": sum(p["group_norm"] for p in paths.values()),
+        "launches_by_path": {k: p["group_norm"] for k, p in paths.items()},
+        "max_abs_err": max(c["out_max_abs"] for c in gn_all),
+        "ms": site["ms"], "plain_ms": site["plain_ms"],
+        "bound_ms": site["bound_ms"], "bound_by": site["bound_by"],
+        "library_ms": site["library_ms"], "library": site["library"],
+        "at": f"N={site['n']} C={site['c']} {site['h']}x{site['w']} "
+              f"G={site['groups']} act={site['act']} {site['layout']} bf16 "
+              f"(the largest share of a UNet pass)",
+        "times": "device time under torch.profiler; wall_ms: CUDA events "
+                 "around one call",
+        "per_unet_pass": per_run("unet"),
+        "per_vae_decode": per_run("vae_decode"),
+        "per_site": {part: [{k: c[k] for k in gn_keys} for c in gn[part]]
+                     for part in ("unet", "vae_decode")}})
+    short = [c for c in cases["shortseq"] + cases["ragged"]
+             if c["kernel"] == "flash_fwd_shortseq"]
+    kernels.append(entry("flash_fwd_shortseq", "flash_fwd_shortseq.cu", 896,
+                         cases["shortseq"][0],
+                         [c["out_max_abs"] for c in short],
+                         cases["shortseq"]))
+    kernels[-1]["times"] = kernels[-2]["times"]
+    kernels[-1]["per_site"] = [
+        {k: c[k] for k in timed_keys + ("g", "wall_ms", "library_wall_ms")}
+        for c in cases["shortseq"]]
     return kernels
 
 
@@ -1147,19 +1568,27 @@ def main():
               flush=True)
         return out
 
+    for knob in ROUTE_KNOBS:  # the default paths run with the routes off
+        os.environ.pop(knob, None)
     smi = run("environment", phase_environment)
     run("build", phase_build)
     cases = run("kernels", phase_kernels)
-    sampling, pipe, image = run("sampling", phase_main_path, smi)
+    sampling, pipe, image, warm_s = run("sampling", phase_main_path, smi)
     int8_sampling = run("int8_sampling", phase_int8_sampling, smi, pipe,
                         image)
+    routes_sampling = run("routes_sampling", phase_routes_sampling, smi,
+                          pipe, image, warm_s)
     del pipe
     torch.cuda.empty_cache()
-    tuning = run("tuning", phase_tuning, smi)
+    tuning, first_step = run("tuning", phase_tuning, smi)
+    torch.cuda.empty_cache()
+    routes_tuning, _ = run("routes_tuning", phase_tuning, smi, 2, True,
+                           first_step)
     torch.cuda.empty_cache()
     run("tiny_card_vs_cpu", phase_tiny_vs_cpu)
     paths = {"sampling": sampling, "int8_sampling": int8_sampling,
-             "tuning": tuning}
+             "routes_sampling": routes_sampling, "tuning": tuning,
+             "routes_tuning": routes_tuning}
 
     kernels = kernels_line(cases, paths)
     print(json.dumps({"phase_seconds": timings}))

@@ -5,7 +5,8 @@ interface (no PyTorch headers, so a build takes seconds), at first use,
 into ``build/e4t_torch_kernels/`` at the root of the checkout. The file
 name carries a hash of the source, the shared ``csrc/*.cuh`` headers and
 the flags, so an edited source rebuilds and a stale library is never
-loaded.
+loaded. ``launch`` calls a library's entry point on the current CUDA
+stream and raises on the CUDA error it returns.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "e4t_torch_kernels"
@@ -78,3 +81,23 @@ def load_library(name: str) -> ctypes.CDLL:
         build(name)
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def launch(name: str, symbol: str, argtypes: Sequence, device: torch.device,
+           *args) -> None:
+    """Call the entry point ``symbol`` of ``csrc/<name>.cu`` with ``args``
+    (of ctypes types ``argtypes``) and, last, the current CUDA stream of
+    ``device``. Every entry point returns ``cudaGetLastError()`` after its
+    launch; a non-zero value raises, with the CUDA error's text."""
+    lib = load_library(name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.e4t_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.e4t_cuda_error_string.restype = ctypes.c_char_p
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: "
+                           f"{lib.e4t_cuda_error_string(rc).decode()}")

@@ -10,7 +10,13 @@ Counterpart of ``e4t_diffusion_tpu/ops/attention.py``. Tensors are
   hand-written CUDA kernels: the forward of ``ops/flash_lowdim.py`` and
   the backward of ``ops/flash_bwd.py``, both for head_dim up to 256.
   head_dim is zero-padded to a multiple of 8.
-- ``dot_product_attention``: picks between them with ``flash_route``;
+- ``shortseq_mh_attention``: ``ShortSeqAttention``, an autograd Function
+  over the short-sequence kernel of ``ops/shortseq.py`` (forward) and
+  einsum attention (backward), for self-attention with 128 < seq <= 512
+  and a head dim below 128 (the ViT-H's 257-token d=80 sites), taken when
+  ``E4T_SHORTSEQ_MH_ATTN`` is a positive integer (read per call).
+- ``dot_product_attention``: checks ``shortseq_route`` first, then picks
+  between einsum and flash with ``flash_route``, in the reference's order;
   ``flash_threshold`` overrides the score-size threshold (training runs
   all-flash under ``flash_threshold(0)``, as the JAX train step traces).
 - ``int8_flash_attention(mode)``: while active, flash sites with a head dim
@@ -26,7 +32,7 @@ from typing import Iterator, Optional, Sequence
 
 import torch
 
-from e4t_diffusion_torch.ops import flash_int8
+from e4t_diffusion_torch.ops import flash_int8, shortseq
 from e4t_diffusion_torch.ops.flash_bwd import flash_bwd
 from e4t_diffusion_torch.ops.flash_lowdim import MAX_D, WIDE_MIN_D, flash_fwd
 
@@ -35,6 +41,10 @@ from e4t_diffusion_torch.ops.flash_lowdim import MAX_D, WIDE_MIN_D, flash_fwd
 # (attention.py:247,419), carried until they are measured on the H100.
 FLASH_SCORE_BYTES = 128 * 1024 ** 2
 FLASH_MIN_SEQ = 128
+# the short-sequence route takes seq above this (and up to the kernel's
+# shortseq.MAX_SEQ) and round_up(head_dim, 8) below shortseq.MAX_D, the
+# reference's bounds (attention.py:379-389)
+SHORTSEQ_MIN_SEQ = 128
 _NEG_INF = -1e30
 
 # the threshold flash_threshold() put in force in this context, if any
@@ -214,11 +224,74 @@ def flash_route(q_shape: Sequence[int], k_shape: Sequence[int],
             and score_bytes > flash_threshold_bytes())
 
 
+class ShortSeqAttention(torch.autograd.Function):
+    """Short-sequence self-attention over BHSD tensors, ``g`` heads per
+    cell: the forward is the short-sequence kernel (head_dim zero-padded to
+    a multiple of 8), the backward differentiates ``einsum_attention`` on a
+    recompute from the saved (q, k, v), the reference's
+    ``_shortseq_mh_bwd``. On the CPU the forward runs the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, g: int):
+        b, h, s, d = q.shape
+        d_sub = _round_up(d, 8)
+        qf, kf, vf = (t.reshape(b * h, s, d) for t in (q, k, v))
+        if d_sub != d:
+            qf, kf, vf = (torch.nn.functional.pad(t, (0, d_sub - d))
+                          for t in (qf, kf, vf))
+        out = shortseq.flash_fwd_shortseq(qf.contiguous(), kf.contiguous(),
+                                          vf.contiguous(), scale, g)
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return out[..., :d].reshape(b, h, s, d)
+
+    @staticmethod
+    def backward(ctx, dout):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = einsum_attention(*inputs, scale=ctx.scale)
+            grads = torch.autograd.grad(out, inputs, dout)
+        return (*grads, None, None)
+
+
+def shortseq_mh_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Self-attention on BHSD tensors through ``ShortSeqAttention``, with g
+    heads per cell picked from ``E4T_SHORTSEQ_MH_ATTN`` as the reference
+    picks it; with the knob off (or <= 0) a ValueError names it."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    g = shortseq.heads_per_cell(q.shape[0] * q.shape[1],
+                                shortseq.heads_knob())
+    return ShortSeqAttention.apply(q, k, v, scale, g)
+
+
+def shortseq_route(q_shape: Sequence[int], k_shape: Sequence[int],
+                   device: torch.device, has_bias: bool = False,
+                   causal: bool = False) -> bool:
+    """True where ``dot_product_attention`` sends a site to the
+    short-sequence kernel: ``E4T_SHORTSEQ_MH_ATTN`` > 0, a CUDA device, no
+    bias, not causal, self-attention (seq of q equal to that of k), 128 <
+    seq <= 512, ``round_up(head_dim, 8) < 128`` and an even batch x heads.
+    The reference's ``_use_shortseq_mh`` with ``device.type == "cuda"`` in
+    place of ``default_backend() == "tpu"``."""
+    b, h, sq, d = q_shape
+    return (shortseq.heads_knob() > 0
+            and torch.device(device).type == "cuda" and not has_bias
+            and not causal and sq == k_shape[2]
+            and SHORTSEQ_MIN_SEQ < sq <= shortseq.MAX_SEQ
+            and _round_up(d, 8) < shortseq.MAX_D and (b * h) % 2 == 0)
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None,
                           bias: Optional[torch.Tensor] = None,
                           causal: bool = False) -> torch.Tensor:
-    """Einsum attention for small score tensors, flash for large ones."""
+    """The short-sequence kernel where ``shortseq_route`` says so, else
+    einsum attention for small score tensors and flash for large ones."""
+    if shortseq_route(q.shape, k.shape, q.device, has_bias=bias is not None,
+                      causal=causal):
+        return shortseq_mh_attention(q, k, v, scale=scale)
     if flash_route(q.shape, k.shape, q.device, has_bias=bias is not None,
                    causal=causal):
         return flash_attention(q, k, v, scale=scale)

@@ -48,18 +48,6 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _kernel():
-    lib = _build.load_library(SOURCE)
-    fn = lib.e4t_flash_bwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.e4t_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.e4t_cuda_error_string.restype = ctypes.c_char_p
-    return lib, fn
-
-
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -87,16 +75,13 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = (out.float() * dout.float()).sum(-1)
     bh, sq, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib, fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), bh, sq, k.shape[1], d,
-                float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_bwd launch failed: "
-                           f"{lib.e4t_cuda_error_string(rc).decode()}")
+    _build.launch(SOURCE, "e4t_flash_bwd",
+                  [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                  + [ctypes.c_float],
+                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq,
+                  k.shape[1], d, float(scale))
     flash_bwd.launches += 1
     return dq, dk, dv
 

@@ -120,18 +120,6 @@ def _check_kernel_inputs(q, k, v, sc, mode, out_dtype) -> None:
         raise TypeError(f"output {out_dtype}: the kernel writes bfloat16")
 
 
-def _kernel():
-    lib = _build.load_library(SOURCE)
-    fn = lib.e4t_flash_fwd_int8
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.e4t_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.e4t_cuda_error_string.restype = ctypes.c_char_p
-    return lib, fn
-
-
 def flash_fwd_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    sc: torch.Tensor, mode: str, out_dtype: torch.dtype
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -153,15 +141,11 @@ def flash_fwd_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, sq, d = q.shape
     out = torch.empty((bh, sq, d), dtype=out_dtype, device=q.device)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    lib, fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), sc.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1], d,
-                int(mode == "qkpv"), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd_int8 launch failed: "
-                           f"{lib.e4t_cuda_error_string(rc).decode()}")
+    _build.launch(SOURCE, "e4t_flash_fwd_int8",
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5, q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), sc.data_ptr(),
+                  out.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1], d,
+                  int(mode == "qkpv"))
     flash_fwd_int8.launches += 1
     return out, lse
 

@@ -93,18 +93,6 @@ def launch_route(d: int) -> str:
     return "lowdim" if d < WIDE_MIN_D else "wide"
 
 
-def _kernel():
-    lib = _build.load_library(SOURCE)
-    fn = lib.e4t_flash_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.e4t_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.e4t_cuda_error_string.restype = ctypes.c_char_p
-    return lib, fn
-
-
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Non-causal attention forward -> (out (BH, Sq, D), lse (BH, Sq) f32).
@@ -122,14 +110,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    lib, fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), bh, sq, k.shape[1], d, float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: "
-                           f"{lib.e4t_cuda_error_string(rc).decode()}")
+    _build.launch(SOURCE, "e4t_flash_fwd",
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                  + [ctypes.c_float],
+                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1], d,
+                  float(scale))
     flash_fwd.launches[launch_route(d)] += 1
     return out, lse
 

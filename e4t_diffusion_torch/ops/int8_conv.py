@@ -85,18 +85,6 @@ def _check_kernel_inputs(x, w, scale, bias, out_dtype) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _kernel():
-    lib = _build.load_library(SOURCE)
-    fn = lib.e4t_int8_conv
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.e4t_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.e4t_cuda_error_string.restype = ctypes.c_char_p
-    return lib, fn
-
-
 def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
               bias: Optional[torch.Tensor], out_dtype: torch.dtype,
               stride: int = 1, padding: int = 0) -> torch.Tensor:
@@ -121,16 +109,12 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if ho <= 0 or wo <= 0:
         raise ValueError(f"empty output for a {h}x{wd} input")
     out = torch.empty((n, o, ho, wo), dtype=out_dtype, device=x.device)
-    lib, fn = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                bias.data_ptr() if bias is not None else None,
-                out.data_ptr(), n, h, wd, c, o, kh, kw, stride, padding, ho,
-                wo, int(out_dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_conv launch failed: "
-                           f"{lib.e4t_cuda_error_string(rc).decode()}")
+    _build.launch(SOURCE, "e4t_int8_conv",
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12, x.device,
+                  x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                  bias.data_ptr() if bias is not None else None,
+                  out.data_ptr(), n, h, wd, c, o, kh, kw, stride, padding, ho,
+                  wo, int(out_dtype == torch.bfloat16))
     int8_conv.launches += 1
     return out
 

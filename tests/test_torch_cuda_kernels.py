@@ -233,3 +233,176 @@ def test_cuda_int8_wrappers_refuse_bad_operands(case, error):
             out = torch.float16 if case == "conv_out_fp16" else torch.float32
             ic.int8_conv(x, w, torch.ones(8, device="cuda"), None, out, 1, 1)
     assert (fi.flash_fwd_int8.launches, ic.int8_conv.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("n,c,h,w,groups,dtype,act", [
+    (2, 320, 64, 64, 32, torch.bfloat16, "silu"),  # UNet level 0, cached
+    (1, 960, 64, 64, 32, torch.bfloat16, None),    # 240 KB group: re-read
+    (2, 128, 256, 256, 32, torch.bfloat16, "silu"),  # a VAE decode stage
+    (3, 40, 7, 9, 8, torch.bfloat16, "silu"),      # odd H*W and C/G
+    (2, 64, 5, 5, 64, torch.float32, "silu"),      # C/G = 1, odd H*W
+    (1, 128, 16, 16, 32, torch.float32, None),     # f32, vectors
+])
+def test_cuda_group_norm_matches_reference(n, c, h, w, groups, dtype, act,
+                                           layout):
+    """The GroupNorm kernel against its plain version in f32 on the same
+    inputs, NCHW and channels-last (the output keeps the layout)."""
+    from e4t_diffusion_torch.ops import groupnorm as gn
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator("cuda").manual_seed(6)
+    x = (torch.randn(n, c, h, w, device="cuda", generator=g) * 2 + 0.5).to(
+        dtype)
+    if layout == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+    # weight and bias in x's dtype, as the modules hold them
+    weight = (torch.rand(c, device="cuda", generator=g) + 0.5).to(dtype)
+    bias = torch.randn(c, device="cuda", generator=g).to(dtype)
+    before = gn.fused_group_norm.launches
+    out = gn.fused_group_norm(x, weight, bias, groups, 1e-5, act)
+    torch.cuda.synchronize()
+    assert gn.fused_group_norm.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    assert out.stride() == x.stride()
+    ref = gn.group_norm_reference(x.float(), weight, bias, groups, 1e-5, act)
+    if dtype == torch.bfloat16:
+        # bf16 output rounding: ~2e-3 rel-L2
+        assert ((out.float() - ref).norm() / ref.norm()).item() <= 1e-2
+    else:
+        # f32 sums in another order than the plain version's
+        assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_fused_group_norm_gradients():
+    """FusedGroupNorm on the card: the kernel forward, and gradients equal
+    to autograd through F.group_norm + F.silu."""
+    import torch.nn.functional as F
+
+    from e4t_diffusion_torch.ops import groupnorm as gn
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator("cuda").manual_seed(7)
+    x = torch.randn(2, 64, 16, 16, device="cuda", generator=g,
+                    requires_grad=True)
+    weight = (torch.rand(64, device="cuda", generator=g) + 0.5
+              ).requires_grad_()
+    bias = torch.randn(64, device="cuda", generator=g, requires_grad=True)
+    cot = torch.randn(2, 64, 16, 16, device="cuda", generator=g)
+    got = torch.autograd.grad(
+        (gn.FusedGroupNorm.apply(x, weight, bias, 8, 1e-5, "silu") * cot)
+        .sum(), (x, weight, bias))
+    want = torch.autograd.grad(
+        (F.silu(F.group_norm(x, 8, weight, bias, 1e-5)) * cot).sum(),
+        (x, weight, bias))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,g", [
+    (8, 257, 80, 8),    # the ViT-H site, scaled down
+    (4, 129, 8, 2),     # the shortest routed sequence
+    (2, 200, 40, 1),
+    (2, 384, 64, 2),
+    (2, 512, 120, 2),   # the longest sequence, the widest head
+])
+def test_cuda_shortseq_matches_reference(bh, s, d, g):
+    """The short-sequence kernel against its plain version in f32 on the
+    same bf16 inputs."""
+    from e4t_diffusion_torch.ops import shortseq
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v = _operands(8, bh, d, s, s, s)
+    before = shortseq.flash_fwd_shortseq.launches
+    out = shortseq.flash_fwd_shortseq(q, k, v, d ** -0.5, g)
+    torch.cuda.synchronize()
+    assert shortseq.flash_fwd_shortseq.launches == before + 1
+    ref = shortseq.flash_fwd_shortseq_reference(q.float(), k.float(),
+                                                v.float(), d ** -0.5)
+    # bf16 rounding of p and of the output: ~2e-3 rel-L2
+    assert ((out.float() - ref).norm() / ref.norm()).item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_attention_routes_vit_sites_to_shortseq(monkeypatch):
+    """With E4T_SHORTSEQ_MH_ATTN set, a 257-token d=80 self-attention site
+    on the card runs the short-sequence kernel, also under
+    flash_threshold(0); without it, einsum (or flash under the override)."""
+    from e4t_diffusion_torch.ops import attention, shortseq
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v = (t.reshape(2, 4, 257, 80) for t in _operands(9, 8, 80, 257,
+                                                           257, 257))
+    counts = lambda: (shortseq.flash_fwd_shortseq.launches,  # noqa: E731
+                      fl.flash_fwd.launches["lowdim"])
+    monkeypatch.setenv("E4T_SHORTSEQ_MH_ATTN", "8")
+    before = counts()
+    out = attention.dot_product_attention(q, k, v)
+    with attention.flash_threshold(0):
+        attention.dot_product_attention(q, k, v)
+    assert counts() == (before[0] + 2, before[1])
+    ref = attention.einsum_attention(q.float(), k.float(), v.float())
+    assert ((out.float() - ref).norm() / ref.norm()).item() <= 1e-2
+    monkeypatch.setenv("E4T_SHORTSEQ_MH_ATTN", "0")
+    with attention.flash_threshold(0):
+        attention.dot_product_attention(q, k, v)
+    assert counts() == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,error", [
+    ("gn_fp16", TypeError), ("gn_noncontiguous", ValueError),
+    ("ss_float", TypeError), ("ss_s513", ValueError),
+    ("ss_d136", ValueError), ("ss_g3", ValueError),
+])
+def test_cuda_gn_shortseq_refuse_bad_operands(case, error):
+    """What fused_group_norm and flash_fwd_shortseq refuse on CUDA tensors,
+    before any launch."""
+    from e4t_diffusion_torch.ops import groupnorm as gn
+    from e4t_diffusion_torch.ops import shortseq
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    before = gn.fused_group_norm.launches, shortseq.flash_fwd_shortseq.launches
+    ones = torch.ones(32, device="cuda")
+    with pytest.raises(error):
+        if case.startswith("gn"):
+            x = torch.zeros(2, 32, 8, 8, device="cuda")
+            # fp16; or a layout neither NCHW nor channels-last
+            x = x.half() if case == "gn_fp16" else x.transpose(2, 3)
+            gn.fused_group_norm(x, ones, ones, 8, 1e-5)
+        else:
+            s = 513 if case == "ss_s513" else 257
+            d = 136 if case == "ss_d136" else 80
+            t = torch.zeros(4, s, d, device="cuda", dtype=torch.bfloat16)
+            if case == "ss_float":
+                t = t.float()
+            shortseq.flash_fwd_shortseq(t, t, t, 0.1,
+                                        3 if case == "ss_g3" else 2)
+    assert (gn.fused_group_norm.launches,
+            shortseq.flash_fwd_shortseq.launches) == before
+
+
+@pytest.mark.cuda
+def test_cuda_launch_raises_on_entry_point_error():
+    """A C entry point's non-zero return (here cudaErrorInvalidValue for
+    BH = 0, which no wrapper passes) raises with the CUDA error's text."""
+    import ctypes
+
+    from e4t_diffusion_torch.ops import _build, shortseq
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    with pytest.raises(RuntimeError, match="e4t_flash_fwd_shortseq launch "
+                                           "failed: invalid argument"):
+        _build.launch(shortseq.SOURCE, "e4t_flash_fwd_shortseq",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                      + [ctypes.c_float], torch.device("cuda"),
+                      None, None, None, None, 0, 257, 80, 0.1)

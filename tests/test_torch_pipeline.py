@@ -35,6 +35,18 @@ PROMPTS = ["a photo of *s", "a *s face"]
 # images in [0, 1] after 3 f32 denoise steps and a VAE decode; the two
 # stacks agree to ~4e-6, so 1e-3 leaves room for summation-order drift
 IMAGE_TOL = 1e-3
+# the tiny models' ops are too small to gain from threads: one thread a
+# process (here and in the CLI subprocesses) keeps several test processes on
+# one machine from oversubscribing its cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -61,14 +73,33 @@ def _latents(n, seed=2):
         np.float32)
 
 
+@pytest.fixture(scope="module")
+def jax_images(pipes):
+    """The JAX pipeline's images for a sampler setting, computed once a
+    module and shared by the tests that compare with them."""
+    jax_pipe, _, image = pipes
+    cache = {}
+
+    def images(scheduler_type, guidance):
+        key = (scheduler_type, guidance)
+        if key not in cache:
+            cache[key] = np.asarray(jax_pipe(
+                PROMPTS, image, num_inference_steps=3,
+                guidance_scale=guidance, num_images_per_prompt=2,
+                latents=_latents(4), scheduler_type=scheduler_type))
+        return cache[key]
+
+    return images
+
+
 @pytest.mark.parametrize("scheduler_type,guidance", [
     ("ddim", 7.5), ("dpm_solver++", 7.5), ("ddim", 1.0)])
-def test_pipeline_matches_jax(pipes, scheduler_type, guidance):
-    jax_pipe, pipe, image = pipes
+def test_pipeline_matches_jax(pipes, jax_images, scheduler_type, guidance):
+    _, pipe, image = pipes
     kwargs = dict(num_inference_steps=3, guidance_scale=guidance,
                   num_images_per_prompt=2, latents=_latents(4),
                   scheduler_type=scheduler_type)
-    ref = np.asarray(jax_pipe(PROMPTS, image, **kwargs))
+    ref = jax_images(scheduler_type, guidance)
     out = pipe(PROMPTS, image, **kwargs)
     assert out.shape == ref.shape == (4, 3, 16, 16)
     assert np.abs(out - ref).max() <= IMAGE_TOL
@@ -139,7 +170,7 @@ def _cli(root, out_dir, *extra):
            "--guidance_scale", "2.0", "--num_images_per_prompt", "2",
            "--height", "16", "--width", "16", "--seed", "1", *extra]
     return subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=300)
+                          timeout=300, env={**os.environ, **ONE_THREAD})
 
 
 def test_inference_cli_on_cpu(artifact_dir):
@@ -222,7 +253,7 @@ def _tune_cli(root, src, out, *extra):
            "--max_train_steps", "2", "--output_dir", str(out), "--seed", "0",
            *extra]
     return subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=300)
+                          timeout=300, env={**os.environ, **ONE_THREAD})
 
 
 def test_tuning_cli_on_cpu(artifact_dir):
@@ -333,7 +364,8 @@ def test_tuning_cli_flags(tmp_path):
             args.device) == (16, 15, 512, "cuda")
 
 
-def test_pipeline_int8_static_matches_jax(pipes, monkeypatch, tmp_path):
+def test_pipeline_int8_static_matches_jax(pipes, jax_images, monkeypatch,
+                                         tmp_path):
     """int8="static" with injected latents: the first call calibrates as the
     JAX pipeline does (every site's range to 1e-5 of that range) and later
     calls reuse the ranges; the images carry an int8 error of the size of
@@ -358,7 +390,7 @@ def test_pipeline_int8_static_matches_jax(pipes, monkeypatch, tmp_path):
         already_added_placeholder_token=True, int8="static")
     ref8 = np.asarray(jax8(PROMPTS, image, **kwargs))
     out8 = port8(PROMPTS, image, **kwargs)
-    ref = np.asarray(jax_pipe(PROMPTS, image, **kwargs))
+    ref = jax_images("ddim", 7.5)
 
     path = str(tmp_path / "jax_scales.json")
     jax_quant.save_act_scales(jax.device_get(jax8._act_amax), path)

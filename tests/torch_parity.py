@@ -38,9 +38,10 @@ def _fill(shapes, rng: np.random.Generator):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-def jax_tiny(seed: int = 0):
-    """(JAX tiny modules, their params): shapes from the JAX modules,
-    values drawn with numpy from ``seed`` (no XLA compile of the inits)."""
+@functools.lru_cache(maxsize=None)
+def _tiny_shapes():
+    """The JAX tiny modules, the shapes of their parameters and those of
+    the offset bank; traced once a process and shared by every seed."""
     jm = JaxModules.tiny()
     tcfg = jm.text_encoder.config
     ecfg = jm.e4t_encoder.config
@@ -58,11 +59,18 @@ def jax_tiny(seed: int = 0):
                               jnp.zeros((1, 3, 32, 32)),
                               jnp.zeros((1, ecfg.unet_feature_dim))),
     }
-    rng = np.random.default_rng(seed)
-    params = {k: _fill(v["params"], rng) for k, v in shapes.items()}
     bank_shapes = jax.eval_shape(
         functools.partial(jax_wo.init_offset_bank, unet_config=jm.unet.config),
         key)
+    return jm, shapes, bank_shapes
+
+
+def jax_tiny(seed: int = 0):
+    """(JAX tiny modules, their params): shapes from the JAX modules,
+    values drawn with numpy from ``seed`` (no XLA compile of the inits)."""
+    jm, shapes, bank_shapes = _tiny_shapes()
+    rng = np.random.default_rng(seed)
+    params = {k: _fill(v["params"], rng) for k, v in shapes.items()}
     params["offsets"] = jax.tree_util.tree_map_with_path(
         lambda path, s: _offset_leaf(str(path[-1].key), s.shape, rng),
         bank_shapes)

@@ -29,11 +29,23 @@ Phases (any failure exits non-zero; each prints its wall seconds):
 8. routes_tuning: the same from the same weights with both routes on, 2
    steps, the first step's loss and grad norm against phase 7's;
 9. the tiny pipeline on the card against the same pipeline on the CPU, in
-   f32, in static int8 and in f32 with ``E4T_FUSED_GN=1``.
-In phases 4 to 8 the kernels' launch counters, set to 0 just before each
-run and read just after, must show the path went through every kernel it
-routes to, as many times as its attention, conv and GroupNorm sites give.
-The two routes are off by default, and off in every other phase.
+   f32, in static int8 and in f32 with ``E4T_FUSED_GN=1``;
+10. f32_sampling: phase 4's pipeline in f32 (``--dtype fp32``, the f32
+   attention kernels), DDIM twice, the UNet's eps on the kernels against
+   the same pass on their plain versions; one UNet pass with the int8
+   attention in f32 in each mode and one ViT-H encode with the
+   short-sequence route on, each against its plain version;
+11. f32_tuning_vs_cpu: one ``tuning_e4t.tune`` step of the tiny configs
+   with ``--mixed_precision no`` at 64px (1024 and 256 latent tokens reach
+   the f32 flash kernels) on the card and on the CPU, the same random draws
+   on both: loss and per-group gradients against each other;
+12. f32_tuning: one full-width step with ``--mixed_precision no`` at the
+   largest batch of 16, 8 and 4 that the card holds.
+In phases 4 to 8, 10 and 12 the kernels' launch counters, set to 0 just
+before each run and read just after, must show the path went through every
+kernel it routes to, as many times as its attention, conv and GroupNorm
+sites give. The two routes are off by default, and off in every other
+phase but where phase 10 names one.
 
 The second-to-last line of output is a JSON ``kernels`` record, the last
 ``{"ok": true, "device": {...}}``.
@@ -100,6 +112,25 @@ GN_F32_MAX_ABS = 1e-4
 TUNING_ROUTE_REL = 5e-2
 # the knobs and the values the opt-in phases set
 ROUTE_KNOBS = {"E4T_FUSED_GN": "1", "E4T_SHORTSEQ_MH_ATTN": "8"}
+# f32 attention kernels against their plain versions in f32 on the same
+# f32 inputs (out, lse, dq, dk, dv, rel-L2): full f32 FFMA on both sides,
+# the sums taken in another order
+KERNEL_F32_REL_L2 = 1e-5
+# the UNet's eps in f32 with its flash sites on the f32 kernel vs on the
+# kernel's plain version, same weights and inputs; and the ViT-H's tokens
+# with its attention sites on the f32 short-sequence kernel vs on einsum:
+# f32 sums in another order, carried through the network
+F32_PATH_REL_L2 = 1e-4
+# one tiny f32 tuning step, card vs CPU, the same draws: the loss to the
+# JAX parity tests' 1e-5 (relative), every trainable group's gradient to
+# their 1e-4 (rel-L2)
+TUNING_LOSS_REL = 1e-5
+TUNING_GRAD_REL_L2 = 1e-4
+# the tiny VAE halves the image once: 1024 latent tokens at level 0, 256 at
+# the mid block, all >= FLASH_MIN_SEQ
+TINY_TUNING_RESOLUTION = 64
+# full-width f32 tuning: the largest of these batches the card holds
+F32_TUNING_BATCHES = (16, 8, 4)
 
 STEPS = 4
 PROMPTS = ["a photo of *s", "a *s face in monet style"]
@@ -108,11 +139,13 @@ RESOLUTION = 512
 TUNING_STEPS = 3
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
-# flop/s; exp2 on the special-function units: 16 per clock per SM (CUDA C++
+# flop/s, f32 flop/s; exp2 on the special-function units: 16 per clock per SM (CUDA C++
 # Programming Guide throughput table, compute capability 9.0) x 132 SMs x
 # 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+# f32 on the CUDA cores (FFMA), outside the tensor cores
+F32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12
 EXP_PER_S = 16 * 132 * 1.98e9
 
@@ -204,7 +237,8 @@ def phase_build():
                                          shortseq)
 
     sources = [flash_lowdim.SOURCE, flash_bwd.SOURCE, flash_int8.SOURCE,
-               int8_conv.SOURCE, groupnorm.SOURCE, shortseq.SOURCE]
+               int8_conv.SOURCE, groupnorm.SOURCE, shortseq.SOURCE,
+               flash_lowdim.F32_SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = list(pool.map(_build.build, sources))
@@ -213,8 +247,8 @@ def phase_build():
     for src, log in zip(sources, logs):
         usage[src], name = [], "?"
         for ln in log.splitlines():
-            m = re.search(r"\d((?:flash|int8|group_norm|shortseq)[a-z0-9_]*?"
-                          r"_kernel)I(\w+?)E[Ev]", ln)
+            m = re.search(r"\d((?:flash|int8|group_norm|shortseq|attn)"
+                          r"[a-z0-9_]*?_kernel)I(\w+?)E[Ev]", ln)
             if m:
                 args = re.findall(r"L[a-z](\d+)E", m.group(2) + "E")
                 name = f"{m.group(1)}<{','.join(args) or m.group(2)}>"
@@ -225,13 +259,13 @@ def phase_build():
                       "seconds": round(seconds, 3), "ptxas": usage}))
 
 
-def _bound(n_bytes, flops, exps, int8_ops=0):
+def _bound(n_bytes, flops, exps, int8_ops=0, flop_rate=BF16_FLOP_PER_S):
     """The least time of the work on the card: bytes over the memory rate
-    against the larger of the tensor-core time (bf16 flops over the bf16
-    rate plus int8 operations over the int8 rate) and exponentials over the
-    special-function units' rate."""
+    against the larger of the products' time (flops over ``flop_rate``, the
+    bf16 tensor cores' or the f32 CUDA cores', plus int8 operations over the
+    int8 rate) and exponentials over the special-function units' rate."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / BF16_FLOP_PER_S + int8_ops / INT8_OP_PER_S,
+    t_ops = max(flops / flop_rate + int8_ops / INT8_OP_PER_S,
                 exps / EXP_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -243,17 +277,48 @@ def _rel(a, b):
     return ((a.float() - b).norm() / b.norm()).item()
 
 
-def _fwd_case(bh, sq, sk, d, gen, timed):
-    """The forward kernel against its plain version; timed: kernel, plain,
-    SDPA's forward and the bound."""
+def _flash_fwd_parent(q, k, v, scale):
+    """The bf16 forward of the parent design (k/v staged synchronously
+    through registers, v transposed by 2-byte stores): the kernel that
+    ``csrc/flash_fwd_lowdim.cu`` keeps for d >= 128, exported for every d
+    as ``e4t_flash_fwd_sync`` so the redesign is timed beside it in one run.
+    Counts no launch: no path takes it at d < 128."""
+    import ctypes
+
+    import torch
+
+    from e4t_diffusion_torch.ops import _build, flash_lowdim
+
+    bh, sq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    _build.launch(flash_lowdim.SOURCE, "e4t_flash_fwd_sync",
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                  + [ctypes.c_float], q.device, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, sq,
+                  k.shape[1], d, float(scale))
+    return out, lse
+
+
+def _f32(dtype):
+    import torch
+
+    return dtype == torch.float32
+
+
+def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None):
+    """The forward kernel of ``dtype`` (bf16 by default, or f32) against its
+    plain version in f32; timed: kernel, plain, SDPA's forward in the same
+    type and the bound."""
     import torch
     import torch.nn.functional as F
 
     from e4t_diffusion_torch.ops.flash_lowdim import (
         flash_fwd, flash_fwd_reference, launch_route)
 
+    dtype = dtype or torch.bfloat16
     q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen)
-               .to(torch.bfloat16) for s in (sq, sk, sk))
+               .to(dtype) for s in (sq, sk, sk))
     scale = 1.0 / math.sqrt(d)
     out, lse = flash_fwd(q, k, v, scale)
     torch.cuda.synchronize()
@@ -261,32 +326,45 @@ def _fwd_case(bh, sq, sk, d, gen, timed):
                                            scale)
     rel = _rel(out, ref_out)
     lse_err = (lse - ref_lse).abs().max().item()
-    case = {"kernel": f"flash_fwd_{launch_route(d)}", "bh": bh, "sq": sq,
-            "sk": sk, "d": d,
+    case = {"kernel": f"flash_fwd_{launch_route(d, dtype)}", "bh": bh,
+            "sq": sq, "sk": sk, "d": d, "dtype": str(dtype)[6:],
             "out_rel_l2": rel,
             "out_max_abs": (out.float() - ref_out).abs().max().item(),
-            "lse_max_abs": lse_err}
+            "lse_rel_l2": _rel(lse, ref_lse), "lse_max_abs": lse_err}
     del ref_out, ref_lse
-    if not (rel <= KERNEL_OUT_REL_L2 and lse_err <= KERNEL_LSE_MAX_ABS):
+    ok = (max(rel, case["lse_rel_l2"]) <= KERNEL_F32_REL_L2 if _f32(dtype)
+          else rel <= KERNEL_OUT_REL_L2 and lse_err <= KERNEL_LSE_MAX_ABS)
+    if not ok:
         fail(f"flash_fwd disagrees with its plain version: {case}")
     if timed:
+        size = q.element_size()
         case.update(
             ms=cuda_time_ms(lambda: flash_fwd(q, k, v, scale)),
             plain_ms=cuda_time_ms(lambda: flash_fwd_reference(
-                q.float(), k.float(), v.float(), scale)),
+                q.float(), k.float(), v.float(), scale),
+                reps=3 if _f32(dtype) else 20),
             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], scale=scale)),
-            **_bound(2 * (2 * bh * sq * d + 2 * bh * sk * d) + 4 * bh * sq,
-                     4 * bh * sq * sk * d, bh * sq * sk))
+            **_bound(size * (2 * bh * sq * d + 2 * bh * sk * d) + 4 * bh * sq,
+                     4 * bh * sq * sk * d, bh * sq * sk,
+                     flop_rate=F32_FLOP_PER_S if _f32(dtype)
+                     else BF16_FLOP_PER_S))
+        if not _f32(dtype) and d < 128:
+            parent, _ = _flash_fwd_parent(q, k, v, scale)
+            case["parent_out_vs_kernel_rel_l2"] = _rel(parent, out.float())
+            case["parent_ms"] = cuda_time_ms(
+                lambda: _flash_fwd_parent(q, k, v, scale))
+            del parent
     del q, k, v, out, lse
     torch.cuda.empty_cache()
     return case
 
 
-def _bwd_case(bh, sq, sk, d, gen, timed):
-    """The backward kernel, fed by the forward kernel's (out, lse), against
-    ``flash_bwd_reference`` in f32 on the same bf16 inputs; timed: kernel,
-    plain, SDPA's backward through autograd with the same dO, the bound.
+def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
+    """The backward kernel of ``dtype`` (bf16 by default, or f32), fed by
+    the forward kernel's (out, lse), against ``flash_bwd_reference`` in f32
+    on the same inputs; timed: kernel, plain, SDPA's backward through
+    autograd with the same dO in the same type, the bound.
     The bound counts the work (dq, dk, dv) needs, whatever the kernel's
     design does: five products (S, dP, dq, dk, dv), 10 flops per score
     element and head dim, and one exponential per score."""
@@ -297,8 +375,9 @@ def _bwd_case(bh, sq, sk, d, gen, timed):
                                                    flash_bwd_reference)
     from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd
 
+    dtype = dtype or torch.bfloat16
     q, k, v, dout = (torch.randn(bh, s, d, device="cuda", generator=gen)
-                     .to(torch.bfloat16) for s in (sq, sk, sk, sq))
+                     .to(dtype) for s in (sq, sk, sk, sq))
     scale = 1.0 / math.sqrt(d)
     out, lse = flash_fwd(q, k, v, scale)
     grads = flash_bwd(q, k, v, out, lse, dout, scale)
@@ -309,13 +388,14 @@ def _bwd_case(bh, sq, sk, d, gen, timed):
         return flash_bwd_reference(*f32[:4], lse, f32[4], scale)
 
     refs = plain()
-    case = {"kernel": "flash_bwd", "bh": bh, "sq": sq, "sk": sk, "d": d}
+    case = {"kernel": "flash_bwd_f32" if _f32(dtype) else "flash_bwd",
+            "bh": bh, "sq": sq, "sk": sk, "d": d, "dtype": str(dtype)[6:]}
     for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
         case[f"{name}_rel_l2"] = _rel(g, r)
         case[f"{name}_max_abs"] = (g.float() - r).abs().max().item()
     del refs
-    if max(case[f"{n}_rel_l2"] for n in ("dq", "dk", "dv")) > \
-            KERNEL_GRAD_REL_L2:
+    if max(case[f"{n}_rel_l2"] for n in ("dq", "dk", "dv")) > (
+            KERNEL_F32_REL_L2 if _f32(dtype) else KERNEL_GRAD_REL_L2):
         fail(f"flash_bwd disagrees with its plain version: {case}")
     if timed:
         qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
@@ -324,62 +404,74 @@ def _bwd_case(bh, sq, sk, d, gen, timed):
         case.update(
             ms=cuda_time_ms(lambda: flash_bwd(q, k, v, out, lse, dout,
                                               scale)),
-            plain_ms=cuda_time_ms(plain),
+            plain_ms=cuda_time_ms(plain, reps=3 if _f32(dtype) else 20),
             library_ms=cuda_time_ms(lambda: torch.autograd.grad(
                 lib_out, (qr, kr, vr), dout[None], retain_graph=True)),
-            **_bound(2 * (4 * bh * sq * d + 4 * bh * sk * d) + 4 * bh * sq,
-                     10 * bh * sq * sk * d, bh * sq * sk))
+            **_bound(q.element_size() * (4 * bh * sq * d + 4 * bh * sk * d)
+                     + 4 * bh * sq, 10 * bh * sq * sk * d, bh * sq * sk,
+                     flop_rate=F32_FLOP_PER_S if _f32(dtype)
+                     else BF16_FLOP_PER_S))
         del qr, kr, vr, lib_out
     del q, k, v, dout, out, lse, grads, f32
     torch.cuda.empty_cache()
     return case
 
 
-def _int8_flash_case(bh, sq, sk, d, mode, gen, timed):
+def _int8_flash_case(bh, sq, sk, d, mode, gen, timed, dtype=None):
     """The int8 attention kernel against its plain version at the kernel's
-    kv tile, on int8 operands quantized from bf16 q/k/v as the attention
+    kv tile, on int8 operands quantized from q/k/v in ``dtype`` (bf16 by
+    default, or f32: the f32 output, and in "qk" an f32 v) as the attention
     route does; timed: kernel, plain, the route (quantization + kernel),
-    SDPA's bf16 forward on the bf16 q/k/v, and the bound of the kernel's
-    work from the int8 operands."""
+    SDPA's forward on the q/k/v, and the bound of the kernel's work from the
+    int8 operands. In f32, "qk" is held to KERNEL_F32_REL_L2; "qkpv" to
+    INT8_FLASH_REL_L2 in both types (exp2 against exp moves a few
+    round(p * 127) by one)."""
     import torch
     import torch.nn.functional as F
 
     from e4t_diffusion_torch.ops import attention
     from e4t_diffusion_torch.ops import flash_int8 as fi
 
+    dtype = dtype or torch.bfloat16
     q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen)
-               .to(torch.bfloat16) for s in (sq, sk, sk))
+               .to(dtype) for s in (sq, sk, sk))
     k = k + 0.5  # keys with a channel mean, as the centring expects
     scale = 1.0 / math.sqrt(d)
     ops = attention.int8_attention_operands(q, k, v, scale, mode)
-    out, lse = fi.flash_fwd_int8(*ops, mode, torch.bfloat16)
+    out, lse = fi.flash_fwd_int8(*ops, mode, dtype)
     torch.cuda.synchronize()
     ref_out, ref_lse = fi.flash_fwd_int8_reference(*ops, mode, torch.float32)
     rel = _rel(out, ref_out)
     lse_err = (lse - ref_lse).abs().max().item()
-    case = {"kernel": "flash_fwd_int8", "mode": mode, "bh": bh, "sq": sq,
-            "sk": sk, "d": d, "out_rel_l2": rel,
+    key = fi.launch_key(mode, dtype)
+    case = {"kernel": "flash_fwd_int8" + ("" if key == "bf16" else
+                                          f"_{key}"),
+            "mode": mode, "bh": bh, "sq": sq, "sk": sk, "d": d,
+            "dtype": str(dtype)[6:], "out_rel_l2": rel,
             "out_max_abs": (out.float() - ref_out).abs().max().item(),
             "lse_max_abs": lse_err}
     del ref_out, ref_lse
-    if not (rel <= INT8_FLASH_REL_L2 and lse_err <= KERNEL_LSE_MAX_ABS):
+    bound = (KERNEL_F32_REL_L2 if key == "qk_f32" else INT8_FLASH_REL_L2)
+    if not (rel <= bound and lse_err <= KERNEL_LSE_MAX_ABS):
         fail(f"flash_fwd_int8 disagrees with its plain version: {case}")
     if timed:
         pv = mode == "qkpv"
+        f32 = _f32(dtype)
         case.update(
-            ms=cuda_time_ms(lambda: fi.flash_fwd_int8(*ops, mode,
-                                                      torch.bfloat16)),
+            ms=cuda_time_ms(lambda: fi.flash_fwd_int8(*ops, mode, dtype)),
             plain_ms=cuda_time_ms(lambda: fi.flash_fwd_int8_reference(
                 *ops, mode, torch.float32), reps=3),
             route_ms=cuda_time_ms(lambda: attention._int8_lowdim_path(
                 q, k, v, scale, mode)),
             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], scale=scale)),
-            library="scaled_dot_product_attention, bf16",
-            **_bound(bh * sq * d + bh * sk * d * (2 if pv else 3) + 8 * bh
-                     + 2 * bh * sq * d + 4 * bh * sq,
+            library=f"scaled_dot_product_attention, {case['dtype']}",
+            **_bound(bh * sq * d + bh * sk * d * (2 if pv else
+                                                  1 + q.element_size())
+                     + 8 * bh + q.element_size() * bh * sq * d + 4 * bh * sq,
                      0 if pv else 2 * bh * sq * sk * d, bh * sq * sk,
-                     int8_ops=(4 if pv else 2) * bh * sq * sk * d))
+                     int8_ops=(4 if pv else 2) * bh * sq * sk * d,
+                     flop_rate=F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S))
     del q, k, v, ops, out, lse
     torch.cuda.empty_cache()
     return case
@@ -580,28 +672,32 @@ def _gn_case(n, c, h, w, groups, eps, act, layout, dtype, gen, timed,
     return case
 
 
-def _shortseq_case(bh, s, d, g, gen, timed):
-    """The short-sequence kernel against its plain version in f32 on the
-    same bf16 inputs; timed (device time, and CUDA-event time per call,
-    ``wall_ms``): kernel, plain, SDPA's forward and the bound of the work
-    (as for the flash forward)."""
+def _shortseq_case(bh, s, d, g, gen, timed, dtype=None):
+    """The short-sequence kernel of ``dtype`` (bf16 by default, or f32)
+    against its plain version in f32 on the same inputs; timed (device
+    time, and CUDA-event time per call, ``wall_ms``): kernel, plain, SDPA's
+    forward in the same type and the bound of the work (as for the flash
+    forward)."""
     import torch
     import torch.nn.functional as F
 
     from e4t_diffusion_torch.ops import shortseq
 
+    dtype = dtype or torch.bfloat16
     q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen)
-               .to(torch.bfloat16) for _ in range(3))
+               .to(dtype) for _ in range(3))
     scale = 1.0 / math.sqrt(d)
     out = shortseq.flash_fwd_shortseq(q, k, v, scale, g)
     torch.cuda.synchronize()
     ref = shortseq.flash_fwd_shortseq_reference(q.float(), k.float(),
                                                 v.float(), scale)
-    case = {"kernel": "flash_fwd_shortseq", "bh": bh, "sq": s, "sk": s,
-            "d": d, "g": g, "out_rel_l2": _rel(out, ref),
+    case = {"kernel": "flash_fwd_shortseq" + ("_f32" if _f32(dtype) else ""),
+            "bh": bh, "sq": s, "sk": s, "d": d, "g": g,
+            "dtype": str(dtype)[6:], "out_rel_l2": _rel(out, ref),
             "out_max_abs": (out.float() - ref).abs().max().item()}
     del ref
-    if not case["out_rel_l2"] <= KERNEL_OUT_REL_L2:
+    if not case["out_rel_l2"] <= (KERNEL_F32_REL_L2 if _f32(dtype)
+                                  else KERNEL_OUT_REL_L2):
         fail(f"flash_fwd_shortseq disagrees with its plain version: {case}")
     if timed:
         def kernel():
@@ -617,7 +713,9 @@ def _shortseq_case(bh, s, d, g, gen, timed):
                 q.float(), k.float(), v.float(), scale)),
             library_ms=device_ms(library), library_wall_ms=cuda_time_ms(
                 library),
-            **_bound(2 * 4 * bh * s * d, 4 * bh * s * s * d, bh * s * s))
+            **_bound(q.element_size() * 4 * bh * s * d, 4 * bh * s * s * d,
+                     bh * s * s, flop_rate=F32_FLOP_PER_S if _f32(dtype)
+                     else BF16_FLOP_PER_S))
     del q, k, v, out
     torch.cuda.empty_cache()
     return case
@@ -707,13 +805,62 @@ def phase_kernels():
     for bh, s_, d, g in ((2, 129, 8, 1), (4, 200, 40, 2), (16, 384, 64, 8),
                          (32, 512, 120, 16)):
         ragged.append(_shortseq_case(bh, s_, d, g, gen, timed=False))
+    # the redesigned bf16 low-dim forward at the edges of its kv ring: Sk
+    # below one 64-row stage, one stage plus one row, two plus one, one row;
+    # and a q tile of one row
+    for d, sq, sk in ((40, 100, 63), (80, 64, 65), (64, 129, 129),
+                      (16, 1, 200), (48, 200, 1), (40, 257, 4096)):
+        ragged.append(_fwd_case(2, sq, sk, d, gen, timed=False))
+    f32_cases = _f32_kernel_cases(gen, n)
     cases = {"sampling": sampling, "tuning_fwd": tuning_fwd, "grid": grid,
              "tuning_bwd": tuning_bwd, "grid_bwd": grid_bwd,
              "int8_flash": int8_flash, "int8_conv": int8_conv,
              "group_norm": group_norm, "shortseq": short,
-             "ragged": ragged}
+             "ragged": ragged, **f32_cases}
     print(json.dumps({"phase": "kernels", **cases}))
     return cases
+
+
+def _f32_kernel_cases(gen, n):
+    """The f32 kernels (``csrc/attention_f32.cu``, and the int8 kernel's f32
+    epilogue) at the f32 paths' shapes, timed, and at ragged shapes: d in
+    {8, 40, 80, 120, 160, 256}, Sq and Sk off the 64- (32-) row tile, Sk
+    below one tile and one tile plus one row."""
+    import torch
+
+    f32 = torch.float32
+    out = {
+        # f32 sampling's two flash sites (batch n, 8 heads)
+        "f32_sampling": [_fwd_case(8 * n, 4096, 4096, 40, gen, True, f32),
+                         _fwd_case(8 * n, 1024, 1024, 80, gen, True, f32)],
+        # f32 tuning's sites, as bf16 tuning's (BH = 16 x 8 heads)
+        "f32_tuning_fwd": [_fwd_case(128, sq, sk, d, gen, True, f32)
+                           for sq, sk, d in TUNING_SITES]
+        + [_fwd_case(256, 257, 257, 80, gen, True, f32)],
+        "f32_tuning_bwd": [_bwd_case(128, sq, sk, d, gen, True, f32)
+                           for sq, sk, d in TUNING_SITES],
+        "f32_shortseq": [_shortseq_case(bh, 257, 80, 8, gen, True, f32)
+                         for bh in (8 * 16, 16 * 16)],
+        "f32_int8_flash": [
+            _int8_flash_case(8 * n, s_, s_, d, mode, gen, True, f32)
+            for mode in ("qk", "qkpv") for s_, d in ((4096, 40),
+                                                     (1024, 80))],
+        "f32_ragged": []}
+    ragged = out["f32_ragged"]
+    for d, sq, sk in ((8, 65, 33), (40, 300, 200), (80, 100, 63),
+                      (120, 64, 65), (160, 70, 31), (256, 129, 33),
+                      (40, 1, 129), (256, 33, 300)):
+        ragged.append(_fwd_case(2, sq, sk, d, gen, False, f32))
+        ragged.append(_bwd_case(2, sq, sk, d, gen, False, f32))
+    for bh, s_, d, g in ((2, 129, 8, 1), (4, 200, 40, 2), (2, 512, 120, 2),
+                         (2, 65, 64, 1)):
+        ragged.append(_shortseq_case(bh, s_, d, g, gen, False, f32))
+    for mode in ("qk", "qkpv"):
+        for d, sq, sk in ((8, 65, 33), (40, 300, 200), (80, 128, 257),
+                          (120, 70, 90)):
+            ragged.append(_int8_flash_case(2, sq, sk, d, mode, gen, False,
+                                           f32))
+    return out
 
 
 def _full_width_pipeline(tok_dir):
@@ -759,7 +906,9 @@ def _full_width_pipeline(tok_dir):
 # _flash_fwd) apart
 KERNEL_ROWS = ("flash_fwd_lowdim", "flash_fwd_wide", "flash_bwd",
                "flash_fwd_int8", "int8_conv", "group_norm",
-               "flash_fwd_shortseq")
+               "flash_fwd_shortseq", "flash_fwd_lowdim_f32",
+               "flash_fwd_wide_f32", "flash_bwd_f32", "flash_fwd_shortseq_f32",
+               "flash_fwd_int8_qk_f32", "flash_fwd_int8_qkpv_f32")
 # low-dim flash sites per sampling step at batch >= 5: 10 per UNet forward,
 # two forwards a step; the d=160 sites stay on einsum below 128 MiB
 LOWDIM_SITES_PER_STEP = 20
@@ -773,12 +922,11 @@ def _reset_launches():
     from e4t_diffusion_torch.ops.int8_conv import int8_conv
     from e4t_diffusion_torch.ops.shortseq import flash_fwd_shortseq
 
-    flash_fwd.launches = {"lowdim": 0, "wide": 0}
-    flash_bwd.launches = 0
-    flash_fwd_int8.launches = 0
+    for counts in (flash_fwd.launches, flash_bwd.launches,
+                   flash_fwd_int8.launches, flash_fwd_shortseq.launches):
+        counts.update(dict.fromkeys(counts, 0))
     int8_conv.launches = 0
     fused_group_norm.launches = 0
-    flash_fwd_shortseq.launches = 0
 
 
 def _read_launches():
@@ -791,11 +939,17 @@ def _read_launches():
 
     return {"flash_fwd_lowdim": flash_fwd.launches["lowdim"],
             "flash_fwd_wide": flash_fwd.launches["wide"],
-            "flash_bwd": flash_bwd.launches,
-            "flash_fwd_int8": flash_fwd_int8.launches,
+            "flash_bwd": flash_bwd.launches["bf16"],
+            "flash_fwd_int8": flash_fwd_int8.launches["bf16"],
             "int8_conv": int8_conv.launches,
             "group_norm": fused_group_norm.launches,
-            "flash_fwd_shortseq": flash_fwd_shortseq.launches}
+            "flash_fwd_shortseq": flash_fwd_shortseq.launches["bf16"],
+            "flash_fwd_lowdim_f32": flash_fwd.launches["lowdim_f32"],
+            "flash_fwd_wide_f32": flash_fwd.launches["wide_f32"],
+            "flash_bwd_f32": flash_bwd.launches["f32"],
+            "flash_fwd_shortseq_f32": flash_fwd_shortseq.launches["f32"],
+            "flash_fwd_int8_qk_f32": flash_fwd_int8.launches["qk_f32"],
+            "flash_fwd_int8_qkpv_f32": flash_fwd_int8.launches["qkpv_f32"]}
 
 
 @contextlib.contextmanager
@@ -1163,9 +1317,12 @@ def phase_int8_sampling(smi, pipe, image):
     return total
 
 
-def _expected_tuning_launches(ucfg, vit_cfg, resolution, routes=False):
-    """Launches per tuning step, derived from the attention sites (and,
-    with the opt-in routes on, the GroupNorm sites). Every site whose query
+def _expected_tuning_launches(ucfg, vit_cfg, resolution, routes=False,
+                              dtype=None, vae_cfg=None):
+    """Launches per tuning step in the compute ``dtype`` (bf16 by default,
+    or f32: the f32 kernels' rows), derived from the attention sites at the
+    latent size ``vae_cfg`` gives (SD-v1's VAE by default: 1/8) and, with
+    the opt-in routes on, the GroupNorm sites. Every site whose query
     has >= FLASH_MIN_SEQ tokens goes to flash (the step is all-flash) but
     the ViT's, which take the short-sequence kernel with the routes on; the
     tap pass runs the down and mid blocks, the full pass every block;
@@ -1175,7 +1332,15 @@ def _expected_tuning_launches(ucfg, vit_cfg, resolution, routes=False):
     from e4t_diffusion_torch.ops.attention import FLASH_MIN_SEQ
     from e4t_diffusion_torch.ops.flash_lowdim import launch_route
 
-    side, levels = resolution // 8, len(ucfg.block_out_channels)
+    import torch
+
+    dtype = dtype or torch.bfloat16
+    sfx = "_f32" if _f32(dtype) else ""
+    from e4t_diffusion_torch.models.vae import VAEConfig
+
+    vae_cfg = vae_cfg or VAEConfig()
+    side = resolution >> (len(vae_cfg.block_out_channels) - 1)
+    levels = len(ucfg.block_out_channels)
     want = dict.fromkeys(KERNEL_ROWS, 0)
     for path, dim, _ in attention_sites(ucfg):
         block, index = path.split(".")[:2]
@@ -1187,24 +1352,24 @@ def _expected_tuning_launches(ucfg, vit_cfg, resolution, routes=False):
         if (side >> level) ** 2 < FLASH_MIN_SEQ:
             continue
         d = dim // ucfg.attention_head_dim
-        want[f"flash_fwd_{launch_route(d)}"] += 2 * passes
-        want["flash_bwd"] += passes
+        want[f"flash_fwd_{launch_route(d, dtype)}"] += 2 * passes
+        want["flash_bwd" + sfx] += passes
     vit_short = _vit_shortseq_sites(vit_cfg, 1) if routes else 0
-    want["flash_fwd_shortseq"] += vit_short
+    want["flash_fwd_shortseq" + sfx] += vit_short
     if vit_cfg.grid ** 2 + 1 >= FLASH_MIN_SEQ:
-        want["flash_fwd_lowdim"] += vit_cfg.num_layers - vit_short
+        want["flash_fwd_lowdim" + sfx] += vit_cfg.num_layers - vit_short
     if routes:
-        from e4t_diffusion_torch.models.vae import VAEConfig
-
-        sites = _group_norm_sites(ucfg, VAEConfig(), 1, resolution)
+        sites = _group_norm_sites(ucfg, vae_cfg, 1, resolution)
         want["group_norm"] += 2 * (sum(sites["unet_tap"].values())
                                    + sum(sites["unet"].values()))
     return want
 
 
-def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None):
+def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
+                 dtype=None, batch=16):
     """Phase-2 tuning at full width through ``tuning_e4t.tune`` with the
-    CLI's defaults (batch 16, 512px, lr 1.6e-5, clip 1.0) and bf16, from
+    CLI's defaults (batch 16, 512px, lr 1.6e-5, clip 1.0) in ``dtype``
+    (bf16, ``--mixed_precision bf16``, by default; f32 is ``no``), from
     seeded weights. ``routes``: both opt-in routes on, and the first step's
     loss and grad norm held against ``routes_off``, the first step's
     metrics of a run with the routes off. Returns (launches, the first
@@ -1225,11 +1390,14 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None):
     from e4t_diffusion_torch.utils.tokenizer import (
         CLIPTokenizer, make_tiny_tokenizer_files)
 
+    dtype = dtype or torch.bfloat16
+    f32 = _f32(dtype)
+
     def cli_args(max_steps):
         return tuning_e4t.parse_args([
             "--pretrained_model_name_or_path", "-", "--train_image_path",
             "-", "--max_train_steps", str(max_steps), "--mixed_precision",
-            "bf16"])
+            "no" if f32 else "bf16", "--train_batch_size", str(batch)])
 
     args = cli_args(steps)
     ucfg, ecfg = UNetConfig(), E4TEncoderConfig()
@@ -1259,15 +1427,18 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None):
     before = {
         "unet": sums(modules.unet.parameters()), "e4t": sums(head),
         "offsets": sums(offsets.values()),
-        # frozen modules are cast to bf16 by the trainer
-        "vit": sums(e4t.clip_vision.parameters(), torch.bfloat16),
-        "vae": sums(modules.vae.parameters(), torch.bfloat16)}
+        # frozen modules are cast to the compute dtype by the trainer
+        "vit": sums(e4t.clip_vision.parameters(), dtype),
+        "vae": sums(modules.vae.parameters(), dtype)}
     templates = resolve_templates("normal")
+
+    if tuning_e4t.resolve_train_dtype(args.mixed_precision, "cuda") != dtype:
+        fail(f"--mixed_precision {args.mixed_precision} is not {dtype}")
 
     def run(run_args):
         return tuning_e4t.tune(run_args, modules, offsets, tokenizer, "*s",
                                templates, class_id, image,
-                               NoiseScheduleConfig(), torch.bfloat16)
+                               NoiseScheduleConfig(), dtype)
 
     _reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1298,7 +1469,7 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None):
         if not torch.equal(before[group], after[group]):
             fail(f"tuning: frozen group {group} changed")
     per_step = _expected_tuning_launches(ucfg, ecfg.vit, args.resolution,
-                                         routes)
+                                         routes, dtype)
     want = {k: steps * v for k, v in per_step.items()}
     if routes:
         # the replicated image is VAE-encoded once a run
@@ -1315,12 +1486,15 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None):
         if not max(rel.values()) <= TUNING_ROUTE_REL:
             fail(f"tuning, routes on vs off, first step: {rel} "
                  f"({metrics[0]} against {routes_off})")
-    else:
+    elif not f32:
         report["profile"] = _profile(lambda: run(cli_args(1)))
-    steady = result["step_seconds"][1:]
+    # after the first step where there is one
+    steady = result["step_seconds"][1:] or result["step_seconds"]
     s_per_step = sum(steady) / len(steady)
     print(json.dumps({
-        "phase": "routes_tuning" if routes else "tuning", "card": smi,
+        "phase": ("routes_tuning" if routes else "f32_tuning" if f32
+                  else "tuning"), "card": smi,
+        "dtype": str(dtype)[6:],
         "knobs": ROUTE_KNOBS if routes else {}, "setup_s": setup_s,
         "batch": args.train_batch_size, "resolution": args.resolution,
         "steps": steps, "wall_s": wall,
@@ -1418,6 +1592,299 @@ def phase_tiny_vs_cpu():
                           np.abs(outs_gn[0] - outs[0]).max())}))
 
 
+@contextlib.contextmanager
+def _flash_plain_versions():
+    """The flash forward replaced by its plain version where the attention
+    route calls it, for a comparison on the card."""
+    from e4t_diffusion_torch.ops import attention
+    from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd_reference
+
+    kernel = attention.flash_fwd
+    attention.flash_fwd = flash_fwd_reference
+    try:
+        yield
+    finally:
+        attention.flash_fwd = kernel
+
+
+def phase_f32_sampling(smi, pipe, image):
+    """Phase 4's pipeline with its modules in f32, as ``--dtype fp32``
+    builds them (``resolve_dtype("fp32", cuda)``): two DDIM-4 runs, 80
+    launches of the f32 low-dim forward and none of the bf16 one; one UNet
+    pass on the kernel against the same pass on its plain version; one UNet
+    pass with the int8 attention in f32 in each mode against its plain
+    version; one ViT-H encode with ``E4T_SHORTSEQ_MH_ATTN=8`` (the f32
+    short-sequence kernel) against einsum. Returns the launches of the
+    phase, its runs and passes together."""
+    import numpy as np
+    import torch
+
+    from e4t_diffusion_torch.diffusion.pipeline import resolve_dtype
+    from e4t_diffusion_torch.ops.attention import int8_flash_attention
+
+    dtype = resolve_dtype("fp32", torch.device("cuda"))
+    if dtype != torch.float32:
+        fail(f"--dtype fp32 on the GPU resolves to {dtype}")
+    for m in pipe.modules.all():
+        m.to(dtype)
+    n = len(PROMPTS) * IMAGES_PER_PROMPT
+    total = _want()
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    want = _want(flash_fwd_lowdim_f32=LOWDIM_SITES_PER_STEP * STEPS)
+    first, first_s, launches = _sample(pipe, image, "ddim", want)
+    add(launches)
+    torch.cuda.reset_peak_memory_stats()
+    second, second_s, launches2 = _sample(pipe, image, "ddim", want)
+    add(launches2)
+    peak = torch.cuda.max_memory_allocated()
+    rerun = float(np.abs(first - second).max())
+    if not rerun <= RERUN_MAX_ABS:
+        fail(f"f32: two same-seed DDIM runs differ by {rerun}")
+    prof = _profile(lambda: pipe(
+        PROMPTS, image, num_inference_steps=STEPS, guidance_scale=7.5,
+        num_images_per_prompt=IMAGES_PER_PROMPT, height=RESOLUTION,
+        width=RESOLUTION, seed=0))
+
+    unet = pipe.modules.unet
+    gen = torch.Generator("cuda").manual_seed(5)
+    x = torch.randn(n, 4, RESOLUTION // 8, RESOLUTION // 8, device="cuda",
+                    generator=gen)
+    ctx = torch.randn(n, 77, unet.config.cross_attention_dim, device="cuda",
+                      generator=gen)
+    t = torch.full((n,), 500, device="cuda")
+    per_pass = LOWDIM_SITES_PER_STEP // 2
+    report = {}
+
+    def unet_pass(label, want_pass, attn=None, plain=False):
+        _reset_launches()
+        with torch.inference_mode(), (
+                int8_flash_attention(attn) if attn
+                else contextlib.nullcontext()), (
+                _plain_versions() if plain and attn
+                else _flash_plain_versions() if plain
+                else contextlib.nullcontext()):
+            eps = unet(x, t, ctx)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        if eps.dtype != torch.float32 or launches != want_pass:
+            fail(f"f32 UNet pass {label}: {eps.dtype}, launches {launches}, "
+                 f"expected {want_pass}")
+        add(launches)
+        return eps
+
+    eps = unet_pass("kernel", _want(flash_fwd_lowdim_f32=per_pass))
+    eps_plain = unet_pass("plain", _want(), plain=True)
+    report["eps_kernel_vs_plain_rel_l2"] = _rel(eps, eps_plain)
+    for mode in ("qk", "qkpv"):
+        key = f"flash_fwd_int8_{mode}_f32"
+        got = unet_pass(mode, _want(**{key: per_pass}), attn=mode)
+        plain = unet_pass(f"{mode} plain", _want(), attn=mode, plain=True)
+        report[f"eps_int8_{mode}_kernel_vs_plain_rel_l2"] = _rel(got, plain)
+        report[f"eps_int8_{mode}_vs_f32_rel_l2"] = _rel(got, eps)
+    del eps, eps_plain, got, plain
+
+    # the ViT-H's 32 attention sites at batch n on the f32 short-sequence
+    # kernel, against einsum (the route off)
+    vit = pipe.modules.e4t_encoder.clip_vision
+    size = vit.config.image_size
+    pixels = torch.randn(n, 3, size, size, device="cuda", generator=gen)
+    with torch.inference_mode():
+        off = vit(pixels)[1]
+        _reset_launches()
+        with _routes_on():
+            on = vit(pixels)[1]
+        torch.cuda.synchronize()
+    vit_launches = _read_launches()
+    want_vit = _want(flash_fwd_shortseq_f32=_vit_shortseq_sites(vit.config, n))
+    if vit_launches != want_vit:
+        fail(f"f32 ViT-H with the short-sequence route: launches "
+             f"{vit_launches}, expected {want_vit}")
+    add(vit_launches)
+    report["vit_tokens_shortseq_vs_einsum_rel_l2"] = _rel(on, off)
+    checks = [v for k, v in report.items() if "kernel_vs_plain" in k
+              and "int8" not in k] + [
+        report["vit_tokens_shortseq_vs_einsum_rel_l2"]]
+    if not (max(checks) <= F32_PATH_REL_L2 and all(
+            report[f"eps_int8_{m}_kernel_vs_plain_rel_l2"]
+            <= UNET_INT8_PLAIN_REL_L2 for m in ("qk", "qkpv"))):
+        fail(f"f32 sampling, kernels against plain versions: {report}")
+    print(json.dumps({
+        "phase": "f32_sampling", "card": smi, "dtype": "float32",
+        "batch": n, "resolution": RESOLUTION, "steps": STEPS,
+        "guidance": 7.5, "ddim_first_s": first_s, "ddim_warm_s": second_s,
+        "ddim_images_per_s": n / second_s,
+        "max_memory_allocated_gb": peak / 1e9, "rerun_max_abs": rerun,
+        "launches": [launches, launches2], "launches_total": total,
+        "profile": prof, **report}))
+    return total
+
+
+@contextlib.contextmanager
+def _draws_on_cpu(seed):
+    """``torch.randn`` and ``torch.randint`` draw from one CPU generator
+    seeded ``seed``, whatever generator and device they are given, and move
+    the draw to the device asked for: a tuning step on the card then takes
+    the random numbers of the same step on the CPU (a CUDA generator and a
+    CPU one give different numbers from one seed)."""
+    import torch
+
+    cpu = torch.Generator().manual_seed(seed)
+    randn, randint = torch.randn, torch.randint
+
+    def draw(fn, *args, generator=None, device=None, **kwargs):
+        del generator
+        out = fn(*args, generator=cpu, **kwargs)
+        return out if device is None else out.to(device)
+
+    torch.randn = lambda *a, **kw: draw(randn, *a, **kw)
+    torch.randint = lambda *a, **kw: draw(randint, *a, **kw)
+    try:
+        yield
+    finally:
+        torch.randn, torch.randint = randn, randint
+
+
+def _tiny_tuning_step(device, state, offsets, resolution):
+    """One ``tuning_e4t.tune`` step of the tiny configs on ``device`` from
+    ``state`` (the modules' state dicts) with ``--mixed_precision no``:
+    (metrics, per-group gradients as the optimizer saw them, launches)."""
+    import numpy as np
+    import torch
+
+    from e4t_diffusion_torch import tuning_e4t
+    from e4t_diffusion_torch.diffusion.pipeline import E4TModules
+    from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
+    from e4t_diffusion_torch.templates import resolve_templates
+    from e4t_diffusion_torch.training.setup import resolve_class_token
+    from e4t_diffusion_torch.utils.tokenizer import (
+        CLIPTokenizer, make_tiny_tokenizer_files)
+
+    args = tuning_e4t.parse_args([
+        "--pretrained_model_name_or_path", "-", "--train_image_path", "-",
+        "--max_train_steps", "1", "--mixed_precision", "no",
+        "--train_batch_size", "2", "--resolution", str(resolution),
+        "--device", str(device)])
+    dtype = tuning_e4t.resolve_train_dtype(args.mixed_precision,
+                                           torch.device(device))
+    modules = E4TModules.tiny(device=device)
+    for name, mod in zip(("unet", "vae", "text", "e4t"), modules.all()):
+        mod.load_state_dict(state[name], strict=True)
+    with tempfile.TemporaryDirectory() as tok_dir:
+        make_tiny_tokenizer_files(tok_dir, extra_words=[
+            "a", "photo", "of", "the", "face"])
+        tokenizer = CLIPTokenizer.from_pretrained(tok_dir,
+                                                  model_max_length=16)
+    tokenizer.add_tokens("*s")  # its id lies inside the 1,000-row table
+    image = np.random.default_rng(7).integers(
+        0, 256, (resolution, resolution, 3), dtype=np.uint8)
+    seen = []
+    make = tuning_e4t.make_optimizer
+
+    def recording_optimizer(params, lr):
+        opt = make(params, lr)
+        step = opt.step
+
+        def record_then_step(*a, **kw):
+            seen.append([p.grad.detach().double().cpu() for p in params])
+            return step(*a, **kw)
+
+        opt.step = record_then_step
+        return opt
+
+    tuning_e4t.make_optimizer = recording_optimizer
+    _reset_launches()
+    try:
+        with _draws_on_cpu(8):
+            result = tuning_e4t.tune(
+                args, modules, {k: v.to(device) for k, v in offsets.items()},
+                tokenizer, "*s", resolve_templates(
+                    "a photo of {placeholder_token}"),
+                resolve_class_token(tokenizer, "face"), image,
+                NoiseScheduleConfig(), dtype)
+    finally:
+        tuning_e4t.make_optimizer = make
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+    launches = _read_launches()
+    grads, i = {}, 0
+    for group, tensors in result["trainable"].items():
+        grads[group] = seen[0][i:i + len(tensors)]
+        i += len(tensors)
+    return result["metrics"][0], grads, launches
+
+
+def phase_f32_tuning_vs_cpu():
+    """One f32 tuning step of the tiny configs at TINY_TUNING_RESOLUTION on
+    the card and on the CPU, from the same weights and draws: the card's
+    f32 flash sites run the f32 forward and backward kernels, as many times
+    as the sites give; the CPU runs their plain
+    versions. Loss to TUNING_LOSS_REL, each group's gradient to
+    TUNING_GRAD_REL_L2."""
+    import torch
+
+    from e4t_diffusion_torch.diffusion.pipeline import E4TModules
+    from e4t_diffusion_torch.models import weight_offsets as wo
+
+    torch.manual_seed(9)
+    cpu = E4TModules.tiny(device="cpu")
+    state = {name: mod.state_dict() for name, mod in zip(
+        ("unet", "vae", "text", "e4t"), cpu.all())}
+    offsets = wo.init_offset_bank(cpu.unet.config,
+                                  torch.Generator().manual_seed(10))
+    res = TINY_TUNING_RESOLUTION
+    m_cpu, g_cpu, _ = _tiny_tuning_step("cpu", state, offsets, res)
+    m_card, g_card, launches = _tiny_tuning_step("cuda", state, offsets, res)
+    want = _expected_tuning_launches(
+        cpu.unet.config, cpu.e4t_encoder.config.vit, res, dtype=torch.float32,
+        vae_cfg=cpu.vae.config)
+    if launches != want or launches["flash_fwd_lowdim_f32"] == 0:
+        fail(f"tiny f32 tuning step: launches {launches}, expected {want}")
+    loss_rel = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    grad_rel = {}
+    for group in g_cpu:
+        num = sum(float((a - b).norm() ** 2)
+                  for a, b in zip(g_card[group], g_cpu[group]))
+        den = sum(float(b.norm() ** 2) for b in g_cpu[group])
+        grad_rel[group] = (num / den) ** 0.5
+    report = {"phase": "f32_tuning_vs_cpu", "resolution": res, "batch": 2,
+              "loss_card": m_card["loss"], "loss_cpu": m_cpu["loss"],
+              "loss_rel": loss_rel, "grad_rel_l2": grad_rel,
+              "launches": launches}
+    if not (loss_rel <= TUNING_LOSS_REL
+            and max(grad_rel.values()) <= TUNING_GRAD_REL_L2):
+        fail(f"tiny f32 tuning step, card vs CPU: {report}")
+    print(json.dumps(report))
+    return launches
+
+
+def phase_f32_tuning(smi):
+    """One full-width f32 tuning step (``--mixed_precision no``) at the
+    largest batch of F32_TUNING_BATCHES that the card holds; a batch that
+    runs out of memory is recorded and the next one tried."""
+    import torch
+
+    import gc
+
+    refused = []
+    for batch in F32_TUNING_BATCHES:
+        try:
+            launches, _ = phase_tuning(smi, steps=1, dtype=torch.float32,
+                                       batch=batch)
+        except torch.cuda.OutOfMemoryError as err:
+            refused.append({"batch": batch, "error": str(err)[:200]})
+        else:
+            print(json.dumps({"phase": "f32_tuning_batch", "batch": batch,
+                              "out_of_memory": refused}))
+            return launches
+        gc.collect()  # the failed step's tensors, freed with its traceback
+        torch.cuda.empty_cache()
+    fail(f"f32 tuning: no batch of {F32_TUNING_BATCHES} fits: {refused}")
+
+
 def kernels_line(cases, paths):
     """The kernels record: one row per kernel, its launches on each path
     (``paths``: launch counts by path) and its times at the main path's
@@ -1429,19 +1896,21 @@ def kernels_line(cases, paths):
     timed_keys = ("bh", "sq", "sk", "d", "ms", "plain_ms", "bound_ms",
                   "bound_by", "library_ms")
 
-    def entry(name, source, replaces, site, errors, per_site):
+    def entry(name, source, replaces, site, errors, per_site,
+              file="flash_kernels.py"):
         return {
             "name": name, "route": "cuda",
             "source": f"e4t_diffusion_torch/csrc/{source}",
-            "replaces": f"e4t_diffusion_tpu/ops/flash_kernels.py:{replaces}",
+            "replaces": f"e4t_diffusion_tpu/ops/{file}:{replaces}",
             "launches": sum(p[name] for p in paths.values()),
             "launches_by_path": {k: p[name] for k, p in paths.items()},
             "max_abs_err": max(errors), "ms": site["ms"],
             "plain_ms": site["plain_ms"], "bound_ms": site["bound_ms"],
             "bound_by": site["bound_by"], "library_ms": site["library_ms"],
             "at": f"BH={site['bh']} Sq={site['sq']} Sk={site['sk']} "
-                  f"D={site['d']} bf16",
-            "per_site": [{k: c[k] for k in timed_keys} for c in per_site]}
+                  f"D={site['d']} {site.get('dtype', 'bfloat16')}",
+            "per_site": [{k: c[k] for k in timed_keys if k in c}
+                         for c in per_site]}
 
     low = [c for c in fwd_cases if c["kernel"] == "flash_fwd_lowdim"]
     wide = [c for c in fwd_cases if c["kernel"] == "flash_fwd_wide"]
@@ -1465,6 +1934,11 @@ def kernels_line(cases, paths):
         entry("flash_fwd_int8", "flash_fwd_int8.cu", 813,
               cases["int8_flash"][0], [c["out_max_abs"] for c in int8_flash],
               cases["int8_flash"])]
+    # the redesign against the parent design, timed in this run
+    kernels[0]["parent_ms"] = cases["sampling"][0]["parent_ms"]
+    kernels[0]["per_site"] = [
+        {k: c[k] for k in timed_keys + ("parent_ms",)}
+        for c in low if "ms" in c]
     kernels[1]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:95"
     kernels[2]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:582"
     kernels[3]["at"] = kernels[3]["at"].replace(
@@ -1542,7 +2016,53 @@ def kernels_line(cases, paths):
     kernels[-1]["per_site"] = [
         {k: c[k] for k in timed_keys + ("g", "wall_ms", "library_wall_ms")}
         for c in cases["shortseq"]]
+    kernels += _f32_rows(cases, entry, timed_keys)
     return kernels
+
+
+def _f32_rows(cases, entry, timed_keys):
+    """The kernels line's rows of the f32 kernels (``csrc/attention_f32.cu``
+    and the int8 kernel's f32 epilogue), each at its heaviest path site."""
+    ragged = cases["f32_ragged"]
+    fwd = cases["f32_sampling"] + cases["f32_tuning_fwd"] + ragged
+
+    def errors(name, keys=("out_max_abs",)):
+        return [c[k] for c in fwd + cases["f32_tuning_bwd"]
+                + cases["f32_shortseq"] + cases["f32_int8_flash"]
+                if c["kernel"] == name for k in keys]
+
+    def timed(name, group):
+        return [c for c in cases[group] if c["kernel"] == name]
+
+    wide = timed("flash_fwd_wide_f32", "f32_tuning_fwd")
+    rows = [
+        entry("flash_fwd_lowdim_f32", "attention_f32.cu", 286,
+              cases["f32_sampling"][0], errors("flash_fwd_lowdim_f32"),
+              [c for c in fwd if c["kernel"] == "flash_fwd_lowdim_f32"
+               and "ms" in c]),
+        entry("flash_fwd_wide_f32", "attention_f32.cu", 196,
+              next(c for c in wide if c["sq"] == c["sk"]),
+              errors("flash_fwd_wide_f32"), wide),
+        entry("flash_bwd_f32", "attention_f32.cu", 503,
+              cases["f32_tuning_bwd"][0],
+              errors("flash_bwd_f32", ("dq_max_abs", "dk_max_abs",
+                                       "dv_max_abs")),
+              cases["f32_tuning_bwd"]),
+        entry("flash_fwd_shortseq_f32", "attention_f32.cu", 896,
+              cases["f32_shortseq"][0], errors("flash_fwd_shortseq_f32"),
+              cases["f32_shortseq"])]
+    rows[1]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:95"
+    rows[2]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:582"
+    for mode, source in (("qk", "attention_f32.cu"),
+                         ("qkpv", "flash_fwd_int8.cu")):
+        name = f"flash_fwd_int8_{mode}_f32"
+        sites = timed(name, "f32_int8_flash")
+        row = entry(name, source, 813, sites[0], errors(name), sites)
+        row["at"] = row["at"].replace(
+            "float32", f"int8 q/k, {'int8' if mode == 'qkpv' else 'f32'} v, "
+                       f"f32 out, mode {mode}")
+        rows.append(row)
+    return rows
 
 
 def main():
@@ -1578,6 +2098,7 @@ def main():
                         image)
     routes_sampling = run("routes_sampling", phase_routes_sampling, smi,
                           pipe, image, warm_s)
+    f32_sampling = run("f32_sampling", phase_f32_sampling, smi, pipe, image)
     del pipe
     torch.cuda.empty_cache()
     tuning, first_step = run("tuning", phase_tuning, smi)
@@ -1586,9 +2107,14 @@ def main():
                            first_step)
     torch.cuda.empty_cache()
     run("tiny_card_vs_cpu", phase_tiny_vs_cpu)
+    f32_tuning_tiny = run("f32_tuning_vs_cpu", phase_f32_tuning_vs_cpu)
+    f32_tuning = run("f32_tuning", phase_f32_tuning, smi)
+    torch.cuda.empty_cache()
     paths = {"sampling": sampling, "int8_sampling": int8_sampling,
-             "routes_sampling": routes_sampling, "tuning": tuning,
-             "routes_tuning": routes_tuning}
+             "routes_sampling": routes_sampling,
+             "f32_sampling": f32_sampling, "tuning": tuning,
+             "routes_tuning": routes_tuning,
+             "f32_tuning_vs_cpu": f32_tuning_tiny, "f32_tuning": f32_tuning}
 
     kernels = kernels_line(cases, paths)
     print(json.dumps({"phase_seconds": timings}))

@@ -13,8 +13,9 @@
 // The row sum l adds the unquantized f32 p in both modes, as on the TPU. The
 // quantized p, and so the result in "qkpv" mode, depends on the kv tile
 // (kBlockN = 64 here, ``flash_int8.KERNEL_BLOCK_K``; the plain version takes
-// the tile as an argument). Returns out (BH, Sq, D) bf16 = acc / l * v_c and
-// lse = m + log(l) (BH, Sq) f32.
+// the tile as an argument). Returns out (BH, Sq, D) = acc / l * v_c, in bf16
+// (in f32 too in "qkpv" mode, for an f32 compute type) and lse = m + log(l)
+// (BH, Sq) f32.
 //
 // What bounds it on the H100: at the UNet's 4096-token d=40 sites (BH=64)
 // the Sq*Sk exponentials per head take ~0.257 ms at 16 exp2/clk/SM, against
@@ -101,11 +102,20 @@ __device__ __forceinline__ void stage_vt_s8(int8_t* dst, const int8_t* src, int 
   }
 }
 
-template <int DK, bool kPvInt8>
+// two output columns of a row: bf16 pairs, or f32 pairs (OutT = float)
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = e4t::pack_bf16(a, b);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <int DK, bool kPvInt8, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
                       const void* __restrict__ v, const float* __restrict__ sc,
-                      bf16* __restrict__ out, float* __restrict__ lse, int sq, int sk,
+                      OutT* __restrict__ out, float* __restrict__ lse, int sq, int sk,
                       int d) {
   constexpr int kP = pitch8<DK>();
   constexpr int kSteps = DK / 16;  // s8 m16n8k16 steps over the head dim
@@ -270,17 +280,13 @@ flash_fwd_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k
   const float f0 = (l0 > 0.f ? 1.f / l0 : 0.f) * v_c;
   const float f1 = (l1 > 0.f ? 1.f / l1 : 0.f) * v_c;
   const int row0 = q0 + qr + g, row1 = row0 + 8;
-  bf16* ob = out + (size_t)bh * sq * d;
+  OutT* ob = out + (size_t)bh * sq * d;
 #pragma unroll
   for (int n = 0; n < kOutTiles; ++n) {
     const int col = n * 8 + t4 * 2;
     if (col < d) {
-      if (row0 < sq)
-        *reinterpret_cast<uint32_t*>(&ob[(size_t)row0 * d + col]) =
-            e4t::pack_bf16(o[n][0] * f0, o[n][1] * f0);
-      if (row1 < sq)
-        *reinterpret_cast<uint32_t*>(&ob[(size_t)row1 * d + col]) =
-            e4t::pack_bf16(o[n][2] * f1, o[n][3] * f1);
+      if (row0 < sq) store2(&ob[(size_t)row0 * d + col], o[n][0] * f0, o[n][1] * f0);
+      if (row1 < sq) store2(&ob[(size_t)row1 * d + col], o[n][2] * f1, o[n][3] * f1);
     }
   }
   if (t4 == 0) {
@@ -290,32 +296,33 @@ flash_fwd_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k
   }
 }
 
-template <int DK, bool kPvInt8>
+template <int DK, bool kPvInt8, typename OutT>
 int launch(const void* q, const void* k, const void* v, const void* sc, void* out,
            void* lse, int bh, int sq, int sk, int d, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DK, kPvInt8>();
-  const cudaError_t err = e4t::allow_smem(flash_fwd_int8_kernel<DK, kPvInt8>, smem);
+  const cudaError_t err =
+      e4t::allow_smem(flash_fwd_int8_kernel<DK, kPvInt8, OutT>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBlockM - 1) / kBlockM, bh);
-  flash_fwd_int8_kernel<DK, kPvInt8><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_int8_kernel<DK, kPvInt8, OutT><<<grid, kThreads, smem, stream>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(k), v,
-      static_cast<const float*>(sc), static_cast<bf16*>(out), static_cast<float*>(lse),
+      static_cast<const float*>(sc), static_cast<OutT*>(out), static_cast<float*>(lse),
       sq, sk, d);
   return (int)cudaGetLastError();
 }
 
-template <bool kPvInt8>
+template <bool kPvInt8, typename OutT>
 int dispatch(const void* q, const void* k, const void* v, const void* sc, void* out,
              void* lse, int bh, int sq, int sk, int d, cudaStream_t s) {
   switch ((d + 15) / 16 * 16) {
-    case 16: return launch<16, kPvInt8>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 32: return launch<32, kPvInt8>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 48: return launch<48, kPvInt8>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 64: return launch<64, kPvInt8>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 80: return launch<80, kPvInt8>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 96: return launch<96, kPvInt8>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 112: return launch<112, kPvInt8>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 128: return launch<128, kPvInt8>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
+    case 16: return launch<16, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
+    case 32: return launch<32, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
+    case 48: return launch<48, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
+    case 64: return launch<64, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
+    case 80: return launch<80, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
+    case 96: return launch<96, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
+    case 112: return launch<112, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
+    case 128: return launch<128, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -324,15 +331,19 @@ int dispatch(const void* q, const void* k, const void* v, const void* sc, void* 
 
 // Plain C entry point for ctypes. q/k are contiguous int8 (BH, Sq|Sk, D), v
 // contiguous int8 (pv_int8 != 0) or bf16 (BH, Sk, D), all 16-byte aligned,
-// D a multiple of 8 below 128; sc contiguous f32 (BH, 2); out bf16
-// (BH, Sq, D); lse f32 (BH, Sq). Runs on ``stream``, allocates nothing and
-// does not synchronise. Returns cudaGetLastError() after the launch.
+// D a multiple of 8 below 128; sc contiguous f32 (BH, 2); out (BH, Sq, D) in
+// bf16, or in f32 where out_f32 != 0 ("qkpv" only: the only change is the
+// epilogue's store; "qk" in f32 takes an f32 v, attention_f32.cu); lse f32
+// (BH, Sq). Runs on ``stream``, allocates nothing and does not synchronise.
+// Returns cudaGetLastError() after the launch.
 extern "C" int e4t_flash_fwd_int8(const void* q, const void* k, const void* v,
                                   const void* sc, void* out, void* lse, int bh, int sq,
-                                  int sk, int d, int pv_int8, void* stream) {
-  if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 || d <= 0 || d % 8 != 0 || d >= 128)
+                                  int sk, int d, int pv_int8, int out_f32, void* stream) {
+  if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 || d <= 0 || d % 8 != 0 || d >= 128 ||
+      (out_f32 && !pv_int8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return pv_int8 ? dispatch<true>(q, k, v, sc, out, lse, bh, sq, sk, d, s)
-                 : dispatch<false>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
+  if (out_f32) return dispatch<true, float>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
+  return pv_int8 ? dispatch<true, bf16>(q, k, v, sc, out, lse, bh, sq, sk, d, s)
+                 : dispatch<false, bf16>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
 }

@@ -49,15 +49,11 @@ def resolve_device(device: Union[str, torch.device, None] = None
 
 
 def resolve_dtype(name: str, device: torch.device) -> torch.dtype:
-    """``auto`` is bf16 on the GPU and f32 on the CPU. fp32 on the GPU is
-    refused: the UNet's large self-attention sites route to the low-dim
-    flash kernel, which takes bf16 only."""
+    """``auto`` is bf16 on the GPU and f32 on the CPU; ``bf16`` and
+    ``fp32`` name their type on either (f32 on the GPU runs the f32
+    attention kernels)."""
     if name == "auto":
         return torch.bfloat16 if device.type == "cuda" else torch.float32
-    if name == "fp32" and device.type == "cuda":
-        raise ValueError("fp32 is not served on the GPU yet: the flash "
-                         "attention kernel takes bf16 only; use --dtype "
-                         "bf16 (or auto), or --device cpu for fp32")
     return {"bf16": torch.bfloat16, "fp32": torch.float32}[name]
 
 

@@ -5,7 +5,8 @@ pipeline on the GPU (``--device cpu`` to run on the CPU) and renders the
 prompts to a grid image. '::' splits several prompts; ``--batch_prompts``
 samples them as one batch. ``--int8`` (with ``--int8_static_act``,
 ``--int8_pc_act``, ``--act_scales``) serves the UNet in int8,
-``--int8_attn`` its large self-attention sites too.
+``--int8_attn`` its large self-attention sites too. ``--vit_gelu_tanh``
+sets ``E4T_VIT_GELU=tanh`` for the run (the ViT-H's MLP on the tanh GELU).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from e4t_diffusion_torch.config import (get_e4t_config, getattr_from_config,
 from e4t_diffusion_torch.diffusion.pipeline import (
     E4TModules, StableDiffusionE4TPipeline, resolve_device, resolve_dtype)
 from e4t_diffusion_torch.diffusion.schedulers import SCHEDULER_MAPPING
+from e4t_diffusion_torch.models.vit import VIT_GELU_KNOB
 from e4t_diffusion_torch.ops import quant
 from e4t_diffusion_torch.utils import artifacts
 from e4t_diffusion_torch.utils.image import image_grid, load_image
@@ -49,7 +51,8 @@ def parse_args(argv=None):
     parser.add_argument("--dtype", type=str, default="auto",
                         choices=["auto", "bf16", "fp32"],
                         help="compute dtype (auto = bf16 on the GPU, fp32 "
-                             "on the CPU; fp32 runs on the CPU only)")
+                             "on the CPU; fp32 on the GPU runs the f32 "
+                             "attention kernels)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; runs on the GPU unless 'cpu' "
                              "is given")
@@ -79,6 +82,12 @@ def parse_args(argv=None):
                              "the int8 kernel: per-head q/k quantization "
                              "with k mean-centred ('qkpv': P@V in int8 "
                              "too); independent of --int8")
+    parser.add_argument("--vit_gelu_tanh", action="store_true",
+                        help="serve the ViT-H tower's GELU with the tanh "
+                             "approximation: sets E4T_VIT_GELU=tanh for "
+                             "the run (open_clip uses exact erf, the "
+                             "default); feature deviation bounded in "
+                             "tests/test_vit_gelu_knob.py")
     parser.add_argument("--output", type=str, default="grid.png")
     return parser.parse_args(argv)
 
@@ -94,6 +103,10 @@ def int8_mode(args):
 
 def build_pipeline(args) -> StableDiffusionE4TPipeline:
     """Load the artifact directory named by ``args`` into a pipeline."""
+    if args.vit_gelu_tanh:
+        # read per call by models/vit.MLP, as the reference's CLI sets it
+        # before its encode program is traced
+        os.environ[VIT_GELU_KNOB] = "tanh"
     dtype = resolve_dtype(args.dtype, torch.device(args.device))
     device = resolve_device(args.device)
     config = load_config(args.pretrained_model_name_or_path)

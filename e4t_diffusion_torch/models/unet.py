@@ -16,11 +16,17 @@ Every linear and conv site is a ``quant.Linear`` / ``quant.Conv2d``
 ``quant.int8_sites`` holds its quantized weights, and records its
 activation range under ``quant.calibration``; otherwise it is the plain
 layer.
+
+``E4T_FUSED_QKV`` (the reference's fused q/k/v projection layout,
+``e4t_diffusion_tpu/models/unet.py:_fused_qkv_enabled``) has no counterpart
+here yet: while it is set to a true value, building or running the UNet
+raises a ValueError that names it.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import List, Sequence, Tuple, Union
 
 import torch
@@ -30,6 +36,20 @@ from torch import nn
 from e4t_diffusion_torch.models.norm import group_norm_act
 from e4t_diffusion_torch.ops import quant
 from e4t_diffusion_torch.ops.attention import dot_product_attention
+
+FUSED_QKV_KNOB = "E4T_FUSED_QKV"
+
+
+def check_fused_qkv_knob() -> None:
+    """Raise while ``E4T_FUSED_QKV`` is true by the reference's parse
+    (anything but unset, "", "0" or "false"): the port has no fused-QKV
+    layout yet, and running the separate projections under that knob would
+    hide it."""
+    value = os.environ.get(FUSED_QKV_KNOB, "0")
+    if value not in ("0", "false", ""):
+        raise ValueError(f"{FUSED_QKV_KNOB}={value!r}: the PyTorch port has "
+                         f"no fused-QKV layout yet; unset {FUSED_QKV_KNOB} "
+                         f"(or set it to 0)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -314,6 +334,7 @@ class UNet2DConditionModel(nn.Module):
 
     def __init__(self, config: UNetConfig):
         super().__init__()
+        check_fused_qkv_knob()
         cfg = self.config = config
         for btype in (*cfg.down_block_types, *cfg.up_block_types):
             if btype not in ("CrossAttnDownBlock2D", "DownBlock2D",
@@ -360,6 +381,7 @@ class UNet2DConditionModel(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
                 return_encoder_outputs: Union[bool, str] = False):
+        check_fused_qkv_knob()
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         if timesteps.dim() == 0:

@@ -6,12 +6,15 @@ Counterpart of ``e4t_diffusion_tpu/models/vit.py``, with open_clip's
 of the reference's ``encoder.pt`` loads strictly. Output contract of
 open_clip with ``output_tokens=True`` and ``proj=None``: ``(pooled,
 tokens)``, pooled = ln_post(cls token), tokens = the un-normalized patch
-tokens. GELU is exact (erf), as in open_clip.
+tokens. GELU is exact (erf), as in open_clip, unless ``E4T_VIT_GELU=tanh``
+(read per call) asks for the tanh approximation, the reference's serving
+knob (``e4t_diffusion_tpu/models/vit.py:_gelu_tanh_env``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Tuple
 
 import torch
@@ -19,6 +22,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from e4t_diffusion_torch.ops.attention import dot_product_attention
+
+VIT_GELU_KNOB = "E4T_VIT_GELU"
+
+
+def gelu_approximate() -> str:
+    """``F.gelu``'s ``approximate`` for the MLP: "tanh" while
+    ``E4T_VIT_GELU=tanh``, else "none" (exact erf)."""
+    return "tanh" if os.environ.get(VIT_GELU_KNOB, "") == "tanh" else "none"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +90,8 @@ class MLP(nn.Module):
         self.c_proj = nn.Linear(mlp_dim, width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(F.gelu(self.c_fc(x)))
+        return self.c_proj(F.gelu(self.c_fc(x),
+                                  approximate=gelu_approximate()))
 
 
 class ResidualAttentionBlock(nn.Module):

@@ -8,7 +8,9 @@ Counterpart of ``e4t_diffusion_tpu/ops/attention.py``. Tensors are
   P@V; the only masked / causal path.
 - ``flash_attention``: ``FlashAttention``, an autograd Function over the
   hand-written CUDA kernels: the forward of ``ops/flash_lowdim.py`` and
-  the backward of ``ops/flash_bwd.py``, both for head_dim up to 256.
+  the backward of ``ops/flash_bwd.py``, both for head_dim up to 256, in
+  bf16 or f32 (each wrapper picks its kernel by the operands' type; the
+  routes below look at shapes only, as the reference's do).
   head_dim is zero-padded to a multiple of 8.
 - ``shortseq_mh_attention``: ``ShortSeqAttention``, an autograd Function
   over the short-sequence kernel of ``ops/shortseq.py`` (forward) and
@@ -28,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
+import os
 from typing import Iterator, Optional, Sequence
 
 import torch
@@ -38,8 +41,11 @@ from e4t_diffusion_torch.ops.flash_lowdim import MAX_D, WIDE_MIN_D, flash_fwd
 
 # Score-tensor size above which self-attention goes to flash, and the
 # shortest sequence that may. Both are the TPU reference's constants
-# (attention.py:247,419), carried until they are measured on the H100.
+# (attention.py:247,419), carried until they are measured on the H100;
+# E4T_FLASH_THRESHOLD_BYTES, read per call, sets the first, as it sets the
+# reference's.
 FLASH_SCORE_BYTES = 128 * 1024 ** 2
+FLASH_THRESHOLD_KNOB = "E4T_FLASH_THRESHOLD_BYTES"
 FLASH_MIN_SEQ = 128
 # the short-sequence route takes seq above this (and up to the kernel's
 # shortseq.MAX_SEQ) and round_up(head_dim, 8) below shortseq.MAX_D, the
@@ -204,9 +210,14 @@ def flash_threshold(score_bytes: Optional[int]) -> Iterator[None]:
 
 
 def flash_threshold_bytes() -> int:
-    """The score-size threshold ``flash_route`` applies in this context."""
+    """The score-size threshold ``flash_route`` applies in this context: a
+    ``flash_threshold`` in force wins (the reference's
+    ``_THRESHOLD_OVERRIDE``), else ``E4T_FLASH_THRESHOLD_BYTES`` (an
+    integer, read per call), else ``FLASH_SCORE_BYTES``."""
     override = _THRESHOLD_OVERRIDE.get()
-    return FLASH_SCORE_BYTES if override is None else override
+    if override is not None:
+        return override
+    return int(os.environ.get(FLASH_THRESHOLD_KNOB, FLASH_SCORE_BYTES))
 
 
 def flash_route(q_shape: Sequence[int], k_shape: Sequence[int],
@@ -214,8 +225,8 @@ def flash_route(q_shape: Sequence[int], k_shape: Sequence[int],
                 causal: bool = False) -> bool:
     """True where ``dot_product_attention`` sends a site to flash: a CUDA
     device, no bias, not causal, seq >= 128 and an f32 score tensor above
-    the threshold in force (128 MiB unless ``flash_threshold`` says
-    otherwise). The reference's rule with ``device.type == "cuda"`` in
+    ``flash_threshold_bytes()`` (128 MiB unless ``flash_threshold`` or
+    ``E4T_FLASH_THRESHOLD_BYTES`` says otherwise). The reference's rule with ``device.type == "cuda"`` in
     place of ``default_backend() == "tpu"``."""
     b, h, sq = q_shape[0], q_shape[1], q_shape[2]
     score_bytes = b * h * sq * k_shape[2] * 4

@@ -5,17 +5,21 @@ version.
 replaces the TPU kernel ``_flash_fwd_lowdim_int8`` of
 ``e4t_diffusion_tpu/ops/flash_kernels.py``: int8 QK^T with per-head scales,
 an online f32 softmax, and P@V in bf16 (mode "qk") or in int8 with p scaled
-by 127 (mode "qkpv"). The quantization of q, k and v stays in plain PyTorch
-(``ops/attention._int8_lowdim_path``), as the JAX package leaves it to XLA.
-Forward only: serving runs it under ``attention.int8_flash_attention``.
+by 127 (mode "qkpv"), the output in bf16. For an f32 compute type, as the
+reference writes in q's dtype and keeps v in it: "qk" with an f32 v runs
+the f32 kernel of ``csrc/attention_f32.cu`` (exact int32 scores, P@V in
+f32), "qkpv" the same int8 kernel with an f32 epilogue. The quantization of
+q, k and v stays in plain PyTorch (``ops/attention._int8_lowdim_path``), as
+the JAX package leaves it to XLA. Forward only: serving runs it under
+``attention.int8_flash_attention``.
 
 ``flash_fwd_int8`` launches the kernel for CUDA tensors, raises on anything
-the kernel does not take, and counts its launches
-(``flash_fwd_int8.launches``). For CPU tensors it runs
-``flash_fwd_int8_reference`` at the kernel's kv tile, the plain PyTorch
-version the tests hold against JAX and ``chip_smoke.py`` holds the kernel
-against. The source note gives the bound on the H100 and how the design
-meets it.
+the kernels do not take, and counts its launches by the kernel it took
+(``flash_fwd_int8.launches["bf16"]``, ``["qk_f32"]`` and ``["qkpv_f32"]``).
+For CPU tensors it runs ``flash_fwd_int8_reference`` at the kernel's kv
+tile, the plain PyTorch version the tests hold against JAX and
+``chip_smoke.py`` holds the kernels against. The source notes give the
+bound on the H100 and how each design meets it.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Tuple
 import torch
 
 from e4t_diffusion_torch.ops import _build
+from e4t_diffusion_torch.ops.flash_lowdim import F32_SOURCE, KERNEL_DTYPES
 
 SOURCE = "flash_fwd_int8"
 MODES = ("qk", "qkpv")
@@ -98,15 +103,27 @@ def _check(q, k, v, sc, mode) -> None:
         raise ValueError("empty sequence")
 
 
+def launch_key(mode: str, out_dtype: torch.dtype) -> str:
+    """The key of ``flash_fwd_int8.launches`` a call counts on: "bf16" for
+    the bf16 output (``csrc/flash_fwd_int8.cu``, both modes), "qk_f32"
+    (``csrc/attention_f32.cu``) and "qkpv_f32" (``flash_fwd_int8.cu``'s f32
+    epilogue) for an f32 output."""
+    return "bf16" if out_dtype == torch.bfloat16 else f"{mode}_f32"
+
+
 def _check_kernel_inputs(q, k, v, sc, mode, out_dtype) -> None:
-    """What the kernel takes, checked on CUDA tensors before a launch."""
+    """What the kernels take, checked on CUDA tensors before a launch: the
+    output in bf16 or f32 and, in "qk" mode, v in the output's type."""
     bh, _, d = q.shape
     if d % 8 != 0 or not 8 <= d <= MAX_D:
         raise ValueError(f"head dim {d}: the kernel takes multiples of 8 up "
                          f"to {MAX_D}")
     if bh > 65535:
         raise ValueError(f"BH={bh} exceeds the kernel's grid (65535)")
-    v_dtype = torch.int8 if mode == "qkpv" else torch.bfloat16
+    if out_dtype not in KERNEL_DTYPES:
+        raise TypeError(f"output {out_dtype}: the kernels write bfloat16 or "
+                        f"float32")
+    v_dtype = torch.int8 if mode == "qkpv" else out_dtype
     for name, t, want in (("q", q, torch.int8), ("k", k, torch.int8),
                           ("v", v, v_dtype), ("sc", sc, torch.float32)):
         if t.dtype != want:
@@ -116,8 +133,6 @@ def _check_kernel_inputs(q, k, v, sc, mode, out_dtype) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16 != 0:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"output {out_dtype}: the kernel writes bfloat16")
 
 
 def flash_fwd_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -128,10 +143,10 @@ def flash_fwd_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     arithmetic.
 
     CUDA tensors: contiguous, 16-byte aligned int8 q/k, v int8 ("qkpv") or
-    bf16 ("qk"), f32 sc, D a multiple of 8 up to 120, bf16 out; launches the
-    kernel on the current stream and counts it on
-    ``flash_fwd_int8.launches``. CPU tensors: the plain version at the
-    kernel's kv tile."""
+    in ``out_dtype`` ("qk"), f32 sc, D a multiple of 8 up to 120, out in
+    bf16 or f32; launches the kernel on the current stream and counts it on
+    ``flash_fwd_int8.launches[launch_key(mode, out_dtype)]``. CPU tensors:
+    the plain version at the kernel's kv tile."""
     _check(q, k, v, sc, mode)
     if q.device.type == "cpu":
         return flash_fwd_int8_reference(q, k, v, sc, mode, out_dtype)
@@ -141,13 +156,20 @@ def flash_fwd_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, sq, d = q.shape
     out = torch.empty((bh, sq, d), dtype=out_dtype, device=q.device)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    _build.launch(SOURCE, "e4t_flash_fwd_int8",
-                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5, q.device,
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(), sc.data_ptr(),
-                  out.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1], d,
-                  int(mode == "qkpv"))
-    flash_fwd_int8.launches += 1
+    key = launch_key(mode, out_dtype)
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), sc.data_ptr(),
+                out.data_ptr(), lse.data_ptr())
+    if key == "qk_f32":
+        _build.launch(F32_SOURCE, "e4t_attn_fwd_int8_qk_f32",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4, q.device,
+                      *pointers, bh, sq, k.shape[1], d)
+    else:
+        _build.launch(SOURCE, "e4t_flash_fwd_int8",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6, q.device,
+                      *pointers, bh, sq, k.shape[1], d, int(mode == "qkpv"),
+                      int(key == "qkpv_f32"))
+    flash_fwd_int8.launches[key] += 1
     return out, lse
 
 
-flash_fwd_int8.launches = 0
+flash_fwd_int8.launches = {"bf16": 0, "qk_f32": 0, "qkpv_f32": 0}

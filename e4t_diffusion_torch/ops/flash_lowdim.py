@@ -13,14 +13,19 @@ head dims a multiple of 8 up to 256:
   split between k/v resident in VMEM and a blocked grid has no
   counterpart: k/v stream through shared memory at any length.
 
+f32 operands go to the f32 kernel of ``csrc/attention_f32.cu`` (SIMT FFMA
+in full f32, any head dim the bf16 kernel takes), as the TPU kernels write
+in q's dtype.
+
 The wrapper launches the kernel for CUDA tensors, raises on anything the
-kernel does not take, and counts its launches per TPU kernel it stands for
-(``flash_fwd.launches["lowdim"]`` and ``["wide"]``). For CPU tensors it
-runs ``flash_fwd_reference``, the plain PyTorch version the tests hold
-against JAX and ``chip_smoke.py`` holds the kernel against. It records no
+kernels do not take, and counts its launches per TPU kernel it stands for
+and per kernel it took (``flash_fwd.launches["lowdim"]``, ``["wide"]``,
+``["lowdim_f32"]`` and ``["wide_f32"]``). For CPU tensors it runs
+``flash_fwd_reference``, the plain PyTorch version the tests hold against
+JAX and ``chip_smoke.py`` holds the kernels against. It records no
 gradient: ``ops/attention.FlashAttention`` pairs it with the backward
-kernel (``ops/flash_bwd.py``). The source note gives the bound on the H100
-and how the design meets it.
+kernel (``ops/flash_bwd.py``). The source notes give the bound on the H100
+and how each design meets it.
 """
 from __future__ import annotations
 
@@ -32,6 +37,11 @@ import torch
 from e4t_diffusion_torch.ops import _build
 
 SOURCE = "flash_fwd_lowdim"
+# the f32 kernels of every attention wrapper
+F32_SOURCE = "attention_f32"
+# the floating types of the kernels' operands: the bf16 kernels and the f32
+# ones of F32_SOURCE
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # head dims (multiples of 8) the kernels take; from WIDE_MIN_D the forward
 # stands for the TPU's d >= 128 kernels and counts apart
 MAX_D = 256
@@ -63,61 +73,82 @@ def _check(q, k, v) -> None:
         raise ValueError("empty sequence")
 
 
-def check_bf16_operands(**tensors: torch.Tensor) -> None:
-    """What the port's flash kernels take: contiguous, 16-byte aligned
-    bf16 tensors."""
+def operand_dtype(**dtypes: torch.dtype) -> torch.dtype:
+    """The one floating type of a kernel's operands (named by keyword):
+    bfloat16 (the bf16 kernels) or float32 (``csrc/attention_f32.cu``).
+    Raises TypeError on any other type and on mixed types, naming both
+    types the kernels take."""
+    kinds = set(dtypes.values())
+    if len(kinds) > 1:
+        raise TypeError(f"mixed operand types {dtypes}: the kernels take "
+                        f"all bfloat16 or all float32")
+    (dtype,) = kinds
+    if dtype not in KERNEL_DTYPES:
+        names = ", ".join(f"{k} {v}" for k, v in dtypes.items())
+        raise TypeError(f"{names}: the kernels take bfloat16 or float32")
+    return dtype
+
+
+def check_operands(**tensors: torch.Tensor) -> torch.dtype:
+    """What the port's attention kernels take: contiguous, 16-byte aligned
+    tensors of one type, bfloat16 or float32 (``operand_dtype``), which it
+    returns."""
+    dtype = operand_dtype(**{k: t.dtype for k, t in tensors.items()})
     for name, t in tensors.items():
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} is {t.dtype}; the kernel takes bfloat16")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16 != 0:
             raise ValueError(f"{name} must be 16-byte aligned")
+    return dtype
 
 
-def _check_kernel_inputs(q, k, v) -> None:
+def _check_kernel_inputs(q, k, v, **more) -> torch.dtype:
     """The checks the forward and the backward kernels' wrappers run on
-    CUDA tensors before a launch."""
+    CUDA tensors before a launch; returns the operands' one type."""
     bh, _, d = q.shape
     if d % 8 != 0 or not 8 <= d <= MAX_D:
         raise ValueError(f"head dim {d}: the kernels take multiples of 8 "
                          f"up to {MAX_D}")
     if bh > 65535:
         raise ValueError(f"BH={bh} exceeds the kernel's grid (65535)")
-    check_bf16_operands(q=q, k=k, v=v)
+    return check_operands(q=q, k=k, v=v, **more)
 
 
-def launch_route(d: int) -> str:
-    """The key of ``flash_fwd.launches`` a head dim counts on: "lowdim"
-    (``_flash_fwd_lowdim``) or "wide" (``_flash_fwd_kvres``/``_flash_fwd``)."""
-    return "lowdim" if d < WIDE_MIN_D else "wide"
+def launch_route(d: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The key of ``flash_fwd.launches`` a head dim and operand type count
+    on: "lowdim" (``_flash_fwd_lowdim``) or "wide" (``_flash_fwd_kvres``/
+    ``_flash_fwd``), with "_f32" for the f32 kernel."""
+    route = "lowdim" if d < WIDE_MIN_D else "wide"
+    return route + "_f32" if dtype == torch.float32 else route
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Non-causal attention forward -> (out (BH, Sq, D), lse (BH, Sq) f32).
 
-    CUDA tensors: contiguous bf16, D a multiple of 8 up to 256; launches
-    the kernel on the current stream and counts it on
-    ``flash_fwd.launches[launch_route(D)]``. CPU tensors: the plain
-    version."""
+    CUDA tensors: contiguous bf16 or f32 (one type), D a multiple of 8 up
+    to 256; launches the kernel of that type on the current stream and
+    counts it on ``flash_fwd.launches[launch_route(D, dtype)]``. CPU
+    tensors: the plain version."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_kernel_inputs(q, k, v)
+    dtype = _check_kernel_inputs(q, k, v)
     bh, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    _build.launch(SOURCE, "e4t_flash_fwd",
+    source, symbol = ((F32_SOURCE, "e4t_attn_fwd_f32")
+                      if dtype == torch.float32 else (SOURCE, "e4t_flash_fwd"))
+    _build.launch(source, symbol,
                   [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                   + [ctypes.c_float],
                   q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1], d,
                   float(scale))
-    flash_fwd.launches[launch_route(d)] += 1
+    flash_fwd.launches[launch_route(d, dtype)] += 1
     return out, lse
 
 
-flash_fwd.launches = {"lowdim": 0, "wide": 0}
+flash_fwd.launches = {"lowdim": 0, "wide": 0, "lowdim_f32": 0, "wide_f32": 0}

@@ -16,11 +16,14 @@ picks g from it as the reference does. The CUDA kernel runs one block per
 (head, 64-row q tile) whatever g is (a grid of g-head cells would leave
 most of the card's SMs idle), so g is checked and otherwise unused.
 
-``flash_fwd_shortseq`` launches the kernel for CUDA tensors, raises on
-anything the kernel does not take, and counts its launches
-(``flash_fwd_shortseq.launches``). For CPU tensors it runs
-``flash_fwd_shortseq_reference``, the plain PyTorch version the tests hold
-against JAX and ``chip_smoke.py`` holds the kernel against. Forward only:
+f32 operands go to the single-pass f32 kernel of ``csrc/attention_f32.cu``.
+
+``flash_fwd_shortseq`` launches the kernel of the operands' type for CUDA
+tensors, raises on anything the kernels do not take, and counts its
+launches apart (``flash_fwd_shortseq.launches["bf16"]`` and ``["f32"]``).
+For CPU tensors it runs ``flash_fwd_shortseq_reference``, the plain PyTorch
+version the tests hold against JAX and ``chip_smoke.py`` holds the kernels
+against. Forward only:
 ``ops/attention.ShortSeqAttention`` differentiates through einsum
 attention, as the reference's ``_shortseq_mh_bwd`` does.
 """
@@ -32,7 +35,7 @@ import os
 import torch
 
 from e4t_diffusion_torch.ops import _build
-from e4t_diffusion_torch.ops.flash_lowdim import check_bf16_operands
+from e4t_diffusion_torch.ops.flash_lowdim import F32_SOURCE, check_operands
 
 SOURCE = "flash_fwd_shortseq"
 KNOB = "E4T_SHORTSEQ_MH_ATTN"
@@ -89,9 +92,10 @@ def flash_fwd_shortseq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Self-attention forward over (BH, S, D) q/k/v, ``g`` heads per cell
     (a divisor of BH) -> out (BH, S, D).
 
-    CUDA tensors: contiguous bf16, S up to 512, D a multiple of 8 up to
-    128; launches the kernel on the current stream and counts it on
-    ``flash_fwd_shortseq.launches``. CPU tensors: the plain version."""
+    CUDA tensors: contiguous bf16 or f32 (one type), S up to 512, D a
+    multiple of 8 up to 128; launches the kernel of that type on the current
+    stream and counts it on ``flash_fwd_shortseq.launches["bf16"]`` or
+    ``["f32"]``. CPU tensors: the plain version."""
     _check(q, k, v, g)
     if q.device.type == "cpu":
         return flash_fwd_shortseq_reference(q, k, v, scale)
@@ -105,15 +109,17 @@ def flash_fwd_shortseq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"to {MAX_D}")
     if bh > 65535:
         raise ValueError(f"BH={bh} exceeds the kernel's grid (65535)")
-    check_bf16_operands(q=q, k=k, v=v)
+    f32 = check_operands(q=q, k=k, v=v) == torch.float32
     out = torch.empty_like(q)
-    _build.launch(SOURCE, "e4t_flash_fwd_shortseq",
+    _build.launch(F32_SOURCE if f32 else SOURCE,
+                  "e4t_attn_fwd_shortseq_f32" if f32
+                  else "e4t_flash_fwd_shortseq",
                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                   + [ctypes.c_float],
                   q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), bh, s, d, float(scale))
-    flash_fwd_shortseq.launches += 1
+    flash_fwd_shortseq.launches["f32" if f32 else "bf16"] += 1
     return out
 
 
-flash_fwd_shortseq.launches = 0
+flash_fwd_shortseq.launches = {"bf16": 0, "f32": 0}

@@ -90,8 +90,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="accepted and ignored (no tracker yet)")
     parser.add_argument("--mixed_precision", type=str, default="no",
                         choices=["no", "fp16", "bf16"],
-                        help="compute dtype: bf16 for fp16 and bf16; 'no' "
-                             "(f32) runs on the CPU only")
+                        help="compute dtype: 'no' is f32 (on the GPU "
+                             "through the f32 attention kernels); fp16 and "
+                             "bf16 both mean bf16")
     parser.add_argument("--lr_scheduler", type=str, default="constant")
     parser.add_argument("--lr_warmup_steps", type=int, default=0)
     parser.add_argument("--local_rank", type=int, default=-1,
@@ -104,17 +105,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def resolve_train_dtype(mixed_precision: str,
                         device: torch.device) -> torch.dtype:
-    """fp16 and bf16 both mean bf16 compute (the JAX package maps fp16 to
-    bf16). ``no`` (f32) on the GPU is refused: the flash kernels take bf16
-    only."""
-    if mixed_precision == "no":
-        if torch.device(device).type == "cuda":
-            raise ValueError("--mixed_precision no (f32) is not run on the "
-                             "GPU yet: the flash attention kernels take bf16 "
-                             "only; pass --mixed_precision bf16, or --device "
-                             "cpu for f32")
-        return torch.float32
-    return torch.bfloat16
+    """The compute dtype: ``no`` is f32 (the reference's default, on the
+    GPU through the f32 attention kernels), fp16 and bf16 both mean bf16
+    (the JAX package maps fp16 to bf16). ``device`` changes nothing."""
+    del device
+    return torch.float32 if mixed_precision == "no" else torch.bfloat16
 
 
 def tune(args: argparse.Namespace, modules: E4TModules,

@@ -32,8 +32,12 @@ def _forward_matches_reference(bh, sq, sk, d, seed, route):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,sq,sk,d", [(4, 300, 200, 40), (2, 128, 257, 80),
-                                        (2, 65, 33, 8), (2, 70, 90, 120)])
+@pytest.mark.parametrize("bh,sq,sk,d", [
+    (4, 300, 200, 40), (2, 128, 257, 80), (2, 65, 33, 8), (2, 70, 90, 120),
+    # the kv ring's edges: Sk below one stage, one stage plus one row, two
+    # stages plus one, and a q tile of one row
+    (2, 100, 63, 40), (2, 64, 65, 80), (3, 129, 129, 64), (2, 1, 200, 16),
+    (2, 200, 1, 48)])
 def test_cuda_kernel_matches_reference(bh, sq, sk, d):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
@@ -59,10 +63,10 @@ def test_cuda_backward_matches_reference(bh, sq, sk, d):
         pytest.skip("needs an NVIDIA GPU")
     q, k, v, dout = _operands(2, bh, d, sq, sk, sk, sq)
     out, lse = fl.flash_fwd(q, k, v, d ** -0.5)
-    before = fb.flash_bwd.launches
+    before = fb.flash_bwd.launches["bf16"]
     grads = fb.flash_bwd(q, k, v, out, lse, dout, d ** -0.5)
     torch.cuda.synchronize()
-    assert fb.flash_bwd.launches == before + 1
+    assert fb.flash_bwd.launches["bf16"] == before + 1
     refs = fb.flash_bwd_reference(q.float(), k.float(), v.float(),
                                   out.float(), lse, dout.float(), d ** -0.5)
     # bf16 rounding of p, ds and the outputs: rel-L2 ~2.4e-3 measured
@@ -72,7 +76,7 @@ def test_cuda_backward_matches_reference(bh, sq, sk, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("operand,bad,error", [
-    ("q", dict(dtype=torch.float32), TypeError),
+    ("q", dict(dtype=torch.float16), TypeError),
     ("q", dict(d=36), ValueError),
     ("q", dict(d=264), ValueError),
     ("q", dict(noncontiguous=True), ValueError),
@@ -81,8 +85,8 @@ def test_cuda_backward_matches_reference(bh, sq, sk, d):
 ])
 def test_cuda_wrappers_refuse_bad_operands(operand, bad, error):
     """What flash_fwd and flash_bwd refuse on CUDA tensors, before any
-    launch: the kernels take contiguous bf16 with D a multiple of 8 up to
-    256."""
+    launch: the kernels take contiguous bf16 or f32 (one type for every
+    operand) with D a multiple of 8 up to 256."""
     from e4t_diffusion_torch.ops import flash_bwd as fb
 
     if not torch.cuda.is_available():
@@ -94,7 +98,7 @@ def test_cuda_wrappers_refuse_bad_operands(operand, bad, error):
         t = torch.zeros(2, d, 64, device="cuda",
                         dtype=torch.bfloat16).transpose(1, 2)
     lse = torch.zeros(2, 64, device="cuda")
-    before = dict(fl.flash_fwd.launches), fb.flash_bwd.launches
+    before = dict(fl.flash_fwd.launches), dict(fb.flash_bwd.launches)
     if operand == "q":
         with pytest.raises(error):
             fl.flash_fwd(t, good, good, 0.1)
@@ -125,10 +129,10 @@ def test_cuda_int8_flash_matches_reference(bh, sq, sk, d, mode):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     qi, ki, v_op, sc = _int8_attention_inputs(3, bh, sq, sk, d, mode)
-    before = fi.flash_fwd_int8.launches
+    before = fi.flash_fwd_int8.launches["bf16"]
     out, lse = fi.flash_fwd_int8(qi, ki, v_op, sc, mode, torch.bfloat16)
     torch.cuda.synchronize()
-    assert fi.flash_fwd_int8.launches == before + 1
+    assert fi.flash_fwd_int8.launches["bf16"] == before + 1
     ro, rl = fi.flash_fwd_int8_reference(qi, ki, v_op, sc, mode,
                                          torch.float32)
     # bf16 output rounding (~2e-3 rel-L2); exp2 in the kernel against exp in
@@ -210,7 +214,7 @@ def test_cuda_int8_wrappers_refuse_bad_operands(case, error):
     i8 = torch.zeros(2, 64, d, device="cuda", dtype=torch.int8)
     bf = torch.zeros(2, 64, d, device="cuda", dtype=torch.bfloat16)
     sc = torch.ones(2, 2, device="cuda")
-    before = fi.flash_fwd_int8.launches, ic.int8_conv.launches
+    before = dict(fi.flash_fwd_int8.launches), ic.int8_conv.launches
     with pytest.raises(error):
         if case == "q_float":
             fi.flash_fwd_int8(bf, i8, bf, sc, "qk", torch.bfloat16)
@@ -319,10 +323,10 @@ def test_cuda_shortseq_matches_reference(bh, s, d, g):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     q, k, v = _operands(8, bh, d, s, s, s)
-    before = shortseq.flash_fwd_shortseq.launches
+    before = shortseq.flash_fwd_shortseq.launches["bf16"]
     out = shortseq.flash_fwd_shortseq(q, k, v, d ** -0.5, g)
     torch.cuda.synchronize()
-    assert shortseq.flash_fwd_shortseq.launches == before + 1
+    assert shortseq.flash_fwd_shortseq.launches["bf16"] == before + 1
     ref = shortseq.flash_fwd_shortseq_reference(q.float(), k.float(),
                                                 v.float(), d ** -0.5)
     # bf16 rounding of p and of the output: ~2e-3 rel-L2
@@ -340,7 +344,7 @@ def test_cuda_attention_routes_vit_sites_to_shortseq(monkeypatch):
         pytest.skip("needs an NVIDIA GPU")
     q, k, v = (t.reshape(2, 4, 257, 80) for t in _operands(9, 8, 80, 257,
                                                            257, 257))
-    counts = lambda: (shortseq.flash_fwd_shortseq.launches,  # noqa: E731
+    counts = lambda: (shortseq.flash_fwd_shortseq.launches["bf16"],  # noqa: E731
                       fl.flash_fwd.launches["lowdim"])
     monkeypatch.setenv("E4T_SHORTSEQ_MH_ATTN", "8")
     before = counts()
@@ -370,7 +374,8 @@ def test_cuda_gn_shortseq_refuse_bad_operands(case, error):
 
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    before = gn.fused_group_norm.launches, shortseq.flash_fwd_shortseq.launches
+    before = (gn.fused_group_norm.launches,
+              dict(shortseq.flash_fwd_shortseq.launches))
     ones = torch.ones(32, device="cuda")
     with pytest.raises(error):
         if case.startswith("gn"):
@@ -382,8 +387,8 @@ def test_cuda_gn_shortseq_refuse_bad_operands(case, error):
             s = 513 if case == "ss_s513" else 257
             d = 136 if case == "ss_d136" else 80
             t = torch.zeros(4, s, d, device="cuda", dtype=torch.bfloat16)
-            if case == "ss_float":
-                t = t.float()
+            if case == "ss_float":  # f16: the kernels take bf16 or f32
+                t = t.half()
             shortseq.flash_fwd_shortseq(t, t, t, 0.1,
                                         3 if case == "ss_g3" else 2)
     assert (gn.fused_group_norm.launches,
@@ -406,3 +411,104 @@ def test_cuda_launch_raises_on_entry_point_error():
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                       + [ctypes.c_float], torch.device("cuda"),
                       None, None, None, None, 0, 257, 80, 0.1)
+
+
+# f32 kernels (csrc/attention_f32.cu) against their plain versions in f32:
+# full f32 FFMA on both sides, the sums in another order
+F32_REL_L2 = 1e-5
+F32_CASES = [(2, 300, 200, 40), (2, 128, 257, 80), (2, 65, 33, 8),
+             (2, 70, 90, 120), (2, 200, 77, 160), (2, 129, 300, 256),
+             (2, 100, 63, 40), (2, 64, 65, 80), (2, 33, 97, 256)]
+
+
+def _f32_operands(seed, bh, d, *lengths):
+    g = torch.Generator("cuda").manual_seed(seed)
+    return [torch.randn(bh, s, d, device="cuda", generator=g)
+            for s in lengths]
+
+
+def _rel(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d", F32_CASES)
+def test_cuda_f32_forward_matches_reference(bh, sq, sk, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v = _f32_operands(10, bh, d, sq, sk, sk)
+    route = fl.launch_route(d, torch.float32)
+    before = dict(fl.flash_fwd.launches)
+    out, lse = fl.flash_fwd(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    before[route] += 1
+    assert fl.flash_fwd.launches == before
+    ro, rl = fl.flash_fwd_reference(q, k, v, d ** -0.5)
+    assert out.dtype == torch.float32
+    assert _rel(out, ro) <= F32_REL_L2 and _rel(lse, rl) <= F32_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d", F32_CASES)
+def test_cuda_f32_backward_matches_reference(bh, sq, sk, d):
+    from e4t_diffusion_torch.ops import flash_bwd as fb
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v, dout = _f32_operands(11, bh, d, sq, sk, sk, sq)
+    out, lse = fl.flash_fwd(q, k, v, d ** -0.5)
+    before = dict(fb.flash_bwd.launches)
+    grads = fb.flash_bwd(q, k, v, out, lse, dout, d ** -0.5)
+    torch.cuda.synchronize()
+    before["f32"] += 1
+    assert fb.flash_bwd.launches == before
+    refs = fb.flash_bwd_reference(q, k, v, out, lse, dout, d ** -0.5)
+    for got, want in zip(grads, refs):
+        assert got.dtype == torch.float32
+        assert _rel(got, want) <= F32_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,g", [(8, 257, 80, 8), (4, 129, 8, 2),
+                                      (2, 200, 40, 1), (2, 512, 120, 2),
+                                      (2, 65, 64, 1)])
+def test_cuda_f32_shortseq_matches_reference(bh, s, d, g):
+    from e4t_diffusion_torch.ops import shortseq
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v = _f32_operands(12, bh, d, s, s, s)
+    before = dict(shortseq.flash_fwd_shortseq.launches)
+    out = shortseq.flash_fwd_shortseq(q, k, v, d ** -0.5, g)
+    torch.cuda.synchronize()
+    before["f32"] += 1
+    assert shortseq.flash_fwd_shortseq.launches == before
+    ref = shortseq.flash_fwd_shortseq_reference(q, k, v, d ** -0.5)
+    assert _rel(out, ref) <= F32_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["qk", "qkpv"])
+@pytest.mark.parametrize("bh,sq,sk,d", [(4, 300, 200, 40), (2, 128, 257, 80),
+                                        (2, 65, 33, 8), (2, 70, 90, 120)])
+def test_cuda_int8_f32_matches_reference(bh, sq, sk, d, mode):
+    """The int8 attention with an f32 output (and in "qk" an f32 v) against
+    its plain version on the same int8 operands: "qk" in full f32 to
+    F32_REL_L2; "qkpv" to the bf16 kernel's bound, since exp2 against exp
+    moves a few round(p * 127) by one whatever the output type."""
+    from e4t_diffusion_torch.ops.attention import int8_attention_operands
+    from e4t_diffusion_torch.ops import flash_int8 as fi
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v = _f32_operands(13, bh, d, sq, sk, sk)
+    ops = int8_attention_operands(q, k + 0.7, v, d ** -0.5, mode)
+    before = dict(fi.flash_fwd_int8.launches)
+    out, lse = fi.flash_fwd_int8(*ops, mode, torch.float32)
+    torch.cuda.synchronize()
+    before[f"{mode}_f32"] += 1
+    assert fi.flash_fwd_int8.launches == before
+    ro, rl = fi.flash_fwd_int8_reference(*ops, mode, torch.float32)
+    assert out.dtype == torch.float32
+    assert _rel(out, ro) <= (F32_REL_L2 if mode == "qk" else 1e-2)
+    assert (lse - rl).abs().max().item() <= 1e-4

@@ -159,7 +159,7 @@ def test_flash_threshold_nests_and_restores():
 
 
 def test_cpu_backward_does_not_count_launches():
-    before = fb.flash_bwd.launches, dict(fl.flash_fwd.launches)
+    before = dict(fb.flash_bwd.launches), dict(fl.flash_fwd.launches)
     q = torch.from_numpy(_rand((2, 64, 160), 3)).requires_grad_()
     out = attention.FlashAttention.apply(q, q, q, 0.1)
     out.sum().backward()
@@ -168,7 +168,7 @@ def test_cpu_backward_does_not_count_launches():
 
 
 @pytest.mark.parametrize("bad,error", [
-    (dict(dtype=torch.float32), TypeError),
+    (dict(dtype=torch.float16), TypeError),
     (dict(d=36), ValueError),
     (dict(d=264), ValueError),
     (dict(noncontiguous=True), ValueError),
@@ -177,8 +177,9 @@ def test_kernel_operand_checks(bad, error):
     """The helpers flash_bwd runs on CUDA tensors before a launch, called
     directly (a CPU tensor takes the plain path and never reaches them):
     the q/k/v checks it shares with flash_fwd, and the same dtype and
-    layout checks on out and dout. The wrappers themselves meet bad CUDA
-    operands in tests/test_torch_cuda_kernels.py."""
+    layout checks on out and dout (bf16 and f32 pass, f16 does not). The
+    wrappers themselves meet bad CUDA operands in
+    tests/test_torch_cuda_kernels.py."""
     d = bad.get("d", 160)
     q = torch.zeros(2, 64, d, dtype=bad.get("dtype", torch.bfloat16))
     if bad.get("noncontiguous"):
@@ -188,7 +189,7 @@ def test_kernel_operand_checks(bad, error):
     if "d" not in bad:
         good = torch.zeros(2, 64, d, dtype=torch.bfloat16)
         with pytest.raises(error):
-            fl.check_bf16_operands(out=good, dout=q)
+            fl.check_operands(out=good, dout=q)
 
 
 def test_backward_shape_checks():

@@ -88,7 +88,7 @@ def test_int8_flash_is_forward_only():
 
 
 def test_cpu_path_does_not_count_launches():
-    before = fi.flash_fwd_int8.launches
+    before = dict(fi.flash_fwd_int8.launches)
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 128, 70, 40, 14))
     with attention.int8_flash_attention("qkpv"):
         attention.flash_attention(q, k, v)
@@ -98,17 +98,24 @@ def test_cpu_path_does_not_count_launches():
 @pytest.mark.parametrize("mode", ["qk", "qkpv"])
 def test_kernel_input_checks(mode):
     """What the wrapper refuses before a launch (the helper, called here
-    on CPU tensors)."""
+    on CPU tensors): the output in bf16 or f32, and in "qk" mode v in the
+    output's type."""
     i8 = torch.zeros(2, 64, 40, dtype=torch.int8)
     bf = torch.zeros(2, 64, 40, dtype=torch.bfloat16)
+    f32 = torch.zeros(2, 64, 40)
     sc = torch.ones(2, 2)
+    for out_dtype, v in ((torch.bfloat16, bf), (torch.float32, f32)):
+        good_v = i8 if mode == "qkpv" else v
+        fi._check_kernel_inputs(i8, i8, good_v, sc, mode, out_dtype)
     good_v = i8 if mode == "qkpv" else bf
-    fi._check_kernel_inputs(i8, i8, good_v, sc, mode, torch.bfloat16)
     with pytest.raises(TypeError):
         fi._check_kernel_inputs(i8, i8, bf if mode == "qkpv" else i8, sc,
                                 mode, torch.bfloat16)
     with pytest.raises(TypeError):
-        fi._check_kernel_inputs(i8, i8, good_v, sc, mode, torch.float32)
+        fi._check_kernel_inputs(i8, i8, good_v, sc, mode, torch.float16)
+    if mode == "qk":  # a bf16 v under an f32 output is a mixed call
+        with pytest.raises(TypeError):
+            fi._check_kernel_inputs(i8, i8, bf, sc, mode, torch.float32)
     wide = torch.zeros(2, 64, 128, dtype=torch.int8)
     with pytest.raises(ValueError, match="head dim 128"):
         fi._check_kernel_inputs(wide, wide, wide, sc, mode, torch.bfloat16)

@@ -198,22 +198,37 @@ def test_inference_cli_refuses_without_gpu(artifact_dir):
     assert not (root / "never.png").exists()
 
 
-def test_inference_cli_refuses_fp32_on_gpu(tmp_path):
-    """fp32 on the GPU would reach the bf16-only flash kernel at the first
-    large self-attention site; the CLI refuses it before loading weights."""
+def test_inference_cli_fp32_resolves_to_f32_on_gpu(artifact_dir,
+                                                   monkeypatch):
+    """fp32 on a CUDA device is f32 (the f32 attention kernels take its
+    flash sites), and the CLI passes it through to the modules it builds;
+    auto stays bf16 there. The build is stopped where the modules would be
+    made on the card."""
     from e4t_diffusion_torch import inference
     from e4t_diffusion_torch.diffusion.pipeline import resolve_dtype
 
+    cuda = torch.device("cuda")
     assert resolve_dtype("fp32", torch.device("cpu")) == torch.float32
-    assert resolve_dtype("auto", torch.device("cuda")) == torch.bfloat16
-    with pytest.raises(ValueError, match="bf16 only"):
-        resolve_dtype("fp32", torch.device("cuda"))
-    with pytest.raises(ValueError, match="bf16 only"):
-        inference.main(["--pretrained_model_name_or_path",
-                        str(tmp_path / "missing"), "--image_path_or_url",
-                        str(tmp_path / "in.png"), "--dtype", "fp32",
-                        "--output", str(tmp_path / "never.png")])
-    assert not (tmp_path / "never.png").exists()
+    assert resolve_dtype("fp32", cuda) == torch.float32
+    assert resolve_dtype("bf16", cuda) == torch.bfloat16
+    assert resolve_dtype("auto", cuda) == torch.bfloat16
+    root, out_dir = artifact_dir
+    built = {}
+
+    def create(*configs, dtype, device):
+        built.update(dtype=dtype, device=device)
+        raise KeyboardInterrupt  # stop before anything runs on the card
+
+    monkeypatch.setattr(inference, "resolve_device", lambda name: cuda)
+    monkeypatch.setattr(inference.E4TModules, "create", create)
+    for name, want in (("fp32", torch.float32), ("auto", torch.bfloat16)):
+        with pytest.raises(KeyboardInterrupt):
+            inference.main(["--pretrained_model_name_or_path", out_dir,
+                            "--image_path_or_url", str(root / "in.png"),
+                            "--dtype", name,
+                            "--output", str(root / "never.png")])
+        assert built == {"dtype": want, "device": cuda}
+    assert not (root / "never.png").exists()
 
 
 def test_tuned_artifact_loads_strictly(artifact_dir):
@@ -336,21 +351,42 @@ def test_tuning_cli_refuses_without_gpu(artifact_dir):
     assert not (root / "never").exists()
 
 
-def test_tuning_cli_flags(tmp_path):
-    """f32 on the GPU is refused before anything loads; the flags of later
-    slices are unknown to argparse; the reference's ignored flags parse."""
+def test_tuning_cli_no_resolves_to_f32_on_gpu(artifact_dir, tmp_path,
+                                              monkeypatch):
+    """--mixed_precision no (the default) is f32 on a CUDA device too, and
+    the CLI passes it through to ``tune``; fp16 and bf16 are bf16. The
+    flags of later slices are unknown to argparse; the reference's ignored
+    flags parse."""
     from e4t_diffusion_torch import tuning_e4t
 
-    assert tuning_e4t.resolve_train_dtype("no", torch.device("cpu")) == \
-        torch.float32
+    cuda = torch.device("cuda")
+    for device in (torch.device("cpu"), cuda):
+        assert tuning_e4t.resolve_train_dtype("no", device) == torch.float32
     for name in ("bf16", "fp16"):
-        assert tuning_e4t.resolve_train_dtype(
-            name, torch.device("cuda")) == torch.bfloat16
+        assert tuning_e4t.resolve_train_dtype(name, cuda) == torch.bfloat16
+    root, src = artifact_dir
+    seen = []
+
+    def tune(args, *rest, save=None):
+        seen.append(rest[-1])  # the dtype
+        raise KeyboardInterrupt  # stop before a step runs
+
+    # the GPU is named (the default --device cuda); the modules are built on
+    # the CPU, where this test runs
+    monkeypatch.setattr(tuning_e4t, "resolve_device",
+                        lambda name: torch.device("cpu"))
+    monkeypatch.setattr(tuning_e4t, "tune", tune)
+    for extra, want in (([], torch.float32),
+                        (["--mixed_precision", "bf16"], torch.bfloat16)):
+        with pytest.raises(KeyboardInterrupt):
+            tuning_e4t.main(["--pretrained_model_name_or_path", src,
+                             "--train_image_path", str(root / "in.png"),
+                             "--prompt_template", "a photo of {placeholder_token}",
+                             "--output_dir", str(tmp_path / "out"), *extra])
+        assert seen.pop() == want
+    assert not (tmp_path / "out").exists()
     required = ["--pretrained_model_name_or_path", str(tmp_path / "missing"),
                 "--train_image_path", str(tmp_path / "in.png")]
-    with pytest.raises(ValueError, match="bf16 only"):
-        tuning_e4t.main(required + ["--output_dir", str(tmp_path / "out")])
-    assert not (tmp_path / "out").exists()
     for later in (["--use_8bit_adam"], ["--tensor_parallel", "2"],
                   ["--profile_steps", "2"], ["--report_to", "tensorboard"],
                   ["--remat_policy", "dots"]):

@@ -42,7 +42,7 @@ def test_plain_matches_tpu_kernel(monkeypatch, s, d, g):
     ref = jax_attention.shortseq_mh_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
     monkeypatch.setenv("E4T_SHORTSEQ_MH_ATTN", str(g))
-    before = shortseq.flash_fwd_shortseq.launches
+    before = dict(shortseq.flash_fwd_shortseq.launches)
     out = attention.shortseq_mh_attention(
         *(torch.from_numpy(t) for t in (q, k, v)), scale)
     assert shortseq.flash_fwd_shortseq.launches == before  # the CPU: plain

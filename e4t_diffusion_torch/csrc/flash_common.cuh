@@ -135,25 +135,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Four 8x8 b16 matrices from shared memory, one row address per lane
-// (lanes 8i..8i+7 give matrix i's rows): thread t gets row t/4, columns
-// 2(t%4) and 2(t%4)+1 of each, the mma A/B fragment layout.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* smem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// The same, each matrix transposed: thread t gets rows 2(t%4) and 2(t%4)+1 of
-// column t/4 (a B fragment from a row-major K x N tile).
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename Kernel>
 __host__ cudaError_t allow_smem(Kernel kernel, size_t bytes) {

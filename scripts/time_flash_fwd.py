@@ -3,23 +3,28 @@
 GPU at the shapes of its paths, beside SDPA and the work's bound.
 
     python3 scripts/time_flash_fwd.py [--repo DIR] [--define NAME=VALUE ...]
-                                      [--label TEXT]
+                                      [--ablate PART] [--label TEXT]
 
 ``--repo`` names the checkout whose ``e4t_diffusion_torch`` is timed (this
 one by default), so one call can time two commits on one card, in turns:
 unpack the other with ``git archive`` into a git-ignored directory and run
 the script on each. ``--define`` adds ``-DNAME=VALUE`` to the kernels' nvcc
-flags (the library is cached apart by flags), e.g. ``E4T_LOWDIM_WARPS=8``
-or ``E4T_LOWDIM_STAGES=3`` for the d < 128 kernel of
-``csrc/flash_fwd_lowdim.cu``. Each shape: the kernel against its plain
-version (bf16 rounding, rel-L2 <= 1e-2), then CUDA events around one call,
-median of 20 after a warm-up. Prints the card's ``nvidia-smi`` line, then
-one JSON line. Needs a GPU; imports no JAX.
+flags (the library is cached apart by flags). ``--ablate`` times a copy of
+the d < 128 kernel with one part of its work taken out, to see what bounds
+it: ``loads`` (no k/v tile is loaded after the first ones), ``exp`` (2^x
+becomes x), ``s`` (S = Q K^T over the first 16 head dims only) or ``pv``
+(P V over the first 16 kv rows only); the copy goes to
+``build/ablate-<part>/`` and its output is wrong, so it is not checked.
+Otherwise each shape: the kernel against its plain version (bf16 rounding,
+rel-L2 <= 1e-2), then CUDA events around one call, median of 20 after a
+warm-up. Prints the card's ``nvidia-smi`` line, then one JSON line. Needs
+a GPU; imports no JAX.
 """
 import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 
@@ -31,6 +36,35 @@ SHAPES = ((64, 4096, 4096, 40), (64, 1024, 1024, 80), (128, 4096, 4096, 40),
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 EXP_PER_S = 16 * 132 * 1.98e9  # exp2 on the SFUs, 1.98 GHz boost
+KERNEL = os.path.join("e4t_diffusion_torch", "csrc", "flash_fwd_lowdim.cu")
+# --ablate: (text of the d < 128 kernel, its replacement)
+ABLATIONS = {
+    "loads": ("    if (nxt < n_tiles) {", "    if (nxt < kWgStages - 1) {"),
+    "exp": ('  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+            "  y = x;"),
+    "s": ("for (int st = 0; st < kSteps; ++st)\n      wgmma_ss_n64(",
+          "for (int st = 0; st < 1; ++st)\n      wgmma_ss_n64("),
+    "pv": ("for (int kk = 0; kk < kBlockN / 16; ++kk)\n      wgmma_rs<DK>(",
+           "for (int kk = 0; kk < 1; ++kk)\n      wgmma_rs<DK>("),
+}
+
+
+def ablated_copy(repo, part):
+    """A copy of ``repo``'s package under build/ablate-<part>/ with one part
+    of the d < 128 kernel's work taken out; returns the copy's root."""
+    root = os.path.join(repo, "build", f"ablate-{part}")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(repo, "e4t_diffusion_torch"),
+                    os.path.join(root, "e4t_diffusion_torch"))
+    path = os.path.join(root, KERNEL)
+    with open(path) as f:
+        src = f.read()
+    old, new = ABLATIONS[part]
+    if src.count(old) != 1:
+        sys.exit(f"time_flash_fwd: --ablate {part}: the kernel has changed")
+    with open(path, "w") as f:
+        f.write(src.replace(old, new))
+    return root
 
 
 def median_ms(fn, reps=20):
@@ -56,9 +90,13 @@ def main(argv=None):
     parser.add_argument("--repo", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--define", action="append", default=[])
+    parser.add_argument("--ablate", choices=sorted(ABLATIONS))
     parser.add_argument("--label", default="")
     args = parser.parse_args(argv)
-    sys.path.insert(0, os.path.abspath(args.repo))
+    repo = os.path.abspath(args.repo)
+    if args.ablate:
+        repo = ablated_copy(repo, args.ablate)
+    sys.path.insert(0, repo)
     import torch
     import torch.nn.functional as F
 
@@ -85,7 +123,7 @@ def main(argv=None):
         ref, _ = flash_fwd_reference(q.float(), k.float(), v.float(), scale)
         rel = ((out.float() - ref).norm() / ref.norm()).item()
         del ref
-        if not rel <= 1e-2:
+        if not args.ablate and not rel <= 1e-2:
             sys.exit(f"time_flash_fwd: BH={bh} {sq}x{sk} d={d}: rel-L2 {rel}")
         t_bytes = 2 * 2 * bh * (sq + sk) * d / HBM_BYTES_PER_S * 1e3
         t_ops = max(4 * bh * sq * sk * d / BF16_FLOP_PER_S,
@@ -100,7 +138,8 @@ def main(argv=None):
         del q, k, v, out
         torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "repo": args.repo,
-                      "defines": args.define, "card": smi, "rows": rows}))
+                      "defines": args.define, "ablate": args.ablate,
+                      "card": smi, "rows": rows}))
 
 
 if __name__ == "__main__":

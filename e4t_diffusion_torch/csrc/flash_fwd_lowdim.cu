@@ -38,10 +38,10 @@
 // copy's source size). k and v stream through a ring of kWgStages 64-row
 // stages, tiles j + 1 and j + 2 landing while tile j is computed, with one
 // barrier a tile. What bounds it at the UNet's d=40 sites, measured on the
-// card by taking parts of the work out (scripts/time_flash_fwd.py --ablate,
-// PERF.md): the k/v traffic from L2, which every block reads whole for its
-// q rows, far more than the exponentials; so the warpgroups of a block share
-// each tile, and more of them a block cut that traffic.
+// card by taking parts of the work out (time_flash_fwd.py --ablate in the
+// package, PERF.md): the k/v traffic from L2, which every block reads whole
+// for its q rows, far more than the exponentials; so the warpgroups of a
+// block share each tile, and more of them a block cut that traffic.
 //
 // DK >= 160 (flash_fwd_kernel, the parent design): one block of 4 warps per
 // 64-row q tile, mma.sync m16n8k16, q kept in shared memory and its

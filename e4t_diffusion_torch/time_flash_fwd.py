@@ -2,14 +2,13 @@
 """Time the PyTorch port's bf16 flash forward (``flash_fwd``) on one NVIDIA
 GPU at the shapes of its paths, beside SDPA and the work's bound.
 
-    python3 scripts/time_flash_fwd.py [--repo DIR] [--define NAME=VALUE ...]
-                                      [--ablate PART] [--label TEXT]
+    python3 e4t_diffusion_torch/time_flash_fwd.py [--repo DIR]
+                                                  [--ablate PART] [--label TEXT]
 
 ``--repo`` names the checkout whose ``e4t_diffusion_torch`` is timed (this
 one by default), so one call can time two commits on one card, in turns:
 unpack the other with ``git archive`` into a git-ignored directory and run
-the script on each. ``--define`` adds ``-DNAME=VALUE`` to the kernels' nvcc
-flags (the library is cached apart by flags). ``--ablate`` times a copy of
+the script on each. ``--ablate`` times a copy of
 the d < 128 kernel with one part of its work taken out, to see what bounds
 it: ``loads`` (no k/v tile is loaded after the first ones), ``exp`` (2^x
 becomes x), ``s`` (S = Q K^T over the first 16 head dims only) or ``pv``
@@ -89,7 +88,6 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--repo", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
-    parser.add_argument("--define", action="append", default=[])
     parser.add_argument("--ablate", choices=sorted(ABLATIONS))
     parser.add_argument("--label", default="")
     args = parser.parse_args(argv)
@@ -102,12 +100,9 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         sys.exit("time_flash_fwd: needs an NVIDIA GPU")
-    from e4t_diffusion_torch.ops import _build
     from e4t_diffusion_torch.ops.flash_lowdim import (flash_fwd,
                                                        flash_fwd_reference)
 
-    _build.NVCC_FLAGS = (*_build.NVCC_FLAGS,
-                         *(f"-D{d}" for d in args.define))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -138,7 +133,7 @@ def main(argv=None):
         del q, k, v, out
         torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "repo": args.repo,
-                      "defines": args.define, "ablate": args.ablate,
+                      "ablate": args.ablate,
                       "card": smi, "rows": rows}))
 
 

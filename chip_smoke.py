@@ -278,11 +278,12 @@ def _rel(a, b):
 
 
 def _flash_fwd_parent(q, k, v, scale):
-    """The bf16 forward of the parent design (k/v staged synchronously
-    through registers, v transposed by 2-byte stores): the kernel that
-    ``csrc/flash_fwd_lowdim.cu`` keeps for d >= 128, exported for every d
-    as ``e4t_flash_fwd_sync`` so the redesign is timed beside it in one run.
-    Counts no launch: no path takes it at d < 128."""
+    """The bf16 forward of the design the wgmma kernel replaced at d < 128
+    (k/v staged synchronously through registers, v transposed by 2-byte
+    stores): the kernel ``csrc/flash_fwd_lowdim.cu`` keeps for d >= 128,
+    exported for every d as ``e4t_flash_fwd_sync`` so the wgmma kernel is
+    timed beside it in one run. Counts no launch: no path takes it at
+    d < 128."""
     import ctypes
 
     import torch
@@ -1934,7 +1935,8 @@ def kernels_line(cases, paths):
         entry("flash_fwd_int8", "flash_fwd_int8.cu", 813,
               cases["int8_flash"][0], [c["out_max_abs"] for c in int8_flash],
               cases["int8_flash"])]
-    # the redesign against the parent design, timed in this run
+    # the wgmma kernel against the synchronous design it replaced at d < 128,
+    # timed in this run
     kernels[0]["parent_ms"] = cases["sampling"][0]["parent_ms"]
     kernels[0]["per_site"] = [
         {k: c[k] for k in timed_keys + ("parent_ms",)}

@@ -43,8 +43,9 @@
 // for its q rows, far more than the exponentials; so the warpgroups of a
 // block share each tile, and more of them a block cut that traffic.
 //
-// DK >= 160 (flash_fwd_kernel, the parent design): one block of 4 warps per
-// 64-row q tile, mma.sync m16n8k16, q kept in shared memory and its
+// DK >= 160 (flash_fwd_kernel, the synchronous design that served every DK
+// before the wgmma kernel): one block of 4 warps per 64-row q tile,
+// mma.sync m16n8k16, q kept in shared memory and its
 // fragments reloaded per kv tile (the DK/8 x 4 f32 output accumulator takes
 // the registers), k and v staged synchronously through registers into
 // shared memory between two barriers, v stored transposed so its B
@@ -61,10 +62,10 @@ namespace {
 using e4t::bf16;
 using e4t::kThreads;
 
-constexpr int kBlockM = 64;  // q rows per block of the parent design: 4 warps x 16
+constexpr int kBlockM = 64;  // q rows per block of flash_fwd_kernel: 4 warps x 16
 constexpr int kBlockN = 64;  // kv rows per tile, in both kernels
 
-// the parent design keeps q fragments in registers up to DK = 128
+// flash_fwd_kernel keeps q fragments in registers up to DK = 128
 template <int DK>
 constexpr size_t smem_bytes() {
   return sizeof(bf16) * (kBlockN * (DK + 8) + DK * (kBlockN + 8) +
@@ -695,7 +696,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, void* l
   return (int)cudaGetLastError();
 }
 
-// ---- the parent design, kept for d >= 128 ----
+// ---- the synchronous design, kept for d >= 128 ----
 
 template <int DK>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
@@ -711,7 +712,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   return (int)cudaGetLastError();
 }
 
-// The launch for a padded head dim, by the kernel's parent design.
+// The launch for a padded head dim, by the synchronous design.
 int dispatch_sync(const void* q, const void* k, const void* v, void* out, void* lse,
                   int bh, int sq, int sk, int d, float scale_log2, cudaStream_t s) {
   switch (e4t::padded_head_dim(d)) {
@@ -760,7 +761,7 @@ extern "C" int e4t_flash_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// The same function by the parent design at every head dim: the yardstick
+// The same function by the synchronous design at every head dim: the yardstick
 // chip_smoke.py times the d < 128 kernel against. No path calls it.
 extern "C" int e4t_flash_fwd_sync(const void* q, const void* k, const void* v,
                                   void* out, void* lse, int bh, int sq, int sk,

@@ -329,20 +329,10 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes. q/dout/dq are (BH, Sq, D), k/v/dk/dv
-// (BH, Sk, D), contiguous bf16, 16-byte aligned, D a multiple of 8 up to 256;
-// lse and delta are contiguous (BH, Sq) f32. Launches the dq kernel, then the
-// dk/dv kernel, on ``stream``; allocates nothing and does not synchronise.
-// Returns cudaGetLastError() after the launches.
-extern "C" int e4t_flash_bwd(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse, const void* delta,
-                             void* dq, void* dk, void* dv, int bh, int sq, int sk,
-                             int d, float scale, void* stream) {
-  if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 || d <= 0 || d % 8 != 0 || d > 256)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The launch for a padded head dim, by the synchronous design.
+int dispatch_sync(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                  int bh, int sq, int sk, int d, float scale, cudaStream_t s) {
 #define E4T_BWD_CASE(DK) \
   case DK: return launch<DK>(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, sk, d, scale, s);
   switch (e4t::padded_head_dim(d)) {
@@ -361,4 +351,36 @@ extern "C" int e4t_flash_bwd(const void* q, const void* k, const void* v,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef E4T_BWD_CASE
+}
+
+bool bad_shape(int bh, int sq, int sk, int d) {
+  return bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 || d <= 0 || d % 8 != 0 || d > 256;
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes. q/dout/dq are (BH, Sq, D), k/v/dk/dv
+// (BH, Sk, D), contiguous bf16, 16-byte aligned, D a multiple of 8 up to 256;
+// lse and delta are contiguous (BH, Sq) f32. Launches the dq kernel, then the
+// dk/dv kernel, on ``stream``; allocates nothing and does not synchronise.
+// Returns cudaGetLastError() after the launches.
+extern "C" int e4t_flash_bwd(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse, const void* delta,
+                             void* dq, void* dk, void* dv, int bh, int sq, int sk,
+                             int d, float scale, void* stream) {
+  if (bad_shape(bh, sq, sk, d)) return (int)cudaErrorInvalidValue;
+  return dispatch_sync(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, sk, d, scale,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The same function by the synchronous design at every head dim: the
+// yardstick the d < 128 kernels are timed and checked against. No path calls
+// it.
+extern "C" int e4t_flash_bwd_sync(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse, const void* delta,
+                                  void* dq, void* dk, void* dv, int bh, int sq, int sk,
+                                  int d, float scale, void* stream) {
+  if (bad_shape(bh, sq, sk, d)) return (int)cudaErrorInvalidValue;
+  return dispatch_sync(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, sk, d, scale,
+                       static_cast<cudaStream_t>(stream));
 }

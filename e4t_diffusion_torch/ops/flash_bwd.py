@@ -76,20 +76,46 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype = _check_kernel_inputs(q, k, v, out=out, dout=dout)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise TypeError("lse must be contiguous float32")
+    f32 = dtype == torch.float32
+    grads = _launch(F32_SOURCE if f32 else SOURCE,
+                    "e4t_attn_bwd_f32" if f32 else "e4t_flash_bwd",
+                    q, k, v, out, lse, dout, scale)
+    flash_bwd.launches["f32" if f32 else "bf16"] += 1
+    return grads
+
+
+flash_bwd.launches = {"bf16": 0, "f32": 0}
+
+
+def flash_bwd_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 backward by the synchronous mma.sync design at every head
+    dim (``e4t_flash_bwd_sync``): what ``flash_bwd`` launches from d = 128,
+    kept at d < 128 as the yardstick the wgmma kernels are timed and checked
+    against. No path calls it, and it counts no launch. CUDA bf16 tensors
+    only, as ``flash_bwd`` takes them."""
+    if q.device.type != "cuda":
+        raise ValueError("flash_bwd_sync runs on CUDA tensors only")
+    _check(q, k, v)
+    if _check_kernel_inputs(q, k, v, out=out, dout=dout) != torch.bfloat16:
+        raise TypeError("flash_bwd_sync takes bf16 operands")
+    return _launch(SOURCE, "e4t_flash_bwd_sync", q, k, v, out, lse, dout,
+                   scale)
+
+
+def _launch(source, symbol, q, k, v, out, lse, dout, scale):
+    """delta = rowsum(out * dO) in PyTorch, then one entry point of
+    ``source``: (dq, dk, dv) in the operands' type."""
     delta = (out.float() * dout.float()).sum(-1)
     bh, sq, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    f32 = dtype == torch.float32
-    _build.launch(F32_SOURCE if f32 else SOURCE,
-                  "e4t_attn_bwd_f32" if f32 else "e4t_flash_bwd",
+    _build.launch(source, symbol,
                   [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                   + [ctypes.c_float],
                   q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq,
                   k.shape[1], d, float(scale))
-    flash_bwd.launches["f32" if f32 else "bf16"] += 1
     return dq, dk, dv
-
-
-flash_bwd.launches = {"bf16": 0, "f32": 0}

@@ -45,11 +45,23 @@
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
 using e4t::bf16;
+using e4t::exp2_approx;
+using e4t::fence_proxy_async;
+using e4t::fence_regs;
 using e4t::kThreads;
+using e4t::smem_desc;
+using e4t::wgmma_commit;
+using e4t::wgmma_fence;
+using e4t::wgmma_rs;
+using e4t::wgmma_ss_n64;
+using e4t::wgmma_wait;
+
+constexpr int kSMs = 132;  // streaming multiprocessors of an H100 SXM
 
 constexpr int kBlockM = 64;  // q rows (dq) or kv rows (dk/dv) per block
 
@@ -329,6 +341,253 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// ---- d < 128: warpgroup MMA (wgmma) fed by cp.async rings ----
+
+constexpr int kTileQ = 64;      // q rows of a streamed tile in the dk/dv kernel
+constexpr int kDkvStages = 3;   // q/dO ring depth: tiles j + 1 and j + 2 in flight
+
+// bytes of one dk/dv ring stage: q and dO tiles in the core-matrix layout,
+// then the tile's 64 lse and 64 delta values
+template <int DK>
+__host__ __device__ constexpr int dkv_stage_bytes() {
+  return 2 * kTileQ * DK * 2 + 2 * kTileQ * 4;
+}
+
+template <int DK, int NWG>
+constexpr size_t dkv_wgmma_smem() {
+  return (size_t)2 * (64 * NWG) * DK * 2 + (size_t)kDkvStages * dkv_stage_bytes<DK>();
+}
+
+// q tile t (and its dO tile, lse and delta) into a ring stage; lse and delta
+// rows past Sq read nothing and hold 0 (the kernel masks those columns)
+template <int DK, int THREADS>
+__device__ __forceinline__ void load_dkv_stage(unsigned char* st, const bf16* qb,
+                                               const bf16* dob, const float* lseb,
+                                               const float* dlb, int t, int sq, int d,
+                                               int tid) {
+  constexpr int kTile = kTileQ * DK * 2;
+  e4t::load_core_async<kTileQ, DK, THREADS>(st, qb, t * kTileQ, sq, d, tid);
+  e4t::load_core_async<kTileQ, DK, THREADS>(st + kTile, dob, t * kTileQ, sq, d, tid);
+  float* rows = reinterpret_cast<float*>(st + 2 * kTile);  // lse[64], then delta[64]
+  for (int i = tid; i < 2 * kTileQ; i += THREADS) {
+    const int r = t * kTileQ + (i & (kTileQ - 1));
+    const bool in = r < sq;
+    e4t::cp_async_4(rows + i, (i < kTileQ ? lseb : dlb) + (in ? r : 0), in ? 4 : 0);
+  }
+}
+
+// dk and dv of NWG * 64 kv rows a block, one warpgroup per 64 rows; k and v
+// stay in shared memory, q, dO, lse and delta stream through a ring of
+// kDkvStages tiles of 64 q rows that every warpgroup of the block reads.
+// Per tile each warpgroup issues S^T = K Q^T and dP^T = V dO^T (m64n64k16,
+// both operands K-major in shared memory), waits, forms p^T and ds^T in
+// registers (their accumulator layout is the A-fragment layout of the next
+// products), issues dv += p^T dO and dk += ds^T q (m64nDKk16, dO and q read
+// MN-major by the descriptor) and waits; one block barrier a tile frees the
+// stage of tile j - 1 for tile j - 1 + kDkvStages.
+template <int DK, int NWG>
+__global__ void __launch_bounds__(128 * NWG)
+flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                           int d, float scale, float scale_log2) {
+  constexpr int kT = 128 * NWG;
+  constexpr int kC = DK / 8;        // 16-byte chunks per row
+  constexpr int kGroup = kC * 128;  // bytes of 8 rows
+  constexpr int kBM = 64 * NWG;     // kv rows a block
+  constexpr int kTile = kTileQ * DK * 2;
+  constexpr int kStage = dkv_stage_bytes<DK>();
+  constexpr int kSteps = DK / 16;
+  constexpr int kOut = DK / 2;  // f32 accumulators a thread, per output
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* k_s = smem_raw;             // kBM rows
+  unsigned char* v_s = k_s + kBM * DK * 2;   // kBM rows
+  unsigned char* ring = v_s + kBM * DK * 2;  // kDkvStages stages
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kBM;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int wi = (tid >> 5) & 3;  // warp of the warpgroup: its 16 rows
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+
+  const size_t koff = (size_t)bh * sk * d;
+  const bf16* qb = q + (size_t)bh * sq * d;
+  const bf16* dob = dout + (size_t)bh * sq * d;
+  const float* lseb = lse + (size_t)bh * sq;
+  const float* dlb = delta + (size_t)bh * sq;
+  const int n_tiles = (sq + kTileQ - 1) / kTileQ;
+
+  // prologue: k and v, then tiles 0 .. kDkvStages - 2, one group each
+  e4t::load_core_async<kBM, DK, kT>(k_s, k + koff, k0, sk, d, tid);
+  e4t::load_core_async<kBM, DK, kT>(v_s, v + koff, k0, sk, d, tid);
+  e4t::cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < kDkvStages - 1; ++t) {
+    if (t < n_tiles)
+      load_dkv_stage<DK, kT>(ring + t * kStage, qb, dob, lseb, dlb, t, sq, d, tid);
+    e4t::cp_async_commit();
+  }
+  e4t::cp_async_wait<kDkvStages - 2>();  // k, v and tile 0 have landed
+  fence_proxy_async();
+  __syncthreads();
+
+  const unsigned char* k_wg = k_s + wg * 8 * kGroup;  // the warpgroup's 64 rows
+  const unsigned char* v_wg = v_s + wg * 8 * kGroup;
+  float adk[kOut], adv[kOut];
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) adk[i] = adv[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    // refill the stage tile j - 1 used: every warpgroup left it at the
+    // barrier that ended the last iteration
+    const int nxt = j + kDkvStages - 1;
+    if (nxt < n_tiles)
+      load_dkv_stage<DK, kT>(ring + (nxt % kDkvStages) * kStage, qb, dob, lseb, dlb, nxt,
+                             sq, d, tid);
+    e4t::cp_async_commit();  // possibly empty: the group count stays uniform
+    const unsigned char* qs = ring + (j % kDkvStages) * kStage;
+    const unsigned char* dos = qs + kTile;
+    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * kTile);
+    const float* dl_s = lse_s + kTileQ;
+
+    // S^T and dP^T, the warpgroup's 64 kv rows x the tile's 64 q rows;
+    // s[4n + e]: kv rows g (e < 2) and g + 8 of the warp's 16, q column
+    // 8n + 2 t4 + (e & 1)
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st)
+      wgmma_ss_n64(s, smem_desc(k_wg + st * 256, 128, kGroup),
+                   smem_desc(qs + st * 256, 128, kGroup), st);
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st)
+      wgmma_ss_n64(dp, smem_desc(v_wg + st * 256, 128, kGroup),
+                   smem_desc(dos + st * 256, 128, kGroup), st);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p^T = exp2(s scale log2e - lse log2e) and ds^T = p^T (dP^T - delta)
+    // scale, each column with its q row's lse and delta; 0 past Sq
+    const bool ragged = (j + 1) * kTileQ > sq;
+    uint32_t pa[kTileQ / 16][4], dsa[kTileQ / 16][4];
+#pragma unroll
+    for (int n = 0; n < kTileQ / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n * 8 + t4 * 2 + e;
+        const float nl = -lse_s[c] * e4t::kLog2e, dl = dl_s[c];
+        const bool valid = !ragged || j * kTileQ + c < sq;
+        const float p0 = valid ? exp2_approx(fmaf(s[4 * n + e], scale_log2, nl)) : 0.f;
+        const float p1 = valid ? exp2_approx(fmaf(s[4 * n + 2 + e], scale_log2, nl)) : 0.f;
+        s[4 * n + e] = p0;
+        s[4 * n + 2 + e] = p1;
+        dp[4 * n + e] = p0 * (dp[4 * n + e] - dl) * scale;
+        dp[4 * n + 2 + e] = p1 * (dp[4 * n + 2 + e] - dl) * scale;
+      }
+      pa[n >> 1][(n & 1) * 2 + 0] = e4t::pack_bf16(s[4 * n + 0], s[4 * n + 1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = e4t::pack_bf16(s[4 * n + 2], s[4 * n + 3]);
+      dsa[n >> 1][(n & 1) * 2 + 0] = e4t::pack_bf16(dp[4 * n + 0], dp[4 * n + 1]);
+      dsa[n >> 1][(n & 1) * 2 + 1] = e4t::pack_bf16(dp[4 * n + 2], dp[4 * n + 3]);
+    }
+
+    // dv += p^T dO and dk += ds^T q, 16 q rows a step
+    fence_regs(adv);
+    fence_regs(adk);
+    fence_regs(pa);
+    fence_regs(dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTileQ / 16; ++kk)
+      wgmma_rs<DK>(adv, pa[kk], smem_desc(dos + kk * 2 * kGroup, kGroup, 128));
+#pragma unroll
+    for (int kk = 0; kk < kTileQ / 16; ++kk)
+      wgmma_rs<DK>(adk, dsa[kk], smem_desc(qs + kk * 2 * kGroup, kGroup, 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(adv);
+    fence_regs(adk);
+
+    e4t::cp_async_wait<kDkvStages - 2>();  // tile j + 1 has landed (this thread's part)
+    fence_proxy_async();
+    __syncthreads();                         // ... everyone's, and tile j is free
+  }
+
+  const int row0 = k0 + wg * 64 + wi * 16 + g, row1 = row0 + 8;
+#pragma unroll
+  for (int n = 0; n < kOut / 4; ++n) {
+    const int col = n * 8 + t4 * 2;
+    if (col < d) {
+      if (row0 < sk) {
+        const size_t o = koff + (size_t)row0 * d + col;
+        *reinterpret_cast<uint32_t*>(&dk[o]) = e4t::pack_bf16(adk[4 * n], adk[4 * n + 1]);
+        *reinterpret_cast<uint32_t*>(&dv[o]) = e4t::pack_bf16(adv[4 * n], adv[4 * n + 1]);
+      }
+      if (row1 < sk) {
+        const size_t o = koff + (size_t)row1 * d + col;
+        *reinterpret_cast<uint32_t*>(&dk[o]) =
+            e4t::pack_bf16(adk[4 * n + 2], adk[4 * n + 3]);
+        *reinterpret_cast<uint32_t*>(&dv[o]) =
+            e4t::pack_bf16(adv[4 * n + 2], adv[4 * n + 3]);
+      }
+    }
+  }
+}
+
+template <int DK, int NWG>
+int launch_dkv_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                     const float* lse, const float* delta, bf16* dk, bf16* dv, int bh,
+                     int sq, int sk, int d, float scale, cudaStream_t stream) {
+  constexpr size_t smem = dkv_wgmma_smem<DK, NWG>();
+  const cudaError_t err = e4t::allow_smem(flash_bwd_dkv_wgmma_kernel<DK, NWG>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((sk + 64 * NWG - 1) / (64 * NWG), bh);
+  flash_bwd_dkv_wgmma_kernel<DK, NWG><<<grid, 128 * NWG, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, sq, sk, d, scale, scale * e4t::kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// The d < 128 backward: the dq kernel, then the wgmma dk/dv kernel with 2
+// warpgroups a block (128 kv rows share each q tile), or 1 where that would
+// leave fewer than two blocks an SM (the cross-attention sites: Sk = 77
+// would otherwise give one block a head and idle 51 of its 128 rows).
+template <int DK>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                 const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                 int bh, int sq, int sk, int d, float scale, cudaStream_t stream) {
+  using T = Tiles<DK>;
+  cudaError_t err = e4t::allow_smem(flash_bwd_dq_kernel<DK>, T::dq_smem);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dop = static_cast<const bf16*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dlp = static_cast<const float*>(delta);
+  flash_bwd_dq_kernel<DK><<<dim3((sq + kBlockM - 1) / kBlockM, bh), kThreads, T::dq_smem,
+                            stream>>>(qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dq), sq,
+                                      sk, d, scale, scale * e4t::kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bf16* dkp = static_cast<bf16*>(dk);
+  bf16* dvp = static_cast<bf16*>(dv);
+  if ((long)bh * ((sk + 127) / 128) < 2L * kSMs)
+    return launch_dkv_wgmma<DK, 1>(qp, kp, vp, dop, lp, dlp, dkp, dvp, bh, sq, sk, d, scale,
+                                   stream);
+  return launch_dkv_wgmma<DK, 2>(qp, kp, vp, dop, lp, dlp, dkp, dvp, bh, sq, sk, d, scale,
+                                 stream);
+}
+
 // The launch for a padded head dim, by the synchronous design.
 int dispatch_sync(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* dq, void* dk, void* dv,
@@ -369,8 +628,20 @@ extern "C" int e4t_flash_bwd(const void* q, const void* k, const void* v,
                              void* dq, void* dk, void* dv, int bh, int sq, int sk,
                              int d, float scale, void* stream) {
   if (bad_shape(bh, sq, sk, d)) return (int)cudaErrorInvalidValue;
-  return dispatch_sync(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, sk, d, scale,
-                       static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define E4T_BWD_WGMMA(DK) \
+  case DK: return launch_wgmma<DK>(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, sk, d, scale, s);
+  switch (e4t::padded_head_dim(d)) {
+    E4T_BWD_WGMMA(16)
+    E4T_BWD_WGMMA(32)
+    E4T_BWD_WGMMA(48)
+    E4T_BWD_WGMMA(64)
+    E4T_BWD_WGMMA(80)
+    E4T_BWD_WGMMA(96)
+    E4T_BWD_WGMMA(112)
+    default: return dispatch_sync(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, sk, d, scale, s);
+  }
+#undef E4T_BWD_WGMMA
 }
 
 // The same function by the synchronous design at every head dim: the

@@ -74,6 +74,41 @@ def test_cuda_backward_matches_reference(bh, sq, sk, d):
         assert ((got.float() - want).norm() / want.norm()).item() <= 2e-2
 
 
+# the d < 128 backward runs on wgmma kernels: the tuning step's sites (BH
+# cut to 8), ragged Sq and Sk that are multiples of no tile, one q row, and
+# BH 40 at Sk 1000, which takes the dk/dv kernel's 2-warpgroup blocks at a
+# ragged Sk (fewer heads or kv rows take 1 warpgroup a block)
+WGMMA_BWD_CASES = [(8, 4096, 4096, 40), (8, 4096, 77, 40), (8, 1024, 1024, 80),
+                   (8, 1024, 77, 80), (2, 300, 77, 40), (2, 129, 200, 80),
+                   (2, 65, 257, 40), (3, 1, 130, 80), (40, 300, 1000, 40),
+                   (2, 200, 300, 64), (2, 100, 90, 112)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d", WGMMA_BWD_CASES)
+def test_cuda_wgmma_backward_matches_reference_and_sync(bh, sq, sk, d):
+    """The wgmma backward against the plain version and against the
+    synchronous design it replaced at d < 128, within the same bound; two
+    calls on the same inputs bit-identical (no atomics)."""
+    from e4t_diffusion_torch.ops import flash_bwd as fb
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v, dout = _operands(12, bh, d, sq, sk, sk, sq)
+    out, lse = fl.flash_fwd(q, k, v, d ** -0.5)
+    grads = fb.flash_bwd(q, k, v, out, lse, dout, d ** -0.5)
+    again = fb.flash_bwd(q, k, v, out, lse, dout, d ** -0.5)
+    sync = fb.flash_bwd_sync(q, k, v, out, lse, dout, d ** -0.5)
+    torch.cuda.synchronize()
+    refs = fb.flash_bwd_reference(q.float(), k.float(), v.float(),
+                                  out.float(), lse, dout.float(), d ** -0.5)
+    for got, rep, old, want in zip(grads, again, sync, refs):
+        assert torch.equal(got, rep)
+        assert ((got.float() - want).norm() / want.norm()).item() <= 2e-2
+        assert ((got.float() - old.float()).norm()
+                / old.float().norm()).item() <= 2e-2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("operand,bad,error", [
     ("q", dict(dtype=torch.float16), TypeError),

@@ -544,6 +544,171 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   }
 }
 
+// q warpgroups a dq block, 64 q rows each: they share each k/v tile the
+// block loads; 4 up to DK = 64 leave 128 registers a thread for S, dP, the
+// dq accumulators and the ds fragments, 2 above
+template <int DK>
+__host__ __device__ constexpr int dq_groups() { return DK <= 64 ? 4 : 2; }
+constexpr int kTileK = 64;     // kv rows of a streamed tile in the dq kernel
+constexpr int kDqStages = 4;   // k/v ring depth, as the forward's
+
+template <int DK>
+constexpr size_t dq_wgmma_smem() {
+  return (size_t)2 * DK * 2 * (64 * dq_groups<DK>() + kDqStages * kTileK);
+}
+
+// dq of dq_groups<DK>() * 64 q rows a block, one warpgroup per 64 rows; q
+// and dO stay in shared memory, each row's lse and delta in registers, and k
+// and v stream through a ring of kDqStages 64-row tiles that every
+// warpgroup reads. Per tile each warpgroup issues S = Q K^T and dP = dO V^T
+// (m64n64k16, both operands K-major), waits, forms ds in registers and
+// issues dq += ds K (m64nDKk16, K read MN-major by the descriptor), as the
+// forward's O += P V.
+template <int DK>
+__global__ void __launch_bounds__(128 * dq_groups<DK>())
+flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int sq, int sk, int d, float scale,
+                          float scale_log2) {
+  constexpr int kT = 128 * dq_groups<DK>();
+  constexpr int kC = DK / 8;
+  constexpr int kGroup = kC * 128;
+  constexpr int kBM = 64 * dq_groups<DK>();
+  constexpr int kTile = kTileK * DK * 2;
+  constexpr int kSteps = DK / 16;
+  constexpr int kOut = DK / 2;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* q_s = smem_raw;                // kBM rows
+  unsigned char* do_s = q_s + kBM * DK * 2;     // kBM rows
+  unsigned char* k_s = do_s + kBM * DK * 2;     // kDqStages tiles
+  unsigned char* v_s = k_s + kDqStages * kTile;  // kDqStages tiles
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBM;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int wi = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+
+  const size_t qoff = (size_t)bh * sq * d;
+  const bf16* kb = k + (size_t)bh * sk * d;
+  const bf16* vb = v + (size_t)bh * sk * d;
+  const int n_tiles = (sk + kTileK - 1) / kTileK;
+
+  // prologue: q and dO, then tiles 0 .. kDqStages - 2, one group each
+  e4t::load_core_async<kBM, DK, kT>(q_s, q + qoff, q0, sq, d, tid);
+  e4t::load_core_async<kBM, DK, kT>(do_s, dout + qoff, q0, sq, d, tid);
+  e4t::cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < kDqStages - 1; ++t) {
+    if (t < n_tiles) {
+      e4t::load_core_async<kTileK, DK, kT>(k_s + t * kTile, kb, t * kTileK, sk, d, tid);
+      e4t::load_core_async<kTileK, DK, kT>(v_s + t * kTile, vb, t * kTileK, sk, d, tid);
+    }
+    e4t::cp_async_commit();
+  }
+
+  // rows g and g + 8 of the warp: -lse in the log2 domain (-inf past Sq, so
+  // p = 0 there) and delta
+  const int row0 = q0 + wg * 64 + wi * 16 + g, row1 = row0 + 8;
+  const float nl0 = row0 < sq ? -lse[(size_t)bh * sq + row0] * e4t::kLog2e : -INFINITY;
+  const float nl1 = row1 < sq ? -lse[(size_t)bh * sq + row1] * e4t::kLog2e : -INFINITY;
+  const float dl0 = row0 < sq ? delta[(size_t)bh * sq + row0] : 0.f;
+  const float dl1 = row1 < sq ? delta[(size_t)bh * sq + row1] : 0.f;
+
+  e4t::cp_async_wait<kDqStages - 2>();  // q, dO and tile 0 have landed
+  fence_proxy_async();
+  __syncthreads();
+
+  const unsigned char* q_wg = q_s + wg * 8 * kGroup;
+  const unsigned char* do_wg = do_s + wg * 8 * kGroup;
+  float acc[kOut];
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int nxt = j + kDqStages - 1;
+    if (nxt < n_tiles) {
+      const int st = nxt % kDqStages;
+      e4t::load_core_async<kTileK, DK, kT>(k_s + st * kTile, kb, nxt * kTileK, sk, d, tid);
+      e4t::load_core_async<kTileK, DK, kT>(v_s + st * kTile, vb, nxt * kTileK, sk, d, tid);
+    }
+    e4t::cp_async_commit();  // possibly empty: the group count stays uniform
+    const unsigned char* ks = k_s + (j % kDqStages) * kTile;
+    const unsigned char* vs = v_s + (j % kDqStages) * kTile;
+
+    // S and dP, the warpgroup's 64 q rows x the tile's 64 kv rows
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st)
+      wgmma_ss_n64(s, smem_desc(q_wg + st * 256, 128, kGroup),
+                   smem_desc(ks + st * 256, 128, kGroup), st);
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st)
+      wgmma_ss_n64(dp, smem_desc(do_wg + st * 256, 128, kGroup),
+                   smem_desc(vs + st * 256, 128, kGroup), st);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // ds = p (dP - delta) scale, p = 0 past Sk; in the A-fragment layout
+    const bool ragged = (j + 1) * kTileK > sk;
+    uint32_t dsa[kTileK / 16][4];
+#pragma unroll
+    for (int n = 0; n < kTileK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = !ragged || j * kTileK + n * 8 + t4 * 2 + e < sk;
+        const float p0 = valid ? exp2_approx(fmaf(s[4 * n + e], scale_log2, nl0)) : 0.f;
+        const float p1 = valid ? exp2_approx(fmaf(s[4 * n + 2 + e], scale_log2, nl1)) : 0.f;
+        dp[4 * n + e] = p0 * (dp[4 * n + e] - dl0) * scale;
+        dp[4 * n + 2 + e] = p1 * (dp[4 * n + 2 + e] - dl1) * scale;
+      }
+      dsa[n >> 1][(n & 1) * 2 + 0] = e4t::pack_bf16(dp[4 * n + 0], dp[4 * n + 1]);
+      dsa[n >> 1][(n & 1) * 2 + 1] = e4t::pack_bf16(dp[4 * n + 2], dp[4 * n + 3]);
+    }
+
+    // dq += ds K, 16 kv rows a step
+    fence_regs(acc);
+    fence_regs(dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTileK / 16; ++kk)
+      wgmma_rs<DK>(acc, dsa[kk], smem_desc(ks + kk * 2 * kGroup, kGroup, 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    e4t::cp_async_wait<kDqStages - 2>();  // tile j + 1 has landed (this thread's part)
+    fence_proxy_async();
+    __syncthreads();                        // ... everyone's, and tile j is free
+  }
+
+  bf16* dqb = dq + qoff;
+#pragma unroll
+  for (int n = 0; n < kOut / 4; ++n) {
+    const int col = n * 8 + t4 * 2;
+    if (col < d) {
+      if (row0 < sq)
+        *reinterpret_cast<uint32_t*>(&dqb[(size_t)row0 * d + col]) =
+            e4t::pack_bf16(acc[4 * n], acc[4 * n + 1]);
+      if (row1 < sq)
+        *reinterpret_cast<uint32_t*>(&dqb[(size_t)row1 * d + col]) =
+            e4t::pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
+    }
+  }
+}
+
 template <int DK, int NWG>
 int launch_dkv_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                      const float* lse, const float* delta, bf16* dk, bf16* dv, int bh,
@@ -557,16 +722,16 @@ int launch_dkv_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* do
   return (int)cudaGetLastError();
 }
 
-// The d < 128 backward: the dq kernel, then the wgmma dk/dv kernel with 2
-// warpgroups a block (128 kv rows share each q tile), or 1 where that would
-// leave fewer than two blocks an SM (the cross-attention sites: Sk = 77
-// would otherwise give one block a head and idle 51 of its 128 rows).
+// The d < 128 backward: the wgmma dq kernel, then the wgmma dk/dv kernel
+// with 2 warpgroups a block (128 kv rows share each q tile), or 1 where that
+// would leave fewer than two blocks an SM (the cross-attention sites: Sk =
+// 77 would otherwise give one block a head and idle 51 of its 128 rows).
 template <int DK>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, void* dq, void* dk, void* dv,
                  int bh, int sq, int sk, int d, float scale, cudaStream_t stream) {
-  using T = Tiles<DK>;
-  cudaError_t err = e4t::allow_smem(flash_bwd_dq_kernel<DK>, T::dq_smem);
+  constexpr size_t dq_smem = dq_wgmma_smem<DK>();
+  cudaError_t err = e4t::allow_smem(flash_bwd_dq_wgmma_kernel<DK>, dq_smem);
   if (err != cudaSuccess) return (int)err;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
@@ -574,9 +739,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
   const bf16* dop = static_cast<const bf16*>(dout);
   const float* lp = static_cast<const float*>(lse);
   const float* dlp = static_cast<const float*>(delta);
-  flash_bwd_dq_kernel<DK><<<dim3((sq + kBlockM - 1) / kBlockM, bh), kThreads, T::dq_smem,
-                            stream>>>(qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dq), sq,
-                                      sk, d, scale, scale * e4t::kLog2e);
+  constexpr int kBM = 64 * dq_groups<DK>();
+  flash_bwd_dq_wgmma_kernel<DK><<<dim3((sq + kBM - 1) / kBM, bh), kBM * 2, dq_smem,
+                                  stream>>>(qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dq),
+                                            sq, sk, d, scale, scale * e4t::kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bf16* dkp = static_cast<bf16*>(dk);

@@ -252,11 +252,17 @@ def phase_build():
             if m:
                 args = re.findall(r"L[a-z](\d+)E", m.group(2) + "E")
                 name = f"{m.group(1)}<{','.join(args) or m.group(2)}>"
-            elif "registers" in ln or ("spill" in ln and
-                                        "0 bytes spill stores" not in ln):
+            elif "registers" in ln or re.search(
+                    r"(?<!\d)[1-9]\d* bytes spill", ln):
                 usage[src].append(f"{name}: {ln.split(':', 1)[-1].strip()}")
     print(json.dumps({"phase": "build", "sources": sources,
                       "seconds": round(seconds, 3), "ptxas": usage}))
+    # the wgmma kernels hold their accumulators in registers: a spill would
+    # move them through local memory on every tile
+    spills = [u for lines in usage.values() for u in lines
+              if "wgmma" in u and "spill" in u]
+    if spills:
+        fail(f"ptxas spills in the wgmma kernels: {spills}")
 
 
 def _bound(n_bytes, flops, exps, int8_ops=0, flop_rate=BF16_FLOP_PER_S):
@@ -368,12 +374,17 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
     autograd with the same dO in the same type, the bound.
     The bound counts the work (dq, dk, dv) needs, whatever the kernel's
     design does: five products (S, dP, dq, dk, dv), 10 flops per score
-    element and head dim, and one exponential per score."""
+    element and head dim, and one exponential per score.
+    In bf16 at d < 128 (the wgmma kernels) also: a second call bit for bit
+    against the first, and the synchronous design (``flash_bwd_sync``, the
+    kernels the parent commit runs there) against the kernel, within the
+    same bound, and timed beside it (``parent_ms``)."""
     import torch
     import torch.nn.functional as F
 
     from e4t_diffusion_torch.ops.flash_bwd import (flash_bwd,
-                                                   flash_bwd_reference)
+                                                   flash_bwd_reference,
+                                                   flash_bwd_sync)
     from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd
 
     dtype = dtype or torch.bfloat16
@@ -398,6 +409,20 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
     if max(case[f"{n}_rel_l2"] for n in ("dq", "dk", "dv")) > (
             KERNEL_F32_REL_L2 if _f32(dtype) else KERNEL_GRAD_REL_L2):
         fail(f"flash_bwd disagrees with its plain version: {case}")
+    wgmma = not _f32(dtype) and d < 128
+    if wgmma:
+        again = flash_bwd(q, k, v, out, lse, dout, scale)
+        case["repeat_identical"] = all(torch.equal(a, b)
+                                       for a, b in zip(grads, again))
+        parent = flash_bwd_sync(q, k, v, out, lse, dout, scale)
+        for name, g, p in zip(("dq", "dk", "dv"), grads, parent):
+            case[f"parent_{name}_rel_l2"] = _rel(g, p.float())
+        del again, parent
+        if not case["repeat_identical"]:
+            fail(f"flash_bwd: two calls on the same inputs differ: {case}")
+        if max(case[f"parent_{n}_rel_l2"] for n in ("dq", "dk", "dv")) > (
+                KERNEL_GRAD_REL_L2):
+            fail(f"flash_bwd disagrees with the synchronous design: {case}")
     if timed:
         qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(
@@ -412,6 +437,9 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
                      + 4 * bh * sq, 10 * bh * sq * sk * d, bh * sq * sk,
                      flop_rate=F32_FLOP_PER_S if _f32(dtype)
                      else BF16_FLOP_PER_S))
+        if wgmma:
+            case["parent_ms"] = cuda_time_ms(lambda: flash_bwd_sync(
+                q, k, v, out, lse, dout, scale))
         del qr, kr, vr, lib_out
     del q, k, v, dout, out, lse, grads, f32
     torch.cuda.empty_cache()
@@ -753,8 +781,15 @@ def phase_kernels():
                       (256, 129, 300)):
         ragged.append(_fwd_case(2, sq, sk, d, gen, timed=False))
     for d, sq, sk in ((8, 65, 33), (24, 100, 130), (64, 128, 257),
-                      (120, 257, 77), (136, 200, 90), (256, 129, 300)):
+                      (120, 257, 77), (136, 200, 90), (256, 129, 300),
+                      # the wgmma backward's masks: Sq and Sk multiples of
+                      # no tile, one q row
+                      (40, 300, 77), (80, 129, 200), (40, 65, 257),
+                      (80, 1, 130), (112, 100, 90)):
         ragged.append(_bwd_case(2, sq, sk, d, gen, timed=False))
+    # BH 40 at Sk 1000: the dk/dv kernel's 2-warpgroup blocks at a ragged Sk
+    # (with fewer heads or kv rows it takes 1 warpgroup a block)
+    ragged.append(_bwd_case(40, 300, 1000, 40, gen, timed=False))
     # int8 serving: the two low-dim flash sites in both modes, and every
     # distinct quantized conv of a batch-8 512px UNet forward
     int8_flash = [_int8_flash_case(64, s_, s_, d, mode, gen, timed=True)
@@ -1941,6 +1976,12 @@ def kernels_line(cases, paths):
     kernels[0]["per_site"] = [
         {k: c[k] for k in timed_keys + ("parent_ms",)}
         for c in low if "ms" in c]
+    # the wgmma backward against the synchronous design it replaced at
+    # d < 128, timed in this run
+    kernels[2]["parent_ms"] = cases["tuning_bwd"][0]["parent_ms"]
+    kernels[2]["per_site"] = [
+        {k: c[k] for k in timed_keys + ("parent_ms",) if k in c}
+        for c in cases["tuning_bwd"] + [cases["grid_bwd"]]]
     kernels[1]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:95"
     kernels[2]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:582"
     kernels[3]["at"] = kernels[3]["at"].replace(

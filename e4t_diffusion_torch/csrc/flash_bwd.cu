@@ -16,31 +16,58 @@
 // products, as in the TPU kernels.
 //
 // Design: two kernels, as the TPU's resident design has two, so no atomics
-// are needed and the result is deterministic.
-// - dq: one block of 4 warps per (bh, 64-row q tile); each warp owns 16 q
-//   rows and loops over kv tiles, recomputing S and dP.
-// - dk/dv: one block per (bh, 64-row kv tile); each warp owns 16 kv rows and
-//   loops over q tiles, computing the transposed S^T = k q^T and
-//   dP^T = v dO^T, so p^T and ds^T land in registers in the A-fragment
-//   layout of the dv and dk products.
-// Every product runs on mma.sync m16n8k16. q/dO (dq) and k/v (dk/dv) stay in
-// shared memory and their A fragments are reloaded per k-step, which keeps
-// the f32 accumulators (DK/8 x 4 per output) in registers. Operands used as
-// the B side of the dq, dk and dv products (k, q, dO) are also staged
-// transposed, so every B fragment is one 32-bit load. D is zero-padded to the
-// mma granularity in shared memory only (40 -> 48, 80 and 160 stay); ragged
-// Sq and Sk are masked in the kernels (p = 0 past Sk; lse = +inf past Sq).
-// For D > 128 the dk/dv accumulators are split over gridDim.z column halves
-// (S^T and dP^T recomputed per half), and the inner tile is 32 rows for
-// D > 64, both to stay inside 255 registers without spills.
+// are needed and the result is deterministic: every output element is one
+// thread's f32 sum, taken in a fixed order, so two calls on the same inputs
+// agree bit for bit. Both kernels recompute S and dP.
+// - dq: one block per (bh, q tile); loops over kv tiles.
+// - dk/dv: one block per (bh, kv tile); loops over q tiles, computing the
+//   transposed S^T = k q^T and dP^T = v dO^T, so p^T and ds^T land in
+//   registers in the A-fragment layout of the dv and dk products.
+// D is zero-padded to the mma granularity in shared memory only (40 -> 48,
+// 80 and 160 stay); ragged Sq and Sk are masked in the kernels (p = 0 past
+// Sq, and past Sk where kv rows are the contraction; dk/dv rows past Sk are
+// not stored), so the host passes unpadded tensors.
+//
+// DK <= 112 (d < 128; flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel):
+// warpgroup MMA on PR 6's building blocks (wgmma_common.cuh), each warpgroup
+// owning 64 rows. Every tile sits in shared memory in the descriptors'
+// core-matrix layout, filled by 16-byte cp.async, so no operand is ever
+// transposed by a thread: one layout serves K-major (S, dP and their
+// transposes: m64n64k16, both operands from shared memory) and MN-major (the
+// B side of dq += ds k, dk += ds^T q, dv += p^T dO: m64nDKk16, the A side
+// from registers, where the score accumulator already lies in its fragment
+// layout). The resident operands (q and dO for dq, k and v for dk/dv) are
+// loaded once; the streamed ones pass through a cp.async ring that every
+// warpgroup of the block reads, tiles j + 1 and j + 2 landing while tile j
+// is computed, with one block barrier a tile. dq: dq_groups<DK>() warpgroups
+// of q rows a block (4 up to DK 64, 2 above, for registers), lse and delta
+// per row in registers, a 4-stage k/v ring. dk/dv: 2 warpgroups of kv rows a
+// block, or 1 where 2 would leave fewer than two blocks an SM (Sk = 77 at
+// the cross-attention sites); a 3-stage ring of q, dO and each tile's lse
+// and delta (4-byte cp.async: a head's lse row need not be 16-byte aligned).
+// Both take p by one fma and one ex2 and add the 16-row k-steps in the
+// synchronous design's order, so at every shape measured they return its
+// results bit for bit.
+//
+// DK >= 128 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel: the synchronous
+// design that served every DK before the wgmma kernels): 4 warps of 16 rows
+// a block of 64, mma.sync m16n8k16; the streamed tile staged through
+// registers into shared memory between two barriers, B operands (k, q, dO)
+// also stored transposed by 2-byte stores so every B fragment is one 32-bit
+// load. For D > 128 the dk/dv accumulators are split over gridDim.z column
+// halves (S^T and dP^T recomputed per half), and the inner tile is 32 rows
+// for D > 64, both to stay inside 255 registers without spills. The same
+// kernels at every DK are exported as e4t_flash_bwd_sync, the yardstick
+// the wgmma kernels are timed and checked against.
 //
 // What bounds it on the H100: the function needs five products (S, dP, dq,
 // dk, dv), 10*BH*Sq*Sk*D tensor-core flops, and BH*Sq*Sk exponentials; at
 // the UNet's 4096-token d=40 sites at BH=128 that is ~0.87 ms of bf16 peak
 // and ~0.51 ms of the special-function units, far above the ~0.2 ms of
-// traffic. This design does more: S and dP are recomputed in both kernels,
-// 14*BH*Sq*Sk*D flops and 2*BH*Sq*Sk exponentials, one cause of its distance
-// from that bound.
+// traffic. Both designs do more: S and dP are recomputed in both kernels,
+// 14*BH*Sq*Sk*D flops and 2*BH*Sq*Sk exponentials, and D is padded to DK.
+// The wgmma design takes 5.7 ms there (the dk/dv kernel 3.5, the dq kernel
+// 1.8; the synchronous one 10.8; PERF.md, on an H100 80GB HBM3 at 700 W).
 
 #include <math.h>
 

@@ -6,7 +6,13 @@ resident) and ``_flash_bwd``'s blocked grids: the backward of every flash
 site, which training runs (all-flash, ``ops/attention.flash_threshold(0)``).
 The kernel is ``csrc/flash_bwd.cu``, built by nvcc for sm_90a and called
 through ctypes: a dq kernel over q tiles and a dk/dv kernel over kv tiles,
-no atomics, deterministic. Its source note gives the bound on the H100.
+no atomics, so two calls on the same inputs agree bit for bit. Below d =
+128 both run on warpgroup MMA (wgmma) fed by cp.async rings; from 128 on
+the synchronous mma.sync design, which ``flash_bwd_sync`` runs at every d
+as the yardstick the wgmma kernels are timed and checked against. The
+source note gives the design and the bound on the H100: the function needs
+10 flops per score and head dim and one exponential per score; both designs
+recompute S and dP (14 flops, two exponentials).
 
 f32 operands go to the f32 backward of ``csrc/attention_f32.cu`` (a dq
 kernel and a dk/dv kernel in full f32 on the CUDA cores).

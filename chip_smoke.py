@@ -787,9 +787,10 @@ def phase_kernels():
                       (40, 300, 77), (80, 129, 200), (40, 65, 257),
                       (80, 1, 130), (112, 100, 90)):
         ragged.append(_bwd_case(2, sq, sk, d, gen, timed=False))
-    # BH 40 at Sk 1000: the dk/dv kernel's 2-warpgroup blocks at a ragged Sk
-    # (with fewer heads or kv rows it takes 1 warpgroup a block)
-    ragged.append(_bwd_case(40, 300, 1000, 40, gen, timed=False))
+    # BH 48 at Sk 1000: the dk/dv kernel's blocks of several warpgroups at a
+    # ragged Sk (with fewer heads or kv rows it takes 1 warpgroup a block)
+    for d, sq in ((40, 300), (80, 129)):
+        ragged.append(_bwd_case(48, sq, 1000, d, gen, timed=False))
     # int8 serving: the two low-dim flash sites in both modes, and every
     # distinct quantized conv of a batch-8 512px UNet forward
     int8_flash = [_int8_flash_case(64, s_, s_, d, mode, gen, timed=True)

@@ -39,12 +39,14 @@
 // layout). The resident operands (q and dO for dq, k and v for dk/dv) are
 // loaded once; the streamed ones pass through a cp.async ring that every
 // warpgroup of the block reads, tiles j + 1 and j + 2 landing while tile j
-// is computed, with one block barrier a tile. dq: dq_groups<DK>() warpgroups
-// of q rows a block (4 up to DK 64, 2 above, for registers), lse and delta
-// per row in registers, a 4-stage k/v ring. dk/dv: 2 warpgroups of kv rows a
-// block, or 1 where 2 would leave fewer than two blocks an SM (Sk = 77 at
-// the cross-attention sites); a 3-stage ring of q, dO and each tile's lse
-// and delta (4-byte cp.async: a head's lse row need not be 16-byte aligned).
+// is computed, with one block barrier a tile; the more warpgroups share a
+// tile, the faster (PERF.md), so registers set their number. dq:
+// dq_groups<DK>() warpgroups of q rows a block (4 up to DK 64, 3 above), lse
+// and delta per row in registers, a 4-stage k/v ring. dk/dv: dkv_groups<DK>()
+// warpgroups of kv rows a block (3 up to DK 64, 2 above), or 1 where that
+// would leave fewer than two blocks an SM (Sk = 77 at the cross-attention
+// sites); a 3-stage ring of q, dO and each tile's lse and delta (4-byte
+// cp.async: a head's lse row need not be 16-byte aligned).
 // Both take p by one fma and one ex2 and add the 16-row k-steps in the
 // synchronous design's order, so at every shape measured they return its
 // results bit for bit.
@@ -380,6 +382,12 @@ __host__ __device__ constexpr int dkv_stage_bytes() {
   return 2 * kTileQ * DK * 2 + 2 * kTileQ * 4;
 }
 
+// kv warpgroups a dk/dv block where Sk fills the card: they share each q
+// tile; S^T, dP^T and the dk and dv accumulators take 147-163 registers a
+// thread up to DK = 64, so 3 warpgroups (168 a thread), 2 above
+template <int DK>
+constexpr int dkv_groups() { return DK <= 64 ? 3 : 2; }
+
 template <int DK, int NWG>
 constexpr size_t dkv_wgmma_smem() {
   return (size_t)2 * (64 * NWG) * DK * 2 + (size_t)kDkvStages * dkv_stage_bytes<DK>();
@@ -573,9 +581,9 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 
 // q warpgroups a dq block, 64 q rows each: they share each k/v tile the
 // block loads; 4 up to DK = 64 leave 128 registers a thread for S, dP, the
-// dq accumulators and the ds fragments, 2 above
+// dq accumulators and the ds fragments, 3 above leave 168
 template <int DK>
-__host__ __device__ constexpr int dq_groups() { return DK <= 64 ? 4 : 2; }
+__host__ __device__ constexpr int dq_groups() { return DK <= 64 ? 4 : 3; }
 constexpr int kTileK = 64;     // kv rows of a streamed tile in the dq kernel
 constexpr int kDqStages = 4;   // k/v ring depth, as the forward's
 
@@ -750,9 +758,9 @@ int launch_dkv_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* do
 }
 
 // The d < 128 backward: the wgmma dq kernel, then the wgmma dk/dv kernel
-// with 2 warpgroups a block (128 kv rows share each q tile), or 1 where that
-// would leave fewer than two blocks an SM (the cross-attention sites: Sk =
-// 77 would otherwise give one block a head and idle 51 of its 128 rows).
+// with dkv_groups<DK>() warpgroups a block, or 1 where that would leave fewer
+// than two blocks an SM (the cross-attention sites: Sk = 77 would otherwise
+// give one block a head and idle most of its rows).
 template <int DK>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, void* dq, void* dk, void* dv,
@@ -774,11 +782,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
   if (err != cudaSuccess) return (int)err;
   bf16* dkp = static_cast<bf16*>(dk);
   bf16* dvp = static_cast<bf16*>(dv);
-  if ((long)bh * ((sk + 127) / 128) < 2L * kSMs)
+  constexpr int kGroups = dkv_groups<DK>();
+  if ((long)bh * ((sk + 64 * kGroups - 1) / (64 * kGroups)) < 2L * kSMs)
     return launch_dkv_wgmma<DK, 1>(qp, kp, vp, dop, lp, dlp, dkp, dvp, bh, sq, sk, d, scale,
                                    stream);
-  return launch_dkv_wgmma<DK, 2>(qp, kp, vp, dop, lp, dlp, dkp, dvp, bh, sq, sk, d, scale,
-                                 stream);
+  return launch_dkv_wgmma<DK, kGroups>(qp, kp, vp, dop, lp, dlp, dkp, dvp, bh, sq, sk, d,
+                                       scale, stream);
 }
 
 // The launch for a padded head dim, by the synchronous design.

@@ -76,12 +76,12 @@ def test_cuda_backward_matches_reference(bh, sq, sk, d):
 
 # the d < 128 backward runs on wgmma kernels: the tuning step's sites (BH
 # cut to 8), ragged Sq and Sk that are multiples of no tile, one q row, and
-# BH 40 at Sk 1000, which takes the dk/dv kernel's 2-warpgroup blocks at a
-# ragged Sk (fewer heads or kv rows take 1 warpgroup a block)
+# BH 48 at Sk 1000, which takes the dk/dv kernel's blocks of several
+# warpgroups at a ragged Sk (fewer heads or kv rows take 1 warpgroup a block)
 WGMMA_BWD_CASES = [(8, 4096, 4096, 40), (8, 4096, 77, 40), (8, 1024, 1024, 80),
                    (8, 1024, 77, 80), (2, 300, 77, 40), (2, 129, 200, 80),
-                   (2, 65, 257, 40), (3, 1, 130, 80), (40, 300, 1000, 40),
-                   (2, 200, 300, 64), (2, 100, 90, 112)]
+                   (2, 65, 257, 40), (3, 1, 130, 80), (48, 300, 1000, 40),
+                   (48, 129, 1000, 80), (2, 200, 300, 64), (2, 100, 90, 112)]
 
 
 @pytest.mark.cuda

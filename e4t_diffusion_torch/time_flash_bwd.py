@@ -3,12 +3,21 @@
 GPU at the tuning step's d < 128 sites, beside the synchronous design it
 replaced there, SDPA's backward and the work's bound.
 
-    python3 e4t_diffusion_torch/time_flash_bwd.py [--repo DIR] [--label TEXT]
+    python3 e4t_diffusion_torch/time_flash_bwd.py [--repo DIR]
+                                                  [--ablate PART] [--label TEXT]
 
 ``--repo`` names the checkout whose ``e4t_diffusion_torch`` is timed (this
 one by default), so one call can time two commits on one card, in turns:
 unpack the other with ``git archive`` into a git-ignored directory and run
-the script on each. Each shape: the kernels against the plain version
+the script on each. ``--ablate`` times a copy of the d < 128 kernels with
+one part of their work changed, to see what bounds them: ``loads`` (the
+dk/dv kernel loads no q/dO tile after the first ones), ``exp`` (2^x
+becomes x in both kernels) or ``ordered_add`` (the dk/dv kernel also adds a
+64 x DK f32 share of dq a q tile to a workspace, block after block in kv
+order: a counter per (bh, q tile), an acquire spin and a release, the cost
+of a one-pass backward's deterministic dq; nothing reads the workspace);
+the copy goes to ``build/ablate-bwd-<part>/`` and is not checked. Otherwise
+each shape: the kernels against the plain version
 (``flash_bwd_reference``, rel-L2 <= 2e-2) and against the synchronous design
 (``flash_bwd_sync``, where the checkout has it); two calls compared bit for
 bit; CUDA events around one call (median of 20 after a warm-up, as
@@ -23,6 +32,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 
@@ -35,6 +45,99 @@ GRAD_REL_L2 = 2e-2  # bf16 rounding of p, ds and the outputs (chip_smoke.py)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 EXP_PER_S = 16 * 132 * 1.98e9  # exp2 on the SFUs, 1.98 GHz boost
+KERNEL = os.path.join("e4t_diffusion_torch", "csrc", "flash_bwd.cu")
+# the ordered add: a workspace and counters for up to BH 128 x 64 q tiles of
+# 64 rows x DK 48, the acquire and release, ...
+_ORDERED_DECL = """
+constexpr size_t kAccFloats = (size_t)128 * 4096 * 48;
+__device__ float g_acc[kAccFloats];
+__device__ int g_cnt[128 * 64];
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+"""
+# ... the add after each tile's dk and dv products (the share's values are
+# the dk accumulators: the cost, not the sum, is measured) ...
+_ORDERED_ADD = """
+    {
+      int* cnt = g_cnt + bh * n_tiles + j;
+      if (tid == 0) {
+        long it = 0;
+        while (ld_acquire(cnt) != (int)blockIdx.x)
+          if (++it > (1L << 28)) __trap();
+      }
+      __syncthreads();
+      constexpr int kN = DK / NWG;
+      float* acc = g_acc + (((size_t)bh * n_tiles + j) * kTileQ) * DK;
+      if ((((size_t)bh * n_tiles + j + 1) * kTileQ) * DK <= kAccFloats) {
+#pragma unroll
+        for (int n = 0; n < kN / 8; ++n) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float2* pp = reinterpret_cast<float2*>(
+                acc + (wi * 16 + g + 8 * h) * DK + wg * kN + 8 * n + 2 * t4);
+            float2 val = make_float2(adk[4 * n + 2 * h], adk[4 * n + 2 * h + 1]);
+            if (blockIdx.x) {
+              const float2 o = __ldcg(pp);
+              val.x += o.x;
+              val.y += o.y;
+            }
+            __stcg(pp, val);
+          }
+        }
+      }
+      __syncthreads();
+      if (tid == 0) {
+        __threadfence();
+        st_release(cnt, blockIdx.x + 1);
+      }
+    }
+"""
+# ... and the counters set to 0 before each call
+_ORDERED_RESET = """  void* cnt = nullptr;
+  err = cudaGetSymbolAddress(&cnt, g_cnt);
+  if (err == cudaSuccess) err = cudaMemsetAsync(cnt, 0, sizeof(int) * 128 * 64, stream);
+  if (err != cudaSuccess) return (int)err;
+"""
+_DKV_TILE_END = """    fence_regs(adk);
+
+    e4t::cp_async_wait<kDkvStages - 2>();"""
+_GROUPS = "  constexpr int kGroups = dkv_groups<DK>();\n"
+_SMS = "constexpr int kSMs = 132;  // streaming multiprocessors of an H100 SXM\n"
+# --ablate: [(text of flash_bwd.cu, its replacement, occurrences)]
+ABLATIONS = {
+    "loads": [("    if (nxt < n_tiles)\n      load_dkv_stage<",
+               "    if (nxt < kDkvStages - 1)\n      load_dkv_stage<", 1)],
+    "exp": [("exp2_approx(fmaf(", "(fmaf(", 4)],
+    "ordered_add": [(_SMS, _SMS + _ORDERED_DECL, 1),
+                    (_DKV_TILE_END, "    fence_regs(adk);\n" + _ORDERED_ADD
+                     + "\n    e4t::cp_async_wait<kDkvStages - 2>();", 1),
+                    (_GROUPS, _ORDERED_RESET + _GROUPS, 1)],
+}
+
+
+def ablated_copy(repo, part):
+    """A copy of ``repo``'s package under build/ablate-bwd-<part>/ with the
+    d < 128 kernels changed as ``ABLATIONS[part]`` says; returns its root."""
+    root = os.path.join(repo, "build", f"ablate-bwd-{part}")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(repo, "e4t_diffusion_torch"),
+                    os.path.join(root, "e4t_diffusion_torch"))
+    path = os.path.join(root, KERNEL)
+    with open(path) as f:
+        src = f.read()
+    for old, new, count in ABLATIONS[part]:
+        if src.count(old) != count:
+            sys.exit(f"time_flash_bwd: --ablate {part}: the kernel has changed")
+        src = src.replace(old, new)
+    with open(path, "w") as f:
+        f.write(src)
+    return root
 
 
 def split_ms(fn, reps=10):
@@ -73,14 +176,18 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--repo", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
+    parser.add_argument("--ablate", choices=sorted(ABLATIONS))
     parser.add_argument("--label", default="")
     args = parser.parse_args(argv)
+    repo = os.path.abspath(args.repo)
+    if args.ablate:
+        repo = ablated_copy(repo, args.ablate)
     # time_flash_fwd.py is a sibling file, imported as a plain module so the
     # package that is timed comes from --repo alone
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from time_flash_fwd import median_ms
 
-    sys.path.insert(0, os.path.abspath(args.repo))
+    sys.path.insert(0, repo)
     import torch
     import torch.nn.functional as F
 
@@ -111,7 +218,7 @@ def main(argv=None):
                                       out.float(), lse, dout.float(), scale)
         rel = max(_rel(g, r) for g, r in zip(grads, refs))
         del refs
-        if not rel <= GRAD_REL_L2:
+        if not args.ablate and not rel <= GRAD_REL_L2:
             sys.exit(f"time_flash_bwd: BH={bh} {sq}x{sk} d={d}: rel-L2 {rel}")
         row = {"bh": bh, "sq": sq, "sk": sk, "d": d, "grad_rel_l2": rel,
                "repeat_identical": all(torch.equal(a, b) for a, b in
@@ -140,8 +247,8 @@ def main(argv=None):
         rows.append(row)
         del q, k, v, dout, out, lse, grads, qr, kr, vr, lib_out
         torch.cuda.empty_cache()
-    print(json.dumps({"label": args.label, "repo": args.repo, "card": smi,
-                      "rows": rows}))
+    print(json.dumps({"label": args.label, "repo": args.repo,
+                      "ablate": args.ablate, "card": smi, "rows": rows}))
 
 
 if __name__ == "__main__":

@@ -68,21 +68,12 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     to 256; launches the two kernels of that type on the current stream
     (``flash_bwd.launches["bf16"]`` or ``["f32"]`` counts the calls). CPU
     tensors: the plain version."""
-    _check(q, k, v)
-    if out.shape != q.shape or dout.shape != q.shape:
-        raise ValueError(f"out {tuple(out.shape)} and dout "
-                         f"{tuple(dout.shape)} must match q {tuple(q.shape)}")
-    if lse.shape != q.shape[:2]:
-        raise ValueError(f"lse {tuple(lse.shape)} must be (BH, Sq) = "
-                         f"{tuple(q.shape[:2])}")
+    _check_shapes(q, k, v, out, lse, dout)
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, out, lse, dout, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    dtype = _check_kernel_inputs(q, k, v, out=out, dout=dout)
-    if lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise TypeError("lse must be contiguous float32")
-    f32 = dtype == torch.float32
+    f32 = _check_kernel_operands(q, k, v, out, lse, dout) == torch.float32
     grads = _launch(F32_SOURCE if f32 else SOURCE,
                     "e4t_attn_bwd_f32" if f32 else "e4t_flash_bwd",
                     q, k, v, out, lse, dout, scale)
@@ -102,13 +93,32 @@ def flash_bwd_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kept at d < 128 as the yardstick the wgmma kernels are timed and checked
     against. No path calls it, and it counts no launch. CUDA bf16 tensors
     only, as ``flash_bwd`` takes them."""
+    _check_shapes(q, k, v, out, lse, dout)
     if q.device.type != "cuda":
         raise ValueError("flash_bwd_sync runs on CUDA tensors only")
-    _check(q, k, v)
-    if _check_kernel_inputs(q, k, v, out=out, dout=dout) != torch.bfloat16:
+    if _check_kernel_operands(q, k, v, out, lse, dout) != torch.bfloat16:
         raise TypeError("flash_bwd_sync takes bf16 operands")
     return _launch(SOURCE, "e4t_flash_bwd_sync", q, k, v, out, lse, dout,
                    scale)
+
+
+def _check_shapes(q, k, v, out, lse, dout) -> None:
+    _check(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must match q {tuple(q.shape)}")
+    if lse.shape != q.shape[:2]:
+        raise ValueError(f"lse {tuple(lse.shape)} must be (BH, Sq) = "
+                         f"{tuple(q.shape[:2])}")
+
+
+def _check_kernel_operands(q, k, v, out, lse, dout) -> torch.dtype:
+    """The checks before a launch on CUDA tensors; returns the operands'
+    one type."""
+    dtype = _check_kernel_inputs(q, k, v, out=out, dout=dout)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError("lse must be contiguous float32")
+    return dtype
 
 
 def _launch(source, symbol, q, k, v, out, lse, dout, scale):

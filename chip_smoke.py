@@ -194,17 +194,21 @@ def device_ms(fn, reps=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(evt.self_device_time_total for evt in prof.key_averages()
-             if evt.device_type == DeviceType.CUDA
-             and not getattr(evt, "is_user_annotation", False))
-    if us <= 0:
-        fail("torch.profiler recorded no device time")
-    return us / reps / 1e3
+    # now and then a session comes back with no device record at all (seen
+    # on the H100 machine in 2 of 4 full runs): such a session is measured
+    # again, and an empty one is never a time
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(evt.self_device_time_total for evt in prof.key_averages()
+                 if evt.device_type == DeviceType.CUDA
+                 and not getattr(evt, "is_user_annotation", False))
+        if us > 0:
+            return us / reps / 1e3
+    fail("torch.profiler recorded no device time in three sessions")
 
 
 def phase_environment():

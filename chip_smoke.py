@@ -287,30 +287,6 @@ def _rel(a, b):
     return ((a.float() - b).norm() / b.norm()).item()
 
 
-def _flash_fwd_parent(q, k, v, scale):
-    """The bf16 forward of the design the wgmma kernel replaced at d < 128
-    (k/v staged synchronously through registers, v transposed by 2-byte
-    stores): the kernel ``csrc/flash_fwd_lowdim.cu`` keeps for d >= 128,
-    exported for every d as ``e4t_flash_fwd_sync`` so the wgmma kernel is
-    timed beside it in one run. Counts no launch: no path takes it at
-    d < 128."""
-    import ctypes
-
-    import torch
-
-    from e4t_diffusion_torch.ops import _build, flash_lowdim
-
-    bh, sq, d = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    _build.launch(flash_lowdim.SOURCE, "e4t_flash_fwd_sync",
-                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                  + [ctypes.c_float], q.device, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, sq,
-                  k.shape[1], d, float(scale))
-    return out, lse
-
-
 def _f32(dtype):
     import torch
 
@@ -325,7 +301,7 @@ def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None):
     import torch.nn.functional as F
 
     from e4t_diffusion_torch.ops.flash_lowdim import (
-        flash_fwd, flash_fwd_reference, launch_route)
+        flash_fwd, flash_fwd_reference, flash_fwd_sync, launch_route)
 
     dtype = dtype or torch.bfloat16
     q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen)
@@ -361,10 +337,10 @@ def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None):
                      flop_rate=F32_FLOP_PER_S if _f32(dtype)
                      else BF16_FLOP_PER_S))
         if not _f32(dtype) and d < 128:
-            parent, _ = _flash_fwd_parent(q, k, v, scale)
+            parent, _ = flash_fwd_sync(q, k, v, scale)
             case["parent_out_vs_kernel_rel_l2"] = _rel(parent, out.float())
             case["parent_ms"] = cuda_time_ms(
-                lambda: _flash_fwd_parent(q, k, v, scale))
+                lambda: flash_fwd_sync(q, k, v, scale))
             del parent
     del q, k, v, out, lse
     torch.cuda.empty_cache()

@@ -152,3 +152,26 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_fwd.launches = {"lowdim": 0, "wide": 0, "lowdim_f32": 0, "wide_f32": 0}
+
+
+def flash_fwd_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 forward by the synchronous mma.sync design at every head
+    dim (``e4t_flash_fwd_sync``): the yardstick the wgmma kernel is timed
+    and checked against. No path calls it, and it counts no launch. CUDA
+    bf16 tensors only, with the checks ``flash_fwd`` runs."""
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError("flash_fwd_sync runs on CUDA tensors only")
+    if _check_kernel_inputs(q, k, v) != torch.bfloat16:
+        raise TypeError("flash_fwd_sync takes bf16 operands")
+    bh, sq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    _build.launch(SOURCE, "e4t_flash_fwd_sync",
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                  + [ctypes.c_float],
+                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1], d,
+                  float(scale))
+    return out, lse

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's bf16 flash backward (``flash_bwd``) on one NVIDIA
-GPU at the tuning step's d < 128 sites, beside the synchronous design it
-replaced there, SDPA's backward and the work's bound.
+GPU at the tuning step's attention sites, beside the synchronous design,
+SDPA's backward and the work's bound.
 
     python3 e4t_diffusion_torch/time_flash_bwd.py [--repo DIR]
                                                   [--ablate PART] [--label TEXT]
@@ -36,11 +36,13 @@ import shutil
 import subprocess
 import sys
 
-# (BH, Sq, Sk, d): the UNet's d < 128 attention sites of a tuning step at
-# batch 16 (BH = 16 x 8 heads), 512px: self- and cross-attention (77 text
-# tokens) at the 64² and 32² latent levels
+# (BH, Sq, Sk, d): the UNet's attention sites of a tuning step at batch 16
+# (BH = 16 x 8 heads), 512px: self- and cross-attention (77 text tokens) at
+# the 64², 32² and 16² latent levels; and a shape the JAX package sends to
+# its blocked backward grids
 SHAPES = ((128, 4096, 4096, 40), (128, 4096, 77, 40), (128, 1024, 1024, 80),
-          (128, 1024, 77, 80))
+          (128, 1024, 77, 80), (128, 256, 256, 160), (128, 256, 77, 160),
+          (2, 8192, 8192, 160))
 GRAD_REL_L2 = 2e-2  # bf16 rounding of p, ds and the outputs (chip_smoke.py)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -142,30 +144,32 @@ def ablated_copy(repo, part):
 
 def split_ms(fn, reps=10):
     """Device ms of one call by part: the kernels whose name holds "dkv",
-    those whose name holds "dq_" and the rest, summed under
-    ``torch.profiler`` over ``reps`` calls after a warm-up."""
+    those whose name holds "dq_" and the rest (the delta reduction), summed
+    under ``torch.profiler`` over ``reps`` calls after a warm-up. A session
+    that records no kernel time is measured again, up to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    parts = {"dq": 0.0, "dkv": 0.0, "other": 0.0}
-    for evt in prof.key_averages():
-        if (evt.device_type != DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)):
-            continue
-        part = ("dkv" if "dkv" in evt.key else "dq" if "dq_" in evt.key
-                else "other")
-        parts[part] += evt.self_device_time_total / reps / 1e3
-    if parts["dq"] <= 0 or parts["dkv"] <= 0:
-        sys.exit("time_flash_bwd: torch.profiler recorded no kernel time")
-    return parts
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        parts = {"dq": 0.0, "dkv": 0.0, "delta": 0.0}
+        for evt in prof.key_averages():
+            if (evt.device_type != DeviceType.CUDA
+                    or getattr(evt, "is_user_annotation", False)):
+                continue
+            part = ("dkv" if "dkv" in evt.key else "dq" if "dq_" in evt.key
+                    else "delta")
+            parts[part] += evt.self_device_time_total / reps / 1e3
+        if parts["dq"] > 0 and parts["dkv"] > 0:
+            return parts
+    sys.exit("time_flash_bwd: torch.profiler recorded no kernel time")
 
 
 def _rel(a, b):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's bf16 flash forward (``flash_fwd``) on one NVIDIA
-GPU at the shapes of its paths, beside SDPA and the work's bound.
+GPU at the shapes of its paths, beside the synchronous design, SDPA and the
+work's bound.
 
     python3 e4t_diffusion_torch/time_flash_fwd.py [--repo DIR]
                                                   [--ablate PART] [--label TEXT]
@@ -15,9 +16,10 @@ becomes x), ``s`` (S = Q K^T over the first 16 head dims only) or ``pv``
 (P V over the first 16 kv rows only); the copy goes to
 ``build/ablate-<part>/`` and its output is wrong, so it is not checked.
 Otherwise each shape: the kernel against its plain version (bf16 rounding,
-rel-L2 <= 1e-2), then CUDA events around one call, median of 20 after a
-warm-up. Prints the card's ``nvidia-smi`` line, then one JSON line. Needs
-a GPU; imports no JAX.
+rel-L2 <= 1e-2) and against the synchronous design (``flash_fwd_sync``,
+where the checkout has it), then CUDA events around one call of each and
+of SDPA, median of 20 after a warm-up. Prints the card's ``nvidia-smi``
+line, then one JSON line. Needs a GPU; imports no JAX.
 """
 import argparse
 import json
@@ -28,10 +30,13 @@ import subprocess
 import sys
 
 # (BH, Sq, Sk, d): the UNet's two low-dim flash sites when sampling at batch
-# 8 (BH 64) and tuning at batch 16 (BH 128), 512px, and the ViT-H's sites
-# when tuning (BH 256)
+# 8 (BH 64) and tuning at batch 16 (BH 128), 512px, the ViT-H's sites when
+# tuning (BH 256), the UNet's two d=160 sites when tuning (self- and
+# cross-attention, 77 text tokens) and a shape the JAX package sends to its
+# grid forward
 SHAPES = ((64, 4096, 4096, 40), (64, 1024, 1024, 80), (128, 4096, 4096, 40),
-          (128, 1024, 1024, 80), (256, 257, 257, 80))
+          (128, 1024, 1024, 80), (256, 257, 257, 80), (128, 256, 256, 160),
+          (128, 256, 77, 160), (2, 8192, 8192, 160))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 EXP_PER_S = 16 * 132 * 1.98e9  # exp2 on the SFUs, 1.98 GHz boost
@@ -100,8 +105,11 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         sys.exit("time_flash_fwd: needs an NVIDIA GPU")
+    from e4t_diffusion_torch.ops import flash_lowdim as fl
     from e4t_diffusion_torch.ops.flash_lowdim import (flash_fwd,
                                                        flash_fwd_reference)
+
+    sync = getattr(fl, "flash_fwd_sync", None)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -123,13 +131,19 @@ def main(argv=None):
         t_bytes = 2 * 2 * bh * (sq + sk) * d / HBM_BYTES_PER_S * 1e3
         t_ops = max(4 * bh * sq * sk * d / BF16_FLOP_PER_S,
                     bh * sq * sk / EXP_PER_S) * 1e3
-        rows.append({
-            "bh": bh, "sq": sq, "sk": sk, "d": d, "out_rel_l2": rel,
-            "ms": median_ms(lambda: flash_fwd(q, k, v, scale)),
-            "sdpa_ms": median_ms(lambda: F.scaled_dot_product_attention(
+        row = {"bh": bh, "sq": sq, "sk": sk, "d": d, "out_rel_l2": rel,
+               "ms": median_ms(lambda: flash_fwd(q, k, v, scale))}
+        if sync is not None:
+            row["vs_sync_rel_l2"] = ((out.float() - sync(q, k, v, scale)[0]
+                                      .float()).norm() / out.float().norm()
+                                     ).item()
+            row["sync_ms"] = median_ms(lambda: sync(q, k, v, scale))
+        row.update(
+            sdpa_ms=median_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], scale=scale)),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+        rows.append(row)
         del q, k, v, out
         torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "repo": args.repo,

@@ -143,6 +143,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Dynamic shared memory a block may take on sm_90 (of the SM's 228 KB).
+constexpr size_t kMaxSmem = 227 * 1024;
+
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename Kernel>
 __host__ cudaError_t allow_smem(Kernel kernel, size_t bytes) {

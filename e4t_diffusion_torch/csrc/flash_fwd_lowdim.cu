@@ -26,32 +26,36 @@
 // host passes unpadded tensors. The TPU kernels' 128-lane padding of D has
 // no counterpart here.
 //
-// DK <= 128 (flash_fwd_wgmma_kernel): warpgroup MMA. A block holds
+// Every DK (flash_fwd_wgmma_kernel): warpgroup MMA. A block holds
 // wgmma_groups<DK>() warpgroups of 64 q rows (4 up to DK = 80, 2 above, for
-// registers). S = Q K^T is one m64n64k16 wgmma per 16 head dims, Q and K read
-// from shared memory by descriptor (both K-major); O += P V is one
-// m64nDKk16 wgmma per 16 kv rows, P from registers and V read row-major,
-// transposed by the descriptor (MN-major B), so no thread transposes v. Every
-// tile sits in shared memory as 8x8 core matrices (8 rows of 16 bytes, 128
-// contiguous bytes), the descriptors' layout without swizzle, which 16-byte
-// cp.async fills chunk by chunk (zero-filled past Sk and past d through the
-// copy's source size). k and v stream through a ring of kWgStages 64-row
-// stages, tiles j + 1 and j + 2 landing while tile j is computed, with one
-// barrier a tile. What bounds it at the UNet's d=40 sites, measured on the
-// card by taking parts of the work out (time_flash_fwd.py --ablate in the
-// package, PERF.md): the k/v traffic from L2, which every block reads whole
-// for its q rows, far more than the exponentials; so the warpgroups of a
-// block share each tile, and more of them a block cut that traffic.
+// registers: at DK 256 the output accumulator alone is 128 f32 a thread).
+// S = Q K^T is one m64n64k16 wgmma per 16 head dims, Q and K read from
+// shared memory by descriptor (both K-major); O += P V is one m64nDKk16
+// wgmma per 16 kv rows up to DK 128 and two m64n(DK/2)k16 halves above
+// (wgmma_rs_tile: the same tensor-core time, no new instruction shapes), P
+// from registers and V read row-major, transposed by the descriptor
+// (MN-major B), so no thread transposes v. Every tile sits in shared memory
+// as 8x8 core matrices (8 rows of 16 bytes, 128 contiguous bytes), the
+// descriptors' layout without swizzle, which 16-byte cp.async fills chunk by
+// chunk (zero-filled past Sk and past d through the copy's source size). k
+// and v stream through a ring of wgmma_stages<DK>() 64-row stages, 4 up to
+// DK 160 (tiles j + 1 and j + 2 landing while tile j is computed), 3 at DK
+// 192 and 224 and 2 at 256, where a deeper ring would not fit the 227 KB a
+// block may take; one barrier a tile. What bounds it at the UNet's d=40
+// sites, measured on the card by taking parts of the work out
+// (time_flash_fwd.py --ablate in the package, PERF.md): the k/v traffic from
+// L2, which every block reads whole for its q rows, far more than the
+// exponentials; so the warpgroups of a block share each tile, and more of
+// them a block cut that traffic.
 //
-// DK >= 160 (flash_fwd_kernel, the synchronous design that served every DK
-// before the wgmma kernel): one block of 4 warps per 64-row q tile,
-// mma.sync m16n8k16, q kept in shared memory and its
-// fragments reloaded per kv tile (the DK/8 x 4 f32 output accumulator takes
-// the registers), k and v staged synchronously through registers into
-// shared memory between two barriers, v stored transposed so its B
-// fragments are 32-bit loads. The same kernel at every DK is exported as
-// e4t_flash_fwd_sync, the yardstick chip_smoke.py times the wgmma kernel
-// against.
+// The synchronous design (flash_fwd_kernel, which served every DK before
+// the wgmma kernel): one block of 4 warps per 64-row q tile, mma.sync
+// m16n8k16, q kept in shared memory and its fragments reloaded per kv tile
+// above DK 128 (the DK/8 x 4 f32 output accumulator takes the registers), k
+// and v staged synchronously through registers into shared memory between
+// two barriers, v stored transposed so its B fragments are 32-bit loads.
+// No path launches it: it is exported at every DK as e4t_flash_fwd_sync,
+// the yardstick chip_smoke.py times the wgmma kernel against.
 
 #include <math.h>
 
@@ -64,11 +68,12 @@ using e4t::bf16;
 using e4t::exp2_approx;
 using e4t::fence_proxy_async;
 using e4t::fence_regs;
+using e4t::kMaxSmem;
 using e4t::kThreads;
 using e4t::smem_desc;
 using e4t::wgmma_commit;
 using e4t::wgmma_fence;
-using e4t::wgmma_rs;
+using e4t::wgmma_rs_tile;
 using e4t::wgmma_ss_n64;
 using e4t::wgmma_wait;
 
@@ -238,11 +243,20 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // leave 128 registers a thread, enough up to DK = 80
 template <int DK>
 __host__ __device__ constexpr int wgmma_groups() { return DK <= 80 ? 4 : 2; }
-constexpr int kWgStages = 4;  // k/v ring depth: tiles j + 1 and j + 2 in flight
 
-template <int DK>
-constexpr size_t wgmma_smem_bytes() {
-  return (size_t)2 * DK * (64 * wgmma_groups<DK>() + 2 * kWgStages * kBlockN);
+template <int DK, int NWG>
+__host__ __device__ constexpr size_t wgmma_smem_bytes(int stages) {
+  return (size_t)2 * DK * (64 * NWG + 2 * stages * kBlockN);
+}
+
+// k/v ring depth: 4 stages (tiles j + 1 and j + 2 in flight while tile j is
+// computed), fewer from DK 192 on, where 4 would not fit a block: 3 at DK
+// 192 and 224, 2 at 256 (tile j + 1 in flight)
+template <int DK, int NWG>
+__host__ __device__ constexpr int wgmma_stages() {
+  int s = 4;
+  while (s > 2 && wgmma_smem_bytes<DK, NWG>(s) > kMaxSmem) --s;
+  return s;
 }
 
 // the softmax of one 64-column score tile in place: s (log2 domain after the
@@ -288,17 +302,18 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], int kv0, int sk, in
   }
 }
 
-// Per kv tile each warpgroup issues S = Q K^T, waits, takes the softmax in
-// registers, rescales O, issues O += P V and waits; a block barrier a tile
-// frees the stage of tile j - 1 for tile j - 1 + kWgStages.
-template <int DK>
-__global__ void __launch_bounds__(128 * wgmma_groups<DK>())
+// Per kv tile each of the NWG warpgroups issues S = Q K^T, waits, takes the
+// softmax in registers, rescales O, issues O += P V and waits; a block
+// barrier a tile frees the stage of tile j - 1 for tile j - 1 + kWgStages.
+template <int DK, int NWG>
+__global__ void __launch_bounds__(128 * NWG)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
                        float* __restrict__ lse, int sq, int sk, int d, float scale_log2) {
+  constexpr int kWgStages = wgmma_stages<DK, NWG>();
   constexpr int kC = DK / 8;               // 16-byte chunks per row
   constexpr int kGroup = kC * 128;         // bytes of 8 rows
-  constexpr int kBM = 64 * wgmma_groups<DK>();
+  constexpr int kBM = 64 * NWG;
   constexpr int kTile = kBlockN * DK * 2;  // bytes of one k (or v) stage
   constexpr int kSteps = DK / 16;
   constexpr int kOut = DK / 2;             // f32 output accumulators a thread
@@ -395,7 +410,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk)
-      wgmma_rs<DK>(o, pa[kk], smem_desc(vs + kk * 2 * kGroup, kGroup, 128));
+      wgmma_rs_tile<DK>(o, pa[kk], vs + kk * 2 * kGroup, kGroup);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -435,19 +450,21 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DK>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
                  int bh, int sq, int sk, int d, float scale_log2, cudaStream_t stream) {
-  constexpr size_t smem = wgmma_smem_bytes<DK>();
-  const cudaError_t err = e4t::allow_smem(flash_fwd_wgmma_kernel<DK>, smem);
+  constexpr int kGroups = wgmma_groups<DK>();
+  constexpr size_t smem = wgmma_smem_bytes<DK, kGroups>(wgmma_stages<DK, kGroups>());
+  static_assert(smem <= kMaxSmem, "the k/v ring does not fit a block");
+  const cudaError_t err = e4t::allow_smem(flash_fwd_wgmma_kernel<DK, kGroups>, smem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int kBM = 64 * wgmma_groups<DK>();
+  constexpr int kBM = 64 * kGroups;
   const dim3 grid((sq + kBM - 1) / kBM, bh);
-  flash_fwd_wgmma_kernel<DK><<<grid, kBM * 2, smem, stream>>>(
+  flash_fwd_wgmma_kernel<DK, kGroups><<<grid, kBM * 2, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), sq, sk, d, scale_log2);
   return (int)cudaGetLastError();
 }
 
-// ---- the synchronous design, kept for d >= 128 ----
+// ---- the synchronous design, kept as the yardstick ----
 
 template <int DK>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
@@ -508,12 +525,16 @@ extern "C" int e4t_flash_fwd(const void* q, const void* k, const void* v,
     case 96: return launch_wgmma<96>(q, k, v, out, lse, bh, sq, sk, d, sl, s);
     case 112: return launch_wgmma<112>(q, k, v, out, lse, bh, sq, sk, d, sl, s);
     case 128: return launch_wgmma<128>(q, k, v, out, lse, bh, sq, sk, d, sl, s);
-    default: return dispatch_sync(q, k, v, out, lse, bh, sq, sk, d, sl, s);
+    case 160: return launch_wgmma<160>(q, k, v, out, lse, bh, sq, sk, d, sl, s);
+    case 192: return launch_wgmma<192>(q, k, v, out, lse, bh, sq, sk, d, sl, s);
+    case 224: return launch_wgmma<224>(q, k, v, out, lse, bh, sq, sk, d, sl, s);
+    case 256: return launch_wgmma<256>(q, k, v, out, lse, bh, sq, sk, d, sl, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The same function by the synchronous design at every head dim: the yardstick
-// chip_smoke.py times the d < 128 kernel against. No path calls it.
+// chip_smoke.py times the wgmma kernel against. No path calls it.
 extern "C" int e4t_flash_fwd_sync(const void* q, const void* k, const void* v,
                                   void* out, void* lse, int bh, int sq, int sk,
                                   int d, float scale, void* stream) {

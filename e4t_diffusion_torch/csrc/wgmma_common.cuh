@@ -3,7 +3,8 @@
 // descriptors read, 16-byte cp.async loads into it, the descriptors, the
 // fences around an asynchronous wgmma, and the bf16 products with f32
 // accumulators: m64n64k16 with both operands in shared memory, and m64nNk16
-// (N = 16..128) with A in registers and B read MN-major.
+// (N = 16..128, and up to 256 as two halves) with A in registers and B read
+// MN-major.
 //
 // Layout: a tile of R rows x C 16-byte chunks (8 bf16) sits as 8x8 core
 // matrices of 128 contiguous bytes (8 rows of 16 bytes); the chunk c of row
@@ -266,6 +267,25 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x N, f32) += a (64 x 16 bf16, as wgmma_rs) b (16 x N) for N up to
+// 256: b an MN-major core-matrix tile at `b` whose 8-row groups along K lie
+// `lbo` bytes apart. One m64nNk16 up to N = 128; above it two m64n(N/2)k16,
+// the second on b's 16-byte chunks from N / 16 on and d's second half, so
+// the specialisations above serve every width (a product's tensor-core
+// time is the same in one instruction or two halves).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tile(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              const unsigned char* b, uint32_t lbo) {
+  if constexpr (N <= 128) {
+    wgmma_rs<N>(d, a, smem_desc(b, lbo, 128));
+  } else {
+    static_assert(N % 32 == 0 && N <= 256, "each half must be a multiple of 16");
+    wgmma_rs<N / 2>(*reinterpret_cast<float(*)[N / 4]>(&d[0]), a, smem_desc(b, lbo, 128));
+    wgmma_rs<N / 2>(*reinterpret_cast<float(*)[N / 4]>(&d[N / 4]), a,
+                    smem_desc(b + N * 8, lbo, 128));
+  }
 }
 
 // 2^x on the special-function unit alone (ex2.approx.ftz: no rescaling for

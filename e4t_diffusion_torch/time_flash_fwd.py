@@ -10,11 +10,13 @@ work's bound.
 one by default), so one call can time two commits on one card, in turns:
 unpack the other with ``git archive`` into a git-ignored directory and run
 the script on each. ``--ablate`` times a copy of
-the d < 128 kernel with one part of its work taken out, to see what bounds
-it: ``loads`` (no k/v tile is loaded after the first ones), ``exp`` (2^x
-becomes x), ``s`` (S = Q K^T over the first 16 head dims only) or ``pv``
-(P V over the first 16 kv rows only); the copy goes to
-``build/ablate-<part>/`` and its output is wrong, so it is not checked.
+the wgmma kernel with one part of its work taken out, to see what bounds
+it: ``loads`` (no k/v tile is loaded after the first ones), ``exp`` (p =
+2^x becomes x), ``s`` (S = Q K^T over the first 16 head dims only) or ``pv``
+(P V over the first 16 kv rows only); or with another block shape,
+``groups1`` (from DK 160, 1 warpgroup of q rows a block and a 2-stage
+ring, so two blocks share an SM at DK 160). The copy goes to
+``build/ablate-<part>/`` and is not checked (an ablated output is wrong).
 Otherwise each shape: the kernel against its plain version (bf16 rounding,
 rel-L2 <= 1e-2) and against the synchronous design (``flash_fwd_sync``,
 where the checkout has it), then CUDA events around one call of each and
@@ -41,21 +43,24 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 EXP_PER_S = 16 * 132 * 1.98e9  # exp2 on the SFUs, 1.98 GHz boost
 KERNEL = os.path.join("e4t_diffusion_torch", "csrc", "flash_fwd_lowdim.cu")
-# --ablate: (text of the d < 128 kernel, its replacement)
+# --ablate: [(text of the kernel's source, its replacement, occurrences)]
 ABLATIONS = {
-    "loads": ("    if (nxt < n_tiles) {", "    if (nxt < kWgStages - 1) {"),
-    "exp": ('  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
-            "  y = x;"),
-    "s": ("for (int st = 0; st < kSteps; ++st)\n      wgmma_ss_n64(",
-          "for (int st = 0; st < 1; ++st)\n      wgmma_ss_n64("),
-    "pv": ("for (int kk = 0; kk < kBlockN / 16; ++kk)\n      wgmma_rs<DK>(",
-           "for (int kk = 0; kk < 1; ++kk)\n      wgmma_rs<DK>("),
+    "loads": [("    if (nxt < n_tiles) {", "    if (nxt < kWgStages - 1) {", 1)],
+    "exp": [("= exp2_approx(s[4 * n + ", "= (s[4 * n + ", 4)],
+    "s": [("for (int st = 0; st < kSteps; ++st)\n      wgmma_ss_n64(",
+           "for (int st = 0; st < 1; ++st)\n      wgmma_ss_n64(", 1)],
+    "pv": [("for (int kk = 0; kk < kBlockN / 16; ++kk)\n      wgmma_rs_tile<DK>(",
+            "for (int kk = 0; kk < 1; ++kk)\n      wgmma_rs_tile<DK>(", 1)],
+    "groups1": [("  constexpr int kGroups = wgmma_groups<DK>();",
+                 "  constexpr int kGroups = DK >= 160 ? 1 : wgmma_groups<DK>();",
+                 1),
+                ("  int s = 4;\n", "  int s = NWG == 1 ? 2 : 4;\n", 1)],
 }
 
 
 def ablated_copy(repo, part):
-    """A copy of ``repo``'s package under build/ablate-<part>/ with one part
-    of the d < 128 kernel's work taken out; returns the copy's root."""
+    """A copy of ``repo``'s package under build/ablate-<part>/ with the
+    kernel changed as ``ABLATIONS[part]`` says; returns the copy's root."""
     root = os.path.join(repo, "build", f"ablate-{part}")
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(repo, "e4t_diffusion_torch"),
@@ -63,11 +68,12 @@ def ablated_copy(repo, part):
     path = os.path.join(root, KERNEL)
     with open(path) as f:
         src = f.read()
-    old, new = ABLATIONS[part]
-    if src.count(old) != 1:
-        sys.exit(f"time_flash_fwd: --ablate {part}: the kernel has changed")
+    for old, new, count in ABLATIONS[part]:
+        if src.count(old) != count:
+            sys.exit(f"time_flash_fwd: --ablate {part}: the kernel has changed")
+        src = src.replace(old, new)
     with open(path, "w") as f:
-        f.write(src.replace(old, new))
+        f.write(src)
     return root
 
 

@@ -53,6 +53,33 @@ def test_cuda_wide_forward_matches_reference(bh, sq, sk, d):
     _forward_matches_reference(bh, sq, sk, d, 1, "wide")
 
 
+# the forward's wgmma kernel from DK 160: the tuning step's d160 sites (BH
+# cut to 8), the grid shape's width at a shorter length, and ragged shapes
+# at the edges of its k/v rings (4 stages at DK 160, 3 at 192 and 224, 2 at
+# 256): Sk below one stage, one stage plus one row, one q row; DK 136 pads
+# to 160
+WGMMA_WIDE_FWD_CASES = [(8, 256, 256, 160), (8, 256, 77, 160),
+                        (2, 1024, 1024, 160), (2, 100, 63, 136),
+                        (2, 64, 65, 192), (2, 1, 200, 256), (2, 129, 300, 256),
+                        (3, 200, 129, 224), (2, 257, 1, 160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d", WGMMA_WIDE_FWD_CASES)
+def test_cuda_wgmma_wide_forward_matches_reference_and_sync(bh, sq, sk, d):
+    """The wgmma forward from d = 128 against the plain version and against
+    the synchronous design it replaced there, within the same bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    _forward_matches_reference(bh, sq, sk, d, 3, "wide")
+    q, k, v = _operands(3, bh, d, sq, sk, sk)
+    out, _ = fl.flash_fwd(q, k, v, d ** -0.5)
+    sync, _ = fl.flash_fwd_sync(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert ((out.float() - sync.float()).norm()
+            / sync.float().norm()).item() <= 1e-2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,sq,sk,d", [(4, 300, 200, 40), (2, 256, 77, 160),
                                         (2, 65, 33, 8), (2, 129, 300, 256)])

@@ -28,39 +28,50 @@
 // Sq, and past Sk where kv rows are the contraction; dk/dv rows past Sk are
 // not stored), so the host passes unpadded tensors.
 //
-// DK <= 112 (d < 128; flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel):
-// warpgroup MMA on PR 6's building blocks (wgmma_common.cuh), each warpgroup
-// owning 64 rows. Every tile sits in shared memory in the descriptors'
-// core-matrix layout, filled by 16-byte cp.async, so no operand is ever
-// transposed by a thread: one layout serves K-major (S, dP and their
-// transposes: m64n64k16, both operands from shared memory) and MN-major (the
-// B side of dq += ds k, dk += ds^T q, dv += p^T dO: m64nDKk16, the A side
-// from registers, where the score accumulator already lies in its fragment
+// Every DK runs on warpgroup MMA, on the building blocks of
+// wgmma_common.cuh, each warpgroup owning 64 rows. Every tile sits in
+// shared memory in the descriptors' core-matrix layout, filled by 16-byte
+// cp.async, so no operand is ever transposed by a thread: one layout serves
+// K-major (S, dP and their transposes: m64n64k16, both operands from shared
+// memory) and MN-major (the B side of dq += ds k, dk += ds^T q, dv += p^T
+// dO: m64nDKk16, two m64n(DK/2)k16 halves above DK 128, the A side from
+// registers, where the score accumulator already lies in its fragment
 // layout). The resident operands (q and dO for dq, k and v for dk/dv) are
 // loaded once; the streamed ones pass through a cp.async ring that every
 // warpgroup of the block reads, tiles j + 1 and j + 2 landing while tile j
 // is computed, with one block barrier a tile; the more warpgroups share a
-// tile, the faster (PERF.md), so registers set their number. dq:
-// dq_groups<DK>() warpgroups of q rows a block (4 up to DK 64, 3 above), lse
-// and delta per row in registers, a 4-stage k/v ring. dk/dv: dkv_groups<DK>()
-// warpgroups of kv rows a block (3 up to DK 64, 2 above), or 1 where that
-// would leave fewer than two blocks an SM (Sk = 77 at the cross-attention
-// sites); a 3-stage ring of q, dO and each tile's lse and delta (4-byte
-// cp.async: a head's lse row need not be 16-byte aligned).
-// Both take p by one fma and one ex2 and add the 16-row k-steps in the
+// tile, the faster (PERF.md), so registers and shared memory set their
+// number.
+// - dq (flash_bwd_dq_wgmma_kernel, every DK): dq_groups<DK>() warpgroups of
+//   q rows a block (4 up to DK 64, 3 up to 112, 2 up to 224, 1 at 256), lse
+//   and delta per row in registers, a k/v ring of dq_stages<DK>() stages (4,
+//   3 at DK 160, 2 from 192).
+// - dk/dv up to DK 112 (flash_bwd_dkv_wgmma_kernel): dkv_groups<DK>()
+//   warpgroups of kv rows a block (3 up to DK 64, 2 above), or 1 where that
+//   would leave fewer than two blocks an SM (Sk = 77 at the cross-attention
+//   sites); a 3-stage ring of q, dO and each tile's lse and delta (4-byte
+//   cp.async: a head's lse row need not be 16-byte aligned).
+// - dk/dv from DK 128 (flash_bwd_dkv_pair_wgmma_kernel): dk and dv together
+//   (DK f32 a thread) beside S^T and dP^T do not fit 255 registers, so a
+//   pair of warpgroups shares each block's 64 kv rows: warpgroup 0 computes
+//   S^T, p^T and dv, warpgroup 1 dP^T, ds^T and dk, with p^T handed over in
+//   shared memory under a named barrier. Each product is computed once and
+//   each q/dO tile feeds both halves; the ring holds 3 stages, 2 at DK 224
+//   and 256.
+// All take p by one fma and one ex2 and add the 16-row k-steps in the
 // synchronous design's order, so at every shape measured they return its
 // results bit for bit.
 //
-// DK >= 128 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel: the synchronous
-// design that served every DK before the wgmma kernels): 4 warps of 16 rows
-// a block of 64, mma.sync m16n8k16; the streamed tile staged through
-// registers into shared memory between two barriers, B operands (k, q, dO)
-// also stored transposed by 2-byte stores so every B fragment is one 32-bit
-// load. For D > 128 the dk/dv accumulators are split over gridDim.z column
-// halves (S^T and dP^T recomputed per half), and the inner tile is 32 rows
-// for D > 64, both to stay inside 255 registers without spills. The same
-// kernels at every DK are exported as e4t_flash_bwd_sync, the yardstick
-// the wgmma kernels are timed and checked against.
+// The synchronous design (flash_bwd_dq_kernel, flash_bwd_dkv_kernel, which
+// served every DK before the wgmma kernels): 4 warps of 16 rows a block of
+// 64, mma.sync m16n8k16; the streamed tile staged through registers into
+// shared memory between two barriers, B operands (k, q, dO) also stored
+// transposed by 2-byte stores so every B fragment is one 32-bit load. For D
+// > 128 the dk/dv accumulators are split over gridDim.z column halves (S^T
+// and dP^T recomputed per half), and the inner tile is 32 rows for D > 64,
+// both to stay inside 255 registers without spills. No path launches it:
+// it is exported at every DK as e4t_flash_bwd_sync, the yardstick the
+// wgmma kernels are timed and checked against.
 //
 // What bounds it on the H100: the function needs five products (S, dP, dq,
 // dk, dv), 10*BH*Sq*Sk*D tensor-core flops, and BH*Sq*Sk exponentials; at
@@ -86,7 +97,7 @@ using e4t::kThreads;
 using e4t::smem_desc;
 using e4t::wgmma_commit;
 using e4t::wgmma_fence;
-using e4t::wgmma_rs;
+using e4t::wgmma_rs_tile;
 using e4t::wgmma_ss_n64;
 using e4t::wgmma_wait;
 
@@ -344,33 +355,49 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DK>
+int launch_sync_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                   const float* lse, const float* delta, bf16* dq, int bh, int sq, int sk,
+                   int d, float scale, cudaStream_t stream) {
+  using T = Tiles<DK>;
+  const cudaError_t err = e4t::allow_smem(flash_bwd_dq_kernel<DK>, T::dq_smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_kernel<DK><<<dim3((sq + kBlockM - 1) / kBlockM, bh), kThreads, T::dq_smem,
+                            stream>>>(q, k, v, dout, lse, delta, dq, sq, sk, d, scale,
+                                      scale * e4t::kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int DK>
+int launch_sync_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                    const float* lse, const float* delta, bf16* dk, bf16* dv, int bh, int sq,
+                    int sk, int d, float scale, cudaStream_t stream) {
+  using T = Tiles<DK>;
+  const cudaError_t err = e4t::allow_smem(flash_bwd_dkv_kernel<DK>, T::dkv_smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_kernel<DK><<<dim3((sk + kBlockM - 1) / kBlockM, bh, DK / T::kChunk),
+                             kThreads, T::dkv_smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, sq, sk, d, scale, scale * e4t::kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int DK>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, void* dk, void* dv,
            int bh, int sq, int sk, int d, float scale, cudaStream_t stream) {
-  using T = Tiles<DK>;
-  cudaError_t err = e4t::allow_smem(flash_bwd_dq_kernel<DK>, T::dq_smem);
-  if (err == cudaSuccess) err = e4t::allow_smem(flash_bwd_dkv_kernel<DK>, T::dkv_smem);
-  if (err != cudaSuccess) return (int)err;
-  const float scale_log2 = scale * e4t::kLog2e;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   const bf16* dop = static_cast<const bf16*>(dout);
   const float* lp = static_cast<const float*>(lse);
   const float* dlp = static_cast<const float*>(delta);
-  flash_bwd_dq_kernel<DK><<<dim3((sq + kBlockM - 1) / kBlockM, bh), kThreads,
-                            T::dq_smem, stream>>>(
-      qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dq), sq, sk, d, scale, scale_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<DK><<<dim3((sk + kBlockM - 1) / kBlockM, bh, DK / T::kChunk),
-                             kThreads, T::dkv_smem, stream>>>(
-      qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk,
-      d, scale, scale_log2);
-  return (int)cudaGetLastError();
+  const int err = launch_sync_dq<DK>(qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dq), bh, sq,
+                                     sk, d, scale, stream);
+  if (err != (int)cudaSuccess) return err;
+  return launch_sync_dkv<DK>(qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dk),
+                             static_cast<bf16*>(dv), bh, sq, sk, d, scale, stream);
 }
 
-// ---- d < 128: warpgroup MMA (wgmma) fed by cp.async rings ----
+// ---- warpgroup MMA (wgmma) fed by cp.async rings ----
 
 constexpr int kTileQ = 64;      // q rows of a streamed tile in the dk/dv kernel
 constexpr int kDkvStages = 3;   // q/dO ring depth: tiles j + 1 and j + 2 in flight
@@ -544,10 +571,10 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTileQ / 16; ++kk)
-      wgmma_rs<DK>(adv, pa[kk], smem_desc(dos + kk * 2 * kGroup, kGroup, 128));
+      wgmma_rs_tile<DK>(adv, pa[kk], dos + kk * 2 * kGroup, kGroup);
 #pragma unroll
     for (int kk = 0; kk < kTileQ / 16; ++kk)
-      wgmma_rs<DK>(adk, dsa[kk], smem_desc(qs + kk * 2 * kGroup, kGroup, 128));
+      wgmma_rs_tile<DK>(adk, dsa[kk], qs + kk * 2 * kGroup, kGroup);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(adv);
@@ -581,15 +608,27 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 
 // q warpgroups a dq block, 64 q rows each: they share each k/v tile the
 // block loads; 4 up to DK = 64 leave 128 registers a thread for S, dP, the
-// dq accumulators and the ds fragments, 3 above leave 168
+// dq accumulators and the ds fragments, 3 up to 112 leave 168, 2 from 128
+// leave 255 (the accumulators alone are 80 f32 at DK 160), and 1 at 256,
+// where q and dO of 2 warpgroups and two ring stages would not fit a block
 template <int DK>
-__host__ __device__ constexpr int dq_groups() { return DK <= 64 ? 4 : 3; }
-constexpr int kTileK = 64;     // kv rows of a streamed tile in the dq kernel
-constexpr int kDqStages = 4;   // k/v ring depth, as the forward's
+__host__ __device__ constexpr int dq_groups() {
+  return DK <= 64 ? 4 : DK <= 112 ? 3 : DK <= 224 ? 2 : 1;
+}
+constexpr int kTileK = 64;  // kv rows of a streamed tile in the dq kernel
 
 template <int DK>
-constexpr size_t dq_wgmma_smem() {
-  return (size_t)2 * DK * 2 * (64 * dq_groups<DK>() + kDqStages * kTileK);
+__host__ __device__ constexpr size_t dq_wgmma_smem(int stages) {
+  return (size_t)2 * DK * 2 * (64 * dq_groups<DK>() + stages * kTileK);
+}
+
+// the dq kernel's k/v ring depth: 4 stages, as the forward's, fewer where
+// they would not fit beside q and dO (3 at DK 160, 2 from 192)
+template <int DK>
+__host__ __device__ constexpr int dq_stages() {
+  int s = 4;
+  while (s > 2 && dq_wgmma_smem<DK>(s) > e4t::kMaxSmem) --s;
+  return s;
 }
 
 // dq of dq_groups<DK>() * 64 q rows a block, one warpgroup per 64 rows; q
@@ -606,6 +645,7 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           bf16* __restrict__ dq, int sq, int sk, int d, float scale,
                           float scale_log2) {
+  constexpr int kDqStages = dq_stages<DK>();
   constexpr int kT = 128 * dq_groups<DK>();
   constexpr int kC = DK / 8;
   constexpr int kGroup = kC * 128;
@@ -719,7 +759,7 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTileK / 16; ++kk)
-      wgmma_rs<DK>(acc, dsa[kk], smem_desc(ks + kk * 2 * kGroup, kGroup, 128));
+      wgmma_rs_tile<DK>(acc, dsa[kk], ks + kk * 2 * kGroup, kGroup);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -757,6 +797,21 @@ int launch_dkv_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* do
   return (int)cudaGetLastError();
 }
 
+// the wgmma dq kernel with dq_groups<DK>() warpgroups a block
+template <int DK>
+int launch_dq_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                    const float* lse, const float* delta, bf16* dq, int bh, int sq, int sk,
+                    int d, float scale, cudaStream_t stream) {
+  constexpr size_t smem = dq_wgmma_smem<DK>(dq_stages<DK>());
+  static_assert(smem <= e4t::kMaxSmem, "the dq kernel's ring does not fit a block");
+  const cudaError_t err = e4t::allow_smem(flash_bwd_dq_wgmma_kernel<DK>, smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kBM = 64 * dq_groups<DK>();
+  flash_bwd_dq_wgmma_kernel<DK><<<dim3((sq + kBM - 1) / kBM, bh), kBM * 2, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq, sq, sk, d, scale, scale * e4t::kLog2e);
+  return (int)cudaGetLastError();
+}
+
 // The d < 128 backward: the wgmma dq kernel, then the wgmma dk/dv kernel
 // with dkv_groups<DK>() warpgroups a block, or 1 where that would leave fewer
 // than two blocks an SM (the cross-attention sites: Sk = 77 would otherwise
@@ -765,21 +820,15 @@ template <int DK>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, void* dq, void* dk, void* dv,
                  int bh, int sq, int sk, int d, float scale, cudaStream_t stream) {
-  constexpr size_t dq_smem = dq_wgmma_smem<DK>();
-  cudaError_t err = e4t::allow_smem(flash_bwd_dq_wgmma_kernel<DK>, dq_smem);
-  if (err != cudaSuccess) return (int)err;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   const bf16* dop = static_cast<const bf16*>(dout);
   const float* lp = static_cast<const float*>(lse);
   const float* dlp = static_cast<const float*>(delta);
-  constexpr int kBM = 64 * dq_groups<DK>();
-  flash_bwd_dq_wgmma_kernel<DK><<<dim3((sq + kBM - 1) / kBM, bh), kBM * 2, dq_smem,
-                                  stream>>>(qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dq),
-                                            sq, sk, d, scale, scale * e4t::kLog2e);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = launch_dq_wgmma<DK>(qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dq), bh,
+                                      sq, sk, d, scale, stream);
+  if (err != (int)cudaSuccess) return err;
   bf16* dkp = static_cast<bf16*>(dk);
   bf16* dvp = static_cast<bf16*>(dv);
   constexpr int kGroups = dkv_groups<DK>();
@@ -788,6 +837,231 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
                                    stream);
   return launch_dkv_wgmma<DK, kGroups>(qp, kp, vp, dop, lp, dlp, dkp, dvp, bh, sq, sk, d,
                                        scale, stream);
+}
+
+// ---- DK >= 128: the dk/dv kernel as a pair of warpgroups ----
+
+constexpr int kPairX = 64 * 64 * 4;  // bytes of the p^T exchange: 64 x 64 f32
+
+template <int DK>
+__host__ __device__ constexpr size_t dkv_pair_smem(int stages) {
+  return (size_t)2 * 64 * DK * 2 + kPairX + (size_t)stages * dkv_stage_bytes<DK>();
+}
+
+// the pair kernel's q/dO ring: kDkvStages where they fit beside k, v and the
+// exchange, else 2 (DK 224 and 256)
+template <int DK>
+__host__ __device__ constexpr int dkv_pair_stages() {
+  return dkv_pair_smem<DK>(kDkvStages) <= e4t::kMaxSmem ? kDkvStages : 2;
+}
+
+// named barrier 1 of the block's two warpgroups: warpgroup 0 arrives once
+// p^T is in shared memory, warpgroup 1 waits for it
+__device__ __forceinline__ void pair_arrive() {
+  asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// dk and dv of 64 kv rows a block by a pair of warpgroups, for DK >= 128,
+// where one warpgroup cannot hold both accumulators (DK f32 a thread) beside
+// S^T and dP^T in 255 registers. k and v stay in shared memory; q, dO, lse
+// and delta stream through a ring of dkv_pair_stages<DK>() tiles of 64 q rows
+// (load_dkv_stage). Per tile warpgroup 0 issues S^T = K Q^T, forms p^T and
+// hands it to warpgroup 1 through shared memory in f32 (each thread's values
+// to the thread at its place in warpgroup 1, whose dP^T accumulator has the
+// same layout), then issues dv += p^T dO; warpgroup 1 issues dP^T = V dO^T
+// meanwhile, waits for p^T on a named barrier, forms ds^T = p^T (dP^T -
+// delta) scale and issues dk += ds^T q. So S^T and dP^T are computed once
+// (the synchronous design splits dk's and dv's columns over two blocks and
+// computes both twice), each q/dO tile feeds both products, and each thread
+// holds one accumulator (DK / 2 f32). One block barrier a tile frees the
+// stage and the exchange. p^T, ds^T and the 16-row order of the sums are
+// those of the DK < 128 kernel.
+template <int DK>
+__global__ void __launch_bounds__(256)
+flash_bwd_dkv_pair_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta, bf16* __restrict__ dk,
+                                bf16* __restrict__ dv, int sq, int sk, int d, float scale,
+                                float scale_log2) {
+  constexpr int kStages = dkv_pair_stages<DK>();
+  constexpr int kC = DK / 8;        // 16-byte chunks per row
+  constexpr int kGroup = kC * 128;  // bytes of 8 rows
+  constexpr int kTile = kTileQ * DK * 2;
+  constexpr int kStage = dkv_stage_bytes<DK>();
+  constexpr int kSteps = DK / 16;
+  constexpr int kOut = DK / 2;  // f32 accumulators a thread: dv or dk
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* k_s = smem_raw;                                   // 64 rows
+  unsigned char* v_s = k_s + 64 * DK * 2;                          // 64 rows
+  float4* x_s = reinterpret_cast<float4*>(v_s + 64 * DK * 2);      // 8 x 128 float4
+  unsigned char* ring = reinterpret_cast<unsigned char*>(x_s) + kPairX;  // kStages stages
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * 64;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;  // 0: S^T, p^T and dv; 1: dP^T, ds^T and dk
+  const int t = tid & 127;
+  const int wi = t >> 5;    // warp of the warpgroup: its 16 kv rows
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+
+  const size_t koff = (size_t)bh * sk * d;
+  const bf16* qb = q + (size_t)bh * sq * d;
+  const bf16* dob = dout + (size_t)bh * sq * d;
+  const float* lseb = lse + (size_t)bh * sq;
+  const float* dlb = delta + (size_t)bh * sq;
+  const int n_tiles = (sq + kTileQ - 1) / kTileQ;
+
+  // prologue: k and v, then tiles 0 .. kStages - 2, one group each
+  e4t::load_core_async<64, DK, 256>(k_s, k + koff, k0, sk, d, tid);
+  e4t::load_core_async<64, DK, 256>(v_s, v + koff, k0, sk, d, tid);
+  e4t::cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles)
+      load_dkv_stage<DK, 256>(ring + i * kStage, qb, dob, lseb, dlb, i, sq, d, tid);
+    e4t::cp_async_commit();
+  }
+  e4t::cp_async_wait<kStages - 2>();  // k, v and tile 0 have landed
+  fence_proxy_async();
+  __syncthreads();
+
+  const unsigned char* a_s = wg == 0 ? k_s : v_s;  // S^T = K Q^T, dP^T = V dO^T
+  float acc[kOut];
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    // refill the stage tile j - 1 used: both warpgroups left it at the
+    // barrier that ended the last iteration
+    const int nxt = j + kStages - 1;
+    if (nxt < n_tiles)
+      load_dkv_stage<DK, 256>(ring + (nxt % kStages) * kStage, qb, dob, lseb, dlb, nxt, sq,
+                              d, tid);
+    e4t::cp_async_commit();  // possibly empty: the group count stays uniform
+    const unsigned char* qs = ring + (j % kStages) * kStage;
+    const unsigned char* dos = qs + kTile;
+    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * kTile);
+    const float* dl_s = lse_s + kTileQ;
+
+    // S^T (warpgroup 0) or dP^T (warpgroup 1): the 64 kv rows x the tile's
+    // 64 q rows; s[4n + e]: kv rows g (e < 2) and g + 8 of the warp's 16, q
+    // column 8n + 2 t4 + (e & 1)
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    const unsigned char* b_s = wg == 0 ? qs : dos;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st)
+      wgmma_ss_n64(s, smem_desc(a_s + st * 256, 128, kGroup),
+                   smem_desc(b_s + st * 256, 128, kGroup), st);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    const bool ragged = (j + 1) * kTileQ > sq;
+    if (wg == 0) {
+      // p^T = exp2(s scale log2e - lse log2e), each column with its q row's
+      // lse; 0 past Sq
+#pragma unroll
+      for (int n = 0; n < kTileQ / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n * 8 + t4 * 2 + e;
+          const float nl = -lse_s[c] * e4t::kLog2e;
+          const bool valid = !ragged || j * kTileQ + c < sq;
+          s[4 * n + e] = valid ? exp2_approx(fmaf(s[4 * n + e], scale_log2, nl)) : 0.f;
+          s[4 * n + 2 + e] = valid ? exp2_approx(fmaf(s[4 * n + 2 + e], scale_log2, nl)) : 0.f;
+        }
+        x_s[n * 128 + t] = make_float4(s[4 * n], s[4 * n + 1], s[4 * n + 2], s[4 * n + 3]);
+      }
+      __threadfence_block();
+      pair_arrive();
+    } else {
+      // ds^T = p^T (dP^T - delta) scale, each column with its q row's delta
+      pair_sync();
+#pragma unroll
+      for (int n = 0; n < kTileQ / 8; ++n) {
+        const float4 p = x_s[n * 128 + t];
+        const float dl0 = dl_s[n * 8 + t4 * 2], dl1 = dl_s[n * 8 + t4 * 2 + 1];
+        s[4 * n + 0] = p.x * (s[4 * n + 0] - dl0) * scale;
+        s[4 * n + 1] = p.y * (s[4 * n + 1] - dl1) * scale;
+        s[4 * n + 2] = p.z * (s[4 * n + 2] - dl0) * scale;
+        s[4 * n + 3] = p.w * (s[4 * n + 3] - dl1) * scale;
+      }
+    }
+    // p^T or ds^T in the A-fragment layout of dv += p^T dO or dk += ds^T q
+    uint32_t fa[kTileQ / 16][4];
+#pragma unroll
+    for (int n = 0; n < kTileQ / 8; ++n) {
+      fa[n >> 1][(n & 1) * 2 + 0] = e4t::pack_bf16(s[4 * n + 0], s[4 * n + 1]);
+      fa[n >> 1][(n & 1) * 2 + 1] = e4t::pack_bf16(s[4 * n + 2], s[4 * n + 3]);
+    }
+
+    // 16 q rows a step
+    const unsigned char* mn = wg == 0 ? dos : qs;
+    fence_regs(acc);
+    fence_regs(fa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTileQ / 16; ++kk)
+      wgmma_rs_tile<DK>(acc, fa[kk], mn + kk * 2 * kGroup, kGroup);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    e4t::cp_async_wait<kStages - 2>();  // tile j + 1 has landed (this thread's part)
+    fence_proxy_async();
+    __syncthreads();                      // ... everyone's; tile j and the exchange are free
+  }
+
+  bf16* dst = wg == 0 ? dv : dk;
+  const int row0 = k0 + wi * 16 + g, row1 = row0 + 8;
+#pragma unroll
+  for (int n = 0; n < kOut / 4; ++n) {
+    const int col = n * 8 + t4 * 2;
+    if (col < d) {
+      if (row0 < sk)
+        *reinterpret_cast<uint32_t*>(&dst[koff + (size_t)row0 * d + col]) =
+            e4t::pack_bf16(acc[4 * n], acc[4 * n + 1]);
+      if (row1 < sk)
+        *reinterpret_cast<uint32_t*>(&dst[koff + (size_t)row1 * d + col]) =
+            e4t::pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
+    }
+  }
+}
+
+// The DK >= 128 backward: the synchronous dq kernel, then the pair dk/dv kernel.
+template <int DK>
+int launch_wide(const void* q, const void* k, const void* v, const void* dout,
+                const void* lse, const void* delta, void* dq, void* dk, void* dv, int bh,
+                int sq, int sk, int d, float scale, cudaStream_t stream) {
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dop = static_cast<const bf16*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dlp = static_cast<const float*>(delta);
+  int err = launch_sync_dq<DK>(qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dq), bh, sq, sk,
+                               d, scale, stream);
+  if (err != (int)cudaSuccess) return err;
+  constexpr size_t smem = dkv_pair_smem<DK>(dkv_pair_stages<DK>());
+  static_assert(smem <= e4t::kMaxSmem, "the pair kernel's ring does not fit a block");
+  err = (int)e4t::allow_smem(flash_bwd_dkv_pair_wgmma_kernel<DK>, smem);
+  if (err != (int)cudaSuccess) return err;
+  flash_bwd_dkv_pair_wgmma_kernel<DK><<<dim3((sk + 63) / 64, bh), 256, smem, stream>>>(
+      qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, d,
+      scale, scale * e4t::kLog2e);
+  return (int)cudaGetLastError();
 }
 
 // The launch for a padded head dim, by the synchronous design.
@@ -841,13 +1115,21 @@ extern "C" int e4t_flash_bwd(const void* q, const void* k, const void* v,
     E4T_BWD_WGMMA(80)
     E4T_BWD_WGMMA(96)
     E4T_BWD_WGMMA(112)
-    default: return dispatch_sync(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, sk, d, scale, s);
-  }
 #undef E4T_BWD_WGMMA
+#define E4T_BWD_WIDE(DK) \
+  case DK: return launch_wide<DK>(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, sk, d, scale, s);
+    E4T_BWD_WIDE(128)
+    E4T_BWD_WIDE(160)
+    E4T_BWD_WIDE(192)
+    E4T_BWD_WIDE(224)
+    E4T_BWD_WIDE(256)
+#undef E4T_BWD_WIDE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The same function by the synchronous design at every head dim: the
-// yardstick the d < 128 kernels are timed and checked against. No path calls
+// yardstick the wgmma kernels are timed and checked against. No path calls
 // it.
 extern "C" int e4t_flash_bwd_sync(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,

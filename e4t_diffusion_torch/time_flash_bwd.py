@@ -9,10 +9,11 @@ SDPA's backward and the work's bound.
 ``--repo`` names the checkout whose ``e4t_diffusion_torch`` is timed (this
 one by default), so one call can time two commits on one card, in turns:
 unpack the other with ``git archive`` into a git-ignored directory and run
-the script on each. ``--ablate`` times a copy of the d < 128 kernels with
+the script on each. ``--ablate`` times a copy of the wgmma kernels with
 one part of their work changed, to see what bounds them: ``loads`` (the
-dk/dv kernel loads no q/dO tile after the first ones), ``exp`` (2^x
-becomes x in both kernels) or ``ordered_add`` (the dk/dv kernel also adds a
+dk/dv kernels load no q/dO tile after the first ones), ``exp`` (2^x
+becomes x in the three kernels) or ``ordered_add`` (the d < 128 dk/dv
+kernel also adds a
 64 x DK f32 share of dq a q tile to a workspace, block after block in kv
 order: a counter per (bh, q tile), an acquire spin and a release, the cost
 of a one-pass backward's deterministic dq; nothing reads the workspace);
@@ -114,8 +115,8 @@ _SMS = "constexpr int kSMs = 132;  // streaming multiprocessors of an H100 SXM\n
 # --ablate: [(text of flash_bwd.cu, its replacement, occurrences)]
 ABLATIONS = {
     "loads": [("    if (nxt < n_tiles)\n      load_dkv_stage<",
-               "    if (nxt < kDkvStages - 1)\n      load_dkv_stage<", 1)],
-    "exp": [("exp2_approx(fmaf(", "(fmaf(", 4)],
+               "    if (nxt < 2)\n      load_dkv_stage<", 2)],
+    "exp": [("exp2_approx(fmaf(", "(fmaf(", 6)],
     "ordered_add": [(_SMS, _SMS + _ORDERED_DECL, 1),
                     (_DKV_TILE_END, "    fence_regs(adk);\n" + _ORDERED_ADD
                      + "\n    e4t::cp_async_wait<kDkvStages - 2>();", 1),
@@ -125,7 +126,7 @@ ABLATIONS = {
 
 def ablated_copy(repo, part):
     """A copy of ``repo``'s package under build/ablate-bwd-<part>/ with the
-    d < 128 kernels changed as ``ABLATIONS[part]`` says; returns its root."""
+    kernels changed as ``ABLATIONS[part]`` says; returns its root."""
     root = os.path.join(repo, "build", f"ablate-bwd-{part}")
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(repo, "e4t_diffusion_torch"),

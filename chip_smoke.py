@@ -295,8 +295,10 @@ def _f32(dtype):
 
 def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None):
     """The forward kernel of ``dtype`` (bf16 by default, or f32) against its
-    plain version in f32; timed: kernel, plain, SDPA's forward in the same
-    type and the bound."""
+    plain version in f32; in bf16 (the wgmma kernel at every d) also
+    against the synchronous design it replaced (``flash_fwd_sync``), within
+    the same bound; timed: kernel, plain, SDPA's forward in the same type,
+    the bound, and in bf16 the synchronous design (``parent_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -323,6 +325,12 @@ def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None):
           else rel <= KERNEL_OUT_REL_L2 and lse_err <= KERNEL_LSE_MAX_ABS)
     if not ok:
         fail(f"flash_fwd disagrees with its plain version: {case}")
+    if not _f32(dtype):
+        parent, _ = flash_fwd_sync(q, k, v, scale)
+        case["parent_out_vs_kernel_rel_l2"] = _rel(parent, out.float())
+        del parent
+        if case["parent_out_vs_kernel_rel_l2"] > KERNEL_OUT_REL_L2:
+            fail(f"flash_fwd disagrees with the synchronous design: {case}")
     if timed:
         size = q.element_size()
         case.update(
@@ -336,12 +344,9 @@ def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None):
                      4 * bh * sq * sk * d, bh * sq * sk,
                      flop_rate=F32_FLOP_PER_S if _f32(dtype)
                      else BF16_FLOP_PER_S))
-        if not _f32(dtype) and d < 128:
-            parent, _ = flash_fwd_sync(q, k, v, scale)
-            case["parent_out_vs_kernel_rel_l2"] = _rel(parent, out.float())
+        if not _f32(dtype):
             case["parent_ms"] = cuda_time_ms(
                 lambda: flash_fwd_sync(q, k, v, scale))
-            del parent
     del q, k, v, out, lse
     torch.cuda.empty_cache()
     return case
@@ -355,10 +360,10 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
     The bound counts the work (dq, dk, dv) needs, whatever the kernel's
     design does: five products (S, dP, dq, dk, dv), 10 flops per score
     element and head dim, and one exponential per score.
-    In bf16 at d < 128 (the wgmma kernels) also: a second call bit for bit
+    In bf16 (the wgmma kernels at every d) also: a second call bit for bit
     against the first, and the synchronous design (``flash_bwd_sync``, the
-    kernels the parent commit runs there) against the kernel, within the
-    same bound, and timed beside it (``parent_ms``)."""
+    kernels they replaced) against the kernel, within the same bound, and
+    timed beside it (``parent_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -389,7 +394,7 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
     if max(case[f"{n}_rel_l2"] for n in ("dq", "dk", "dv")) > (
             KERNEL_F32_REL_L2 if _f32(dtype) else KERNEL_GRAD_REL_L2):
         fail(f"flash_bwd disagrees with its plain version: {case}")
-    wgmma = not _f32(dtype) and d < 128
+    wgmma = not _f32(dtype)
     if wgmma:
         again = flash_bwd(q, k, v, out, lse, dout, scale)
         case["repeat_identical"] = all(torch.equal(a, b)
@@ -758,14 +763,26 @@ def phase_kernels():
     ragged = [_fwd_case(4, 300, 200, 40, gen, timed=False)]
     for d, sq, sk in ((8, 65, 33), (24, 100, 130), (64, 128, 257),
                       (80, 70, 90), (120, 257, 257), (136, 200, 77),
-                      (256, 129, 300)):
+                      (256, 129, 300),
+                      # the wgmma forward from DK 160 at the edges of its
+                      # k/v rings (4 stages at DK 160, 3 at 192 and 224, 2
+                      # at 256): Sk below one 64-row stage, one stage plus
+                      # one row, one q row
+                      (160, 100, 63), (192, 64, 65), (256, 1, 200),
+                      (136, 257, 129), (224, 200, 129), (256, 300, 65)):
         ragged.append(_fwd_case(2, sq, sk, d, gen, timed=False))
     for d, sq, sk in ((8, 65, 33), (24, 100, 130), (64, 128, 257),
                       (120, 257, 77), (136, 200, 90), (256, 129, 300),
                       # the wgmma backward's masks: Sq and Sk multiples of
                       # no tile, one q row
                       (40, 300, 77), (80, 129, 200), (40, 65, 257),
-                      (80, 1, 130), (112, 100, 90)):
+                      (80, 1, 130), (112, 100, 90),
+                      # from DK 128: Sq (the dk/dv kernel's q/dO ring) and
+                      # Sk (the dq kernel's k/v ring) below one 64-row tile,
+                      # one tile plus one row, one q row, two kv rows (with
+                      # one, dq is zero up to rounding: its rel-L2 is noise)
+                      (160, 63, 65), (192, 65, 63), (256, 1, 130),
+                      (224, 129, 300), (128, 200, 2), (136, 300, 77)):
         ragged.append(_bwd_case(2, sq, sk, d, gen, timed=False))
     # BH 48 at Sk 1000: the dk/dv kernel's blocks of several warpgroups at a
     # ragged Sk (with fewer heads or kv rows it takes 1 warpgroup a block)
@@ -1915,6 +1932,10 @@ def kernels_line(cases, paths):
 
     def entry(name, source, replaces, site, errors, per_site,
               file="flash_kernels.py"):
+        # the bf16 flash rows: "parent_ms" is the synchronous design the
+        # wgmma kernels replaced, timed in this run
+        parent = {"parent_ms": site["parent_ms"]} if "parent_ms" in site \
+            else {}
         return {
             "name": name, "route": "cuda",
             "source": f"e4t_diffusion_torch/csrc/{source}",
@@ -1924,10 +1945,11 @@ def kernels_line(cases, paths):
             "max_abs_err": max(errors), "ms": site["ms"],
             "plain_ms": site["plain_ms"], "bound_ms": site["bound_ms"],
             "bound_by": site["bound_by"], "library_ms": site["library_ms"],
+            **parent,
             "at": f"BH={site['bh']} Sq={site['sq']} Sk={site['sk']} "
                   f"D={site['d']} {site.get('dtype', 'bfloat16')}",
-            "per_site": [{k: c[k] for k in timed_keys if k in c}
-                         for c in per_site]}
+            "per_site": [{k: c[k] for k in timed_keys + ("parent_ms",)
+                          if k in c} for c in per_site]}
 
     low = [c for c in fwd_cases if c["kernel"] == "flash_fwd_lowdim"]
     wide = [c for c in fwd_cases if c["kernel"] == "flash_fwd_wide"]
@@ -1951,18 +1973,6 @@ def kernels_line(cases, paths):
         entry("flash_fwd_int8", "flash_fwd_int8.cu", 813,
               cases["int8_flash"][0], [c["out_max_abs"] for c in int8_flash],
               cases["int8_flash"])]
-    # the wgmma kernel against the synchronous design it replaced at d < 128,
-    # timed in this run
-    kernels[0]["parent_ms"] = cases["sampling"][0]["parent_ms"]
-    kernels[0]["per_site"] = [
-        {k: c[k] for k in timed_keys + ("parent_ms",)}
-        for c in low if "ms" in c]
-    # the wgmma backward against the synchronous design it replaced at
-    # d < 128, timed in this run
-    kernels[2]["parent_ms"] = cases["tuning_bwd"][0]["parent_ms"]
-    kernels[2]["per_site"] = [
-        {k: c[k] for k in timed_keys + ("parent_ms",) if k in c}
-        for c in cases["tuning_bwd"] + [cases["grid_bwd"]]]
     kernels[1]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:95"
     kernels[2]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:582"
     kernels[3]["at"] = kernels[3]["at"].replace(

@@ -1040,7 +1040,7 @@ flash_bwd_dkv_pair_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restri
   }
 }
 
-// The DK >= 128 backward: the synchronous dq kernel, then the pair dk/dv kernel.
+// The DK >= 128 backward: the wgmma dq kernel, then the pair dk/dv kernel.
 template <int DK>
 int launch_wide(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dq, void* dk, void* dv, int bh,
@@ -1051,8 +1051,8 @@ int launch_wide(const void* q, const void* k, const void* v, const void* dout,
   const bf16* dop = static_cast<const bf16*>(dout);
   const float* lp = static_cast<const float*>(lse);
   const float* dlp = static_cast<const float*>(delta);
-  int err = launch_sync_dq<DK>(qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dq), bh, sq, sk,
-                               d, scale, stream);
+  int err = launch_dq_wgmma<DK>(qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dq), bh, sq, sk,
+                                d, scale, stream);
   if (err != (int)cudaSuccess) return err;
   constexpr size_t smem = dkv_pair_smem<DK>(dkv_pair_stages<DK>());
   static_assert(smem <= e4t::kMaxSmem, "the pair kernel's ring does not fit a block");

@@ -6,13 +6,16 @@ resident) and ``_flash_bwd``'s blocked grids: the backward of every flash
 site, which training runs (all-flash, ``ops/attention.flash_threshold(0)``).
 The kernel is ``csrc/flash_bwd.cu``, built by nvcc for sm_90a and called
 through ctypes: a dq kernel over q tiles and a dk/dv kernel over kv tiles,
-no atomics, so two calls on the same inputs agree bit for bit. Below d =
-128 both run on warpgroup MMA (wgmma) fed by cp.async rings; from 128 on
-the synchronous mma.sync design, which ``flash_bwd_sync`` runs at every d
-as the yardstick the wgmma kernels are timed and checked against. The
-source note gives the design and the bound on the H100: the function needs
-10 flops per score and head dim and one exponential per score; both designs
-recompute S and dP (14 flops, two exponentials).
+no atomics, so two calls on the same inputs agree bit for bit. Both run
+on warpgroup MMA (wgmma) fed by cp.async rings at every d (from d = 128 the
+dk/dv kernel gives each of a pair of warpgroups one of dk and dv). The
+synchronous mma.sync design they replaced stays as the yardstick:
+``flash_bwd_sync`` runs it at every d, and ``chip_smoke.py`` and
+``time_flash_bwd.py`` time and check the kernels against it (the forward's
+is ``ops/flash_lowdim.flash_fwd_sync``). The source note gives the design
+and the bound on the H100: the function needs 10 flops per score and head
+dim and one exponential per score; the dq and dk/dv kernels each compute S
+and dP (14 flops, two exponentials).
 
 f32 operands go to the f32 backward of ``csrc/attention_f32.cu`` (a dq
 kernel and a dk/dv kernel in full f32 on the CUDA cores).
@@ -89,10 +92,9 @@ def flash_bwd_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The bf16 backward by the synchronous mma.sync design at every head
-    dim (``e4t_flash_bwd_sync``): what ``flash_bwd`` launches from d = 128,
-    kept at d < 128 as the yardstick the wgmma kernels are timed and checked
-    against. No path calls it, and it counts no launch. CUDA bf16 tensors
-    only, as ``flash_bwd`` takes them."""
+    dim (``e4t_flash_bwd_sync``): the yardstick the wgmma kernels are timed
+    and checked against. No path calls it, and it counts no launch. CUDA
+    bf16 tensors only, as ``flash_bwd`` takes them."""
     _check_shapes(q, k, v, out, lse, dout)
     if q.device.type != "cuda":
         raise ValueError("flash_bwd_sync runs on CUDA tensors only")

@@ -13,6 +13,12 @@ head dims a multiple of 8 up to 256:
   split between k/v resident in VMEM and a blocked grid has no
   counterpart: k/v stream through shared memory at any length.
 
+In bf16 every head dim runs on one design, warpgroup MMA (wgmma) fed by a
+cp.async k/v ring. The synchronous mma.sync design it replaced stays in the
+source as the yardstick: ``flash_fwd_sync`` runs it at every head dim, and
+``chip_smoke.py`` and ``time_flash_fwd.py`` time and check the kernel
+against it; no path calls it.
+
 f32 operands go to the f32 kernel of ``csrc/attention_f32.cu`` (SIMT FFMA
 in full f32, any head dim the bf16 kernel takes), as the TPU kernels write
 in q's dtype.

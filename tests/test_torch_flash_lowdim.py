@@ -149,3 +149,21 @@ def test_kernel_input_checks(bad, error):
         q = torch.zeros(2, d, 64, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(error):
         fl._check_kernel_inputs(q, q, q)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_sync_yardsticks_run_on_cuda_tensors_only(direction):
+    """flash_fwd_sync and flash_bwd_sync, the synchronous design kept as the
+    wgmma kernels' yardstick, take no CPU tensors (they have no plain
+    version to fall back to) and count no launch."""
+    from e4t_diffusion_torch.ops import flash_bwd as fb
+
+    q = torch.from_numpy(_rand((2, 64, 160), 7)).bfloat16()
+    lse = torch.zeros(2, 64)
+    before = dict(fl.flash_fwd.launches), dict(fb.flash_bwd.launches)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        if direction == "forward":
+            fl.flash_fwd_sync(q, q, q, 0.1)
+        else:
+            fb.flash_bwd_sync(q, q, q, q, lse, q, 0.1)
+    assert (fl.flash_fwd.launches, fb.flash_bwd.launches) == before

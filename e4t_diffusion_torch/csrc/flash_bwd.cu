@@ -420,18 +420,6 @@ constexpr size_t dkv_wgmma_smem() {
   return (size_t)2 * (64 * NWG) * DK * 2 + (size_t)kDkvStages * dkv_stage_bytes<DK>();
 }
 
-// A tile of ROWS rows into the core-matrix layout: from DK 128 without
-// shared-memory bank conflicts (load_core_async_rows8); below as the
-// d < 128 kernels were measured
-template <int ROWS, int DK, int THREADS>
-__device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src, int r0, int n,
-                                          int d, int tid) {
-  if constexpr (DK >= 128)
-    e4t::load_core_async_rows8<ROWS, DK, THREADS>(dst, src, r0, n, d, tid);
-  else
-    e4t::load_core_async<ROWS, DK, THREADS>(dst, src, r0, n, d, tid);
-}
-
 // q tile t (and its dO tile, lse and delta) into a ring stage; lse and delta
 // rows past Sq read nothing and hold 0 (the kernel masks those columns)
 template <int DK, int THREADS>
@@ -440,8 +428,8 @@ __device__ __forceinline__ void load_dkv_stage(unsigned char* st, const bf16* qb
                                                const float* dlb, int t, int sq, int d,
                                                int tid) {
   constexpr int kTile = kTileQ * DK * 2;
-  load_tile<kTileQ, DK, THREADS>(st, qb, t * kTileQ, sq, d, tid);
-  load_tile<kTileQ, DK, THREADS>(st + kTile, dob, t * kTileQ, sq, d, tid);
+  e4t::load_core_async<kTileQ, DK, THREADS>(st, qb, t * kTileQ, sq, d, tid);
+  e4t::load_core_async<kTileQ, DK, THREADS>(st + kTile, dob, t * kTileQ, sq, d, tid);
   float* rows = reinterpret_cast<float*>(st + 2 * kTile);  // lse[64], then delta[64]
   for (int i = tid; i < 2 * kTileQ; i += THREADS) {
     const int r = t * kTileQ + (i & (kTileQ - 1));
@@ -497,8 +485,8 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const int n_tiles = (sq + kTileQ - 1) / kTileQ;
 
   // prologue: k and v, then tiles 0 .. kDkvStages - 2, one group each
-  load_tile<kBM, DK, kT>(k_s, k + koff, k0, sk, d, tid);
-  load_tile<kBM, DK, kT>(v_s, v + koff, k0, sk, d, tid);
+  e4t::load_core_async<kBM, DK, kT>(k_s, k + koff, k0, sk, d, tid);
+  e4t::load_core_async<kBM, DK, kT>(v_s, v + koff, k0, sk, d, tid);
   e4t::cp_async_commit();
 #pragma unroll
   for (int t = 0; t < kDkvStages - 1; ++t) {
@@ -687,14 +675,14 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int n_tiles = (sk + kTileK - 1) / kTileK;
 
   // prologue: q and dO, then tiles 0 .. kDqStages - 2, one group each
-  load_tile<kBM, DK, kT>(q_s, q + qoff, q0, sq, d, tid);
-  load_tile<kBM, DK, kT>(do_s, dout + qoff, q0, sq, d, tid);
+  e4t::load_core_async<kBM, DK, kT>(q_s, q + qoff, q0, sq, d, tid);
+  e4t::load_core_async<kBM, DK, kT>(do_s, dout + qoff, q0, sq, d, tid);
   e4t::cp_async_commit();
 #pragma unroll
   for (int t = 0; t < kDqStages - 1; ++t) {
     if (t < n_tiles) {
-      load_tile<kTileK, DK, kT>(k_s + t * kTile, kb, t * kTileK, sk, d, tid);
-      load_tile<kTileK, DK, kT>(v_s + t * kTile, vb, t * kTileK, sk, d, tid);
+      e4t::load_core_async<kTileK, DK, kT>(k_s + t * kTile, kb, t * kTileK, sk, d, tid);
+      e4t::load_core_async<kTileK, DK, kT>(v_s + t * kTile, vb, t * kTileK, sk, d, tid);
     }
     e4t::cp_async_commit();
   }
@@ -721,8 +709,8 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const int nxt = j + kDqStages - 1;
     if (nxt < n_tiles) {
       const int st = nxt % kDqStages;
-      load_tile<kTileK, DK, kT>(k_s + st * kTile, kb, nxt * kTileK, sk, d, tid);
-      load_tile<kTileK, DK, kT>(v_s + st * kTile, vb, nxt * kTileK, sk, d, tid);
+      e4t::load_core_async<kTileK, DK, kT>(k_s + st * kTile, kb, nxt * kTileK, sk, d, tid);
+      e4t::load_core_async<kTileK, DK, kT>(v_s + st * kTile, vb, nxt * kTileK, sk, d, tid);
     }
     e4t::cp_async_commit();  // possibly empty: the group count stays uniform
     const unsigned char* ks = k_s + (j % kDqStages) * kTile;
@@ -932,8 +920,8 @@ flash_bwd_dkv_pair_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restri
   const int n_tiles = (sq + kTileQ - 1) / kTileQ;
 
   // prologue: k and v, then tiles 0 .. kStages - 2, one group each
-  load_tile<64, DK, 256>(k_s, k + koff, k0, sk, d, tid);
-  load_tile<64, DK, 256>(v_s, v + koff, k0, sk, d, tid);
+  e4t::load_core_async<64, DK, 256>(k_s, k + koff, k0, sk, d, tid);
+  e4t::load_core_async<64, DK, 256>(v_s, v + koff, k0, sk, d, tid);
   e4t::cp_async_commit();
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {

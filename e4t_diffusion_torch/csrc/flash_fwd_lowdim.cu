@@ -259,18 +259,6 @@ __host__ __device__ constexpr int wgmma_stages() {
   return s;
 }
 
-// A tile of ROWS rows into the core-matrix layout: from DK 160 without
-// shared-memory bank conflicts (load_core_async_rows8); below as the
-// d < 128 kernels were measured
-template <int ROWS, int DK, int THREADS>
-__device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src, int r0, int n,
-                                          int d, int tid) {
-  if constexpr (DK >= 160)
-    e4t::load_core_async_rows8<ROWS, DK, THREADS>(dst, src, r0, n, d, tid);
-  else
-    e4t::load_core_async<ROWS, DK, THREADS>(dst, src, r0, n, d, tid);
-}
-
 // the softmax of one 64-column score tile in place: s (log2 domain after the
 // scale) becomes p = exp2(s - m), m and l the running max and sum of the
 // thread's rows g and g + 8, alpha their rescale factors
@@ -349,13 +337,13 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = (sk + kBlockN - 1) / kBlockN;
 
   // prologue: q, then tiles 0 .. kWgStages - 2, one group each
-  load_tile<kBM, DK, kBM * 2>(q_s, q + (size_t)bh * sq * d, q0, sq, d, tid);
+  e4t::load_core_async<kBM, DK, kBM * 2>(q_s, q + (size_t)bh * sq * d, q0, sq, d, tid);
   e4t::cp_async_commit();
 #pragma unroll
   for (int t = 0; t < kWgStages - 1; ++t) {
     if (t < n_tiles) {
-      load_tile<kBlockN, DK, kBM * 2>(k_s + t * kTile, kb, t * kBlockN, sk, d, tid);
-      load_tile<kBlockN, DK, kBM * 2>(v_s + t * kTile, vb, t * kBlockN, sk, d, tid);
+      e4t::load_core_async<kBlockN, DK, kBM * 2>(k_s + t * kTile, kb, t * kBlockN, sk, d, tid);
+      e4t::load_core_async<kBlockN, DK, kBM * 2>(v_s + t * kTile, vb, t * kBlockN, sk, d, tid);
     }
     e4t::cp_async_commit();
   }
@@ -375,8 +363,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int nxt = j + kWgStages - 1;
     if (nxt < n_tiles) {
       const int st = nxt % kWgStages;
-      load_tile<kBlockN, DK, kBM * 2>(k_s + st * kTile, kb, nxt * kBlockN, sk, d, tid);
-      load_tile<kBlockN, DK, kBM * 2>(v_s + st * kTile, vb, nxt * kBlockN, sk, d, tid);
+      e4t::load_core_async<kBlockN, DK, kBM * 2>(k_s + st * kTile, kb, nxt * kBlockN, sk, d, tid);
+      e4t::load_core_async<kBlockN, DK, kBM * 2>(v_s + st * kTile, vb, nxt * kBlockN, sk, d, tid);
     }
     e4t::cp_async_commit();  // possibly empty: the group count stays uniform
     const unsigned char* ks = k_s + (j % kWgStages) * kTile;

@@ -40,27 +40,6 @@ __device__ __forceinline__ void load_core_async(unsigned char* dst, const bf16* 
   }
 }
 
-// The same copy with each warp's 32 chunks on 8 rows x 4 chunks: the 8
-// lanes of each quarter-warp write one chunk of 8 rows, 16 bytes apart in a
-// core matrix, so they hit 8 distinct bank groups (load_core_async's 8
-// lanes write 8 chunks of one row, 128 bytes apart: all on the same banks,
-// 8-way), and each warp still reads 64 contiguous bytes of each of its
-// rows. The tile in shared memory is the same.
-template <int ROWS, int DK, int THREADS>
-__device__ __forceinline__ void load_core_async_rows8(unsigned char* dst, const bf16* src,
-                                                      int r0, int n, int d, int tid) {
-  static_assert(ROWS % 8 == 0 && DK % 32 == 0 && THREADS % 32 == 0,
-                "a warp copies 8 rows x 4 chunks");
-  constexpr int kC = DK / 8, kQuads = kC / 4;
-  for (int i = tid; i < ROWS * kC; i += THREADS) {
-    const int w = i >> 5, l = i & 31;
-    const int r = (w / kQuads) * 8 + (l & 7), c = (w % kQuads) * 4 + (l >> 3);
-    const bool in = r0 + r < n && 8 * c < d;
-    cp_async_16(dst + core_offset(r, c, kC), in ? src + (size_t)(r0 + r) * d + 8 * c : src,
-                in ? 16 : 0);
-  }
-}
-
 // a wgmma shared-memory descriptor, no swizzle: lbo the byte step between
 // core matrices along K, sbo along M or N
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {

@@ -394,8 +394,8 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
     if max(case[f"{n}_rel_l2"] for n in ("dq", "dk", "dv")) > (
             KERNEL_F32_REL_L2 if _f32(dtype) else KERNEL_GRAD_REL_L2):
         fail(f"flash_bwd disagrees with its plain version: {case}")
-    wgmma = not _f32(dtype)
-    if wgmma:
+    bf16 = not _f32(dtype)
+    if bf16:
         again = flash_bwd(q, k, v, out, lse, dout, scale)
         case["repeat_identical"] = all(torch.equal(a, b)
                                        for a, b in zip(grads, again))
@@ -422,7 +422,7 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
                      + 4 * bh * sq, 10 * bh * sq * sk * d, bh * sq * sk,
                      flop_rate=F32_FLOP_PER_S if _f32(dtype)
                      else BF16_FLOP_PER_S))
-        if wgmma:
+        if bf16:
             case["parent_ms"] = cuda_time_ms(lambda: flash_bwd_sync(
                 q, k, v, out, lse, dout, scale))
         del qr, kr, vr, lib_out

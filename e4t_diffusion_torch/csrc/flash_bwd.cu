@@ -355,46 +355,30 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DK>
-int launch_sync_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                   const float* lse, const float* delta, bf16* dq, int bh, int sq, int sk,
-                   int d, float scale, cudaStream_t stream) {
-  using T = Tiles<DK>;
-  const cudaError_t err = e4t::allow_smem(flash_bwd_dq_kernel<DK>, T::dq_smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<DK><<<dim3((sq + kBlockM - 1) / kBlockM, bh), kThreads, T::dq_smem,
-                            stream>>>(q, k, v, dout, lse, delta, dq, sq, sk, d, scale,
-                                      scale * e4t::kLog2e);
-  return (int)cudaGetLastError();
-}
-
-template <int DK>
-int launch_sync_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                    const float* lse, const float* delta, bf16* dk, bf16* dv, int bh, int sq,
-                    int sk, int d, float scale, cudaStream_t stream) {
-  using T = Tiles<DK>;
-  const cudaError_t err = e4t::allow_smem(flash_bwd_dkv_kernel<DK>, T::dkv_smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<DK><<<dim3((sk + kBlockM - 1) / kBlockM, bh, DK / T::kChunk),
-                             kThreads, T::dkv_smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, sq, sk, d, scale, scale * e4t::kLog2e);
-  return (int)cudaGetLastError();
-}
-
-template <int DK>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, void* dk, void* dv,
            int bh, int sq, int sk, int d, float scale, cudaStream_t stream) {
+  using T = Tiles<DK>;
+  cudaError_t err = e4t::allow_smem(flash_bwd_dq_kernel<DK>, T::dq_smem);
+  if (err == cudaSuccess) err = e4t::allow_smem(flash_bwd_dkv_kernel<DK>, T::dkv_smem);
+  if (err != cudaSuccess) return (int)err;
+  const float scale_log2 = scale * e4t::kLog2e;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   const bf16* dop = static_cast<const bf16*>(dout);
   const float* lp = static_cast<const float*>(lse);
   const float* dlp = static_cast<const float*>(delta);
-  const int err = launch_sync_dq<DK>(qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dq), bh, sq,
-                                     sk, d, scale, stream);
-  if (err != (int)cudaSuccess) return err;
-  return launch_sync_dkv<DK>(qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dk),
-                             static_cast<bf16*>(dv), bh, sq, sk, d, scale, stream);
+  flash_bwd_dq_kernel<DK><<<dim3((sq + kBlockM - 1) / kBlockM, bh), kThreads,
+                            T::dq_smem, stream>>>(
+      qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dq), sq, sk, d, scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_kernel<DK><<<dim3((sk + kBlockM - 1) / kBlockM, bh, DK / T::kChunk),
+                             kThreads, T::dkv_smem, stream>>>(
+      qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk,
+      d, scale, scale_log2);
+  return (int)cudaGetLastError();
 }
 
 // ---- warpgroup MMA (wgmma) fed by cp.async rings ----

@@ -244,18 +244,18 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DK>
 __host__ __device__ constexpr int wgmma_groups() { return DK <= 80 ? 4 : 2; }
 
-template <int DK, int NWG>
+template <int DK>
 __host__ __device__ constexpr size_t wgmma_smem_bytes(int stages) {
-  return (size_t)2 * DK * (64 * NWG + 2 * stages * kBlockN);
+  return (size_t)2 * DK * (64 * wgmma_groups<DK>() + 2 * stages * kBlockN);
 }
 
 // k/v ring depth: 4 stages (tiles j + 1 and j + 2 in flight while tile j is
 // computed), fewer from DK 192 on, where 4 would not fit a block: 3 at DK
 // 192 and 224, 2 at 256 (tile j + 1 in flight)
-template <int DK, int NWG>
+template <int DK>
 __host__ __device__ constexpr int wgmma_stages() {
   int s = 4;
-  while (s > 2 && wgmma_smem_bytes<DK, NWG>(s) > kMaxSmem) --s;
+  while (s > 2 && wgmma_smem_bytes<DK>(s) > kMaxSmem) --s;
   return s;
 }
 
@@ -302,18 +302,18 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], int kv0, int sk, in
   }
 }
 
-// Per kv tile each of the NWG warpgroups issues S = Q K^T, waits, takes the
-// softmax in registers, rescales O, issues O += P V and waits; a block
-// barrier a tile frees the stage of tile j - 1 for tile j - 1 + kWgStages.
-template <int DK, int NWG>
-__global__ void __launch_bounds__(128 * NWG)
+// Per kv tile each warpgroup issues S = Q K^T, waits, takes the softmax in
+// registers, rescales O, issues O += P V and waits; a block barrier a tile
+// frees the stage of tile j - 1 for tile j - 1 + kWgStages.
+template <int DK>
+__global__ void __launch_bounds__(128 * wgmma_groups<DK>())
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
                        float* __restrict__ lse, int sq, int sk, int d, float scale_log2) {
-  constexpr int kWgStages = wgmma_stages<DK, NWG>();
+  constexpr int kWgStages = wgmma_stages<DK>();
   constexpr int kC = DK / 8;               // 16-byte chunks per row
   constexpr int kGroup = kC * 128;         // bytes of 8 rows
-  constexpr int kBM = 64 * NWG;
+  constexpr int kBM = 64 * wgmma_groups<DK>();
   constexpr int kTile = kBlockN * DK * 2;  // bytes of one k (or v) stage
   constexpr int kSteps = DK / 16;
   constexpr int kOut = DK / 2;             // f32 output accumulators a thread
@@ -450,14 +450,13 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DK>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
                  int bh, int sq, int sk, int d, float scale_log2, cudaStream_t stream) {
-  constexpr int kGroups = wgmma_groups<DK>();
-  constexpr size_t smem = wgmma_smem_bytes<DK, kGroups>(wgmma_stages<DK, kGroups>());
+  constexpr size_t smem = wgmma_smem_bytes<DK>(wgmma_stages<DK>());
   static_assert(smem <= kMaxSmem, "the k/v ring does not fit a block");
-  const cudaError_t err = e4t::allow_smem(flash_fwd_wgmma_kernel<DK, kGroups>, smem);
+  const cudaError_t err = e4t::allow_smem(flash_fwd_wgmma_kernel<DK>, smem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int kBM = 64 * kGroups;
+  constexpr int kBM = 64 * wgmma_groups<DK>();
   const dim3 grid((sq + kBM - 1) / kBM, bh);
-  flash_fwd_wgmma_kernel<DK, kGroups><<<grid, kBM * 2, smem, stream>>>(
+  flash_fwd_wgmma_kernel<DK><<<grid, kBM * 2, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), sq, sk, d, scale_log2);

@@ -142,18 +142,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     dtype = _check_kernel_inputs(q, k, v)
-    bh, sq, d = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    source, symbol = ((F32_SOURCE, "e4t_attn_fwd_f32")
-                      if dtype == torch.float32 else (SOURCE, "e4t_flash_fwd"))
-    _build.launch(source, symbol,
-                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                  + [ctypes.c_float],
-                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1], d,
-                  float(scale))
-    flash_fwd.launches[launch_route(d, dtype)] += 1
+    out, lse = _launch(*((F32_SOURCE, "e4t_attn_fwd_f32")
+                         if dtype == torch.float32
+                         else (SOURCE, "e4t_flash_fwd")), q, k, v, scale)
+    flash_fwd.launches[launch_route(q.shape[2], dtype)] += 1
     return out, lse
 
 
@@ -171,10 +163,16 @@ def flash_fwd_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_fwd_sync runs on CUDA tensors only")
     if _check_kernel_inputs(q, k, v) != torch.bfloat16:
         raise TypeError("flash_fwd_sync takes bf16 operands")
+    return _launch(SOURCE, "e4t_flash_fwd_sync", q, k, v, scale)
+
+
+def _launch(source, symbol, q, k, v, scale):
+    """One forward entry point of ``source`` on checked CUDA operands:
+    (out in q's type, lse f32)."""
     bh, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    _build.launch(SOURCE, "e4t_flash_fwd_sync",
+    _build.launch(source, symbol,
                   [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                   + [ctypes.c_float],
                   q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -51,10 +51,10 @@ ABLATIONS = {
            "for (int st = 0; st < 1; ++st)\n      wgmma_ss_n64(", 1)],
     "pv": [("for (int kk = 0; kk < kBlockN / 16; ++kk)\n      wgmma_rs_tile<DK>(",
             "for (int kk = 0; kk < 1; ++kk)\n      wgmma_rs_tile<DK>(", 1)],
-    "groups1": [("  constexpr int kGroups = wgmma_groups<DK>();",
-                 "  constexpr int kGroups = DK >= 160 ? 1 : wgmma_groups<DK>();",
+    "groups1": [("constexpr int wgmma_groups() { return DK <= 80 ? 4 : 2; }",
+                 "constexpr int wgmma_groups() { return DK <= 80 ? 4 : DK >= 160 ? 1 : 2; }",
                  1),
-                ("  int s = 4;\n", "  int s = NWG == 1 ? 2 : 4;\n", 1)],
+                ("  int s = 4;\n", "  int s = DK >= 160 ? 2 : 4;\n", 1)],
 }
 
 

@@ -79,8 +79,12 @@
 // and ~0.51 ms of the special-function units, far above the ~0.2 ms of
 // traffic. Both designs do more: S and dP are recomputed in both kernels,
 // 14*BH*Sq*Sk*D flops and 2*BH*Sq*Sk exponentials, and D is padded to DK.
-// The wgmma design takes 5.7 ms there (the dk/dv kernel 3.5, the dq kernel
+// The wgmma design takes 5.1 ms there (the dk/dv kernel 2.8, the dq kernel
 // 1.8; the synchronous one 10.8; PERF.md, on an H100 80GB HBM3 at 700 W).
+// At d=160 (BH 2, 8192 tokens) it takes 1.3 ms (dk/dv 0.82, dq 0.41; the
+// synchronous one 5.2) against 0.22 ms of bf16 peak: the dk/dv kernel's
+// streamed q/dO loads bound it (46% faster without them), not the
+// exponentials (5%), as at d=40 (28% and 10%).
 
 #include <math.h>
 

@@ -46,7 +46,13 @@
 // (time_flash_fwd.py --ablate in the package, PERF.md): the k/v traffic from
 // L2, which every block reads whole for its q rows, far more than the
 // exponentials; so the warpgroups of a block share each tile, and more of
-// them a block cut that traffic.
+// them a block cut that traffic. At DK 160 (BH 2, 8192 tokens) the streamed
+// k/v tiles bound it too: without their loads it runs 47% faster, while
+// cutting either product or the exponentials moves it by under 5%; copies
+// that write shared memory free of bank conflicts did not help, so the
+// cost lies on the global side of the copies (PERF.md). At the 256-token
+// d=160 sites the blocks' prologue loads and two waves of 256 blocks
+// bound it, and one warpgroup a block (two blocks an SM) was slower.
 //
 // The synchronous design (flash_fwd_kernel, which served every DK before
 // the wgmma kernel): one block of 4 warps per 64-row q tile, mma.sync

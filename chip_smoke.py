@@ -432,14 +432,18 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
 
 
 def _int8_flash_case(bh, sq, sk, d, mode, gen, timed, dtype=None):
-    """The int8 attention kernel against its plain version at the kernel's
-    kv tile, on int8 operands quantized from q/k/v in ``dtype`` (bf16 by
-    default, or f32: the f32 output, and in "qk" an f32 v) as the attention
-    route does; timed: kernel, plain, the route (quantization + kernel),
-    SDPA's forward on the q/k/v, and the bound of the kernel's work from the
-    int8 operands. In f32, "qk" is held to KERNEL_F32_REL_L2; "qkpv" to
-    INT8_FLASH_REL_L2 in both types (exp2 against exp moves a few
-    round(p * 127) by one)."""
+    """The int8 attention kernel against its plain version at the route's
+    kv tile (``flash_int8.quant_tile``), on int8 operands quantized from
+    q/k/v in ``dtype`` (bf16 by default, or f32: the f32 output, and in
+    "qk" an f32 v) as the attention route does; timed: kernel, plain, the
+    route (quantization + kernel), SDPA's forward on the q/k/v, and the
+    bound of the kernel's work from the int8 operands. In f32, "qk" is held
+    to KERNEL_F32_REL_L2; "qkpv" to INT8_FLASH_REL_L2 in both types (exp2
+    against exp moves a few round(p * 127) by one). Where the synchronous
+    design computes the same function (all but "qk" in f32,
+    ``flash_fwd_int8_sync``), the kernel is held against it within the same
+    bound, whether the two agree bit for bit is recorded, and it is timed
+    beside the kernel (``parent_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -461,13 +465,23 @@ def _int8_flash_case(bh, sq, sk, d, mode, gen, timed, dtype=None):
     case = {"kernel": "flash_fwd_int8" + ("" if key == "bf16" else
                                           f"_{key}"),
             "mode": mode, "bh": bh, "sq": sq, "sk": sk, "d": d,
-            "dtype": str(dtype)[6:], "out_rel_l2": rel,
+            "tile": fi.quant_tile(sk), "dtype": str(dtype)[6:],
+            "out_rel_l2": rel,
             "out_max_abs": (out.float() - ref_out).abs().max().item(),
             "lse_max_abs": lse_err}
     del ref_out, ref_lse
     bound = (KERNEL_F32_REL_L2 if key == "qk_f32" else INT8_FLASH_REL_L2)
     if not (rel <= bound and lse_err <= KERNEL_LSE_MAX_ABS):
         fail(f"flash_fwd_int8 disagrees with its plain version: {case}")
+    sync = key != "qk_f32"
+    if sync:
+        parent, _ = fi.flash_fwd_int8_sync(*ops, mode, dtype)
+        case["parent_out_vs_kernel_rel_l2"] = _rel(parent, out.float())
+        case["parent_identical"] = torch.equal(parent, out)
+        del parent
+        if case["parent_out_vs_kernel_rel_l2"] > INT8_FLASH_REL_L2:
+            fail(f"flash_fwd_int8 disagrees with the synchronous design: "
+                 f"{case}")
     if timed:
         pv = mode == "qkpv"
         f32 = _f32(dtype)
@@ -480,6 +494,8 @@ def _int8_flash_case(bh, sq, sk, d, mode, gen, timed, dtype=None):
             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], scale=scale)),
             library=f"scaled_dot_product_attention, {case['dtype']}",
+            **({"parent_ms": cuda_time_ms(lambda: fi.flash_fwd_int8_sync(
+                *ops, mode, dtype))} if sync else {}),
             **_bound(bh * sq * d + bh * sk * d * (2 if pv else
                                                   1 + q.element_size())
                      + 8 * bh + q.element_size() * bh * sq * d + 4 * bh * sq,
@@ -688,10 +704,13 @@ def _gn_case(n, c, h, w, groups, eps, act, layout, dtype, gen, timed,
 
 def _shortseq_case(bh, s, d, g, gen, timed, dtype=None):
     """The short-sequence kernel of ``dtype`` (bf16 by default, or f32)
-    against its plain version in f32 on the same inputs; timed (device
-    time, and CUDA-event time per call, ``wall_ms``): kernel, plain, SDPA's
-    forward in the same type and the bound of the work (as for the flash
-    forward)."""
+    against its plain version in f32 on the same inputs; in bf16 also
+    against the synchronous design it replaced
+    (``flash_fwd_shortseq_sync``), within the same bound, with whether the
+    two agree bit for bit; timed (device time, and CUDA-event time per
+    call, ``wall_ms``): kernel, plain, SDPA's forward in the same type, the
+    bound of the work (as for the flash forward), and in bf16 the
+    synchronous design (``parent_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -713,6 +732,14 @@ def _shortseq_case(bh, s, d, g, gen, timed, dtype=None):
     if not case["out_rel_l2"] <= (KERNEL_F32_REL_L2 if _f32(dtype)
                                   else KERNEL_OUT_REL_L2):
         fail(f"flash_fwd_shortseq disagrees with its plain version: {case}")
+    if not _f32(dtype):
+        parent = shortseq.flash_fwd_shortseq_sync(q, k, v, scale, g)
+        case["parent_out_vs_kernel_rel_l2"] = _rel(parent, out.float())
+        case["parent_identical"] = torch.equal(parent, out)
+        del parent
+        if case["parent_out_vs_kernel_rel_l2"] > KERNEL_OUT_REL_L2:
+            fail(f"flash_fwd_shortseq disagrees with the synchronous design: "
+                 f"{case}")
     if timed:
         def kernel():
             return shortseq.flash_fwd_shortseq(q, k, v, scale, g)
@@ -730,6 +757,9 @@ def _shortseq_case(bh, s, d, g, gen, timed, dtype=None):
             **_bound(q.element_size() * 4 * bh * s * d, 4 * bh * s * s * d,
                      bh * s * s, flop_rate=F32_FLOP_PER_S if _f32(dtype)
                      else BF16_FLOP_PER_S))
+        if not _f32(dtype):
+            case["parent_ms"] = device_ms(
+                lambda: shortseq.flash_fwd_shortseq_sync(q, k, v, scale, g))
     del q, k, v, out
     torch.cuda.empty_cache()
     return case
@@ -794,8 +824,9 @@ def phase_kernels():
                   for mode in ("qk", "qkpv")
                   for s_, d in ((4096, 40), (1024, 80))]
     for mode in ("qk", "qkpv"):
+        # Sk 1100: quant tiles of 512 rows, the last one of 76
         for d, sq, sk in ((8, 65, 33), (40, 300, 200), (80, 128, 257),
-                          (120, 70, 90)):
+                          (120, 70, 90), (40, 257, 1100)):
             ragged.append(_int8_flash_case(2, sq, sk, d, mode, gen,
                                            timed=False))
     n = len(PROMPTS) * IMAGES_PER_PROMPT
@@ -1334,12 +1365,13 @@ def phase_int8_sampling(smi, pipe, image):
                   num_images_per_prompt=IMAGES_PER_PROMPT, height=RESOLUTION,
                   width=RESOLUTION, seed=0, output_type="latent")
     lat_bf16 = torch.from_numpy(pipe(PROMPTS, image, **kwargs))
-    lat_int8 = torch.from_numpy(static(PROMPTS, image, **kwargs))
-    report["final_latents_static_vs_bf16_rel_l2"] = _rel(lat_int8, lat_bf16)
-    if not (torch.isfinite(lat_int8).all() and
-            report["final_latents_static_vs_bf16_rel_l2"] <=
-            INT8_VS_BF16_REL_L2):
-        fail(f"int8 sampling: final latents against bf16: {report}")
+    for name, serving in (("static", static), ("qkpv", p)):
+        lat_int8 = torch.from_numpy(serving(PROMPTS, image, **kwargs))
+        key = f"final_latents_{name}_vs_bf16_rel_l2"
+        report[key] = _rel(lat_int8, lat_bf16)
+        if not (torch.isfinite(lat_int8).all() and
+                report[key] <= INT8_VS_BF16_REL_L2):
+            fail(f"int8 sampling: final latents against bf16: {report}")
     report.update(_unet_int8_checks(pipe, static.act_amax,
                                     torch.Generator("cuda").manual_seed(3)))
     report["profile_static_ddim"] = _profile(lambda: static(
@@ -1978,8 +2010,8 @@ def kernels_line(cases, paths):
     kernels[3]["at"] = kernels[3]["at"].replace(
         "bf16", "int8 q/k, bf16 v, mode qk")
     kernels[3]["per_site"] = [
-        {k: c[k] for k in ("mode",) + timed_keys + ("route_ms",)}
-        for c in cases["int8_flash"]]
+        {k: c[k] for k in ("mode", "tile") + timed_keys
+         + ("route_ms", "parent_ms")} for c in cases["int8_flash"]]
     conv_keys = ("c", "o", "h", "w", "k", "stride", "pad",
                  "sites_per_unet_pass", "ms", "plain_ms", "route_ms",
                  "bound_ms", "bound_by", "library_ms")
@@ -2048,7 +2080,8 @@ def kernels_line(cases, paths):
                          cases["shortseq"]))
     kernels[-1]["times"] = kernels[-2]["times"]
     kernels[-1]["per_site"] = [
-        {k: c[k] for k in timed_keys + ("g", "wall_ms", "library_wall_ms")}
+        {k: c[k] for k in timed_keys + ("g", "wall_ms", "library_wall_ms",
+                                        "parent_ms")}
         for c in cases["shortseq"]]
     kernels += _f32_rows(cases, entry, timed_keys)
     return kernels

@@ -11,9 +11,15 @@
 //     against the running max of the kv tiles seen so far, the s32 product
 //     added to the f32 accumulator per tile, and v_c = v_scale / 127.
 // The row sum l adds the unquantized f32 p in both modes, as on the TPU. The
-// quantized p, and so the result in "qkpv" mode, depends on the kv tile
-// (kBlockN = 64 here, ``flash_int8.KERNEL_BLOCK_K``; the plain version takes
-// the tile as an argument). Returns out (BH, Sq, D) = acc / l * v_c, in bf16
+// quantized p, and so the result in "qkpv" mode, depends on the kv tile: the
+// kernel takes the reference's tile (block_k, the route's
+// min(E4T_FLASH_BLOCK_K, round_up(Sk, 128)), a multiple of 64) and runs each
+// such quant tile in two passes over its 64-row sub-tiles: (a) the s8
+// products and the row max alone, no exponentials; (b) p against that max,
+// quantized, P@V into an int32 accumulator that is added to the f32 one
+// once per quant tile, as the reference adds its tile's product. "qk" keeps
+// 64-row online tiles: its p is not quantized, so the tile moves its result
+// by f32 and bf16 rounding only. Returns out (BH, Sq, D) = acc / l * v_c, in bf16
 // (in f32 too in "qkpv" mode, for an f32 compute type) and lse = m + log(l)
 // (BH, Sq) f32.
 //
@@ -111,12 +117,75 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
+// The warp's 16 x 64 score tile at kv row kv0 (int32 q k^T of q fragments
+// in registers and a staged k tile, times qk_c log2 e; columns >= sk -inf).
+template <int DK>
+__device__ __forceinline__ void tile_scores(float (&s)[kBlockN / 8][4],
+                                            const uint32_t (&qf)[DK / 16][2],
+                                            const int8_t* k_s, int kv0, int sk,
+                                            float qk_log2, int g, int t4) {
+  constexpr int kP = pitch8<DK>();
+  int si[kBlockN / 8][4];
+#pragma unroll
+  for (int n = 0; n < kBlockN / 8; ++n) si[n][0] = si[n][1] = si[n][2] = si[n][3] = 0;
+#pragma unroll
+  for (int st = 0; st < DK / 16; ++st) {
+#pragma unroll
+    for (int n = 0; n < kBlockN / 8; ++n)
+      e4t::mma_s8_16816(si[n], qf[st], e4t::ld32(k_s + (n * 8 + g) * kP + st * 16 + t4 * 4));
+  }
+#pragma unroll
+  for (int n = 0; n < kBlockN / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool valid = kv0 + n * 8 + t4 * 2 + e < sk;
+      s[n][e] = valid ? (float)si[n][e] * qk_log2 : -INFINITY;
+      s[n][2 + e] = valid ? (float)si[n][2 + e] * qk_log2 : -INFINITY;
+    }
+  }
+}
+
+// mx0 / mx1: the running maxima of the thread's rows g and g + 8, taken over
+// s (reduced across the row's four threads in rescale)
+__device__ __forceinline__ void row_max(const float (&s)[kBlockN / 8][4], float& mx0,
+                                        float& mx1) {
+#pragma unroll
+  for (int n = 0; n < kBlockN / 8; ++n) {
+    mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+  }
+}
+
+// The rows' new max from the threads' maxima mx0 / mx1 (each tile holds at
+// least one valid column, so it is finite and the first tile's alpha is
+// exp2(-inf) = 0), and l and o rescaled to it.
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N][4], float& m0, float& m1, float& l0,
+                                        float& l1, float mx0, float mx1) {
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  l0 *= alpha0;
+  l1 *= alpha1;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    o[n][0] *= alpha0;
+    o[n][1] *= alpha0;
+    o[n][2] *= alpha1;
+    o[n][3] *= alpha1;
+  }
+}
+
 template <int DK, bool kPvInt8, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
                       const void* __restrict__ v, const float* __restrict__ sc,
                       OutT* __restrict__ out, float* __restrict__ lse, int sq, int sk,
-                      int d) {
+                      int d, int block_k) {
   constexpr int kP = pitch8<DK>();
   constexpr int kSteps = DK / 16;  // s8 m16n8k16 steps over the head dim
   constexpr int kScoreTiles = kBlockN / 8;
@@ -157,118 +226,107 @@ flash_fwd_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k
   for (int n = 0; n < kOutTiles; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  for (int kv0 = 0; kv0 < sk; kv0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous tile (or q)
-    stage_s8<kBlockN, DK>(k_s, kb, kv0, sk, d, tid);
-    if constexpr (kPvInt8) {
-      stage_vt_s8<DK>(vt8_s, static_cast<const int8_t*>(v) + (size_t)bh * sk * d, kv0,
-                      sk, d, tid);
-    } else {
-      e4t::stage_tile<kBlockN, DK>(nullptr, 0, vt_s, kVtPitch, 0, DK,
-                                   static_cast<const bf16*>(v) + (size_t)bh * sk * d,
-                                   kv0, sk, d, tid);
-    }
-    __syncthreads();
-
-    int si[kScoreTiles][4];
-#pragma unroll
-    for (int n = 0; n < kScoreTiles; ++n) si[n][0] = si[n][1] = si[n][2] = si[n][3] = 0;
-#pragma unroll
-    for (int st = 0; st < kSteps; ++st) {
-#pragma unroll
-      for (int n = 0; n < kScoreTiles; ++n)
-        e4t::mma_s8_16816(si[n], qf[st],
-                          e4t::ld32(k_s + (n * 8 + g) * kP + st * 16 + t4 * 4));
-    }
-
-    float s[kScoreTiles][4];
+  // "qkpv": quant tiles of block_k kv rows (a multiple of kBlockN), each
+  // in two passes over its sub-tiles: (a) the s8 products and the row max
+  // only, (b) p against that max, quantized, and P@V into an int32
+  // accumulator added once per quant tile. "qk": online 64-row tiles.
+  const int quant = kPvInt8 ? block_k : kBlockN;
+  for (int t0 = 0; t0 < sk; t0 += quant) {
+    const int t1 = min(t0 + quant, sk);
     float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < kScoreTiles; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool valid = kv0 + n * 8 + t4 * 2 + e < sk;
-        s[n][e] = valid ? (float)si[n][e] * qk_log2 : -INFINITY;
-        s[n][2 + e] = valid ? (float)si[n][2 + e] * qk_log2 : -INFINITY;
-        mx0 = fmaxf(mx0, s[n][e]);
-        mx1 = fmaxf(mx1, s[n][2 + e]);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // every tile holds at least one valid column, so mx is finite here and
-    // the first tile's alpha is exp2(-inf) = 0
-    const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= alpha0;
-    l1 *= alpha1;
-#pragma unroll
-    for (int n = 0; n < kOutTiles; ++n) {
-      o[n][0] *= alpha0;
-      o[n][1] *= alpha0;
-      o[n][2] *= alpha1;
-      o[n][3] *= alpha1;
-    }
-
     if constexpr (kPvInt8) {
-      // p quantized to round(p * 127) in [0, 127]; pq[n] pairs as in s
-      int pq[kScoreTiles][4];
-#pragma unroll
-      for (int n = 0; n < kScoreTiles; ++n) {
-        const float p00 = exp2f(s[n][0] - m0), p01 = exp2f(s[n][1] - m0);
-        const float p10 = exp2f(s[n][2] - m1), p11 = exp2f(s[n][3] - m1);
-        l0 += p00 + p01;
-        l1 += p10 + p11;
-        pq[n][0] = __float2int_rn(p00 * 127.f);
-        pq[n][1] = __float2int_rn(p01 * 127.f);
-        pq[n][2] = __float2int_rn(p10 * 127.f);
-        pq[n][3] = __float2int_rn(p11 * 127.f);
+      for (int kv0 = t0; kv0 < t1; kv0 += kBlockN) {
+        __syncthreads();  // every warp is done with the previous tile (or q)
+        stage_s8<kBlockN, DK>(k_s, kb, kv0, sk, d, tid);
+        __syncthreads();
+        float s[kScoreTiles][4];
+        tile_scores<DK>(s, qf, k_s, kv0, sk, qk_log2, g, t4);
+        row_max(s, mx0, mx1);
       }
-      int ci[kOutTiles][4];
+      rescale(o, m0, m1, l0, l1, mx0, mx1);
+    }
+    int ci[kPvInt8 ? kOutTiles : 1][4];
 #pragma unroll
-      for (int n = 0; n < kOutTiles; ++n) ci[n][0] = ci[n][1] = ci[n][2] = ci[n][3] = 0;
+    for (int n = 0; n < (kPvInt8 ? kOutTiles : 1); ++n)
+      ci[n][0] = ci[n][1] = ci[n][2] = ci[n][3] = 0;
+    for (int kv0 = t0; kv0 < t1; kv0 += kBlockN) {
+      __syncthreads();  // every warp is done with the previous tile (or q)
+      stage_s8<kBlockN, DK>(k_s, kb, kv0, sk, d, tid);
+      if constexpr (kPvInt8) {
+        stage_vt_s8<DK>(vt8_s, static_cast<const int8_t*>(v) + (size_t)bh * sk * d, kv0,
+                        sk, d, tid);
+      } else {
+        e4t::stage_tile<kBlockN, DK>(nullptr, 0, vt_s, kVtPitch, 0, DK,
+                                     static_cast<const bf16*>(v) + (size_t)bh * sk * d,
+                                     kv0, sk, d, tid);
+      }
+      __syncthreads();
+
+      float s[kScoreTiles][4];
+      tile_scores<DK>(s, qf, k_s, kv0, sk, qk_log2, g, t4);
+      if constexpr (!kPvInt8) {
+        row_max(s, mx0, mx1);
+        rescale(o, m0, m1, l0, l1, mx0, mx1);
+      }
+
+      if constexpr (kPvInt8) {
+        // p quantized to round(p * 127) in [0, 127]; pq[n] pairs as in s
+        int pq[kScoreTiles][4];
 #pragma unroll
-      for (int h = 0; h < kBlockN / 32; ++h) {
-        // k32 step h covers score tiles 4h..4h+3: 16-column chunks 2h, 2h+1
-        uint32_t a[4];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int n = 4 * h + 2 * c;
-          a[2 * c] = e4t::pack_s8(pq[n][0], pq[n][1], pq[n + 1][0], pq[n + 1][1]);
-          a[2 * c + 1] = e4t::pack_s8(pq[n][2], pq[n][3], pq[n + 1][2], pq[n + 1][3]);
+        for (int n = 0; n < kScoreTiles; ++n) {
+          const float p00 = exp2f(s[n][0] - m0), p01 = exp2f(s[n][1] - m0);
+          const float p10 = exp2f(s[n][2] - m1), p11 = exp2f(s[n][3] - m1);
+          l0 += p00 + p01;
+          l1 += p10 + p11;
+          pq[n][0] = __float2int_rn(p00 * 127.f);
+          pq[n][1] = __float2int_rn(p01 * 127.f);
+          pq[n][2] = __float2int_rn(p10 * 127.f);
+          pq[n][3] = __float2int_rn(p11 * 127.f);
         }
 #pragma unroll
-        for (int n = 0; n < kOutTiles; ++n) {
-          const int8_t* p = vt8_s + (n * 8 + g) * kVt8Pitch + h * 32 + t4 * 4;
-          e4t::mma_s8_16832(ci[n], a, e4t::ld32(p), e4t::ld32(p + 16));
+        for (int h = 0; h < kBlockN / 32; ++h) {
+          // k32 step h covers score tiles 4h..4h+3: 16-column chunks 2h, 2h+1
+          uint32_t a[4];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int n = 4 * h + 2 * c;
+            a[2 * c] = e4t::pack_s8(pq[n][0], pq[n][1], pq[n + 1][0], pq[n + 1][1]);
+            a[2 * c + 1] = e4t::pack_s8(pq[n][2], pq[n][3], pq[n + 1][2], pq[n + 1][3]);
+          }
+#pragma unroll
+          for (int n = 0; n < kOutTiles; ++n) {
+            const int8_t* p = vt8_s + (n * 8 + g) * kVt8Pitch + h * 32 + t4 * 4;
+            e4t::mma_s8_16832(ci[n], a, e4t::ld32(p), e4t::ld32(p + 16));
+          }
+        }
+      } else {
+        // p in the accumulator layout is already the A-fragment layout of the
+        // bf16 P@V product: score tiles 2j and 2j+1 form k-step j
+        uint32_t pa[kScoreTiles / 2][4];
+#pragma unroll
+        for (int n = 0; n < kScoreTiles; ++n) {
+          const float p00 = exp2f(s[n][0] - m0), p01 = exp2f(s[n][1] - m0);
+          const float p10 = exp2f(s[n][2] - m1), p11 = exp2f(s[n][3] - m1);
+          l0 += p00 + p01;
+          l1 += p10 + p11;
+          pa[n >> 1][(n & 1) * 2 + 0] = e4t::pack_bf16(p00, p01);
+          pa[n >> 1][(n & 1) * 2 + 1] = e4t::pack_bf16(p10, p11);
+        }
+#pragma unroll
+        for (int j = 0; j < kScoreTiles / 2; ++j) {
+#pragma unroll
+          for (int n = 0; n < kOutTiles; ++n)
+            e4t::mma_bt(o[n], pa[j], vt_s, kVtPitch, n * 8, j * 16, g, t4);
         }
       }
+    }
+    if constexpr (kPvInt8) {
+      // the quant tile's exact int32 sums, added once as the reference adds
+      // its tile's product: acc = acc * alpha + contrib
 #pragma unroll
       for (int n = 0; n < kOutTiles; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[n][e] += (float)ci[n][e];
-      }
-    } else {
-      // p in the accumulator layout is already the A-fragment layout of the
-      // bf16 P@V product: score tiles 2j and 2j+1 form k-step j
-      uint32_t pa[kScoreTiles / 2][4];
-#pragma unroll
-      for (int n = 0; n < kScoreTiles; ++n) {
-        const float p00 = exp2f(s[n][0] - m0), p01 = exp2f(s[n][1] - m0);
-        const float p10 = exp2f(s[n][2] - m1), p11 = exp2f(s[n][3] - m1);
-        l0 += p00 + p01;
-        l1 += p10 + p11;
-        pa[n >> 1][(n & 1) * 2 + 0] = e4t::pack_bf16(p00, p01);
-        pa[n >> 1][(n & 1) * 2 + 1] = e4t::pack_bf16(p10, p11);
-      }
-#pragma unroll
-      for (int j = 0; j < kScoreTiles / 2; ++j) {
-#pragma unroll
-        for (int n = 0; n < kOutTiles; ++n)
-          e4t::mma_bt(o[n], pa[j], vt_s, kVtPitch, n * 8, j * 16, g, t4);
       }
     }
   }
@@ -298,7 +356,7 @@ flash_fwd_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k
 
 template <int DK, bool kPvInt8, typename OutT>
 int launch(const void* q, const void* k, const void* v, const void* sc, void* out,
-           void* lse, int bh, int sq, int sk, int d, cudaStream_t stream) {
+           void* lse, int bh, int sq, int sk, int d, int block_k, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DK, kPvInt8>();
   const cudaError_t err =
       e4t::allow_smem(flash_fwd_int8_kernel<DK, kPvInt8, OutT>, smem);
@@ -307,24 +365,37 @@ int launch(const void* q, const void* k, const void* v, const void* sc, void* ou
   flash_fwd_int8_kernel<DK, kPvInt8, OutT><<<grid, kThreads, smem, stream>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(k), v,
       static_cast<const float*>(sc), static_cast<OutT*>(out), static_cast<float*>(lse),
-      sq, sk, d);
+      sq, sk, d, block_k);
   return (int)cudaGetLastError();
 }
 
 template <bool kPvInt8, typename OutT>
 int dispatch(const void* q, const void* k, const void* v, const void* sc, void* out,
-             void* lse, int bh, int sq, int sk, int d, cudaStream_t s) {
+             void* lse, int bh, int sq, int sk, int d, int bk, cudaStream_t s) {
   switch ((d + 15) / 16 * 16) {
-    case 16: return launch<16, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 32: return launch<32, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 48: return launch<48, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 64: return launch<64, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 80: return launch<80, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 96: return launch<96, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 112: return launch<112, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-    case 128: return launch<128, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
+    case 16: return launch<16, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+    case 32: return launch<32, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+    case 48: return launch<48, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+    case 64: return launch<64, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+    case 80: return launch<80, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+    case 96: return launch<96, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+    case 112: return launch<112, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+    case 128: return launch<128, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+int dispatch_all(const void* q, const void* k, const void* v, const void* sc, void* out,
+                 void* lse, int bh, int sq, int sk, int d, int pv_int8, int out_f32, int bk,
+                 cudaStream_t s) {
+  if (out_f32) return dispatch<true, float>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+  return pv_int8 ? dispatch<true, bf16>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s)
+                 : dispatch<false, bf16>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+}
+
+bool bad_shape(int bh, int sq, int sk, int d, int pv_int8, int out_f32, int block_k) {
+  return bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 || d <= 0 || d % 8 != 0 || d >= 128 ||
+         (out_f32 && !pv_int8) || block_k <= 0 || block_k % kBlockN != 0;
 }
 
 }  // namespace
@@ -334,16 +405,25 @@ int dispatch(const void* q, const void* k, const void* v, const void* sc, void* 
 // D a multiple of 8 below 128; sc contiguous f32 (BH, 2); out (BH, Sq, D) in
 // bf16, or in f32 where out_f32 != 0 ("qkpv" only: the only change is the
 // epilogue's store; "qk" in f32 takes an f32 v, attention_f32.cu); lse f32
-// (BH, Sq). Runs on ``stream``, allocates nothing and does not synchronise.
-// Returns cudaGetLastError() after the launch.
+// (BH, Sq); block_k the "qkpv" quant tile, a positive multiple of 64. Runs
+// on ``stream``, allocates nothing and does not synchronise. Returns
+// cudaGetLastError() after the launch.
 extern "C" int e4t_flash_fwd_int8(const void* q, const void* k, const void* v,
                                   const void* sc, void* out, void* lse, int bh, int sq,
-                                  int sk, int d, int pv_int8, int out_f32, void* stream) {
-  if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 || d <= 0 || d % 8 != 0 || d >= 128 ||
-      (out_f32 && !pv_int8))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_f32) return dispatch<true, float>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
-  return pv_int8 ? dispatch<true, bf16>(q, k, v, sc, out, lse, bh, sq, sk, d, s)
-                 : dispatch<false, bf16>(q, k, v, sc, out, lse, bh, sq, sk, d, s);
+                                  int sk, int d, int pv_int8, int out_f32, int block_k,
+                                  void* stream) {
+  if (bad_shape(bh, sq, sk, d, pv_int8, out_f32, block_k)) return (int)cudaErrorInvalidValue;
+  return dispatch_all(q, k, v, sc, out, lse, bh, sq, sk, d, pv_int8, out_f32, block_k,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The same function by the synchronous design: the yardstick chip_smoke.py
+// times the kernel against. No path calls it.
+extern "C" int e4t_flash_fwd_int8_sync(const void* q, const void* k, const void* v,
+                                       const void* sc, void* out, void* lse, int bh,
+                                       int sq, int sk, int d, int pv_int8, int out_f32,
+                                       int block_k, void* stream) {
+  if (bad_shape(bh, sq, sk, d, pv_int8, out_f32)) return (int)cudaErrorInvalidValue;
+  return dispatch_all(q, k, v, sc, out, lse, bh, sq, sk, d, pv_int8, out_f32,
+                      static_cast<cudaStream_t>(stream));
 }

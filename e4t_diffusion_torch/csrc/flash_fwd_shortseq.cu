@@ -207,19 +207,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int s
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes. q/k/v/out are contiguous (BH, S, D) bf16,
-// 16-byte aligned, S up to 512, D a multiple of 8 up to 128. Runs on
-// ``stream``, allocates nothing and does not synchronise. Returns
-// cudaGetLastError() after the launch.
-extern "C" int e4t_flash_fwd_shortseq(const void* q, const void* k, const void* v,
-                                      void* out, int bh, int s, int d, float scale,
-                                      void* stream) {
-  if (bh <= 0 || bh > 65535 || s <= 0 || s > kMaxSeq || d <= 0 || d % 8 != 0 || d > 128)
-    return (int)cudaErrorInvalidValue;
-  const float scale_log2 = scale * e4t::kLog2e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The launch for a padded head dim, by the synchronous design.
+int dispatch_sync(const void* q, const void* k, const void* v, void* out, int bh, int s,
+                  int d, float scale_log2, cudaStream_t st) {
   switch (e4t::padded_head_dim(d)) {
     case 16: return launch<16>(q, k, v, out, bh, s, d, scale_log2, st);
     case 32: return launch<32>(q, k, v, out, bh, s, d, scale_log2, st);
@@ -231,4 +221,32 @@ extern "C" int e4t_flash_fwd_shortseq(const void* q, const void* k, const void* 
     case 128: return launch<128>(q, k, v, out, bh, s, d, scale_log2, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+bool bad_shape(int bh, int s, int d) {
+  return bh <= 0 || bh > 65535 || s <= 0 || s > kMaxSeq || d <= 0 || d % 8 != 0 || d > 128;
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes. q/k/v/out are contiguous (BH, S, D) bf16,
+// 16-byte aligned, S up to 512, D a multiple of 8 up to 128. Runs on
+// ``stream``, allocates nothing and does not synchronise. Returns
+// cudaGetLastError() after the launch.
+extern "C" int e4t_flash_fwd_shortseq(const void* q, const void* k, const void* v,
+                                      void* out, int bh, int s, int d, float scale,
+                                      void* stream) {
+  if (bad_shape(bh, s, d)) return (int)cudaErrorInvalidValue;
+  return dispatch_sync(q, k, v, out, bh, s, d, scale * e4t::kLog2e,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The same function by the synchronous design: the yardstick chip_smoke.py
+// times the kernel against. No path calls it.
+extern "C" int e4t_flash_fwd_shortseq_sync(const void* q, const void* k, const void* v,
+                                           void* out, int bh, int s, int d, float scale,
+                                           void* stream) {
+  if (bad_shape(bh, s, d)) return (int)cudaErrorInvalidValue;
+  return dispatch_sync(q, k, v, out, bh, s, d, scale * e4t::kLog2e,
+                       static_cast<cudaStream_t>(stream));
 }

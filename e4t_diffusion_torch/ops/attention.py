@@ -168,10 +168,13 @@ def int8_attention_operands(qf, kf, vf, scale: float, mode: str):
 
 
 def _int8_lowdim_path(qf, kf, vf, scale: float, mode: str) -> torch.Tensor:
-    """Quantize per head and call the int8 kernel; qf (BH, Sq, D_sub),
-    kf/vf (BH, Sk, D_sub) -> out (BH, Sq, D_sub) in qf's dtype."""
+    """Quantize per head and call the int8 kernel at the reference's kv tile
+    (``flash_int8.quant_tile``: ``E4T_FLASH_BLOCK_K``, read per call, capped
+    at round_up(Sk, 128)); qf (BH, Sq, D_sub), kf/vf (BH, Sk, D_sub) -> out
+    (BH, Sq, D_sub) in qf's dtype."""
     qi, ki, v_op, sc = int8_attention_operands(qf, kf, vf, scale, mode)
-    out, _ = flash_int8.flash_fwd_int8(qi, ki, v_op, sc, mode, qf.dtype)
+    out, _ = flash_int8.flash_fwd_int8(qi, ki, v_op, sc, mode, qf.dtype,
+                                       flash_int8.quant_tile(kf.shape[1]))
     return out
 
 

@@ -16,7 +16,7 @@ the JAX package leaves it to XLA. Forward only: serving runs it under
 ``flash_fwd_int8`` launches the kernel for CUDA tensors, raises on anything
 the kernels do not take, and counts its launches by the kernel it took
 (``flash_fwd_int8.launches["bf16"]``, ``["qk_f32"]`` and ``["qkpv_f32"]``).
-For CPU tensors it runs ``flash_fwd_int8_reference`` at the kernel's kv
+For CPU tensors it runs ``flash_fwd_int8_reference`` at the same kv
 tile, the plain PyTorch version the tests hold against JAX and
 ``chip_smoke.py`` holds the kernels against. The source notes give the
 bound on the H100 and how each design meets it.
@@ -24,7 +24,8 @@ bound on the H100 and how each design meets it.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,21 +34,48 @@ from e4t_diffusion_torch.ops.flash_lowdim import F32_SOURCE, KERNEL_DTYPES
 
 SOURCE = "flash_fwd_int8"
 MODES = ("qk", "qkpv")
-# kv rows per tile in the kernel: in "qkpv" mode p is quantized against the
-# running max of the tiles seen so far, so the result depends on it
+# kv rows per sub-tile in the kernels; the quant tile is a multiple of it
 KERNEL_BLOCK_K = 64
+# The kv tile of the int8 route: in "qkpv" mode p is quantized against the
+# running max of the tiles seen so far, so the result depends on it. The
+# reference's tile is min(E4T_FLASH_BLOCK_K, round_up(Sk, 128))
+# (e4t_diffusion_tpu/ops/attention.py:93,181-188), the knob 512 by default;
+# the port reads the knob per call.
+BLOCK_K_KNOB = "E4T_FLASH_BLOCK_K"
+DEFAULT_BLOCK_K = 512
 # head dims (multiples of 8) the kernel takes: the low-dim route
 MAX_D = 120
 _NEG_INF = -1e30
 
 
+def block_k_knob() -> int:
+    """``E4T_FLASH_BLOCK_K``, read per call (512 when unset): a positive
+    multiple of ``KERNEL_BLOCK_K``, else a ValueError naming the knob."""
+    raw = os.environ.get(BLOCK_K_KNOB, str(DEFAULT_BLOCK_K))
+    try:
+        value = int(raw)
+    except ValueError:
+        value = 0
+    if value <= 0 or value % KERNEL_BLOCK_K:
+        raise ValueError(f"{BLOCK_K_KNOB}={raw!r}: the int8 attention's kv "
+                         f"tile must be a positive multiple of "
+                         f"{KERNEL_BLOCK_K}")
+    return value
+
+
+def quant_tile(sk: int) -> int:
+    """The route's kv tile for Sk kv rows, the reference's rule:
+    min(E4T_FLASH_BLOCK_K, round_up(Sk, 128))."""
+    return min(block_k_knob(), (sk + 127) // 128 * 128)
+
+
 def flash_fwd_int8_reference(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, sc: torch.Tensor, mode: str,
                              out_dtype: torch.dtype,
-                             block_k: int = KERNEL_BLOCK_K
+                             block_k: Optional[int] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The TPU kernel's loop (flash_kernels.py:760-810) over kv tiles of
-    ``block_k`` rows: q (BH, Sq, D) and k (BH, Sk, D) int8, v int8 ("qkpv")
+    ``block_k`` rows (``quant_tile(Sk)`` by default): q (BH, Sq, D) and k (BH, Sk, D) int8, v int8 ("qkpv")
     or the compute type ("qk"), sc (BH, 2) f32 -> (out (BH, Sq, D) in
     ``out_dtype``, lse (BH, Sq) f32). Scores are the exact int32 q k^T times
     ``sc[:, 0]``; p = exp(s - running max); l sums the f32 p; P@V adds
@@ -57,6 +85,8 @@ def flash_fwd_int8_reference(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"mode {mode!r}: one of {MODES}")
     bh, sq, _ = q.shape
     sk = k.shape[1]
+    if block_k is None:
+        block_k = quant_tile(sk)
     qk_c = sc[:, 0].float()[:, None, None]
     v_c = sc[:, 1].float()[:, None, None]
     # int8 products in float64 are exact (|sum| <= 127**2 * D)
@@ -136,40 +166,83 @@ def _check_kernel_inputs(q, k, v, sc, mode, out_dtype) -> None:
 
 
 def flash_fwd_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   sc: torch.Tensor, mode: str, out_dtype: torch.dtype
+                   sc: torch.Tensor, mode: str, out_dtype: torch.dtype,
+                   block_k: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Non-causal int8 attention forward -> (out (BH, Sq, D) in
-    ``out_dtype``, lse (BH, Sq) f32); ``flash_fwd_int8_reference`` gives the
-    arithmetic.
+    """Non-causal int8 attention forward over kv tiles of ``block_k`` rows
+    (``quant_tile(Sk)`` by default, a multiple of ``KERNEL_BLOCK_K``) ->
+    (out (BH, Sq, D) in ``out_dtype``, lse (BH, Sq) f32);
+    ``flash_fwd_int8_reference`` gives the arithmetic.
 
     CUDA tensors: contiguous, 16-byte aligned int8 q/k, v int8 ("qkpv") or
     in ``out_dtype`` ("qk"), f32 sc, D a multiple of 8 up to 120, out in
     bf16 or f32; launches the kernel on the current stream and counts it on
     ``flash_fwd_int8.launches[launch_key(mode, out_dtype)]``. CPU tensors:
-    the plain version at the kernel's kv tile."""
+    the plain version at the same tile."""
     _check(q, k, v, sc, mode)
+    block_k = _tile(k, block_k)
     if q.device.type == "cpu":
-        return flash_fwd_int8_reference(q, k, v, sc, mode, out_dtype)
+        return flash_fwd_int8_reference(q, k, v, sc, mode, out_dtype,
+                                        block_k)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_kernel_inputs(q, k, v, sc, mode, out_dtype)
-    bh, sq, d = q.shape
-    out = torch.empty((bh, sq, d), dtype=out_dtype, device=q.device)
-    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     key = launch_key(mode, out_dtype)
-    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), sc.data_ptr(),
-                out.data_ptr(), lse.data_ptr())
     if key == "qk_f32":
-        _build.launch(F32_SOURCE, "e4t_attn_fwd_int8_qk_f32",
-                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4, q.device,
-                      *pointers, bh, sq, k.shape[1], d)
+        out, lse = _launch(F32_SOURCE, "e4t_attn_fwd_int8_qk_f32", q, k, v, sc,
+                           out_dtype)
     else:
-        _build.launch(SOURCE, "e4t_flash_fwd_int8",
-                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6, q.device,
-                      *pointers, bh, sq, k.shape[1], d, int(mode == "qkpv"),
-                      int(key == "qkpv_f32"))
+        out, lse = _launch(SOURCE, "e4t_flash_fwd_int8", q, k, v, sc,
+                           out_dtype, int(mode == "qkpv"),
+                           int(key == "qkpv_f32"), block_k)
     flash_fwd_int8.launches[key] += 1
     return out, lse
 
 
 flash_fwd_int8.launches = {"bf16": 0, "qk_f32": 0, "qkpv_f32": 0}
+
+
+def flash_fwd_int8_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        sc: torch.Tensor, mode: str, out_dtype: torch.dtype,
+                        block_k: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 kernel by the synchronous mma.sync design
+    (``e4t_flash_fwd_int8_sync``, both modes, and the f32 output in "qkpv"):
+    the yardstick the kernel is timed and checked against. No path calls
+    it, and it counts no launch. CUDA tensors only, with the checks
+    ``flash_fwd_int8`` runs; "qk" with an f32 output is not its design."""
+    _check(q, k, v, sc, mode)
+    block_k = _tile(k, block_k)
+    if q.device.type != "cuda":
+        raise ValueError("flash_fwd_int8_sync runs on CUDA tensors only")
+    _check_kernel_inputs(q, k, v, sc, mode, out_dtype)
+    key = launch_key(mode, out_dtype)
+    if key == "qk_f32":
+        raise TypeError("flash_fwd_int8_sync: mode 'qk' writes bf16 only")
+    return _launch(SOURCE, "e4t_flash_fwd_int8_sync", q, k, v, sc, out_dtype,
+                   int(mode == "qkpv"), int(key == "qkpv_f32"), block_k)
+
+
+def _tile(k, block_k):
+    """``block_k``, or the route's tile for k's Sk; a tile that is not a
+    positive multiple of ``KERNEL_BLOCK_K`` raises."""
+    if block_k is None:
+        return quant_tile(k.shape[1])
+    if block_k <= 0 or block_k % KERNEL_BLOCK_K:
+        raise ValueError(f"kv tile {block_k}: a positive multiple of "
+                         f"{KERNEL_BLOCK_K}")
+    return block_k
+
+
+def _launch(source, symbol, q, k, v, sc, out_dtype, *flags):
+    """One int8 forward entry point of ``source`` on checked CUDA operands:
+    (out in ``out_dtype``, lse f32)."""
+    bh, sq, d = q.shape
+    out = torch.empty((bh, sq, d), dtype=out_dtype, device=q.device)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    _build.launch(source, symbol,
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * (4 + len(flags)),
+                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  sc.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, sq,
+                  k.shape[1], d, *flags)
+    return out, lse

@@ -87,6 +87,31 @@ def _check(q, k, v, g) -> None:
         raise ValueError(f"{g} heads per cell do not divide BH={bh}")
 
 
+def _check_kernel_inputs(q, k, v) -> torch.dtype:
+    """What the kernels take, checked on CUDA tensors before a launch;
+    returns the operands' one type."""
+    bh, s, d = q.shape
+    if not 0 < s <= MAX_SEQ:
+        raise ValueError(f"sequence {s}: the kernel takes up to {MAX_SEQ}")
+    if d % 8 != 0 or not 8 <= d <= MAX_D:
+        raise ValueError(f"head dim {d}: the kernel takes multiples of 8 up "
+                         f"to {MAX_D}")
+    if bh > 65535:
+        raise ValueError(f"BH={bh} exceeds the kernel's grid (65535)")
+    return check_operands(q=q, k=k, v=v)
+
+
+def _launch(source, symbol, q, k, v, scale) -> torch.Tensor:
+    bh, s, d = q.shape
+    out = torch.empty_like(q)
+    _build.launch(source, symbol,
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                  + [ctypes.c_float],
+                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), bh, s, d, float(scale))
+    return out
+
+
 def flash_fwd_shortseq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: float, g: int) -> torch.Tensor:
     """Self-attention forward over (BH, S, D) q/k/v, ``g`` heads per cell
@@ -101,25 +126,26 @@ def flash_fwd_shortseq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_fwd_shortseq_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    bh, s, d = q.shape
-    if not 0 < s <= MAX_SEQ:
-        raise ValueError(f"sequence {s}: the kernel takes up to {MAX_SEQ}")
-    if d % 8 != 0 or not 8 <= d <= MAX_D:
-        raise ValueError(f"head dim {d}: the kernel takes multiples of 8 up "
-                         f"to {MAX_D}")
-    if bh > 65535:
-        raise ValueError(f"BH={bh} exceeds the kernel's grid (65535)")
-    f32 = check_operands(q=q, k=k, v=v) == torch.float32
-    out = torch.empty_like(q)
-    _build.launch(F32_SOURCE if f32 else SOURCE,
-                  "e4t_attn_fwd_shortseq_f32" if f32
-                  else "e4t_flash_fwd_shortseq",
-                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                  + [ctypes.c_float],
-                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), bh, s, d, float(scale))
+    f32 = _check_kernel_inputs(q, k, v) == torch.float32
+    out = _launch(*((F32_SOURCE, "e4t_attn_fwd_shortseq_f32") if f32
+                    else (SOURCE, "e4t_flash_fwd_shortseq")), q, k, v, scale)
     flash_fwd_shortseq.launches["f32" if f32 else "bf16"] += 1
     return out
 
 
 flash_fwd_shortseq.launches = {"bf16": 0, "f32": 0}
+
+
+def flash_fwd_shortseq_sync(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: float, g: int
+                            ) -> torch.Tensor:
+    """The bf16 kernel by the synchronous mma.sync design
+    (``e4t_flash_fwd_shortseq_sync``): the yardstick the kernel is timed and
+    checked against. No path calls it, and it counts no launch. CUDA bf16
+    tensors only, with the checks ``flash_fwd_shortseq`` runs."""
+    _check(q, k, v, g)
+    if q.device.type != "cuda":
+        raise ValueError("flash_fwd_shortseq_sync runs on CUDA tensors only")
+    if _check_kernel_inputs(q, k, v) != torch.bfloat16:
+        raise TypeError("flash_fwd_shortseq_sync takes bf16 operands")
+    return _launch(SOURCE, "e4t_flash_fwd_shortseq_sync", q, k, v, scale)

@@ -214,6 +214,39 @@ def test_cuda_int8_flash_matches_reference(bh, sq, sk, d, mode):
     assert (lse - rl).abs().max().item() <= 2e-3
 
 
+# the int8 kernel at the route's quant tiles (128, 256, 512), ragged Sq and
+# Sk (Sk 1100: a last quant tile of 76 rows), one q row, D 40, 80, 120
+INT8_TILE_CASES = [(2, 300, 1100, 40, 512), (3, 129, 700, 80, 256),
+                   (2, 65, 300, 120, 128), (2, 257, 1024, 80, 512),
+                   (1, 1, 130, 40, 128), (3, 200, 4096, 40, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["qk", "qkpv"])
+@pytest.mark.parametrize("bh,sq,sk,d,tile", INT8_TILE_CASES)
+def test_cuda_int8_flash_tiles_match_reference_and_sync(bh, sq, sk, d, tile,
+                                                        mode):
+    """The int8 kernel at a quant tile against its plain version at that
+    tile and against the synchronous design (which counts no launch); a
+    second call equal to the first bit for bit."""
+    from e4t_diffusion_torch.ops import flash_int8 as fi
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    ops = _int8_attention_inputs(5, bh, sq, sk, d, mode)
+    before = fi.flash_fwd_int8.launches["bf16"]
+    out, lse = fi.flash_fwd_int8(*ops, mode, torch.bfloat16, tile)
+    again, _ = fi.flash_fwd_int8(*ops, mode, torch.bfloat16, tile)
+    sync, _ = fi.flash_fwd_int8_sync(*ops, mode, torch.bfloat16, tile)
+    torch.cuda.synchronize()
+    assert fi.flash_fwd_int8.launches["bf16"] == before + 2
+    assert torch.equal(out, again)
+    ro, rl = fi.flash_fwd_int8_reference(*ops, mode, torch.float32, tile)
+    assert _rel(out, ro) <= 1e-2
+    assert (lse - rl).abs().max().item() <= 2e-3
+    assert _rel(out, sync.float()) <= 1e-2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,h,w,c,o,k,stride,pad,bias", [
@@ -404,6 +437,32 @@ def test_cuda_shortseq_matches_reference(bh, s, d, g):
                                                 v.float(), d ** -0.5)
     # bf16 rounding of p and of the output: ~2e-3 rel-L2
     assert ((out.float() - ref).norm() / ref.norm()).item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [129, 257, 384, 512])
+@pytest.mark.parametrize("bh,d", [(3, 8), (4, 80), (5, 120)])
+def test_cuda_shortseq_matches_reference_and_sync(bh, s, d):
+    """The short-sequence kernel against its plain version and the
+    synchronous design (which counts no launch) on the same bf16 inputs; a
+    second call equal to the first bit for bit."""
+    from e4t_diffusion_torch.ops import shortseq
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v = _operands(11, bh, d, s, s, s)
+    g = 1
+    before = shortseq.flash_fwd_shortseq.launches["bf16"]
+    out = shortseq.flash_fwd_shortseq(q, k, v, d ** -0.5, g)
+    again = shortseq.flash_fwd_shortseq(q, k, v, d ** -0.5, g)
+    sync = shortseq.flash_fwd_shortseq_sync(q, k, v, d ** -0.5, g)
+    torch.cuda.synchronize()
+    assert shortseq.flash_fwd_shortseq.launches["bf16"] == before + 2
+    assert torch.equal(out, again)
+    ref = shortseq.flash_fwd_shortseq_reference(q.float(), k.float(),
+                                                v.float(), d ** -0.5)
+    assert _rel(out, ref) <= 1e-2
+    assert _rel(out, sync.float()) <= 1e-2
 
 
 @pytest.mark.cuda

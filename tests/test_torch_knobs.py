@@ -161,8 +161,8 @@ def test_operand_dtype(dtypes, want):
 def test_int8_reference_f32_matches_jax(mode):
     """``flash_fwd_int8_reference`` with an f32 v ("qk") and an f32 output,
     the function the f32 kernels compute, against the JAX int8 path in f32
-    (its Pallas kernel in interpret mode), at the kernel's kv tile: 1e-5,
-    as tests/test_torch_flash_int8.py holds the port's route."""
+    (its Pallas kernel in interpret mode), both at their default kv tile:
+    1e-5, as tests/test_torch_flash_int8.py holds the port's route."""
     rng = np.random.default_rng(21)
     b, h, sq, sk, d = 1, 2, 128, 90, 40
     q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
@@ -170,8 +170,7 @@ def test_int8_reference_f32_matches_jax(mode):
     v = rng.standard_normal((b, h, sk, d)).astype(np.float32)
     with jax_attention.int8_flash_attention(mode):
         ref = np.asarray(jax_attention.flash_attention(
-            *map(jnp.asarray, (q, k, v)), block_q=128,
-            block_k=fi.KERNEL_BLOCK_K))
+            *map(jnp.asarray, (q, k, v))))
     flat = [torch.from_numpy(t.reshape(b * h, -1, d)) for t in (q, k, v)]
     qi, ki, v_op, sc = attention.int8_attention_operands(*flat, d ** -0.5,
                                                          mode)

@@ -423,7 +423,7 @@ extern "C" int e4t_flash_fwd_int8_sync(const void* q, const void* k, const void*
                                        const void* sc, void* out, void* lse, int bh,
                                        int sq, int sk, int d, int pv_int8, int out_f32,
                                        int block_k, void* stream) {
-  if (bad_shape(bh, sq, sk, d, pv_int8, out_f32)) return (int)cudaErrorInvalidValue;
-  return dispatch_all(q, k, v, sc, out, lse, bh, sq, sk, d, pv_int8, out_f32,
+  if (bad_shape(bh, sq, sk, d, pv_int8, out_f32, block_k)) return (int)cudaErrorInvalidValue;
+  return dispatch_all(q, k, v, sc, out, lse, bh, sq, sk, d, pv_int8, out_f32, block_k,
                       static_cast<cudaStream_t>(stream));
 }

@@ -36,12 +36,24 @@
 
 #include <math.h>
 
+#include <algorithm>
+
 #include "flash_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
 using e4t::bf16;
+using e4t::fence_proxy_async;
+using e4t::fence_regs;
+using e4t::kMaxSmem;
 using e4t::kThreads;
+using e4t::smem_desc;
+using e4t::wgmma_commit;
+using e4t::wgmma_fence;
+using e4t::wgmma_rs_tile;
+using e4t::wgmma_ss_n64;
+using e4t::wgmma_wait;
 
 constexpr int kBlockM = 64;  // q rows per block: 4 warps x 16
 constexpr int kBlockN = 64;  // kv columns per score tile
@@ -207,6 +219,249 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int s
   return (int)cudaGetLastError();
 }
 
+// ---- warpgroup MMA (wgmma): one block per head, k and v resident ----
+
+// warpgroups per block, each owning one 64-row q tile at a time
+constexpr int kWgGroups = 2;
+constexpr int kWgThreads = 128 * kWgGroups;
+
+// blocks an SM should hold (the register budget __launch_bounds__ asks
+// for): two up to DK 80, where 128 registers a thread hold s, o and p
+template <int DK>
+constexpr int wgmma_min_blocks() { return DK <= 80 ? 2 : 1; }
+
+// the head's k (S rounded up to 8 rows; the last 64-row score tile reads
+// on into v, whose columns it masks), v (S rounded up to 16 rows, zero
+// past S: P V's k-steps stop there) and the warpgroups' q tiles, all in
+// the core-matrix layout
+__host__ __device__ constexpr size_t wgmma_smem_bytes(int dk, int s) {
+  return (size_t)2 * dk * (round_up(s, 8) + round_up(s, 16) + 64 * kWgGroups);
+}
+
+// Rows [0, rows) of a contiguous (n, d) bf16 tensor into a core-matrix tile
+// by 16-byte cp.async, shared by kWgThreads threads; chunks past row n or
+// column d read nothing and are filled with zeros.
+template <int DK>
+__device__ __forceinline__ void load_rows_async(unsigned char* dst, const bf16* src,
+                                                int rows, int n, int d, int tid) {
+  constexpr int kC = DK / 8;
+  for (int i = tid; i < rows * kC; i += kWgThreads) {
+    const int r = i / kC, c = i - r * kC;
+    const bool in = r < n && 8 * c < d;
+    e4t::cp_async_16(dst + e4t::core_offset(r, c, kC), in ? src + (size_t)r * d + 8 * c : src,
+                     in ? 16 : 0);
+  }
+}
+
+// S = Q K^T for the warpgroup's 64 q rows and the 64 kv rows of k tile kv0,
+// scaled to the log2 domain, columns at and beyond s set to -inf. s[4n + e]:
+// rows g (e < 2) and g + 8 of the warp's 16, column 8n + 2 t4 + (e & 1).
+template <int DK>
+__device__ __forceinline__ void wgmma_scores(float (&sc)[32], const unsigned char* q_wg,
+                                             const unsigned char* k_s, int kv0, int s,
+                                             float scale_log2, int t4) {
+  constexpr int kGroup = DK / 8 * 128;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  fence_regs(sc);
+  wgmma_fence();
+  const unsigned char* kt = k_s + (kv0 / 8) * kGroup;
+#pragma unroll
+  for (int st = 0; st < DK / 16; ++st)
+    wgmma_ss_n64(sc, smem_desc(q_wg + st * 256, 128, kGroup),
+                 smem_desc(kt + st * 256, 128, kGroup), st);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  const bool ragged = kv0 + kBlockN > s;
+#pragma unroll
+  for (int n = 0; n < kBlockN / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool valid = !ragged || kv0 + n * 8 + t4 * 2 + e < s;
+      sc[4 * n + e] = valid ? sc[4 * n + e] * scale_log2 : -INFINITY;
+      sc[4 * n + 2 + e] = valid ? sc[4 * n + 2 + e] * scale_log2 : -INFINITY;
+    }
+  }
+}
+
+// One block per (head, split): the head's whole k and v land in shared
+// memory once, by cp.async, and the block's warpgroups walk its q tiles
+// (tiles split, split + n_splits, ...; warpgroup w takes every kWgGroups-th
+// of them from the w-th). For each q tile a warpgroup runs pass 1 (S tile
+// by tile by wgmma, the row max only) and pass 2 (S again, p = exp2(s - m)
+// against the final max, l, and O += P V by wgmma with p from registers and
+// v read MN-major), then writes out = O / l. Rounds are uniform over the
+// block, so the one block barrier (v has landed) is reached by every thread.
+template <int DK>
+__global__ void __launch_bounds__(kWgThreads, wgmma_min_blocks<DK>())
+shortseq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ out, int s, int d,
+                      float scale_log2, int n_splits) {
+  constexpr int kC = DK / 8;
+  constexpr int kGroup = kC * 128;  // bytes of 8 rows
+  constexpr int kOut = DK / 2;      // f32 output accumulators a thread
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* k_s = smem_raw;
+  unsigned char* v_s = k_s + (size_t)round_up(s, 8) * kC * 16;
+  unsigned char* q_s = v_s + (size_t)round_up(s, 16) * kC * 16;
+
+  const int bh = blockIdx.y;
+  const int split = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int wi = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const size_t head = (size_t)bh * s * d;
+  const int n_kv = (s + kBlockN - 1) / kBlockN;
+  // the block's q tiles: split, split + n_splits, ... below n_kv
+  const int n_mine = (n_kv - split + n_splits - 1) / n_splits;
+  const int rounds = (n_mine + kWgGroups - 1) / kWgGroups;
+  unsigned char* q_wg = q_s + wg * 8 * kGroup;
+
+  // prologue: the warpgroups' first q tiles and k (group 0), then v (1)
+  if (wg < n_mine)
+    e4t::load_core_async<64, DK, 128>(q_wg, q + head, split * 64 + wg * n_splits * 64, s, d,
+                                      tid & 127);
+  load_rows_async<DK>(k_s, k + head, round_up(s, 8), s, d, tid);
+  e4t::cp_async_commit();
+  load_rows_async<DK>(v_s, v + head, round_up(s, 16), s, d, tid);
+  e4t::cp_async_commit();
+  e4t::cp_async_wait<1>();
+  fence_proxy_async();
+  __syncthreads();
+
+  for (int r = 0; r < rounds; ++r) {
+    const int i = r * kWgGroups + wg;
+    const bool mine = i < n_mine;
+    const int q0 = (split + i * n_splits) * 64;
+    if (r > 0 && mine) {
+      // this warpgroup's wgmmas on its last q tile are complete
+      e4t::load_core_async<64, DK, 128>(q_wg, q + head, q0, s, d, tid & 127);
+      e4t::cp_async_commit();
+      e4t::cp_async_wait<0>();
+      fence_proxy_async();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
+    float m0 = -INFINITY, m1 = -INFINITY;
+    if (mine) {
+      // pass 1: the row max over the whole row
+      for (int kv0 = 0; kv0 < s; kv0 += kBlockN) {
+        float sc[32];
+        wgmma_scores<DK>(sc, q_wg, k_s, kv0, s, scale_log2, t4);
+#pragma unroll
+        for (int n = 0; n < kBlockN / 8; ++n) {
+          m0 = fmaxf(m0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+          m1 = fmaxf(m1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+        }
+      }
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+    }
+    if (r == 0) {  // v has landed, for every warpgroup
+      e4t::cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+    }
+    if (!mine) continue;
+
+    // pass 2: p = exp2(s - m) against the final max, l, and O += P V
+    float o[kOut];
+#pragma unroll
+    for (int n = 0; n < kOut; ++n) o[n] = 0.f;
+    float l0 = 0.f, l1 = 0.f;
+    for (int kv0 = 0; kv0 < s; kv0 += kBlockN) {
+      float sc[32];
+      wgmma_scores<DK>(sc, q_wg, k_s, kv0, s, scale_log2, t4);
+      // p in the accumulator layout is the A-fragment layout of P V: score
+      // columns 16kk..16kk+15 form k-step kk; an 8-column group wholly past
+      // s is p = 0 without an exponential
+      uint32_t pa[kBlockN / 16][4];
+#pragma unroll
+      for (int n = 0; n < kBlockN / 8; ++n) {
+        float p00 = 0.f, p01 = 0.f, p10 = 0.f, p11 = 0.f;
+        if (kv0 + n * 8 < s) {
+          p00 = exp2f(sc[4 * n + 0] - m0);
+          p01 = exp2f(sc[4 * n + 1] - m0);
+          p10 = exp2f(sc[4 * n + 2] - m1);
+          p11 = exp2f(sc[4 * n + 3] - m1);
+          l0 += p00 + p01;
+          l1 += p10 + p11;
+        }
+        pa[n >> 1][(n & 1) * 2 + 0] = e4t::pack_bf16(p00, p01);
+        pa[n >> 1][(n & 1) * 2 + 1] = e4t::pack_bf16(p10, p11);
+      }
+      const int steps = min(kBlockN / 16, (s - kv0 + 15) / 16);
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+        if (kk < steps)
+          wgmma_rs_tile<DK>(o, pa[kk], v_s + (kv0 / 8 + 2 * kk) * kGroup, kGroup);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;  // l >= 1: the max's own p
+    const int row0 = q0 + wi * 16 + g, row1 = row0 + 8;
+    bf16* ob = out + head;
+#pragma unroll
+    for (int n = 0; n < kOut / 4; ++n) {
+      const int col = n * 8 + t4 * 2;
+      if (col < d) {
+        if (row0 < s)
+          *reinterpret_cast<uint32_t*>(&ob[(size_t)row0 * d + col]) =
+              e4t::pack_bf16(o[4 * n + 0] * inv0, o[4 * n + 1] * inv0);
+        if (row1 < s)
+          *reinterpret_cast<uint32_t*>(&ob[(size_t)row1 * d + col]) =
+              e4t::pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+      }
+    }
+  }
+}
+
+// The SMs of the current device, read once.
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+template <int DK>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int bh, int s,
+                 int d, float scale_log2, cudaStream_t stream) {
+  const size_t smem = wgmma_smem_bytes(DK, s);
+  const cudaError_t err = e4t::allow_smem(shortseq_wgmma_kernel<DK>, smem);
+  if (err != cudaSuccess) return (int)err;
+  // below one head an SM, the q tiles of a head split over blocks (each
+  // loading the head's k and v) so that the grid still fills the card
+  const int n_kv = (s + kBlockN - 1) / kBlockN;
+  const int n_splits = std::min(n_kv, (sm_count() + bh - 1) / bh);
+  const dim3 grid(n_splits, bh);
+  shortseq_wgmma_kernel<DK><<<grid, kWgThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), s, d, scale_log2, n_splits);
+  return (int)cudaGetLastError();
+}
+
+// ---- the synchronous design, kept as the yardstick ----
+
 // The launch for a padded head dim, by the synchronous design.
 int dispatch_sync(const void* q, const void* k, const void* v, void* out, int bh, int s,
                   int d, float scale_log2, cudaStream_t st) {
@@ -230,15 +485,31 @@ bool bad_shape(int bh, int s, int d) {
 }  // namespace
 
 // Plain C entry point for ctypes. q/k/v/out are contiguous (BH, S, D) bf16,
-// 16-byte aligned, S up to 512, D a multiple of 8 up to 128. Runs on
-// ``stream``, allocates nothing and does not synchronise. Returns
-// cudaGetLastError() after the launch.
+// 16-byte aligned, S up to 512, D a multiple of 8 up to 128. The wgmma
+// kernel wherever the head's k and v fit a block's shared memory beside
+// its q tiles (every S the route takes up to D 104, up to S 448 at D 112
+// and up to S 384 at D 120-128); above that the synchronous design, which
+// keeps only k resident. Runs on ``stream``, allocates nothing and does
+// not synchronise. Returns cudaGetLastError() after the launch.
 extern "C" int e4t_flash_fwd_shortseq(const void* q, const void* k, const void* v,
                                       void* out, int bh, int s, int d, float scale,
                                       void* stream) {
   if (bad_shape(bh, s, d)) return (int)cudaErrorInvalidValue;
-  return dispatch_sync(q, k, v, out, bh, s, d, scale * e4t::kLog2e,
-                       static_cast<cudaStream_t>(stream));
+  const float sl = scale * e4t::kLog2e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int dk = e4t::padded_head_dim(d);
+  if (wgmma_smem_bytes(dk, s) > kMaxSmem) return dispatch_sync(q, k, v, out, bh, s, d, sl, st);
+  switch (dk) {
+    case 16: return launch_wgmma<16>(q, k, v, out, bh, s, d, sl, st);
+    case 32: return launch_wgmma<32>(q, k, v, out, bh, s, d, sl, st);
+    case 48: return launch_wgmma<48>(q, k, v, out, bh, s, d, sl, st);
+    case 64: return launch_wgmma<64>(q, k, v, out, bh, s, d, sl, st);
+    case 80: return launch_wgmma<80>(q, k, v, out, bh, s, d, sl, st);
+    case 96: return launch_wgmma<96>(q, k, v, out, bh, s, d, sl, st);
+    case 112: return launch_wgmma<112>(q, k, v, out, bh, s, d, sl, st);
+    case 128: return launch_wgmma<128>(q, k, v, out, bh, s, d, sl, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The same function by the synchronous design: the yardstick chip_smoke.py

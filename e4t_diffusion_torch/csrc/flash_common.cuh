@@ -125,6 +125,15 @@ __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, int sr
                "r"(src_bytes));
 }
 
+// 8-byte asynchronous copy global -> shared (cp.async.ca: 8 bytes need only
+// 8-byte alignment, as int8 rows of a head dim that is a multiple of 8
+// have); src_bytes = 0 reads nothing and writes zeros.
+__device__ __forceinline__ void cp_async_8(void* smem, const void* gmem, int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
 // 4-byte asynchronous copy global -> shared (cp.async.ca: 4 bytes need
 // only 4-byte alignment); src_bytes = 0 reads nothing and writes a zero.
 __device__ __forceinline__ void cp_async_4(void* smem, const void* gmem, int src_bytes) {

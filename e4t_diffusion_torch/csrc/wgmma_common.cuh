@@ -77,6 +77,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)

@@ -50,6 +50,7 @@ namespace {
 
 using e4t::bf16;
 using e4t::core_offset;
+using e4t::exp2_approx;
 using e4t::fence_proxy_async;
 using e4t::fence_regs;
 using e4t::kThreads;
@@ -784,7 +785,7 @@ flash_fwd_int8_wgmma_kernel(const int8_t* __restrict__ q, const int8_t* __restri
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-        const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
+        const float alpha0 = exp2_approx(m0 - mx0), alpha1 = exp2_approx(m1 - mx1);
         m0 = mx0;
         m1 = mx1;
         l0 *= alpha0;
@@ -799,11 +800,12 @@ flash_fwd_int8_wgmma_kernel(const int8_t* __restrict__ q, const int8_t* __restri
       }
     }
     if (!st.pass_a) {
-      // p = exp2(s * qk_c log2 e - m), 0 where masked
+      // p = 2^(s qk_c log2 e - m) by one fma and ex2.approx, 0 where masked
       float p[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i)
-        p[i] = valid(i) ? exp2f(i2f_exact(si[i]) * qk_log2 - ((i & 2) ? m1 : m0)) : 0.f;
+        p[i] = valid(i) ? exp2_approx(fmaf(i2f_exact(si[i]), qk_log2, (i & 2) ? -m1 : -m0))
+                        : 0.f;
 #pragma unroll
       for (int n = 0; n < kBlockN / 8; ++n) {
         l0 += p[4 * n + 0] + p[4 * n + 1];

@@ -44,6 +44,7 @@
 namespace {
 
 using e4t::bf16;
+using e4t::exp2_approx;
 using e4t::fence_proxy_async;
 using e4t::fence_regs;
 using e4t::kMaxSmem;
@@ -254,12 +255,12 @@ __device__ __forceinline__ void load_rows_async(unsigned char* dst, const bf16* 
 }
 
 // S = Q K^T for the warpgroup's 64 q rows and the 64 kv rows of k tile kv0,
-// scaled to the log2 domain, columns at and beyond s set to -inf. s[4n + e]:
-// rows g (e < 2) and g + 8 of the warp's 16, column 8n + 2 t4 + (e & 1).
+// unscaled, columns at and beyond s set to -inf. s[4n + e]: rows g (e < 2)
+// and g + 8 of the warp's 16, column 8n + 2 t4 + (e & 1).
 template <int DK>
 __device__ __forceinline__ void wgmma_scores(float (&sc)[32], const unsigned char* q_wg,
                                              const unsigned char* k_s, int kv0, int s,
-                                             float scale_log2, int t4) {
+                                             int t4) {
   constexpr int kGroup = DK / 8 * 128;
 #pragma unroll
   for (int i = 0; i < 32; ++i) sc[i] = 0.f;
@@ -279,8 +280,7 @@ __device__ __forceinline__ void wgmma_scores(float (&sc)[32], const unsigned cha
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const bool valid = !ragged || kv0 + n * 8 + t4 * 2 + e < s;
-      sc[4 * n + e] = valid ? sc[4 * n + e] * scale_log2 : -INFINITY;
-      sc[4 * n + 2 + e] = valid ? sc[4 * n + 2 + e] * scale_log2 : -INFINITY;
+      if (!valid) sc[4 * n + e] = sc[4 * n + 2 + e] = -INFINITY;
     }
   }
 }
@@ -351,7 +351,7 @@ shortseq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // pass 1: the row max over the whole row
       for (int kv0 = 0; kv0 < s; kv0 += kBlockN) {
         float sc[32];
-        wgmma_scores<DK>(sc, q_wg, k_s, kv0, s, scale_log2, t4);
+        wgmma_scores<DK>(sc, q_wg, k_s, kv0, s, t4);
 #pragma unroll
         for (int n = 0; n < kBlockN / 8; ++n) {
           m0 = fmaxf(m0, fmaxf(sc[4 * n], sc[4 * n + 1]));
@@ -362,6 +362,9 @@ shortseq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
       m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
       m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+      // the scale is positive: the max of the scaled scores is the scaled max
+      m0 *= scale_log2;
+      m1 *= scale_log2;
     }
     if (r == 0) {  // v has landed, for every warpgroup
       e4t::cp_async_wait<0>();
@@ -370,14 +373,15 @@ shortseq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     if (!mine) continue;
 
-    // pass 2: p = exp2(s - m) against the final max, l, and O += P V
+    // pass 2: p = 2^(s scale log2 e - m) against the final max (one fma and
+    // ex2.approx a score), l, and O += P V
     float o[kOut];
 #pragma unroll
     for (int n = 0; n < kOut; ++n) o[n] = 0.f;
     float l0 = 0.f, l1 = 0.f;
     for (int kv0 = 0; kv0 < s; kv0 += kBlockN) {
       float sc[32];
-      wgmma_scores<DK>(sc, q_wg, k_s, kv0, s, scale_log2, t4);
+      wgmma_scores<DK>(sc, q_wg, k_s, kv0, s, t4);
       // p in the accumulator layout is the A-fragment layout of P V: score
       // columns 16kk..16kk+15 form k-step kk; an 8-column group wholly past
       // s is p = 0 without an exponential
@@ -386,10 +390,10 @@ shortseq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n = 0; n < kBlockN / 8; ++n) {
         float p00 = 0.f, p01 = 0.f, p10 = 0.f, p11 = 0.f;
         if (kv0 + n * 8 < s) {
-          p00 = exp2f(sc[4 * n + 0] - m0);
-          p01 = exp2f(sc[4 * n + 1] - m0);
-          p10 = exp2f(sc[4 * n + 2] - m1);
-          p11 = exp2f(sc[4 * n + 3] - m1);
+          p00 = exp2_approx(fmaf(sc[4 * n + 0], scale_log2, -m0));
+          p01 = exp2_approx(fmaf(sc[4 * n + 1], scale_log2, -m0));
+          p10 = exp2_approx(fmaf(sc[4 * n + 2], scale_log2, -m1));
+          p11 = exp2_approx(fmaf(sc[4 * n + 3], scale_log2, -m1));
           l0 += p00 + p01;
           l1 += p10 + p11;
         }

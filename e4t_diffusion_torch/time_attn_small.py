@@ -52,8 +52,8 @@ ABLATIONS = {
              "load_rows_async<DK>(v_s, v + head, 64, s, d, tid);", 1)],
         "int8": [("    if (j + kStages - 1 < n_steps) load_step(",
                   "    if (j + kStages - 1 < kStages - 1) load_step(", 1)]},
-    "exp": {"shortseq": [("= exp2f(sc[4 * n + ", "= (sc[4 * n + ", 4)],
-            "int8": [("= exp2f(s[4 * n + ", "= (s[4 * n + ", 4)]},
+    "exp": {"shortseq": [("= exp2_approx(fmaf(sc[4 * n + ", "= (fmaf(sc[4 * n + ", 4)],
+            "int8": [("? exp2_approx(fmaf(i2f_exact(", "? (fmaf(i2f_exact(", 1)]},
     "s": {"shortseq": [("for (int st = 0; st < DK / 16; ++st)\n    wgmma_ss_n64(",
                         "for (int st = 0; st < 1; ++st)\n    wgmma_ss_n64(", 1)],
           "int8": [("for (int kst = 0; kst < kQB / 32; ++kst)\n",

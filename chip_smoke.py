@@ -211,6 +211,14 @@ def device_ms(fn, reps=20):
     fail("torch.profiler recorded no device time in three sessions")
 
 
+def small_aware_ms(fn, floor_ms=0.1):
+    """(ms, how): the device time under ``torch.profiler`` where it is below
+    ``floor_ms`` (a CUDA-event time there is the host's launch time), else
+    CUDA events around one call, median of 20."""
+    ms = device_ms(fn)
+    return (ms, "device") if ms < floor_ms else (cuda_time_ms(fn), "events")
+
+
 def phase_environment():
     import torch
 
@@ -436,8 +444,10 @@ def _int8_flash_case(bh, sq, sk, d, mode, gen, timed, dtype=None):
     kv tile (``flash_int8.quant_tile``), on int8 operands quantized from
     q/k/v in ``dtype`` (bf16 by default, or f32: the f32 output, and in
     "qk" an f32 v) as the attention route does; timed: kernel, plain, the
-    route (quantization + kernel), SDPA's forward on the q/k/v, and the
-    bound of the kernel's work from the int8 operands. In f32, "qk" is held
+    route (quantization + kernel), SDPA's forward on the q/k/v (kernel,
+    synchronous design and SDPA by device time where it is under 0.1 ms,
+    ``small_aware_ms``), and the bound of the kernel's work from the int8
+    operands. In f32, "qk" is held
     to KERNEL_F32_REL_L2; "qkpv" to INT8_FLASH_REL_L2 in both types (exp2
     against exp moves a few round(p * 127) by one). Where the synchronous
     design computes the same function (all but "qk" in f32,
@@ -485,17 +495,20 @@ def _int8_flash_case(bh, sq, sk, d, mode, gen, timed, dtype=None):
     if timed:
         pv = mode == "qkpv"
         f32 = _f32(dtype)
+        case["ms"], case["ms_by"] = small_aware_ms(
+            lambda: fi.flash_fwd_int8(*ops, mode, dtype))
+        if sync:
+            case["parent_ms"], case["parent_ms_by"] = small_aware_ms(
+                lambda: fi.flash_fwd_int8_sync(*ops, mode, dtype))
+        case["library_ms"], case["library_ms_by"] = small_aware_ms(
+            lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                   scale=scale))
         case.update(
-            ms=cuda_time_ms(lambda: fi.flash_fwd_int8(*ops, mode, dtype)),
             plain_ms=cuda_time_ms(lambda: fi.flash_fwd_int8_reference(
                 *ops, mode, torch.float32), reps=3),
             route_ms=cuda_time_ms(lambda: attention._int8_lowdim_path(
                 q, k, v, scale, mode)),
-            library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                q[None], k[None], v[None], scale=scale)),
             library=f"scaled_dot_product_attention, {case['dtype']}",
-            **({"parent_ms": cuda_time_ms(lambda: fi.flash_fwd_int8_sync(
-                *ops, mode, dtype))} if sync else {}),
             **_bound(bh * sq * d + bh * sk * d * (2 if pv else
                                                   1 + q.element_size())
                      + 8 * bh + q.element_size() * bh * sq * d + 4 * bh * sq,
@@ -2011,7 +2024,7 @@ def kernels_line(cases, paths):
         "bf16", "int8 q/k, bf16 v, mode qk")
     kernels[3]["per_site"] = [
         {k: c[k] for k in ("mode", "tile") + timed_keys
-         + ("route_ms", "parent_ms")} for c in cases["int8_flash"]]
+         + ("ms_by", "route_ms", "parent_ms")} for c in cases["int8_flash"]]
     conv_keys = ("c", "o", "h", "w", "k", "stride", "pad",
                  "sites_per_unet_pass", "ms", "plain_ms", "route_ms",
                  "bound_ms", "bound_by", "library_ms")

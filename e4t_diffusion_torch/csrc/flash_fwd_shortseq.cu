@@ -240,13 +240,13 @@ __host__ __device__ constexpr size_t wgmma_smem_bytes(int dk, int s) {
 }
 
 // Rows [0, rows) of a contiguous (n, d) bf16 tensor into a core-matrix tile
-// by 16-byte cp.async, shared by kWgThreads threads; chunks past row n or
+// by 16-byte cp.async, shared by THREADS threads; chunks past row n or
 // column d read nothing and are filled with zeros.
-template <int DK>
+template <int DK, int THREADS = kWgThreads>
 __device__ __forceinline__ void load_rows_async(unsigned char* dst, const bf16* src,
                                                 int rows, int n, int d, int tid) {
   constexpr int kC = DK / 8;
-  for (int i = tid; i < rows * kC; i += kWgThreads) {
+  for (int i = tid; i < rows * kC; i += THREADS) {
     const int r = i / kC, c = i - r * kC;
     const bool in = r < n && 8 * c < d;
     e4t::cp_async_16(dst + e4t::core_offset(r, c, kC), in ? src + (size_t)r * d + 8 * c : src,
@@ -435,6 +435,222 @@ shortseq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- up to S = 272: the whole score row in registers, one pass ----
+
+// The landed scores of the 64-column tile at kv0, unscaled, with columns at
+// and beyond s set to -inf.
+__device__ __forceinline__ void mask_scores(float (&sc)[32], int kv0, int s, int t4) {
+  fence_regs(sc);
+  if (kv0 + kBlockN <= s) return;
+#pragma unroll
+  for (int n = 0; n < kBlockN / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (kv0 + n * 8 + t4 * 2 + e >= s) sc[4 * n + e] = sc[4 * n + 2 + e] = -INFINITY;
+  }
+}
+
+// the running maxima of the thread's rows g (m0) and g + 8 (m1) over sc
+template <int N>
+__device__ __forceinline__ void row_max(const float (&sc)[N], float& m0, float& m1) {
+#pragma unroll
+  for (int n = 0; n < N / 4; ++n) {
+    m0 = fmaxf(m0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+    m1 = fmaxf(m1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+  }
+}
+
+// the shared memory of shortseq_row_kernel: k, v and one q tile
+__host__ __device__ constexpr size_t row_smem_bytes(int dk, int s) {
+  return (size_t)2 * dk * (round_up(s, 8) + round_up(s, 16) + 64);
+}
+
+// One warpgroup a block, walking the block's q tiles (tiles split,
+// split + n_splits, ...). The head's k and v land once, as above. For each q
+// tile all of S = Q K^T is issued at once, NF 64-column tiles and, where
+// S mod 64 is at most 16, one 16-column tail (kTail), into registers (at
+// S = 257: 4 x 32 + 8 = 136 f32 a thread); one wait; the row max over the
+// whole row; p = 2^(s scale log2 e - m) rounded to bf16 in place as P V's A
+// fragments; all of O += P V issued at once; one wait. Two round trips to
+// the tensor pipe a q tile, and each score is computed once.
+template <int DK, int NF, bool kTail>
+__global__ void __launch_bounds__(128, 2)
+shortseq_row_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out, int s, int d,
+                    float scale_log2, int n_splits) {
+  constexpr int kC = DK / 8;
+  constexpr int kGroup = kC * 128;  // bytes of 8 rows
+  constexpr int kOut = DK / 2;      // f32 output accumulators a thread
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* k_s = smem_raw;
+  unsigned char* v_s = k_s + (size_t)round_up(s, 8) * kC * 16;
+  unsigned char* q_s = v_s + (size_t)round_up(s, 16) * kC * 16;
+
+  const int bh = blockIdx.y;
+  const int split = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int wi = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const size_t head = (size_t)bh * s * d;
+  const int n_q = (s + 63) / 64;
+  const int n_mine = (n_q - split + n_splits - 1) / n_splits;
+
+  // prologue: the first q tile and k (group 0), then v (1)
+  e4t::load_core_async<64, DK, 128>(q_s, q + head, split * 64, s, d, tid);
+  load_rows_async<DK, 128>(k_s, k + head, round_up(s, 8), s, d, tid);
+  e4t::cp_async_commit();
+  load_rows_async<DK, 128>(v_s, v + head, round_up(s, 16), s, d, tid);
+  e4t::cp_async_commit();
+  e4t::cp_async_wait<1>();
+  fence_proxy_async();
+  __syncthreads();
+
+  for (int i = 0; i < n_mine; ++i) {
+    const int q0 = (split + i * n_splits) * 64;
+    if (i > 0) {  // the last q tile's products are complete
+      e4t::load_core_async<64, DK, 128>(q_s, q + head, q0, s, d, tid);
+      e4t::cp_async_commit();
+      e4t::cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+    }
+    // S for the whole row: sc[t][4n + e], rows g (e < 2) and g + 8 of the
+    // warp's 16, column 64t + 8n + 2 t4 + (e & 1); the tail likewise from
+    // column 64 NF
+    float sc[NF][32];
+    float tl[8];
+#pragma unroll
+    for (int t = 0; t < NF; ++t) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[t][j] = 0.f;
+      fence_regs(sc[t]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) tl[j] = 0.f;
+    fence_regs(tl);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < NF; ++t) {
+#pragma unroll
+      for (int st = 0; st < DK / 16; ++st)
+        wgmma_ss_n64(sc[t], smem_desc(q_s + st * 256, 128, kGroup),
+                     smem_desc(k_s + 8 * t * kGroup + st * 256, 128, kGroup), st);
+    }
+    if constexpr (kTail) {
+#pragma unroll
+      for (int st = 0; st < DK / 16; ++st)
+        e4t::wgmma_ss_n16(tl, smem_desc(q_s + st * 256, 128, kGroup),
+                          smem_desc(k_s + 8 * NF * kGroup + st * 256, 128, kGroup), st);
+    }
+    wgmma_commit();
+    if (i == 0) {  // v has landed
+      e4t::cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+    }
+    wgmma_wait<0>();
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < NF; ++t) {
+      mask_scores(sc[t], 64 * t, s, t4);
+      row_max(sc[t], m0, m1);
+    }
+    fence_regs(tl);
+    if constexpr (kTail) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (64 * NF + n * 8 + t4 * 2 + e >= s) tl[4 * n + e] = tl[4 * n + 2 + e] = -INFINITY;
+      }
+      row_max(tl, m0, m1);
+    }
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+    m0 *= scale_log2;  // the scale is positive: the scaled max
+    m1 *= scale_log2;
+
+    // p against the final max, l, and P V's A fragments; an 8-column group
+    // wholly past s is p = 0 without an exponential
+    float l0 = 0.f, l1 = 0.f;
+    uint32_t pa[NF][kBlockN / 16][4];
+    uint32_t pt[4];
+    auto softmax8 = [&](float s00, float s01, float s10, float s11, int col, uint32_t& lo,
+                        uint32_t& hi) {
+      float p00 = 0.f, p01 = 0.f, p10 = 0.f, p11 = 0.f;
+      if (col < s) {
+        p00 = exp2_approx(fmaf(s00, scale_log2, -m0));
+        p01 = exp2_approx(fmaf(s01, scale_log2, -m0));
+        p10 = exp2_approx(fmaf(s10, scale_log2, -m1));
+        p11 = exp2_approx(fmaf(s11, scale_log2, -m1));
+        l0 += p00 + p01;
+        l1 += p10 + p11;
+      }
+      lo = e4t::pack_bf16(p00, p01);
+      hi = e4t::pack_bf16(p10, p11);
+    };
+#pragma unroll
+    for (int t = 0; t < NF; ++t) {
+#pragma unroll
+      for (int n = 0; n < kBlockN / 8; ++n)
+        softmax8(sc[t][4 * n], sc[t][4 * n + 1], sc[t][4 * n + 2], sc[t][4 * n + 3],
+                 64 * t + n * 8, pa[t][n >> 1][(n & 1) * 2], pa[t][n >> 1][(n & 1) * 2 + 1]);
+    }
+    if constexpr (kTail) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        softmax8(tl[4 * n], tl[4 * n + 1], tl[4 * n + 2], tl[4 * n + 3], 64 * NF + n * 8,
+                 pt[2 * n], pt[2 * n + 1]);
+    }
+
+    float o[kOut];
+#pragma unroll
+    for (int n = 0; n < kOut; ++n) o[n] = 0.f;
+    fence_regs(o);
+#pragma unroll
+    for (int t = 0; t < NF; ++t) fence_regs(pa[t]);
+    fence_regs(pt);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < NF; ++t) {
+      const int steps = min(kBlockN / 16, (s - 64 * t + 15) / 16);
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+        if (kk < steps)
+          wgmma_rs_tile<DK>(o, pa[t][kk], v_s + (8 * t + 2 * kk) * kGroup, kGroup);
+    }
+    if constexpr (kTail) wgmma_rs_tile<DK>(o, pt, v_s + 8 * NF * kGroup, kGroup);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;  // l >= 1: the max's own p
+    const int row0 = q0 + wi * 16 + g, row1 = row0 + 8;
+    bf16* ob = out + head;
+#pragma unroll
+    for (int n = 0; n < kOut / 4; ++n) {
+      const int col = n * 8 + t4 * 2;
+      if (col < d) {
+        if (row0 < s)
+          *reinterpret_cast<uint32_t*>(&ob[(size_t)row0 * d + col]) =
+              e4t::pack_bf16(o[4 * n + 0] * inv0, o[4 * n + 1] * inv0);
+        if (row1 < s)
+          *reinterpret_cast<uint32_t*>(&ob[(size_t)row1 * d + col]) =
+              e4t::pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+      }
+    }
+  }
+}
+
 // The SMs of the current device, read once.
 int sm_count() {
   static int n = 0;
@@ -462,6 +678,37 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int bh,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), s, d, scale_log2, n_splits);
   return (int)cudaGetLastError();
+}
+
+template <int DK, int NF, bool kTail>
+int launch_row(const void* q, const void* k, const void* v, void* out, int bh, int s, int d,
+               float scale_log2, cudaStream_t stream) {
+  const size_t smem = row_smem_bytes(DK, s);
+  const cudaError_t err = e4t::allow_smem(shortseq_row_kernel<DK, NF, kTail>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_q = (s + 63) / 64;
+  const int n_splits = std::min(n_q, (sm_count() + bh - 1) / bh);
+  const dim3 grid(n_splits, bh);
+  shortseq_row_kernel<DK, NF, kTail><<<grid, 128, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), s, d, scale_log2, n_splits);
+  return (int)cudaGetLastError();
+}
+
+// 128 < s <= 272: NF full 64-column tiles, and a 16-column tail where s mod
+// 64 is 1..16 (else the last full tile is masked)
+template <int DK>
+int dispatch_row(const void* q, const void* k, const void* v, void* out, int bh, int s, int d,
+                 float sl, cudaStream_t st) {
+  const int nf = s / 64, rem = s % 64;
+  switch (rem == 0 ? 2 * nf : rem <= 16 ? 2 * nf + 1 : 2 * nf + 2) {
+    case 5: return launch_row<DK, 2, true>(q, k, v, out, bh, s, d, sl, st);
+    case 6: return launch_row<DK, 3, false>(q, k, v, out, bh, s, d, sl, st);
+    case 7: return launch_row<DK, 3, true>(q, k, v, out, bh, s, d, sl, st);
+    case 8: return launch_row<DK, 4, false>(q, k, v, out, bh, s, d, sl, st);
+    case 9: return launch_row<DK, 4, true>(q, k, v, out, bh, s, d, sl, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ---- the synchronous design, kept as the yardstick ----
@@ -502,6 +749,19 @@ extern "C" int e4t_flash_fwd_shortseq(const void* q, const void* k, const void* 
   const float sl = scale * e4t::kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int dk = e4t::padded_head_dim(d);
+  if (s > 128 && s <= 272) {
+    switch (dk) {
+      case 16: return dispatch_row<16>(q, k, v, out, bh, s, d, sl, st);
+      case 32: return dispatch_row<32>(q, k, v, out, bh, s, d, sl, st);
+      case 48: return dispatch_row<48>(q, k, v, out, bh, s, d, sl, st);
+      case 64: return dispatch_row<64>(q, k, v, out, bh, s, d, sl, st);
+      case 80: return dispatch_row<80>(q, k, v, out, bh, s, d, sl, st);
+      case 96: return dispatch_row<96>(q, k, v, out, bh, s, d, sl, st);
+      case 112: return dispatch_row<112>(q, k, v, out, bh, s, d, sl, st);
+      case 128: return dispatch_row<128>(q, k, v, out, bh, s, d, sl, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (wgmma_smem_bytes(dk, s) > kMaxSmem) return dispatch_sync(q, k, v, out, bh, s, d, sl, st);
   switch (dk) {
     case 16: return launch_wgmma<16>(q, k, v, out, bh, s, d, sl, st);

@@ -2,7 +2,8 @@
 // kernels: the no-swizzle core-matrix tile layout that wgmma's shared-memory
 // descriptors read, 16-byte cp.async loads into it, the descriptors, the
 // fences around an asynchronous wgmma, and the bf16 products with f32
-// accumulators: m64n64k16 with both operands in shared memory, and m64nNk16
+// accumulators: m64n64k16 and m64n16k16 with both operands in shared
+// memory, and m64nNk16
 // (N = 16..128, and up to 256 as two halves) with A in registers and B read
 // MN-major.
 //
@@ -77,6 +78,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
 __device__ __forceinline__ void fence_regs(int (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
@@ -107,6 +114,20 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 16, f32) = a (64 x 16) b (16 x 16), plus d where accumulate != 0;
+// a and b K-major bf16 tiles in shared memory, given by descriptors
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

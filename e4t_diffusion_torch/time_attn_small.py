@@ -64,7 +64,6 @@ ABLATIONS = {
                     ("for (int kk = 0; kk < kBlockN / 16; ++kk)\n          e4t::wgmma_rs_tile",
                      "for (int kk = 0; kk < 1; ++kk)\n          e4t::wgmma_rs_tile", 1)]},
 }
-EVENT_FLOOR_MS = 0.1
 
 
 def ablated_copy(repo, part):
@@ -110,17 +109,17 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         sys.exit("time_attn_small: needs an NVIDIA GPU")
+    # the timed checkout's own helpers (older checkouts have these too)
     from chip_smoke import _bound, cuda_time_ms, device_ms, nvidia_smi_line
     from e4t_diffusion_torch.ops import attention
     from e4t_diffusion_torch.ops import flash_int8 as fi
     from e4t_diffusion_torch.ops import shortseq as ss
 
     def timed(fn):
-        """(ms, how): the device time where it is below EVENT_FLOOR_MS,
-        else CUDA events."""
+        """(ms, how): the device time where it is under 0.1 ms, else CUDA
+        events (``chip_smoke.small_aware_ms``)."""
         ms = device_ms(fn)
-        return (ms, "device") if ms < EVENT_FLOOR_MS else (cuda_time_ms(fn),
-                                                          "events")
+        return (ms, "device") if ms < 0.1 else (cuda_time_ms(fn), "events")
 
     smi = nvidia_smi_line()
     print(smi)

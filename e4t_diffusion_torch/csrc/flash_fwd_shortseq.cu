@@ -231,13 +231,14 @@ constexpr int kWgThreads = 128 * kWgGroups;
 template <int DK>
 constexpr int wgmma_min_blocks() { return DK <= 80 ? 2 : 1; }
 
-// the head's k (S rounded up to 8 rows; the last 64-row score tile reads
-// on into v, whose columns it masks), v (S rounded up to 16 rows, zero
-// past S: P V's k-steps stop there) and the warpgroups' q tiles, all in
-// the core-matrix layout
+// the head's k (S rounded up to 8 rows; the last 64-row score tile reads on
+// into the warpgroups' buffers, whose columns it masks), then each
+// warpgroup's q tile and its two-stage v ring (64 rows each), all in the
+// core-matrix layout: 224 KB at S = 512, D = 128
 __host__ __device__ constexpr size_t wgmma_smem_bytes(int dk, int s) {
-  return (size_t)2 * dk * (round_up(s, 8) + round_up(s, 16) + 64 * kWgGroups);
+  return (size_t)2 * dk * (round_up(s, 8) + 3 * 64 * kWgGroups);
 }
+static_assert(wgmma_smem_bytes(128, kMaxSeq) <= kMaxSmem, "the widest head does not fit");
 
 // Rows [0, rows) of a contiguous (n, d) bf16 tensor into a core-matrix tile
 // by 16-byte cp.async, shared by THREADS threads; chunks past row n or
@@ -285,14 +286,20 @@ __device__ __forceinline__ void wgmma_scores(float (&sc)[32], const unsigned cha
   }
 }
 
-// One block per (head, split): the head's whole k and v land in shared
-// memory once, by cp.async, and the block's warpgroups walk its q tiles
-// (tiles split, split + n_splits, ...; warpgroup w takes every kWgGroups-th
-// of them from the w-th). For each q tile a warpgroup runs pass 1 (S tile
-// by tile by wgmma, the row max only) and pass 2 (S again, p = exp2(s - m)
-// against the final max, l, and O += P V by wgmma with p from registers and
-// v read MN-major), then writes out = O / l. Rounds are uniform over the
-// block, so the one block barrier (v has landed) is reached by every thread.
+// the warpgroup's named barrier (1 + wg; 0 is __syncthreads)
+__device__ __forceinline__ void wg_barrier(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// One block per (head, split): the head's whole k lands in shared memory
+// once, by cp.async, and the block's warpgroups walk its q tiles on their
+// own (tiles split, split + n_splits, ...; warpgroup w takes every
+// kWgGroups-th of them from the w-th). For each q tile a warpgroup runs
+// pass 1 (S tile by tile by wgmma, the row max only) and pass 2 (S again,
+// p = 2^(s scale log2 e - m) against the final max, l, and O += P V by wgmma
+// with p from registers and v read MN-major from its own two-stage ring,
+// tile j + 1 landing while tile j is used), then writes out = O / l. The
+// only block barrier is k's; a warpgroup meets its own warps once a tile.
 template <int DK>
 __global__ void __launch_bounds__(kWgThreads, wgmma_min_blocks<DK>())
 shortseq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -300,17 +307,15 @@ shortseq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       float scale_log2, int n_splits) {
   constexpr int kC = DK / 8;
   constexpr int kGroup = kC * 128;  // bytes of 8 rows
+  constexpr int kTile = 8 * kGroup;  // bytes of 64 rows
   constexpr int kOut = DK / 2;      // f32 output accumulators a thread
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* k_s = smem_raw;
-  unsigned char* v_s = k_s + (size_t)round_up(s, 8) * kC * 16;
-  unsigned char* q_s = v_s + (size_t)round_up(s, 16) * kC * 16;
-
   const int bh = blockIdx.y;
   const int split = blockIdx.x;
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
+  const int wt = tid & 127;
   const int wi = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int g = lane >> 2;
@@ -319,59 +324,52 @@ shortseq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_kv = (s + kBlockN - 1) / kBlockN;
   // the block's q tiles: split, split + n_splits, ... below n_kv
   const int n_mine = (n_kv - split + n_splits - 1) / n_splits;
-  const int rounds = (n_mine + kWgGroups - 1) / kWgGroups;
-  unsigned char* q_wg = q_s + wg * 8 * kGroup;
 
-  // prologue: the warpgroups' first q tiles and k (group 0), then v (1)
+  unsigned char* k_s = smem_raw;
+  unsigned char* q_wg = k_s + (size_t)round_up(s, 8) * kC * 16 + wg * 3 * kTile;
+  unsigned char* v_wg = q_wg + kTile;  // two stages
+
+  // prologue: the warpgroups' first q tiles and k
   if (wg < n_mine)
-    e4t::load_core_async<64, DK, 128>(q_wg, q + head, split * 64 + wg * n_splits * 64, s, d,
-                                      tid & 127);
+    e4t::load_core_async<64, DK, 128>(q_wg, q + head, (split + wg * n_splits) * 64, s, d, wt);
   load_rows_async<DK>(k_s, k + head, round_up(s, 8), s, d, tid);
   e4t::cp_async_commit();
-  load_rows_async<DK>(v_s, v + head, round_up(s, 16), s, d, tid);
-  e4t::cp_async_commit();
-  e4t::cp_async_wait<1>();
+  e4t::cp_async_wait<0>();
   fence_proxy_async();
   __syncthreads();
 
-  for (int r = 0; r < rounds; ++r) {
-    const int i = r * kWgGroups + wg;
-    const bool mine = i < n_mine;
+  for (int i = wg; i < n_mine; i += kWgGroups) {
     const int q0 = (split + i * n_splits) * 64;
-    if (r > 0 && mine) {
-      // this warpgroup's wgmmas on its last q tile are complete
-      e4t::load_core_async<64, DK, 128>(q_wg, q + head, q0, s, d, tid & 127);
+    if (i != wg) {  // this warpgroup's products on its last q tile are complete
+      wg_barrier(wg);
+      e4t::load_core_async<64, DK, 128>(q_wg, q + head, q0, s, d, wt);
       e4t::cp_async_commit();
       e4t::cp_async_wait<0>();
       fence_proxy_async();
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      wg_barrier(wg);
     }
+    // v tile 0 lands during pass 1
+    e4t::load_core_async<64, DK, 128>(v_wg, v + head, 0, s, d, wt);
+    e4t::cp_async_commit();
+
+    // pass 1: the row max over the whole row
     float m0 = -INFINITY, m1 = -INFINITY;
-    if (mine) {
-      // pass 1: the row max over the whole row
-      for (int kv0 = 0; kv0 < s; kv0 += kBlockN) {
-        float sc[32];
-        wgmma_scores<DK>(sc, q_wg, k_s, kv0, s, t4);
+    for (int kv0 = 0; kv0 < s; kv0 += kBlockN) {
+      float sc[32];
+      wgmma_scores<DK>(sc, q_wg, k_s, kv0, s, t4);
 #pragma unroll
-        for (int n = 0; n < kBlockN / 8; ++n) {
-          m0 = fmaxf(m0, fmaxf(sc[4 * n], sc[4 * n + 1]));
-          m1 = fmaxf(m1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
-        }
+      for (int n = 0; n < kBlockN / 8; ++n) {
+        m0 = fmaxf(m0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+        m1 = fmaxf(m1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
       }
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
-      // the scale is positive: the max of the scaled scores is the scaled max
-      m0 *= scale_log2;
-      m1 *= scale_log2;
     }
-    if (r == 0) {  // v has landed, for every warpgroup
-      e4t::cp_async_wait<0>();
-      fence_proxy_async();
-      __syncthreads();
-    }
-    if (!mine) continue;
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+    // the scale is positive: the max of the scaled scores is the scaled max
+    m0 *= scale_log2;
+    m1 *= scale_log2;
 
     // pass 2: p = 2^(s scale log2 e - m) against the final max (one fma and
     // ex2.approx a score), l, and O += P V
@@ -379,7 +377,7 @@ shortseq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < kOut; ++n) o[n] = 0.f;
     float l0 = 0.f, l1 = 0.f;
-    for (int kv0 = 0; kv0 < s; kv0 += kBlockN) {
+    for (int kv0 = 0, j = 0; kv0 < s; kv0 += kBlockN, ++j) {
       float sc[32];
       wgmma_scores<DK>(sc, q_wg, k_s, kv0, s, t4);
       // p in the accumulator layout is the A-fragment layout of P V: score
@@ -400,14 +398,24 @@ shortseq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         pa[n >> 1][(n & 1) * 2 + 0] = e4t::pack_bf16(p00, p01);
         pa[n >> 1][(n & 1) * 2 + 1] = e4t::pack_bf16(p10, p11);
       }
+      // v tile j has landed, and every warp of the warpgroup is done with
+      // tile j - 1, whose stage tile j + 1 now refills
+      e4t::cp_async_wait<0>();
+      fence_proxy_async();
+      wg_barrier(wg);
+      if (kv0 + kBlockN < s) {
+        e4t::load_core_async<64, DK, 128>(v_wg + ((j + 1) & 1) * kTile, v + head,
+                                          kv0 + kBlockN, s, d, wt);
+        e4t::cp_async_commit();
+      }
+      const unsigned char* vs = v_wg + (j & 1) * kTile;
       const int steps = min(kBlockN / 16, (s - kv0 + 15) / 16);
       fence_regs(o);
       fence_regs(pa);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk)
-        if (kk < steps)
-          wgmma_rs_tile<DK>(o, pa[kk], v_s + (kv0 / 8 + 2 * kk) * kGroup, kGroup);
+        if (kk < steps) wgmma_rs_tile<DK>(o, pa[kk], vs + 2 * kk * kGroup, kGroup);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -762,7 +770,6 @@ extern "C" int e4t_flash_fwd_shortseq(const void* q, const void* k, const void* 
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (wgmma_smem_bytes(dk, s) > kMaxSmem) return dispatch_sync(q, k, v, out, bh, s, d, sl, st);
   switch (dk) {
     case 16: return launch_wgmma<16>(q, k, v, out, bh, s, d, sl, st);
     case 32: return launch_wgmma<32>(q, k, v, out, bh, s, d, sl, st);

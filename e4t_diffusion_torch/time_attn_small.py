@@ -46,19 +46,21 @@ KERNELS = {"shortseq": os.path.join("e4t_diffusion_torch", "csrc",
 ABLATIONS = {
     "loads": {
         "shortseq": [
-            ("load_rows_async<DK>(k_s, k + head, round_up(s, 8), s, d, tid);",
-             "load_rows_async<DK>(k_s, k + head, 64, s, d, tid);", 1),
-            ("load_rows_async<DK>(v_s, v + head, round_up(s, 16), s, d, tid);",
-             "load_rows_async<DK>(v_s, v + head, 64, s, d, tid);", 1)],
+            ("load_rows_async<DK, 128>(k_s, k + head, round_up(s, 8), s, d, tid);",
+             "load_rows_async<DK, 128>(k_s, k + head, 64, s, d, tid);", 1),
+            ("load_rows_async<DK, 128>(v_s, v + head, round_up(s, 16), s, d, tid);",
+             "load_rows_async<DK, 128>(v_s, v + head, 64, s, d, tid);", 1)],
         "int8": [("    if (j + kStages - 1 < n_steps) load_step(",
                   "    if (j + kStages - 1 < kStages - 1) load_step(", 1)]},
-    "exp": {"shortseq": [("= exp2_approx(fmaf(sc[4 * n + ", "= (fmaf(sc[4 * n + ", 4)],
+    "exp": {"shortseq": [("= exp2_approx(fmaf(s0", "= (fmaf(s0", 2),
+                         ("= exp2_approx(fmaf(s1", "= (fmaf(s1", 2)],
             "int8": [("? exp2_approx(fmaf(i2f_exact(", "? (fmaf(i2f_exact(", 1)]},
-    "s": {"shortseq": [("for (int st = 0; st < DK / 16; ++st)\n    wgmma_ss_n64(",
-                        "for (int st = 0; st < 1; ++st)\n    wgmma_ss_n64(", 1)],
+    "s": {"shortseq": [("for (int st = 0; st < DK / 16; ++st)\n        wgmma_ss_n64(sc[t]",
+                        "for (int st = 0; st < 1; ++st)\n        wgmma_ss_n64(sc[t]", 1)],
           "int8": [("for (int kst = 0; kst < kQB / 32; ++kst)\n",
                     "for (int kst = 0; kst < 1; ++kst)\n", 1)]},
-    "pv": {"shortseq": [("        if (kk < steps)\n", "        if (kk < 1)\n", 1)],
+    "pv": {"shortseq": [("        if (kk < steps)\n          wgmma_rs_tile<DK>(o, pa[t][kk]",
+                         "        if (kk < 1)\n          wgmma_rs_tile<DK>(o, pa[t][kk]", 1)],
            "int8": [("for (int h = 0; h < 2; ++h)\n          wgmma_s8_rs",
                      "for (int h = 0; h < 1; ++h)\n          wgmma_s8_rs", 1),
                     ("for (int kk = 0; kk < kBlockN / 16; ++kk)\n          e4t::wgmma_rs_tile",

@@ -27,18 +27,40 @@
 // the Sq*Sk exponentials per head take ~0.257 ms at 16 exp2/clk/SM, against
 // ~0.07 ms of int8 QK^T on the tensor cores and ~0.09 ms of bf16 P@V ("qk");
 // memory is ~0.02 ms. So int8 products leave the bound where the bf16 kernel
-// has it: the special-function unit. The design is that of
-// flash_fwd_lowdim.cu: scores stay in registers, the scale (times log2 e) is
-// one multiply per score so each score costs one ex2, both products run on
-// mma.sync tensor cores (s8 m16n8k16 for QK^T, bf16 m16n8k16 or s8 m16n8k32
-// for P@V), D is padded in shared memory only (40 -> 48), ragged Sq and Sk
-// are masked here.
+// has it: the special-function unit, which also runs the I2F and F2I
+// conversions; so the kernel converts none a score (i2f_exact, round_u8).
 //
-// P@V in int8 needs p as the A operand of m16n8k32, whose thread t4 holds kv
-// columns 4*t4..4*t4+3 of each 16; the score accumulator gives the thread
-// columns {2*t4, 2*t4+1, 8+2*t4, 9+2*t4}. The contraction order is free, so v
-// is staged transposed with its kv index permuted within each 16 to match
-// (kv_slot below); p never leaves registers.
+// The design (flash_fwd_int8_wgmma_kernel) is that of the bf16 wgmma
+// forward in flash_fwd_lowdim.cu: q resident; a cp.async ring of k (and v)
+// tiles, 8-byte copies for the int8 rows; 4 warpgroups of 64 q rows a block
+// (2 from DK 64 in "qkpv", 96 in "qk") sharing each tile; S by s8 wgmma
+// m64n64k32 with both operands in shared memory, K-major as 8-bit wgmma
+// requires, D padded to 32 there (40 -> 64); the scores exact in int32 in
+// registers, the max taken on them; p = 2^(s qk_c log2 e - m) by one fma
+// and ex2.approx. "qk": P V by bf16 wgmma with p from registers and v read
+// MN-major. "qkpv": one walk step per k sub-tile in pass a, one per k/v
+// sub-tile in pass b; P V by s8 wgmma m64nDk32 with p quantized in
+// registers and v^T, which the block builds from the staged row-major tile
+// while the step's S runs. Measured (time_attn_small.py, PERF.md):
+// 4096²/d40 "qk" 0.99-1.04 ms, "qkpv" 1.68-1.69, against the synchronous
+// design's 1.85 / 2.21; without the k/v loads after the first ones "qk"
+// runs 21% faster and "qkpv" 28%, without exponentials 19% and 10%,
+// with S or P V cut to one k-step 3-10%: the loads, not the
+// special-function unit, come first, and "qkpv" loads each k tile twice.
+// Outputs are within rel-L2 1e-4 of the synchronous design's, not bit for
+// bit: ex2.approx and the fused scale-and-subtract round p apart from its
+// exp2f, which moves a few round(p * 127) by one.
+//
+// The synchronous design (flash_fwd_int8_kernel, which served before): one
+// block of 4 warps per 64-row q tile, mma.sync (s8 m16n8k16 for QK^T, bf16
+// m16n8k16 or s8 m16n8k32 for P@V), k and v staged through registers. P@V
+// in int8 needs p as the A operand of m16n8k32 (and of wgmma's s8 k32),
+// whose thread t4 holds kv columns 4*t4..4*t4+3 of each 16; the score
+// accumulator gives the thread columns {2*t4, 2*t4+1, 8+2*t4, 9+2*t4}. The
+// contraction order is free, so v is staged transposed with its kv index
+// permuted within each 16 to match (kv_slot below); p never leaves
+// registers. No path launches it: it is exported as e4t_flash_fwd_int8_sync,
+// the yardstick chip_smoke.py times the kernel against.
 
 #include <limits.h>
 #include <math.h>

@@ -11,28 +11,45 @@
 // with the whole row in registers.
 //
 // The TPU kernel packs g heads into one grid cell of a sequential grid to
-// amortise its per-cell overhead. Blocks run in parallel here, and one
-// block per g heads would give 16 blocks for 132 SMs at BH = 128, g = 8, so
-// the kernel ignores g: one block of 4 warps per (head, 64-row q tile),
-// 640 blocks at the sampling ViT's BH = 128 and S = 257.
+// amortise its per-cell overhead. Blocks run in parallel here, so the
+// kernels ignore g: one block per head (per (head, split) where fewer heads
+// than SMs would leave SMs idle: BH 128 runs 2 splits, each loading the
+// head's k and v), whose warpgroups of 64 q rows walk the head's q tiles.
 //
-// What bounds it on the H100: at BH = 128, S = 257, d = 80 the function
-// moves 21 MB of q/k/v/out (6.3 us at 3.35 TB/s) and does 2.7 GFLOP of
-// products (2.7 us) and 8.5 M exponentials (2.0 us): memory. The design
-// reads q, k and v from device memory once per block and keeps the scores
-// off it. The head's whole k (S rounded up to 64 rows, zero-padded) stays
-// in shared memory for the block; v streams through one 64-row tile
-// (transposed, so its B-fragments are 32-bit loads). Each warp owns 16 q
-// rows, their mma A-fragments in registers. Pass 1 computes the warp's
-// scores 64 columns at a time and keeps only the row max; pass 2 recomputes
-// each 64-column score tile from the resident k (bit for bit the same f32
-// sums), takes p = exp2(s * scale * log2 e - m) and multiplies it into v.
-// A full score row would not fit in registers (16 x 512 f32 a warp is 256
-// registers a thread at S = 512), and in shared memory beside k it would
-// not fit at S = 512, d = 120; the recompute costs tensor-core time, which
-// is not the bound. At S = 512 and d = 120 (padded to 128) the resident k is
-// 139 KB and the block takes 157 KB of shared memory; at the ViT's shape
-// 68 KB, three blocks an SM.
+// Warpgroup MMA (wgmma), two designs, dispatched by S (explicitly, below):
+//   - 128 < S <= 272, the ViT's 257 tokens (shortseq_row_kernel): one
+//     warpgroup a block, two blocks an SM. The head's k and v land once by
+//     cp.async in the core-matrix layout. For each q tile the whole score
+//     row is issued at once (64-column m64n64k16 tiles and, where S mod 64
+//     <= 16, one m64n16k16 tail: 4 x 32 + 8 = 136 f32 a thread at 257) and
+//     lands in registers; one wait, the max, p = 2^(s scale log2 e - m) by
+//     one fma and ex2.approx a score, rounded to bf16 in place as P V's A
+//     fragments, all of P V issued at once (RS, v read MN-major), one wait.
+//     Each score is computed once, in two round trips to the tensor pipe.
+//   - other S up to 512 (shortseq_wgmma_kernel): two warpgroups a block, k
+//     resident, v streamed through each warpgroup's own two-stage ring;
+//     pass 1 computes S tile by tile for the max alone, pass 2 computes S
+//     again, p and P V. 224 KB of shared memory at S 512, D 128.
+// Outputs are not bit for bit the synchronous design's: ex2.approx and the
+// fused scale-and-subtract round p apart from its exp2f (rel-L2 3e-5 at
+// the ViT's shape, measured).
+//
+// What bounds it on the H100: at BH = 256, S = 257, d = 80 the function
+// moves 42 MB of q/k/v/out (12.6 us at 3.35 TB/s) and does 5.4 GFLOP of
+// products (5.5 us) and 17 M exponentials (4.0 us): memory. Measured
+// (time_attn_small.py, PERF.md): 0.039-0.041 ms, against SDPA's 0.044;
+// with k and v loaded for 64 rows only it runs 14% faster (20% at BH 128),
+// while cutting S to one k-step, P V to one, or the exponentials moves it
+// by 4% or less: no part of the work bounds it, the per-q-tile sequence
+// (load, two round trips, the softmax between them) and the 5th q tile's
+// one valid row at 257 tokens do.
+//
+// The synchronous design (shortseq_kernel, which served every S before):
+// one block of 4 warps per (head, 64-row q tile), mma.sync m16n8k16, the
+// head's k resident and v staged transposed through registers, the scores
+// computed twice. No path launches it: it is exported as
+// e4t_flash_fwd_shortseq_sync, the yardstick chip_smoke.py times the
+// kernels against.
 
 #include <math.h>
 

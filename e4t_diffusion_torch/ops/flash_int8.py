@@ -13,6 +13,16 @@ q, k and v stays in plain PyTorch (``ops/attention._int8_lowdim_path``), as
 the JAX package leaves it to XLA. Forward only: serving runs it under
 ``attention.int8_flash_attention``.
 
+In "qkpv" mode p is quantized against the running max of the kv tiles seen
+so far, so the result depends on the tile: the route passes the
+reference's, ``quant_tile(Sk)`` = min(``E4T_FLASH_BLOCK_K`` (read per call,
+512 by default), round_up(Sk, 128)). The kernel is warpgroup MMA (wgmma)
+with s8 products; the synchronous mma.sync design it replaced stays in the
+source as the yardstick: ``flash_fwd_int8_sync`` runs it (both modes, and
+"qkpv" with an f32 output), and ``chip_smoke.py`` and
+``time_attn_small.py`` time and check the kernel against it; no path calls
+it.
+
 ``flash_fwd_int8`` launches the kernel for CUDA tensors, raises on anything
 the kernels do not take, and counts its launches by the kernel it took
 (``flash_fwd_int8.launches["bf16"]``, ``["qk_f32"]`` and ``["qkpv_f32"]``).

@@ -12,11 +12,18 @@ default). The reference reads that knob once, at import; the port reads it
 per call, so a phase or a test can set it.
 
 The knob's value G is the TPU kernel's heads per grid cell; ``heads_per_cell``
-picks g from it as the reference does. The CUDA kernel runs one block per
-(head, 64-row q tile) whatever g is (a grid of g-head cells would leave
-most of the card's SMs idle), so g is checked and otherwise unused.
+picks g from it as the reference does. The CUDA kernels run one block per
+head whatever g is (a grid of g-head cells would leave most of the card's
+SMs idle), so g is checked and otherwise unused.
 
-f32 operands go to the single-pass f32 kernel of ``csrc/attention_f32.cu``.
+In bf16 the kernel is warpgroup MMA (wgmma) with the head's k in shared
+memory: up to 272 tokens (the ViT-H's 257) the whole score row in
+registers, above that two passes with v streamed. The synchronous mma.sync
+design it replaced stays in the source as the yardstick:
+``flash_fwd_shortseq_sync`` runs it, and ``chip_smoke.py`` and
+``time_attn_small.py`` time and check the kernel against it; no path calls
+it. f32 operands go to the single-pass f32 kernel of
+``csrc/attention_f32.cu``.
 
 ``flash_fwd_shortseq`` launches the kernel of the operands' type for CUDA
 tensors, raises on anything the kernels do not take, and counts its

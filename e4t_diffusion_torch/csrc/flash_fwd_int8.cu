@@ -953,54 +953,41 @@ int launch(const void* q, const void* k, const void* v, const void* sc, void* ou
   return (int)cudaGetLastError();
 }
 
-template <bool kPvInt8, typename OutT>
-int dispatch_wgmma(const void* q, const void* k, const void* v, const void* sc, void* out,
-                   void* lse, int bh, int sq, int sk, int d, int bk, cudaStream_t s) {
+// The launch for a padded head dim, by the wgmma kernel or (kWgmma false)
+// the synchronous design.
+template <bool kWgmma, bool kPvInt8, typename OutT, int DK>
+int launch_by(const void* q, const void* k, const void* v, const void* sc, void* out,
+              void* lse, int bh, int sq, int sk, int d, int bk, cudaStream_t s) {
+  if constexpr (kWgmma)
+    return launch_wgmma<DK, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+  else
+    return launch<DK, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+}
+
+// the launch for D padded to the s8 / bf16 k-depth granularity (16 here)
+template <bool kWgmma, bool kPvInt8, typename OutT, typename... Args>
+int dispatch(int d, Args... a) {
   switch ((d + 15) / 16 * 16) {
-    case 16: return launch_wgmma<16, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 32: return launch_wgmma<32, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 48: return launch_wgmma<48, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 64: return launch_wgmma<64, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 80: return launch_wgmma<80, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 96: return launch_wgmma<96, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 112:
-      return launch_wgmma<112, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 128:
-      return launch_wgmma<128, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+    case 16: return launch_by<kWgmma, kPvInt8, OutT, 16>(a...);
+    case 32: return launch_by<kWgmma, kPvInt8, OutT, 32>(a...);
+    case 48: return launch_by<kWgmma, kPvInt8, OutT, 48>(a...);
+    case 64: return launch_by<kWgmma, kPvInt8, OutT, 64>(a...);
+    case 80: return launch_by<kWgmma, kPvInt8, OutT, 80>(a...);
+    case 96: return launch_by<kWgmma, kPvInt8, OutT, 96>(a...);
+    case 112: return launch_by<kWgmma, kPvInt8, OutT, 112>(a...);
+    case 128: return launch_by<kWgmma, kPvInt8, OutT, 128>(a...);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool kPvInt8, typename OutT>
-int dispatch(const void* q, const void* k, const void* v, const void* sc, void* out,
-             void* lse, int bh, int sq, int sk, int d, int bk, cudaStream_t s) {
-  switch ((d + 15) / 16 * 16) {
-    case 16: return launch<16, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 32: return launch<32, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 48: return launch<48, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 64: return launch<64, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 80: return launch<80, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 96: return launch<96, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 112: return launch<112, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    case 128: return launch<128, kPvInt8, OutT>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
+template <bool kWgmma>
 int dispatch_all(const void* q, const void* k, const void* v, const void* sc, void* out,
                  void* lse, int bh, int sq, int sk, int d, int pv_int8, int out_f32, int bk,
                  cudaStream_t s) {
-  if (out_f32) return dispatch<true, float>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-  return pv_int8 ? dispatch<true, bf16>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s)
-                 : dispatch<false, bf16>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-}
-
-int dispatch_all_wgmma(const void* q, const void* k, const void* v, const void* sc,
-                       void* out, void* lse, int bh, int sq, int sk, int d, int pv_int8,
-                       int out_f32, int bk, cudaStream_t s) {
-  if (out_f32) return dispatch_wgmma<true, float>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
-  return pv_int8 ? dispatch_wgmma<true, bf16>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s)
-                 : dispatch_wgmma<false, bf16>(q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+  if (out_f32)
+    return dispatch<kWgmma, true, float>(d, q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
+  return pv_int8 ? dispatch<kWgmma, true, bf16>(d, q, k, v, sc, out, lse, bh, sq, sk, d, bk, s)
+                 : dispatch<kWgmma, false, bf16>(d, q, k, v, sc, out, lse, bh, sq, sk, d, bk, s);
 }
 
 bool bad_shape(int bh, int sq, int sk, int d, int pv_int8, int out_f32, int block_k) {
@@ -1023,8 +1010,8 @@ extern "C" int e4t_flash_fwd_int8(const void* q, const void* k, const void* v,
                                   int sk, int d, int pv_int8, int out_f32, int block_k,
                                   void* stream) {
   if (bad_shape(bh, sq, sk, d, pv_int8, out_f32, block_k)) return (int)cudaErrorInvalidValue;
-  return dispatch_all_wgmma(q, k, v, sc, out, lse, bh, sq, sk, d, pv_int8, out_f32, block_k,
-                      static_cast<cudaStream_t>(stream));
+  return dispatch_all<true>(q, k, v, sc, out, lse, bh, sq, sk, d, pv_int8, out_f32, block_k,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // The same function by the synchronous design: the yardstick chip_smoke.py
@@ -1034,6 +1021,6 @@ extern "C" int e4t_flash_fwd_int8_sync(const void* q, const void* k, const void*
                                        int sq, int sk, int d, int pv_int8, int out_f32,
                                        int block_k, void* stream) {
   if (bad_shape(bh, sq, sk, d, pv_int8, out_f32, block_k)) return (int)cudaErrorInvalidValue;
-  return dispatch_all(q, k, v, sc, out, lse, bh, sq, sk, d, pv_int8, out_f32, block_k,
-                      static_cast<cudaStream_t>(stream));
+  return dispatch_all<false>(q, k, v, sc, out, lse, bh, sq, sk, d, pv_int8, out_f32, block_k,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -272,6 +272,29 @@ __device__ __forceinline__ void load_rows_async(unsigned char* dst, const bf16* 
   }
 }
 
+// The landed scores of the 64-column tile at kv0, unscaled, with columns at
+// and beyond s set to -inf.
+__device__ __forceinline__ void mask_scores(float (&sc)[32], int kv0, int s, int t4) {
+  fence_regs(sc);
+  if (kv0 + kBlockN <= s) return;
+#pragma unroll
+  for (int n = 0; n < kBlockN / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (kv0 + n * 8 + t4 * 2 + e >= s) sc[4 * n + e] = sc[4 * n + 2 + e] = -INFINITY;
+  }
+}
+
+// the running maxima of the thread's rows g (m0) and g + 8 (m1) over sc
+template <int N>
+__device__ __forceinline__ void row_max(const float (&sc)[N], float& m0, float& m1) {
+#pragma unroll
+  for (int n = 0; n < N / 4; ++n) {
+    m0 = fmaxf(m0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+    m1 = fmaxf(m1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+  }
+}
+
 // S = Q K^T for the warpgroup's 64 q rows and the 64 kv rows of k tile kv0,
 // unscaled, columns at and beyond s set to -inf. s[4n + e]: rows g (e < 2)
 // and g + 8 of the warp's 16, column 8n + 2 t4 + (e & 1).
@@ -291,16 +314,7 @@ __device__ __forceinline__ void wgmma_scores(float (&sc)[32], const unsigned cha
                  smem_desc(kt + st * 256, 128, kGroup), st);
   wgmma_commit();
   wgmma_wait<0>();
-  fence_regs(sc);
-  const bool ragged = kv0 + kBlockN > s;
-#pragma unroll
-  for (int n = 0; n < kBlockN / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool valid = !ragged || kv0 + n * 8 + t4 * 2 + e < s;
-      if (!valid) sc[4 * n + e] = sc[4 * n + 2 + e] = -INFINITY;
-    }
-  }
+  mask_scores(sc, kv0, s, t4);
 }
 
 // the warpgroup's named barrier (1 + wg; 0 is __syncthreads)
@@ -374,11 +388,7 @@ shortseq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kv0 = 0; kv0 < s; kv0 += kBlockN) {
       float sc[32];
       wgmma_scores<DK>(sc, q_wg, k_s, kv0, s, t4);
-#pragma unroll
-      for (int n = 0; n < kBlockN / 8; ++n) {
-        m0 = fmaxf(m0, fmaxf(sc[4 * n], sc[4 * n + 1]));
-        m1 = fmaxf(m1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
-      }
+      row_max(sc, m0, m1);
     }
     m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
     m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
@@ -461,29 +471,6 @@ shortseq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---- up to S = 272: the whole score row in registers, one pass ----
-
-// The landed scores of the 64-column tile at kv0, unscaled, with columns at
-// and beyond s set to -inf.
-__device__ __forceinline__ void mask_scores(float (&sc)[32], int kv0, int s, int t4) {
-  fence_regs(sc);
-  if (kv0 + kBlockN <= s) return;
-#pragma unroll
-  for (int n = 0; n < kBlockN / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      if (kv0 + n * 8 + t4 * 2 + e >= s) sc[4 * n + e] = sc[4 * n + 2 + e] = -INFINITY;
-  }
-}
-
-// the running maxima of the thread's rows g (m0) and g + 8 (m1) over sc
-template <int N>
-__device__ __forceinline__ void row_max(const float (&sc)[N], float& m0, float& m1) {
-#pragma unroll
-  for (int n = 0; n < N / 4; ++n) {
-    m0 = fmaxf(m0, fmaxf(sc[4 * n], sc[4 * n + 1]));
-    m1 = fmaxf(m1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
-  }
-}
 
 // the shared memory of shortseq_row_kernel: k, v and one q tile
 __host__ __device__ constexpr size_t row_smem_bytes(int dk, int s) {
@@ -739,17 +726,31 @@ int dispatch_row(const void* q, const void* k, const void* v, void* out, int bh,
 // ---- the synchronous design, kept as the yardstick ----
 
 // The launch for a padded head dim, by the synchronous design.
-int dispatch_sync(const void* q, const void* k, const void* v, void* out, int bh, int s,
-                  int d, float scale_log2, cudaStream_t st) {
+// The launch for a padded head dim: the synchronous design (kSync), else
+// by S, the whole-row kernel for 128 < S <= 272 and the two-pass one for
+// the rest.
+template <bool kSync, int DK>
+int launch_by(const void* q, const void* k, const void* v, void* out, int bh, int s, int d,
+              float sl, cudaStream_t st) {
+  if constexpr (kSync) {
+    return launch<DK>(q, k, v, out, bh, s, d, sl, st);
+  } else {
+    if (s > 128 && s <= 272) return dispatch_row<DK>(q, k, v, out, bh, s, d, sl, st);
+    return launch_wgmma<DK>(q, k, v, out, bh, s, d, sl, st);
+  }
+}
+
+template <bool kSync, typename... Args>
+int dispatch(int d, Args... a) {
   switch (e4t::padded_head_dim(d)) {
-    case 16: return launch<16>(q, k, v, out, bh, s, d, scale_log2, st);
-    case 32: return launch<32>(q, k, v, out, bh, s, d, scale_log2, st);
-    case 48: return launch<48>(q, k, v, out, bh, s, d, scale_log2, st);
-    case 64: return launch<64>(q, k, v, out, bh, s, d, scale_log2, st);
-    case 80: return launch<80>(q, k, v, out, bh, s, d, scale_log2, st);
-    case 96: return launch<96>(q, k, v, out, bh, s, d, scale_log2, st);
-    case 112: return launch<112>(q, k, v, out, bh, s, d, scale_log2, st);
-    case 128: return launch<128>(q, k, v, out, bh, s, d, scale_log2, st);
+    case 16: return launch_by<kSync, 16>(a...);
+    case 32: return launch_by<kSync, 32>(a...);
+    case 48: return launch_by<kSync, 48>(a...);
+    case 64: return launch_by<kSync, 64>(a...);
+    case 80: return launch_by<kSync, 80>(a...);
+    case 96: return launch_by<kSync, 96>(a...);
+    case 112: return launch_by<kSync, 112>(a...);
+    case 128: return launch_by<kSync, 128>(a...);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -761,51 +762,23 @@ bool bad_shape(int bh, int s, int d) {
 }  // namespace
 
 // Plain C entry point for ctypes. q/k/v/out are contiguous (BH, S, D) bf16,
-// 16-byte aligned, S up to 512, D a multiple of 8 up to 128. The wgmma
-// kernel wherever the head's k and v fit a block's shared memory beside
-// its q tiles (every S the route takes up to D 104, up to S 448 at D 112
-// and up to S 384 at D 120-128); above that the synchronous design, which
-// keeps only k resident. Runs on ``stream``, allocates nothing and does
-// not synchronise. Returns cudaGetLastError() after the launch.
+// 16-byte aligned, S up to 512, D a multiple of 8 up to 128. Runs on
+// ``stream``, allocates nothing and does not synchronise. Returns
+// cudaGetLastError() after the launch.
 extern "C" int e4t_flash_fwd_shortseq(const void* q, const void* k, const void* v,
                                       void* out, int bh, int s, int d, float scale,
                                       void* stream) {
   if (bad_shape(bh, s, d)) return (int)cudaErrorInvalidValue;
-  const float sl = scale * e4t::kLog2e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int dk = e4t::padded_head_dim(d);
-  if (s > 128 && s <= 272) {
-    switch (dk) {
-      case 16: return dispatch_row<16>(q, k, v, out, bh, s, d, sl, st);
-      case 32: return dispatch_row<32>(q, k, v, out, bh, s, d, sl, st);
-      case 48: return dispatch_row<48>(q, k, v, out, bh, s, d, sl, st);
-      case 64: return dispatch_row<64>(q, k, v, out, bh, s, d, sl, st);
-      case 80: return dispatch_row<80>(q, k, v, out, bh, s, d, sl, st);
-      case 96: return dispatch_row<96>(q, k, v, out, bh, s, d, sl, st);
-      case 112: return dispatch_row<112>(q, k, v, out, bh, s, d, sl, st);
-      case 128: return dispatch_row<128>(q, k, v, out, bh, s, d, sl, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  switch (dk) {
-    case 16: return launch_wgmma<16>(q, k, v, out, bh, s, d, sl, st);
-    case 32: return launch_wgmma<32>(q, k, v, out, bh, s, d, sl, st);
-    case 48: return launch_wgmma<48>(q, k, v, out, bh, s, d, sl, st);
-    case 64: return launch_wgmma<64>(q, k, v, out, bh, s, d, sl, st);
-    case 80: return launch_wgmma<80>(q, k, v, out, bh, s, d, sl, st);
-    case 96: return launch_wgmma<96>(q, k, v, out, bh, s, d, sl, st);
-    case 112: return launch_wgmma<112>(q, k, v, out, bh, s, d, sl, st);
-    case 128: return launch_wgmma<128>(q, k, v, out, bh, s, d, sl, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(d, q, k, v, out, bh, s, d, scale * e4t::kLog2e,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The same function by the synchronous design: the yardstick chip_smoke.py
-// times the kernel against. No path calls it.
+// times the kernels against. No path calls it.
 extern "C" int e4t_flash_fwd_shortseq_sync(const void* q, const void* k, const void* v,
                                            void* out, int bh, int s, int d, float scale,
                                            void* stream) {
   if (bad_shape(bh, s, d)) return (int)cudaErrorInvalidValue;
-  return dispatch_sync(q, k, v, out, bh, s, d, scale * e4t::kLog2e,
-                       static_cast<cudaStream_t>(stream));
+  return dispatch<true>(d, q, k, v, out, bh, s, d, scale * e4t::kLog2e,
+                        static_cast<cudaStream_t>(stream));
 }

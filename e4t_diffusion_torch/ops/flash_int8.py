@@ -85,8 +85,9 @@ def flash_fwd_int8_reference(q: torch.Tensor, k: torch.Tensor,
                              block_k: Optional[int] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The TPU kernel's loop (flash_kernels.py:760-810) over kv tiles of
-    ``block_k`` rows (``quant_tile(Sk)`` by default): q (BH, Sq, D) and k (BH, Sk, D) int8, v int8 ("qkpv")
-    or the compute type ("qk"), sc (BH, 2) f32 -> (out (BH, Sq, D) in
+    ``block_k`` rows (``quant_tile(Sk)`` by default): q (BH, Sq, D) and k
+    (BH, Sk, D) int8, v int8 ("qkpv") or the compute type ("qk"), sc (BH,
+    2) f32 -> (out (BH, Sq, D) in
     ``out_dtype``, lse (BH, Sq) f32). Scores are the exact int32 q k^T times
     ``sc[:, 0]``; p = exp(s - running max); l sums the f32 p; P@V adds
     ``round(p * 127) @ v`` in int32 ("qkpv") or p rounded to v's type times

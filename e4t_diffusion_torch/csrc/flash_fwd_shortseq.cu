@@ -244,9 +244,10 @@ constexpr int kWgGroups = 2;
 constexpr int kWgThreads = 128 * kWgGroups;
 
 // blocks an SM should hold (the register budget __launch_bounds__ asks
-// for): two up to DK 80, where 128 registers a thread hold s, o and p
+// for): two up to DK 64, where 128 registers a thread hold s, o and p (at
+// DK 80 ptxas spills under that budget)
 template <int DK>
-constexpr int wgmma_min_blocks() { return DK <= 80 ? 2 : 1; }
+constexpr int wgmma_min_blocks() { return DK <= 64 ? 2 : 1; }
 
 // the head's k (S rounded up to 8 rows; the last 64-row score tile reads on
 // into the warpgroups' buffers, whose columns it masks), then each

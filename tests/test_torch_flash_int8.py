@@ -174,3 +174,19 @@ def test_kernel_input_checks(mode):
     wide = torch.zeros(2, 64, 128, dtype=torch.int8)
     with pytest.raises(ValueError, match="head dim 128"):
         fi._check_kernel_inputs(wide, wide, wide, sc, mode, torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", ["qk", "qkpv"])
+def test_int8_sync_yardstick_runs_on_cuda_tensors_only(mode):
+    """flash_fwd_int8_sync, the synchronous design kept as the wgmma
+    kernel's yardstick, takes no CPU tensors and counts no launch; a kv
+    tile that is not a positive multiple of 64 is refused first."""
+    i8 = torch.zeros(2, 64, 40, dtype=torch.int8)
+    v = i8 if mode == "qkpv" else torch.zeros(2, 64, 40, dtype=torch.bfloat16)
+    sc = torch.ones(2, 2)
+    before = dict(fi.flash_fwd_int8.launches)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fi.flash_fwd_int8_sync(i8, i8, v, sc, mode, torch.bfloat16)
+    with pytest.raises(ValueError, match="kv tile 96"):
+        fi.flash_fwd_int8_sync(i8, i8, v, sc, mode, torch.bfloat16, 96)
+    assert fi.flash_fwd_int8.launches == before

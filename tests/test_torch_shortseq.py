@@ -184,3 +184,13 @@ def test_dispatch_matches_jax(monkeypatch, q_shape, k_shape, bias, causal,
         q_shape, k_shape, torch.device("cuda"), has_bias=bias is not None,
         causal=causal) == (route == "shortseq")
     assert _port_route(monkeypatch, *args, "cpu") == "einsum"
+
+
+def test_shortseq_sync_yardstick_runs_on_cuda_tensors_only():
+    """flash_fwd_shortseq_sync, the synchronous design kept as the wgmma
+    kernels' yardstick, takes no CPU tensors and counts no launch."""
+    q = torch.zeros(2, 257, 80, dtype=torch.bfloat16)
+    before = dict(shortseq.flash_fwd_shortseq.launches)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        shortseq.flash_fwd_shortseq_sync(q, q, q, 0.1, 2)
+    assert shortseq.flash_fwd_shortseq.launches == before

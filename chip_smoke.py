@@ -269,12 +269,13 @@ def phase_build():
                 usage[src].append(f"{name}: {ln.split(':', 1)[-1].strip()}")
     print(json.dumps({"phase": "build", "sources": sources,
                       "seconds": round(seconds, 3), "ptxas": usage}))
-    # the wgmma kernels hold their accumulators in registers: a spill would
-    # move them through local memory on every tile
+    # the wgmma kernels and the register-blocked f32 ones (attn_f32_*) hold
+    # their accumulators in registers: a spill would move them through local
+    # memory on every tile
     spills = [u for lines in usage.values() for u in lines
-              if "wgmma" in u and "spill" in u]
+              if ("wgmma" in u or u.startswith("attn_f32_")) and "spill" in u]
     if spills:
-        fail(f"ptxas spills in the wgmma kernels: {spills}")
+        fail(f"ptxas spills in the wgmma or f32 kernels: {spills}")
 
 
 def _bound(n_bytes, flops, exps, int8_ops=0, flop_rate=BF16_FLOP_PER_S):

@@ -6,14 +6,14 @@
 // Replaces, for f32 operands, the TPU kernels of
 // e4t_diffusion_tpu/ops/flash_kernels.py that write in q's dtype:
 //   - _flash_fwd_lowdim (:286), _flash_fwd_kvres (:196) and _flash_fwd
-//     (:95): attn_fwd_f32_kernel<float, DK, false>, out and lse = m + log(l);
-//   - _flash_bwd_resident (:503) and _flash_bwd (:582): attn_bwd_dq_kernel and
-//     attn_bwd_dkdv_kernel, p = exp(s - lse), ds = p (dP - delta) scale;
-//   - _flash_fwd_shortseq_mh (:896): attn_fwd_f32_kernel<float, DK, true>, the
+//     (:95): attn_fwd_f32_sync_kernel<float, DK, false>, out and lse = m + log(l);
+//   - _flash_bwd_resident (:503) and _flash_bwd (:582): attn_bwd_dq_sync_kernel and
+//     attn_bwd_dkv_sync_kernel, p = exp(s - lse), ds = p (dP - delta) scale;
+//   - _flash_fwd_shortseq_mh (:896): attn_fwd_f32_sync_kernel<float, DK, true>, the
 //     single-pass softmax (the row max over the whole kv row first, no
 //     rescaling) and the division by l after P@V;
 //   - _flash_fwd_lowdim_int8 (:813) in "qk" mode with an f32 v:
-//     attn_fwd_f32_kernel<int8_t, DK, false>, the int8 scores exact in int32
+//     attn_fwd_f32_sync_kernel<int8_t, DK, false>, the int8 scores exact in int32
 //     (__dp4a) times the head's qk_c, P@V in f32, out = acc / l * v_c.
 // With f32 p nothing is rounded before P@V, so these compute the plain
 // versions' function with f32 sums in another order.
@@ -170,7 +170,7 @@ constexpr size_t fwd_smem_bytes() {
 // short-sequence kernel's softmax); else the online softmax of flash.
 template <typename QK, int DK, bool kSinglePass>
 __global__ void __launch_bounds__(kT, 1)
-attn_fwd_f32_kernel(const QK* __restrict__ q, const QK* __restrict__ k,
+attn_fwd_f32_sync_kernel(const QK* __restrict__ q, const QK* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ sc, float scale,
                     float* __restrict__ out, float* __restrict__ lse, int sq, int sk,
                     int d) {
@@ -293,7 +293,7 @@ constexpr size_t bwd_dq_smem_bytes() {
 // dP = dO V^T, dS = P (dP - delta) scale, dq += dS K.
 template <int DK>
 __global__ void __launch_bounds__(kT, 1)
-attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+attn_bwd_dq_sync_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    float* __restrict__ dq, int sq, int sk, int d, float scale) {
@@ -365,7 +365,7 @@ constexpr size_t bwd_dkdv_smem_bytes() {
 // dk += dS^T Q.
 template <int DK>
 __global__ void __launch_bounds__(kT, 1)
-attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+attn_bwd_dkv_sync_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv, int sq, int sk, int d,
@@ -439,11 +439,277 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The redesigned f32 forward (attn_f32_fwd_kernel): register-blocked FFMA.
+//
+// One block of kThreads (128 to DK 128, 256 above) per 64 q rows at every
+// DK; k/v tiles of 64 rows. q, k and v sit row-major in shared memory with
+// a pitch of DK + 4 floats (16-byte rows whose 16-byte chunks fall in
+// distinct bank groups for consecutive rows), so both products read float4
+// along their contraction index:
+//   - S = Q K^T: a kNR x 16 thread grid, each thread kRM (8, or 4 at 256
+//     threads) rows ty + kNR i by 4 columns tx + 16 j, 4 head dims a step:
+//     kRM + 4 16-byte loads for 16 kRM FMAs, every word feeding at least 4.
+//     The 16 threads of a row are 16 consecutive lanes, so row maxima and
+//     sums reduce by half-warp shuffles.
+//   - O += P V: P goes through shared memory row-major (pitch 68), so the
+//     output's thread grid is free of the score grid's: kNRo x kNCo threads
+//     each own kRO rows oy + kNRo i by kCO = DK / kNCo columns ox + kNCo c,
+//     4 kv rows a step: kRO 16-byte loads of p and 4 kCO 4-byte loads of v
+//     for 4 kRO kCO FMAs (each p word feeds kCO FMAs, each v word kRO). The
+//     row rescales (alpha) and sums (l) reach it through shared memory.
+// D is padded to a multiple of 8 up to 128 (d itself: the wrappers take
+// multiples of 8) and of 32 above, so d = 40 computes 40 columns.
+template <int DK>
+struct F32Fwd {
+  static constexpr int kThreads = DK <= 128 ? 128 : 256;
+  static constexpr int kBM = 64, kBN = 64;
+  static constexpr int kNC = 16, kNR = kThreads / kNC;
+  static constexpr int kRM = kBM / kNR, kCN = kBN / kNC;
+  static constexpr int kNCo = kThreads == 256 ? 32 : DK % 16 == 0 ? 16 : 8;
+  static constexpr int kNRo = kThreads / kNCo;
+  static constexpr int kRO = kBM / kNRo, kCO = DK / kNCo;
+  static constexpr int kP = DK + 4, kPP = kBN + 4;
+  static constexpr size_t kSmem =
+      sizeof(float) * (size_t)(kBM * kP + 2 * kBN * kP + kBM * kPP + 2 * kBM);
+  static_assert(kCO * kNCo == DK && kRO * kNRo == kBM, "output grid");
+  static_assert(kSmem <= e4t::kMaxSmem, "shared memory");
+};
+
+// the head dim the redesigned kernels compute for d (a multiple of 8)
+__host__ __forceinline__ int f32_head_dim(int d) {
+  return d <= 128 ? d : (d + 31) / 32 * 32;
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Rows [r0, r0 + ROWS) of a contiguous (n, d) f32 tensor into dst (pitch
+// DK + 4) by 16-byte loads, zero past row n and column d.
+template <int ROWS, int DK, int NT>
+__device__ __forceinline__ void stage_f4(float* dst, const float* src, int r0, int n, int d,
+                                         int tid) {
+  constexpr int kC = DK / 4, kP = DK + 4;
+  for (int i = tid; i < ROWS * kC; i += NT) {
+    const int r = i / kC, c = 4 * (i - r * kC);
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n && c < d)
+      val = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * d + c);
+    *reinterpret_cast<float4*>(dst + r * kP + c) = val;
+  }
+}
+
+// acc[i][j] = q row (ty + kNR i) . k row (tx + 16 j) over DK, from the
+// pitched row-major tiles
+template <int DK>
+__device__ __forceinline__ void f32_scores(float (&acc)[F32Fwd<DK>::kRM][F32Fwd<DK>::kCN],
+                                           const float* q_s, const float* k_s, int ty,
+                                           int tx) {
+  using C = F32Fwd<DK>;
+#pragma unroll
+  for (int i = 0; i < C::kRM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::kCN; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int w = 0; w < DK; w += 4) {
+    float4 b[C::kCN];
+#pragma unroll
+    for (int j = 0; j < C::kCN; ++j) b[j] = lds4(k_s + (tx + C::kNC * j) * C::kP + w);
+#pragma unroll
+    for (int i = 0; i < C::kRM; ++i) {
+      const float4 a = lds4(q_s + (ty + C::kNR * i) * C::kP + w);
+#pragma unroll
+      for (int j = 0; j < C::kCN; ++j) {
+        acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// o[i][c] += sum over kv rows n < n_end of p_s[(oy + kNRo i), n] v_s[n, ox +
+// kNCo c]; n_end a multiple of 4 (p is 0 and v is 0 past Sk)
+template <int DK>
+__device__ __forceinline__ void f32_pv(float (&o)[F32Fwd<DK>::kRO][F32Fwd<DK>::kCO],
+                                       const float* p_s, const float* v_s, int oy, int ox,
+                                       int n_end) {
+  using C = F32Fwd<DK>;
+#pragma unroll 2
+  for (int n = 0; n < n_end; n += 4) {
+    float4 pa[C::kRO];
+#pragma unroll
+    for (int i = 0; i < C::kRO; ++i) pa[i] = lds4(p_s + (oy + C::kNRo * i) * C::kPP + n);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      float vb[C::kCO];
+#pragma unroll
+      for (int c = 0; c < C::kCO; ++c) vb[c] = v_s[(n + t) * C::kP + ox + C::kNCo * c];
+#pragma unroll
+      for (int i = 0; i < C::kRO; ++i) {
+        const float pv = t == 0 ? pa[i].x : t == 1 ? pa[i].y : t == 2 ? pa[i].z : pa[i].w;
+#pragma unroll
+        for (int c = 0; c < C::kCO; ++c) o[i][c] = fmaf(pv, vb[c], o[i][c]);
+      }
+    }
+  }
+}
+
+// Forward over one 64-row q tile: out (BH, Sq, D) f32 and, where lse is not
+// null, lse (BH, Sq). kSinglePass: the row max over every kv tile first,
+// then p against it with no rescaling (the short-sequence kernel's
+// softmax); else the online softmax of flash.
+template <int DK, bool kSinglePass>
+__global__ void __launch_bounds__(F32Fwd<DK>::kThreads, 1)
+attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float scale, float* __restrict__ out,
+                    float* __restrict__ lse, int sq, int sk, int d) {
+  using C = F32Fwd<DK>;
+  constexpr int kT = C::kThreads, kRM = C::kRM, kCN = C::kCN, kRO = C::kRO,
+                kCO = C::kCO, kP = C::kP, kPP = C::kPP, kBN = C::kBN;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // kBM x kP
+  float* k_s = q_s + C::kBM * kP;                    // kBN x kP
+  float* v_s = k_s + kBN * kP;                       // kBN x kP
+  float* p_s = v_s + kBN * kP;                       // kBM x kPP
+  float* alpha_s = p_s + C::kBM * kPP;               // kBM
+  float* l_s = alpha_s + C::kBM;                     // kBM
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * C::kBM, tid = threadIdx.x;
+  const int ty = tid / C::kNC, tx = tid % C::kNC;    // score grid
+  const int oy = tid / C::kNCo, ox = tid % C::kNCo;  // output grid
+  const float s_log2 = scale * e4t::kLog2e;
+  const float* kb = k + (size_t)bh * sk * d;
+  const float* vb = v + (size_t)bh * sk * d;
+
+  stage_f4<C::kBM, DK, kT>(q_s, q + (size_t)bh * sq * d, q0, sq, d, tid);
+
+  float m[kRM], l[kRM], o[kRO][kCO];
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < kRO; ++i)
+#pragma unroll
+    for (int c = 0; c < kCO; ++c) o[i][c] = 0.f;
+
+  // this thread's scores of the tile at kv0, log2 domain, -inf past Sk
+  auto scores = [&](float (&s)[kRM][kCN], int kv0) {
+    f32_scores<DK>(s, q_s, k_s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < kRM; ++i)
+#pragma unroll
+      for (int j = 0; j < kCN; ++j)
+        s[i][j] = kv0 + tx + C::kNC * j < sk ? s[i][j] * s_log2 : -INFINITY;
+  };
+
+  if constexpr (kSinglePass) {
+    for (int kv0 = 0; kv0 < sk; kv0 += kBN) {
+      __syncthreads();
+      stage_f4<kBN, DK, kT>(k_s, kb, kv0, sk, d, tid);
+      __syncthreads();
+      float s[kRM][kCN];
+      scores(s, kv0);
+#pragma unroll
+      for (int i = 0; i < kRM; ++i)
+#pragma unroll
+        for (int j = 0; j < kCN; ++j) m[i] = fmaxf(m[i], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) m[i] = half_warp_max(m[i]);
+  }
+
+  for (int kv0 = 0; kv0 < sk; kv0 += kBN) {
+    __syncthreads();  // every thread is done with the previous tile
+    stage_f4<kBN, DK, kT>(k_s, kb, kv0, sk, d, tid);
+    stage_f4<kBN, DK, kT>(v_s, vb, kv0, sk, d, tid);
+    __syncthreads();
+    float s[kRM][kCN];
+    scores(s, kv0);
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) {
+      if constexpr (!kSinglePass) {
+        float mx = m[i];
+#pragma unroll
+        for (int j = 0; j < kCN; ++j) mx = fmaxf(mx, s[i][j]);
+        // every tile holds a valid column, so mx is finite and the first
+        // tile's alpha is exp2(-inf) = 0
+        mx = half_warp_max(mx);
+        const float alpha = exp2f(m[i] - mx);
+        m[i] = mx;
+        l[i] *= alpha;
+        if (tx == 0) alpha_s[ty + C::kNR * i] = alpha;
+      }
+#pragma unroll
+      for (int j = 0; j < kCN; ++j) {
+        const float p = exp2f(s[i][j] - m[i]);
+        l[i] += p;
+        p_s[(ty + C::kNR * i) * kPP + tx + C::kNC * j] = p;
+      }
+    }
+    __syncthreads();
+    if constexpr (!kSinglePass) {
+#pragma unroll
+      for (int i = 0; i < kRO; ++i) {
+        const float a = alpha_s[oy + C::kNRo * i];
+#pragma unroll
+        for (int c = 0; c < kCO; ++c) o[i][c] *= a;
+      }
+    }
+    f32_pv<DK>(o, p_s, v_s, oy, ox, min(kBN, (sk - kv0 + 3) & ~3));
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+    const float li = half_warp_sum(l[i]);
+    const int r = ty + C::kNR * i, row = q0 + r;
+    if (tx == 0) {
+      l_s[r] = li;
+      if (lse != nullptr && row < sq)
+        lse[(size_t)bh * sq + row] = (m[i] + log2f(fmaxf(li, 1e-37f))) * kLn2;
+    }
+  }
+  __syncthreads();
+  float* ob = out + (size_t)bh * sq * d;
+#pragma unroll
+  for (int i = 0; i < kRO; ++i) {
+    const int r = oy + C::kNRo * i, row = q0 + r;
+    const float li = l_s[r];
+    const float f = li > 0.f ? 1.f / li : 0.f;
+    if (row < sq)
+#pragma unroll
+      for (int c = 0; c < kCO; ++c) {
+        const int col = ox + C::kNCo * c;
+        if (col < d) ob[(size_t)row * d + col] = o[i][c] * f;
+      }
+  }
+}
+
+template <int DK, bool kSinglePass>
+int launch_f32_fwd(const void* q, const void* k, const void* v, float scale, void* out,
+                   void* lse, int bh, int sq, int sk, int d, cudaStream_t stream) {
+  using C = F32Fwd<DK>;
+  auto kernel = attn_f32_fwd_kernel<DK, kSinglePass>;
+  const cudaError_t err = e4t::allow_smem(kernel, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((sq + C::kBM - 1) / C::kBM, bh);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), scale, static_cast<float*>(out),
+      static_cast<float*>(lse), sq, sk, d);
+  return (int)cudaGetLastError();
+}
+
 template <typename QK, int DK, bool kSinglePass>
 int launch_fwd(const void* q, const void* k, const void* v, const void* sc, float scale,
                void* out, void* lse, int bh, int sq, int sk, int d, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<QK, DK>();
-  auto kernel = attn_fwd_f32_kernel<QK, DK, kSinglePass>;
+  auto kernel = attn_fwd_f32_sync_kernel<QK, DK, kSinglePass>;
   const cudaError_t err = e4t::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + tile_rows<DK>() - 1) / tile_rows<DK>(), bh);
@@ -466,16 +732,16 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   const float* lf = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   constexpr size_t smem_dq = bwd_dq_smem_bytes<DK>();
-  cudaError_t err = e4t::allow_smem(attn_bwd_dq_kernel<DK>, smem_dq);
+  cudaError_t err = e4t::allow_smem(attn_bwd_dq_sync_kernel<DK>, smem_dq);
   if (err != cudaSuccess) return (int)err;
-  attn_bwd_dq_kernel<DK><<<dim3((sq + kB - 1) / kB, bh), kT, smem_dq, stream>>>(
+  attn_bwd_dq_sync_kernel<DK><<<dim3((sq + kB - 1) / kB, bh), kT, smem_dq, stream>>>(
       qf, kf, vf, df, lf, dl, static_cast<float*>(dq), sq, sk, d, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   constexpr size_t smem_kv = bwd_dkdv_smem_bytes<DK>();
-  err = e4t::allow_smem(attn_bwd_dkdv_kernel<DK>, smem_kv);
+  err = e4t::allow_smem(attn_bwd_dkv_sync_kernel<DK>, smem_kv);
   if (err != cudaSuccess) return (int)err;
-  attn_bwd_dkdv_kernel<DK><<<dim3((sk + kB - 1) / kB, bh), kT, smem_kv, stream>>>(
+  attn_bwd_dkv_sync_kernel<DK><<<dim3((sk + kB - 1) / kB, bh), kT, smem_kv, stream>>>(
       qf, kf, vf, df, lf, dl, static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, d,
       scale);
   return (int)cudaGetLastError();
@@ -512,6 +778,43 @@ int with_dk(int d, F&& f) {
   }
 }
 
+// f(Dk<DK>{}) for the redesigned kernels' head dim of d (f32_head_dim) up
+// to 128
+template <typename F>
+int with_dk8_low(int d, F&& f) {
+  switch (f32_head_dim(d)) {
+    case 8: return f(Dk<8>{});
+    case 16: return f(Dk<16>{});
+    case 24: return f(Dk<24>{});
+    case 32: return f(Dk<32>{});
+    case 40: return f(Dk<40>{});
+    case 48: return f(Dk<48>{});
+    case 56: return f(Dk<56>{});
+    case 64: return f(Dk<64>{});
+    case 72: return f(Dk<72>{});
+    case 80: return f(Dk<80>{});
+    case 88: return f(Dk<88>{});
+    case 96: return f(Dk<96>{});
+    case 104: return f(Dk<104>{});
+    case 112: return f(Dk<112>{});
+    case 120: return f(Dk<120>{});
+    case 128: return f(Dk<128>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the same up to 256
+template <typename F>
+int with_dk8(int d, F&& f) {
+  switch (f32_head_dim(d)) {
+    case 160: return f(Dk<160>{});
+    case 192: return f(Dk<192>{});
+    case 224: return f(Dk<224>{});
+    case 256: return f(Dk<256>{});
+    default: return with_dk8_low(d, f);
+  }
+}
+
 bool bad_shape(int bh, int sq, int sk, int d, int max_d) {
   return bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 || d <= 0 || d % 8 != 0 || d > max_d;
 }
@@ -529,9 +832,9 @@ extern "C" int e4t_attn_fwd_f32(const void* q, const void* k, const void* v, voi
                                 void* stream) {
   if (bad_shape(bh, sq, sk, d, 256)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_dk(d, [&](auto dk) {
-    return launch_fwd<float, decltype(dk)::value, false>(q, k, v, nullptr, scale, out, lse,
-                                                         bh, sq, sk, d, s);
+  return with_dk8(d, [&](auto dk) {
+    return launch_f32_fwd<decltype(dk)::value, false>(q, k, v, scale, out, lse, bh, sq, sk,
+                                                      d, s);
   });
 }
 
@@ -540,12 +843,14 @@ extern "C" int e4t_attn_fwd_shortseq_f32(const void* q, const void* k, const voi
                                          void* stream) {
   if (bad_shape(bh, s_len, s_len, d, 128)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_dk_low(d, [&](auto dk) {
-    return launch_fwd<float, decltype(dk)::value, true>(q, k, v, nullptr, scale, out,
-                                                        nullptr, bh, s_len, s_len, d, s);
+  return with_dk8_low(d, [&](auto dk) {
+    return launch_f32_fwd<decltype(dk)::value, true>(q, k, v, scale, out, nullptr, bh,
+                                                     s_len, s_len, d, s);
   });
 }
 
+// The int8 "qk" attention keeps the synchronous design (its __dp4a scores
+// are four values to a word).
 extern "C" int e4t_attn_fwd_int8_qk_f32(const void* q, const void* k, const void* v,
                                         const void* sc, void* out, void* lse, int bh,
                                         int sq, int sk, int d, void* stream) {
@@ -561,6 +866,44 @@ extern "C" int e4t_attn_bwd_f32(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta,
                                 void* dq, void* dk, void* dv, int bh, int sq, int sk, int d,
                                 float scale, void* stream) {
+  if (bad_shape(bh, sq, sk, d, 256)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_dk(d, [&](auto dkc) {
+    return launch_bwd<decltype(dkc)::value>(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq,
+                                            sk, d, scale, s);
+  });
+}
+
+// The synchronous designs the redesigned kernels replaced (4 x 4 score
+// blocks of scalar shared loads, tiles staged between two block barriers,
+// D padded to 16 / 32), kept as their yardsticks: the same arguments as
+// the entry points above.
+extern "C" int e4t_attn_fwd_f32_sync(const void* q, const void* k, const void* v,
+                                     void* out, void* lse, int bh, int sq, int sk, int d,
+                                     float scale, void* stream) {
+  if (bad_shape(bh, sq, sk, d, 256)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_dk(d, [&](auto dk) {
+    return launch_fwd<float, decltype(dk)::value, false>(q, k, v, nullptr, scale, out, lse,
+                                                         bh, sq, sk, d, s);
+  });
+}
+
+extern "C" int e4t_attn_fwd_shortseq_f32_sync(const void* q, const void* k, const void* v,
+                                              void* out, int bh, int s_len, int d,
+                                              float scale, void* stream) {
+  if (bad_shape(bh, s_len, s_len, d, 128)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_dk_low(d, [&](auto dk) {
+    return launch_fwd<float, decltype(dk)::value, true>(q, k, v, nullptr, scale, out,
+                                                        nullptr, bh, s_len, s_len, d, s);
+  });
+}
+
+extern "C" int e4t_attn_bwd_f32_sync(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse, const void* delta,
+                                     void* dq, void* dk, void* dv, int bh, int sq, int sk,
+                                     int d, float scale, void* stream) {
   if (bad_shape(bh, sq, sk, d, 256)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_dk(d, [&](auto dkc) {

@@ -18,7 +18,8 @@ dim and one exponential per score; the dq and dk/dv kernels each compute S
 and dP (14 flops, two exponentials).
 
 f32 operands go to the f32 backward of ``csrc/attention_f32.cu`` (a dq
-kernel and a dk/dv kernel in full f32 on the CUDA cores).
+kernel and a dk/dv kernel in full f32 on the CUDA cores); the synchronous
+design it replaced is its yardstick, ``flash_bwd_f32_sync``.
 
 ``flash_bwd`` launches the kernels of the operands' type for CUDA tensors,
 counts them apart (``flash_bwd.launches["bf16"]`` and ``["f32"]``) and
@@ -35,7 +36,7 @@ import torch
 
 from e4t_diffusion_torch.ops import _build
 from e4t_diffusion_torch.ops.flash_lowdim import (
-    F32_SOURCE, _check, _check_kernel_inputs)
+    F32_SOURCE, _check, _check_kernel_inputs, _require_f32_cuda)
 
 SOURCE = "flash_bwd"
 
@@ -102,6 +103,21 @@ def flash_bwd_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("flash_bwd_sync takes bf16 operands")
     return _launch(SOURCE, "e4t_flash_bwd_sync", q, k, v, out, lse, dout,
                    scale)
+
+
+def flash_bwd_f32_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       out: torch.Tensor, lse: torch.Tensor,
+                       dout: torch.Tensor, scale: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The f32 backward by the synchronous design
+    (``e4t_attn_bwd_f32_sync``): the yardstick of the f32 kernels. No path
+    calls it, and it counts no launch. CUDA f32 tensors only, as
+    ``flash_bwd`` takes them."""
+    _check_shapes(q, k, v, out, lse, dout)
+    _require_f32_cuda("flash_bwd_f32_sync", q, k, v, out, dout)
+    _check_kernel_operands(q, k, v, out, lse, dout)
+    return _launch(F32_SOURCE, "e4t_attn_bwd_f32_sync", q, k, v, out, lse,
+                   dout, scale)
 
 
 def _check_shapes(q, k, v, out, lse, dout) -> None:

@@ -20,8 +20,9 @@ source as the yardstick: ``flash_fwd_sync`` runs it at every head dim, and
 against it; no path calls it.
 
 f32 operands go to the f32 kernel of ``csrc/attention_f32.cu`` (SIMT FFMA
-in full f32, any head dim the bf16 kernel takes), as the TPU kernels write
-in q's dtype.
+in full f32, register-blocked, any head dim the bf16 kernel takes), as the
+TPU kernels write in q's dtype. The synchronous f32 design it replaced is
+its yardstick, ``flash_fwd_f32_sync``, which no path calls either.
 
 The wrapper launches the kernel for CUDA tensors, raises on anything the
 kernels do not take, and counts its launches per TPU kernel it stands for
@@ -164,6 +165,28 @@ def flash_fwd_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _check_kernel_inputs(q, k, v) != torch.bfloat16:
         raise TypeError("flash_fwd_sync takes bf16 operands")
     return _launch(SOURCE, "e4t_flash_fwd_sync", q, k, v, scale)
+
+
+def flash_fwd_f32_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 forward by the synchronous design the register-blocked
+    kernel replaced (``e4t_attn_fwd_f32_sync``): its yardstick. No path
+    calls it, and it counts no launch. CUDA f32 tensors only, with the
+    checks ``flash_fwd`` runs."""
+    _check(q, k, v)
+    _require_f32_cuda("flash_fwd_f32_sync", q, k, v)
+    _check_kernel_inputs(q, k, v)
+    return _launch(F32_SOURCE, "e4t_attn_fwd_f32_sync", q, k, v, scale)
+
+
+def _require_f32_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """What an f32 yardstick takes before any other check: f32 operands
+    (TypeError) on a CUDA device (ValueError); it has no plain version to
+    run on the CPU."""
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name} takes float32 operands")
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors only")
 
 
 def _launch(source, symbol, q, k, v, scale):

@@ -23,7 +23,8 @@ design it replaced stays in the source as the yardstick:
 ``flash_fwd_shortseq_sync`` runs it, and ``chip_smoke.py`` and
 ``time_attn_small.py`` time and check the kernel against it; no path calls
 it. f32 operands go to the single-pass f32 kernel of
-``csrc/attention_f32.cu``.
+``csrc/attention_f32.cu``, whose synchronous design is its yardstick
+``flash_fwd_shortseq_f32_sync``.
 
 ``flash_fwd_shortseq`` launches the kernel of the operands' type for CUDA
 tensors, raises on anything the kernels do not take, and counts its
@@ -42,7 +43,9 @@ import os
 import torch
 
 from e4t_diffusion_torch.ops import _build
-from e4t_diffusion_torch.ops.flash_lowdim import F32_SOURCE, check_operands
+from e4t_diffusion_torch.ops.flash_lowdim import (F32_SOURCE,
+                                                   _require_f32_cuda,
+                                                   check_operands)
 
 SOURCE = "flash_fwd_shortseq"
 KNOB = "E4T_SHORTSEQ_MH_ATTN"
@@ -156,3 +159,17 @@ def flash_fwd_shortseq_sync(q: torch.Tensor, k: torch.Tensor,
     if _check_kernel_inputs(q, k, v) != torch.bfloat16:
         raise TypeError("flash_fwd_shortseq_sync takes bf16 operands")
     return _launch(SOURCE, "e4t_flash_fwd_shortseq_sync", q, k, v, scale)
+
+
+def flash_fwd_shortseq_f32_sync(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, scale: float, g: int
+                                ) -> torch.Tensor:
+    """The f32 kernel by the synchronous design the register-blocked one
+    replaced (``e4t_attn_fwd_shortseq_f32_sync``): its yardstick. No path
+    calls it, and it counts no launch. CUDA f32 tensors only, with the
+    checks ``flash_fwd_shortseq`` runs."""
+    _check(q, k, v, g)
+    _require_f32_cuda("flash_fwd_shortseq_f32_sync", q, k, v)
+    _check_kernel_inputs(q, k, v)
+    return _launch(F32_SOURCE, "e4t_attn_fwd_shortseq_f32_sync", q, k, v,
+                   scale)

@@ -3,8 +3,14 @@
 NVIDIA GPU at the shapes of their routes, beside their synchronous designs,
 SDPA and the work's bound.
 
-    python3 e4t_diffusion_torch/time_attn_small.py [--repo DIR]
+    python3 e4t_diffusion_torch/time_attn_small.py [--repo DIR] [--dtype bf16|f32]
                                                    [--ablate PART] [--label TEXT]
+
+``--dtype f32`` times the f32 short-sequence kernel (``csrc/attention_f32.cu``)
+alone at ``SHORTSEQ_SHAPES`` beside its synchronous design
+(``flash_fwd_shortseq_f32_sync``, where the checkout has it), f32 SDPA with
+TF32 off and the FFMA bound (67 TFLOP/s), held to rel-L2 1e-5 against the
+plain version; bf16 (the default) is described below.
 
 ``--repo`` names the checkout whose ``e4t_diffusion_torch`` is timed (this
 one by default), so one call can time two commits on one card, in turns:
@@ -36,6 +42,10 @@ import sys
 # and tuning at batch 16 (BH 256), and the ends of the route's range
 SHORTSEQ_SHAPES = ((128, 257, 80), (256, 257, 80), (256, 129, 80),
                    (256, 512, 120))
+# the f32 FFMA rate (chip_smoke.F32_FLOP_PER_S) and the f32 kernel's
+# tolerance against its plain version (chip_smoke.KERNEL_F32_REL_L2)
+F32_FLOP_PER_S = 67e12
+F32_REL_L2 = 1e-5
 # (BH, S, d): the UNet's two low-dim flash sites when sampling at batch 8
 INT8_SHAPES = ((64, 4096, 40), (64, 1024, 80))
 KERNELS = {"shortseq": os.path.join("e4t_diffusion_torch", "csrc",
@@ -91,6 +101,14 @@ def ablated_copy(repo, part):
     return root
 
 
+def shortseq_bound_args(bh, s, d, f32=False):
+    """The arguments of ``chip_smoke._bound`` for the short-sequence
+    forward's work: q, k, v read and out written once, 4 S^2 D flops at the
+    bf16 or the f32 rate, one exponential per score."""
+    return ((4 if f32 else 2) * 4 * bh * s * d, 4 * bh * s * s * d,
+            bh * s * s), ({"flop_rate": F32_FLOP_PER_S} if f32 else {})
+
+
 def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
@@ -99,10 +117,14 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--repo", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
+    parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     parser.add_argument("--ablate", choices=sorted(ABLATIONS))
     parser.add_argument("--label", default="")
     args = parser.parse_args(argv)
     repo = os.path.abspath(args.repo)
+    f32 = args.dtype == "f32"
+    if args.ablate and f32:
+        sys.exit("time_attn_small: --ablate edits the bf16 kernels")
     if args.ablate:
         repo = ablated_copy(repo, args.ablate)
     sys.path.insert(0, repo)
@@ -129,18 +151,21 @@ def main(argv=None):
     gen = torch.Generator("cuda").manual_seed(0)
     check = not args.ablate
     rows = []
-    ss_sync = getattr(ss, "flash_fwd_shortseq_sync", None)
+    ss_sync = getattr(ss, "flash_fwd_shortseq_f32_sync" if f32
+                      else "flash_fwd_shortseq_sync", None)
+    dtype = torch.float32 if f32 else torch.bfloat16
     for bh, s, d in SHORTSEQ_SHAPES:
         q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen)
-                   .bfloat16() for _ in range(3))
+                   .to(dtype) for _ in range(3))
         scale = 1.0 / math.sqrt(d)
         out = ss.flash_fwd_shortseq(q, k, v, scale, 8)
         ref = ss.flash_fwd_shortseq_reference(q.float(), k.float(),
                                               v.float(), scale)
-        row = {"kernel": "flash_fwd_shortseq", "bh": bh, "sq": s, "sk": s,
+        row = {"kernel": "flash_fwd_shortseq" + ("_f32" if f32 else ""),
+               "bh": bh, "sq": s, "sk": s,
                "d": d, "out_rel_l2": _rel(out, ref)}
         del ref
-        if check and not row["out_rel_l2"] <= 1e-2:
+        if check and not row["out_rel_l2"] <= (F32_REL_L2 if f32 else 1e-2):
             sys.exit(f"time_attn_small: {row}")
         row["ms"], row["ms_by"] = timed(
             lambda: ss.flash_fwd_shortseq(q, k, v, scale, 8))
@@ -153,13 +178,14 @@ def main(argv=None):
         row["sdpa_ms"], row["sdpa_ms_by"] = timed(
             lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
                                                    scale=scale))
-        row.update(_bound(2 * 4 * bh * s * d, 4 * bh * s * s * d, bh * s * s))
+        args_, kwargs = shortseq_bound_args(bh, s, d, f32)
+        row.update(_bound(*args_, **kwargs))
         rows.append(row)
         del q, k, v, out
         torch.cuda.empty_cache()
     i8_sync = getattr(fi, "flash_fwd_int8_sync", None)
     tiled = hasattr(fi, "quant_tile")
-    for mode in ("qk", "qkpv"):
+    for mode in () if f32 else ("qk", "qkpv"):
         for bh, s, d in INT8_SHAPES:
             q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen)
                        .bfloat16() for _ in range(3))
@@ -198,7 +224,8 @@ def main(argv=None):
             del q, k, v, ops, out
             torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "repo": args.repo,
-                      "ablate": args.ablate, "card": smi, "rows": rows}))
+                      "dtype": args.dtype, "ablate": args.ablate,
+                      "card": smi, "rows": rows}))
 
 
 if __name__ == "__main__":

@@ -1,10 +1,16 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's bf16 flash backward (``flash_bwd``) on one NVIDIA
-GPU at the tuning step's attention sites, beside the synchronous design,
-SDPA's backward and the work's bound.
+"""Time the PyTorch port's flash backward (``flash_bwd``) on one NVIDIA GPU
+at the tuning step's attention sites, beside the synchronous design, SDPA's
+backward and the work's bound.
 
-    python3 e4t_diffusion_torch/time_flash_bwd.py [--repo DIR]
+    python3 e4t_diffusion_torch/time_flash_bwd.py [--repo DIR] [--dtype bf16|f32]
                                                   [--ablate PART] [--label TEXT]
+
+``--dtype f32`` times the f32 kernels (``csrc/attention_f32.cu``) at the
+f32 tuning step's six sites (``SHAPES_F32``) beside their synchronous
+design (``flash_bwd_f32_sync``, where the checkout has it), f32 SDPA's
+backward with TF32 off and the FFMA bound (67 TFLOP/s), held to rel-L2
+1e-5 against the plain version; bf16 (the default) is described below.
 
 ``--repo`` names the checkout whose ``e4t_diffusion_torch`` is timed (this
 one by default), so one call can time two commits on one card, in turns:
@@ -44,9 +50,13 @@ import sys
 SHAPES = ((128, 4096, 4096, 40), (128, 4096, 77, 40), (128, 1024, 1024, 80),
           (128, 1024, 77, 80), (128, 256, 256, 160), (128, 256, 77, 160),
           (2, 8192, 8192, 160))
+# the same sites in f32 tuning (--mixed_precision no)
+SHAPES_F32 = SHAPES[:6]
 GRAD_REL_L2 = 2e-2  # bf16 rounding of p, ds and the outputs (chip_smoke.py)
+GRAD_F32_REL_L2 = 1e-5  # f32 sums in another order (chip_smoke.py)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12  # FFMA on the CUDA cores, outside the tensor cores
 EXP_PER_S = 16 * 132 * 1.98e9  # exp2 on the SFUs, 1.98 GHz boost
 KERNEL = os.path.join("e4t_diffusion_torch", "csrc", "flash_bwd.cu")
 # the ordered add: a workspace and counters for up to BH 128 x 64 q tiles of
@@ -143,9 +153,24 @@ def ablated_copy(repo, part):
     return root
 
 
+def bound(bh, sq, sk, d, f32=False):
+    """(ms, "operations" or "bytes"): the least time of the backward's work
+    on an H100 SXM: q, k, v, dO and the gradients read or written once, lse
+    read once, 10 Sq Sk D flops (five products) at the bf16 tensor cores'
+    or the f32 CUDA cores' rate, one exponential per score."""
+    size = 4 if f32 else 2
+    t_bytes = (size * (4 * bh * sq * d + 4 * bh * sk * d) + 4 * bh * sq) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = max(10 * bh * sq * sk * d / (F32_FLOP_PER_S if f32
+                                         else BF16_FLOP_PER_S),
+                bh * sq * sk / EXP_PER_S) * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def split_ms(fn, reps=10):
-    """Device ms of one call by part: the kernels whose name holds "dkv",
-    those whose name holds "dq_" and the rest (the delta reduction), summed
+    """Device ms of one call by part: the kernels whose name holds "dkv" (or
+    "dkdv", the f32 kernel before it was redesigned), those whose name holds
+    "dq_" and the rest (the delta reduction), summed
     under ``torch.profiler`` over ``reps`` calls after a warm-up. A session
     that records no kernel time is measured again, up to three times."""
     import torch
@@ -165,8 +190,8 @@ def split_ms(fn, reps=10):
             if (evt.device_type != DeviceType.CUDA
                     or getattr(evt, "is_user_annotation", False)):
                 continue
-            part = ("dkv" if "dkv" in evt.key else "dq" if "dq_" in evt.key
-                    else "delta")
+            part = ("dkv" if "dkv" in evt.key or "dkdv" in evt.key
+                    else "dq" if "dq_" in evt.key else "delta")
             parts[part] += evt.self_device_time_total / reps / 1e3
         if parts["dq"] > 0 and parts["dkv"] > 0:
             return parts
@@ -181,10 +206,14 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--repo", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
+    parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     parser.add_argument("--ablate", choices=sorted(ABLATIONS))
     parser.add_argument("--label", default="")
     args = parser.parse_args(argv)
     repo = os.path.abspath(args.repo)
+    f32 = args.dtype == "f32"
+    if args.ablate and f32:
+        sys.exit("time_flash_bwd: --ablate edits the bf16 kernels")
     if args.ablate:
         repo = ablated_copy(repo, args.ablate)
     # time_flash_fwd.py is a sibling file, imported as a plain module so the
@@ -201,7 +230,10 @@ def main(argv=None):
     from e4t_diffusion_torch.ops import flash_bwd as fb
     from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd
 
-    sync = getattr(fb, "flash_bwd_sync", None)
+    sync = getattr(fb, "flash_bwd_f32_sync" if f32 else "flash_bwd_sync",
+                   None)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    rel_bound = GRAD_F32_REL_L2 if f32 else GRAD_REL_L2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -209,9 +241,9 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
-    for bh, sq, sk, d in SHAPES:
+    for bh, sq, sk, d in SHAPES_F32 if f32 else SHAPES:
         q, k, v, dout = (torch.randn(bh, s, d, device="cuda", generator=gen)
-                         .bfloat16() for s in (sq, sk, sk, sq))
+                         .to(dtype) for s in (sq, sk, sk, sq))
         scale = 1.0 / math.sqrt(d)
         out, lse = flash_fwd(q, k, v, scale)
 
@@ -223,7 +255,7 @@ def main(argv=None):
                                       out.float(), lse, dout.float(), scale)
         rel = max(_rel(g, r) for g, r in zip(grads, refs))
         del refs
-        if not args.ablate and not rel <= GRAD_REL_L2:
+        if not args.ablate and not rel <= rel_bound:
             sys.exit(f"time_flash_bwd: BH={bh} {sq}x{sk} d={d}: rel-L2 {rel}")
         row = {"bh": bh, "sq": sq, "sk": sk, "d": d, "grad_rel_l2": rel,
                "repeat_identical": all(torch.equal(a, b) for a, b in
@@ -243,17 +275,13 @@ def main(argv=None):
                                                  vr[None], scale=scale)
         row["sdpa_ms"] = median_ms(lambda: torch.autograd.grad(
             lib_out, (qr, kr, vr), dout[None], retain_graph=True))
-        t_bytes = (2 * (4 * bh * sq * d + 4 * bh * sk * d) + 4 * bh * sq) \
-            / HBM_BYTES_PER_S * 1e3
-        t_ops = max(10 * bh * sq * sk * d / BF16_FLOP_PER_S,
-                    bh * sq * sk / EXP_PER_S) * 1e3
-        row.update(bound_ms=max(t_bytes, t_ops),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        row["bound_ms"], row["bound_by"] = bound(bh, sq, sk, d, f32)
         rows.append(row)
         del q, k, v, dout, out, lse, grads, qr, kr, vr, lib_out
         torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "repo": args.repo,
-                      "ablate": args.ablate, "card": smi, "rows": rows}))
+                      "dtype": args.dtype, "ablate": args.ablate,
+                      "card": smi, "rows": rows}))
 
 
 if __name__ == "__main__":

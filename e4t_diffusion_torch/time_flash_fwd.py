@@ -1,10 +1,16 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's bf16 flash forward (``flash_fwd``) on one NVIDIA
-GPU at the shapes of its paths, beside the synchronous design, SDPA and the
+"""Time the PyTorch port's flash forward (``flash_fwd``) on one NVIDIA GPU
+at the shapes of its paths, beside the synchronous design, SDPA and the
 work's bound.
 
-    python3 e4t_diffusion_torch/time_flash_fwd.py [--repo DIR]
+    python3 e4t_diffusion_torch/time_flash_fwd.py [--repo DIR] [--dtype bf16|f32]
                                                   [--ablate PART] [--label TEXT]
+
+``--dtype f32`` times the f32 kernel (``csrc/attention_f32.cu``) at the f32
+paths' shapes (``SHAPES_F32``) beside its synchronous design
+(``flash_fwd_f32_sync``, where the checkout has it), f32 SDPA with TF32 off
+and the FFMA bound (67 TFLOP/s), held to rel-L2 1e-5 against the plain
+version; bf16 (the default) is described below.
 
 ``--repo`` names the checkout whose ``e4t_diffusion_torch`` is timed (this
 one by default), so one call can time two commits on one card, in turns:
@@ -39,8 +45,17 @@ import sys
 SHAPES = ((64, 4096, 4096, 40), (64, 1024, 1024, 80), (128, 4096, 4096, 40),
           (128, 1024, 1024, 80), (256, 257, 257, 80), (128, 256, 256, 160),
           (128, 256, 77, 160), (2, 8192, 8192, 160))
+# (BH, Sq, Sk, d): the f32 paths' sites. f32 sampling at batch 8 (BH 64),
+# f32 tuning at batch 16 (BH 128: the UNet's self- and cross-attention at
+# d40, d80 and d160; BH 256: the ViT-H)
+SHAPES_F32 = ((64, 4096, 4096, 40), (64, 1024, 1024, 80),
+              (128, 4096, 4096, 40), (128, 4096, 77, 40),
+              (128, 1024, 1024, 80), (128, 1024, 77, 80),
+              (256, 257, 257, 80), (128, 256, 256, 160),
+              (128, 256, 77, 160))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12  # FFMA on the CUDA cores, outside the tensor cores
 EXP_PER_S = 16 * 132 * 1.98e9  # exp2 on the SFUs, 1.98 GHz boost
 KERNEL = os.path.join("e4t_diffusion_torch", "csrc", "flash_fwd_lowdim.cu")
 # --ablate: [(text of the kernel's source, its replacement, occurrences)]
@@ -77,6 +92,20 @@ def ablated_copy(repo, part):
     return root
 
 
+def bound(bh, sq, sk, d, f32=False):
+    """(ms, "operations" or "bytes"): the least time of the forward's work
+    on an H100 SXM. Each input read once and each output written once (out,
+    lse), 4 Sq Sk D flops at the bf16 tensor cores' or the f32 CUDA cores'
+    rate, one exponential per score."""
+    size = 4 if f32 else 2
+    t_bytes = (size * 2 * bh * (sq + sk) * d + 4 * bh * sq) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = max(4 * bh * sq * sk * d / (F32_FLOP_PER_S if f32
+                                        else BF16_FLOP_PER_S),
+                bh * sq * sk / EXP_PER_S) * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def median_ms(fn, reps=20):
     import torch
 
@@ -99,10 +128,14 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--repo", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
+    parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     parser.add_argument("--ablate", choices=sorted(ABLATIONS))
     parser.add_argument("--label", default="")
     args = parser.parse_args(argv)
     repo = os.path.abspath(args.repo)
+    f32 = args.dtype == "f32"
+    if args.ablate and f32:
+        sys.exit("time_flash_fwd: --ablate edits the bf16 kernel")
     if args.ablate:
         repo = ablated_copy(repo, args.ablate)
     sys.path.insert(0, repo)
@@ -115,7 +148,10 @@ def main(argv=None):
     from e4t_diffusion_torch.ops.flash_lowdim import (flash_fwd,
                                                        flash_fwd_reference)
 
-    sync = getattr(fl, "flash_fwd_sync", None)
+    sync = getattr(fl, "flash_fwd_f32_sync" if f32 else "flash_fwd_sync",
+                   None)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    rel_bound = 1e-5 if f32 else 1e-2
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -124,19 +160,17 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
-    for bh, sq, sk, d in SHAPES:
+    for bh, sq, sk, d in SHAPES_F32 if f32 else SHAPES:
         q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen)
-                   .bfloat16() for s in (sq, sk, sk))
+                   .to(dtype) for s in (sq, sk, sk))
         scale = 1.0 / math.sqrt(d)
         out, _ = flash_fwd(q, k, v, scale)
         ref, _ = flash_fwd_reference(q.float(), k.float(), v.float(), scale)
         rel = ((out.float() - ref).norm() / ref.norm()).item()
         del ref
-        if not args.ablate and not rel <= 1e-2:
+        if not args.ablate and not rel <= rel_bound:
             sys.exit(f"time_flash_fwd: BH={bh} {sq}x{sk} d={d}: rel-L2 {rel}")
-        t_bytes = 2 * 2 * bh * (sq + sk) * d / HBM_BYTES_PER_S * 1e3
-        t_ops = max(4 * bh * sq * sk * d / BF16_FLOP_PER_S,
-                    bh * sq * sk / EXP_PER_S) * 1e3
+        bound_ms, bound_by = bound(bh, sq, sk, d, f32)
         row = {"bh": bh, "sq": sq, "sk": sk, "d": d, "out_rel_l2": rel,
                "ms": median_ms(lambda: flash_fwd(q, k, v, scale))}
         if sync is not None:
@@ -147,13 +181,12 @@ def main(argv=None):
         row.update(
             sdpa_ms=median_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], scale=scale)),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="operations" if t_ops >= t_bytes else "bytes")
+            bound_ms=bound_ms, bound_by=bound_by)
         rows.append(row)
         del q, k, v, out
         torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "repo": args.repo,
-                      "ablate": args.ablate,
+                      "dtype": args.dtype, "ablate": args.ablate,
                       "card": smi, "rows": rows}))
 
 

@@ -644,3 +644,95 @@ def test_cuda_int8_f32_matches_reference(bh, sq, sk, d, mode):
     assert out.dtype == torch.float32
     assert _rel(out, ro) <= (F32_REL_L2 if mode == "qk" else 1e-2)
     assert (lse - rl).abs().max().item() <= 1e-4
+
+
+# the register-blocked f32 kernels at their tile edges: 64-row q and kv tiles
+# (Sq and Sk at 63, 65, 127, 129) and D computed unpadded up to 128, by 32
+# above (8, 40, 136, 256); held against the plain version and against the
+# synchronous design they replaced (their yardstick), both to F32_REL_L2
+F32_EDGE_CASES = [(2, 63, 65, 8), (2, 65, 63, 40), (2, 127, 129, 136),
+                  (2, 129, 127, 256), (3, 65, 129, 40), (2, 129, 65, 80),
+                  (2, 1, 63, 40), (2, 127, 1, 80)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d", F32_EDGE_CASES)
+def test_cuda_f32_forward_edges_match_reference_and_sync(bh, sq, sk, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v = _f32_operands(14, bh, d, sq, sk, sk)
+    out, lse = fl.flash_fwd(q, k, v, d ** -0.5)
+    sync_out, sync_lse = fl.flash_fwd_f32_sync(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    ro, rl = fl.flash_fwd_reference(q, k, v, d ** -0.5)
+    assert _rel(out, ro) <= F32_REL_L2 and _rel(lse, rl) <= F32_REL_L2
+    assert _rel(out, sync_out) <= F32_REL_L2
+    assert _rel(lse, sync_lse) <= F32_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d", F32_EDGE_CASES)
+def test_cuda_f32_backward_edges_match_reference_and_sync(bh, sq, sk, d):
+    from e4t_diffusion_torch.ops import flash_bwd as fb
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v, dout = _f32_operands(15, bh, d, sq, sk, sk, sq)
+    out, lse = fl.flash_fwd(q, k, v, d ** -0.5)
+    grads = fb.flash_bwd(q, k, v, out, lse, dout, d ** -0.5)
+    again = fb.flash_bwd(q, k, v, out, lse, dout, d ** -0.5)
+    sync = fb.flash_bwd_f32_sync(q, k, v, out, lse, dout, d ** -0.5)
+    torch.cuda.synchronize()
+    refs = fb.flash_bwd_reference(q, k, v, out, lse, dout, d ** -0.5)
+    for name, got, want, yard, rerun in zip("q k v".split(), grads, refs,
+                                            sync, again):
+        assert torch.equal(got, rerun)  # no atomics: deterministic
+        # one kv row: p = 1, so ds = dP - delta = 0 and dq, dk are zero up
+        # to rounding
+        if sk > 1 or name == "v":
+            assert _rel(got, want) <= F32_REL_L2
+            assert _rel(got, yard) <= F32_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,g", [(2, 257, 80, 1), (2, 258, 80, 2),
+                                      (4, 257, 40, 4), (2, 258, 8, 1),
+                                      (2, 63, 128, 1), (2, 129, 120, 1)])
+def test_cuda_f32_shortseq_edges_match_reference_and_sync(bh, s, d, g):
+    from e4t_diffusion_torch.ops import shortseq
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v = _f32_operands(16, bh, d, s, s, s)
+    out = shortseq.flash_fwd_shortseq(q, k, v, d ** -0.5, g)
+    sync = shortseq.flash_fwd_shortseq_f32_sync(q, k, v, d ** -0.5, g)
+    torch.cuda.synchronize()
+    ref = shortseq.flash_fwd_shortseq_reference(q, k, v, d ** -0.5)
+    assert _rel(out, ref) <= F32_REL_L2
+    assert _rel(out, sync) <= F32_REL_L2
+
+
+@pytest.mark.cuda
+def test_cuda_f32_yardsticks_refuse_bf16_and_count_no_launch():
+    from e4t_diffusion_torch.ops import flash_bwd as fb
+    from e4t_diffusion_torch.ops import shortseq
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q = torch.zeros(2, 64, 40, device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros(2, 64, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        fl.flash_fwd_f32_sync(q, q, q, 0.1)
+    with pytest.raises(TypeError, match="float32"):
+        fb.flash_bwd_f32_sync(q, q, q, q, lse, q, 0.1)
+    with pytest.raises(TypeError, match="float32"):
+        shortseq.flash_fwd_shortseq_f32_sync(q, q, q, 0.1, 2)
+    q = q.float()
+    counts = (dict(fl.flash_fwd.launches), dict(fb.flash_bwd.launches),
+              dict(shortseq.flash_fwd_shortseq.launches))
+    out, lse = fl.flash_fwd_f32_sync(q, q, q, 0.1)
+    fb.flash_bwd_f32_sync(q, q, q, out, lse, q, 0.1)
+    shortseq.flash_fwd_shortseq_f32_sync(q, q, q, 0.1, 2)
+    torch.cuda.synchronize()
+    assert counts == (fl.flash_fwd.launches, fb.flash_bwd.launches,
+                      shortseq.flash_fwd_shortseq.launches)

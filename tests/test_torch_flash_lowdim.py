@@ -167,3 +167,79 @@ def test_sync_yardsticks_run_on_cuda_tensors_only(direction):
         else:
             fb.flash_bwd_sync(q, q, q, q, lse, q, 0.1)
     assert (fl.flash_fwd.launches, fb.flash_bwd.launches) == before
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward", "shortseq"])
+def test_f32_yardsticks_refuse_bf16_and_cpu_tensors(direction):
+    """flash_fwd_f32_sync, flash_bwd_f32_sync and
+    flash_fwd_shortseq_f32_sync, the synchronous f32 designs kept as the
+    register-blocked kernels' yardsticks: bf16 operands raise TypeError,
+    f32 CPU tensors ValueError (no plain version to fall back to), and
+    neither counts a launch."""
+    from e4t_diffusion_torch.ops import flash_bwd as fb
+    from e4t_diffusion_torch.ops import shortseq
+
+    calls = {
+        "forward": lambda q: fl.flash_fwd_f32_sync(q, q, q, 0.1),
+        "backward": lambda q: fb.flash_bwd_f32_sync(
+            q, q, q, q, torch.zeros(2, 257), q, 0.1),
+        "shortseq": lambda q: shortseq.flash_fwd_shortseq_f32_sync(
+            q, q, q, 0.1, 2)}
+    q = torch.from_numpy(_rand((2, 257, 40), 8))
+    before = (dict(fl.flash_fwd.launches), dict(fb.flash_bwd.launches),
+              dict(shortseq.flash_fwd_shortseq.launches))
+    with pytest.raises(TypeError, match="float32"):
+        calls[direction](q.bfloat16())
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        calls[direction](q)
+    assert before == (fl.flash_fwd.launches, fb.flash_bwd.launches,
+                      shortseq.flash_fwd_shortseq.launches)
+
+
+def test_timing_tools_f32_tables():
+    """The f32 modes of time_flash_fwd.py, time_flash_bwd.py and
+    time_attn_small.py: their shapes are the f32 paths' sites (the
+    cross-attention ones included), and their bounds are the FFMA bound at
+    67 TFLOP/s (4 and 10 flops per score and head dim) or bytes at 3.35
+    TB/s, whichever is larger; the bf16 bounds are unchanged."""
+    import importlib.util
+    import pathlib
+
+    tools = {}
+    root = pathlib.Path(fl.__file__).resolve().parents[1]
+    for name in ("time_flash_fwd", "time_flash_bwd", "time_attn_small"):
+        spec = importlib.util.spec_from_file_location(
+            name, root / f"{name}.py")
+        tools[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tools[name])
+    fwd, bwd, small = (tools[n] for n in tools)
+    for bh, s, d in ((128, 4096, 40), (128, 1024, 80), (128, 256, 160)):
+        assert (bh, s, s, d) in fwd.SHAPES_F32
+        assert (bh, s, 77, d) in fwd.SHAPES_F32
+        assert (bh, s, s, d) in bwd.SHAPES_F32
+        assert (bh, s, 77, d) in bwd.SHAPES_F32
+    assert (64, 4096, 4096, 40) in fwd.SHAPES_F32
+    assert (256, 257, 257, 80) in fwd.SHAPES_F32
+    assert (256, 257, 80) in small.SHORTSEQ_SHAPES
+    ms, by = fwd.bound(64, 4096, 4096, 40, f32=True)
+    assert by == "operations"
+    assert ms == pytest.approx(4 * 64 * 4096 ** 2 * 40 / 67e12 * 1e3)
+    ms, by = bwd.bound(128, 4096, 4096, 40, f32=True)
+    assert by == "operations"
+    assert ms == pytest.approx(10 * 128 * 4096 ** 2 * 40 / 67e12 * 1e3)
+    # in f32 even a 77-token cross-attention site is held by its FFMA,
+    # where bf16 is held by its bytes
+    ms, by = fwd.bound(128, 4096, 77, 40, f32=True)
+    assert by == "operations"
+    assert ms == pytest.approx(4 * 128 * 4096 * 77 * 40 / 67e12 * 1e3)
+    ms, by = fwd.bound(128, 4096, 77, 40)
+    assert by == "bytes"
+    assert ms == pytest.approx((2 * 2 * 128 * (4096 + 77) * 40
+                                + 4 * 128 * 4096) / 3.35e12 * 1e3)
+    # bf16 at 4096²/d40 is held by its exponentials
+    assert fwd.bound(64, 4096, 4096, 40)[0] == pytest.approx(
+        64 * 4096 ** 2 / (16 * 132 * 1.98e9) * 1e3)
+    args, kwargs = small.shortseq_bound_args(256, 257, 80, f32=True)
+    assert args == (4 * 4 * 256 * 257 * 80, 4 * 256 * 257 ** 2 * 80,
+                    256 * 257 ** 2)
+    assert kwargs == {"flop_rate": 67e12}

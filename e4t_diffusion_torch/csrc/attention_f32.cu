@@ -486,17 +486,17 @@ __device__ __forceinline__ float4 lds4(const float* p) {
 }
 
 // Rows [r0, r0 + ROWS) of a contiguous (n, d) f32 tensor into dst (pitch
-// DK + 4) by 16-byte loads, zero past row n and column d.
+// DK + 4) by 16-byte cp.async copies, zero-filled past row n and column d;
+// the caller commits them.
 template <int ROWS, int DK, int NT>
-__device__ __forceinline__ void stage_f4(float* dst, const float* src, int r0, int n, int d,
-                                         int tid) {
+__device__ __forceinline__ void load_f4_async(float* dst, const float* src, int r0, int n,
+                                              int d, int tid) {
   constexpr int kC = DK / 4, kP = DK + 4;
   for (int i = tid; i < ROWS * kC; i += NT) {
     const int r = i / kC, c = 4 * (i - r * kC);
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n && c < d)
-      val = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * d + c);
-    *reinterpret_cast<float4*>(dst + r * kP + c) = val;
+    const bool ok = r0 + r < n && c < d;
+    e4t::cp_async_16(dst + r * kP + c, ok ? src + (size_t)(r0 + r) * d + c : src,
+                     ok ? 16 : 0);
   }
 }
 
@@ -585,7 +585,10 @@ attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)bh * sk * d;
   const float* vb = v + (size_t)bh * sk * d;
 
-  stage_f4<C::kBM, DK, kT>(q_s, q + (size_t)bh * sq * d, q0, sq, d, tid);
+  const int n_tiles = (sk + kBN - 1) / kBN;
+  load_f4_async<C::kBM, DK, kT>(q_s, q + (size_t)bh * sq * d, q0, sq, d, tid);
+  load_f4_async<kBN, DK, kT>(k_s, kb, 0, sk, d, tid);
+  e4t::cp_async_commit();
 
   float m[kRM], l[kRM], o[kRO][kCO];
 #pragma unroll
@@ -609,26 +612,35 @@ attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   };
 
   if constexpr (kSinglePass) {
-    for (int kv0 = 0; kv0 < sk; kv0 += kBN) {
-      __syncthreads();
-      stage_f4<kBN, DK, kT>(k_s, kb, kv0, sk, d, tid);
+    // the max pass; its last tile reloads k tile 0 for the second pass
+    for (int t = 0; t < n_tiles; ++t) {
+      e4t::cp_async_wait<0>();
       __syncthreads();
       float s[kRM][kCN];
-      scores(s, kv0);
+      scores(s, t * kBN);
 #pragma unroll
       for (int i = 0; i < kRM; ++i)
 #pragma unroll
         for (int j = 0; j < kCN; ++j) m[i] = fmaxf(m[i], s[i][j]);
+      const int nxt = t + 1 < n_tiles ? t + 1 : 0;
+      if (nxt != t) {
+        __syncthreads();  // every thread is done with k_s
+        load_f4_async<kBN, DK, kT>(k_s, kb, nxt * kBN, sk, d, tid);
+        e4t::cp_async_commit();
+      }
     }
 #pragma unroll
     for (int i = 0; i < kRM; ++i) m[i] = half_warp_max(m[i]);
   }
 
-  for (int kv0 = 0; kv0 < sk; kv0 += kBN) {
-    __syncthreads();  // every thread is done with the previous tile
-    stage_f4<kBN, DK, kT>(k_s, kb, kv0, sk, d, tid);
-    stage_f4<kBN, DK, kT>(v_s, vb, kv0, sk, d, tid);
-    __syncthreads();
+  // Each tile's k lands during the previous tile's P V, its v during its
+  // own S: two block barriers a tile.
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kv0 = t * kBN;
+    e4t::cp_async_wait<0>();
+    __syncthreads();  // k (and q) landed; every thread is done with v_s, p_s
+    load_f4_async<kBN, DK, kT>(v_s, vb, kv0, sk, d, tid);
+    e4t::cp_async_commit();
     float s[kRM][kCN];
     scores(s, kv0);
 #pragma unroll
@@ -652,7 +664,12 @@ attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         p_s[(ty + C::kNR * i) * kPP + tx + C::kNC * j] = p;
       }
     }
-    __syncthreads();
+    e4t::cp_async_wait<0>();
+    __syncthreads();  // v and p landed; every thread is done with k_s
+    if (t + 1 < n_tiles) {
+      load_f4_async<kBN, DK, kT>(k_s, kb, kv0 + kBN, sk, d, tid);
+      e4t::cp_async_commit();
+    }
     if constexpr (!kSinglePass) {
 #pragma unroll
       for (int i = 0; i < kRO; ++i) {

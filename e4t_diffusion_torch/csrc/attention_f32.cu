@@ -460,21 +460,37 @@ attn_bwd_dkv_sync_kernel(const float* __restrict__ q, const float* __restrict__ 
 //     row rescales (alpha) and sums (l) reach it through shared memory.
 // D is padded to a multiple of 8 up to 128 (d itself: the wrappers take
 // multiples of 8) and of 32 above, so d = 40 computes 40 columns.
-template <int DK>
-struct F32Fwd {
-  static constexpr int kThreads = DK <= 128 ? 128 : 256;
-  static constexpr int kBM = 64, kBN = 64;
-  static constexpr int kNC = 16, kNR = kThreads / kNC;
-  static constexpr int kRM = kBM / kNR, kCN = kBN / kNC;
-  static constexpr int kNCo = kThreads == 256 ? 32 : DK % 16 == 0 ? 16 : 8;
-  static constexpr int kNRo = kThreads / kNCo;
-  static constexpr int kRO = kBM / kNRo, kCO = DK / kNCo;
-  static constexpr int kP = DK + 4, kPP = kBN + 4;
-  static constexpr size_t kSmem =
-      sizeof(float) * (size_t)(kBM * kP + 2 * kBN * kP + kBM * kPP + 2 * kBM);
-  static_assert(kCO * kNCo == DK && kRO * kNRo == kBM, "output grid");
-  static_assert(kSmem <= e4t::kMaxSmem, "shared memory");
+// A block's thread grids and shared-memory pitches: BM rows of the operand
+// the block keeps (q in the forward and dq, k/v in dk/dv) by BN rows of the
+// streamed tile, NT threads. Scores: a NT / 16 x 16 grid, kRM rows by kCN
+// columns a thread. Outputs: kNRo x kNCo, kRO rows by kCO columns, with
+// kNCo picked so that kRO >= 4 where DK allows.
+template <int DK, int BM, int NT, int BN = 64>
+struct F32Tile {
+  static constexpr int kThreads = NT, kBM = BM, kBN = BN;
+  static constexpr int kNC = 16, kNR = NT / kNC;
+  static constexpr int kRM = BM / kNR, kCN = BN / kNC;
+  static constexpr int kNCo = NT == 256 && DK % 32 == 0 ? 32 : DK % 16 == 0 ? 16 : 8;
+  static constexpr int kNRo = NT / kNCo;
+  static constexpr int kRO = BM / kNRo, kCO = DK / kNCo;
+  static constexpr int kP = DK + 4, kPP = BN + 4;
+  static_assert(kCO * kNCo == DK && kRO * kNRo == BM && kRM * kNR == BM &&
+                    kCN * kNC == BN,
+                "grids");
 };
+
+// The forward's: BM q rows a block, 64 (the flash kernel) or 88 (the
+// short-sequence one at some lengths): 8 rows a thread to DK 128 (BM / 8 x
+// 16 threads), 4 rows above (256 threads); k/v tiles of 64 rows.
+template <int DK, int BM = 64>
+using F32Fwd = F32Tile<DK, BM, DK <= 128 ? 2 * BM : 256>;
+
+// the flash forward's shared memory: q, k, v, p, the row rescales and sums
+template <int DK>
+constexpr size_t f32_fwd_smem() {
+  using C = F32Fwd<DK>;
+  return sizeof(float) * (size_t)(3 * 64 * C::kP + 64 * C::kPP + 2 * 64);
+}
 
 // the head dim the redesigned kernels compute for d (a multiple of 8)
 __host__ __forceinline__ int f32_head_dim(int d) {
@@ -500,13 +516,28 @@ __device__ __forceinline__ void load_f4_async(float* dst, const float* src, int 
   }
 }
 
+// max and sum over the 16 lanes of a row (a half-warp; the mask names that
+// half only, so a block may end on a half-populated warp)
+__device__ __forceinline__ float row16_max(float x) {
+  const unsigned mask = 0xffffu << (threadIdx.x & 16);
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(mask, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float row16_sum(float x) {
+  const unsigned mask = 0xffffu << (threadIdx.x & 16);
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(mask, x, o);
+  return x;
+}
+
 // acc[i][j] = q row (ty + kNR i) . k row (tx + 16 j) over DK, from the
-// pitched row-major tiles
-template <int DK>
-__device__ __forceinline__ void f32_scores(float (&acc)[F32Fwd<DK>::kRM][F32Fwd<DK>::kCN],
-                                           const float* q_s, const float* k_s, int ty,
-                                           int tx) {
-  using C = F32Fwd<DK>;
+// pitched row-major tiles (C: an F32Fwd)
+template <class C>
+__device__ __forceinline__ void f32_scores(float (&acc)[C::kRM][C::kCN], const float* q_s,
+                                           const float* k_s, int ty, int tx) {
+  constexpr int DK = C::kCO * C::kNCo;
 #pragma unroll
   for (int i = 0; i < C::kRM; ++i)
 #pragma unroll
@@ -530,18 +561,16 @@ __device__ __forceinline__ void f32_scores(float (&acc)[F32Fwd<DK>::kRM][F32Fwd<
   }
 }
 
-// o[i][c] += sum over kv rows n < n_end of p_s[(oy + kNRo i), n] v_s[n, ox +
-// kNCo c]; n_end a multiple of 4 (p is 0 and v is 0 past Sk)
-template <int DK>
-__device__ __forceinline__ void f32_pv(float (&o)[F32Fwd<DK>::kRO][F32Fwd<DK>::kCO],
-                                       const float* p_s, const float* v_s, int oy, int ox,
-                                       int n_end) {
-  using C = F32Fwd<DK>;
+// o[i][c] += sum over kv rows n < n_end of p_s[(oy + kNRo i) * PP + n]
+// v_s[n, ox + kNCo c]; n_end a multiple of 4 (p is 0 and v is 0 past Sk)
+template <class C, int PP>
+__device__ __forceinline__ void f32_pv(float (&o)[C::kRO][C::kCO], const float* p_s,
+                                       const float* v_s, int oy, int ox, int n_end) {
 #pragma unroll 2
   for (int n = 0; n < n_end; n += 4) {
     float4 pa[C::kRO];
 #pragma unroll
-    for (int i = 0; i < C::kRO; ++i) pa[i] = lds4(p_s + (oy + C::kNRo * i) * C::kPP + n);
+    for (int i = 0; i < C::kRO; ++i) pa[i] = lds4(p_s + (oy + C::kNRo * i) * PP + n);
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       float vb[C::kCO];
@@ -603,7 +632,7 @@ attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // this thread's scores of the tile at kv0, log2 domain, -inf past Sk
   auto scores = [&](float (&s)[kRM][kCN], int kv0) {
-    f32_scores<DK>(s, q_s, k_s, ty, tx);
+    f32_scores<C>(s, q_s, k_s, ty, tx);
 #pragma unroll
     for (int i = 0; i < kRM; ++i)
 #pragma unroll
@@ -678,7 +707,7 @@ attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int c = 0; c < kCO; ++c) o[i][c] *= a;
       }
     }
-    f32_pv<DK>(o, p_s, v_s, oy, ox, min(kBN, (sk - kv0 + 3) & ~3));
+    f32_pv<C, kPP>(o, p_s, v_s, oy, ox, min(kBN, (sk - kv0 + 3) & ~3));
   }
 
 #pragma unroll
@@ -711,15 +740,169 @@ template <int DK, bool kSinglePass>
 int launch_f32_fwd(const void* q, const void* k, const void* v, float scale, void* out,
                    void* lse, int bh, int sq, int sk, int d, cudaStream_t stream) {
   using C = F32Fwd<DK>;
+  constexpr size_t smem = f32_fwd_smem<DK>();
+  static_assert(smem <= e4t::kMaxSmem, "shared memory");
   auto kernel = attn_f32_fwd_kernel<DK, kSinglePass>;
-  const cudaError_t err = e4t::allow_smem(kernel, C::kSmem);
+  const cudaError_t err = e4t::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + C::kBM - 1) / C::kBM, bh);
-  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+  kernel<<<grid, C::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), scale, static_cast<float*>(out),
       static_cast<float*>(lse), sq, sk, d);
   return (int)cudaGetLastError();
+}
+
+// The short-sequence forward up to kShortMaxS tokens (attn_f32_shortseq_kernel):
+// the single-pass softmax with a q tile's whole score row in shared memory.
+// S = Q K^T runs once over the head's k tiles into s_s (scaled, -inf past
+// S), each thread keeping the max of its own scores; the row max reduces
+// across the row's 16 lanes, each thread turns its own scores into p =
+// exp2(s - m) in place and sums them, and O += P V runs over the v tiles.
+// So k is read once and S computed once: two tile products a kv tile, where
+// the flash-shaped kernel with its max pass takes three. k and then v tiles
+// pass through one two-stage cp.async ring. The q tile is 64 or 88 rows
+// (kBM), whichever pads S less (257 tokens: 3 tiles of 88 rows, not 5 of
+// 64 whose last holds one row).
+constexpr int kShortMaxS = 320;  // 5 kv tiles of 64
+
+template <int DK, int BM>
+struct F32Short {
+  using C = F32Fwd<DK, BM>;
+  static constexpr int kPS = kShortMaxS + 4;  // s_s pitch: (kPS / 4) odd
+  static constexpr size_t kSmem =
+      sizeof(float) * (size_t)(BM * C::kP + 2 * C::kBN * C::kP + BM * kPS + BM);
+  static_assert(kSmem <= e4t::kMaxSmem, "shared memory");
+};
+
+template <int DK, int BM>
+__global__ void __launch_bounds__(F32Fwd<DK, BM>::kThreads, 1)
+attn_f32_shortseq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float scale, float* __restrict__ out,
+                         int s_len, int d) {
+  using C = F32Fwd<DK, BM>;
+  constexpr int kT = C::kThreads, kRM = C::kRM, kCN = C::kCN, kRO = C::kRO,
+                kCO = C::kCO, kP = C::kP, kBN = C::kBN, kPS = F32Short<DK, BM>::kPS;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // BM x kP
+  float* ring = q_s + BM * kP;                       // 2 x kBN x kP
+  float* s_s = ring + 2 * kBN * kP;                  // BM x kPS
+  float* l_s = s_s + BM * kPS;                       // BM
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * BM, tid = threadIdx.x;
+  const int ty = tid / C::kNC, tx = tid % C::kNC;
+  const int oy = tid / C::kNCo, ox = tid % C::kNCo;
+  const float s_log2 = scale * e4t::kLog2e;
+  const size_t head = (size_t)bh * s_len * d;
+  const int n_tiles = (s_len + kBN - 1) / kBN;
+
+  // step i < n_tiles loads k tile i, step n_tiles + t v tile t; a group is
+  // committed for every step, empty past the last
+  auto load = [&](int i) {
+    if (i < 2 * n_tiles)
+      load_f4_async<kBN, DK, kT>(ring + (i & 1) * kBN * kP, (i < n_tiles ? k : v) + head,
+                                 (i < n_tiles ? i : i - n_tiles) * kBN, s_len, d, tid);
+    e4t::cp_async_commit();
+  };
+  load_f4_async<BM, DK, kT>(q_s, q + head, q0, s_len, d, tid);
+  load(0);
+  load(1);
+
+  float m[kRM], o[kRO][kCO];
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) m[i] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kRO; ++i)
+#pragma unroll
+    for (int c = 0; c < kCO; ++c) o[i][c] = 0.f;
+
+  for (int i = 0; i < 2 * n_tiles; ++i) {
+    const float* tile = ring + (i & 1) * kBN * kP;
+    e4t::cp_async_wait<1>();
+    __syncthreads();  // step i's tile landed
+    if (i < n_tiles) {
+      const int kv0 = i * kBN;
+      float acc[kRM][kCN];
+      f32_scores<C>(acc, q_s, tile, ty, tx);
+#pragma unroll
+      for (int r = 0; r < kRM; ++r)
+#pragma unroll
+        for (int j = 0; j < kCN; ++j) {
+          const float sv = kv0 + tx + C::kNC * j < s_len ? acc[r][j] * s_log2 : -INFINITY;
+          m[r] = fmaxf(m[r], sv);
+          s_s[(ty + C::kNR * r) * kPS + kv0 + tx + C::kNC * j] = sv;
+        }
+      if (i == n_tiles - 1) {
+        // p in place, each thread over the scores it wrote; the barrier
+        // below hands them to the P V steps
+        float l[kRM];
+#pragma unroll
+        for (int r = 0; r < kRM; ++r) {
+          m[r] = row16_max(m[r]);
+          l[r] = 0.f;
+          float* row = s_s + (ty + C::kNR * r) * kPS + tx;
+          for (int t = 0; t < n_tiles; ++t)
+#pragma unroll
+            for (int j = 0; j < kCN; ++j) {
+              const float p = exp2f(row[t * kBN + C::kNC * j] - m[r]);
+              l[r] += p;
+              row[t * kBN + C::kNC * j] = p;
+            }
+          l[r] = row16_sum(l[r]);
+          if (tx == 0) l_s[ty + C::kNR * r] = l[r];
+        }
+      }
+    } else {
+      const int kv0 = (i - n_tiles) * kBN;
+      f32_pv<C, kPS>(o, s_s + kv0, tile, oy, ox, min(kBN, (s_len - kv0 + 3) & ~3));
+    }
+    __syncthreads();  // every thread is done with the tile
+    load(i + 2);
+  }
+
+  float* ob = out + head;
+#pragma unroll
+  for (int i = 0; i < kRO; ++i) {
+    const int r = oy + C::kNRo * i, row = q0 + r;
+    const float li = l_s[r];
+    const float f = li > 0.f ? 1.f / li : 0.f;
+    if (row < s_len)
+#pragma unroll
+      for (int c = 0; c < kCO; ++c) {
+        const int col = ox + C::kNCo * c;
+        if (col < d) ob[(size_t)row * d + col] = o[i][c] * f;
+      }
+  }
+}
+
+template <int DK, int BM>
+int launch_f32_shortseq(const void* q, const void* k, const void* v, float scale, void* out,
+                        int bh, int s_len, int d, cudaStream_t stream) {
+  using C = F32Fwd<DK, BM>;
+  constexpr size_t smem = F32Short<DK, BM>::kSmem;
+  auto kernel = attn_f32_shortseq_kernel<DK, BM>;
+  const cudaError_t err = e4t::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((s_len + BM - 1) / BM, bh), C::kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), scale, static_cast<float*>(out), s_len, d);
+  return (int)cudaGetLastError();
+}
+
+// The short-sequence forward of DK: up to kShortMaxS tokens the whole-row
+// kernel at the q tile height that pads S less, above it the flash-shaped
+// kernel with its max pass.
+template <int DK>
+int launch_f32_short(const void* q, const void* k, const void* v, float scale, void* out,
+                     int bh, int s_len, int d, cudaStream_t stream) {
+  if (s_len > kShortMaxS)
+    return launch_f32_fwd<DK, true>(q, k, v, scale, out, nullptr, bh, s_len, s_len, d,
+                                    stream);
+  const int pad64 = (s_len + 63) / 64 * 64, pad88 = (s_len + 87) / 88 * 88;
+  return pad88 < pad64
+             ? launch_f32_shortseq<DK, 88>(q, k, v, scale, out, bh, s_len, d, stream)
+             : launch_f32_shortseq<DK, 64>(q, k, v, scale, out, bh, s_len, d, stream);
 }
 
 template <typename QK, int DK, bool kSinglePass>
@@ -861,8 +1044,7 @@ extern "C" int e4t_attn_fwd_shortseq_f32(const void* q, const void* k, const voi
   if (bad_shape(bh, s_len, s_len, d, 128)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_dk8_low(d, [&](auto dk) {
-    return launch_f32_fwd<decltype(dk)::value, true>(q, k, v, scale, out, nullptr, bh,
-                                                     s_len, s_len, d, s);
+    return launch_f32_short<decltype(dk)::value>(q, k, v, scale, out, bh, s_len, d, s);
   });
 }
 

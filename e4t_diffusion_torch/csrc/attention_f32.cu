@@ -905,6 +905,264 @@ int launch_f32_short(const void* q, const void* k, const void* v, float scale, v
              : launch_f32_shortseq<DK, 64>(q, k, v, scale, out, bh, s_len, d, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The redesigned f32 backward: attn_f32_bwd_dq_kernel over 64-row q tiles
+// and attn_f32_bwd_dkv_kernel over 64-row kv tiles, no atomics, on the
+// forward's register blocking (f32_scores for S and dP or their transposes,
+// f32_pv for each gradient product through shared memory):
+//   - dq: q and dO resident; per k/v tile S = Q K^T and dP = dO V^T (8 x 4
+//     blocks of each), p = exp2(S scale log2e - lse log2e), dS = p (dP -
+//     delta) scale into shared memory, dq += dS K;
+//   - dk/dv: k and v resident; per q/dO tile (with its lse and delta) S^T =
+//     K Q^T and dP^T = V dO^T, P^T and dS^T into shared memory, dv += P^T
+//     dO and dk += dS^T Q.
+// The streamed tiles come by 16-byte cp.async (lse and delta by 4-byte
+// copies). With two stages a tile's successor is issued as the tile starts,
+// and each tile takes two block barriers; where a second stage would cost a
+// block an SM, one stage: dq issues the next v after dS is written and the
+// next k after dq's product, dk/dv the next q/dO after both products.
+// From DK 192 the streamed tiles are 32 rows, so every block fits.
+template <int DK>
+struct F32Bwd {
+  static constexpr int kBN = DK <= 160 ? 64 : 32;
+  using Dq = F32Tile<DK, 64, DK <= 128 ? 128 : 256, kBN>;
+  using Dkv = F32Tile<DK, 64, DK <= 64 ? 128 : 256, kBN>;
+  // shared memory with one and with two stages of the streamed tiles; two
+  // where they fit and keep as many blocks an SM as one
+  static constexpr size_t kDq1 =
+      sizeof(float) * (size_t)(2 * 64 * Dq::kP + 2 * kBN * Dq::kP + 64 * Dq::kPP);
+  static constexpr size_t kDq2 = kDq1 + sizeof(float) * (size_t)(2 * kBN * Dq::kP);
+  static constexpr size_t kDkv1 =
+      sizeof(float) * (size_t)(2 * 64 * Dkv::kP + 2 * kBN * Dkv::kP + 2 * kBN +
+                               2 * 64 * Dkv::kPP);
+  static constexpr size_t kDkv2 =
+      kDkv1 + sizeof(float) * (size_t)(2 * kBN * Dkv::kP + 2 * kBN);
+  static constexpr size_t kMax = e4t::kMaxSmem;
+  static constexpr int kDqStages = kDq2 <= kMax && kMax / kDq2 >= kMax / kDq1 ? 2 : 1;
+  static constexpr int kDkvStages = kDkv2 <= kMax && kMax / kDkv2 >= kMax / kDkv1 ? 2 : 1;
+  static constexpr size_t kDqSmem = kDqStages == 2 ? kDq2 : kDq1;
+  static constexpr size_t kDkvSmem = kDkvStages == 2 ? kDkv2 : kDkv1;
+  static_assert(kDqSmem <= kMax && kDkvSmem <= kMax, "shared memory");
+};
+
+template <int DK>
+__global__ void __launch_bounds__(F32Bwd<DK>::Dq::kThreads, 1)
+attn_f32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dq, int sq, int sk, int d, float scale) {
+  using C = typename F32Bwd<DK>::Dq;
+  constexpr int kT = C::kThreads, kRM = C::kRM, kCN = C::kCN, kRO = C::kRO,
+                kCO = C::kCO, kP = C::kP, kPP = C::kPP, kBN = C::kBN,
+                kStages = F32Bwd<DK>::kDqStages;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // 64 x kP
+  float* do_s = q_s + 64 * kP;                       // 64 x kP
+  float* kv_s = do_s + 64 * kP;                      // stages x (k, v) kBN x kP
+  float* ds_s = kv_s + kStages * 2 * kBN * kP;       // 64 x kPP
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * 64, tid = threadIdx.x;
+  const int ty = tid / C::kNC, tx = tid % C::kNC;
+  const int oy = tid / C::kNCo, ox = tid % C::kNCo;
+  const float s_log2 = scale * e4t::kLog2e;
+  const size_t qoff = (size_t)bh * sq * d, koff = (size_t)bh * sk * d;
+  const int n_tiles = (sk + kBN - 1) / kBN;
+
+  auto k_of = [&](int st) { return kv_s + st * 2 * kBN * kP; };
+  auto v_of = [&](int st) { return kv_s + st * 2 * kBN * kP + kBN * kP; };
+  load_f4_async<64, DK, kT>(q_s, q + qoff, q0, sq, d, tid);
+  load_f4_async<64, DK, kT>(do_s, dout + qoff, q0, sq, d, tid);
+  load_f4_async<kBN, DK, kT>(k_of(0), k + koff, 0, sk, d, tid);
+  load_f4_async<kBN, DK, kT>(v_of(0), v + koff, 0, sk, d, tid);
+  e4t::cp_async_commit();
+
+  float lse2[kRM], dl[kRM], acc[kRO][kCO];
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+    const int row = q0 + ty + C::kNR * i;
+    lse2[i] = row < sq ? lse[(size_t)bh * sq + row] * e4t::kLog2e : 0.f;
+    dl[i] = row < sq ? delta[(size_t)bh * sq + row] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < kRO; ++i)
+#pragma unroll
+    for (int c = 0; c < kCO; ++c) acc[i][c] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kv0 = t * kBN, st = kStages == 2 ? t & 1 : 0;
+    e4t::cp_async_wait<0>();
+    __syncthreads();  // tile t landed; every thread is done with tile t - 1
+    if (kStages == 2 && t + 1 < n_tiles) {
+      load_f4_async<kBN, DK, kT>(k_of(st ^ 1), k + koff, kv0 + kBN, sk, d, tid);
+      load_f4_async<kBN, DK, kT>(v_of(st ^ 1), v + koff, kv0 + kBN, sk, d, tid);
+      e4t::cp_async_commit();
+    }
+    float s[kRM][kCN], dp[kRM][kCN];
+    f32_scores<C>(s, q_s, k_of(st), ty, tx);
+    f32_scores<C>(dp, do_s, v_of(st), ty, tx);
+#pragma unroll
+    for (int i = 0; i < kRM; ++i)
+#pragma unroll
+      for (int j = 0; j < kCN; ++j) {
+        const float p =
+            kv0 + tx + C::kNC * j < sk ? exp2f(s[i][j] * s_log2 - lse2[i]) : 0.f;
+        ds_s[(ty + C::kNR * i) * kPP + tx + C::kNC * j] = p * (dp[i][j] - dl[i]) * scale;
+      }
+    __syncthreads();  // dS landed; every thread is done with v
+    if (kStages == 1 && t + 1 < n_tiles) {
+      load_f4_async<kBN, DK, kT>(v_of(0), v + koff, kv0 + kBN, sk, d, tid);
+      e4t::cp_async_commit();
+    }
+    f32_pv<C, kPP>(acc, ds_s, k_of(st), oy, ox, min(kBN, (sk - kv0 + 3) & ~3));
+    if (kStages == 1 && t + 1 < n_tiles) {
+      __syncthreads();  // every thread is done with k
+      load_f4_async<kBN, DK, kT>(k_of(0), k + koff, kv0 + kBN, sk, d, tid);
+      e4t::cp_async_commit();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRO; ++i) {
+    const int row = q0 + oy + C::kNRo * i;
+    if (row < sq)
+#pragma unroll
+      for (int c = 0; c < kCO; ++c) {
+        const int col = ox + C::kNCo * c;
+        if (col < d) dq[qoff + (size_t)row * d + col] = acc[i][c];
+      }
+  }
+}
+
+template <int DK>
+__global__ void __launch_bounds__(F32Bwd<DK>::Dkv::kThreads, 1)
+attn_f32_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
+                        int d, float scale) {
+  using C = typename F32Bwd<DK>::Dkv;
+  constexpr int kT = C::kThreads, kRM = C::kRM, kCN = C::kCN, kRO = C::kRO,
+                kCO = C::kCO, kP = C::kP, kPP = C::kPP, kBN = C::kBN,
+                kStages = F32Bwd<DK>::kDkvStages;
+  constexpr int kStage = 2 * kBN * kP + 2 * kBN;  // q, dO, lse, delta
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* k_s = reinterpret_cast<float*>(smem_raw);  // 64 x kP
+  float* v_s = k_s + 64 * kP;                        // 64 x kP
+  float* pt_s = v_s + 64 * kP;                       // 64 x kPP: kv rows by q columns
+  float* dst_s = pt_s + 64 * kPP;                    // 64 x kPP
+  float* stages = dst_s + 64 * kPP;                  // kStages x kStage
+
+  const int bh = blockIdx.y, kv0 = blockIdx.x * 64, tid = threadIdx.x;
+  const int ty = tid / C::kNC, tx = tid % C::kNC;
+  const int oy = tid / C::kNCo, ox = tid % C::kNCo;
+  const float s_log2 = scale * e4t::kLog2e;
+  const size_t qoff = (size_t)bh * sq * d, koff = (size_t)bh * sk * d;
+  const float* lse_h = lse + (size_t)bh * sq;
+  const float* dl_h = delta + (size_t)bh * sq;
+  const int n_tiles = (sq + kBN - 1) / kBN;
+
+  // q tile t (q, dO, lse, delta) into stage st
+  auto load_tile = [&](int t, int st) {
+    float* base = stages + st * kStage;
+    const int r0 = t * kBN;
+    load_f4_async<kBN, DK, kT>(base, q + qoff, r0, sq, d, tid);
+    load_f4_async<kBN, DK, kT>(base + kBN * kP, dout + qoff, r0, sq, d, tid);
+    for (int i = tid; i < kBN; i += kT) {
+      const bool ok = r0 + i < sq;
+      e4t::cp_async_4(base + 2 * kBN * kP + i, ok ? lse_h + r0 + i : lse_h, ok ? 4 : 0);
+      e4t::cp_async_4(base + 2 * kBN * kP + kBN + i, ok ? dl_h + r0 + i : dl_h,
+                      ok ? 4 : 0);
+    }
+    e4t::cp_async_commit();
+  };
+  load_f4_async<64, DK, kT>(k_s, k + koff, kv0, sk, d, tid);
+  load_f4_async<64, DK, kT>(v_s, v + koff, kv0, sk, d, tid);
+  load_tile(0, 0);
+
+  float gk[kRO][kCO], gv[kRO][kCO];
+#pragma unroll
+  for (int i = 0; i < kRO; ++i)
+#pragma unroll
+    for (int c = 0; c < kCO; ++c) gk[i][c] = gv[i][c] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int q0 = t * kBN, st = kStages == 2 ? t & 1 : 0;
+    const float* q_t = stages + st * kStage;
+    const float* do_t = q_t + kBN * kP;
+    const float* lse_t = do_t + kBN * kP;
+    const float* dl_t = lse_t + kBN;
+    e4t::cp_async_wait<0>();
+    __syncthreads();  // tile t landed; every thread is done with tile t - 1
+    if (kStages == 2 && t + 1 < n_tiles) load_tile(t + 1, st ^ 1);
+    float s[kRM][kCN], dp[kRM][kCN];
+    f32_scores<C>(s, k_s, q_t, ty, tx);
+    f32_scores<C>(dp, v_s, do_t, ty, tx);
+#pragma unroll
+    for (int j = 0; j < kCN; ++j) {
+      const int qc = tx + C::kNC * j;
+      const bool valid = q0 + qc < sq;
+      const float l2 = lse_t[qc] * e4t::kLog2e, dlt = dl_t[qc];
+#pragma unroll
+      for (int i = 0; i < kRM; ++i) {
+        const float p = valid ? exp2f(s[i][j] * s_log2 - l2) : 0.f;
+        pt_s[(ty + C::kNR * i) * kPP + qc] = p;
+        dst_s[(ty + C::kNR * i) * kPP + qc] = p * (dp[i][j] - dlt) * scale;
+      }
+    }
+    __syncthreads();  // P^T and dS^T landed
+    const int n_end = min(kBN, (sq - q0 + 3) & ~3);
+    f32_pv<C, kPP>(gv, pt_s, do_t, oy, ox, n_end);
+    f32_pv<C, kPP>(gk, dst_s, q_t, oy, ox, n_end);
+    if (kStages == 1 && t + 1 < n_tiles) {
+      __syncthreads();  // every thread is done with the tile
+      load_tile(t + 1, 0);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRO; ++i) {
+    const int row = kv0 + oy + C::kNRo * i;
+    if (row < sk)
+#pragma unroll
+      for (int c = 0; c < kCO; ++c) {
+        const int col = ox + C::kNCo * c;
+        if (col < d) {
+          dk[koff + (size_t)row * d + col] = gk[i][c];
+          dv[koff + (size_t)row * d + col] = gv[i][c];
+        }
+      }
+  }
+}
+
+template <int DK>
+int launch_f32_bwd(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, void* dk, void* dv, int bh,
+                   int sq, int sk, int d, float scale, cudaStream_t stream) {
+  using B = F32Bwd<DK>;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* df = static_cast<const float*>(dout);
+  const float* lf = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  constexpr size_t smem_dq = B::kDqSmem;
+  cudaError_t err = e4t::allow_smem(attn_f32_bwd_dq_kernel<DK>, smem_dq);
+  if (err != cudaSuccess) return (int)err;
+  attn_f32_bwd_dq_kernel<DK><<<dim3((sq + 63) / 64, bh), B::Dq::kThreads, smem_dq, stream>>>(
+      qf, kf, vf, df, lf, dl, static_cast<float*>(dq), sq, sk, d, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  constexpr size_t smem_kv = B::kDkvSmem;
+  err = e4t::allow_smem(attn_f32_bwd_dkv_kernel<DK>, smem_kv);
+  if (err != cudaSuccess) return (int)err;
+  attn_f32_bwd_dkv_kernel<DK><<<dim3((sk + 63) / 64, bh), B::Dkv::kThreads, smem_kv,
+                                stream>>>(qf, kf, vf, df, lf, dl, static_cast<float*>(dk),
+                                          static_cast<float*>(dv), sq, sk, d, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename QK, int DK, bool kSinglePass>
 int launch_fwd(const void* q, const void* k, const void* v, const void* sc, float scale,
                void* out, void* lse, int bh, int sq, int sk, int d, cudaStream_t stream) {
@@ -1067,9 +1325,9 @@ extern "C" int e4t_attn_bwd_f32(const void* q, const void* k, const void* v,
                                 float scale, void* stream) {
   if (bad_shape(bh, sq, sk, d, 256)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_dk(d, [&](auto dkc) {
-    return launch_bwd<decltype(dkc)::value>(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq,
-                                            sk, d, scale, s);
+  return with_dk8(d, [&](auto dkc) {
+    return launch_f32_bwd<decltype(dkc)::value>(q, k, v, dout, lse, delta, dq, dk, dv, bh,
+                                                sq, sk, d, scale, s);
   });
 }
 

@@ -304,15 +304,18 @@ def _f32(dtype):
 
 def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None):
     """The forward kernel of ``dtype`` (bf16 by default, or f32) against its
-    plain version in f32; in bf16 (the wgmma kernel at every d) also
-    against the synchronous design it replaced (``flash_fwd_sync``), within
-    the same bound; timed: kernel, plain, SDPA's forward in the same type,
-    the bound, and in bf16 the synchronous design (``parent_ms``)."""
+    plain version in f32, and against the synchronous design it replaced,
+    within the same bound (bf16: the wgmma kernel against
+    ``flash_fwd_sync``; f32: the register-blocked kernel against
+    ``flash_fwd_f32_sync``, out and lse); timed: kernel, plain, SDPA's
+    forward in the same type, the bound, and the synchronous design
+    (``parent_ms``)."""
     import torch
     import torch.nn.functional as F
 
     from e4t_diffusion_torch.ops.flash_lowdim import (
-        flash_fwd, flash_fwd_reference, flash_fwd_sync, launch_route)
+        flash_fwd, flash_fwd_f32_sync, flash_fwd_reference, flash_fwd_sync,
+        launch_route)
 
     dtype = dtype or torch.bfloat16
     q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen)
@@ -334,12 +337,17 @@ def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None):
           else rel <= KERNEL_OUT_REL_L2 and lse_err <= KERNEL_LSE_MAX_ABS)
     if not ok:
         fail(f"flash_fwd disagrees with its plain version: {case}")
-    if not _f32(dtype):
-        parent, _ = flash_fwd_sync(q, k, v, scale)
-        case["parent_out_vs_kernel_rel_l2"] = _rel(parent, out.float())
-        del parent
-        if case["parent_out_vs_kernel_rel_l2"] > KERNEL_OUT_REL_L2:
-            fail(f"flash_fwd disagrees with the synchronous design: {case}")
+    f32 = _f32(dtype)
+    sync = flash_fwd_f32_sync if f32 else flash_fwd_sync
+    parent, parent_lse = sync(q, k, v, scale)
+    case["parent_out_vs_kernel_rel_l2"] = _rel(parent, out.float())
+    if f32:
+        case["parent_lse_vs_kernel_rel_l2"] = _rel(parent_lse, lse)
+    del parent, parent_lse
+    if max(case["parent_out_vs_kernel_rel_l2"],
+           case.get("parent_lse_vs_kernel_rel_l2", 0.0)) > (
+               KERNEL_F32_REL_L2 if f32 else KERNEL_OUT_REL_L2):
+        fail(f"flash_fwd disagrees with the synchronous design: {case}")
     if timed:
         size = q.element_size()
         case.update(
@@ -352,10 +360,8 @@ def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None):
             **_bound(size * (2 * bh * sq * d + 2 * bh * sk * d) + 4 * bh * sq,
                      4 * bh * sq * sk * d, bh * sq * sk,
                      flop_rate=F32_FLOP_PER_S if _f32(dtype)
-                     else BF16_FLOP_PER_S))
-        if not _f32(dtype):
-            case["parent_ms"] = cuda_time_ms(
-                lambda: flash_fwd_sync(q, k, v, scale))
+                     else BF16_FLOP_PER_S),
+            parent_ms=cuda_time_ms(lambda: sync(q, k, v, scale)))
     del q, k, v, out, lse
     torch.cuda.empty_cache()
     return case
@@ -369,14 +375,15 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
     The bound counts the work (dq, dk, dv) needs, whatever the kernel's
     design does: five products (S, dP, dq, dk, dv), 10 flops per score
     element and head dim, and one exponential per score.
-    In bf16 (the wgmma kernels at every d) also: a second call bit for bit
-    against the first, and the synchronous design (``flash_bwd_sync``, the
-    kernels they replaced) against the kernel, within the same bound, and
-    timed beside it (``parent_ms``)."""
+    Also: a second call bit for bit against the first (no atomics), and the
+    synchronous design the kernels replaced (``flash_bwd_sync`` in bf16,
+    ``flash_bwd_f32_sync`` in f32) against the kernel, within the same
+    bound, and timed beside it (``parent_ms``)."""
     import torch
     import torch.nn.functional as F
 
     from e4t_diffusion_torch.ops.flash_bwd import (flash_bwd,
+                                                   flash_bwd_f32_sync,
                                                    flash_bwd_reference,
                                                    flash_bwd_sync)
     from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd
@@ -403,20 +410,19 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
     if max(case[f"{n}_rel_l2"] for n in ("dq", "dk", "dv")) > (
             KERNEL_F32_REL_L2 if _f32(dtype) else KERNEL_GRAD_REL_L2):
         fail(f"flash_bwd disagrees with its plain version: {case}")
-    bf16 = not _f32(dtype)
-    if bf16:
-        again = flash_bwd(q, k, v, out, lse, dout, scale)
-        case["repeat_identical"] = all(torch.equal(a, b)
-                                       for a, b in zip(grads, again))
-        parent = flash_bwd_sync(q, k, v, out, lse, dout, scale)
-        for name, g, p in zip(("dq", "dk", "dv"), grads, parent):
-            case[f"parent_{name}_rel_l2"] = _rel(g, p.float())
-        del again, parent
-        if not case["repeat_identical"]:
-            fail(f"flash_bwd: two calls on the same inputs differ: {case}")
-        if max(case[f"parent_{n}_rel_l2"] for n in ("dq", "dk", "dv")) > (
-                KERNEL_GRAD_REL_L2):
-            fail(f"flash_bwd disagrees with the synchronous design: {case}")
+    sync = flash_bwd_f32_sync if _f32(dtype) else flash_bwd_sync
+    again = flash_bwd(q, k, v, out, lse, dout, scale)
+    case["repeat_identical"] = all(torch.equal(a, b)
+                                   for a, b in zip(grads, again))
+    parent = sync(q, k, v, out, lse, dout, scale)
+    for name, g, p in zip(("dq", "dk", "dv"), grads, parent):
+        case[f"parent_{name}_rel_l2"] = _rel(g, p.float())
+    del again, parent
+    if not case["repeat_identical"]:
+        fail(f"flash_bwd: two calls on the same inputs differ: {case}")
+    if max(case[f"parent_{n}_rel_l2"] for n in ("dq", "dk", "dv")) > (
+            KERNEL_F32_REL_L2 if _f32(dtype) else KERNEL_GRAD_REL_L2):
+        fail(f"flash_bwd disagrees with the synchronous design: {case}")
     if timed:
         qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(
@@ -430,10 +436,9 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
             **_bound(q.element_size() * (4 * bh * sq * d + 4 * bh * sk * d)
                      + 4 * bh * sq, 10 * bh * sq * sk * d, bh * sq * sk,
                      flop_rate=F32_FLOP_PER_S if _f32(dtype)
-                     else BF16_FLOP_PER_S))
-        if bf16:
-            case["parent_ms"] = cuda_time_ms(lambda: flash_bwd_sync(
-                q, k, v, out, lse, dout, scale))
+                     else BF16_FLOP_PER_S),
+            parent_ms=cuda_time_ms(lambda: sync(q, k, v, out, lse, dout,
+                                                scale)))
         del qr, kr, vr, lib_out
     del q, k, v, dout, out, lse, grads, f32
     torch.cuda.empty_cache()
@@ -718,13 +723,13 @@ def _gn_case(n, c, h, w, groups, eps, act, layout, dtype, gen, timed,
 
 def _shortseq_case(bh, s, d, g, gen, timed, dtype=None):
     """The short-sequence kernel of ``dtype`` (bf16 by default, or f32)
-    against its plain version in f32 on the same inputs; in bf16 also
-    against the synchronous design it replaced
-    (``flash_fwd_shortseq_sync``), within the same bound, with whether the
-    two agree bit for bit; timed (device time, and CUDA-event time per
+    against its plain version in f32 on the same inputs, and against the
+    synchronous design it replaced (``flash_fwd_shortseq_sync``,
+    ``flash_fwd_shortseq_f32_sync``), within the same bound, with whether
+    the two agree bit for bit; timed (device time, and CUDA-event time per
     call, ``wall_ms``): kernel, plain, SDPA's forward in the same type, the
-    bound of the work (as for the flash forward), and in bf16 the
-    synchronous design (``parent_ms``)."""
+    bound of the work (as for the flash forward), and the synchronous
+    design (``parent_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -746,14 +751,16 @@ def _shortseq_case(bh, s, d, g, gen, timed, dtype=None):
     if not case["out_rel_l2"] <= (KERNEL_F32_REL_L2 if _f32(dtype)
                                   else KERNEL_OUT_REL_L2):
         fail(f"flash_fwd_shortseq disagrees with its plain version: {case}")
-    if not _f32(dtype):
-        parent = shortseq.flash_fwd_shortseq_sync(q, k, v, scale, g)
-        case["parent_out_vs_kernel_rel_l2"] = _rel(parent, out.float())
-        case["parent_identical"] = torch.equal(parent, out)
-        del parent
-        if case["parent_out_vs_kernel_rel_l2"] > KERNEL_OUT_REL_L2:
-            fail(f"flash_fwd_shortseq disagrees with the synchronous design: "
-                 f"{case}")
+    sync = (shortseq.flash_fwd_shortseq_f32_sync if _f32(dtype)
+            else shortseq.flash_fwd_shortseq_sync)
+    parent = sync(q, k, v, scale, g)
+    case["parent_out_vs_kernel_rel_l2"] = _rel(parent, out.float())
+    case["parent_identical"] = torch.equal(parent, out)
+    del parent
+    if case["parent_out_vs_kernel_rel_l2"] > (
+            KERNEL_F32_REL_L2 if _f32(dtype) else KERNEL_OUT_REL_L2):
+        fail(f"flash_fwd_shortseq disagrees with the synchronous design: "
+             f"{case}")
     if timed:
         def kernel():
             return shortseq.flash_fwd_shortseq(q, k, v, scale, g)
@@ -770,10 +777,8 @@ def _shortseq_case(bh, s, d, g, gen, timed, dtype=None):
                 library),
             **_bound(q.element_size() * 4 * bh * s * d, 4 * bh * s * s * d,
                      bh * s * s, flop_rate=F32_FLOP_PER_S if _f32(dtype)
-                     else BF16_FLOP_PER_S))
-        if not _f32(dtype):
-            case["parent_ms"] = device_ms(
-                lambda: shortseq.flash_fwd_shortseq_sync(q, k, v, scale, g))
+                     else BF16_FLOP_PER_S),
+            parent_ms=device_ms(lambda: sync(q, k, v, scale, g)))
     del q, k, v, out
     torch.cuda.empty_cache()
     return case
@@ -903,8 +908,10 @@ def phase_kernels():
 def _f32_kernel_cases(gen, n):
     """The f32 kernels (``csrc/attention_f32.cu``, and the int8 kernel's f32
     epilogue) at the f32 paths' shapes, timed, and at ragged shapes: d in
-    {8, 40, 80, 120, 160, 256}, Sq and Sk off the 64- (32-) row tile, Sk
-    below one tile and one tile plus one row."""
+    {8, 40, 80, 120, 136, 160, 256}, Sq and Sk off the 64-row tiles (63,
+    65, 127, 129 and others), Sk below one tile and one tile plus one row;
+    the short-sequence kernel at 257 and 258 tokens (88-row q tiles), at
+    129 and 65, and at 512 (the flash-shaped kernel above 320)."""
     import torch
 
     f32 = torch.float32
@@ -928,11 +935,18 @@ def _f32_kernel_cases(gen, n):
     ragged = out["f32_ragged"]
     for d, sq, sk in ((8, 65, 33), (40, 300, 200), (80, 100, 63),
                       (120, 64, 65), (160, 70, 31), (256, 129, 33),
-                      (40, 1, 129), (256, 33, 300)):
+                      (40, 1, 129), (256, 33, 300),
+                      # the register-blocked kernels' tile edges: Sq and Sk
+                      # one row either side of 64 and 128, D unpadded to 128
+                      # (8, 40) and by 32 above (136 -> 160, 256)
+                      (8, 63, 65), (40, 65, 63), (40, 127, 129),
+                      (80, 129, 127), (136, 129, 65), (136, 63, 127),
+                      (256, 65, 129), (256, 127, 63)):
         ragged.append(_fwd_case(2, sq, sk, d, gen, False, f32))
         ragged.append(_bwd_case(2, sq, sk, d, gen, False, f32))
     for bh, s_, d, g in ((2, 129, 8, 1), (4, 200, 40, 2), (2, 512, 120, 2),
-                         (2, 65, 64, 1)):
+                         (2, 65, 64, 1), (2, 257, 80, 1), (2, 258, 40, 2),
+                         (2, 257, 8, 1), (2, 258, 128, 2), (2, 63, 120, 1)):
         ragged.append(_shortseq_case(bh, s_, d, g, gen, False, f32))
     for mode in ("qk", "qkpv"):
         for d, sq, sk in ((8, 65, 33), (40, 300, 200), (80, 128, 257),
@@ -1081,7 +1095,9 @@ def _sample(pipe, image, scheduler_type, want, seed=0):
 
 def _profile(run):
     """Device time by kernel over one call of ``run`` (wall time is taken
-    under the profiler, so the busy share is a lower bound)."""
+    under the profiler, so the busy share is a lower bound), and the share
+    of it the f32 attention kernels take (``csrc/attention_f32.cu``, whose
+    kernels are named attn_*)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1092,7 +1108,7 @@ def _profile(run):
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
+    rows, attn_us = [], 0.0
     for evt in prof.key_averages():
         if (evt.device_type != DeviceType.CUDA
                 or getattr(evt, "is_user_annotation", False)):
@@ -1102,10 +1118,14 @@ def _profile(run):
         dev_us = evt.self_device_time_total
         if dev_us > 0:
             rows.append((dev_us, evt.key[:80], evt.count))
+            if "attn_" in evt.key:
+                attn_us += dev_us
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
+            "f32_attention_ms": attn_us / 1e3,
+            "f32_attention_share_of_busy": attn_us / max(busy_us, 1e-9),
             "top": [{"kernel": k, "ms": us / 1e3, "count": c,
                      "share_of_busy": us / busy_us}
                     for us, k, c in rows[:16]]}
@@ -1566,7 +1586,7 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
         if not max(rel.values()) <= TUNING_ROUTE_REL:
             fail(f"tuning, routes on vs off, first step: {rel} "
                  f"({metrics[0]} against {routes_off})")
-    elif not f32:
+    else:
         report["profile"] = _profile(lambda: run(cli_args(1)))
     # after the first step where there is one
     steady = result["step_seconds"][1:] or result["step_seconds"]

@@ -23,6 +23,9 @@ it: ``loads`` (no k/v tile is loaded after the first ones), ``exp`` (p =
 ``groups1`` (from DK 160, 1 warpgroup of q rows a block and a 2-stage
 ring, so two blocks share an SM at DK 160). The copy goes to
 ``build/ablate-<part>/`` and is not checked (an ablated output is wrong).
+With ``--dtype f32`` the f32 flash kernel is ablated the same way
+(``loads``, ``exp``, ``s`` over the first 4 head dims, ``pv`` over the
+first 4 kv rows of each tile).
 Otherwise each shape: the kernel against its plain version (bf16 rounding,
 rel-L2 <= 1e-2) and against the synchronous design (``flash_fwd_sync``,
 where the checkout has it), then CUDA events around one call of each and
@@ -58,6 +61,7 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12  # FFMA on the CUDA cores, outside the tensor cores
 EXP_PER_S = 16 * 132 * 1.98e9  # exp2 on the SFUs, 1.98 GHz boost
 KERNEL = os.path.join("e4t_diffusion_torch", "csrc", "flash_fwd_lowdim.cu")
+KERNEL_F32 = os.path.join("e4t_diffusion_torch", "csrc", "attention_f32.cu")
 # --ablate: [(text of the kernel's source, its replacement, occurrences)]
 ABLATIONS = {
     "loads": [("    if (nxt < n_tiles) {", "    if (nxt < kWgStages - 1) {", 1)],
@@ -73,17 +77,37 @@ ABLATIONS = {
 }
 
 
-def ablated_copy(repo, part):
+# --dtype f32 --ablate: the flash kernel of attention_f32.cu (f32_scores
+# also serves its other kernels, which the f32 rows do not time)
+ABLATIONS_F32 = {
+    "loads": [("    load_f4_async<kBN, DK, kT>(v_s, vb, kv0, sk, d, tid);",
+               "    if (t == 0) load_f4_async<kBN, DK, kT>(v_s, vb, kv0, sk, d, tid);",
+               1),
+              ("    if (t + 1 < n_tiles) {\n      load_f4_async<kBN, DK, kT>(k_s,",
+               "    if (t + 1 < 1) {\n      load_f4_async<kBN, DK, kT>(k_s,", 1)],
+    "exp": [("const float p = exp2f(s[i][j] - m[i]);\n        l[i] += p;\n"
+             "        p_s[(ty + C::kNR * i)",
+             "const float p = (s[i][j] - m[i]);\n        l[i] += p;\n"
+             "        p_s[(ty + C::kNR * i)", 1)],
+    "s": [("  for (int w = 0; w < DK; w += 4) {\n    float4 b[C::kCN];",
+           "  for (int w = 0; w < 4; w += 4) {\n    float4 b[C::kCN];", 1)],
+    "pv": [("f32_pv<C, kPP>(o, p_s, v_s, oy, ox, min(kBN, (sk - kv0 + 3) & ~3));",
+            "f32_pv<C, kPP>(o, p_s, v_s, oy, ox, 4);", 1)],
+}
+
+
+def ablated_copy(repo, part, f32=False):
     """A copy of ``repo``'s package under build/ablate-<part>/ with the
-    kernel changed as ``ABLATIONS[part]`` says; returns the copy's root."""
+    kernel changed as ``ABLATIONS[part]`` (``ABLATIONS_F32[part]``) says;
+    returns the copy's root."""
     root = os.path.join(repo, "build", f"ablate-{part}")
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(repo, "e4t_diffusion_torch"),
                     os.path.join(root, "e4t_diffusion_torch"))
-    path = os.path.join(root, KERNEL)
+    path = os.path.join(root, KERNEL_F32 if f32 else KERNEL)
     with open(path) as f:
         src = f.read()
-    for old, new, count in ABLATIONS[part]:
+    for old, new, count in (ABLATIONS_F32 if f32 else ABLATIONS)[part]:
         if src.count(old) != count:
             sys.exit(f"time_flash_fwd: --ablate {part}: the kernel has changed")
         src = src.replace(old, new)
@@ -134,10 +158,10 @@ def main(argv=None):
     args = parser.parse_args(argv)
     repo = os.path.abspath(args.repo)
     f32 = args.dtype == "f32"
-    if args.ablate and f32:
-        sys.exit("time_flash_fwd: --ablate edits the bf16 kernel")
+    if args.ablate and f32 and args.ablate not in ABLATIONS_F32:
+        sys.exit(f"time_flash_fwd: no f32 ablation {args.ablate}")
     if args.ablate:
-        repo = ablated_copy(repo, args.ablate)
+        repo = ablated_copy(repo, args.ablate, f32)
     sys.path.insert(0, repo)
     import torch
     import torch.nn.functional as F

@@ -39,6 +39,7 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -630,14 +631,16 @@ attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCO; ++c) o[i][c] = 0.f;
 
-  // this thread's scores of the tile at kv0, log2 domain, -inf past Sk
+  // this thread's scores of the tile at kv0, unscaled (the scale goes
+  // into each exponent's FMA), -inf past Sk (only the last tile has any)
   auto scores = [&](float (&s)[kRM][kCN], int kv0) {
     f32_scores<C>(s, q_s, k_s, ty, tx);
+    if (kv0 + kBN > sk)
 #pragma unroll
-    for (int i = 0; i < kRM; ++i)
+      for (int i = 0; i < kRM; ++i)
 #pragma unroll
-      for (int j = 0; j < kCN; ++j)
-        s[i][j] = kv0 + tx + C::kNC * j < sk ? s[i][j] * s_log2 : -INFINITY;
+        for (int j = 0; j < kCN; ++j)
+          if (kv0 + tx + C::kNC * j >= sk) s[i][j] = -INFINITY;
   };
 
   if constexpr (kSinglePass) {
@@ -681,14 +684,15 @@ attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         // every tile holds a valid column, so mx is finite and the first
         // tile's alpha is exp2(-inf) = 0
         mx = half_warp_max(mx);
-        const float alpha = exp2f(m[i] - mx);
+        const float alpha = e4t::exp2_approx((m[i] - mx) * s_log2);
         m[i] = mx;
         l[i] *= alpha;
         if (tx == 0) alpha_s[ty + C::kNR * i] = alpha;
       }
+      const float ms = -m[i] * s_log2;
 #pragma unroll
       for (int j = 0; j < kCN; ++j) {
-        const float p = exp2f(s[i][j] - m[i]);
+        const float p = e4t::exp2_approx(fmaf(s[i][j], s_log2, ms));
         l[i] += p;
         p_s[(ty + C::kNR * i) * kPP + tx + C::kNC * j] = p;
       }
@@ -717,7 +721,7 @@ attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (tx == 0) {
       l_s[r] = li;
       if (lse != nullptr && row < sq)
-        lse[(size_t)bh * sq + row] = (m[i] + log2f(fmaxf(li, 1e-37f))) * kLn2;
+        lse[(size_t)bh * sq + row] = (m[i] * s_log2 + log2f(fmaxf(li, 1e-37f))) * kLn2;
     }
   }
   __syncthreads();
@@ -829,7 +833,7 @@ attn_f32_shortseq_kernel(const float* __restrict__ q, const float* __restrict__ 
       for (int r = 0; r < kRM; ++r)
 #pragma unroll
         for (int j = 0; j < kCN; ++j) {
-          const float sv = kv0 + tx + C::kNC * j < s_len ? acc[r][j] * s_log2 : -INFINITY;
+          const float sv = kv0 + tx + C::kNC * j < s_len ? acc[r][j] : -INFINITY;
           m[r] = fmaxf(m[r], sv);
           s_s[(ty + C::kNR * r) * kPS + kv0 + tx + C::kNC * j] = sv;
         }
@@ -841,11 +845,12 @@ attn_f32_shortseq_kernel(const float* __restrict__ q, const float* __restrict__ 
         for (int r = 0; r < kRM; ++r) {
           m[r] = row16_max(m[r]);
           l[r] = 0.f;
+          const float ms = -m[r] * s_log2;
           float* row = s_s + (ty + C::kNR * r) * kPS + tx;
           for (int t = 0; t < n_tiles; ++t)
 #pragma unroll
             for (int j = 0; j < kCN; ++j) {
-              const float p = exp2f(row[t * kBN + C::kNC * j] - m[r]);
+              const float p = e4t::exp2_approx(fmaf(row[t * kBN + C::kNC * j], s_log2, ms));
               l[r] += p;
               row[t * kBN + C::kNC * j] = p;
             }
@@ -1006,7 +1011,8 @@ attn_f32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCN; ++j) {
         const float p =
-            kv0 + tx + C::kNC * j < sk ? exp2f(s[i][j] * s_log2 - lse2[i]) : 0.f;
+            kv0 + tx + C::kNC * j < sk ? e4t::exp2_approx(fmaf(s[i][j], s_log2, -lse2[i]))
+                                       : 0.f;
         ds_s[(ty + C::kNR * i) * kPP + tx + C::kNC * j] = p * (dp[i][j] - dl[i]) * scale;
       }
     __syncthreads();  // dS landed; every thread is done with v
@@ -1106,7 +1112,7 @@ attn_f32_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k
       const float l2 = lse_t[qc] * e4t::kLog2e, dlt = dl_t[qc];
 #pragma unroll
       for (int i = 0; i < kRM; ++i) {
-        const float p = valid ? exp2f(s[i][j] * s_log2 - l2) : 0.f;
+        const float p = valid ? e4t::exp2_approx(fmaf(s[i][j], s_log2, -l2)) : 0.f;
         pt_s[(ty + C::kNR * i) * kPP + qc] = p;
         dst_s[(ty + C::kNR * i) * kPP + qc] = p * (dp[i][j] - dlt) * scale;
       }

@@ -85,10 +85,8 @@ ABLATIONS_F32 = {
                1),
               ("    if (t + 1 < n_tiles) {\n      load_f4_async<kBN, DK, kT>(k_s,",
                "    if (t + 1 < 1) {\n      load_f4_async<kBN, DK, kT>(k_s,", 1)],
-    "exp": [("const float p = exp2f(s[i][j] - m[i]);\n        l[i] += p;\n"
-             "        p_s[(ty + C::kNR * i)",
-             "const float p = (s[i][j] - m[i]);\n        l[i] += p;\n"
-             "        p_s[(ty + C::kNR * i)", 1)],
+    "exp": [("const float p = e4t::exp2_approx(fmaf(s[i][j], s_log2, ms));",
+             "const float p = fmaf(s[i][j], s_log2, ms);", 1)],
     "s": [("  for (int w = 0; w < DK; w += 4) {\n    float4 b[C::kCN];",
            "  for (int w = 0; w < 4; w += 4) {\n    float4 b[C::kCN];", 1)],
     "pv": [("f32_pv<C, kPP>(o, p_s, v_s, oy, ox, min(kBN, (sk - kv0 + 3) & ~3));",

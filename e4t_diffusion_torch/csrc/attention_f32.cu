@@ -948,10 +948,15 @@ struct F32Bwd {
   static constexpr size_t kDqSmem = kDqStages == 2 ? kDq2 : kDq1;
   static constexpr size_t kDkvSmem = kDkvStages == 2 ? kDkv2 : kDkv1;
   static_assert(kDqSmem <= kMax && kDkvSmem <= kMax, "shared memory");
+  // At d40 (the UNet's 4096-token sites) the dq kernel's shared memory
+  // holds 3 blocks an SM and ptxas fits the 170 registers that leaves
+  // without a spill (it would take 238 for 2); elsewhere the registers
+  // ptxas picks, which at some head dims spill under a tighter bound.
+  static constexpr int kDqMinBlocks = DK == 40 ? 3 : 1;
 };
 
 template <int DK>
-__global__ void __launch_bounds__(F32Bwd<DK>::Dq::kThreads, 1)
+__global__ void __launch_bounds__(F32Bwd<DK>::Dq::kThreads, F32Bwd<DK>::kDqMinBlocks)
 attn_f32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,

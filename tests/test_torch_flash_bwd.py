@@ -199,3 +199,19 @@ def test_backward_shape_checks():
         fb.flash_bwd(q, q, q, q, lse[:, :10], q, 0.1)
     with pytest.raises(ValueError, match="dout"):
         fb.flash_bwd(q, q, q, q, lse, q[:, :10], 0.1)
+
+
+def test_f32_yardstick_refuses_bf16_and_cpu_tensors():
+    """flash_bwd_f32_sync, the synchronous f32 design kept as the
+    register-blocked kernels' yardstick: bf16 operands raise TypeError, f32
+    CPU tensors ValueError (no plain version to fall back to), and neither
+    counts a launch."""
+    q = torch.from_numpy(_rand((2, 130, 40), 9))
+    lse = torch.zeros(2, 130)
+    before = dict(fb.flash_bwd.launches)
+    h = q.bfloat16()
+    with pytest.raises(TypeError, match="float32"):
+        fb.flash_bwd_f32_sync(h, h, h, h, lse, h, 0.1)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fb.flash_bwd_f32_sync(q, q, q, q, lse, q, 0.1)
+    assert fb.flash_bwd.launches == before

@@ -169,31 +169,18 @@ def test_sync_yardsticks_run_on_cuda_tensors_only(direction):
     assert (fl.flash_fwd.launches, fb.flash_bwd.launches) == before
 
 
-@pytest.mark.parametrize("direction", ["forward", "backward", "shortseq"])
-def test_f32_yardsticks_refuse_bf16_and_cpu_tensors(direction):
-    """flash_fwd_f32_sync, flash_bwd_f32_sync and
-    flash_fwd_shortseq_f32_sync, the synchronous f32 designs kept as the
-    register-blocked kernels' yardsticks: bf16 operands raise TypeError,
-    f32 CPU tensors ValueError (no plain version to fall back to), and
-    neither counts a launch."""
-    from e4t_diffusion_torch.ops import flash_bwd as fb
-    from e4t_diffusion_torch.ops import shortseq
-
-    calls = {
-        "forward": lambda q: fl.flash_fwd_f32_sync(q, q, q, 0.1),
-        "backward": lambda q: fb.flash_bwd_f32_sync(
-            q, q, q, q, torch.zeros(2, 257), q, 0.1),
-        "shortseq": lambda q: shortseq.flash_fwd_shortseq_f32_sync(
-            q, q, q, 0.1, 2)}
+def test_f32_yardstick_refuses_bf16_and_cpu_tensors():
+    """flash_fwd_f32_sync, the synchronous f32 design kept as the
+    register-blocked kernel's yardstick: bf16 operands raise TypeError, f32
+    CPU tensors ValueError (no plain version to fall back to), and neither
+    counts a launch."""
     q = torch.from_numpy(_rand((2, 257, 40), 8))
-    before = (dict(fl.flash_fwd.launches), dict(fb.flash_bwd.launches),
-              dict(shortseq.flash_fwd_shortseq.launches))
+    before = dict(fl.flash_fwd.launches)
     with pytest.raises(TypeError, match="float32"):
-        calls[direction](q.bfloat16())
+        fl.flash_fwd_f32_sync(q.bfloat16(), q.bfloat16(), q.bfloat16(), 0.1)
     with pytest.raises(ValueError, match="CUDA tensors only"):
-        calls[direction](q)
-    assert before == (fl.flash_fwd.launches, fb.flash_bwd.launches,
-                      shortseq.flash_fwd_shortseq.launches)
+        fl.flash_fwd_f32_sync(q, q, q, 0.1)
+    assert fl.flash_fwd.launches == before
 
 
 def test_timing_tools_f32_tables():

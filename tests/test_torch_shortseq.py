@@ -194,3 +194,18 @@ def test_shortseq_sync_yardstick_runs_on_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         shortseq.flash_fwd_shortseq_sync(q, q, q, 0.1, 2)
     assert shortseq.flash_fwd_shortseq.launches == before
+
+
+def test_shortseq_f32_yardstick_refuses_bf16_and_cpu_tensors():
+    """flash_fwd_shortseq_f32_sync, the synchronous f32 design kept as the
+    register-blocked kernel's yardstick: bf16 operands raise TypeError, f32
+    CPU tensors ValueError (no plain version to fall back to), and neither
+    counts a launch."""
+    q = torch.zeros(2, 257, 80)
+    before = dict(shortseq.flash_fwd_shortseq.launches)
+    h = q.bfloat16()
+    with pytest.raises(TypeError, match="float32"):
+        shortseq.flash_fwd_shortseq_f32_sync(h, h, h, 0.1, 2)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        shortseq.flash_fwd_shortseq_f32_sync(q, q, q, 0.1, 2)
+    assert shortseq.flash_fwd_shortseq.launches == before

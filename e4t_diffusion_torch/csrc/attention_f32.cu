@@ -6,32 +6,35 @@
 // Replaces, for f32 operands, the TPU kernels of
 // e4t_diffusion_tpu/ops/flash_kernels.py that write in q's dtype:
 //   - _flash_fwd_lowdim (:286), _flash_fwd_kvres (:196) and _flash_fwd
-//     (:95): attn_fwd_f32_sync_kernel<float, DK, false>, out and lse = m + log(l);
-//   - _flash_bwd_resident (:503) and _flash_bwd (:582): attn_bwd_dq_sync_kernel and
-//     attn_bwd_dkv_sync_kernel, p = exp(s - lse), ds = p (dP - delta) scale;
-//   - _flash_fwd_shortseq_mh (:896): attn_fwd_f32_sync_kernel<float, DK, true>, the
-//     single-pass softmax (the row max over the whole kv row first, no
-//     rescaling) and the division by l after P@V;
+//     (:95): attn_f32_fwd_kernel<DK, false>, out and lse = m + log(l);
+//   - _flash_bwd_resident (:503) and _flash_bwd (:582): attn_f32_bwd_dq_kernel
+//     and attn_f32_bwd_dkv_kernel, p = exp(s - lse), ds = p (dP - delta) scale;
+//   - _flash_fwd_shortseq_mh (:896): attn_f32_shortseq_kernel up to 320
+//     tokens, attn_f32_fwd_kernel<DK, true> above; the single-pass softmax
+//     (the row max over the whole kv row first, no rescaling) and the
+//     division by l after P@V;
 //   - _flash_fwd_lowdim_int8 (:813) in "qk" mode with an f32 v:
-//     attn_fwd_f32_sync_kernel<int8_t, DK, false>, the int8 scores exact in int32
-//     (__dp4a) times the head's qk_c, P@V in f32, out = acc / l * v_c.
+//     attn_fwd_f32_sync_kernel<int8_t, DK, false>, the int8 scores exact in
+//     int32 (__dp4a) times the head's qk_c, P@V in f32, out = acc / l * v_c.
 // With f32 p nothing is rounded before P@V, so these compute the plain
-// versions' function with f32 sums in another order.
+// versions' function with f32 sums in another order; exponentials are
+// ex2.approx of an FMA that folds the scale in (2 ulp; results below 2^-126
+// flush to 0).
 //
 // What bounds them on the H100: f32 outside the tensor cores peaks at 67
 // TFLOP/s, so at the UNet's 4096-token d=40 sites (BH=64) the 4*Sq*Sk*D flops
 // of the forward alone take 2.6 ms at peak, the exponentials 0.26 ms and the
-// bytes 0.06 ms: FFMA bounds every one of them. The design is simple and
-// right first, not fast: one block of 256 threads (a 16 x 16 grid) per tile of
-// 64 rows (32 from DK = 160 up, for shared memory), every operand tile staged
-// in shared memory with an odd row pitch (so the 16 rows a half-warp reads in
-// a score product fall in distinct banks), each thread holding a 4 x 4 block
-// of scores (rows 4 ty.., columns tx + 16 j) and 4 rows x DK/16 columns of
-// the output; row maxima and sums reduce across the 16 threads of a half-warp
-// by shuffles. D is zero-padded in shared memory to DK (the next multiple of
-// 16 up to 128, of 32 above) and ragged Sq and Sk are masked here, so the
-// host passes unpadded tensors. Softmaxes run in the log2 domain (the scale
-// times log2 e folded into one multiply, then exp2).
+// bytes 0.06 ms: FFMA bounds every one of them, and the kernels are
+// register-blocked so that FFMA, not shared-memory loads, fills the issue
+// slots (the design notes below: attn_f32_*).
+//
+// The synchronous designs they replaced stay as their yardsticks (entry
+// points e4t_attn_*_f32_sync; int8 "qk" still runs on it): one block of 256
+// threads per tile of 64 rows (32 from DK = 160), every operand staged in
+// shared memory between two block barriers with an odd row pitch, each
+// thread a 4 x 4 block of scores from scalar shared loads (rows 4 ty..,
+// columns tx + 16 j) and 4 rows x DK/16 columns of the output; D padded to
+// 16 up to 128, to 32 above.
 
 #include <math.h>
 #include <stdint.h>
@@ -143,16 +146,19 @@ __device__ __forceinline__ void tile_nn(float (&acc)[RM][CO], const float* a, in
   }
 }
 
-// max and sum over the 16 threads of a half-warp (one row's columns)
+// max and sum over the 16 threads of a half-warp (one row's columns); the
+// mask names that half only, so a block may end on a half-populated warp
 __device__ __forceinline__ float half_warp_max(float x) {
+  const unsigned mask = 0xffffu << (threadIdx.x & 16);
 #pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(mask, x, o));
   return x;
 }
 
 __device__ __forceinline__ float half_warp_sum(float x) {
+  const unsigned mask = 0xffffu << (threadIdx.x & 16);
 #pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(mask, x, o);
   return x;
 }
 
@@ -441,13 +447,13 @@ attn_bwd_dkv_sync_kernel(const float* __restrict__ q, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// The redesigned f32 forward (attn_f32_fwd_kernel): register-blocked FFMA.
-//
-// One block of kThreads (128 to DK 128, 256 above) per 64 q rows at every
-// DK; k/v tiles of 64 rows. q, k and v sit row-major in shared memory with
-// a pitch of DK + 4 floats (16-byte rows whose 16-byte chunks fall in
-// distinct bank groups for consecutive rows), so both products read float4
-// along their contraction index:
+// The redesigned f32 kernels (attn_f32_*): register-blocked FFMA. The
+// flash forward (attn_f32_fwd_kernel) takes one block of 128 threads (256
+// above DK 128) per 64 q rows at every DK, k/v tiles of 64 rows. q, k and v
+// sit row-major in shared memory with a pitch of DK + 4 floats (16-byte rows
+// whose 16-byte chunks fall in distinct bank groups for consecutive rows),
+// loaded by 16-byte cp.async (each tile's k during the previous tile's P V,
+// its v during its own S). The two products:
 //   - S = Q K^T: a kNR x 16 thread grid, each thread kRM (8, or 4 at 256
 //     threads) rows ty + kNR i by 4 columns tx + 16 j, 4 head dims a step:
 //     kRM + 4 16-byte loads for 16 kRM FMAs, every word feeding at least 4.
@@ -461,6 +467,7 @@ attn_bwd_dkv_sync_kernel(const float* __restrict__ q, const float* __restrict__ 
 //     row rescales (alpha) and sums (l) reach it through shared memory.
 // D is padded to a multiple of 8 up to 128 (d itself: the wrappers take
 // multiples of 8) and of 32 above, so d = 40 computes 40 columns.
+
 // A block's thread grids and shared-memory pitches: BM rows of the operand
 // the block keeps (q in the forward and dq, k/v in dk/dv) by BN rows of the
 // streamed tile, NT threads. Scores: a NT / 16 x 16 grid, kRM rows by kCN
@@ -515,22 +522,6 @@ __device__ __forceinline__ void load_f4_async(float* dst, const float* src, int 
     e4t::cp_async_16(dst + r * kP + c, ok ? src + (size_t)(r0 + r) * d + c : src,
                      ok ? 16 : 0);
   }
-}
-
-// max and sum over the 16 lanes of a row (a half-warp; the mask names that
-// half only, so a block may end on a half-populated warp)
-__device__ __forceinline__ float row16_max(float x) {
-  const unsigned mask = 0xffffu << (threadIdx.x & 16);
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(mask, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row16_sum(float x) {
-  const unsigned mask = 0xffffu << (threadIdx.x & 16);
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(mask, x, o);
-  return x;
 }
 
 // acc[i][j] = q row (ty + kNR i) . k row (tx + 16 j) over DK, from the
@@ -843,7 +834,7 @@ attn_f32_shortseq_kernel(const float* __restrict__ q, const float* __restrict__ 
         float l[kRM];
 #pragma unroll
         for (int r = 0; r < kRM; ++r) {
-          m[r] = row16_max(m[r]);
+          m[r] = half_warp_max(m[r]);
           l[r] = 0.f;
           const float ms = -m[r] * s_log2;
           float* row = s_s + (ty + C::kNR * r) * kPS + tx;
@@ -854,7 +845,7 @@ attn_f32_shortseq_kernel(const float* __restrict__ q, const float* __restrict__ 
               l[r] += p;
               row[t * kBN + C::kNC * j] = p;
             }
-          l[r] = row16_sum(l[r]);
+          l[r] = half_warp_sum(l[r]);
           if (tx == 0) l_s[ty + C::kNR * r] = l[r];
         }
       }

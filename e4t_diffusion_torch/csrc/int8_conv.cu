@@ -55,7 +55,7 @@ struct Geometry {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
+int8_conv_sync_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
                  const float* __restrict__ scale, const T* __restrict__ bias,
                  T* __restrict__ out, Geometry geo) {
   __shared__ __align__(16) int8_t a_s[kBM * kPitch];
@@ -185,10 +185,10 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
 }
 
 template <typename T>
-int launch(const void* x, const void* w, const void* scale, const void* bias, void* out,
+int launch_sync(const void* x, const void* w, const void* scale, const void* bias, void* out,
            const Geometry& geo, cudaStream_t stream) {
   const dim3 grid((geo.m + kBM - 1) / kBM, (geo.o + kBN - 1) / kBN);
-  int8_conv_kernel<T><<<grid, kThreads, 0, stream>>>(
+  int8_conv_sync_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(scale), static_cast<const T*>(bias), static_cast<T*>(out),
       geo);
@@ -197,22 +197,43 @@ int launch(const void* x, const void* w, const void* scale, const void* bias, vo
 
 }  // namespace
 
-// Plain C entry point for ctypes. x (n, h, w, c) and wt (o, kh, kw, c) are
+namespace {
+
+bool bad_geometry(int n, int h, int w, int c, int o, int kh, int kw, int stride, int pad,
+                  int ho, int wo) {
+  return n <= 0 || h <= 0 || w <= 0 || c <= 0 || c % 16 != 0 || o <= 0 || kh <= 0 ||
+         kw <= 0 || stride <= 0 || pad < 0 || ho <= 0 || wo <= 0 ||
+         (long long)n * ho * wo > 0x7fffffffLL || (long long)kh * kw * c > 0x7fffffffLL ||
+         (long long)n * h * w * c > 0x7fffffffLL;
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes. x (n, h, w, c) and wt (o, kh, kw, c) are
 // contiguous int8, 16-byte aligned, c a multiple of 16; scale f32 (o,);
 // bias (o,) in the output type or null; out (n, o, ho, wo) bf16
-// (out_bf16 != 0) or f32. Runs on ``stream``, allocates nothing and does not
-// synchronise. Returns cudaGetLastError() after the launch.
-extern "C" int e4t_int8_conv(const void* x, const void* wt, const void* scale,
-                             const void* bias, void* out, int n, int h, int w, int c,
-                             int o, int kh, int kw, int stride, int pad, int ho, int wo,
-                             int out_bf16, void* stream) {
-  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || c % 16 != 0 || o <= 0 || kh <= 0 ||
-      kw <= 0 || stride <= 0 || pad < 0 || ho <= 0 || wo <= 0 ||
-      (long long)n * ho * wo > 0x7fffffffLL || (long long)kh * kw * c > 0x7fffffffLL ||
+// (out_bf16 != 0) or f32. Each runs on ``stream``, allocates nothing and does
+// not synchronise, and returns cudaGetLastError() after its launch.
+
+// The synchronous mma.sync design, kept as the yardstick of the wgmma kernel
+// (bit for bit the same output); no path calls it.
+extern "C" int e4t_int8_conv_sync(const void* x, const void* wt, const void* scale,
+                                  const void* bias, void* out, int n, int h, int w, int c,
+                                  int o, int kh, int kw, int stride, int pad, int ho, int wo,
+                                  int out_bf16, void* stream) {
+  if (bad_geometry(n, h, w, c, o, kh, kw, stride, pad, ho, wo) ||
       (o + kBN - 1) / kBN > 65535)
     return (int)cudaErrorInvalidValue;
   const Geometry geo{n, h, w, c, o, kh, kw, stride, pad, ho, wo, kh * kw * c, n * ho * wo};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? launch<bf16>(x, wt, scale, bias, out, geo, s)
-                  : launch<float>(x, wt, scale, bias, out, geo, s);
+  return out_bf16 ? launch_sync<bf16>(x, wt, scale, bias, out, geo, s)
+                  : launch_sync<float>(x, wt, scale, bias, out, geo, s);
+}
+
+extern "C" int e4t_int8_conv(const void* x, const void* wt, const void* scale,
+                             const void* bias, void* out, int n, int h, int w, int c,
+                             int o, int kh, int kw, int stride, int pad, int ho, int wo,
+                             int out_bf16, void* stream) {
+  return e4t_int8_conv_sync(x, wt, scale, bias, out, n, h, w, c, o, kh, kw, stride, pad, ho,
+                            wo, out_bf16, stream);
 }

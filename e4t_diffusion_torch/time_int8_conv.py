@@ -42,18 +42,28 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL = os.path.join("e4t_diffusion_torch", "csrc", "int8_conv.cu")
 # --ablate: [(text of the kernel's source, its replacement, occurrences)]
 ABLATIONS = {
-    # the weight ring and the halo are loaded for the first k-step only
-    "loads": [("    if (j + kStages - 1 < n_steps) load_b(",
-               "    if (j + kStages - 1 < kStages - 1) load_b(", 1),
-              ("      if (t < n_fill) fill_halo(",
-               "      if (cc == 0 && t < n_fill) fill_halo(", 1)],
+    # the weight tiles and the halo (int8, or x staged) are loaded for the
+    # first k-steps only
+    "loads": [("    if (j + kStages - 1 < n_steps) load_step(",
+               "    if (j + kStages - 1 < kStages - 1) load_step(", 1),
+              ("    if (kFill == Fill::kStaged && t == 0 && ci + 1 < n_cc) stage_raw(",
+               "    if (false) stage_raw(", 1)],
+    # x quantized for the first chunk only
+    "quant": [("    if (kFill != Fill::kS8 && ci + 1 < n_cc) {",
+               "    if (false) {", 1)],
     # one k32 product a k-step instead of kKC / 32
-    "mma": [("for (int ks = 0; ks < kKC / 32; ++ks)\n        wgmma_s8_rs160",
-             "for (int ks = 0; ks < 1; ++ks)\n        wgmma_s8_rs160", 1)],
+    "mma": [("for (int ks = 0; ks < kKC / 32; ++ks)\n      wgmma_s8_rs160",
+             "for (int ks = 0; ks < 1; ++ks)\n      wgmma_s8_rs160", 1)],
+    # no block barrier a step (the ring then races: timing only)
+    "barrier": [("    e4t::fence_proxy_async();\n    __syncthreads();\n    if (j + kStages",
+                 "    e4t::fence_proxy_async();\n    if (j + kStages", 1)],
+    # no proxy fence a step
+    "fence": [("    e4t::fence_proxy_async();\n    __syncthreads();\n    if (j + kStages",
+               "    __syncthreads();\n    if (j + kStages", 1)],
     # the epilogue stores nothing
-    "store": [("      if (kVecStore) {", "      if (false) {", 1),
-              ("        if (ok) out[idx] = v;", "        if (false) out[idx] = v;",
-               1)],
+    "store": [("  __syncthreads();\n  T* out = static_cast<T*>(a.out);",
+               "  __syncthreads();\n  if (a.vec_store >= 0) return;\n"
+               "  T* out = static_cast<T*>(a.out);", 1)],
 }
 
 
@@ -177,7 +187,7 @@ def main(argv=None):
         rows.append(row)
         del x, wt, scale, bias, out, xb, wb, site, static
         torch.cuda.empty_cache()
-    keys = [k for k in rows[0] if k.endswith("_ms")]
+    keys = [k for k in rows[0] if k == "ms" or k.endswith("_ms")]
     per_pass = {k: sum(r["sites"] * r[k] for r in rows) for k in keys}
     print(json.dumps({"label": args.label, "repo": args.repo,
                       "ablate": args.ablate, "card": smi,

@@ -27,13 +27,16 @@ module paths ("down_blocks_0/resnets_0/conv1"), so a list or a file means the
 same sites in both packages.
 
 int8 products: ``torch._int_mm`` for every linear site (a plain large
-product, as XLA's dot is on the TPU) and the hand-written kernel of
-``ops/int8_conv.py`` for every conv site.
+product, as XLA's dot is on the TPU), its activation quantized in one pass
+by the kernel of ``csrc/quantize.cu`` (``quantize_activation``), and the
+hand-written kernel of ``ops/int8_conv.py`` for every conv site, which
+quantizes the activation in its own loads.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import ctypes
 import json
 import os
 from typing import Dict, Iterator, Optional, Sequence, Tuple
@@ -42,10 +45,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from e4t_diffusion_torch.ops import _build
 from e4t_diffusion_torch.ops import int8_conv as _conv
 from e4t_diffusion_torch.utils.convert import unet_component
 
 _EPS = 1e-8
+QUANTIZE_SOURCE = "quantize"
 ACT_SCALES_FORMAT = "e4t-act-amax-v1"
 
 # Module subtrees kept in full precision by default: the first and last convs
@@ -174,12 +179,22 @@ def quantize_params(state_dict: Dict[str, torch.Tensor],
     return out
 
 
-def quantize_activation(x: torch.Tensor, site: QSite, channel_dim: int
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
+    """The live per-tensor scale ``max(max|x|, 1e-8) / 127`` in f32. The
+    abs-max is exact in x's own type, so it is one reduction of x, with no
+    f32 copy."""
+    amax = torch.linalg.vector_norm(x, float("inf"), dtype=torch.float32)
+    return torch.clamp(amax, min=_EPS) / 127.0
+
+
+def quantize_activation_reference(x: torch.Tensor, site: QSite,
+                                  channel_dim: int
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 activation (quant.py:251-265 of the JAX package) ->
     (int8 values, f32 dequantization factor): the per-channel ``"sac"``
     along ``channel_dim`` (whose magnitude is folded into the weight, so the
-    factor is 1), the static ``"sa"``, or the live abs-max."""
+    factor is 1), the static ``"sa"``, or the live abs-max. The plain
+    version of ``quantize_activation``."""
     x32 = x.float()
     sac = site.get("sac")
     if sac is not None:
@@ -192,6 +207,58 @@ def quantize_activation(x: torch.Tensor, site: QSite, channel_dim: int
         s = torch.clamp(x32.abs().amax(), min=_EPS) / 127.0
     q = torch.clamp(torch.round(x32 / s), -127, 127)
     return q.to(torch.int8), s
+
+
+def quantize_activation(x: torch.Tensor, site: QSite, channel_dim: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_activation_reference``'s values in one pass: for CUDA
+    tensors, the kernel of ``csrc/quantize.cu`` (bf16 / f32 x in, int8
+    out; the per-channel ``"sac"`` only along the last axis, the linear
+    sites' layout), counted on ``quantize_activation.launches``; the
+    dynamic scale is ``dynamic_scale``, one reduction. CPU tensors: the
+    plain version."""
+    if x.device.type == "cpu":
+        return quantize_activation_reference(x, site, channel_dim)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x is {x.dtype}; the kernel takes bfloat16 or "
+                        f"float32")
+    sac = site.get("sac")
+    if sac is not None:
+        if channel_dim % x.dim() != x.dim() - 1:
+            raise ValueError("the kernel takes per-channel scales along the "
+                             "last axis")
+        if sac.shape != (x.shape[-1],):
+            raise ValueError(f"sac must be ({x.shape[-1]},), got "
+                             f"{tuple(sac.shape)}")
+        s, sx = sac, torch.ones((), device=x.device)
+    else:
+        s = site.get("sa")
+        if s is None:
+            s = dynamic_scale(x)
+        sx = s
+    if s.dtype != torch.float32 or s.device != x.device:
+        raise TypeError(f"the scale must be float32 on {x.device}")
+    if x.numel() > 1 << 30:
+        raise ValueError(f"{x.numel()} elements: the kernel takes at most "
+                         f"2**30")
+    x = x.contiguous()
+    s = s.contiguous()
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if x.numel():
+        _build.launch(QUANTIZE_SOURCE, "e4t_quantize",
+                      [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int], x.device,
+                      x.data_ptr(), int(x.dtype == torch.float32),
+                      q.data_ptr(), s.data_ptr(), int(sac is not None),
+                      x.numel(), x.shape[-1] if x.dim() else 1)
+        quantize_activation.launches += 1
+    return q, sx
+
+
+quantize_activation.launches = 0
 
 
 # torch._int_mm on CUDA takes more than 16 rows (and K, N multiples of 8,
@@ -223,21 +290,25 @@ def int8_linear(x: torch.Tensor, site: QSite,
 
 def int8_conv2d(x: torch.Tensor, site: QSite, bias: Optional[torch.Tensor],
                 stride: int, padding: int) -> torch.Tensor:
-    """``int8_conv`` of the JAX package on NCHW: quantize, permute to NHWC,
-    then the int8 conv kernel (``ops/int8_conv.py``) with its fused
-    rescale and bias; channels are zero-padded to the kernel's multiple of
-    16 where needed (conv_in's 4, when it is not excluded)."""
-    xq, sx = quantize_activation(x, site, 1)
-    xq = xq.permute(0, 2, 3, 1)
+    """``int8_conv`` of the JAX package on NCHW: the int8 conv kernel
+    (``ops/int8_conv.int8_conv_act``) quantizes x in its loads by the
+    site's per-channel ``"sac"``, its static ``"sa"`` or the live abs-max
+    scale (``dynamic_scale``), then fuses the rescale and bias; the weight's
+    channels are zero-padded to the kernel's multiple of 16 where needed
+    (conv_in's 4, when it is not excluded)."""
     q = site["q"]
-    pad = -xq.shape[3] % _conv.CHANNEL_ALIGN
+    pad = -q.shape[3] % _conv.CHANNEL_ALIGN
     if pad:
-        xq = F.pad(xq, (0, pad))
         q = F.pad(q, (0, pad))
-    scale = (sx * site["s"]).float()
+    act = site.get("sac")
+    per_channel = act is not None
+    if not per_channel:
+        act = site.get("sa")
+        if act is None:
+            act = dynamic_scale(x)
     b = bias.to(x.dtype) if bias is not None else None
-    return _conv.int8_conv(xq.contiguous(), q, scale, b, x.dtype, stride,
-                           padding)
+    return _conv.int8_conv_act(x, q, act.float().reshape(-1), per_channel,
+                               site["s"].float(), b, stride, padding)
 
 
 def _site(module: nn.Module) -> Optional[QSite]:

@@ -88,6 +88,10 @@ def parse_args(argv=None):
                              "the run (open_clip uses exact erf, the "
                              "default); feature deviation bounded in "
                              "tests/test_vit_gelu_knob.py")
+    parser.add_argument("--enable_xformers_memory_efficient_attention",
+                        action="store_true",
+                        help="accepted for parity with the reference CLI "
+                             "and ignored; flash attention is always used")
     parser.add_argument("--output", type=str, default="grid.png")
     return parser.parse_args(argv)
 

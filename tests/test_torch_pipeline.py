@@ -400,6 +400,23 @@ def test_tuning_cli_no_resolves_to_f32_on_gpu(artifact_dir, tmp_path,
             args.device) == (16, 15, 512, "cuda")
 
 
+def test_inference_cli_accepts_the_reference_xformers_flag(tmp_path):
+    """A command copied from the reference's inference.py parses: its
+    --enable_xformers_memory_efficient_attention is accepted and ignored,
+    as in the port's tuning CLI."""
+    from e4t_diffusion_torch import inference
+
+    required = ["--pretrained_model_name_or_path", str(tmp_path / "a"),
+                "--image_path_or_url", str(tmp_path / "in.png")]
+    args = inference.parse_args(required + [
+        "--enable_xformers_memory_efficient_attention", "--prompt",
+        "a photo of *s", "--num_inference_steps", "4"])
+    assert args.enable_xformers_memory_efficient_attention
+    assert (args.num_inference_steps, args.device) == (4, "cuda")
+    assert not inference.parse_args(
+        required).enable_xformers_memory_efficient_attention
+
+
 def test_pipeline_int8_static_matches_jax(pipes, jax_images, monkeypatch,
                                          tmp_path):
     """int8="static" with injected latents: the first call calibrates as the

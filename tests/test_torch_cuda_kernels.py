@@ -253,13 +253,15 @@ def test_cuda_int8_flash_tiles_match_reference_and_sync(bh, sq, sk, d, tile,
     (2, 9, 7, 48, 40, 3, 1, 1, True),     # ragged pixels and channels
     (3, 11, 10, 32, 72, 3, 2, 1, True),   # a downsampler's stride 2
     (2, 5, 13, 16, 24, 1, 1, 0, False),   # 1x1, no bias
-    (1, 8, 8, 2560, 1280, 3, 1, 1, True),  # the UNet's widest K
+    (1, 8, 8, 2560, 1280, 3, 1, 1, True),  # the UNet's widest K (split)
+    (8, 16, 16, 640, 1280, 3, 1, 1, True),  # a split in two parts
+    (2, 64, 64, 320, 320, 3, 2, 1, True),  # a UNet downsampler
 ])
 def test_cuda_int8_conv_matches_reference(n, h, w, c, o, k, stride, pad, bias,
                                           out_dtype):
-    """The int8 conv kernel against its plain version: the int32 sums are
-    exact and the epilogue rounds as the plain version does, so the two
-    agree exactly."""
+    """The int8 conv kernel against its plain version and the synchronous
+    design it replaced: the int32 sums are exact and the epilogue rounds as
+    the plain version does, so the three agree exactly."""
     from e4t_diffusion_torch.ops import int8_conv as ic
 
     if not torch.cuda.is_available():
@@ -279,6 +281,100 @@ def test_cuda_int8_conv_matches_reference(n, h, w, c, o, k, stride, pad, bias,
     ref = ic.int8_conv_reference(x, wt, scale, b, out_dtype, stride, pad)
     assert out.shape == ref.shape and out.dtype == out_dtype
     assert torch.equal(out, ref)
+    assert torch.equal(out, ic.int8_conv_sync(x, wt, scale, b, out_dtype,
+                                              stride, pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dynamic", "sa", "sac", "sa_halfway"])
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h,w,c,o,k,stride,pad", [
+    (2, 9, 7, 48, 40, 3, 1, 1),     # ragged pixels and channels
+    (3, 11, 10, 32, 72, 3, 2, 1),   # stride 2
+    (2, 5, 13, 4, 24, 1, 1, 0),     # conv_in's 4 channels, zero-filled
+    (8, 8, 8, 1280, 1280, 3, 1, 1),  # a split UNet site
+])
+def test_cuda_int8_conv_act_matches_reference(n, h, w, c, o, k, stride, pad,
+                                              dtype, layout, mode):
+    """The conv site's route (``quant.int8_conv2d``: the activation
+    quantized in the kernel's loads) against the plain version
+    (``quantize_activation_reference``, the NHWC permute, the conv's plain
+    version) and, where C is a multiple of 16, the synchronous design on
+    the same int8 operand: bit for bit. "sa_halfway" feeds exact half-way
+    quotients x = (k + 0.5) s, which the kernel must round half to even
+    through its IEEE fallback."""
+    from e4t_diffusion_torch.ops import int8_conv as ic
+    from e4t_diffusion_torch.ops import quant
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator("cuda").manual_seed(6)
+    x = torch.randn(n, c, h, w, device="cuda", generator=g).to(dtype)
+    if mode == "sa_halfway":  # exact in bf16 too: |k + 0.5| < 128
+        x = ((torch.randint(-127, 127, x.shape, device="cuda", generator=g)
+              + 0.5) / 16).to(dtype)
+    if layout == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+    site = quant.quantize_kernel(torch.randn(o, c, k, k, device="cuda",
+                                             generator=g))
+    site["q"] = site["q"].permute(0, 2, 3, 1).contiguous()
+    if mode == "sa":
+        site["sa"] = x.float().abs().amax() * 0.7 / 127.0
+    elif mode == "sa_halfway":
+        site["sa"] = torch.tensor(1 / 16, device="cuda")
+    elif mode == "sac":
+        site["sac"] = (x.float().abs().amax(dim=(0, 2, 3)) + 0.1) / 127.0
+    bias = torch.randn(o, device="cuda", generator=g).to(dtype)
+    before = ic.int8_conv_act.launches
+    out = quant.int8_conv2d(x, site, bias, stride, pad)
+    torch.cuda.synchronize()
+    assert ic.int8_conv_act.launches == before + 1
+    xq, sx = quant.quantize_activation_reference(x, site, 1)
+    xq = xq.permute(0, 2, 3, 1)
+    q = site["q"]
+    if c % 16:
+        xq, q = (torch.nn.functional.pad(t, (0, 16 - c % 16)) for t in (xq, q))
+    scale = (sx * site["s"]).float()
+    ref = ic.int8_conv_reference(xq, q, scale, bias, dtype, stride, pad)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert torch.equal(out, ref)
+    if c % 16 == 0:
+        assert torch.equal(out, ic.int8_conv_sync(xq.contiguous(), q, scale,
+                                                  bias, dtype, stride, pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dynamic", "sa", "sac"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 77, 768), (4096, 320), (3, 5, 36),
+                                   (7, 1)])
+def test_cuda_quantize_activation_matches_reference(shape, dtype, mode):
+    """The linear sites' one-pass quantization kernel against its plain
+    version, bit for bit, on inputs with exact half-way quotients (the
+    rounding is half to even); (3, 5, 36) and (7, 1) take the kernel's
+    one-element path."""
+    from e4t_diffusion_torch.ops import quant
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator("cuda").manual_seed(7)
+    x = torch.randn(shape, device="cuda", generator=g)
+    s = x.abs().amax() / 127.0
+    half = (torch.randint(-130, 130, shape, device="cuda", generator=g)
+            + 0.5) * s
+    x = torch.where(torch.rand(shape, device="cuda", generator=g) < 0.3,
+                    half, x).to(dtype)
+    site = {"sa": {"sa": s}, "dynamic": {},
+            "sac": {"sac": x.float().abs().amax(
+                dim=tuple(range(x.dim() - 1))).clamp(min=1e-3) / 127.0}}[mode]
+    before = quant.quantize_activation.launches
+    q, sx = quant.quantize_activation(x, site, -1)
+    torch.cuda.synchronize()
+    assert quant.quantize_activation.launches == before + 1
+    qr, sr = quant.quantize_activation_reference(x, site, -1)
+    assert q.dtype == torch.int8 and q.shape == x.shape
+    assert torch.equal(q, qr) and torch.equal(sx, sr)
 
 
 @pytest.mark.cuda

@@ -346,20 +346,25 @@ struct LoadQuant {
   using XT = XT_;
 };
 
-// 16 bytes of quantized channels from 16 values of x's type, each `step`
-// elements apart in `src`: channel k scaled by s[k] (per channel; past
-// n_valid channels, where the values are zero, by s[n_valid - 1]) or s0
+// 16 quantized channels from 16 values of x's type, each `step` elements
+// apart in `src`, into the 16 bytes at `dst`, a 4-byte word at a time (few
+// values live at once): channel k scaled by s[k] (per channel; past n_valid
+// channels, where the values are zero, by s[n_valid - 1]) or s0
 template <typename XT>
-__device__ __forceinline__ uint4 quantize16(const XT* src, int step, const float* s,
-                                            int n_valid, float s0, float r0) {
-  uint32_t word[4] = {0u, 0u, 0u, 0u};
+__device__ __forceinline__ void quantize16(unsigned char* dst, const XT* src, int step,
+                                           const float* s, int n_valid, float s0, float r0) {
+#pragma unroll 1
+  for (int w = 0; w < 4; ++w) {
+    uint32_t word = 0u;
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const float sk = s != nullptr ? s[min(k, n_valid - 1)] : s0;
-    const float rk = s != nullptr ? __frcp_rn(sk) : r0;
-    word[k / 4] |= quantize_fast(to_float(src[k * step]), sk, rk) << (8 * (k % 4));
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * w + e;
+      const float sk = s != nullptr ? s[min(k, n_valid - 1)] : s0;
+      const float rk = s != nullptr ? __frcp_rn(sk) : r0;
+      word |= quantize_fast(to_float(src[k * step]), sk, rk) << (8 * e);
+    }
+    reinterpret_cast<uint32_t*>(dst)[w] = word;
   }
-  return make_uint4(word[0], word[1], word[2], word[3]);
 }
 
 // One block: a tile of 128 output pixels (tn images x th rows x tw columns)
@@ -492,24 +497,25 @@ __global__ void __launch_bounds__(kWThreads, 2)
       const int ch = ch0 + 16 * p;
       const float* sc = per_channel ? a.act + ch : nullptr;
       const int n_valid = min(16, a.c - ch);
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      unsigned char* slot = dst + p * plane_bytes + pix * 16;
       if constexpr (kFill == Fill::kStaged) {
-        if (ch < a.c) {
-          if (Loader::kNhwc) {
-            v = quantize16(raw_s + pix * kKC + 16 * p, 1, sc, n_valid, s0, r0);
-          } else {
-            const int tn = pix / hhw, rem = pix - tn * hhw, hr = rem / a.hw;
-            const int rows = a.tn * a.hh;
-            v = quantize16(raw_s + (16 * p * rows + tn * a.hh + hr) * a.rowlen + a.lead + rem -
-                               hr * a.hw,
-                           rows * a.rowlen, sc, n_valid, s0, r0);
-          }
+        if (ch >= a.c) {
+          *reinterpret_cast<uint4*>(slot) = make_uint4(0u, 0u, 0u, 0u);
+        } else if (Loader::kNhwc) {
+          quantize16(slot, raw_s + pix * kKC + 16 * p, 1, sc, n_valid, s0, r0);
+        } else {
+          const int tn = pix / hhw, rem = pix - tn * hhw, hr = rem / a.hw;
+          const int rows = a.tn * a.hh;
+          quantize16(slot,
+                     raw_s + (16 * p * rows + tn * a.hh + hr) * a.rowlen + a.lead + rem -
+                         hr * a.hw,
+                     rows * a.rowlen, sc, n_valid, s0, r0);
         }
       } else if constexpr (kFill == Fill::kDirect) {
         const int tn = pix / hhw, rem = pix - tn * hhw, hr = rem / a.hw;
         const int n = n0 + tn, hi = hi0 + hr, wi = wi0 + rem - hr * a.hw;
+        uint32_t word[4] = {0u, 0u, 0u, 0u};
         if (n < a.n && hi >= 0 && hi < a.h && wi >= 0 && wi < a.w && ch < a.c) {
-          uint32_t word[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
           for (int k = 0; k < 16; ++k) {
             if (k >= n_valid) break;
@@ -518,10 +524,9 @@ __global__ void __launch_bounds__(kWThreads, 2)
             word[k >> 2] |= quantize(to_float(x[at]), per_channel ? a.act[ch + k] : s0)
                             << (8 * (k & 3));
           }
-          v = make_uint4(word[0], word[1], word[2], word[3]);
         }
+        *reinterpret_cast<uint4*>(slot) = make_uint4(word[0], word[1], word[2], word[3]);
       }
-      *reinterpret_cast<uint4*>(dst + p * plane_bytes + pix * 16) = v;
     }
   };
 

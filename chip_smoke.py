@@ -246,11 +246,11 @@ def phase_build():
     """One nvcc per kernel source, all started together."""
     from e4t_diffusion_torch.ops import (_build, flash_bwd, flash_int8,
                                          flash_lowdim, groupnorm, int8_conv,
-                                         shortseq)
+                                         quant, shortseq)
 
     sources = [flash_lowdim.SOURCE, flash_bwd.SOURCE, flash_int8.SOURCE,
                int8_conv.SOURCE, groupnorm.SOURCE, shortseq.SOURCE,
-               flash_lowdim.F32_SOURCE]
+               flash_lowdim.F32_SOURCE, quant.QUANTIZE_SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = list(pool.map(_build.build, sources))
@@ -259,7 +259,7 @@ def phase_build():
     for src, log in zip(sources, logs):
         usage[src], name = [], "?"
         for ln in log.splitlines():
-            m = re.search(r"\d((?:flash|int8|group_norm|shortseq|attn)"
+            m = re.search(r"\d((?:flash|int8|group_norm|shortseq|attn|quantize)"
                           r"[a-z0-9_]*?_kernel)I(\w+?)E[Ev]", ln)
             if m:
                 args = re.findall(r"L[a-z](\d+)E", m.group(2) + "E")
@@ -556,11 +556,66 @@ def _unet_conv_shapes(batch, resolution):
     return shapes
 
 
+def _unet_linear_shapes(batch, resolution):
+    """{input shape: sites} of the quantized UNet linear sites in one SD-v1
+    forward, read off a forward on the meta device."""
+    import torch
+
+    from e4t_diffusion_torch.models.unet import (UNet2DConditionModel,
+                                                 UNetConfig)
+    from e4t_diffusion_torch.ops import quant
+
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(UNetConfig())
+    quantized = quant.quantize_params(dict(unet.named_parameters()))
+    shapes = {}
+
+    def record(mod, args):
+        key = tuple(args[0].shape)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    for name, m in quant.site_modules(unet).items():
+        if isinstance(m, quant.Linear) and name in quantized:
+            m.register_forward_pre_hook(record)
+    side = resolution // 8
+    with torch.device("meta"):
+        unet(torch.zeros(batch, 4, side, side), torch.zeros(batch),
+             torch.zeros(batch, 77, unet.config.cross_attention_dim))
+    return shapes
+
+
+def _conv_sites(site, x):
+    """The conv site ``site`` (from ``quantize_kernel``, OHWI) in each scale
+    mode: {"sa": static, "sac": per-channel (folded into its weight),
+    "dynamic": the live scale}, calibrated on ``x``."""
+    import torch
+
+    from e4t_diffusion_torch.ops import quant
+
+    ax = x.float().abs()
+    amax_c = ax.amax(dim=(0, 2, 3))
+    sac = amax_c ** 0.75 * torch.max(amax_c ** 0.25) / 127.0
+    w = site["w"]
+    pc = quant.quantize_kernel(w.float() * sac.reshape(1, -1, 1, 1))
+    return {"sa": {"q": site["q"], "s": site["s"],
+                   "sa": ax.amax() * 0.8 / 127.0},
+            "sac": {"q": pc["q"].permute(0, 2, 3, 1).contiguous(),
+                    "s": pc["s"], "sac": sac},
+            "dynamic": {"q": site["q"], "s": site["s"]}}
+
+
 def _conv_case(n, c, o, h, w, k, stride, pad, gen, timed, sites=None):
-    """The int8 conv kernel against its plain version (they agree exactly);
-    timed: kernel, plain, the route from a bf16 NCHW activation
-    (quantization, NHWC permute, kernel), cuDNN's bf16 conv2d of the same
-    shapes, and the bound of the kernel's work."""
+    """The int8 conv kernel against the synchronous design it replaced and
+    its plain version, bf16 and f32 out; the conv site's route
+    (``quant.int8_conv2d``: x quantized in the kernel's loads) against
+    ``quantize_activation_reference`` + ``int8_conv_sync`` in each scale
+    mode, x bf16 and f32 NCHW and bf16 channels-last: all bit for bit (the
+    int32 sums are exact, the quantization and the epilogue round alike).
+    Timed: the kernel, the yardstick (``parent_ms``), the plain version, the
+    old route (PyTorch quantization, the NHWC permute, the kernel) and the
+    route from a bf16 NCHW activation on a static scale, cuDNN's bf16
+    conv2d of the same shapes, and the bounds of the kernel's work (int8 x)
+    and of the route's (x read once in bf16)."""
     import torch
     import torch.nn.functional as F
 
@@ -572,44 +627,131 @@ def _conv_case(n, c, o, h, w, k, stride, pad, gen, timed, sites=None):
     wt = torch.randint(-127, 128, (o, k, k, c), device="cuda", generator=gen,
                        dtype=torch.int8)
     scale = torch.rand(o, device="cuda", generator=gen) * 1e-4
-    bias = torch.randn(o, device="cuda", generator=gen).to(torch.bfloat16)
-    out = ic.int8_conv(x, wt, scale, bias, torch.bfloat16, stride, pad)
-    torch.cuda.synchronize()
-    ref = ic.int8_conv_reference(x, wt, scale, bias, torch.bfloat16, stride,
-                                 pad)
+    bias = torch.randn(o, device="cuda", generator=gen)
     case = {"kernel": "int8_conv", "n": n, "c": c, "o": o, "h": h, "w": w,
-            "k": k, "stride": stride, "pad": pad,
-            "out_max_abs": (out.float() - ref.float()).abs().max().item()}
+            "k": k, "stride": stride, "pad": pad}
     if sites is not None:
         case["sites_per_unet_pass"] = sites
-    exact = torch.equal(out, ref)
-    del ref
-    if not exact:
-        fail(f"int8_conv disagrees with its plain version: {case}")
+    for dtype in (torch.bfloat16, torch.float32):
+        b = bias.to(dtype)
+        out = ic.int8_conv(x, wt, scale, b, dtype, stride, pad)
+        sync = ic.int8_conv_sync(x, wt, scale, b, dtype, stride, pad)
+        torch.cuda.synchronize()
+        ref = ic.int8_conv_reference(x, wt, scale, b, dtype, stride, pad)
+        key = "out_max_abs" if dtype == torch.bfloat16 else "f32_out_max_abs"
+        case[key] = (out.float() - ref.float()).abs().max().item()
+        if not (torch.equal(out, ref) and torch.equal(out, sync)):
+            fail(f"int8_conv ({dtype}) disagrees with int8_conv_sync or its "
+                 f"plain version: {case}")
+        del out, sync, ref
+    xb = torch.randn(n, c, h, w, device="cuda", generator=gen,
+                     dtype=torch.bfloat16)
+    wb = torch.randn(o, c, k, k, device="cuda", generator=gen,
+                     dtype=torch.bfloat16)
+    site = quant.quantize_kernel(wb)
+    site["q"] = site["q"].permute(0, 2, 3, 1).contiguous()
+    site["w"] = wb
+    modes = _conv_sites(site, xb)
+    routes = [(dtype, "nchw", mode) for dtype in (torch.bfloat16,
+                                                  torch.float32)
+              for mode in modes] + [(torch.bfloat16, "nhwc", "sa")]
+    for dtype, layout, mode in routes:
+        xr = xb.to(dtype)
+        if layout == "nhwc":
+            xr = xr.contiguous(memory_format=torch.channels_last)
+        s_, b = modes[mode], bias.to(dtype)
+        got = quant.int8_conv2d(xr, s_, b, stride, pad)
+        xq, sx = quant.quantize_activation_reference(xr, s_, 1)
+        want = ic.int8_conv_sync(xq.permute(0, 2, 3, 1).contiguous(),
+                                 s_["q"], (sx * s_["s"]).float(), b, dtype,
+                                 stride, pad)
+        if not torch.equal(got, want):
+            fail(f"int8_conv_act ({dtype}, {layout}, {mode}) disagrees with "
+                 f"quantize_activation_reference + int8_conv_sync: {case}")
+        del xr, got, xq, want
+    case["route_checks"] = len(routes)
     if timed:
-        ho, wo = out.shape[2:]
-        xb = torch.randn(n, c, h, w, device="cuda", generator=gen,
-                         dtype=torch.bfloat16)
-        wb = torch.randn(o, c, k, k, device="cuda", generator=gen,
-                         dtype=torch.bfloat16)
-        site = quant.quantize_kernel(wb)
-        site["q"] = site["q"].permute(0, 2, 3, 1).contiguous()
+        ho = (h + 2 * pad - k) // stride + 1
+        wo = (w + 2 * pad - k) // stride + 1
+        b16 = bias.to(torch.bfloat16)
+        static = modes["sa"]
+
+        def old_route():
+            xq, sx = quant.quantize_activation_reference(xb, static, 1)
+            return ic.int8_conv(xq.permute(0, 2, 3, 1).contiguous(),
+                                static["q"], (sx * static["s"]).float(), b16,
+                                torch.bfloat16, stride, pad)
+
+        ops = 2 * n * ho * wo * o * k * k * c
+        out_bytes = 2 * n * o * ho * wo
         case.update(
-            ms=cuda_time_ms(lambda: ic.int8_conv(x, wt, scale, bias,
+            ms=cuda_time_ms(lambda: ic.int8_conv(x, wt, scale, b16,
                                                  torch.bfloat16, stride,
                                                  pad)),
+            parent_ms=cuda_time_ms(lambda: ic.int8_conv_sync(
+                x, wt, scale, b16, torch.bfloat16, stride, pad)),
             plain_ms=cuda_time_ms(lambda: ic.int8_conv_reference(
-                x, wt, scale, bias, torch.bfloat16, stride, pad), reps=3),
+                x, wt, scale, b16, torch.bfloat16, stride, pad), reps=3),
+            old_route_ms=cuda_time_ms(old_route),
             route_ms=cuda_time_ms(lambda: quant.int8_conv2d(
-                xb, site, bias, stride, pad)),
+                xb, static, b16, stride, pad)),
             library_ms=cuda_time_ms(lambda: F.conv2d(
-                xb, wb, bias, stride=stride, padding=pad)),
+                xb, wb, b16, stride=stride, padding=pad)),
             library="torch.nn.functional.conv2d (cuDNN), bf16",
-            **_bound(n * h * w * c + o * k * k * c + 6 * o
-                     + 2 * n * o * ho * wo, 0, 0,
-                     int8_ops=2 * n * ho * wo * o * k * k * c))
-        del xb, wb, site
-    del x, wt, scale, bias, out
+            route_bound_ms=_bound(2 * n * h * w * c + o * k * k * c + 6 * o
+                                  + out_bytes, 0, 0,
+                                  int8_ops=ops)["bound_ms"],
+            **_bound(n * h * w * c + o * k * k * c + 6 * o + out_bytes, 0, 0,
+                     int8_ops=ops))
+    del x, wt, scale, bias, xb, wb, site, modes
+    torch.cuda.empty_cache()
+    return case
+
+
+def _quantize_case(shape, gen, timed, sites=None):
+    """The linear sites' quantization kernel (``quant.quantize_activation``)
+    against its plain version at input ``shape`` (..., K), bit for bit, in
+    each scale mode ("sa", "sac" along K, dynamic) for bf16 and f32 x, with
+    exact half-way quotients among the inputs (they pin the rounding, half
+    to even). Timed in bf16 on a static scale: kernel, plain version, and
+    the bound (x read once, q written once)."""
+    import torch
+
+    from e4t_diffusion_torch.ops import quant
+
+    k = shape[-1]
+    x = torch.randn(shape, device="cuda", generator=gen)
+    s = x.abs().amax() / 127.0
+    # a quarter of the values at (j + 0.5) * s: the quotient's exact halves
+    half = (torch.randint(-130, 130, shape, device="cuda", generator=gen)
+            + 0.5) * s
+    x = torch.where(torch.rand(shape, device="cuda", generator=gen) < 0.25,
+                    half, x)
+    sac = x.abs().amax(dim=tuple(range(x.dim() - 1))).clamp(min=1e-3) / 127.0
+    modes = {"sa": {"sa": s}, "sac": {"sac": sac}, "dynamic": {}}
+    case = {"kernel": "int8_quantize", "shape": list(shape), "k": k}
+    if sites is not None:
+        case["sites_per_unet_pass"] = sites
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype)
+        for mode, site in modes.items():
+            q, sx = quant.quantize_activation(xd, site, -1)
+            qr, sr = quant.quantize_activation_reference(xd, site, -1)
+            if not (torch.equal(q, qr) and torch.equal(sx, sr)):
+                fail(f"int8_quantize ({dtype}, {mode}) disagrees with its "
+                     f"plain version: {case}")
+    case["out_max_abs"] = 0.0
+    if timed:
+        xb = x.bfloat16()
+        n_el = xb.numel()
+        case.update(
+            ms=small_aware_ms(lambda: quant.quantize_activation(
+                xb, modes["sa"], -1))[0],
+            plain_ms=small_aware_ms(lambda: quant.quantize_activation_reference(
+                xb, modes["sa"], -1))[0],
+            library_ms=None,
+            **_bound(3 * n_el + 4, 0, 0))
+    del x, half
     torch.cuda.empty_cache()
     return case
 
@@ -857,6 +999,13 @@ def phase_kernels():
                                        (16, 24, 5, 13, 1, 1, 0)):
         ragged.append(_conv_case(3, c, o, h, w, k, stride, pad, gen,
                                  timed=False))
+    # the linear sites' quantization at every distinct input of a pass, and
+    # at ragged widths (the one-element path)
+    int8_quantize = [_quantize_case(shape, gen, timed=True, sites=sites)
+                     for shape, sites in sorted(
+                         _unet_linear_shapes(n, RESOLUTION).items())]
+    for shape in ((3, 5, 36), (7, 40)):
+        ragged.append(_quantize_case(shape, gen, timed=False))
     # the opt-in routes: every distinct GroupNorm site of a batch-8 512px
     # UNet pass and VAE decode, and the ViT-H's attention sites when
     # sampling (BH = 8 x 16 heads) and tuning (16 x 16)
@@ -899,7 +1048,7 @@ def phase_kernels():
     cases = {"sampling": sampling, "tuning_fwd": tuning_fwd, "grid": grid,
              "tuning_bwd": tuning_bwd, "grid_bwd": grid_bwd,
              "int8_flash": int8_flash, "int8_conv": int8_conv,
-             "group_norm": group_norm, "shortseq": short,
+             "int8_quantize": int8_quantize, "group_norm": group_norm, "shortseq": short,
              "ragged": ragged, **f32_cases}
     print(json.dumps({"phase": "kernels", **cases}))
     return cases
@@ -998,7 +1147,7 @@ def _full_width_pipeline(tok_dir):
 # (_flash_fwd_lowdim) and its d >= 128 launches (_flash_fwd_kvres and
 # _flash_fwd) apart
 KERNEL_ROWS = ("flash_fwd_lowdim", "flash_fwd_wide", "flash_bwd",
-               "flash_fwd_int8", "int8_conv", "group_norm",
+               "flash_fwd_int8", "int8_conv", "int8_quantize", "group_norm",
                "flash_fwd_shortseq", "flash_fwd_lowdim_f32",
                "flash_fwd_wide_f32", "flash_bwd_f32", "flash_fwd_shortseq_f32",
                "flash_fwd_int8_qk_f32", "flash_fwd_int8_qkpv_f32")
@@ -1012,13 +1161,15 @@ def _reset_launches():
     from e4t_diffusion_torch.ops.flash_int8 import flash_fwd_int8
     from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd
     from e4t_diffusion_torch.ops.groupnorm import fused_group_norm
-    from e4t_diffusion_torch.ops.int8_conv import int8_conv
+    from e4t_diffusion_torch.ops.int8_conv import int8_conv, int8_conv_act
+    from e4t_diffusion_torch.ops.quant import quantize_activation
     from e4t_diffusion_torch.ops.shortseq import flash_fwd_shortseq
 
     for counts in (flash_fwd.launches, flash_bwd.launches,
                    flash_fwd_int8.launches, flash_fwd_shortseq.launches):
         counts.update(dict.fromkeys(counts, 0))
-    int8_conv.launches = 0
+    int8_conv.launches = int8_conv_act.launches = 0
+    quantize_activation.launches = 0
     fused_group_norm.launches = 0
 
 
@@ -1027,14 +1178,17 @@ def _read_launches():
     from e4t_diffusion_torch.ops.flash_int8 import flash_fwd_int8
     from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd
     from e4t_diffusion_torch.ops.groupnorm import fused_group_norm
-    from e4t_diffusion_torch.ops.int8_conv import int8_conv
+    from e4t_diffusion_torch.ops.int8_conv import int8_conv, int8_conv_act
+    from e4t_diffusion_torch.ops.quant import quantize_activation
     from e4t_diffusion_torch.ops.shortseq import flash_fwd_shortseq
 
+    # the conv kernel's two wrappers: int8 x, and x quantized in its loads
     return {"flash_fwd_lowdim": flash_fwd.launches["lowdim"],
             "flash_fwd_wide": flash_fwd.launches["wide"],
             "flash_bwd": flash_bwd.launches["bf16"],
             "flash_fwd_int8": flash_fwd_int8.launches["bf16"],
-            "int8_conv": int8_conv.launches,
+            "int8_conv": int8_conv.launches + int8_conv_act.launches,
+            "int8_quantize": quantize_activation.launches,
             "group_norm": fused_group_norm.launches,
             "flash_fwd_shortseq": flash_fwd_shortseq.launches["bf16"],
             "flash_fwd_lowdim_f32": flash_fwd.launches["lowdim_f32"],
@@ -1129,6 +1283,121 @@ def _profile(run):
             "top": [{"kernel": k, "ms": us / 1e3, "count": c,
                      "share_of_busy": us / busy_us}
                     for us, k, c in rows[:16]]}
+
+
+# PyTorch ops that would be a quantization pass at a conv site (the kernel
+# quantizes in its loads; a dynamic site keeps one reduction for its scale)
+CONV_QUANT_PASS_OPS = ("aten::round", "aten::constant_pad_nd", "aten::clone",
+                       "aten::abs")
+INT8_RANGES = ("e4t::conv_site", "e4t::linear_site", "e4t::int_mm",
+               "e4t::linear_quant")
+
+
+@contextlib.contextmanager
+def _int8_site_ranges():
+    """``ops/quant``'s int8 site functions, each inside a profiler range for
+    the block: ``int8_conv2d``, ``int8_linear``, ``_int_mm``, and
+    ``quantize_activation`` where a linear site calls it (channel_dim -1)."""
+    import torch
+
+    from e4t_diffusion_torch.ops import quant
+
+    saved = {k: getattr(quant, k) for k in (
+        "int8_conv2d", "int8_linear", "_int_mm", "quantize_activation")}
+
+    def ranged(name, fn, when=lambda *a: True):
+        def call(*args, **kwargs):
+            if not when(*args):
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        # one attribute dict: a launch counted on the function (through its
+        # module's global name, now this wrapper) lands on the function
+        call.__dict__ = fn.__dict__
+        return call
+
+    quant.int8_conv2d = ranged("e4t::conv_site", saved["int8_conv2d"])
+    quant.int8_linear = ranged("e4t::linear_site", saved["int8_linear"])
+    quant._int_mm = ranged("e4t::int_mm", saved["_int_mm"])
+    quant.quantize_activation = ranged(
+        "e4t::linear_quant", saved["quantize_activation"],
+        lambda x, site, channel_dim: channel_dim == -1)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(quant, k, v)
+
+
+def _int8_profile(run):
+    """Wall and device busy time of one call of ``run`` on int8 sites, and
+    the busy time split (ms): ``int8_conv_kernel`` (kernels named
+    int8_conv*), ``conv_quant`` (the PyTorch kernels inside the conv sites'
+    ranges; the kernels of ``csrc/`` are launched through ctypes, tied to no
+    op, so the ranges do not hold them), ``linear_quant`` (the linear sites'
+    ``quantize_activation``: its PyTorch kernels and the kernels named
+    quantize_kernel), ``int_mm``, ``linear_rest`` (the linear
+    sites' rescale, cast and bias) and ``rest``; ``conv_site_ops``: the
+    PyTorch ops that launched kernels inside the conv sites, with their
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with _int8_site_ranges(), profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = conv_us = quant_us = 0.0
+    top = []
+    for evt in prof.key_averages():
+        if (evt.device_type != DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        busy_us += evt.self_device_time_total
+        if "int8_conv" in evt.key:
+            conv_us += evt.self_device_time_total
+        if "quantize_kernel" in evt.key:
+            quant_us += evt.self_device_time_total
+        if evt.self_device_time_total > 0:
+            top.append((evt.self_device_time_total, evt.key[:80], evt.count))
+    ranges = dict.fromkeys(INT8_RANGES, 0.0)
+    calls = dict.fromkeys(INT8_RANGES, 0)
+    conv_ops = {}
+
+    def walk(evt):
+        for ch in evt.cpu_children:
+            if ch.kernels:
+                conv_ops[ch.name] = conv_ops.get(ch.name, 0.0) + sum(
+                    k.duration for k in ch.kernels) / 1e3
+            walk(ch)
+
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CPU and evt.name in ranges:
+            ranges[evt.name] += evt.device_time_total
+            calls[evt.name] += 1
+            if evt.name == "e4t::conv_site":
+                walk(evt)
+    linear = ranges["e4t::linear_site"]
+    split = {"int8_conv_kernel": conv_us,
+             "conv_quant": ranges["e4t::conv_site"],
+             "linear_quant": ranges["e4t::linear_quant"] + quant_us,
+             "int_mm": ranges["e4t::int_mm"],
+             "linear_rest": (linear - ranges["e4t::linear_quant"]
+                             - ranges["e4t::int_mm"]),
+             "rest": (busy_us - conv_us - quant_us - ranges["e4t::conv_site"]
+                      - linear)}
+    top.sort(reverse=True)
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "split_ms": {k: v / 1e3 for k, v in split.items()},
+            "range_calls": {k.split("::")[1]: v for k, v in calls.items()},
+            "conv_site_ops": conv_ops,
+            "top": [{"kernel": k, "ms": us / 1e3, "count": c}
+                    for us, k, c in top[:12]]}
 
 
 def _unet_route_check(pipe, gen):
@@ -1269,16 +1538,24 @@ def _plain_versions():
     attention one at the kernel's kv tile), for a comparison on the card."""
     from e4t_diffusion_torch.ops import flash_int8 as fi
     from e4t_diffusion_torch.ops import int8_conv as ic
+    from e4t_diffusion_torch.ops import quant
 
-    conv, flash = ic.int8_conv, fi.flash_fwd_int8
+    saved = (ic.int8_conv, ic.int8_conv_act, quant.quantize_activation,
+             fi.flash_fwd_int8)
     ic.int8_conv = (lambda x, w, scale, bias, out_dtype, stride=1, padding=0:
                     ic.int8_conv_reference(x, w, scale, bias, out_dtype,
                                            stride, padding))
+    ic.int8_conv_act = (
+        lambda x, w, act, per_channel, scale, bias, stride=1, padding=0:
+        ic.int8_conv_act_reference(x, w, act, per_channel, scale, bias,
+                                   stride, padding))
+    quant.quantize_activation = quant.quantize_activation_reference
     fi.flash_fwd_int8 = fi.flash_fwd_int8_reference
     try:
         yield
     finally:
-        ic.int8_conv, fi.flash_fwd_int8 = conv, flash
+        (ic.int8_conv, ic.int8_conv_act, quant.quantize_activation,
+         fi.flash_fwd_int8) = saved
 
 
 def _unet_int8_checks(pipe, act_amax, gen):
@@ -1347,10 +1624,13 @@ def phase_int8_sampling(smi, pipe, image):
 
     n = len(PROMPTS) * IMAGES_PER_PROMPT
     conv_sites = sum(_unet_conv_shapes(n, RESOLUTION).values())
+    linear_sites = sum(_unet_linear_shapes(n, RESOLUTION).values())
     calib_steps = int(os.environ.get("E4T_INT8_CALIB_STEPS", "8"))
     # two full UNet passes a step (CFG: the uncond pass with the tap, and
     # the cond pass)
     conv_run = 2 * conv_sites * STEPS
+    # one quantization kernel a quantized linear site and pass
+    quant_run = 2 * linear_sites * STEPS
     lowdim_run = LOWDIM_SITES_PER_STEP * STEPS
 
     def make(int8, attn=False):
@@ -1362,7 +1642,8 @@ def phase_int8_sampling(smi, pipe, image):
     report = {"phase": "int8_sampling", "card": smi, "batch": n,
               "resolution": RESOLUTION, "steps": STEPS, "guidance": 7.5,
               "calib_steps": calib_steps,
-              "conv_sites_per_unet_pass": conv_sites, "runs": {}}
+              "conv_sites_per_unet_pass": conv_sites,
+              "linear_sites_per_unet_pass": linear_sites, "runs": {}}
 
     def sample(name, p, scheduler_type, want):
         if name.endswith("warm"):
@@ -1377,16 +1658,18 @@ def phase_int8_sampling(smi, pipe, image):
         return images
 
     static = make("static")
-    serve = _want(flash_fwd_lowdim=lowdim_run, int8_conv=conv_run)
+    serve = _want(flash_fwd_lowdim=lowdim_run, int8_conv=conv_run,
+                  int8_quantize=quant_run)
     first = sample("static_ddim_first", static, "ddim", _want(
         flash_fwd_lowdim=LOWDIM_SITES_PER_STEP * (calib_steps + STEPS),
-        int8_conv=conv_run))
+        int8_conv=conv_run, int8_quantize=quant_run))
     second = sample("static_ddim_warm", static, "ddim", serve)
     report["static_rerun_max_abs"] = float(np.abs(first - second).max())
     sample("static_dpm_warm", static, "dpm_solver++", serve)
     for mode in ("qk", "qkpv"):
         p = make(True, mode)
-        want = _want(flash_fwd_int8=lowdim_run, int8_conv=conv_run)
+        want = _want(flash_fwd_int8=lowdim_run, int8_conv=conv_run,
+                     int8_quantize=quant_run)
         a = sample(f"{mode}_ddim_first", p, "ddim", want)
         b = sample(f"{mode}_ddim_warm", p, "ddim", want)
         report[f"{mode}_rerun_max_abs"] = float(np.abs(a - b).max())
@@ -1408,10 +1691,15 @@ def phase_int8_sampling(smi, pipe, image):
             fail(f"int8 sampling: final latents against bf16: {report}")
     report.update(_unet_int8_checks(pipe, static.act_amax,
                                     torch.Generator("cuda").manual_seed(3)))
-    report["profile_static_ddim"] = _profile(lambda: static(
+    prof = _int8_profile(lambda: static(
         PROMPTS, image, num_inference_steps=STEPS, guidance_scale=7.5,
         num_images_per_prompt=IMAGES_PER_PROMPT, height=RESOLUTION,
         width=RESOLUTION, seed=0))
+    report["profile_static_ddim"] = prof
+    passes = sorted(set(prof["conv_site_ops"]) & set(CONV_QUANT_PASS_OPS))
+    if passes or prof["range_calls"]["conv_site"] != conv_run:
+        fail(f"int8 sampling: quantization passes in PyTorch at the conv "
+             f"sites ({passes}), or not every conv site profiled: {prof}")
     report["launches_total"] = total
     print(json.dumps(report))
     return total
@@ -2047,8 +2335,9 @@ def kernels_line(cases, paths):
         {k: c[k] for k in ("mode", "tile") + timed_keys
          + ("ms_by", "route_ms", "parent_ms")} for c in cases["int8_flash"]]
     conv_keys = ("c", "o", "h", "w", "k", "stride", "pad",
-                 "sites_per_unet_pass", "ms", "plain_ms", "route_ms",
-                 "bound_ms", "bound_by", "library_ms")
+                 "sites_per_unet_pass", "ms", "parent_ms", "plain_ms",
+                 "old_route_ms", "route_ms", "bound_ms", "bound_by",
+                 "route_bound_ms", "library_ms")
     site = max(cases["int8_conv"],
                key=lambda c: c["sites_per_unet_pass"] * c["ms"])
     kernels.append({
@@ -2059,20 +2348,52 @@ def kernels_line(cases, paths):
                          "has no int8 conv2d on CUDA",
         "launches": sum(p["int8_conv"] for p in paths.values()),
         "launches_by_path": {k: p["int8_conv"] for k, p in paths.items()},
-        "max_abs_err": max(c["out_max_abs"] for c in convs),
+        "max_abs_err": max(max(c["out_max_abs"], c["f32_out_max_abs"])
+                           for c in convs),
         "ms": site["ms"], "plain_ms": site["plain_ms"],
         "bound_ms": site["bound_ms"], "bound_by": site["bound_by"],
         "library_ms": site["library_ms"], "library": site["library"],
+        "parent_ms": site["parent_ms"],
         "at": f"N={site['n']} {site['c']}->{site['o']} at "
               f"{site['h']}x{site['w']} {site['k']}x{site['k']} stride "
               f"{site['stride']} int8 NHWC, bf16 out (the largest share "
               f"of a UNet pass)",
+        "routes": "old_route_ms: PyTorch quantization, NHWC permute, the "
+                  "kernel; route_ms: quant.int8_conv2d (x quantized in the "
+                  "kernel's loads), bf16 NCHW x on a static scale",
         "per_unet_pass": {
             key: sum(c["sites_per_unet_pass"] * c[key]
                      for c in cases["int8_conv"])
-            for key in ("ms", "route_ms", "library_ms", "bound_ms")},
+            for key in ("ms", "parent_ms", "old_route_ms", "route_ms",
+                        "library_ms", "bound_ms", "route_bound_ms")},
         "per_site": [{k: c[k] for k in conv_keys}
                      for c in cases["int8_conv"]]})
+    quants = cases["int8_quantize"]
+    site = max(quants, key=lambda c: c["sites_per_unet_pass"] * c["ms"])
+    q_keys = ("shape", "sites_per_unet_pass", "ms", "plain_ms", "bound_ms",
+              "bound_by")
+    kernels.append({
+        "name": "int8_quantize", "route": "cuda",
+        "source": "e4t_diffusion_torch/csrc/quantize.cu",
+        "replaces": "e4t_diffusion_tpu/ops/quant.py:251",
+        "replaces_note": "XLA elementwise ops in the JAX package "
+                         "(_quantize_activation) at the linear sites",
+        "launches": sum(p["int8_quantize"] for p in paths.values()),
+        "launches_by_path": {k: p["int8_quantize"]
+                             for k, p in paths.items()},
+        "max_abs_err": max(c["out_max_abs"] for c in quants + [
+            c for c in cases["ragged"] if c["kernel"] == "int8_quantize"]),
+        "ms": site["ms"], "plain_ms": site["plain_ms"],
+        "bound_ms": site["bound_ms"], "bound_by": site["bound_by"],
+        "library_ms": None,
+        "at": f"x {tuple(site['shape'])} bf16 -> int8, static scale (the "
+              f"largest share of a UNet pass)",
+        "times": "device time under torch.profiler below 0.1 ms, else CUDA "
+                 "events",
+        "per_unet_pass": {key: sum(c["sites_per_unet_pass"] * c[key]
+                                   for c in quants)
+                          for key in ("ms", "plain_ms", "bound_ms")},
+        "per_site": [{k: c[k] for k in q_keys} for c in quants]})
 
     gn = cases["group_norm"]
     gn_all = gn["unet"] + gn["vae_decode"] + [

@@ -10,25 +10,26 @@ each under ``torch.profiler``.
 ``--repo`` names the checkout whose ``e4t_diffusion_torch`` is profiled (this
 one by default), so one call can profile two commits on one card. The runs
 are that checkout's pipeline through this checkout's ``chip_smoke.py``
-helpers (``_full_width_pipeline``, ``_profile``'s accounting). For each run:
-the wall time, the device's busy time and share, and the busy time split
-into the int8 sites' parts, read off ranges this script opens around the
-timed checkout's functions (``torch.profiler.record_function``; each range's
-device time is that of the kernels launched inside it):
+helpers (``_full_width_pipeline``, ``_int8_profile``). For each run: the
+wall time, the device's busy time and share, and the busy time split into
+the int8 sites' parts, read off profiler ranges around the timed checkout's
+``ops/quant`` functions (``torch.profiler.record_function``; a range's
+device time is that of the PyTorch kernels launched inside it):
 
-- ``conv_sites``: ``quant.int8_conv2d`` in all, ``int8_conv_kernel`` the
-  kernels named ``int8_conv*`` in it, ``conv_quant`` the rest of it
-  (activation quantization, layout and padding passes);
-- ``linear_sites``: ``quant.int8_linear`` in all, ``linear_quant`` its
-  ``quantize_activation`` calls, ``int_mm`` its ``torch._int_mm`` calls,
-  ``linear_rest`` the rescale, cast and bias;
+- the conv sites (``quant.int8_conv2d``): ``int8_conv_kernel``, the
+  kernels named ``int8_conv*``, and ``conv_quant``, the PyTorch kernels
+  inside the range (activation quantization, layout and padding passes,
+  the dynamic scale; the conv kernel is launched through ctypes, tied to
+  no PyTorch op, so the range does not hold it);
+- the linear sites (``quant.int8_linear``): ``linear_quant``, its
+  ``quantize_activation`` calls, ``int_mm``, its ``torch._int_mm`` calls,
+  and ``linear_rest``, the rescale, cast and bias;
 - ``rest``: everything else.
 
 Prints the card's ``nvidia-smi`` line, then one JSON line. Needs a GPU;
 imports no JAX.
 """
 import argparse
-import contextlib
 import importlib.util
 import json
 import os
@@ -37,88 +38,6 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RANGES = ("e4t::conv_site", "e4t::linear_site", "e4t::int_mm",
-          "e4t::linear_quant")
-
-
-@contextlib.contextmanager
-def _ranges(quant):
-    """The timed checkout's int8 site functions, each inside a profiler
-    range for the block (``quantize_activation`` only where a linear site
-    calls it: channel_dim -1)."""
-    import torch
-
-    saved = {k: getattr(quant, k) for k in (
-        "int8_conv2d", "int8_linear", "_int_mm", "quantize_activation")}
-
-    def ranged(name, fn, when=lambda *a: True):
-        def call(*args, **kwargs):
-            if not when(*args):
-                return fn(*args, **kwargs)
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        return call
-
-    quant.int8_conv2d = ranged("e4t::conv_site", saved["int8_conv2d"])
-    quant.int8_linear = ranged("e4t::linear_site", saved["int8_linear"])
-    quant._int_mm = ranged("e4t::int_mm", saved["_int_mm"])
-    quant.quantize_activation = ranged(
-        "e4t::linear_quant", saved["quantize_activation"],
-        lambda x, site, channel_dim: channel_dim == -1)
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            setattr(quant, k, v)
-
-
-def profile_split(run, quant):
-    """Wall, busy and the int8 split (ms) of one call of ``run``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with _ranges(quant), profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = conv_us = 0.0
-    top = []
-    for evt in prof.key_averages():
-        if (evt.device_type != DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)):
-            continue
-        busy_us += evt.self_device_time_total
-        if evt.key.startswith("int8_conv") or "int8_conv_" in evt.key:
-            conv_us += evt.self_device_time_total
-        if evt.self_device_time_total > 0:
-            top.append((evt.self_device_time_total, evt.key[:80], evt.count))
-    ranges = dict.fromkeys(RANGES, 0.0)
-    counts = dict.fromkeys(RANGES, 0)
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CPU and evt.name in ranges:
-            ranges[evt.name] += evt.device_time_total
-            counts[evt.name] += 1
-    conv, linear = ranges["e4t::conv_site"], ranges["e4t::linear_site"]
-    split = {
-        "conv_sites": conv, "int8_conv_kernel": conv_us,
-        "conv_quant": conv - conv_us,
-        "linear_sites": linear, "linear_quant": ranges["e4t::linear_quant"],
-        "int_mm": ranges["e4t::int_mm"],
-        "linear_rest": (linear - ranges["e4t::linear_quant"]
-                        - ranges["e4t::int_mm"]),
-        "rest": busy_us - conv - linear}
-    top.sort(reverse=True)
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / wall_us,
-            "split_ms": {k: v / 1e3 for k, v in split.items()},
-            "range_calls": {k.split("::")[1]: v for k, v in counts.items()},
-            "top": [{"kernel": k, "ms": us / 1e3, "count": c}
-                    for us, k, c in top[:12]]}
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--repo", default=HERE)
@@ -136,7 +55,6 @@ def main(argv=None):
     spec.loader.exec_module(smoke)
     from e4t_diffusion_torch.diffusion.pipeline import (
         StableDiffusionE4TPipeline)
-    from e4t_diffusion_torch.ops import quant
 
     smi = smoke.phase_environment()
     with tempfile.TemporaryDirectory() as tok_dir:
@@ -160,8 +78,8 @@ def main(argv=None):
             walls.append(time.perf_counter() - t0)
         report[f"{name}_ddim4"] = {
             "first_s": walls[0], "warm_s": walls[1:],
-            "profile": profile_split(
-                lambda: serving(smoke.PROMPTS, image, **kwargs), quant)}
+            "profile": smoke._int8_profile(
+                lambda: serving(smoke.PROMPTS, image, **kwargs))}
         del serving
         torch.cuda.empty_cache()
     print(json.dumps(report))

@@ -183,20 +183,38 @@ def cuda_time_ms(fn, reps=20):
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps=20):
-    """Device time of one call: the kernels' device time summed under
-    ``torch.profiler`` over ``reps`` calls (after one warm-up), over
-    ``reps``. A small kernel's CUDA-event time is its launch overhead on the
-    host; this is the time the card spends."""
+# profiler sessions that came back with no device record, and device_time
+# calls that fell back to CUDA events after three of them (printed with the
+# phase times)
+PROFILER_EMPTY = {"sessions": 0, "sessions_without_host_events": 0,
+                  "events_fallbacks": 0}
+
+
+def _note_empty(prof):
+    PROFILER_EMPTY["sessions"] += 1
+    if not len(prof.events()):
+        PROFILER_EMPTY["sessions_without_host_events"] += 1
+
+
+def device_time(fn, reps=20):
+    """(ms, how): the device time of one call, the kernels' device time
+    summed under ``torch.profiler`` over ``reps`` calls (after one warm-up),
+    over ``reps`` (how "device"). A small kernel's CUDA-event time around
+    one call is its launch overhead on the host; this is the time the card
+    spends. Now and then a session comes back with no device record at all
+    (seen on the H100 machine in PR 7 once a run, and in three sessions in a
+    row in PR 11): such a session is measured again, and after three empty
+    ones the time is taken by CUDA events around ``reps`` calls in a row,
+    over ``reps`` (how "events_batch": the kernels queue behind each other,
+    so this is device time where a launch takes less host time than a
+    kernel takes on the card, and an upper bound on it elsewhere). An empty
+    session is never a time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # now and then a session comes back with no device record at all (seen
-    # on the H100 machine in 2 of 4 full runs): such a session is measured
-    # again, and an empty one is never a time
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -207,16 +225,53 @@ def device_ms(fn, reps=20):
                  if evt.device_type == DeviceType.CUDA
                  and not getattr(evt, "is_user_annotation", False))
         if us > 0:
-            return us / reps / 1e3
-    fail("torch.profiler recorded no device time in three sessions")
+            return us / reps / 1e3, "device"
+        _note_empty(prof)
+    PROFILER_EMPTY["events_fallbacks"] += 1
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, "events_batch"
+
+
+def device_ms(fn, reps=20):
+    """``device_time``'s milliseconds."""
+    return device_time(fn, reps)[0]
 
 
 def small_aware_ms(fn, floor_ms=0.1):
-    """(ms, how): the device time under ``torch.profiler`` where it is below
-    ``floor_ms`` (a CUDA-event time there is the host's launch time), else
-    CUDA events around one call, median of 20."""
-    ms = device_ms(fn)
-    return (ms, "device") if ms < floor_ms else (cuda_time_ms(fn), "events")
+    """(ms, how): the device time (``device_time``) where it is below
+    ``floor_ms`` (a CUDA-event time around one call there is the host's
+    launch time), else CUDA events around one call, median of 20."""
+    ms, how = device_time(fn)
+    return (ms, how) if ms < floor_ms else (cuda_time_ms(fn), "events")
+
+
+def _traced(run):
+    """(prof, wall_us, traced): ``run`` once under ``torch.profiler``,
+    again (up to three sessions) while a session holds no device record;
+    ``traced`` is False when all three were empty."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        if any(evt.device_type == DeviceType.CUDA
+               and evt.self_device_time_total > 0
+               for evt in prof.key_averages()):
+            return prof, wall_us, True
+        _note_empty(prof)
+    return prof, wall_us, False
 
 
 def phase_environment():
@@ -1251,17 +1306,11 @@ def _profile(run):
     """Device time by kernel over one call of ``run`` (wall time is taken
     under the profiler, so the busy share is a lower bound), and the share
     of it the f32 attention kernels take (``csrc/attention_f32.cu``, whose
-    kernels are named attn_*)."""
-    import torch
+    kernels are named attn_*). The device numbers are None ("not
+    measured") when three sessions held no device record."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    prof, wall_us, traced = _traced(run)
     rows, attn_us = [], 0.0
     for evt in prof.key_averages():
         if (evt.device_type != DeviceType.CUDA
@@ -1274,6 +1323,11 @@ def _profile(run):
             rows.append((dev_us, evt.key[:80], evt.count))
             if "attn_" in evt.key:
                 attn_us += dev_us
+    if not traced:
+        return {"wall_ms": wall_us / 1e3, "device_busy_ms": None,
+                "device_busy_share": None, "f32_attention_ms": None,
+                "f32_attention_share_of_busy": None, "top": [],
+                "device_trace": "empty in three sessions"}
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
@@ -1339,18 +1393,14 @@ def _int8_profile(run):
     quantize_kernel), ``int_mm``, ``linear_rest`` (the linear
     sites' rescale, cast and bias) and ``rest``; ``conv_site_ops``: the
     PyTorch ops that launched kernels inside the conv sites, with their
-    device time."""
-    import torch
+    device time; ``conv_site_op_names``: every PyTorch op inside them,
+    kernels or not (read off the host's records, so it holds when the
+    device trace is empty). The device numbers are None ("not measured")
+    when three sessions held no device record."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with _int8_site_ranges(), profile(
-            activities=[ProfilerActivity.CPU,
-                        ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    with _int8_site_ranges():
+        prof, wall_us, traced = _traced(run)
     busy_us = conv_us = quant_us = 0.0
     top = []
     for evt in prof.key_averages():
@@ -1366,10 +1416,11 @@ def _int8_profile(run):
             top.append((evt.self_device_time_total, evt.key[:80], evt.count))
     ranges = dict.fromkeys(INT8_RANGES, 0.0)
     calls = dict.fromkeys(INT8_RANGES, 0)
-    conv_ops = {}
+    conv_ops, conv_names = {}, set()
 
     def walk(evt):
         for ch in evt.cpu_children:
+            conv_names.add(ch.name)
             if ch.kernels:
                 conv_ops[ch.name] = conv_ops.get(ch.name, 0.0) + sum(
                     k.duration for k in ch.kernels) / 1e3
@@ -1391,10 +1442,16 @@ def _int8_profile(run):
              "rest": (busy_us - conv_us - quant_us - ranges["e4t::conv_site"]
                       - linear)}
     top.sort(reverse=True)
+    host = {"range_calls": {k.split("::")[1]: v for k, v in calls.items()},
+            "conv_site_op_names": sorted(conv_names)}
+    if not traced:
+        return {"wall_ms": wall_us / 1e3, "device_busy_ms": None,
+                "device_busy_share": None, "split_ms": None,
+                "conv_site_ops": None, "top": [],
+                "device_trace": "empty in three sessions", **host}
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
-            "split_ms": {k: v / 1e3 for k, v in split.items()},
-            "range_calls": {k.split("::")[1]: v for k, v in calls.items()},
+            "split_ms": {k: v / 1e3 for k, v in split.items()}, **host,
             "conv_site_ops": conv_ops,
             "top": [{"kernel": k, "ms": us / 1e3, "count": c}
                     for us, k, c in top[:12]]}
@@ -1696,7 +1753,8 @@ def phase_int8_sampling(smi, pipe, image):
         num_images_per_prompt=IMAGES_PER_PROMPT, height=RESOLUTION,
         width=RESOLUTION, seed=0))
     report["profile_static_ddim"] = prof
-    passes = sorted(set(prof["conv_site_ops"]) & set(CONV_QUANT_PASS_OPS))
+    passes = sorted(set(prof["conv_site_op_names"])
+                    & set(CONV_QUANT_PASS_OPS))
     if passes or prof["range_calls"]["conv_site"] != conv_run:
         fail(f"int8 sampling: quantization passes in PyTorch at the conv "
              f"sites ({passes}), or not every conv site profiled: {prof}")
@@ -2539,7 +2597,8 @@ def main():
              "f32_tuning_vs_cpu": f32_tuning_tiny, "f32_tuning": f32_tuning}
 
     kernels = kernels_line(cases, paths)
-    print(json.dumps({"phase_seconds": timings}))
+    print(json.dumps({"phase_seconds": timings,
+                      "profiler_empty": PROFILER_EMPTY}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

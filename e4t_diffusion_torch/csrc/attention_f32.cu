@@ -1321,6 +1321,20 @@ extern "C" int e4t_attn_fwd_int8_qk_f32(const void* q, const void* k, const void
   });
 }
 
+// The synchronous design of the int8 "qk" attention
+// (attn_fwd_f32_sync_kernel<int8_t, DK, false>), kept as its yardstick: the
+// same arguments as e4t_attn_fwd_int8_qk_f32.
+extern "C" int e4t_attn_fwd_int8_qk_f32_sync(const void* q, const void* k, const void* v,
+                                             const void* sc, void* out, void* lse, int bh,
+                                             int sq, int sk, int d, void* stream) {
+  if (bad_shape(bh, sq, sk, d, 120)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_dk_low(d, [&](auto dk) {
+    return launch_fwd<int8_t, decltype(dk)::value, false>(q, k, v, sc, 0.f, out, lse, bh,
+                                                          sq, sk, d, s);
+  });
+}
+
 extern "C" int e4t_attn_bwd_f32(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta,
                                 void* dq, void* dk, void* dv, int bh, int sq, int sk, int d,

@@ -85,7 +85,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // or NHWC stores them (pixel-major).
 template <typename T, int W, bool kNHWC>
 __global__ void __launch_bounds__(kBlock)
-group_norm_kernel(const T* __restrict__ x, const void* __restrict__ weight,
+group_norm_sync_kernel(const T* __restrict__ x, const void* __restrict__ weight,
                   const void* __restrict__ bias, T* __restrict__ y, int groups,
                   int cpg, int hw, float eps, bool params_bf16, bool cache,
                   bool silu) {
@@ -180,9 +180,9 @@ int launch_w(const T* x, const void* w, const void* b, T* y, int n, int groups,
   const size_t bytes = (size_t)cpg * hw * sizeof(T);
   const bool cache = bytes <= kMaxCacheBytes;
   const size_t smem = cache ? bytes : 0;
-  const cudaError_t err = e4t::allow_smem(group_norm_kernel<T, W, kNHWC>, smem);
+  const cudaError_t err = e4t::allow_smem(group_norm_sync_kernel<T, W, kNHWC>, smem);
   if (err != cudaSuccess) return (int)err;
-  group_norm_kernel<T, W, kNHWC><<<n * groups, kBlock, smem, stream>>>(
+  group_norm_sync_kernel<T, W, kNHWC><<<n * groups, kBlock, smem, stream>>>(
       x, w, b, y, groups, cpg, hw, eps, params_bf16, cache, silu);
   return (int)cudaGetLastError();
 }
@@ -212,6 +212,24 @@ int launch(const void* x, const void* w, const void* b, void* y, int n,
   }
 }
 
+// The synchronous design on either layout: one block per (n, g).
+int run_sync(const void* x, const void* weight, const void* bias, void* y, int n,
+             int channels, int groups, long long hw, int is_bf16, int params_bf16,
+             int channels_last, float eps, int silu, cudaStream_t s) {
+  if (n <= 0 || channels <= 0 || groups <= 0 || channels % groups != 0 || hw <= 0 ||
+      (long long)channels * hw > 0x7fffffffLL || (long long)n * groups > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const bool act = silu != 0, pb = params_bf16 != 0;
+  const int h = (int)hw;
+  if (is_bf16)
+    return channels_last
+               ? launch<bf16, true>(x, weight, bias, y, n, channels, groups, h, eps, pb, act, s)
+               : launch<bf16, false>(x, weight, bias, y, n, channels, groups, h, eps, pb, act, s);
+  return channels_last
+             ? launch<float, true>(x, weight, bias, y, n, channels, groups, h, eps, pb, act, s)
+             : launch<float, false>(x, weight, bias, y, n, channels, groups, h, eps, pb, act, s);
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes. x and y are (N, C, H, W) in one memory
@@ -223,17 +241,16 @@ extern "C" int e4t_group_norm(const void* x, const void* weight, const void* bia
                               void* y, int n, int channels, int groups, long long hw,
                               int is_bf16, int params_bf16, int channels_last,
                               float eps, int silu, void* stream) {
-  if (n <= 0 || channels <= 0 || groups <= 0 || channels % groups != 0 || hw <= 0 ||
-      (long long)channels * hw > 0x7fffffffLL || (long long)n * groups > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool act = silu != 0, pb = params_bf16 != 0;
-  const int h = (int)hw;
-  if (is_bf16)
-    return channels_last
-               ? launch<bf16, true>(x, weight, bias, y, n, channels, groups, h, eps, pb, act, s)
-               : launch<bf16, false>(x, weight, bias, y, n, channels, groups, h, eps, pb, act, s);
-  return channels_last
-             ? launch<float, true>(x, weight, bias, y, n, channels, groups, h, eps, pb, act, s)
-             : launch<float, false>(x, weight, bias, y, n, channels, groups, h, eps, pb, act, s);
+  return run_sync(x, weight, bias, y, n, channels, groups, hw, is_bf16, params_bf16,
+                  channels_last, eps, silu, static_cast<cudaStream_t>(stream));
+}
+
+// The synchronous design (group_norm_sync_kernel, one block per (n, g)) kept
+// as the yardstick: the same arguments as e4t_group_norm.
+extern "C" int e4t_group_norm_sync(const void* x, const void* weight, const void* bias,
+                                   void* y, int n, int channels, int groups, long long hw,
+                                   int is_bf16, int params_bf16, int channels_last,
+                                   float eps, int silu, void* stream) {
+  return run_sync(x, weight, bias, y, n, channels, groups, hw, is_bf16, params_bf16,
+                  channels_last, eps, silu, static_cast<cudaStream_t>(stream));
 }

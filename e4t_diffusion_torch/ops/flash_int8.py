@@ -217,11 +217,13 @@ def flash_fwd_int8_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         sc: torch.Tensor, mode: str, out_dtype: torch.dtype,
                         block_k: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The int8 kernel by the synchronous mma.sync design
-    (``e4t_flash_fwd_int8_sync``, both modes, and the f32 output in "qkpv"):
-    the yardstick the kernel is timed and checked against. No path calls
-    it, and it counts no launch. CUDA tensors only, with the checks
-    ``flash_fwd_int8`` runs; "qk" with an f32 output is not its design."""
+    """The int8 kernels by their synchronous designs, the yardsticks they
+    are timed and checked against: the mma.sync design
+    (``e4t_flash_fwd_int8_sync``) for the bf16 output in both modes and the
+    f32 output in "qkpv"; for "qk" with an f32 output, the first f32 design
+    (``e4t_attn_fwd_int8_qk_f32_sync``: a 4 x 4 score block a thread from
+    scalar shared loads). No path calls it, and it counts no launch. CUDA
+    tensors only, with the checks ``flash_fwd_int8`` runs."""
     _check(q, k, v, sc, mode)
     block_k = _tile(k, block_k)
     if q.device.type != "cuda":
@@ -229,7 +231,8 @@ def flash_fwd_int8_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel_inputs(q, k, v, sc, mode, out_dtype)
     key = launch_key(mode, out_dtype)
     if key == "qk_f32":
-        raise TypeError("flash_fwd_int8_sync: mode 'qk' writes bf16 only")
+        return _launch(F32_SOURCE, "e4t_attn_fwd_int8_qk_f32_sync", q, k, v,
+                       sc, out_dtype)
     return _launch(SOURCE, "e4t_flash_fwd_int8_sync", q, k, v, sc, out_dtype,
                    int(mode == "qkpv"), int(key == "qkpv_f32"), block_k)
 

@@ -83,6 +83,43 @@ def _check(x, weight, bias, groups, act) -> None:
         raise ValueError("x, weight and bias must be on one device")
 
 
+def _check_kernel_inputs(x, weight, bias) -> bool:
+    """What the kernels take, checked on CUDA tensors before a launch;
+    returns whether x is channels-last."""
+    if x.dtype not in DTYPES or weight.dtype not in DTYPES or \
+            bias.dtype != weight.dtype:
+        raise TypeError(f"x {x.dtype}, weight {weight.dtype}, bias "
+                        f"{bias.dtype}: the kernel takes {DTYPES}, weight "
+                        f"and bias in one of them")
+    if not (weight.is_contiguous() and bias.is_contiguous()):
+        raise ValueError("weight and bias must be contiguous")
+    channels_last = not x.is_contiguous()
+    if channels_last and not (
+            x.dim() == 4
+            and x.is_contiguous(memory_format=torch.channels_last)):
+        raise ValueError("x must be contiguous, NCHW or channels-last")
+    if x.numel() == 0:
+        raise ValueError(f"empty input {tuple(x.shape)}")
+    return channels_last
+
+
+def _launch(symbol, x, weight, bias, groups, eps, act) -> torch.Tensor:
+    """One GroupNorm entry point of the source on checked CUDA operands."""
+    channels_last = _check_kernel_inputs(x, weight, bias)
+    n, c = x.shape[:2]
+    y = torch.empty_like(x)  # x's layout
+    _build.launch(SOURCE, symbol,
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                  + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                  + [ctypes.c_float, ctypes.c_int], x.device,
+                  x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                  y.data_ptr(), n, c, groups, math.prod(x.shape[2:]),
+                  int(x.dtype == torch.bfloat16),
+                  int(weight.dtype == torch.bfloat16), int(channels_last),
+                  float(eps), int(act == "silu"))
+    return y
+
+
 def fused_group_norm(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, groups: int, eps: float,
                      act: Optional[str] = None) -> torch.Tensor:
@@ -98,36 +135,25 @@ def fused_group_norm(x: torch.Tensor, weight: torch.Tensor,
         return group_norm_reference(x, weight, bias, groups, eps, act)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in DTYPES or weight.dtype not in DTYPES or \
-            bias.dtype != weight.dtype:
-        raise TypeError(f"x {x.dtype}, weight {weight.dtype}, bias "
-                        f"{bias.dtype}: the kernel takes {DTYPES}, weight "
-                        f"and bias in one of them")
-    if not (weight.is_contiguous() and bias.is_contiguous()):
-        raise ValueError("weight and bias must be contiguous")
-    channels_last = not x.is_contiguous()
-    if channels_last and not (
-            x.dim() == 4
-            and x.is_contiguous(memory_format=torch.channels_last)):
-        raise ValueError("x must be contiguous, NCHW or channels-last")
-    if x.numel() == 0:
-        raise ValueError(f"empty input {tuple(x.shape)}")
-    n, c = x.shape[:2]
-    y = torch.empty_like(x)  # x's layout
-    _build.launch(SOURCE, "e4t_group_norm",
-                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                  + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                  + [ctypes.c_float, ctypes.c_int], x.device,
-                  x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                  y.data_ptr(), n, c, groups, math.prod(x.shape[2:]),
-                  int(x.dtype == torch.bfloat16),
-                  int(weight.dtype == torch.bfloat16), int(channels_last),
-                  float(eps), int(act == "silu"))
+    y = _launch("e4t_group_norm", x, weight, bias, groups, eps, act)
     fused_group_norm.launches += 1
     return y
 
 
 fused_group_norm.launches = 0
+
+
+def group_norm_sync(x: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, groups: int, eps: float,
+                    act: Optional[str] = None) -> torch.Tensor:
+    """GroupNorm(+SiLU) by the kernel's first design, one block per (sample,
+    group) (``e4t_group_norm_sync``): the yardstick the kernel is timed and
+    checked against. No path calls it, and it counts no launch. CUDA tensors
+    only, with the checks ``fused_group_norm`` runs."""
+    _check(x, weight, bias, groups, act)
+    if x.device.type != "cuda":
+        raise ValueError("group_norm_sync runs on CUDA tensors only")
+    return _launch("e4t_group_norm_sync", x, weight, bias, groups, eps, act)
 
 
 class FusedGroupNorm(torch.autograd.Function):

@@ -6,11 +6,14 @@ SDPA and the work's bound.
     python3 e4t_diffusion_torch/time_attn_small.py [--repo DIR] [--dtype bf16|f32]
                                                    [--ablate PART] [--label TEXT]
 
-``--dtype f32`` times the f32 short-sequence kernel (``csrc/attention_f32.cu``)
-alone at ``SHORTSEQ_SHAPES`` beside its synchronous design
-(``flash_fwd_shortseq_f32_sync``, where the checkout has it), f32 SDPA with
-TF32 off and the FFMA bound (67 TFLOP/s), held to rel-L2 1e-5 against the
-plain version; bf16 (the default) is described below.
+``--dtype f32`` times the f32 kernels of ``csrc/attention_f32.cu``: the
+short-sequence kernel at ``SHORTSEQ_SHAPES`` and the int8 attention in
+mode "qk" (int8 q/k, f32 v and output) at ``INT8_SHAPES``, each beside its
+synchronous design (``flash_fwd_shortseq_f32_sync``,
+``flash_fwd_int8_sync``, where the checkout has them), f32 SDPA with TF32
+off and the FFMA bound (67 TFLOP/s), held to rel-L2 1e-5 against the plain
+version and the synchronous design; bf16 (the default) is described
+below.
 
 ``--repo`` names the checkout whose ``e4t_diffusion_torch`` is timed (this
 one by default), so one call can time two commits on one card, in turns:
@@ -185,41 +188,53 @@ def main(argv=None):
         torch.cuda.empty_cache()
     i8_sync = getattr(fi, "flash_fwd_int8_sync", None)
     tiled = hasattr(fi, "quant_tile")
-    for mode in () if f32 else ("qk", "qkpv"):
+    for mode in ("qk",) if f32 else ("qk", "qkpv"):
         for bh, s, d in INT8_SHAPES:
             q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen)
-                       .bfloat16() for _ in range(3))
+                       .to(dtype) for _ in range(3))
             k = k + 0.5
             scale = 1.0 / math.sqrt(d)
             ops = attention.int8_attention_operands(q, k, v, scale, mode)
             tile = (fi.quant_tile(s),) if tiled else ()
-            out, _ = fi.flash_fwd_int8(*ops, mode, torch.bfloat16, *tile)
+            out, _ = fi.flash_fwd_int8(*ops, mode, dtype, *tile)
             ref, _ = fi.flash_fwd_int8_reference(*ops, mode, torch.float32,
                                                  *tile)
-            row = {"kernel": "flash_fwd_int8", "mode": mode, "bh": bh,
+            row = {"kernel": "flash_fwd_int8" + ("_qk_f32" if f32 else ""),
+                   "mode": mode, "bh": bh,
                    "sq": s, "sk": s, "d": d, "tile": tile[0] if tile else 64,
                    "out_rel_l2": _rel(out, ref)}
             del ref
-            if check and not row["out_rel_l2"] <= 1e-2:
+            tol = F32_REL_L2 if f32 else 1e-2
+            if check and not row["out_rel_l2"] <= tol:
                 sys.exit(f"time_attn_small: {row}")
             row["ms"], row["ms_by"] = timed(
-                lambda: fi.flash_fwd_int8(*ops, mode, torch.bfloat16, *tile))
-            if i8_sync is not None:
-                sync, _ = i8_sync(*ops, mode, torch.bfloat16, *tile)
+                lambda: fi.flash_fwd_int8(*ops, mode, dtype, *tile))
+            sync_fn = i8_sync
+            if sync_fn is not None:
+                try:
+                    sync, _ = sync_fn(*ops, mode, dtype, *tile)
+                except TypeError:  # an older checkout: no f32 "qk" design
+                    sync_fn = None
+            if sync_fn is not None:
                 row["sync_vs_kernel_rel_l2"] = _rel(out, sync)
                 row["sync_identical"] = torch.equal(out, sync)
+                if check and not row["sync_vs_kernel_rel_l2"] <= tol:
+                    sys.exit(f"time_attn_small: {row}")
                 row["sync_ms"], row["sync_ms_by"] = timed(
-                    lambda: i8_sync(*ops, mode, torch.bfloat16, *tile))
+                    lambda: sync_fn(*ops, mode, dtype, *tile))
             row["route_ms"], _ = timed(lambda: attention._int8_lowdim_path(
                 q, k, v, scale, mode))
             row["sdpa_ms"], row["sdpa_ms_by"] = timed(
                 lambda: F.scaled_dot_product_attention(
                     q[None], k[None], v[None], scale=scale))
-            pv = mode == "qkpv"
+            # q and k int8, v int8 ("qkpv") or in the output's type,
+            # written out and lse, the per-head scales
+            pv, e = mode == "qkpv", q.element_size()
             row.update(_bound(
-                bh * s * d * (2 if pv else 3) + 8 * bh + 2 * bh * s * d
+                bh * s * d * (3 if pv else 2 + e) + 8 * bh + e * bh * s * d
                 + 4 * bh * s, 0 if pv else 2 * bh * s * s * d, bh * s * s,
-                int8_ops=(4 if pv else 2) * bh * s * s * d))
+                int8_ops=(4 if pv else 2) * bh * s * s * d,
+                **({"flop_rate": F32_FLOP_PER_S} if f32 else {})))
             rows.append(row)
             del q, k, v, ops, out
             torch.cuda.empty_cache()

@@ -176,17 +176,23 @@ def test_kernel_input_checks(mode):
         fi._check_kernel_inputs(wide, wide, wide, sc, mode, torch.bfloat16)
 
 
-@pytest.mark.parametrize("mode", ["qk", "qkpv"])
-def test_int8_sync_yardstick_runs_on_cuda_tensors_only(mode):
-    """flash_fwd_int8_sync, the synchronous design kept as the wgmma
-    kernel's yardstick, takes no CPU tensors and counts no launch; a kv
-    tile that is not a positive multiple of 64 is refused first."""
+@pytest.mark.parametrize("mode,out_dtype", [
+    pytest.param("qk", torch.bfloat16, id="qk"),
+    pytest.param("qkpv", torch.bfloat16, id="qkpv"),
+    pytest.param("qk", torch.float32, id="qk-f32"),
+    pytest.param("qkpv", torch.float32, id="qkpv-f32"),
+])
+def test_int8_sync_yardstick_runs_on_cuda_tensors_only(mode, out_dtype):
+    """flash_fwd_int8_sync, the synchronous designs kept as the kernels'
+    yardsticks (the f32 "qk" one included), takes no CPU tensors and counts
+    no launch; a kv tile that is not a positive multiple of 64 is refused
+    first."""
     i8 = torch.zeros(2, 64, 40, dtype=torch.int8)
-    v = i8 if mode == "qkpv" else torch.zeros(2, 64, 40, dtype=torch.bfloat16)
+    v = i8 if mode == "qkpv" else torch.zeros(2, 64, 40, dtype=out_dtype)
     sc = torch.ones(2, 2)
     before = dict(fi.flash_fwd_int8.launches)
     with pytest.raises(ValueError, match="CUDA tensors only"):
-        fi.flash_fwd_int8_sync(i8, i8, v, sc, mode, torch.bfloat16)
+        fi.flash_fwd_int8_sync(i8, i8, v, sc, mode, out_dtype)
     with pytest.raises(ValueError, match="kv tile 96"):
-        fi.flash_fwd_int8_sync(i8, i8, v, sc, mode, torch.bfloat16, 96)
+        fi.flash_fwd_int8_sync(i8, i8, v, sc, mode, out_dtype, 96)
     assert fi.flash_fwd_int8.launches == before

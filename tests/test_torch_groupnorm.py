@@ -47,18 +47,33 @@ def _nchw(x):
 
 
 @pytest.mark.parametrize("act", [None, "silu"])
-@pytest.mark.parametrize("shape,groups,dtype", [
-    ((2, 8, 8, 32), 8, "float32"),
-    ((1, 16, 16, 20), 4, "float32"),    # C/G = 5
-    ((2, 8, 8, 320), 32, "float32"),    # SD-v1's C/G = 10
-    ((2, 8, 8, 320), 32, "bfloat16"),
+@pytest.mark.parametrize("shape,groups,dtype,layout", [
+    pytest.param((2, 8, 8, 32), 8, "float32", "nchw",
+                 id="shape0-8-float32"),
+    pytest.param((1, 16, 16, 20), 4, "float32", "nchw",  # C/G = 5
+                 id="shape1-4-float32"),
+    pytest.param((2, 8, 8, 320), 32, "float32", "nchw",  # SD-v1's C/G = 10
+                 id="shape2-32-float32"),
+    pytest.param((2, 8, 8, 320), 32, "bfloat16", "nchw",
+                 id="shape3-32-bfloat16"),
+    # channels-last torch input, the memory order the JAX side has: the
+    # VAE's C/G = 4 and a C/G = 5
+    pytest.param((2, 8, 8, 128), 32, "float32", "channels_last",
+                 id="channels_last-cpg4-float32"),
+    pytest.param((2, 8, 8, 128), 32, "bfloat16", "channels_last",
+                 id="channels_last-cpg4-bfloat16"),
+    pytest.param((1, 16, 16, 20), 4, "float32", "channels_last",
+                 id="channels_last-cpg5-float32"),
 ])
-def test_plain_matches_tpu_kernel(shape, groups, dtype, act):
+def test_plain_matches_tpu_kernel(shape, groups, dtype, layout, act):
     x, scale, bias = _inputs(shape, 0)
     jx = jnp.asarray(x, dtype)
     ref = jax_gn.fused_group_norm(jx, jnp.asarray(scale), jnp.asarray(bias),
                                   groups=groups, eps=1e-5, act=act)
     tx = _nchw(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    if layout == "channels_last":
+        tx = tx.contiguous(memory_format=torch.channels_last)
+        assert not tx.is_contiguous()
     out = gn.fused_group_norm(tx, torch.from_numpy(scale),
                               torch.from_numpy(bias), groups, 1e-5, act)
     assert out.dtype == tx.dtype
@@ -132,6 +147,25 @@ def test_route_and_cpu_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         gn.fused_group_norm(x.to("meta"), layer.weight.to("meta"),
                             layer.bias.to("meta"), 8, 1e-6)
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_sync_yardstick_runs_on_cuda_tensors_only(layout):
+    """group_norm_sync, the first design kept as the kernel's yardstick,
+    takes no CPU tensors and counts no launch; the arguments are checked
+    first, as the wrapper checks them."""
+    x = torch.randn(2, 32, 4, 4)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    w, b = torch.ones(32), torch.zeros(32)
+    before = gn.fused_group_norm.launches
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        gn.group_norm_sync(x, w, b, 8, 1e-5, "silu")
+    with pytest.raises(ValueError, match="do not split into 5 groups"):
+        gn.group_norm_sync(x, w, b, 5, 1e-5)
+    with pytest.raises(ValueError, match="act 'gelu'"):
+        gn.group_norm_sync(x, w, b, 8, 1e-5, "gelu")
+    assert gn.fused_group_norm.launches == before
 
 
 @pytest.fixture(scope="module")

@@ -1104,7 +1104,12 @@ def phase_kernels():
             (1, 96, 33, 33, 32, None, "nhwc", torch.bfloat16),  # C/G = 3
             (2, 64, 16, 16, 32, None, "nhwc", torch.float32),
             (1, 320, 64, 64, 32, "silu", "nchw", torch.float32),
-            (1, 960, 64, 64, 32, "silu", "nhwc", torch.float32)):
+            (1, 960, 64, 64, 32, "silu", "nhwc", torch.float32),
+            # channels-last pixels of two channel chunks (the last a
+            # column short at 2600), C/G = 4 at n = 16 and odd H*W
+            (1, 2560, 8, 8, 32, "silu", "nhwc", torch.bfloat16),
+            (2, 2600, 5, 5, 40, None, "nhwc", torch.float32),
+            (16, 128, 9, 7, 32, "silu", "nhwc", torch.bfloat16)):
         ragged.append(_gn_case(n_, c, h, w, groups, 1e-5, act, layout, dtype,
                                gen, timed=False))
     short = [_shortseq_case(bh, 257, 80, 8, gen, timed=True)

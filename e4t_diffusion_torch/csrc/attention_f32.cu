@@ -14,8 +14,8 @@
 //     (the row max over the whole kv row first, no rescaling) and the
 //     division by l after P@V;
 //   - _flash_fwd_lowdim_int8 (:813) in "qk" mode with an f32 v:
-//     attn_fwd_f32_sync_kernel<int8_t, DK, false>, the int8 scores exact in
-//     int32 (__dp4a) times the head's qk_c, P@V in f32, out = acc / l * v_c.
+//     attn_f32_fwd_int8_kernel<DK>, the int8 scores exact in int32
+//     (__dp4a) times the head's qk_c, P@V in f32, out = acc / l * v_c.
 // With f32 p nothing is rounded before P@V, so these compute the plain
 // versions' function with f32 sums in another order; exponentials are
 // ex2.approx of an FMA that folds the scale in (2 ulp; results below 2^-126
@@ -29,7 +29,7 @@
 // slots (the design notes below: attn_f32_*).
 //
 // The synchronous designs they replaced stay as their yardsticks (entry
-// points e4t_attn_*_f32_sync; int8 "qk" still runs on it): one block of 256
+// points e4t_attn_*_f32_sync, e4t_attn_fwd_int8_qk_f32_sync): one block of 256
 // threads per tile of 64 rows (32 from DK = 160), every operand staged in
 // shared memory between two block barriers with an odd row pitch, each
 // thread a 4 x 4 block of scores from scalar shared loads (rows 4 ty..,
@@ -748,6 +748,223 @@ int launch_f32_fwd(const void* q, const void* k, const void* v, float scale, voi
   return (int)cudaGetLastError();
 }
 
+// The int8 "qk" forward (attn_f32_fwd_int8_kernel): attn_f32_fwd_kernel's
+// blocking with int8 q and k. S = Q K^T is exact in int32 by __dp4a, four
+// int8 values a 32-bit word: each thread keeps kRM = 8 rows ty + 8 i by
+// kCN = 4 columns tx + 16 j, two words a step from 8-byte shared loads
+// (8 q words, broadcast to the half-warp, and 4 k words for 64 __dp4a).
+// The q and k tiles are int8 rows of DK bytes at a pitch of
+// i8_pitch<DK>() words (DK / 4 rounded up to 2 mod 4, so the 16 rows a
+// half-warp reads with 8-byte loads fall on 16 distinct bank pairs: d40
+// keeps its 10 words, d80 pads 20 to 22), copied by 8-byte cp.async (an
+// int8 row of a head dim that is a multiple of 8 is 8-byte aligned, not
+// always 16). A score is int32 -> f32 exactly (i2f_exact; |q k| <= 127^2 *
+// 120 < 2^22) and goes into the exponent's FMA with qk_c * log2(e); the
+// rest is the f32 kernel's: v f32 through 16-byte cp.async (each tile's k
+// during the previous tile's P V, its v during its own S), p through
+// shared memory, P V in f32 FFMA (f32_pv), out = acc / l * v_c.
+
+// the pitch, in 32-bit words, of an int8 q/k tile row of DK bytes
+template <int DK>
+__host__ __device__ constexpr int i8_pitch() {
+  return (DK / 4) % 4 == 2 ? DK / 4 : (DK / 4 + 2) / 4 * 4 + 2;
+}
+
+// the int8 "qk" forward's shared memory: v, p, the row rescales and sums,
+// then the int8 q and k tiles
+template <int DK>
+constexpr size_t f32_int8_fwd_smem() {
+  using C = F32Fwd<DK>;
+  return sizeof(float) * (size_t)(64 * C::kP + 64 * C::kPP + 2 * 64) +
+         sizeof(int) * (size_t)(2 * 64 * i8_pitch<DK>());
+}
+
+// x exactly as f32 for |x| < 2^22: 1.5 x 2^23 + x has a unit ulp
+__device__ __forceinline__ float i2f_exact(int x) {
+  return __int_as_float(x + 0x4B400000) - 12582912.f;
+}
+
+// Rows [r0, r0 + ROWS) of a contiguous (n, DK) int8 tensor into dst (pitch
+// i8_pitch<DK>() words) by 8-byte cp.async copies, zero-filled past row n;
+// the caller commits them.
+template <int ROWS, int DK, int NT>
+__device__ __forceinline__ void load_i8_async(int* dst, const int8_t* src, int r0, int n,
+                                              int tid) {
+  constexpr int kC = DK / 8, kP = i8_pitch<DK>();
+  for (int i = tid; i < ROWS * kC; i += NT) {
+    const int r = i / kC, c = i - r * kC;
+    const bool ok = r0 + r < n;
+    e4t::cp_async_8(dst + r * kP + 2 * c, ok ? src + (size_t)(r0 + r) * DK + 8 * c : src,
+                    ok ? 8 : 0);
+  }
+}
+
+// acc[i][j] = q row (ty + kNR i) . k row (tx + 16 j) in int32, from the
+// int8 tiles (C: an F32Fwd)
+template <class C, int DK>
+__device__ __forceinline__ void i8_scores(int (&acc)[C::kRM][C::kCN], const int* q_s,
+                                          const int* k_s, int ty, int tx) {
+  constexpr int kP = i8_pitch<DK>();
+#pragma unroll
+  for (int i = 0; i < C::kRM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::kCN; ++j) acc[i][j] = 0;
+#pragma unroll
+  for (int w = 0; w < DK / 4; w += 2) {
+    int2 b[C::kCN];
+#pragma unroll
+    for (int j = 0; j < C::kCN; ++j)
+      b[j] = *reinterpret_cast<const int2*>(k_s + (tx + C::kNC * j) * kP + w);
+#pragma unroll
+    for (int i = 0; i < C::kRM; ++i) {
+      const int2 a = *reinterpret_cast<const int2*>(q_s + (ty + C::kNR * i) * kP + w);
+#pragma unroll
+      for (int j = 0; j < C::kCN; ++j) {
+        acc[i][j] = __dp4a(a.x, b[j].x, acc[i][j]);
+        acc[i][j] = __dp4a(a.y, b[j].y, acc[i][j]);
+      }
+    }
+  }
+}
+
+// Forward over one 64-row q tile: int8 q (BH, Sq, DK), k (BH, Sk, DK), f32
+// v (BH, Sk, DK), sc (BH, 2) = (qk_c, v_c) -> out (BH, Sq, DK) f32 and lse
+// (BH, Sq) f32: the online softmax of flash.
+template <int DK>
+__global__ void __launch_bounds__(F32Fwd<DK>::kThreads, 1)
+attn_f32_fwd_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ sc,
+                         float* __restrict__ out, float* __restrict__ lse, int sq, int sk) {
+  using C = F32Fwd<DK>;
+  constexpr int kT = C::kThreads, kRM = C::kRM, kCN = C::kCN, kRO = C::kRO,
+                kCO = C::kCO, kP = C::kP, kPP = C::kPP, kBN = C::kBN, kQP = i8_pitch<DK>();
+  static_assert(C::kBM == 64 && kBN == 64 && kT == 128, "the int8 tiles");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* v_s = reinterpret_cast<float*>(smem_raw);  // kBN x kP
+  float* p_s = v_s + kBN * kP;                       // kBM x kPP
+  float* alpha_s = p_s + C::kBM * kPP;               // kBM
+  float* l_s = alpha_s + C::kBM;                     // kBM
+  int* q_s = reinterpret_cast<int*>(l_s + C::kBM);   // kBM x kQP
+  int* k_s = q_s + C::kBM * kQP;                     // kBN x kQP
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * C::kBM, tid = threadIdx.x;
+  const int ty = tid / C::kNC, tx = tid % C::kNC;    // score grid
+  const int oy = tid / C::kNCo, ox = tid % C::kNCo;  // output grid
+  const float s_log2 = sc[2 * bh] * e4t::kLog2e, v_c = sc[2 * bh + 1];
+  const int8_t* kb = k + (size_t)bh * sk * DK;
+  const float* vb = v + (size_t)bh * sk * DK;
+
+  const int n_tiles = (sk + kBN - 1) / kBN;
+  load_i8_async<C::kBM, DK, kT>(q_s, q + (size_t)bh * sq * DK, q0, sq, tid);
+  load_i8_async<kBN, DK, kT>(k_s, kb, 0, sk, tid);
+  e4t::cp_async_commit();
+
+  float m[kRM], l[kRM], o[kRO][kCO];
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < kRO; ++i)
+#pragma unroll
+    for (int c = 0; c < kCO; ++c) o[i][c] = 0.f;
+
+  // Each tile's k lands during the previous tile's P V, its v during its
+  // own S: two block barriers a tile.
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kv0 = t * kBN;
+    e4t::cp_async_wait<0>();
+    __syncthreads();  // k (and q) landed; every thread is done with v_s, p_s
+    load_f4_async<kBN, DK, kT>(v_s, vb, kv0, sk, DK, tid);
+    e4t::cp_async_commit();
+    float s[kRM][kCN];
+    {
+      int acc[kRM][kCN];
+      i8_scores<C, DK>(acc, q_s, k_s, ty, tx);
+#pragma unroll
+      for (int i = 0; i < kRM; ++i)
+#pragma unroll
+        for (int j = 0; j < kCN; ++j)
+          s[i][j] = kv0 + tx + C::kNC * j < sk ? i2f_exact(acc[i][j]) : -INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < kCN; ++j) mx = fmaxf(mx, s[i][j]);
+      // every tile holds a valid column, so mx is finite and the first
+      // tile's alpha is exp2(-inf) = 0
+      mx = half_warp_max(mx);
+      const float alpha = e4t::exp2_approx((m[i] - mx) * s_log2);
+      m[i] = mx;
+      l[i] *= alpha;
+      if (tx == 0) alpha_s[ty + C::kNR * i] = alpha;
+      const float ms = -mx * s_log2;
+#pragma unroll
+      for (int j = 0; j < kCN; ++j) {
+        const float p = e4t::exp2_approx(fmaf(s[i][j], s_log2, ms));
+        l[i] += p;
+        p_s[(ty + C::kNR * i) * kPP + tx + C::kNC * j] = p;
+      }
+    }
+    e4t::cp_async_wait<0>();
+    __syncthreads();  // v and p landed; every thread is done with k_s
+    if (t + 1 < n_tiles) {
+      load_i8_async<kBN, DK, kT>(k_s, kb, kv0 + kBN, sk, tid);
+      e4t::cp_async_commit();
+    }
+#pragma unroll
+    for (int i = 0; i < kRO; ++i) {
+      const float a = alpha_s[oy + C::kNRo * i];
+#pragma unroll
+      for (int c = 0; c < kCO; ++c) o[i][c] *= a;
+    }
+    const int n_end = min(kBN, (sk - kv0 + 3) & ~3);  // p and v are 0 past Sk
+    f32_pv<C, kPP>(o, p_s, v_s, oy, ox, n_end);
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+    const float li = half_warp_sum(l[i]);
+    const int r = ty + C::kNR * i, row = q0 + r;
+    if (tx == 0) {
+      l_s[r] = li;
+      if (row < sq)
+        lse[(size_t)bh * sq + row] = (m[i] * s_log2 + log2f(fmaxf(li, 1e-37f))) * kLn2;
+    }
+  }
+  __syncthreads();
+  float* ob = out + (size_t)bh * sq * DK;
+#pragma unroll
+  for (int i = 0; i < kRO; ++i) {
+    const int r = oy + C::kNRo * i, row = q0 + r;
+    const float li = l_s[r];
+    const float f = (li > 0.f ? 1.f / li : 0.f) * v_c;
+    if (row < sq)
+#pragma unroll
+      for (int c = 0; c < kCO; ++c) ob[(size_t)row * DK + ox + C::kNCo * c] = o[i][c] * f;
+  }
+}
+
+template <int DK>
+int launch_f32_fwd_int8(const void* q, const void* k, const void* v, const void* sc,
+                        void* out, void* lse, int bh, int sq, int sk, cudaStream_t stream) {
+  using C = F32Fwd<DK>;
+  constexpr size_t smem = f32_int8_fwd_smem<DK>();
+  static_assert(smem <= e4t::kMaxSmem, "shared memory");
+  auto kernel = attn_f32_fwd_int8_kernel<DK>;
+  const cudaError_t err = e4t::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((sq + C::kBM - 1) / C::kBM, bh);
+  kernel<<<grid, C::kThreads, smem, stream>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(sc), static_cast<float*>(out),
+      static_cast<float*>(lse), sq, sk);
+  return (int)cudaGetLastError();
+}
+
 // The short-sequence forward up to kShortMaxS tokens (attn_f32_shortseq_kernel):
 // the single-pass softmax with a q tile's whole score row in shared memory.
 // S = Q K^T runs once over the head's k tiles into s_s (scaled, -inf past
@@ -1308,16 +1525,13 @@ extern "C" int e4t_attn_fwd_shortseq_f32(const void* q, const void* k, const voi
   });
 }
 
-// The int8 "qk" attention keeps the synchronous design (its __dp4a scores
-// are four values to a word).
 extern "C" int e4t_attn_fwd_int8_qk_f32(const void* q, const void* k, const void* v,
                                         const void* sc, void* out, void* lse, int bh,
                                         int sq, int sk, int d, void* stream) {
   if (bad_shape(bh, sq, sk, d, 120)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_dk_low(d, [&](auto dk) {
-    return launch_fwd<int8_t, decltype(dk)::value, false>(q, k, v, sc, 0.f, out, lse, bh,
-                                                          sq, sk, d, s);
+  return with_dk8_low(d, [&](auto dk) {
+    return launch_f32_fwd_int8<decltype(dk)::value>(q, k, v, sc, out, lse, bh, sq, sk, s);
   });
 }
 

@@ -8,7 +8,12 @@ sum of squares, the fast variance E[x^2] - E[x]^2, the affine folded to
 ``x * a + b``, optional SiLU, output in x's dtype and memory layout. It
 takes NCHW-contiguous and channels-last x: the UNet and VAE pass both
 (a conv of a channels-last input stays channels-last, and the spatial
-transformers return a channels-last view).
+transformers return a channels-last view). NCHW x runs one block per
+(sample, group); channels-last x one cooperative launch of resident blocks
+that read whole pixels and meet at grid barriers, with a workspace this
+wrapper allocates (``nhwc_workspace_floats``). The first design, one block
+per (sample, group) on both layouts, stays as the yardstick
+``group_norm_sync``, which no path calls.
 
 ``fused_group_norm`` launches the kernel for CUDA tensors, raises on
 anything the kernel does not take, and counts its launches
@@ -39,6 +44,11 @@ SOURCE = "group_norm"
 KNOB = "E4T_FUSED_GN"
 ACTS = (None, "silu")
 DTYPES = (torch.bfloat16, torch.float32)
+# the channels-last kernel's task covers at most this many vectors of a
+# pixel (csrc/group_norm.cu, kNhwcMaxCols), and a card holds at most this
+# many resident blocks an SM
+NHWC_MAX_COLS = 256
+MAX_BLOCKS_PER_SM = 32
 
 
 def fused_gn_enabled() -> bool:
@@ -103,20 +113,54 @@ def _check_kernel_inputs(x, weight, bias) -> bool:
     return channels_last
 
 
-def _launch(symbol, x, weight, bias, groups, eps, act) -> torch.Tensor:
-    """One GroupNorm entry point of the source on checked CUDA operands."""
+def nhwc_workspace_floats(n: int, channels: int, groups: int,
+                          sms: int) -> int:
+    """The f32 workspace the channels-last kernel takes on a card of ``sms``
+    SMs: (sum, sum of squares) per group for max(n * chunks, 32 * sms)
+    tasks, a task being a pixel range of one sample and one chunk of at most
+    ``NHWC_MAX_COLS`` channels (32 blocks an SM is the most that stay
+    resident, one task each), then (mean, inv) per (sample, group)."""
+    chunks = -(-channels // NHWC_MAX_COLS)
+    return (2 * groups * max(n * chunks, MAX_BLOCKS_PER_SM * sms)
+            + 2 * n * groups)
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
+_SMS = {}
+
+
+def _launch(symbol, x, weight, bias, groups, eps, act,
+            workspace=False) -> torch.Tensor:
+    """One GroupNorm entry point of the source on checked CUDA operands;
+    ``workspace``: the entry point takes the channels-last kernel's
+    workspace (allocated here for channels-last x, null for NCHW)."""
     channels_last = _check_kernel_inputs(x, weight, bias)
     n, c = x.shape[:2]
     y = torch.empty_like(x)  # x's layout
-    _build.launch(SOURCE, symbol,
-                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                  + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                  + [ctypes.c_float, ctypes.c_int], x.device,
+    types = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+             + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int])
+    extra = ()
+    if workspace:
+        ws = None
+        if channels_last:
+            ws = torch.empty(nhwc_workspace_floats(
+                n, c, groups, _sm_count(x.device)), dtype=torch.float32,
+                device=x.device)
+        types += [ctypes.c_void_p, ctypes.c_longlong]
+        extra = (ws.data_ptr() if ws is not None else None,
+                 ws.numel() if ws is not None else 0)
+    _build.launch(SOURCE, symbol, types, x.device,
                   x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                   y.data_ptr(), n, c, groups, math.prod(x.shape[2:]),
                   int(x.dtype == torch.bfloat16),
                   int(weight.dtype == torch.bfloat16), int(channels_last),
-                  float(eps), int(act == "silu"))
+                  float(eps), int(act == "silu"), *extra)
     return y
 
 
@@ -135,7 +179,8 @@ def fused_group_norm(x: torch.Tensor, weight: torch.Tensor,
         return group_norm_reference(x, weight, bias, groups, eps, act)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    y = _launch("e4t_group_norm", x, weight, bias, groups, eps, act)
+    y = _launch("e4t_group_norm", x, weight, bias, groups, eps, act,
+                workspace=True)
     fused_group_norm.launches += 1
     return y
 

@@ -22,8 +22,11 @@ the script on each. ``--ablate`` times a copy of the kernels with one part
 of their work taken out, to see what bounds them: ``loads`` (k and v are
 loaded once, for the first tiles, and reused), ``exp`` (p = 2^x becomes x),
 ``s`` (S = Q K^T over the first k-step of the head dim only) or ``pv`` (P V
-over the first k-step of each kv tile only). The copy goes to
-``build/ablate-<part>/`` and is not checked (an ablated output is wrong).
+over the first k-step of each kv tile only); with ``--dtype f32`` the same
+parts of the int8 "qk" f32 kernel (``F32_ABLATIONS``: ``s`` over the first
+two words of the head dim, ``pv`` over the first 4 kv rows of a tile). The
+copy goes to ``build/ablate-<part>/`` and is not checked (an ablated output
+is wrong).
 Otherwise each shape: the kernel against its plain version (bf16 rounding,
 rel-L2 <= 1e-2) and against the synchronous design (``*_sync``, where the
 checkout has it), then the kernel, the synchronous design and SDPA's
@@ -54,7 +57,9 @@ INT8_SHAPES = ((64, 4096, 40), (64, 1024, 80))
 KERNELS = {"shortseq": os.path.join("e4t_diffusion_torch", "csrc",
                                     "flash_fwd_shortseq.cu"),
            "int8": os.path.join("e4t_diffusion_torch", "csrc",
-                                "flash_fwd_int8.cu")}
+                                "flash_fwd_int8.cu"),
+           "int8_f32": os.path.join("e4t_diffusion_torch", "csrc",
+                                    "attention_f32.cu")}
 # --ablate: {kernel: [(text of its source, its replacement, occurrences)]}
 ABLATIONS = {
     "loads": {
@@ -80,17 +85,38 @@ ABLATIONS = {
                      "for (int kk = 0; kk < 1; ++kk)\n          e4t::wgmma_rs_tile", 1)]},
 }
 
+# --ablate with --dtype f32: the int8 "qk" f32 kernel (attn_f32_fwd_int8_kernel)
+F32_ABLATIONS = {
+    "loads": {"int8_f32": [
+        ("    if (t + 1 < n_tiles) {\n      load_i8_async<kBN, DK, kT>(k_s, kb, kv0 + kBN",
+         "    if (false) {\n      load_i8_async<kBN, DK, kT>(k_s, kb, kv0 + kBN", 1),
+        ("    load_f4_async<kBN, DK, kT>(v_s, vb, kv0, sk, DK, tid);",
+         "    if (t == 0) load_f4_async<kBN, DK, kT>(v_s, vb, kv0, sk, DK, tid);",
+         1)]},
+    "exp": {"int8_f32": [
+        ("const float ms = -mx * s_log2;\n#pragma unroll\n      for (int j = 0; "
+         "j < kCN; ++j) {\n        const float p = e4t::exp2_approx(fmaf(s[i][j], "
+         "s_log2, ms));",
+         "const float ms = -mx * s_log2;\n#pragma unroll\n      for (int j = 0; "
+         "j < kCN; ++j) {\n        const float p = (fmaf(s[i][j], s_log2, ms));",
+         1)]},
+    "s": {"int8_f32": [("  for (int w = 0; w < DK / 4; w += 2) {\n    int2 b",
+                        "  for (int w = 0; w < 2; w += 2) {\n    int2 b", 1)]},
+    "pv": {"int8_f32": [("f32_pv<C, kPP>(o, p_s, v_s, oy, ox, n_end);",
+                         "f32_pv<C, kPP>(o, p_s, v_s, oy, ox, 4);", 1)]},
+}
 
-def ablated_copy(repo, part):
+
+def ablated_copy(repo, part, ablations=ABLATIONS):
     """A copy of ``repo``'s package and chip_smoke.py under
-    build/ablate-<part>/ with the kernels changed as ``ABLATIONS[part]``
+    build/ablate-<part>/ with the kernels changed as ``ablations[part]``
     says; returns the copy's root."""
     root = os.path.join(repo, "build", f"ablate-{part}")
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(repo, "e4t_diffusion_torch"),
                     os.path.join(root, "e4t_diffusion_torch"))
     shutil.copy(os.path.join(repo, "chip_smoke.py"), root)
-    for kernel, edits in ABLATIONS[part].items():
+    for kernel, edits in ablations[part].items():
         path = os.path.join(root, KERNELS[kernel])
         with open(path) as f:
             src = f.read()
@@ -126,10 +152,9 @@ def main(argv=None):
     args = parser.parse_args(argv)
     repo = os.path.abspath(args.repo)
     f32 = args.dtype == "f32"
-    if args.ablate and f32:
-        sys.exit("time_attn_small: --ablate edits the bf16 kernels")
     if args.ablate:
-        repo = ablated_copy(repo, args.ablate)
+        repo = ablated_copy(repo, args.ablate,
+                            F32_ABLATIONS if f32 else ABLATIONS)
     sys.path.insert(0, repo)
     import torch
     import torch.nn.functional as F

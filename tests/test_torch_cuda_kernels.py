@@ -482,6 +482,53 @@ def test_cuda_group_norm_matches_reference(n, c, h, w, groups, dtype, act,
         assert (out - ref).abs().max().item() <= 1e-4
 
 
+# The GroupNorm kernel at C/G 1, 3, 4, 5, 10, 40 and 80, odd H*W, n from 1
+# to 16, channels-last pixels of more than one channel chunk (2560 and 2600
+# channels; 2600 leaves the last chunk a column short) and a tensor larger
+# than the 50 MB L2 (2 x 128 x 512 x 512 bf16, 134 MB)
+GN_CASES = [(1, 32, 7, 9, 32), (2, 96, 33, 33, 32), (16, 128, 32, 32, 32),
+            (3, 40, 7, 9, 8), (2, 320, 64, 64, 32), (1, 1280, 8, 8, 32),
+            (1, 2560, 16, 16, 32), (1, 2600, 5, 5, 40),
+            (2, 128, 512, 512, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("n,c,h,w,groups", GN_CASES)
+def test_cuda_group_norm_matches_reference_and_sync(n, c, h, w, groups,
+                                                    layout, dtype):
+    """The GroupNorm kernel against its plain version in f32 and against its
+    first design (group_norm_sync, the yardstick), both in the tolerance of
+    the output type; two calls give the same bits (no float atomics)."""
+    from e4t_diffusion_torch.ops import groupnorm as gn
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator("cuda").manual_seed(8)
+    x = (torch.randn(n, c, h, w, device="cuda", generator=g) * 2 + 0.5).to(
+        dtype)
+    if layout == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+    weight = (torch.rand(c, device="cuda", generator=g) + 0.5).to(dtype)
+    bias = torch.randn(c, device="cuda", generator=g).to(dtype)
+    act = "silu" if c % 64 else None
+    before = gn.fused_group_norm.launches
+    out = gn.fused_group_norm(x, weight, bias, groups, 1e-5, act)
+    again = gn.fused_group_norm(x, weight, bias, groups, 1e-5, act)
+    sync = gn.group_norm_sync(x, weight, bias, groups, 1e-5, act)
+    torch.cuda.synchronize()
+    assert gn.fused_group_norm.launches == before + 2
+    assert out.stride() == x.stride()
+    assert torch.equal(out, again)
+    ref = gn.group_norm_reference(x.float(), weight, bias, groups, 1e-5, act)
+    for want in (ref, sync.float()):
+        if dtype == torch.bfloat16:
+            assert ((out.float() - want).norm() / want.norm()).item() <= 1e-2
+        else:
+            assert (out - want).abs().max().item() <= 1e-4
+
+
 @pytest.mark.cuda
 def test_cuda_fused_group_norm_gradients():
     """FusedGroupNorm on the card: the kernel forward, and gradients equal
@@ -740,6 +787,38 @@ def test_cuda_int8_f32_matches_reference(bh, sq, sk, d, mode):
     assert out.dtype == torch.float32
     assert _rel(out, ro) <= (F32_REL_L2 if mode == "qk" else 1e-2)
     assert (lse - rl).abs().max().item() <= 1e-4
+
+
+# the int8 "qk" f32 kernel at d 8, 40, 80 and 120, Sq and Sk one row either
+# side of 64 and 128, Sk below one 64-row tile, one q row
+INT8_F32_EDGE_CASES = [(2, 63, 65, 8), (2, 65, 63, 40), (2, 127, 129, 80),
+                       (2, 129, 127, 120), (3, 65, 129, 40), (2, 1, 63, 80),
+                       (2, 129, 33, 120), (2, 300, 200, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d", INT8_F32_EDGE_CASES)
+def test_cuda_int8_qk_f32_edges_match_reference_and_sync(bh, sq, sk, d):
+    """The int8 "qk" attention with an f32 v and output against its plain
+    version and against its synchronous design (the yardstick), out to
+    F32_REL_L2 and lse to 1e-4; the yardstick counts no launch."""
+    from e4t_diffusion_torch.ops.attention import int8_attention_operands
+    from e4t_diffusion_torch.ops import flash_int8 as fi
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v = _f32_operands(17, bh, d, sq, sk, sk)
+    ops = int8_attention_operands(q, k + 0.7, v, d ** -0.5, "qk")
+    before = dict(fi.flash_fwd_int8.launches)
+    out, lse = fi.flash_fwd_int8(*ops, "qk", torch.float32)
+    sync_out, sync_lse = fi.flash_fwd_int8_sync(*ops, "qk", torch.float32)
+    torch.cuda.synchronize()
+    before["qk_f32"] += 1
+    assert fi.flash_fwd_int8.launches == before
+    ro, rl = fi.flash_fwd_int8_reference(*ops, "qk", torch.float32)
+    for want_out, want_lse in ((ro, rl), (sync_out, sync_lse)):
+        assert _rel(out, want_out) <= F32_REL_L2
+        assert (lse - want_lse).abs().max().item() <= 1e-4
 
 
 # the register-blocked f32 kernels at their tile edges: 64-row q and kv tiles

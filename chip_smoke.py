@@ -1105,11 +1105,12 @@ def phase_kernels():
             (2, 64, 16, 16, 32, None, "nhwc", torch.float32),
             (1, 320, 64, 64, 32, "silu", "nchw", torch.float32),
             (1, 960, 64, 64, 32, "silu", "nhwc", torch.float32),
-            # channels-last pixels of two channel chunks (the last a
-            # column short at 2600), C/G = 4 at n = 16 and odd H*W
-            (1, 2560, 8, 8, 32, "silu", "nhwc", torch.bfloat16),
-            (2, 2600, 5, 5, 40, None, "nhwc", torch.float32),
-            (16, 128, 9, 7, 32, "silu", "nhwc", torch.bfloat16)):
+            # the cooperative channels-last kernel (x from 12 MB): pixels
+            # of two and three channel chunks (the last a column short at
+            # 2600 in f32), C/G = 4 at n = 16 with odd H*W
+            (8, 2560, 32, 32, 32, "silu", "nhwc", torch.bfloat16),
+            (2, 2600, 40, 40, 40, None, "nhwc", torch.float32),
+            (16, 128, 63, 65, 32, "silu", "nhwc", torch.bfloat16)):
         ragged.append(_gn_case(n_, c, h, w, groups, 1e-5, act, layout, dtype,
                                gen, timed=False))
     short = [_shortseq_case(bh, 257, 80, 8, gen, timed=True)

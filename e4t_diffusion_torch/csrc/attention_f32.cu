@@ -553,29 +553,38 @@ __device__ __forceinline__ void f32_scores(float (&acc)[C::kRM][C::kCN], const f
   }
 }
 
-// o[i][c] += sum over kv rows n < n_end of p_s[(oy + kNRo i) * PP + n]
-// v_s[n, ox + kNCo c]; n_end a multiple of 4 (p is 0 and v is 0 past Sk)
-template <class C, int PP>
-__device__ __forceinline__ void f32_pv(float (&o)[C::kRO][C::kCO], const float* p_s,
-                                       const float* v_s, int oy, int ox, int n_end) {
+// o[i][c] += sum over kv rows n0 <= n < n_end of p_s[(oy + NRo i) * PP + n]
+// v_s[n * P + ox + NCo c]: a thread's RO rows by CO columns of the output;
+// n0 and n_end multiples of 4 (p is 0 and v is 0 past Sk)
+template <int RO, int CO, int NRo, int NCo, int P, int PP>
+__device__ __forceinline__ void pv_block(float (&o)[RO][CO], const float* p_s,
+                                         const float* v_s, int oy, int ox, int n0,
+                                         int n_end) {
 #pragma unroll 2
-  for (int n = 0; n < n_end; n += 4) {
-    float4 pa[C::kRO];
+  for (int n = n0; n < n_end; n += 4) {
+    float4 pa[RO];
 #pragma unroll
-    for (int i = 0; i < C::kRO; ++i) pa[i] = lds4(p_s + (oy + C::kNRo * i) * PP + n);
+    for (int i = 0; i < RO; ++i) pa[i] = lds4(p_s + (oy + NRo * i) * PP + n);
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      float vb[C::kCO];
+      float vb[CO];
 #pragma unroll
-      for (int c = 0; c < C::kCO; ++c) vb[c] = v_s[(n + t) * C::kP + ox + C::kNCo * c];
+      for (int c = 0; c < CO; ++c) vb[c] = v_s[(n + t) * P + ox + NCo * c];
 #pragma unroll
-      for (int i = 0; i < C::kRO; ++i) {
+      for (int i = 0; i < RO; ++i) {
         const float pv = t == 0 ? pa[i].x : t == 1 ? pa[i].y : t == 2 ? pa[i].z : pa[i].w;
 #pragma unroll
-        for (int c = 0; c < C::kCO; ++c) o[i][c] = fmaf(pv, vb[c], o[i][c]);
+        for (int c = 0; c < CO; ++c) o[i][c] = fmaf(pv, vb[c], o[i][c]);
       }
     }
   }
+}
+
+// pv_block on the output grid of C (an F32Fwd) over kv rows n < n_end
+template <class C, int PP>
+__device__ __forceinline__ void f32_pv(float (&o)[C::kRO][C::kCO], const float* p_s,
+                                       const float* v_s, int oy, int ox, int n_end) {
+  pv_block<C::kRO, C::kCO, C::kNRo, C::kNCo, C::kP, PP>(o, p_s, v_s, oy, ox, 0, n_end);
 }
 
 // Forward over one 64-row q tile: out (BH, Sq, D) f32 and, where lse is not
@@ -762,7 +771,28 @@ int launch_f32_fwd(const void* q, const void* k, const void* v, float scale, voi
 // 120 < 2^22) and goes into the exponent's FMA with qk_c * log2(e); the
 // rest is the f32 kernel's: v f32 through 16-byte cp.async (each tile's k
 // during the previous tile's P V, its v during its own S), p through
-// shared memory, P V in f32 FFMA (f32_pv), out = acc / l * v_c.
+// shared memory, P V in f32 FFMA, out = acc / l * v_c.
+//
+// P V, not S, bounds it (ablations at 4096²/d40: P V 56%, S 14%), and it is
+// bound by its shared loads: on F32Fwd's grid at d40 a thread's 4 rows x 5
+// columns take 24 loads (4 of p, 20 of v) a 4-row kv step for 80 FMAs. Up
+// to DK 48 (I8Pv) the block's two halves each take half of a tile's kv
+// rows on a grid of 8 rows x DK / 8 columns a thread: 28 loads for 160
+// FMAs; half 1's sums go through shared memory once, at the end, and half
+// 0 adds them (a fixed order).
+
+// the int8 kernel's P V grid: at DK <= 48 two halves of 64 threads, each
+// over half of a tile's kv rows, 8 rows x DK / 8 columns a thread; above,
+// F32Fwd's grid over the whole tile
+template <int DK>
+struct I8Pv {
+  static constexpr bool kSplit = DK <= 48;
+  static constexpr int kHalves = kSplit ? 2 : 1;
+  static constexpr int kNCo = kSplit ? 8 : F32Fwd<DK>::kNCo;
+  static constexpr int kNRo = kSplit ? 8 : F32Fwd<DK>::kNRo;
+  static constexpr int kRO = 64 / kNRo, kCO = DK / kNCo;
+  static_assert(kHalves * kNRo * kNCo == 128 && kCO * kNCo == DK, "grid");
+};
 
 // the pitch, in 32-bit words, of an int8 q/k tile row of DK bytes
 template <int DK>
@@ -836,8 +866,9 @@ attn_f32_fwd_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict_
                          const float* __restrict__ v, const float* __restrict__ sc,
                          float* __restrict__ out, float* __restrict__ lse, int sq, int sk) {
   using C = F32Fwd<DK>;
-  constexpr int kT = C::kThreads, kRM = C::kRM, kCN = C::kCN, kRO = C::kRO,
-                kCO = C::kCO, kP = C::kP, kPP = C::kPP, kBN = C::kBN, kQP = i8_pitch<DK>();
+  using G = I8Pv<DK>;
+  constexpr int kT = C::kThreads, kRM = C::kRM, kCN = C::kCN, kRO = G::kRO,
+                kCO = G::kCO, kP = C::kP, kPP = C::kPP, kBN = C::kBN, kQP = i8_pitch<DK>();
   static_assert(C::kBM == 64 && kBN == 64 && kT == 128, "the int8 tiles");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -849,8 +880,10 @@ attn_f32_fwd_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict_
   int* k_s = q_s + C::kBM * kQP;                     // kBN x kQP
 
   const int bh = blockIdx.y, q0 = blockIdx.x * C::kBM, tid = threadIdx.x;
-  const int ty = tid / C::kNC, tx = tid % C::kNC;    // score grid
-  const int oy = tid / C::kNCo, ox = tid % C::kNCo;  // output grid
+  const int ty = tid / C::kNC, tx = tid % C::kNC;  // score grid
+  constexpr int kTo = kT / G::kHalves;  // threads of a half
+  const int half = G::kSplit ? tid / kTo : 0, to = G::kSplit ? tid % kTo : tid;
+  const int oy = to / G::kNCo, ox = to % G::kNCo;  // output grid (of this half)
   const float s_log2 = sc[2 * bh] * e4t::kLog2e, v_c = sc[2 * bh + 1];
   const int8_t* kb = k + (size_t)bh * sk * DK;
   const float* vb = v + (size_t)bh * sk * DK;
@@ -917,12 +950,14 @@ attn_f32_fwd_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict_
     }
 #pragma unroll
     for (int i = 0; i < kRO; ++i) {
-      const float a = alpha_s[oy + C::kNRo * i];
+      const float a = alpha_s[oy + G::kNRo * i];
 #pragma unroll
       for (int c = 0; c < kCO; ++c) o[i][c] *= a;
     }
-    const int n_end = min(kBN, (sk - kv0 + 3) & ~3);  // p and v are 0 past Sk
-    f32_pv<C, kPP>(o, p_s, v_s, oy, ox, n_end);
+    // this half's kv rows of the tile; p and v are 0 past Sk
+    constexpr int kHalfN = kBN / G::kHalves;
+    const int n0 = half * kHalfN, n1 = min(n0 + kHalfN, (sk - kv0 + 3) & ~3);
+    pv_block<kRO, kCO, G::kNRo, G::kNCo, kP, kPP>(o, p_s, v_s, oy, ox, n0, n1);
   }
 
 #pragma unroll
@@ -935,16 +970,29 @@ attn_f32_fwd_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict_
         lse[(size_t)bh * sq + row] = (m[i] * s_log2 + log2f(fmaxf(li, 1e-37f))) * kLn2;
     }
   }
-  __syncthreads();
+  __syncthreads();  // also: every thread is done with p_s
+  if constexpr (G::kSplit) {  // half 1's sums into half 0's, through p_s
+    if (half == 1)
+#pragma unroll
+      for (int i = 0; i < kRO; ++i)
+#pragma unroll
+        for (int c = 0; c < kCO; ++c) p_s[(oy + G::kNRo * i) * kPP + ox + G::kNCo * c] = o[i][c];
+    __syncthreads();
+    if (half == 1) return;
+#pragma unroll
+    for (int i = 0; i < kRO; ++i)
+#pragma unroll
+      for (int c = 0; c < kCO; ++c) o[i][c] += p_s[(oy + G::kNRo * i) * kPP + ox + G::kNCo * c];
+  }
   float* ob = out + (size_t)bh * sq * DK;
 #pragma unroll
   for (int i = 0; i < kRO; ++i) {
-    const int r = oy + C::kNRo * i, row = q0 + r;
+    const int r = oy + G::kNRo * i, row = q0 + r;
     const float li = l_s[r];
     const float f = (li > 0.f ? 1.f / li : 0.f) * v_c;
     if (row < sq)
 #pragma unroll
-      for (int c = 0; c < kCO; ++c) ob[(size_t)row * DK + ox + C::kNCo * c] = o[i][c] * f;
+      for (int c = 0; c < kCO; ++c) ob[(size_t)row * DK + ox + G::kNCo * c] = o[i][c] * f;
   }
 }
 

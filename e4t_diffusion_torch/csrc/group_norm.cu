@@ -33,8 +33,11 @@
 // design ran group_norm_sync_kernel here too: in NHWC a group is H * W runs
 // of C/G channels, C apart, so at the VAE's C/G = 4 each block read 8 bytes
 // of every 256 and x came from device memory several times over (16x the
-// bound at 128 channels, 512x512). The whole pixel is now read at once, by
-// resident blocks of one cooperative launch that meet at two grid barriers.
+// bound at 128 channels, 512x512). From 12 MB of x the whole pixel is now
+// read at once, by resident blocks of one cooperative launch that meet at
+// two grid barriers; below it, where the launch and its barriers cost more
+// than the strided reads (~8 µs, measured), group_norm_sync_kernel still
+// takes channels-last x.
 //
 // The first design on both layouts stays as the yardstick
 // (e4t_group_norm_sync).
@@ -242,11 +245,17 @@ int launch(const void* x, const void* w, const void* b, void* y, int n,
 // The number of pixel ranges a sample is cut into follows from the card:
 // as many tasks as blocks stay resident (occupancy x SMs), but no fewer
 // than kNhwcMinRows pixel rows a thread.
+//
+// The launch and its two barriers cost ~8 µs (the H100, batch-8 UNet
+// sites: 1280 channels at 8x8 took 0.0126 ms here, 0.0037 on the one block
+// per (n, g) kernel), so x below kNhwcMinBytes stays on that kernel: every
+// UNet site from 32x32 at 640 channels down.
 
 constexpr int kNhwcThreads = 256;  // the most threads a block takes
 constexpr int kNhwcMaxCols = 256;  // vector columns a task covers, at most
 constexpr int kNhwcUnroll = 4;     // loads a thread keeps in flight
 constexpr int kNhwcMinRows = 8;    // pixel rows a thread reads a task, at least
+constexpr long long kNhwcMinBytes = 12LL << 20;  // x below it: one block per (n, g)
 
 struct NhwcArgs {
   const void* x;
@@ -558,11 +567,12 @@ int run_sync(const void* x, const void* weight, const void* bias, void* y, int n
 // Plain C entry point for ctypes. x and y are (N, C, H, W) in one memory
 // layout, NCHW-contiguous (channels_last = 0) or channels-last (1), bf16
 // (is_bf16 = 1) or f32; hw = H * W; weight and bias are contiguous (C,), bf16
-// (params_bf16 = 1) or f32. Channels-last x goes to the cooperative kernel,
-// which needs an f32 workspace ws of ws_floats elements: the partials of
-// max(n * ceil(C / 256), 32 * SMs) tasks (32 blocks an SM is the most that
-// stay resident), 2 * groups each, and the 2 * n * groups statistics. NCHW
-// x goes to the one block per (n, g) kernel, which takes none. Runs on ``stream``, allocates nothing
+// (params_bf16 = 1) or f32. Channels-last x from kNhwcMinBytes goes to the
+// cooperative kernel, which needs an f32 workspace ws of ws_floats
+// elements: the partials of max(n * ceil(C / 256), 32 * SMs) tasks (32
+// blocks an SM is the most that stay resident), 2 * groups each, and the
+// 2 * n * groups statistics. NCHW x and smaller channels-last x go to the
+// one block per (n, g) kernel, which leaves ws unused. Runs on ``stream``, allocates nothing
 // and does not synchronise. Returns the launch's CUDA error.
 extern "C" int e4t_group_norm(const void* x, const void* weight, const void* bias,
                               void* y, int n, int channels, int groups, long long hw,
@@ -574,6 +584,9 @@ extern "C" int e4t_group_norm(const void* x, const void* weight, const void* bia
     return run_sync(x, weight, bias, y, n, channels, groups, hw, is_bf16, params_bf16, 0,
                     eps, silu, s);
   if (bad_shape(n, channels, groups, hw) || ws == nullptr) return (int)cudaErrorInvalidValue;
+  if ((long long)n * channels * hw * (is_bf16 ? 2 : 4) < kNhwcMinBytes)
+    return run_sync(x, weight, bias, y, n, channels, groups, hw, is_bf16, params_bf16, 1,
+                    eps, silu, s);
   float* w = static_cast<float*>(ws);
   const bool act = silu != 0, pb = params_bf16 != 0;
   return is_bf16 ? launch_nhwc_t<bf16>(x, weight, bias, y, w, ws_floats, n, channels, groups,

@@ -8,12 +8,13 @@ sum of squares, the fast variance E[x^2] - E[x]^2, the affine folded to
 ``x * a + b``, optional SiLU, output in x's dtype and memory layout. It
 takes NCHW-contiguous and channels-last x: the UNet and VAE pass both
 (a conv of a channels-last input stays channels-last, and the spatial
-transformers return a channels-last view). NCHW x runs one block per
-(sample, group); channels-last x one cooperative launch of resident blocks
-that read whole pixels and meet at grid barriers, with a workspace this
-wrapper allocates (``nhwc_workspace_floats``). The first design, one block
-per (sample, group) on both layouts, stays as the yardstick
-``group_norm_sync``, which no path calls.
+transformers return a channels-last view). Channels-last x from 12 MB
+runs one cooperative launch of resident blocks that read whole pixels and
+meet at grid barriers, with a workspace this wrapper allocates
+(``nhwc_workspace_floats``); NCHW x and smaller channels-last x one block
+per (sample, group). The first design, one block per (sample, group) at
+every size and layout, stays as the yardstick ``group_norm_sync``, which no
+path calls.
 
 ``fused_group_norm`` launches the kernel for CUDA tensors, raises on
 anything the kernel does not take, and counts its launches

@@ -482,14 +482,18 @@ def test_cuda_group_norm_matches_reference(n, c, h, w, groups, dtype, act,
         assert (out - ref).abs().max().item() <= 1e-4
 
 
-# The GroupNorm kernel at C/G 1, 3, 4, 5, 10, 40 and 80, odd H*W, n from 1
-# to 16, channels-last pixels of more than one channel chunk (2560 and 2600
-# channels; 2600 leaves the last chunk a column short) and a tensor larger
-# than the 50 MB L2 (2 x 128 x 512 x 512 bf16, 134 MB)
-GN_CASES = [(1, 32, 7, 9, 32), (2, 96, 33, 33, 32), (16, 128, 32, 32, 32),
-            (3, 40, 7, 9, 8), (2, 320, 64, 64, 32), (1, 1280, 8, 8, 32),
-            (1, 2560, 16, 16, 32), (1, 2600, 5, 5, 40),
-            (2, 128, 512, 512, 32)]
+# The GroupNorm kernel at C/G 1, 3, 4, 5, 10, 40, 65 and 80, odd H*W, n
+# from 1 to 16; channels-last x from 12 MB takes the cooperative kernel
+# (every case here in f32, all but the two small ones in bf16), with pixels
+# of more than one channel chunk at 2560 and 2600 channels (2600 leaves the
+# last chunk a column short) and a tensor larger than the 50 MB L2 (2 x 128
+# x 512 x 512 bf16, 134 MB)
+GN_CASES = [(1, 32, 7, 9, 32), (3, 40, 7, 9, 8), (2, 320, 64, 64, 32),
+            (8, 64, 129, 131, 64), (2, 96, 257, 255, 32),
+            (16, 128, 64, 64, 32), (3, 40, 301, 299, 8),
+            (8, 320, 64, 64, 32), (8, 1280, 32, 32, 32),
+            (8, 2560, 32, 32, 32), (2, 2600, 40, 40, 40),
+            (1, 128, 512, 256, 32), (2, 128, 512, 512, 32)]
 
 
 @pytest.mark.cuda

@@ -182,6 +182,16 @@ group_norm_sync_kernel(const T* __restrict__ x, const void* __restrict__ weight,
   }
 }
 
+// elements per access: the widest vector (up to 16 bytes) that `run`
+// elements divide and that x and y are aligned to
+template <typename T>
+int vector_width(long long run, const void* x, const void* y) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y);
+  int vw = 16 / (int)sizeof(T);
+  while (vw > 1 && (run % vw != 0 || addr % (vw * sizeof(T)) != 0)) vw /= 2;
+  return vw;
+}
+
 template <typename T, int W, bool kNHWC>
 int launch_w(const T* x, const void* w, const void* b, T* y, int n, int groups,
              int cpg, int hw, float eps, bool params_bf16, bool silu,
@@ -203,10 +213,7 @@ int launch(const void* x, const void* w, const void* b, void* y, int n,
   const int cpg = channels / groups;
   // the run W elements an access must divide: NCHW a channel's hw
   // elements, NHWC a pixel's cpg channels
-  const int run = kNHWC ? cpg : hw;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y);
-  int vw = 16 / (int)sizeof(T);
-  while (vw > 1 && (run % vw != 0 || addr % (vw * sizeof(T)) != 0)) vw /= 2;
+  const int vw = vector_width<T>(kNHWC ? cpg : hw, x, y);
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
   const bool pb = params_bf16;
@@ -519,11 +526,7 @@ template <typename T>
 int launch_nhwc_t(const void* x, const void* w, const void* b, void* y, float* ws,
                   long long ws_floats, int n, int channels, int groups, long long hw,
                   float eps, bool pb, bool silu, cudaStream_t stream) {
-  // W: the widest vector (up to 16 bytes) that a pixel's channels divide
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y);
-  int vw = 16 / (int)sizeof(T);
-  while (vw > 1 && (channels % vw != 0 || addr % (vw * sizeof(T)) != 0)) vw /= 2;
-  switch (vw) {
+  switch (vector_width<T>(channels, x, y)) {  // W: a pixel's channels divide it
     case 8:
       if constexpr (sizeof(T) == 2)
         return launch_nhwc<T, 8>(x, w, b, y, ws, ws_floats, n, channels, groups, hw, eps, pb,

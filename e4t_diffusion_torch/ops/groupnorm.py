@@ -126,16 +126,6 @@ def nhwc_workspace_floats(n: int, channels: int, groups: int,
             + 2 * n * groups)
 
 
-def _sm_count(device: torch.device) -> int:
-    if device not in _SMS:
-        _SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SMS[device]
-
-
-_SMS = {}
-
-
 def _launch(symbol, x, weight, bias, groups, eps, act,
             workspace=False) -> torch.Tensor:
     """One GroupNorm entry point of the source on checked CUDA operands;
@@ -148,14 +138,14 @@ def _launch(symbol, x, weight, bias, groups, eps, act,
              + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int])
     extra = ()
     if workspace:
-        ws = None
-        if channels_last:
-            ws = torch.empty(nhwc_workspace_floats(
-                n, c, groups, _sm_count(x.device)), dtype=torch.float32,
-                device=x.device)
         types += [ctypes.c_void_p, ctypes.c_longlong]
-        extra = (ws.data_ptr() if ws is not None else None,
-                 ws.numel() if ws is not None else 0)
+        extra = (None, 0)
+        if channels_last:
+            sms = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+            ws = torch.empty(nhwc_workspace_floats(n, c, groups, sms),
+                             dtype=torch.float32, device=x.device)
+            extra = (ws.data_ptr(), ws.numel())
     _build.launch(SOURCE, symbol, types, x.device,
                   x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                   y.data_ptr(), n, c, groups, math.prod(x.shape[2:]),

@@ -40,12 +40,24 @@ Phases (any failure exits non-zero; each prints its wall seconds):
    the f32 flash kernels) on the card and on the CPU, the same random draws
    on both: loss and per-group gradients against each other;
 12. f32_tuning: one full-width step with ``--mixed_precision no`` at the
-   largest batch of 16, 8 and 4 that the card holds.
-In phases 4 to 8, 10 and 12 the kernels' launch counters, set to 0 just
-before each run and read just after, must show the path went through every
-kernel it routes to, as many times as its attention, conv and GroupNorm
-sites give. The two routes are off by default, and off in every other
-phase but where phase 10 names one.
+   largest batch of 16, 8 and 4 that the card holds;
+13. pretraining: phase-1 pretraining (``pretrain_e4t.pretrain``, what the
+   CLI runs after loading) at the same width, bf16 compute, batch 16,
+   512px, from 40 written images of mixed sizes through the loader and the
+   device prefetch: 3 steps with a checkpoint at step 2 and a DDIM-4
+   sample after each, then one step resumed from that checkpoint; the
+   checkpoint read back bit for bit at its save and its restore, the
+   schedule's count after the resume, the frozen modules bit for bit, the
+   artifact loaded strictly and tuned one step;
+14. routes_pretraining: one step from the same weights with both routes
+   on, its loss and grad norm against phase 13's first step;
+15. f32_pretraining: two steps with ``--mixed_precision no`` (the CLI's
+   default) at the largest batch of 16, 8 and 4 that the card holds.
+In phases 4 to 8, 10 and 12 to 15 the kernels' launch counters, set to 0
+just before each run and read just after, must show the path went through
+every kernel it routes to, as many times as its attention, conv and
+GroupNorm sites give. The two routes are off by default, and off in every
+other phase but where phase 10 names one.
 
 The second-to-last line of output is a JSON ``kernels`` record, the last
 ``{"ok": true, "device": {...}}``.
@@ -1327,6 +1339,24 @@ def _sample(pipe, image, scheduler_type, want, seed=0):
     return images, seconds, launches
 
 
+# device time by kernel family in a profile: the first family with a mark
+# in the kernel's name (the port's kernels, cuDNN's layout conversions and
+# convolutions, GEMMs, norms, the optimizer, elementwise and reductions)
+KERNEL_FAMILIES = (
+    ("port_attention", ("flash_", "shortseq_", "attn_f32")),
+    ("port_group_norm", ("group_norm_",)),
+    ("port_int8", ("int8_conv", "quantize_kernel")),
+    ("layout_conversion", ("nchwToNhwc", "nhwcToNchw")),
+    ("convolution", ("conv", "cudnn", "implicit_gemm", "xmma_fprop",
+                     "xmma_dgrad", "xmma_wgrad")),
+    ("gemm", ("gemm", "cutlass", "sm90_xmma", "ampere_", "Kernel2")),
+    ("norm", ("norm", "layer_norm")),
+    ("optimizer", ("multi_tensor", "adam")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "index",
+                     "copy", "fill", "cat")))
+
+
 def _profile(run):
     """Device time by kernel over one call of ``run`` (wall time is taken
     under the profiler, so the busy share is a lower bound), and the share
@@ -1355,10 +1385,16 @@ def _profile(run):
                 "device_trace": "empty in three sessions"}
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
+    families = {}
+    for us, key, _ in rows:
+        family = next((f for f, marks in KERNEL_FAMILIES
+                       if any(m in key for m in marks)), "other")
+        families[family] = families.get(family, 0.0) + us / 1e3
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
             "f32_attention_ms": attn_us / 1e3,
             "f32_attention_share_of_busy": attn_us / max(busy_us, 1e-9),
+            "families_ms": families,
             "top": [{"kernel": k, "ms": us / 1e3, "count": c,
                      "share_of_busy": us / busy_us}
                     for us, k, c in rows[:16]]}
@@ -2356,6 +2392,570 @@ def phase_f32_tuning(smi):
     fail(f"f32 tuning: no batch of {F32_TUNING_BATCHES} fits: {refused}")
 
 
+# phase-1 pretraining at the CLI's shapes (batch 16, 512px): 3 steps with a
+# checkpoint at 2 and a sample after every step (one prompt, one input,
+# DDIM-4), then 1 step resumed from that checkpoint; the images written for
+# it, of mixed sizes and aspect ratios (PNG and JPEG)
+PRETRAIN_STEPS = 3
+PRETRAIN_IMAGES = 40
+PRETRAIN_SAMPLE_STEPS = 4
+# full-width f32 pretraining: the largest of these batches the card holds
+F32_PRETRAIN_BATCHES = (16, 8, 4)
+
+
+def _expected_sampling_launches(ucfg, vit_cfg, batch, resolution, steps,
+                                dtype=None):
+    """Launches of one CFG sampling run of ``steps`` steps at ``batch``:
+    each step runs two full UNet passes, and a site goes to flash where the
+    port's own ``flash_route`` sends it (the default threshold: sampling
+    runs outside the train step's ``flash_threshold(0)``); the ViT encodes
+    once. The routes are off."""
+    import torch
+
+    from e4t_diffusion_torch.models.weight_offsets import attention_sites
+    from e4t_diffusion_torch.ops.attention import flash_route
+    from e4t_diffusion_torch.ops.flash_lowdim import launch_route
+
+    dtype = dtype or torch.bfloat16
+    side = resolution // 8
+    levels = len(ucfg.block_out_channels)
+    heads = ucfg.attention_head_dim
+    want = dict.fromkeys(KERNEL_ROWS, 0)
+    for path, dim, _ in attention_sites(ucfg):
+        block, index = path.split(".")[:2]
+        level = (levels - 1 - int(index) if block == "up_blocks"
+                 else int(index) if block == "down_blocks" else levels - 1)
+        sq = (side >> level) ** 2
+        sk = sq if path.endswith("attn1") else 77
+        d = dim // heads
+        if flash_route((batch, heads, sq, d), (batch, heads, sk, d), "cuda"):
+            want[f"flash_fwd_{launch_route(d, dtype)}"] += 2 * steps
+    tokens = vit_cfg.grid ** 2 + 1
+    d = vit_cfg.width // vit_cfg.num_heads
+    shape = (batch, vit_cfg.num_heads, tokens, d)
+    if flash_route(shape, shape, "cuda"):
+        want[f"flash_fwd_{launch_route(d, dtype)}"] += vit_cfg.num_layers
+    return want
+
+
+def _expected_pretraining_launches(ucfg, vit_cfg, resolution, routes=False,
+                                   dtype=None):
+    """Launches per pretraining step: a tuning step's attention (the same
+    sites, all-flash, a frozen UNet whose backward still runs for the
+    offsets and the tap), and with the routes on the GroupNorm sites of the
+    VAE encode the step runs on its batch."""
+    from e4t_diffusion_torch.models.vae import VAEConfig
+
+    want = _expected_tuning_launches(ucfg, vit_cfg, resolution, routes,
+                                     dtype)
+    if routes:
+        want["group_norm"] += sum(_group_norm_sites(
+            ucfg, VAEConfig(), 1, resolution)["vae_encode"].values())
+    return want
+
+
+def _write_pretraining_images(folder, n, seed=0):
+    """``n`` images of mixed sizes (short side 320-768, so the resize both
+    shrinks and enlarges; aspect 1 to 1.75, portrait and landscape) and
+    formats, so the loader's cv2 INTER_AREA resize and crops run."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(folder, "nested"), exist_ok=True)
+    sizes = []
+    for i in range(n):
+        short = int(rng.integers(320, 769))
+        long = int(short * rng.uniform(1.0, 1.75))
+        h, w = (short, long) if i % 2 else (long, short)
+        # smooth content (JPEG-friendly), a seeded gradient plus noise
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = (np.stack([xx * 255 // w, yy * 255 // h,
+                          (xx + yy) * 255 // (h + w)], -1) + rng.integers(
+            0, 32, (h, w, 3))).clip(0, 255).astype(np.uint8)
+        sub = "nested" if i % 3 == 0 else ""
+        ext = "jpg" if i % 2 else "png"
+        Image.fromarray(base).save(os.path.join(folder, sub, f"{i:03d}.{ext}"))
+        sizes.append((h, w))
+    return sizes
+
+
+def _pretraining_world(seed=0):
+    """Full-width modules (f32, seeded), the encoder and offset bank the CLI
+    starts from (``pretrain_e4t.load_e4t_start``: the seeded init), the
+    tokenizer with the placeholder, and the ids."""
+    import torch
+
+    from e4t_diffusion_torch import pretrain_e4t
+    from e4t_diffusion_torch.diffusion.pipeline import E4TModules
+    from e4t_diffusion_torch.models.clip_text import CLIPTextConfig
+    from e4t_diffusion_torch.models.e4t_encoder import E4TEncoderConfig
+    from e4t_diffusion_torch.models.unet import UNetConfig
+    from e4t_diffusion_torch.models.vae import VAEConfig
+    from e4t_diffusion_torch.training.setup import resolve_class_token
+    from e4t_diffusion_torch.utils.tokenizer import (
+        CLIPTokenizer, make_tiny_tokenizer_files)
+
+    torch.manual_seed(seed)
+    modules = E4TModules.create(UNetConfig(), VAEConfig(), CLIPTextConfig(),
+                                E4TEncoderConfig(), dtype=torch.float32,
+                                device="cuda")
+    with tempfile.TemporaryDirectory() as base_dir:
+        # a base directory without encoder.pt / weight_offsets.pt: the
+        # encoder is initialised from --seed, the bank drawn from it
+        args = pretrain_e4t.parse_args([
+            "--pretrained_model_name_or_path", base_dir,
+            "--train_image_dataset", "-", "--domain_class_token", "face",
+            "--seed", str(seed)])
+        offsets = pretrain_e4t.load_e4t_start(args, modules,
+                                              torch.device("cuda"))
+        make_tiny_tokenizer_files(base_dir, extra_words=[
+            "a", "photo", "of", "the", "face"])
+        tokenizer = CLIPTokenizer.from_pretrained(base_dir)
+    tokenizer.add_tokens("*s")  # its id lies inside the 49,408-row table
+    return (modules, offsets, tokenizer, tokenizer.convert_tokens_to_ids(
+        "*s"), resolve_class_token(tokenizer, "face"))
+
+
+def _pretrain_args(data_dir, out_dir, *extra):
+    from e4t_diffusion_torch import pretrain_e4t
+
+    return pretrain_e4t.parse_args([
+        "--pretrained_model_name_or_path", "-",
+        "--train_image_dataset", data_dir, "--domain_class_token", "face",
+        "--prompt_template", "normal", "--output_dir", out_dir,
+        "--train_batch_size", "16", "--resolution", str(RESOLUTION),
+        "--seed", "0", *extra])
+
+
+def _pretrain_run(args, world, routes=False):
+    """One ``pretrain_e4t.pretrain`` call as ``main`` makes it (its loader
+    from ``make_loader``), with the launch counters set to 0 just before and
+    read just after. Returns (result, launches, wall seconds)."""
+    import torch
+
+    from e4t_diffusion_torch import pretrain_e4t
+    from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
+    from e4t_diffusion_torch.templates import resolve_templates
+    from e4t_diffusion_torch.utils.trackers import make_tracker
+
+    modules, offsets, tokenizer, placeholder_id, class_id = world
+    loader, _ = pretrain_e4t.make_loader(args)
+    dtype = pretrain_e4t.resolve_train_dtype(args.mixed_precision, "cuda")
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _routes_on() if routes else contextlib.nullcontext():
+        result = pretrain_e4t.pretrain(
+            args, modules, offsets, tokenizer, placeholder_id, class_id,
+            resolve_templates(args.prompt_template), NoiseScheduleConfig(),
+            dtype, loader, make_tracker(None, args.output_dir))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return result, _read_launches(), wall
+
+
+def _checksums(tensors, dtype=None):
+    """Per-tensor (float64 sum, sum of the bit patterns as integers) of
+    ``tensors`` (cast to ``dtype`` first, as the trainer casts frozen
+    modules): a change of any bit shows in the second."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32}
+    out = []
+    for t in tensors:
+        t = t.detach() if dtype is None else t.detach().to(dtype)
+        out.append((float(t.double().sum()), int(t.contiguous().view(
+            ints[t.element_size()]).sum(dtype=torch.int64))))
+    return out
+
+
+@contextlib.contextmanager
+def _checkpoints_checked(report):
+    """While active, every train-state save is read back after it is
+    written, and every restore after it is loaded, and held bit for bit
+    against the live trainables, AdamW moments and generator state."""
+    import torch
+
+    from e4t_diffusion_torch.utils import artifacts
+
+    save, restore = artifacts.save_train_state, artifacts.restore_train_state
+
+    def compare(what, path, trainable, optimizer, generator):
+        payload = torch.load(os.path.join(path, artifacts.TRAIN_STATE_FILE),
+                             map_location="cpu", weights_only=True)
+        n = 0
+        for g, group in trainable.items():
+            for k, t in group.items():
+                if not torch.equal(t.detach().cpu(),
+                                   payload["trainable"][g][k]):
+                    fail(f"{what} {path}: trainable {g}/{k} differs")
+                n += t.numel()
+        saved = payload["optimizer"]["state"]
+        for i, state in optimizer.state_dict()["state"].items():
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                if not torch.equal(state[key].cpu(), saved[i][key]):
+                    fail(f"{what} {path}: AdamW {key} of tensor {i} differs")
+        if not torch.equal(generator.get_state(), payload["generator"]):
+            fail(f"{what} {path}: generator state differs")
+        report.setdefault(what, []).append(
+            {"path": os.path.basename(path), "step": payload["step"],
+             "updates": payload["updates"], "tensors_checked": n,
+             "bytes": os.path.getsize(os.path.join(
+                 path, artifacts.TRAIN_STATE_FILE))})
+
+    def checked_save(output_dir, step, trainable, optimizer, updates,
+                     generator, async_save=False):
+        path = save(output_dir, step, trainable, optimizer, updates,
+                    generator, async_save)
+        artifacts.wait_for_checkpoints()
+        compare("saved", path, trainable, optimizer, generator)
+        return path
+
+    def checked_restore(path, trainable, optimizer, generator):
+        out = restore(path, trainable, optimizer, generator)
+        compare("restored", path, trainable, optimizer, generator)
+        return out
+
+    artifacts.save_train_state = checked_save
+    artifacts.restore_train_state = checked_restore
+    try:
+        yield
+    finally:
+        artifacts.save_train_state = save
+        artifacts.restore_train_state = restore
+
+
+def _metrics_finite(metrics, what):
+    if not metrics or not all(
+            math.isfinite(m[k]) for m in metrics
+            for k in ("loss", "loss_diff", "loss_reg", "grad_norm")):
+        fail(f"{what}: non-finite or missing metrics {metrics}")
+
+
+def _warm_step_profile(world, result, args, data_dir):
+    """One more step of the trained state, warm, under ``torch.profiler``
+    (busy share; the top kernels), with the step's time by CUDA events
+    beside it for when the profiler records no device time."""
+    import numpy as np
+    import torch
+
+    from e4t_diffusion_torch.data.dataset import E4TDataLoader
+    from e4t_diffusion_torch.diffusion.schedulers import (DDPMScheduler,
+                                                          NoiseScheduleConfig)
+    from e4t_diffusion_torch.templates import resolve_templates
+    from e4t_diffusion_torch.training.setup import TemplateSampler
+    from e4t_diffusion_torch.training.train_step import (E4TTrainConfig,
+                                                         make_train_step)
+
+    modules, _, tokenizer, placeholder_id, class_id = world
+    it = iter(E4TDataLoader(data_dir, args.train_batch_size,
+                            args.resolution, seed=7))
+    pixels = next(it)["pixel_values"]
+    it.close()
+    sampler = TemplateSampler(resolve_templates(args.prompt_template),
+                              tokenizer, "*s", placeholder_id, seed=7)
+    ids, ph = sampler.sample(args.train_batch_size)
+    batch = {"pixel_values": torch.from_numpy(pixels).cuda(),
+             "input_ids": torch.from_numpy(ids).cuda(),
+             "placeholder_idx": torch.from_numpy(np.asarray(ph)).cuda(),
+             "uncond_ids": torch.from_numpy(sampler.uncond_ids).cuda(),
+             "class_token_id": torch.tensor(class_id, device="cuda")}
+    cfg = E4TTrainConfig(train_unet=False, max_grad_norm=None)
+    step = make_train_step(modules, DDPMScheduler(NoiseScheduleConfig()),
+                           cfg, result["trainable"], result["optimizer"],
+                           lambda n: args.learning_rate)
+    gen = torch.Generator("cuda").manual_seed(7)
+
+    def run():
+        float(step(batch, gen)["loss"])
+
+    run()  # warm
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    profile = _profile(run)
+    profile["events_ms"] = start.elapsed_time(end)
+    return profile
+
+
+def phase_pretraining(smi):
+    """Phase-1 pretraining at full width through ``pretrain_e4t.pretrain``
+    (what the CLI runs after loading), bf16 compute, batch 16, 512px:
+    PRETRAIN_STEPS steps from a folder of written images through the loader
+    and the device prefetch, a checkpoint at step 2, a DDIM-4 sample after
+    every step; then one step resumed from ``latest``. Checks the metrics,
+    the trainables against the frozen modules, the checkpoints bit for bit,
+    the schedule's count after the resume, the artifacts (strict loads and a
+    tuning step from them), the samples and the launch counts. Returns
+    (launches of both runs, the first step's metrics, the image folder's
+    TemporaryDirectory)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from e4t_diffusion_torch import tuning_e4t
+    from e4t_diffusion_torch.data.dataset import E4TDataLoader
+    from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
+    from e4t_diffusion_torch.models import weight_offsets as wo
+    from e4t_diffusion_torch.templates import resolve_templates
+    from e4t_diffusion_torch.training.setup import make_lr_schedule
+    from e4t_diffusion_torch.utils import artifacts
+
+    data = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    sizes = _write_pretraining_images(data.name, PRETRAIN_IMAGES)
+    images_s = time.perf_counter() - t0
+    # the loader alone: seconds per batch of 16 after its first
+    it = iter(E4TDataLoader(data.name, 16, RESOLUTION, seed=0))
+    t0 = time.perf_counter()
+    next(it)
+    t1 = time.perf_counter()
+    for _ in range(3):
+        if next(it)["pixel_values"].shape != (16, 3, RESOLUTION, RESOLUTION):
+            fail("pretraining: a loader batch of the wrong shape")
+    loader_s = (time.perf_counter() - t1) / 3
+    it.close()
+
+    t0 = time.perf_counter()
+    world = _pretraining_world()
+    modules, offsets = world[:2]
+    setup_s = time.perf_counter() - t0
+    ucfg, ecfg = modules.unet.config, modules.e4t_encoder.config
+    if _expected_sampling_launches(ucfg, ecfg.vit, IMAGES_PER_PROMPT * len(
+            PROMPTS), RESOLUTION, STEPS) != _want(
+            flash_fwd_lowdim=LOWDIM_SITES_PER_STEP * STEPS):
+        fail("the sampling launch derivation disagrees with the sampling "
+             "phase's counts")
+    e4t = modules.e4t_encoder
+    bf16 = torch.bfloat16
+    frozen = {"unet": list(modules.unet.parameters()),
+              "vae": list(modules.vae.parameters()),
+              "text": list(modules.text_encoder.parameters()),
+              "vit": list(e4t.clip_vision.parameters())}
+    before = {k: _checksums(v, bf16) for k, v in frozen.items()}
+    head_before = _checksums([p for n, p in e4t.named_parameters()
+                              if not n.startswith("clip_vision.")])
+    offsets_before = _checksums(offsets.values())
+
+    out = tempfile.TemporaryDirectory()
+    sched = ["--mixed_precision", "bf16", "--max_train_steps",
+             str(PRETRAIN_STEPS), "--checkpointing_steps", "2",
+             "--lr_scheduler", "linear", "--lr_warmup_steps", "1",
+             "--save_sample_prompt", "a photo of *s"]
+    args = _pretrain_args(data.name, out.name, *sched, "--log_steps", "1",
+                          "--n_save_sample", "1", "--save_inference_steps",
+                          str(PRETRAIN_SAMPLE_STEPS))
+    checks = {}
+    torch.cuda.reset_peak_memory_stats()
+    with _checkpoints_checked(checks):
+        result, launches, wall = _pretrain_run(args, world)
+    peak = torch.cuda.max_memory_allocated()
+    metrics = result["metrics"]
+    _metrics_finite(metrics, "pretraining")
+    if len(metrics) != PRETRAIN_STEPS:
+        fail(f"pretraining: {len(metrics)} updates, {PRETRAIN_STEPS} asked")
+    trained = result["trainable"]
+    if _checksums(trained["offsets"].values()) == offsets_before:
+        fail("pretraining: the offsets did not change")
+    if _checksums(trained["e4t"].values()) == head_before:
+        fail("pretraining: the encoder head did not change")
+    after = {k: _checksums(v) for k, v in frozen.items()}
+    for k in frozen:
+        if after[k] != before[k]:
+            fail(f"pretraining: the frozen {k} changed")
+    for step, images in result["samples"].items():
+        if images.shape != (1, 3, RESOLUTION, RESOLUTION) or not (
+                np.isfinite(images).all() and images.min() >= 0.0
+                and images.max() <= 1.0):
+            fail(f"pretraining: the sample at step {step} is not finite "
+                 f"images in [0, 1]")
+    if sorted(result["samples"]) != list(range(1, PRETRAIN_STEPS + 1)):
+        fail(f"pretraining: samples at {sorted(result['samples'])}")
+    per_step = _expected_pretraining_launches(ucfg, ecfg.vit, RESOLUTION)
+    per_sample = _expected_sampling_launches(ucfg, ecfg.vit, 1, RESOLUTION,
+                                             PRETRAIN_SAMPLE_STEPS)
+    want = {k: PRETRAIN_STEPS * (per_step[k] + per_sample[k])
+            for k in per_step}
+    if launches != want:
+        fail(f"pretraining: launches {launches}, expected {want} "
+             f"({per_step} a step, {per_sample} a sample)")
+    first_metrics = metrics[0]
+    profile = _warm_step_profile(world, result, args, data.name)
+    steady = result["step_seconds"][1:]
+    s_per_step = sum(steady) / len(steady)
+    report = {
+        "phase": "pretraining", "card": smi, "dtype": "bfloat16",
+        "images": {"n": len(sizes), "min_hw": min(sizes),
+                   "max_hw": max(sizes), "written_s": images_s},
+        "setup_s": setup_s, "batch": args.train_batch_size,
+        "resolution": args.resolution, "steps": PRETRAIN_STEPS,
+        "wall_s": wall, "trainable_params": sum(
+            t.numel() for g in trained.values() for t in g.values()),
+        "step_seconds": result["step_seconds"], "s_per_step": s_per_step,
+        "samples_per_s": args.train_batch_size / s_per_step,
+        "loader_s_per_batch": loader_s,
+        "loader_wait_s": result["wait_seconds"],
+        "max_memory_allocated_gb": peak / 1e9, "metrics": metrics,
+        "launches": launches, "launches_per_step": per_step,
+        "launches_per_sample": per_sample, "warm_step_profile": profile}
+    del result, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # resumed from checkpoint-2 for one more step
+    args = _pretrain_args(data.name, out.name, *sched, "--log_steps", "1",
+                          "--n_save_sample", "1", "--save_inference_steps",
+                          str(PRETRAIN_SAMPLE_STEPS),
+                          "--resume_from_checkpoint", "latest")
+    with _checkpoints_checked(checks):
+        resumed, launches2, wall2 = _pretrain_run(args, world)
+    if resumed["resumed_from"] != os.path.join(out.name, "checkpoint-2"):
+        fail(f"pretraining: resumed from {resumed['resumed_from']}")
+    _metrics_finite(resumed["metrics"], "pretraining, resumed")
+    schedule = make_lr_schedule("linear", args.learning_rate, 1,
+                                PRETRAIN_STEPS)
+    lrs = [m["lr"] for m in metrics] + [m["lr"] for m in resumed["metrics"]]
+    if lrs != [schedule(n) for n in (0, 1, 2, 2)]:
+        fail(f"pretraining: learning rates {lrs}, the schedule gives "
+             f"{[schedule(n) for n in range(PRETRAIN_STEPS)]}")
+    if launches2 != {k: per_step[k] + per_sample[k] for k in per_step}:
+        fail(f"pretraining, resumed: launches {launches2}")
+    if [c["path"] for c in checks.get("saved", [])] != ["checkpoint-2"] or \
+            [c["path"] for c in checks.get("restored", [])] != [
+                "checkpoint-2"]:
+        fail(f"pretraining: checkpoints {checks}")
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the artifact loads strictly, and a tuning step runs from it
+    art = os.path.join(out.name, str(PRETRAIN_STEPS))
+    loaded = artifacts.load_e4t_weights(art, {})
+    modules.e4t_encoder.load_state_dict(loaded["e4t"], strict=True)
+    wo.check_bank(loaded["offsets"], ucfg)
+    tune_args = tuning_e4t.parse_args([
+        "--pretrained_model_name_or_path", art, "--train_image_path", "-",
+        "--max_train_steps", "1", "--mixed_precision", "bf16",
+        "--train_batch_size", "2"])
+    image = np.random.default_rng(0).integers(
+        0, 256, (RESOLUTION, RESOLUTION, 3), dtype=np.uint8)
+    tuned = tuning_e4t.tune(
+        tune_args, modules, {k: v.cuda() for k, v in
+                             loaded["offsets"].items()},
+        world[2], "*s", resolve_templates("normal"), world[4], image,
+        NoiseScheduleConfig(), bf16)
+    _metrics_finite(tuned["metrics"], "a tuning step from the artifact")
+    report.update({
+        "resumed": {"wall_s": wall2, "launches": launches2},
+        "checkpoints": checks, "learning_rates": lrs,
+        "artifact": sorted(os.listdir(art)),
+        "tuning_step_from_artifact": tuned["metrics"][0]})
+    print(json.dumps(report))
+    out.cleanup()
+    total = {k: launches[k] + launches2[k] for k in launches}
+    return total, first_metrics, data
+
+
+def phase_routes_pretraining(smi, first_step, data):
+    """One pretraining step from the same weights, data and draws as
+    phase ``pretraining``'s first, with both opt-in routes on: its loss and
+    grad norm against that step's; the GroupNorm launches include the VAE
+    encode's sites."""
+    import gc
+
+    import torch
+
+    world = _pretraining_world()
+    ucfg, vit = world[0].unet.config, world[0].e4t_encoder.config.vit
+    with tempfile.TemporaryDirectory() as out:
+        args = _pretrain_args(data.name, out, "--mixed_precision", "bf16",
+                              "--max_train_steps", "1", "--n_save_sample",
+                              "0")
+        result, launches, wall = _pretrain_run(args, world, routes=True)
+    metrics = result["metrics"]
+    _metrics_finite(metrics, "routes_pretraining")
+    want = _expected_pretraining_launches(ucfg, vit, RESOLUTION, routes=True)
+    if launches != want:
+        fail(f"routes_pretraining: launches {launches}, expected {want}")
+    rel = {k: abs(metrics[0][k] - first_step[k]) / abs(first_step[k])
+           for k in ("loss", "grad_norm")}
+    if not max(rel.values()) <= TUNING_ROUTE_REL:
+        fail(f"pretraining, routes on vs off, first step: {rel} "
+             f"({metrics[0]} against {first_step})")
+    print(json.dumps({
+        "phase": "routes_pretraining", "card": smi, "knobs": ROUTE_KNOBS,
+        "batch": args.train_batch_size, "wall_s": wall,
+        "step_seconds": result["step_seconds"], "metrics": metrics,
+        "first_step_vs_routes_off_rel": rel, "launches": launches}))
+    del result, world
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_f32_pretraining(smi, data):
+    """Two full-width pretraining steps with ``--mixed_precision no`` (the
+    CLI's default: f32 compute, the f32 attention kernels) at the largest
+    batch of F32_PRETRAIN_BATCHES the card holds."""
+    import gc
+
+    import torch
+
+    refused = []
+    for batch in F32_PRETRAIN_BATCHES:
+        world = _pretraining_world()
+        ucfg, vit = world[0].unet.config, world[0].e4t_encoder.config.vit
+        head = _checksums([p for n, p in world[0].e4t_encoder
+                           .named_parameters()
+                           if not n.startswith("clip_vision.")])
+        offsets = _checksums(world[1].values())
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with tempfile.TemporaryDirectory() as out:
+                args = _pretrain_args(
+                    data.name, out, "--max_train_steps", "2",
+                    "--n_save_sample", "0", "--train_batch_size", str(batch))
+                result, launches, wall = _pretrain_run(args, world)
+        except torch.cuda.OutOfMemoryError as err:
+            refused.append({"batch": batch, "error": str(err)[:200]})
+            del world
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        peak = torch.cuda.max_memory_allocated()
+        if args.mixed_precision != "no":
+            fail("the CLI's default --mixed_precision is not 'no'")
+        _metrics_finite(result["metrics"], "f32_pretraining")
+        trained = result["trainable"]
+        if (_checksums(trained["offsets"].values()) == offsets
+                or _checksums(trained["e4t"].values()) == head):
+            fail("f32_pretraining: a trainable group did not change")
+        per_step = _expected_pretraining_launches(
+            ucfg, vit, RESOLUTION, dtype=torch.float32)
+        want = {k: 2 * v for k, v in per_step.items()}
+        if launches != want:
+            fail(f"f32_pretraining: launches {launches}, expected {want}")
+        steady = result["step_seconds"][1:]
+        print(json.dumps({
+            "phase": "f32_pretraining", "card": smi, "dtype": "float32",
+            "batch": batch, "out_of_memory": refused, "wall_s": wall,
+            "step_seconds": result["step_seconds"],
+            "s_per_step": sum(steady) / len(steady),
+            "samples_per_s": batch * len(steady) / sum(steady),
+            "max_memory_allocated_gb": peak / 1e9,
+            "metrics": result["metrics"], "launches": launches}))
+        del result, trained, world
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+    fail(f"f32 pretraining: no batch of {F32_PRETRAIN_BATCHES} fits: "
+         f"{refused}")
+
+
 def kernels_line(cases, paths):
     """The kernels record: one row per kernel, its launches on each path
     (``paths``: launch counts by path) and its times at the main path's
@@ -2616,11 +3216,22 @@ def main():
     f32_tuning_tiny = run("f32_tuning_vs_cpu", phase_f32_tuning_vs_cpu)
     f32_tuning = run("f32_tuning", phase_f32_tuning, smi)
     torch.cuda.empty_cache()
+    pretraining, first_step, data = run("pretraining", phase_pretraining,
+                                        smi)
+    torch.cuda.empty_cache()
+    routes_pretraining = run("routes_pretraining", phase_routes_pretraining,
+                             smi, first_step, data)
+    f32_pretraining = run("f32_pretraining", phase_f32_pretraining, smi,
+                          data)
+    data.cleanup()
     paths = {"sampling": sampling, "int8_sampling": int8_sampling,
              "routes_sampling": routes_sampling,
              "f32_sampling": f32_sampling, "tuning": tuning,
              "routes_tuning": routes_tuning,
-             "f32_tuning_vs_cpu": f32_tuning_tiny, "f32_tuning": f32_tuning}
+             "f32_tuning_vs_cpu": f32_tuning_tiny, "f32_tuning": f32_tuning,
+             "pretraining": pretraining,
+             "routes_pretraining": routes_pretraining,
+             "f32_pretraining": f32_pretraining}
 
     kernels = kernels_line(cases, paths)
     print(json.dumps({"phase_seconds": timings,

@@ -1,16 +1,40 @@
-"""Image transforms of the training input pipeline.
+"""Training input pipeline: folder, tar-shard and HF ``datasets`` sources
+and the image transform.
 
-The port's own copy of the transform half of
-``e4t_diffusion_tpu/data/dataset.py``: SmallestMaxSize with cv2.INTER_AREA
-(the reference's interpolation=3), center or random crop, a p=0.5
-horizontal flip and x / 127.5 - 1, HWC uint8 -> CHW float32. The draws come
-from numpy's ``default_rng(seed)`` in the same order, so a seed gives the
-JAX package's crops and flips. cv2 is imported only when a resize is
-needed. The dataset sources (folders, tar shards) come with pretraining.
+The port's own copy of ``e4t_diffusion_tpu/data/dataset.py``:
+
+- sources: image folders (``::``-joined directories, listed recursively and
+  sorted), tar shards (brace patterns, stdlib ``tarfile``, shards dealt out
+  by process, undecodable members skipped), and an HF ``datasets`` name
+  (imported only when used);
+- the transform: SmallestMaxSize with cv2.INTER_AREA (the reference's
+  interpolation=3), center or random crop, a p=0.5 horizontal flip and
+  x / 127.5 - 1, HWC uint8 -> CHW float32. The draws come from numpy's
+  ``default_rng(seed)`` in the same order, so a seed gives the JAX
+  package's crops and flips;
+- ``E4TDataLoader``: batches of ``{"pixel_values": (B, 3, S, S)}`` from a
+  background thread, or from N decode workers.
+
+The JAX loader takes its native C++ transform when that is built; the port
+has no copy of it yet and always runs this numpy/cv2 transform, which
+gives the same arrays as the JAX loader with ``E4T_DISABLE_NATIVE=1``.
+The process index and count come from ``torch.distributed`` when it is
+initialised, else 0 and 1. cv2 is imported only when a resize is needed.
 """
 from __future__ import annotations
 
+import io
+import json
+import os
+import queue
+import re
+import tarfile
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence
+
 import numpy as np
+
+_IMAGE_EXTS = ("jpg", "jpeg", "png", "gif")
 
 
 def smallest_max_size(image: np.ndarray, size: int) -> np.ndarray:
@@ -66,3 +90,336 @@ def load_image_rgb(path_or_file) -> np.ndarray:
 
     with Image.open(path_or_file) as img:
         return np.asarray(img.convert("RGB"))
+
+
+# ---------------------------------------------------------------------------
+# sources
+# ---------------------------------------------------------------------------
+
+def list_image_files_recursively(data_dir: str) -> List[str]:
+    """Every image under ``data_dir``, in sorted order, recursively."""
+    results: List[str] = []
+    for entry in sorted(os.listdir(data_dir)):
+        full = os.path.join(data_dir, entry)
+        ext = entry.split(".")[-1].lower()
+        if "." in entry and ext in _IMAGE_EXTS:
+            results.append(full)
+        elif os.path.isdir(full):
+            results.extend(list_image_files_recursively(full))
+    return results
+
+
+def braceexpand(pattern: str) -> List[str]:
+    """Minimal {000..099} / {a,b,c} expansion for shard specs."""
+    m = re.search(r"\{(\d+)\.\.(\d+)\}", pattern)
+    if m:
+        lo, hi = m.group(1), m.group(2)
+        out = []
+        for i in range(int(lo), int(hi) + 1):
+            out.extend(braceexpand(pattern[:m.start()] + str(i).zfill(len(lo))
+                                   + pattern[m.end():]))
+        return out
+    m = re.search(r"\{([^{}]*,[^{}]*)\}", pattern)
+    if m:
+        out = []
+        for alt in m.group(1).split(","):
+            out.extend(braceexpand(pattern[:m.start()] + alt
+                                   + pattern[m.end():]))
+        return out
+    return [pattern]
+
+
+def expand_shards(spec: str) -> List[str]:
+    """'::'-joined brace patterns -> the shard list."""
+    shards: List[str] = []
+    for s in spec.split("::"):
+        shards.extend(braceexpand(s))
+    return shards
+
+
+def get_dataset_size(spec: str):
+    """(samples, shards) of a shard spec: from ``sizes.json`` beside the
+    shards, else from each shard's ``*_stats.json`` (samples None when
+    neither exists)."""
+    shards = expand_shards(spec)
+    sizes_file = os.path.join(os.path.dirname(spec), "sizes.json")
+    if os.path.exists(sizes_file):
+        with open(sizes_file) as f:
+            sizes = json.load(f)
+        return sum(int(sizes[os.path.basename(s)]) for s in shards), \
+            len(shards)
+    total, found = 0, False
+    for shard in shards:
+        stats = shard.replace(".tar", "_stats.json")
+        if os.path.exists(stats):
+            with open(stats) as f:
+                s = json.load(f)
+            total += int(s.get("n_data", s.get("successes", 0)))
+            found = True
+    return (total if found else None), len(shards)
+
+
+def iter_tar_shards(shards: Sequence[str], process_index: int = 0,
+                    process_count: int = 1, seed: int = 0,
+                    resample: bool = True) -> Iterator[np.ndarray]:
+    """Decoded RGB arrays from the shards dealt to this process (every
+    ``process_count``-th from ``process_index``; all of them when there are
+    fewer shards than processes), in a fresh random shard order each pass
+    when ``resample``. Undecodable members and unreadable shards are
+    skipped with a message."""
+    rng = np.random.default_rng(seed + process_index)
+    my_shards = list(shards[process_index::process_count]) or list(shards)
+    while True:
+        order = (rng.permutation(len(my_shards)) if resample
+                 else np.arange(len(my_shards)))
+        for si in order:
+            shard = my_shards[int(si)]
+            try:
+                with tarfile.open(shard, "r") as tf:
+                    for member in tf:
+                        if member.name.lower().split(".")[-1] \
+                                not in _IMAGE_EXTS:
+                            continue
+                        try:
+                            data = tf.extractfile(member).read()
+                            yield load_image_rgb(io.BytesIO(data))
+                        except Exception as e:
+                            print(f"[data] skipping {member.name}: {e}")
+            except Exception as e:
+                print(f"[data] skipping shard {shard}: {e}")
+        if not resample:
+            return
+
+
+def _shuffled(it: Iterator, buffer_size: int, seed: int) -> Iterator:
+    """A shuffle buffer of ``buffer_size`` items (webdataset's shuffle)."""
+    rng = np.random.default_rng(seed)
+    buf = []
+    for item in it:
+        buf.append(item)
+        if len(buf) >= buffer_size:
+            i = int(rng.integers(0, len(buf)))
+            buf[i], buf[-1] = buf[-1], buf[i]
+            yield buf.pop()
+    rng.shuffle(buf)
+    yield from buf
+
+
+def process_index_and_count():
+    """(rank, world size) from ``torch.distributed`` when it is
+    initialised, else (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+class E4TDataLoader:
+    """Batches from any of the reference's dataset flavours.
+
+    ``source``: directories joined by '::' (recursive folder dataset); a
+    '*.tar' shard spec or ``use_tar`` (tar-shard stream); anything else an
+    HF ``datasets`` name (``streaming`` for its iterable form). Yields
+    ``{"pixel_values": (B, 3, resolution, resolution) float32 in [-1, 1]}``
+    forever; a partial last batch of a finite source is dropped.
+    ``num_workers`` > 1 decodes and transforms on that many threads, each
+    with its own transform seeded ``seed + 1000 * (worker + 1)``; the
+    sample order is then the order of completion."""
+
+    def __init__(self, source: str, batch_size: int, resolution: int = 512,
+                 random_crop: bool = True, seed: int = 42,
+                 use_tar: bool = False, streaming: bool = False,
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None,
+                 shuffle_buffer: int = 1000, prefetch: int = 2,
+                 num_workers: int = 0):
+        self.source = source
+        self.batch_size = batch_size
+        self.resolution = resolution
+        self.random_crop = random_crop
+        self.transform = self._transform(seed)
+        self.num_workers = num_workers
+        self.seed = seed
+        self.use_tar = use_tar or ".tar" in source
+        self.streaming = streaming
+        rank, world = process_index_and_count()
+        self.process_index = rank if process_index is None else process_index
+        self.process_count = world if process_count is None else process_count
+        self.shuffle_buffer = shuffle_buffer
+        self.prefetch = prefetch
+        self.num_samples = None
+        if self.use_tar:
+            self.num_samples, self.num_shards = get_dataset_size(source)
+
+    def _transform(self, seed: int):
+        return make_transform(self.resolution, self.random_crop, seed=seed)
+
+    def _raw_iter(self):
+        """``(source id, thunk)`` pairs: a name for messages and a
+        zero-argument decode (-> HWC uint8 RGB), so that the decode can run
+        on a worker thread."""
+        if self.use_tar:
+            it = iter_tar_shards(expand_shards(self.source),
+                                 self.process_index, self.process_count,
+                                 self.seed)
+            for n, img in enumerate(_shuffled(it, self.shuffle_buffer,
+                                              self.seed)):
+                yield f"tar sample #{n}", (lambda img=img: img)
+        elif os.path.isdir(self.source.split("::")[0]):
+            files: List[str] = []
+            for name in self.source.split("::"):
+                files.extend(list_image_files_recursively(name))
+            if not files:
+                raise FileNotFoundError(f"no images under {self.source}")
+            self.num_samples = len(files)
+            rng = np.random.default_rng(self.seed)
+            while True:
+                for i in rng.permutation(len(files)):
+                    p = files[int(i)]
+                    yield p, (lambda p=p: load_image_rgb(p))
+        else:
+            from datasets import load_dataset
+
+            ds = load_dataset(self.source, split="train",
+                              streaming=self.streaming)
+            if self.streaming:
+                ds = ds.shuffle(seed=self.seed, buffer_size=10000)
+                while True:
+                    for n, ex in enumerate(ds):
+                        yield (f"{self.source}[stream #{n}]",
+                               lambda ex=ex: np.asarray(
+                                   ex["image"].convert("RGB")))
+            else:
+                self.num_samples = len(ds)
+                rng = np.random.default_rng(self.seed)
+                while True:
+                    for i in rng.permutation(len(ds)):
+                        i = int(i)
+                        yield (f"{self.source}[{i}]",
+                               lambda i=i: np.asarray(
+                                   ds[i]["image"].convert("RGB")))
+
+    def _batch_iter(self) -> Iterator[Dict[str, np.ndarray]]:
+        batch = []
+        for src, thunk in self._raw_iter():
+            try:
+                img = thunk()
+            except Exception as e:
+                print(f"[data] skipping {src}: {e}")
+                continue
+            batch.append(self.transform(img))
+            if len(batch) == self.batch_size:
+                yield {"pixel_values": np.stack(batch)}
+                batch = []
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        if self.num_workers and self.num_workers > 1:
+            return self._iter_threaded()
+        return self._iter_prefetch()
+
+    def _iter_prefetch(self) -> Iterator[Dict[str, np.ndarray]]:
+        """One background thread decodes and batches ``prefetch`` batches
+        ahead of the consumer."""
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for b in self._batch_iter():
+                    if not put(b):
+                        return
+            except Exception as e:  # handed to the consumer, raised there
+                put(e)
+            finally:
+                put(None)
+
+        threading.Thread(target=worker, daemon=True).start()
+        try:
+            while True:
+                b = q.get()
+                if b is None:
+                    return
+                if isinstance(b, Exception):
+                    raise b
+                yield b
+        finally:
+            stop.set()
+
+    def _iter_threaded(self) -> Iterator[Dict[str, np.ndarray]]:
+        """A feeder thread hands decode thunks to ``num_workers`` threads
+        that decode and transform; the consumer batches what they finish.
+        A finite source drains: each worker ends on its sentinel."""
+        n = self.num_workers
+        thunk_q: "queue.Queue" = queue.Queue(maxsize=4 * n)
+        out_q: "queue.Queue" = queue.Queue(
+            maxsize=max(2 * self.batch_size, self.prefetch * self.batch_size,
+                        n + 1))
+        stop = threading.Event()
+
+        def put(q, item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def feeder():
+            try:
+                for src_thunk in self._raw_iter():
+                    if not put(thunk_q, src_thunk):
+                        return
+            finally:
+                for _ in range(n):
+                    put(thunk_q, None)
+
+        def worker(widx: int):
+            transform = self._transform(self.seed + 1000 * (widx + 1))
+            try:
+                while not stop.is_set():
+                    try:
+                        src_thunk = thunk_q.get(timeout=0.2)
+                    except queue.Empty:
+                        continue
+                    if src_thunk is None:
+                        return
+                    src, thunk = src_thunk
+                    try:
+                        item = transform(thunk())
+                    except Exception as e:
+                        print(f"[data] skipping {src}: {e}")
+                        continue
+                    if not put(out_q, item):
+                        return
+            finally:
+                put(out_q, None)
+
+        threads = [threading.Thread(target=feeder, daemon=True)]
+        threads += [threading.Thread(target=worker, args=(i,), daemon=True)
+                    for i in range(n)]
+        for t in threads:
+            t.start()
+        done, batch = 0, []
+        try:
+            while done < n:
+                item = out_q.get()
+                if item is None:
+                    done += 1
+                    continue
+                batch.append(item)
+                if len(batch) == self.batch_size:
+                    yield {"pixel_values": np.stack(batch)}
+                    batch = []
+        finally:
+            stop.set()

@@ -15,7 +15,8 @@ import torch
 
 from e4t_diffusion_torch.diffusion.pipeline import E4TModules
 from e4t_diffusion_torch.models.clip_text import CLIPTextModel
-from e4t_diffusion_torch.models.e4t_encoder import E4TEncoderConfig
+from e4t_diffusion_torch.models.e4t_encoder import (E4TEncoder,
+                                                    E4TEncoderConfig)
 from e4t_diffusion_torch.utils.tokenizer import CLIPTokenizer
 
 Schedule = Callable[[int], float]
@@ -30,6 +31,24 @@ def build_modules(base: Dict, e4t_cfg: E4TEncoderConfig,
     return E4TModules.create(base["unet_config"], base["vae_config"],
                              base["text_config"], e4t_cfg,
                              dtype=torch.float32, device=device)
+
+
+def init_e4t_encoder_params(modules: E4TModules, seed: int = 0) -> None:
+    """Re-initialise the E4T encoder (head and ViT tower) in place from
+    ``seed``, on its device: a fresh encoder is built there with the
+    default generators seeded ``seed`` (their states restored after), and
+    its tensors copied in. The same seed gives the same tensors on one
+    device; the numbers differ from the JAX package's."""
+    enc = modules.e4t_encoder
+    device = enc.final_linear.weight.device
+    devices = [device] if device.type == "cuda" else []
+    with torch.random.fork_rng(devices=devices):
+        torch.manual_seed(seed)
+        with torch.device(device):
+            fresh = E4TEncoder(enc.config)
+    with torch.no_grad():
+        for p, q in zip(enc.parameters(), fresh.parameters()):
+            p.copy_(q)
 
 
 def prepare_tokenizer(base: Dict, placeholder_token: str,

@@ -46,7 +46,7 @@ TOKEN_TABLE = "text_model.embeddings.token_embedding.weight"
 _CLIP_VISION = "clip_vision."
 # batch entries with one row per sample, split across micro-batches
 _PER_SAMPLE = ("latents", "pixel_values", "input_ids", "placeholder_idx",
-               "noise", "timesteps")
+               "noise", "timesteps", "posterior_noise")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,15 +116,17 @@ def merge_params(trainable: ParamGroups, dtype: torch.dtype
 
 
 def encode_latents(modules: E4TModules, pixel_values: torch.Tensor,
-                   generator: Optional[torch.Generator] = None
-                   ) -> torch.Tensor:
-    """VAE-encode, draw from the posterior with noise from ``generator``,
-    and scale, as the train loops do."""
+                   generator: Optional[torch.Generator] = None,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """VAE-encode, draw from the posterior and scale, as the train loops do,
+    without gradients. The posterior's standard normal draw is ``noise``
+    when given, else drawn from ``generator``."""
     vae = modules.vae
     with torch.no_grad():
         mean, logvar = vae.encode(pixel_values)
-        noise = torch.randn(mean.shape, generator=generator,
-                            device=mean.device, dtype=mean.dtype)
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator,
+                                device=mean.device, dtype=mean.dtype)
         return sample_latent(mean, logvar, noise) * vae.config.scaling_factor
 
 
@@ -135,15 +137,20 @@ def e4t_loss_fn(modules: E4TModules, ddpm: DDPMScheduler,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The shared E4T loss -> (loss, {"loss", "loss_diff", "loss_reg"}).
 
-    batch: ``latents`` (B, 4, h, w) already VAE-encoded and scaled
-    (``encode_latents``), ``pixel_values``
-    (B, 3, H, W) in [-1, 1], ``input_ids`` (B, L) templated prompts,
-    ``placeholder_idx`` (B,), ``uncond_ids`` (1, L), ``class_token_id``
-    (); optionally ``noise`` (like latents) and ``timesteps`` (B,), which
-    are otherwise drawn from ``generator``. The compute dtype is the frozen
-    VAE's."""
+    batch: ``pixel_values`` (B, 3, H, W) in [-1, 1], ``input_ids`` (B, L)
+    templated prompts, ``placeholder_idx`` (B,), ``uncond_ids`` (1, L),
+    ``class_token_id`` (); ``latents`` (B, 4, h, w) already VAE-encoded and
+    scaled (tuning: ``encode_latents`` once a run), or absent or None
+    (pretraining: ``pixel_values`` are encoded here, every step, the
+    posterior drawn from ``posterior_noise`` when given, else from
+    ``generator``); optionally ``noise`` (like latents) and ``timesteps``
+    (B,), which are otherwise drawn from ``generator``, after the
+    posterior. The compute dtype is the frozen VAE's."""
     dtype = modules.vae.quant_conv.weight.dtype
-    latents = batch["latents"]
+    latents = batch.get("latents")
+    if latents is None:
+        latents = encode_latents(modules, batch["pixel_values"], generator,
+                                 batch.get("posterior_noise"))
     bsz, dev = latents.shape[0], latents.device
     noise = batch.get("noise")
     if noise is None:
@@ -236,7 +243,11 @@ def make_train_step(modules: E4TModules, ddpm: DDPMScheduler,
     rounded to bf16, clipped to ``max_grad_norm`` and applied by
     ``optimizer`` at the learning rate ``schedule(update count)``.
     metrics: loss, loss_diff, loss_reg (0-dim tensors) and, on update
-    calls, grad_norm (the norm before clipping)."""
+    calls, grad_norm (the norm before clipping).
+
+    ``step.counts`` holds {"calls", "updates"}, both 0 for a new run;
+    ``step.resume(updates)`` sets them for a run restored after
+    ``updates`` optimizer updates, so the schedule goes on from there."""
     params = [t for group in trainable.values() for t in group.values()]
     counts = {"calls": 0, "updates": 0}
 
@@ -277,4 +288,9 @@ def make_train_step(modules: E4TModules, ddpm: DDPMScheduler,
         counts["updates"] += 1
         return metrics
 
+    def resume(updates: int) -> None:
+        counts.update(calls=updates * accumulate_steps, updates=updates)
+
+    step.counts = counts
+    step.resume = resume
     return step

@@ -1,22 +1,32 @@
 """Artifacts: local diffusers-format SD checkpoints and the E4T ``.pt``
 artifacts, loaded and saved.
 
-Counterpart of ``e4t_diffusion_tpu/utils/artifacts.py`` without its
-resumable training state (that comes with pretraining).
+Counterpart of ``e4t_diffusion_tpu/utils/artifacts.py``.
 An SD base directory holds ``unet/ vae/ text_encoder/ tokenizer/
 scheduler/`` subfolders (``.bin`` or ``.safetensors``). An E4T artifact
 directory holds ``config.json``, ``encoder.pt`` and either
 ``weight_offsets.pt`` (pretraining) or ``unet.pt`` (tuning: the whole UNet
 with the offsets embedded), plus an optional ``text_encoder.pt`` and
 ``domain.png``. The state dicts returned here load strictly into the
-port's modules, and what ``save_e4t_weights`` writes (a tuning run's
-artifacts) loads strictly into the port and into the JAX package.
+port's modules, and what ``save_e4t_weights`` writes (either flavour)
+loads strictly into the port and into the JAX package.
+
+Resumable training state: ``output_dir/checkpoint-<step>/train_state.pt``,
+one ``torch.save`` of the trainable tensors, the optimizer's
+``state_dict``, the step, the update count and the ``torch.Generator``'s
+state (the JAX package's Orbax checkpoint holds the same). A save writes
+into ``checkpoint-<step>.tmp`` and renames it when complete, so a
+``checkpoint-<step>`` directory always holds a whole state. With
+``async_save`` the state is copied to the host at the call and written by a
+background thread; ``wait_for_checkpoints`` joins it.
 """
 from __future__ import annotations
 
 import json
 import os
 import re
+import shutil
+import threading
 from typing import Any, Dict, Optional
 
 import torch
@@ -182,19 +192,24 @@ def _save_state_dict(sd: Dict[str, torch.Tensor], path: str) -> None:
 
 def save_e4t_weights(save_dir: str, step: int, config: Dict[str, Any],
                      e4t_state: Dict[str, torch.Tensor],
-                     unet_state: Dict[str, torch.Tensor],
+                     unet_state: Optional[Dict[str, torch.Tensor]],
                      offsets: Dict[str, torch.Tensor],
                      text_state: Optional[Dict[str, torch.Tensor]] = None,
                      domain_image=None) -> str:
-    """Write a tuning run's ``save_dir/<step>/`` in the reference layout:
-    ``config.json``, ``encoder.pt`` (the encoder's state dict,
-    ``first_linears.{i}`` keys), ``unet.pt`` (the whole UNet with the
-    offset bank's keys added), optionally ``text_encoder.pt`` and
-    ``domain.png`` (a PIL image). Returns the directory."""
+    """Write ``save_dir/<step>/`` in the reference layout: ``config.json``,
+    ``encoder.pt`` (the encoder's state dict, ``first_linears.{i}`` keys)
+    and, for a pretraining run (``unet_state`` None), ``weight_offsets.pt``
+    (the bank), for a tuning run ``unet.pt`` (the whole UNet with the
+    bank's keys added), optionally ``text_encoder.pt`` and ``domain.png``
+    (a PIL image). Returns the directory."""
     out = os.path.join(save_dir, str(step))
     os.makedirs(out, exist_ok=True)
     save_config(config, out)
-    _save_state_dict({**unet_state, **offsets}, os.path.join(out, "unet.pt"))
+    if unet_state is None:
+        _save_state_dict(offsets, os.path.join(out, "weight_offsets.pt"))
+    else:
+        _save_state_dict({**unet_state, **offsets},
+                         os.path.join(out, "unet.pt"))
     _save_state_dict(e4t_state, os.path.join(out, "encoder.pt"))
     if text_state is not None:
         _save_state_dict(text_state, os.path.join(out, "text_encoder.pt"))
@@ -220,12 +235,143 @@ def load_e4t_weights(artifact_dir: str, base: Dict[str, Any]
     else:
         raise FileNotFoundError(
             f"neither unet.pt nor weight_offsets.pt in {artifact_dir}")
-    enc = load_state_dict_file(os.path.join(artifact_dir, "encoder.pt"))
-    # the reference saves its CLIP normalization buffers and the unused
-    # open_clip projection alongside the encoder
-    out["e4t"] = {k: v for k, v in enc.items()
-                  if not re.match(r"^(mean|std|clip_vision\.proj)$", k)}
+    out["e4t"] = encoder_state_from_artifact(
+        os.path.join(artifact_dir, "encoder.pt"))
     te_path = os.path.join(artifact_dir, "text_encoder.pt")
     if os.path.exists(te_path):
         out["text"] = _text_state_dict(load_state_dict_file(te_path))
     return out
+
+
+def encoder_state_from_artifact(path: str) -> Dict[str, torch.Tensor]:
+    """An ``encoder.pt`` as a state dict for the port's E4T encoder: the
+    reference's CLIP normalization buffers and the unused open_clip
+    projection are dropped."""
+    enc = load_state_dict_file(path)
+    return {k: v for k, v in enc.items()
+            if not re.match(r"^(mean|std|clip_vision\.proj)$", k)}
+
+
+# ---------------------------------------------------------------------------
+# resumable training state
+# ---------------------------------------------------------------------------
+
+TRAIN_STATE_FILE = "train_state.pt"
+_PENDING: Dict[str, Any] = {"thread": None, "error": None}
+
+
+def _to_host(obj: Any) -> Any:
+    """A copy of ``obj`` with every tensor detached, cloned and on the CPU
+    (taken now, so later steps do not change what is written)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def wait_for_checkpoints() -> None:
+    """Block until an in-flight async save has been written, and raise its
+    error if it failed. Call before exiting, before restoring and before a
+    final save."""
+    thread = _PENDING["thread"]
+    if thread is not None:
+        thread.join()
+        _PENDING["thread"] = None
+    error, _PENDING["error"] = _PENDING["error"], None
+    if error is not None:
+        raise RuntimeError("an async checkpoint save failed") from error
+
+
+def _write_train_state(path: str, payload: Dict[str, Any]) -> None:
+    tmp = path + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(payload, os.path.join(tmp, TRAIN_STATE_FILE))
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+
+
+def save_train_state(output_dir: str, step: int,
+                     trainable: Dict[str, Dict[str, torch.Tensor]],
+                     optimizer: torch.optim.Optimizer, updates: int,
+                     generator: torch.Generator,
+                     async_save: bool = False) -> str:
+    """Checkpoint the train state as ``output_dir/checkpoint-<step>``.
+    ``trainable``: {group: {name: tensor}}; ``updates``: the optimizer
+    updates made (the schedule's count). The state is copied to the host
+    here, at the step boundary; ``async_save`` writes it on a background
+    thread (one save in flight: a new one waits for the last)."""
+    path = os.path.abspath(os.path.join(output_dir, f"checkpoint-{step}"))
+    wait_for_checkpoints()
+    payload = {"step": int(step), "updates": int(updates),
+               "trainable": _to_host(trainable),
+               "optimizer": _to_host(optimizer.state_dict()),
+               "generator": generator.get_state()}
+    os.makedirs(output_dir, exist_ok=True)
+    if not async_save:
+        _write_train_state(path, payload)
+        return path
+
+    def write():
+        try:
+            _write_train_state(path, payload)
+        except BaseException as e:  # raised by wait_for_checkpoints
+            _PENDING["error"] = e
+
+    thread = threading.Thread(target=write, name=f"checkpoint-{step}")
+    _PENDING["thread"] = thread
+    thread.start()
+    return path
+
+
+def find_latest_checkpoint(output_dir: str) -> Optional[str]:
+    """The ``checkpoint-<step>`` directory of ``output_dir`` with the
+    largest step (numeric order: 10 after 9), or None."""
+    if not os.path.isdir(output_dir):
+        return None
+    dirs = [d for d in os.listdir(output_dir)
+            if re.match(r"^checkpoint-\d+$", d)]
+    if not dirs:
+        return None
+    dirs.sort(key=lambda d: int(d.split("-")[1]))
+    return os.path.join(output_dir, dirs[-1])
+
+
+def resolve_checkpoint(output_dir: str,
+                       resume_from_checkpoint: Optional[str]
+                       ) -> Optional[str]:
+    """``--resume_from_checkpoint``: "latest" is the newest checkpoint of
+    ``output_dir``; a path is taken as given; None, or a path that does not
+    exist, means a new run."""
+    if not resume_from_checkpoint:
+        return None
+    if resume_from_checkpoint == "latest":
+        return find_latest_checkpoint(output_dir)
+    return (resume_from_checkpoint if os.path.isdir(resume_from_checkpoint)
+            else None)
+
+
+def restore_train_state(path: str,
+                        trainable: Dict[str, Dict[str, torch.Tensor]],
+                        optimizer: torch.optim.Optimizer,
+                        generator: torch.Generator) -> Dict[str, int]:
+    """Load a ``save_train_state`` checkpoint in place: the trainable
+    tensors (every group and name must match), the optimizer's state and
+    the generator's. Returns {"step", "updates"}."""
+    wait_for_checkpoints()
+    payload = torch.load(os.path.join(path, TRAIN_STATE_FILE),
+                         map_location="cpu", weights_only=True)
+    saved = payload["trainable"]
+    want = {g: sorted(group) for g, group in trainable.items()}
+    if {g: sorted(group) for g, group in saved.items()} != want:
+        raise KeyError(f"{path} holds other trainable tensors than this run")
+    with torch.no_grad():
+        for g, group in trainable.items():
+            for name, t in group.items():
+                t.copy_(saved[g][name])
+    optimizer.load_state_dict(payload["optimizer"])
+    generator.set_state(payload["generator"])
+    return {"step": int(payload["step"]), "updates": int(payload["updates"])}

@@ -190,6 +190,18 @@ def state_dicts_from_jax(params_np: Mapping[str, Any], modules
     return out
 
 
+def vit_from_open_clip(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """An open_clip visual tower's state dict -> the port's
+    ``VisionTransformer`` state dict (the same names). Keys under
+    ``visual.`` are taken when any key has that prefix (a whole CLIP
+    model's file), stripped of it; the tower's output projection ``proj``
+    is dropped, as the encoder uses the un-projected features. Load the
+    result strictly: a missing or extra key is an error there."""
+    prefix = "visual." if any(k.startswith("visual.") for k in sd) else ""
+    return {k[len(prefix):]: v for k, v in sd.items()
+            if k.startswith(prefix) and k[len(prefix):] != "proj"}
+
+
 def load_state_dict_file(path: str) -> StateDict:
     """A state dict from ``.safetensors`` or a torch ``.pt`` / ``.bin``."""
     if path.endswith(".safetensors"):

@@ -35,3 +35,13 @@ def load_image(path: str, resolution: Optional[int] = None) -> Image.Image:
         img = Image.fromarray(center_crop(arr, resolution))
     return img
 
+
+
+def to_pil(images01) -> list:
+    """(B, 3, H, W) floats in [0, 1] (numpy or torch) -> a list of PIL
+    images, rounded to uint8."""
+    if hasattr(images01, "detach"):
+        images01 = images01.detach().float().cpu().numpy()
+    arr = (np.asarray(images01).transpose(0, 2, 3, 1) * 255).round().astype(
+        np.uint8)
+    return [Image.fromarray(a) for a in arr]

@@ -1,0 +1,45 @@
+"""Step timing for the training loop.
+
+The ``StepTimer`` of ``e4t_diffusion_tpu/utils/profiling.py``: wall time
+between the loop's step boundaries, after a few warm-up steps, as steps/s
+and samples/s. The caller marks a boundary once a step's results are on
+the host (a synchronised point), so the times cover the device's work.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+
+class StepTimer:
+    """Post-warm-up step times; reports steps/s and samples/s."""
+
+    def __init__(self, warmup_steps: int = 2, batch_size: int = 1):
+        self.warmup_steps = warmup_steps
+        self.batch_size = batch_size
+        self._count = 0
+        self._t_last: Optional[float] = None
+        self._total = 0.0
+        self._timed_steps = 0
+        self._min = float("inf")
+
+    def step(self) -> None:
+        now = time.perf_counter()
+        self._count += 1
+        if self._count > self.warmup_steps and self._t_last is not None:
+            dt = now - self._t_last
+            self._total += dt
+            self._timed_steps += 1
+            self._min = min(self._min, dt)
+        self._t_last = now
+
+    def metrics(self) -> Dict[str, float]:
+        if self._timed_steps == 0:
+            return {}
+        mean = self._total / self._timed_steps
+        return {
+            "perf/step_time_mean_s": mean,
+            "perf/step_time_min_s": self._min,
+            "perf/steps_per_sec": 1.0 / mean,
+            "perf/samples_per_sec": self.batch_size / mean,
+        }

@@ -122,6 +122,11 @@ GN_F32_MAX_ABS = 1e-4
 # same weights and data: bf16 rounding apart at 61 GroupNorm sites a pass
 # and the ViT's 32 attention sites
 TUNING_ROUTE_REL = 5e-2
+# the first pretraining step's loss and grad norm with both routes on vs
+# off: the UNet is frozen and the VAE encode's GroupNorm sites join them;
+# measured 2.8e-5 on both (H100 80GB HBM3, 700 W), so 1e-3 leaves room for
+# rounding and still sees a site that normalises wrongly
+PRETRAIN_ROUTE_REL = 1e-3
 # the knobs and the values the opt-in phases set
 ROUTE_KNOBS = {"E4T_FUSED_GN": "1", "E4T_SHORTSEQ_MH_ATTN": "8"}
 # f32 attention kernels against their plain versions in f32 on the same
@@ -1093,8 +1098,9 @@ def phase_kernels():
     for shape in ((3, 5, 36), (7, 40)):
         ragged.append(_quantize_case(shape, gen, timed=False))
     # the opt-in routes: every distinct GroupNorm site of a batch-8 512px
-    # UNet pass and VAE decode, and the ViT-H's attention sites when
-    # sampling (BH = 8 x 16 heads) and tuning (16 x 16)
+    # UNet pass and VAE decode, of the VAE encode a pretraining step runs at
+    # batch 16, and the ViT-H's attention sites when sampling (BH = 8 x 16
+    # heads) and tuning (16 x 16)
     from e4t_diffusion_torch.models.unet import UNetConfig
     from e4t_diffusion_torch.models.vae import VAEConfig
 
@@ -1108,6 +1114,16 @@ def phase_kernels():
                for (c, h, w, groups, eps, act, layout), count in sorted(
                    gn_sites[part].items(), key=str)]
         for part in ("unet", "vae_decode")}
+    torch.cuda.empty_cache()
+    # the encode's layouts as the card gives them at the pretraining batch
+    encode_sites = _group_norm_sites(UNetConfig(), VAEConfig(),
+                                     PRETRAIN_BATCH, RESOLUTION,
+                                     "cuda")["vae_encode"]
+    group_norm["vae_encode"] = [
+        _gn_case(PRETRAIN_BATCH, c, h, w, groups, eps, act, layout,
+                 torch.bfloat16, gen, timed=True, sites=count)
+        for (c, h, w, groups, eps, act, layout), count in sorted(
+            encode_sites.items(), key=str)]
     torch.cuda.empty_cache()
     for n_, c, h, w, groups, act, layout, dtype in (
             (1, 32, 7, 9, 32, "silu", "nchw", torch.float32),  # C/G = 1
@@ -2397,10 +2413,16 @@ def phase_f32_tuning(smi):
 # DDIM-4), then 1 step resumed from that checkpoint; the images written for
 # it, of mixed sizes and aspect ratios (PNG and JPEG)
 PRETRAIN_STEPS = 3
+PRETRAIN_BATCH = 16
 PRETRAIN_IMAGES = 40
 PRETRAIN_SAMPLE_STEPS = 4
 # full-width f32 pretraining: the largest of these batches the card holds
 F32_PRETRAIN_BATCHES = (16, 8, 4)
+# the loader timed on 1024x1024 images (the published model's FFHQ +
+# CelebA-HQ are that size), with one decode thread and with this many
+LOADER_LARGE_SIDE = 1024
+LOADER_LARGE_IMAGES = 32
+LOADER_WORKERS = 4
 
 
 def _expected_sampling_launches(ucfg, vit_cfg, batch, resolution, steps,
@@ -2480,6 +2502,45 @@ def _write_pretraining_images(folder, n, seed=0):
     return sizes
 
 
+def _write_square_images(folder, n, side, seed=1):
+    """``n`` side x side images, half PNG and half JPEG (quality 95), of
+    smooth seeded content with grain. Returns {"png": [bytes], "jpg":
+    [bytes]}, the files' sizes."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:side, 0:side]
+    sizes = {"png": [], "jpg": []}
+    for i in range(n):
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        base = np.stack([127 + 100 * np.sin(xx / (40 + 30 * c) + phase[c]
+                                            + yy / 97) for c in range(3)], -1)
+        img = (base + rng.normal(0, 6, (side, side, 3))).clip(0, 255).astype(
+            np.uint8)
+        ext = "jpg" if i % 2 else "png"
+        path = os.path.join(folder, f"{i:03d}.{ext}")
+        Image.fromarray(img).save(path, **({"quality": 95} if ext == "jpg"
+                                           else {}))
+        sizes[ext].append(os.path.getsize(path))
+    return sizes
+
+
+def _loader_seconds(loader, batches=3):
+    """Seconds per batch that ``loader`` yields, over ``batches`` batches
+    after its first (which also starts its threads)."""
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        if next(it)["pixel_values"].shape != (
+                loader.batch_size, 3, loader.resolution, loader.resolution):
+            fail("pretraining: a loader batch of the wrong shape")
+    seconds = (time.perf_counter() - t0) / batches
+    it.close()
+    return seconds
+
+
 def _pretraining_world(seed=0):
     """Full-width modules (f32, seeded), the encoder and offset bank the CLI
     starts from (``pretrain_e4t.load_e4t_start``: the seeded init), the
@@ -2524,8 +2585,8 @@ def _pretrain_args(data_dir, out_dir, *extra):
         "--pretrained_model_name_or_path", "-",
         "--train_image_dataset", data_dir, "--domain_class_token", "face",
         "--prompt_template", "normal", "--output_dir", out_dir,
-        "--train_batch_size", "16", "--resolution", str(RESOLUTION),
-        "--seed", "0", *extra])
+        "--train_batch_size", str(PRETRAIN_BATCH), "--resolution",
+        str(RESOLUTION), "--seed", "0", *extra])
 
 
 def _pretrain_run(args, world, routes=False):
@@ -2696,6 +2757,7 @@ def phase_pretraining(smi):
 
     import numpy as np
     import torch
+    from PIL import Image
 
     from e4t_diffusion_torch import tuning_e4t
     from e4t_diffusion_torch.data.dataset import E4TDataLoader
@@ -2709,16 +2771,16 @@ def phase_pretraining(smi):
     t0 = time.perf_counter()
     sizes = _write_pretraining_images(data.name, PRETRAIN_IMAGES)
     images_s = time.perf_counter() - t0
-    # the loader alone: seconds per batch of 16 after its first
-    it = iter(E4TDataLoader(data.name, 16, RESOLUTION, seed=0))
-    t0 = time.perf_counter()
-    next(it)
-    t1 = time.perf_counter()
-    for _ in range(3):
-        if next(it)["pixel_values"].shape != (16, 3, RESOLUTION, RESOLUTION):
-            fail("pretraining: a loader batch of the wrong shape")
-    loader_s = (time.perf_counter() - t1) / 3
-    it.close()
+    loader_s = _loader_seconds(E4TDataLoader(data.name, PRETRAIN_BATCH,
+                                             RESOLUTION, seed=0))
+    # the published model's domain, FFHQ + CelebA-HQ, is 1024x1024 photos:
+    # the loader on such images, one decode thread and LOADER_WORKERS
+    with tempfile.TemporaryDirectory() as large:
+        large_bytes = _write_square_images(large, LOADER_LARGE_IMAGES,
+                                           LOADER_LARGE_SIDE)
+        loader_large = {workers: _loader_seconds(E4TDataLoader(
+            large, PRETRAIN_BATCH, RESOLUTION, seed=0, num_workers=workers))
+            for workers in (0, LOADER_WORKERS)}
 
     t0 = time.perf_counter()
     world = _pretraining_world()
@@ -2767,14 +2829,18 @@ def phase_pretraining(smi):
     for k in frozen:
         if after[k] != before[k]:
             fail(f"pretraining: the frozen {k} changed")
-    for step, images in result["samples"].items():
-        if images.shape != (1, 3, RESOLUTION, RESOLUTION) or not (
-                np.isfinite(images).all() and images.min() >= 0.0
-                and images.max() <= 1.0):
-            fail(f"pretraining: the sample at step {step} is not finite "
-                 f"images in [0, 1]")
-    if sorted(result["samples"]) != list(range(1, PRETRAIN_STEPS + 1)):
-        fail(f"pretraining: samples at {sorted(result['samples'])}")
+    if result["sampled"] != list(range(1, PRETRAIN_STEPS + 1)):
+        fail(f"pretraining: samples at {result['sampled']}")
+    images = result["last_samples"]
+    if images.shape != (1, 3, RESOLUTION, RESOLUTION) or not (
+            np.isfinite(images).all() and images.min() >= 0.0
+            and images.max() <= 1.0):
+        fail("pretraining: the last sample is not finite images in [0, 1]")
+    for step in result["sampled"]:
+        grid = os.path.join(out.name, "samples", f"sample-{step}.png")
+        with Image.open(grid) as img:
+            if img.size != (RESOLUTION, RESOLUTION):
+                fail(f"pretraining: sample-{step}.png is {img.size}")
     per_step = _expected_pretraining_launches(ucfg, ecfg.vit, RESOLUTION)
     per_sample = _expected_sampling_launches(ucfg, ecfg.vit, 1, RESOLUTION,
                                              PRETRAIN_SAMPLE_STEPS)
@@ -2798,6 +2864,11 @@ def phase_pretraining(smi):
         "step_seconds": result["step_seconds"], "s_per_step": s_per_step,
         "samples_per_s": args.train_batch_size / s_per_step,
         "loader_s_per_batch": loader_s,
+        "loader_large": {
+            "side": LOADER_LARGE_SIDE, "n": LOADER_LARGE_IMAGES,
+            "mean_file_bytes": {k: sum(v) / len(v)
+                                for k, v in large_bytes.items()},
+            "s_per_batch_by_workers": loader_large},
         "loader_wait_s": result["wait_seconds"],
         "max_memory_allocated_gb": peak / 1e9, "metrics": metrics,
         "launches": launches, "launches_per_step": per_step,
@@ -2883,7 +2954,7 @@ def phase_routes_pretraining(smi, first_step, data):
         fail(f"routes_pretraining: launches {launches}, expected {want}")
     rel = {k: abs(metrics[0][k] - first_step[k]) / abs(first_step[k])
            for k in ("loss", "grad_norm")}
-    if not max(rel.values()) <= TUNING_ROUTE_REL:
+    if not max(rel.values()) <= PRETRAIN_ROUTE_REL:
         fail(f"pretraining, routes on vs off, first step: {rel} "
              f"({metrics[0]} against {first_step})")
     print(json.dumps({
@@ -3079,7 +3150,7 @@ def kernels_line(cases, paths):
         "per_site": [{k: c[k] for k in q_keys} for c in quants]})
 
     gn = cases["group_norm"]
-    gn_all = gn["unet"] + gn["vae_decode"] + [
+    gn_all = gn["unet"] + gn["vae_decode"] + gn["vae_encode"] + [
         c for c in cases["ragged"] if c["kernel"] == "group_norm"]
     gn_keys = ("n", "c", "h", "w", "groups", "act", "layout", "sites", "ms",
                "wall_ms", "parent_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3109,8 +3180,9 @@ def kernels_line(cases, paths):
                  "around one call",
         "per_unet_pass": per_run("unet"),
         "per_vae_decode": per_run("vae_decode"),
+        "per_vae_encode_batch_16": per_run("vae_encode"),
         "per_site": {part: [{k: c[k] for k in gn_keys} for c in gn[part]]
-                     for part in ("unet", "vae_decode")}})
+                     for part in ("unet", "vae_decode", "vae_encode")}})
     short = [c for c in cases["shortseq"] + cases["ragged"]
              if c["kernel"] == "flash_fwd_shortseq"]
     kernels.append(entry("flash_fwd_shortseq", "flash_fwd_shortseq.cu", 896,

@@ -181,7 +181,10 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
     {"trainable", "optimizer", "global_step", "resumed_from",
     "metrics" (per update, floats, with "lr"), "step_seconds" (per call,
     synchronised), "wait_seconds" (per call, the host's wait for the
-    batch), "samples" ({update: float images}), "saved" (artifact dirs)}."""
+    batch), "sampled" (the updates that wrote a sample grid under
+    ``samples/``), "last_samples" (the last grid's float images, or None:
+    only the last is held, the grids are on disk), "saved" (artifact
+    dirs)}."""
     device = modules.unet.conv_in.weight.device
     tracker = tracker or NullTracker()
     rank, world = process_index_and_count()
@@ -243,13 +246,14 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
 
     sample_pipe = None
     sample_seeds = np.random.default_rng(args.seed)
-    samples: Dict[int, np.ndarray] = {}
+    sampled: List[int] = []
+    last_samples: Optional[np.ndarray] = None
 
     def sample(pixel_values: np.ndarray, step: int) -> None:
         # built once, on the training modules and the trainable offsets
         # (read in place: each run sees the current values); its own
         # generators, so no training draw is taken
-        nonlocal sample_pipe
+        nonlocal sample_pipe, last_samples
         if sample_pipe is None:
             sample_pipe = StableDiffusionE4TPipeline(
                 modules, trainable["offsets"], tokenizer,
@@ -258,7 +262,8 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
                 already_added_placeholder_token=True)
         inputs, grid, images = _sample_grid(args, sample_pipe, pixel_values,
                                             sample_seeds)
-        samples[step] = images
+        sampled.append(step)
+        last_samples = images
         sample_dir = os.path.join(args.output_dir, "samples")
         os.makedirs(sample_dir, exist_ok=True)
         inputs.save(os.path.join(sample_dir, f"input-{step}.png"))
@@ -344,7 +349,8 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
     return {"trainable": trainable, "optimizer": optimizer,
             "global_step": global_step, "resumed_from": resumed_from,
             "metrics": history, "step_seconds": seconds,
-            "wait_seconds": waits, "samples": samples, "saved": saved}
+            "wait_seconds": waits, "sampled": sampled,
+            "last_samples": last_samples, "saved": saved}
 
 
 def load_e4t_start(args: argparse.Namespace, modules: E4TModules,

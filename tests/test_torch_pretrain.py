@@ -14,9 +14,11 @@ AdamW (as in ``tests/test_torch_train_step.py``).
 
 Tolerances, f32 on the CPU: the loss terms rel 1e-5 and each trainable
 group's gradient rel-L2 1e-4, as the tuning step's parity; the offsets and
-the encoder head after AdamW 1e-5 absolute, at a learning rate of 1e-5,
-so that an update of lr * g / (|g| + eps) whose gradient rounds apart by
-the 1e-4 tolerance moves the parameter by far less.
+the encoder head after AdamW 1e-5 absolute, and the update itself (after
+minus before, nonzero) rel-L2 1e-3 against JAX's, as the tuning step's
+``_assert_params_match``: a first AdamW step moves each element by about
+lr = 1e-5, so only the update's own comparison would see it skipped,
+halved or left out of a group.
 """
 import os
 import signal
@@ -67,6 +69,7 @@ CFG = dict(train_unet=False, train_text_encoder=False, max_grad_norm=None,
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 PARAM_TOL = 1e-5
+UPDATE_TOL = 1e-3
 WORDS = ["photo", "of", "a", "the", "face", "monet", "style", "in"]
 ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 
@@ -161,6 +164,8 @@ def test_pretraining_step_matches_jax(world):
     """Latents absent: the port encodes the pixels under no_grad with JAX's
     posterior draw; loss, per-group gradients and the AdamW update agree."""
     _, trainable, frozen, _, step, seen = _port_step(world["params"])
+    before = {g: {k: t.detach().clone() for k, t in group.items()}
+              for g, group in trainable.items()}
     assert set(trainable) == {"e4t", "offsets"}
     assert set(frozen) == {"unet", "text", "vae", "e4t_frozen"}
     metrics = step(_torch_batch(world["batch"], world["draws"]))
@@ -181,6 +186,14 @@ def test_pretraining_step_matches_jax(world):
         for k, want in world["after"][group].items():
             got = trainable[group][k].detach()
             assert float((got - want).abs().max()) <= PARAM_TOL, (group, k)
+        keys = sorted(world["after"][group])
+        start = torch.cat([before[group][k].ravel() for k in keys]).double()
+        got = torch.cat([trainable[group][k].detach().ravel()
+                         for k in keys]).double() - start
+        want = torch.cat([world["after"][group][k].ravel()
+                          for k in keys]).double() - start
+        assert float(got.abs().max()) > 0, group
+        assert float((got - want).norm() / want.norm()) <= UPDATE_TOL, group
 
 
 def test_posterior_draw_comes_from_the_generator(world):
@@ -489,12 +502,14 @@ def test_cli_chain_pretrain_tune_infer(base_dir, tmp_path):
                                        "samples"]
     assert sorted(os.listdir(out / "3")) == ["config.json", "encoder.pt",
                                              "weight_offsets.pt"]
-    assert sorted(first["samples"]) == [1, 2, 3]
-    for images in first["samples"].values():
-        assert images.shape == (1, 3, 32, 32)
-        assert np.isfinite(images).all()
-        assert images.min() >= 0.0 and images.max() <= 1.0
-    assert Image.open(out / "samples" / "sample-3.png").size == (32, 32)
+    assert first["sampled"] == [1, 2, 3]
+    images = first["last_samples"]
+    assert images.shape == (1, 3, 32, 32)
+    assert np.isfinite(images).all()
+    assert images.min() >= 0.0 and images.max() <= 1.0
+    for step in (1, 2, 3):
+        assert Image.open(out / "samples" / f"sample-{step}.png").size == (
+            32, 32)
     schedule = make_lr_schedule("linear", 1e-3, 1, 3)
     assert [m["lr"] for m in first["metrics"]] == [schedule(n)
                                                    for n in range(3)]
@@ -578,7 +593,8 @@ def test_sampling_leaves_training_unchanged(base_dir, tmp_path):
             "--save_inference_steps", "2", "--save_sample_prompt",
             "a photo of *s", "--device", "cpu"))
         runs.append(result)
-    assert sorted(runs[0]["samples"]) == [1, 2] and not runs[1]["samples"]
+    assert runs[0]["sampled"] == [1, 2] and not runs[1]["sampled"]
+    assert runs[1]["last_samples"] is None
     a, b = runs
     for g in a["trainable"]:
         for k in a["trainable"][g]:

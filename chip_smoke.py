@@ -9,15 +9,26 @@ Phases (any failure exits non-zero; each prints its wall seconds):
 2. build: nvcc compiles every kernel source of the port, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes and at ragged shapes, with times, the work's
-   bound and a library call of the same function as a yardstick;
+   bound and a library call of the same function as a yardstick; the int8
+   conv also at every distinct conv of a batch-8 512px VAE decode, the
+   quantization kernel at the ViT-H's and the VAE's linear inputs, and the
+   ViT-H's patch conv on its route (all bit for bit);
 4. sampling: StableDiffusionE4TPipeline at full SD-v1 width (UNet, VAE,
    CLIP-L text, ViT-H-14 E4T encoder) with seeded random bf16 weights,
    two prompts x 4 images at 512px, CFG 7.5, DDIM and DPM++ 2M;
+4b. schedulers: the same under PLMS (STEPS + 1 model evaluations), LMS,
+   Euler and Euler-ancestral, each twice with one seed;
 5. int8_sampling: the same pipeline serving the UNet in int8: static
    activation scales (calibrated on the first call) under DDIM and DPM++,
    then dynamic scales with the int8 attention kernel in "qk" and "qkpv"
    mode; the UNet's eps on the kernels against the same int8 path on the
    plain versions, and the int8 error against bf16;
+5b. serving: the batch server (``serve_e4t.main``) on phase 4's weights
+   written as a model directory: 20 prompts at batch 8, DDIM-4, a LoRA
+   file, ``--int8 --int8_static_act --int8_aux_static`` (the ViT-H and the
+   VAE decode in int8); the manifest and PNGs, the int8 towers against
+   bf16 towers, LoRA on against off, one ViT-H encode and one VAE decode
+   timed in bf16 and in int8;
 6. routes_sampling: phase 4's pipeline with the two opt-in routes on,
    ``E4T_FUSED_GN=1`` (every UNet and VAE GroupNorm on the GroupNorm
    kernel) and ``E4T_SHORTSEQ_MH_ATTN=8`` (the ViT-H's 257-token sites on
@@ -29,7 +40,8 @@ Phases (any failure exits non-zero; each prints its wall seconds):
 8. routes_tuning: the same from the same weights with both routes on, 2
    steps, the first step's loss and grad norm against phase 7's;
 9. the tiny pipeline on the card against the same pipeline on the CPU, in
-   f32, in static int8 and in f32 with ``E4T_FUSED_GN=1``;
+   f32, in static int8, in f32 with ``E4T_FUSED_GN=1`` and in f32 under
+   each of PLMS, LMS, Euler and Euler-ancestral;
 10. f32_sampling: phase 4's pipeline in f32 (``--dtype fp32``, the f32
    attention kernels), DDIM twice, the UNet's eps on the kernels against
    the same pass on their plain versions; one UNet pass with the int8
@@ -53,11 +65,11 @@ Phases (any failure exits non-zero; each prints its wall seconds):
    on, its loss and grad norm against phase 13's first step;
 15. f32_pretraining: two steps with ``--mixed_precision no`` (the CLI's
    default) at the largest batch of 16, 8 and 4 that the card holds.
-In phases 4 to 8, 10 and 12 to 15 the kernels' launch counters, set to 0
-just before each run and read just after, must show the path went through
-every kernel it routes to, as many times as its attention, conv and
-GroupNorm sites give. The two routes are off by default, and off in every
-other phase but where phase 10 names one.
+In phases 4 to 8, 10 and 12 to 15 (4b and 5b included) the kernels'
+launch counters, set to 0 just before each run and read just after, must
+show the path went through every kernel it routes to, as many times as its
+attention, conv, linear and GroupNorm sites give. The two routes are off
+by default, and off in every other phase but where phase 10 names one.
 
 The second-to-last line of output is a JSON ``kernels`` record, the last
 ``{"ok": true, "device": {...}}``.
@@ -112,6 +124,9 @@ UNET_INT8_PLAIN_REL_L2 = 2e-2
 # int8 against bf16, eps and final latents: PTQ error is a few percent; a
 # wrong scale or layout gives O(1)
 INT8_VS_BF16_REL_L2 = 0.25
+# LoRA on against off (rank 4, up ~ N(0, 0.02^2)), same weights and
+# inputs: the adapters move the images by more than any rounding does
+LORA_EFFECT_REL_L2 = 1e-2
 # GroupNorm kernel against its f32 plain version: bf16 output rounding
 # (rel-L2 ~2e-3); in f32 only the order of the f32 sums differs
 GN_BF16_REL_L2 = 1e-2
@@ -829,6 +844,190 @@ def _quantize_case(shape, gen, timed, sites=None):
     return case
 
 
+def _aux_site_shapes(batch, resolution):
+    """The int8 sites of one ViT-H encode and one VAE decode of an int8-aux
+    run at ``batch`` and ``resolution``, read off forwards on the meta
+    device: {"conv": {(C, O, H, W, k, stride, pad): sites} of the decoder's
+    quantized convs (the conv kernel's), "linear": {input shape: sites} of
+    the quantized linear sites and of the ViT-H's patch conv, whose NHWC
+    input goes to the quantization kernel}."""
+    import types
+
+    import torch
+
+    from e4t_diffusion_torch.diffusion.pipeline import _aux_sites
+    from e4t_diffusion_torch.models.e4t_encoder import (E4TEncoder,
+                                                        E4TEncoderConfig)
+    from e4t_diffusion_torch.models.vae import AutoencoderKL, VAEConfig
+    from e4t_diffusion_torch.ops import quant
+
+    with torch.device("meta"):
+        towers = types.SimpleNamespace(vae=AutoencoderKL(VAEConfig()),
+                                       e4t_encoder=E4TEncoder(
+                                           E4TEncoderConfig()))
+    shapes = {"conv": {}, "linear": {}}
+
+    def record(mod, args):
+        x = args[0]
+        if not isinstance(mod, quant.Conv2d):
+            part, key = "linear", tuple(x.shape)
+        elif mod.kernel_size[0] == mod.stride[0] > 1:  # the patch route
+            p = mod.stride[0]
+            part, key = "linear", (x.shape[0], x.shape[2] // p * p,
+                                   x.shape[3] // p * p, x.shape[1])
+        else:
+            part, key = "conv", (x.shape[1], mod.out_channels, x.shape[2],
+                                 x.shape[3], mod.kernel_size[0],
+                                 mod.stride[0], mod.padding[0])
+        shapes[part][key] = shapes[part].get(key, 0) + 1
+
+    for model, sites in _aux_sites(towers, None):
+        modules = quant.site_modules(model)
+        for name in sites:
+            modules[name].register_forward_pre_hook(record)
+    with torch.device("meta"):
+        towers.e4t_encoder.encode_image(
+            torch.zeros(batch, 3, resolution, resolution))
+        towers.vae.decode(torch.zeros(batch, 4, resolution // 8,
+                                      resolution // 8))
+    return shapes
+
+
+def _vae_conv_case(n, c, o, h, w, k, stride, pad, gen, sites):
+    """The int8 conv at a VAE-decoder site through its route
+    (``quant.int8_conv2d``: x quantized in the kernel's loads) against its
+    plain version ``int8_conv_act_reference``, bit for bit, x bf16 and f32
+    NCHW in each scale mode (static per-tensor "sa", per-channel "sac",
+    dynamic). Timed from bf16 x: the route on a static scale (the kernel
+    alone) and on the dynamic one (with its abs-max reduction), the plain
+    version, cuDNN's bf16 conv2d of the same shapes, and the bound (x and
+    the output in bf16 once each, the int8 weight, the int8 products)."""
+    import torch
+    import torch.nn.functional as F
+
+    from e4t_diffusion_torch.ops import int8_conv as ic
+    from e4t_diffusion_torch.ops import quant
+
+    xb = torch.randn(n, c, h, w, device="cuda", generator=gen,
+                     dtype=torch.bfloat16)
+    wb = torch.randn(o, c, k, k, device="cuda", generator=gen,
+                     dtype=torch.bfloat16)
+    bias = torch.randn(o, device="cuda", generator=gen)
+    site = quant.quantize_kernel(wb)
+    site["q"] = site["q"].permute(0, 2, 3, 1).contiguous()
+    site["w"] = wb
+    modes = _conv_sites(site, xb)
+    tiles = -(-o // ic.TILE_N)
+    case = {"kernel": "int8_conv", "n": n, "c": c, "o": o, "h": h, "w": w,
+            "k": k, "stride": stride, "pad": pad, "sites_per_decode": sites,
+            "n_tile_fill": o / (tiles * ic.TILE_N)}
+    for dtype in (torch.bfloat16, torch.float32):
+        xr, b = xb.to(dtype), bias.to(dtype)
+        for mode, s_ in modes.items():
+            per_channel = mode == "sac"
+            act = (s_["sac"] if per_channel
+                   else s_.get("sa", quant.dynamic_scale(xr))).reshape(-1)
+            before = ic.int8_conv_act.launches
+            got = quant.int8_conv2d(xr, s_, b, stride, pad)
+            torch.cuda.synchronize()
+            want = ic.int8_conv_act_reference(xr, s_["q"], act.float(),
+                                              per_channel, s_["s"], b,
+                                              stride, pad)
+            if not (torch.equal(got, want)
+                    and ic.int8_conv_act.launches == before + 1):
+                fail(f"int8_conv_act at a VAE site ({dtype}, {mode}) "
+                     f"disagrees with int8_conv_act_reference: {case}")
+            del got, want
+        del xr
+        torch.cuda.empty_cache()
+    case["out_max_abs"] = case["f32_out_max_abs"] = 0.0
+    case["route_checks"] = 2 * len(modes)
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (w + 2 * pad - k) // stride + 1
+    b16 = bias.to(torch.bfloat16)
+    static = modes["sa"]
+    case.update(
+        ms=cuda_time_ms(lambda: quant.int8_conv2d(xb, static, b16, stride,
+                                                  pad)),
+        dynamic_ms=cuda_time_ms(lambda: quant.int8_conv2d(
+            xb, modes["dynamic"], b16, stride, pad)),
+        plain_ms=cuda_time_ms(lambda: ic.int8_conv_act_reference(
+            xb, static["q"], static["sa"].reshape(-1), False, static["s"],
+            b16, stride, pad), reps=1),
+        library_ms=cuda_time_ms(lambda: F.conv2d(xb, wb, b16, stride=stride,
+                                                 padding=pad)),
+        library="torch.nn.functional.conv2d (cuDNN), bf16",
+        **_bound(2 * n * c * h * w + o * k * k * c + 6 * o
+                 + 2 * n * o * ho * wo, 0, 0,
+                 int8_ops=2 * n * ho * wo * o * k * k * c))
+    del xb, wb, site, modes
+    torch.cuda.empty_cache()
+    return case
+
+
+def _patch_conv_case(n, gen):
+    """The ViT-H's conv1 (3 -> 1280, 14x14 at stride 14, no bias) on its
+    route (``quant.int8_patch_conv``: the quantization kernel, then
+    ``torch._int_mm`` over the patch matrix) against
+    ``int8_conv_act_reference``, bit for bit, x bf16 and f32 in each scale
+    mode; one quantization launch and no conv launch a call. Timed from
+    bf16 x on a static scale beside the plain version, cuDNN's bf16 conv2d
+    and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from e4t_diffusion_torch.ops import int8_conv as ic
+    from e4t_diffusion_torch.ops import quant
+
+    xb = torch.randn(n, 3, 224, 224, device="cuda", generator=gen,
+                     dtype=torch.bfloat16)
+    wb = torch.randn(1280, 3, 14, 14, device="cuda", generator=gen,
+                     dtype=torch.bfloat16)
+    site = quant.quantize_kernel(wb)
+    site["q"] = site["q"].permute(0, 2, 3, 1).contiguous()
+    site["w"] = wb
+    modes = _conv_sites(site, xb)
+    case = {"kernel": "int8_patch_conv", "n": n, "c": 3, "o": 1280,
+            "h": 224, "w": 224, "k": 14, "stride": 14, "pad": 0,
+            "sites_per_aux_run": 1}
+    for dtype in (torch.bfloat16, torch.float32):
+        xr = xb.to(dtype)
+        for mode, s_ in modes.items():
+            per_channel = mode == "sac"
+            act = (s_["sac"] if per_channel
+                   else s_.get("sa", quant.dynamic_scale(xr))).reshape(-1)
+            counts = (quant.quantize_activation.launches,
+                      ic.int8_conv_act.launches)
+            got = quant.int8_conv2d(xr, s_, None, 14, 0)
+            torch.cuda.synchronize()
+            want = ic.int8_conv_act_reference(xr, s_["q"], act.float(),
+                                              per_channel, s_["s"], None,
+                                              14, 0)
+            if not (torch.equal(got, want)
+                    and (quant.quantize_activation.launches,
+                         ic.int8_conv_act.launches)
+                    == (counts[0] + 1, counts[1])):
+                fail(f"conv1's patch route ({dtype}, {mode}) disagrees with "
+                     f"int8_conv_act_reference: {case}")
+    case.update(out_max_abs=0.0, route_checks=2 * len(modes))
+    static = modes["sa"]
+    ops = 2 * n * 256 * 1280 * 14 * 14 * 3
+    case.update(
+        ms=small_aware_ms(lambda: quant.int8_conv2d(xb, static, None, 14,
+                                                    0))[0],
+        plain_ms=small_aware_ms(lambda: ic.int8_conv_act_reference(
+            xb, static["q"], static["sa"].reshape(-1), False, static["s"],
+            None, 14, 0))[0],
+        library_ms=small_aware_ms(lambda: F.conv2d(xb, wb, None,
+                                                   stride=14))[0],
+        library="torch.nn.functional.conv2d (cuDNN), bf16",
+        **_bound(2 * n * 3 * 224 * 224 + 1280 * 588 + 4 * 1280
+                 + 2 * n * 1280 * 256, 0, 0, int8_ops=ops))
+    del xb, wb, site, modes
+    torch.cuda.empty_cache()
+    return case
+
+
 def _group_norm_sites(unet_config, vae_config, batch, resolution,
                       device="meta"):
     """{"unet", "unet_tap", "vae_decode", "vae_encode": {(C, H, W, groups,
@@ -1097,6 +1296,17 @@ def phase_kernels():
                          _unet_linear_shapes(n, RESOLUTION).items())]
     for shape in ((3, 5, 36), (7, 40)):
         ragged.append(_quantize_case(shape, gen, timed=False))
+    # int8-aux serving: every distinct quantized conv of a batch-8 512px VAE
+    # decode, every distinct input of the quantization kernel in one ViT-H
+    # encode and one decode, and the ViT-H's patch conv on its route
+    aux = _aux_site_shapes(n, RESOLUTION)
+    int8_conv_vae = [_vae_conv_case(n, *key, gen, sites=sites)
+                     for key, sites in sorted(aux["conv"].items())]
+    int8_quantize_aux = []
+    for shape, sites in sorted(aux["linear"].items()):
+        int8_quantize_aux.append(_quantize_case(shape, gen, timed=True))
+        int8_quantize_aux[-1]["sites_per_aux_run"] = sites
+    vit_conv1 = _patch_conv_case(n, gen)
     # the opt-in routes: every distinct GroupNorm site of a batch-8 512px
     # UNet pass and VAE decode, of the VAE encode a pretraining step runs at
     # batch 16, and the ViT-H's attention sites when sampling (BH = 8 x 16
@@ -1156,7 +1366,9 @@ def phase_kernels():
     cases = {"sampling": sampling, "tuning_fwd": tuning_fwd, "grid": grid,
              "tuning_bwd": tuning_bwd, "grid_bwd": grid_bwd,
              "int8_flash": int8_flash, "int8_conv": int8_conv,
-             "int8_quantize": int8_quantize, "group_norm": group_norm, "shortseq": short,
+             "int8_quantize": int8_quantize, "int8_conv_vae": int8_conv_vae,
+             "int8_quantize_aux": int8_quantize_aux, "vit_conv1": vit_conv1,
+             "group_norm": group_norm, "shortseq": short,
              "ragged": ragged, **f32_cases}
     print(json.dumps({"phase": "kernels", **cases}))
     return cases
@@ -1840,6 +2052,281 @@ def phase_int8_sampling(smi, pipe, image):
     return total
 
 
+def phase_schedulers(smi, pipe, image):
+    """Phase 4's pipeline under the other four samplers, PLMS, LMS, Euler
+    and Euler-ancestral, each twice with one seed (Euler-ancestral draws its
+    per-step noise from the run's generator). Each model evaluation runs
+    the 20 low-dim flash sites of two UNet passes; PLMS evaluates the model
+    STEPS + 1 times."""
+    import numpy as np
+
+    from e4t_diffusion_torch.diffusion.schedulers import SCHEDULER_MAPPING
+
+    n = len(PROMPTS) * IMAGES_PER_PROMPT
+    report = {"phase": "schedulers", "card": smi, "batch": n,
+              "resolution": RESOLUTION, "steps": STEPS, "guidance": 7.5,
+              "runs": {}}
+    total = _want()
+    for name in ("plms", "lms", "euler", "euler_ancestral"):
+        evals = len(SCHEDULER_MAPPING[name]().init(STEPS)["timesteps"])
+        if evals != STEPS + (name == "plms"):
+            fail(f"{name}: {evals} model evaluations for {STEPS} steps")
+        want = _want(flash_fwd_lowdim=LOWDIM_SITES_PER_STEP * evals)
+        first, first_s, launches = _sample(pipe, image, name, want)
+        second, warm_s, _ = _sample(pipe, image, name, want)
+        rerun = float(np.abs(first - second).max())
+        if not rerun <= RERUN_MAX_ABS:
+            fail(f"{name}: two same-seed runs differ by {rerun}")
+        for k, v in launches.items():
+            total[k] += 2 * v
+        report["runs"][name] = {
+            "model_evaluations": evals, "first_s": first_s, "warm_s": warm_s,
+            "images_per_s": n / warm_s, "rerun_max_abs": rerun,
+            "launches": launches}
+    print(json.dumps(report))
+    return total
+
+
+SERVE_PROMPTS = 20
+SERVE_BATCH = 8
+SERVE_LORA_RANK = 4
+
+
+def _write_serving_artifact(root, pipe):
+    """Phase 4's weights (bf16) as a user's model directory: a
+    diffusers-format SD base (unet/, vae/, text_encoder/, tokenizer/,
+    scheduler/) and the E4T artifact that names it (config.json,
+    encoder.pt, weight_offsets.pt). Returns the artifact's path."""
+    import dataclasses
+
+    import torch
+
+    from e4t_diffusion_torch.config import save_config
+    from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
+    from e4t_diffusion_torch.utils.tokenizer import make_tiny_tokenizer_files
+
+    mods = pipe.modules
+    tcfg = mods.text_encoder.config
+    base = os.path.join(root, "sd")
+    parts = {
+        "unet": (dataclasses.asdict(mods.unet.config), mods.unet,
+                 "diffusion_pytorch_model.bin"),
+        "vae": (dataclasses.asdict(mods.vae.config), mods.vae,
+                "diffusion_pytorch_model.bin"),
+        "text_encoder": ({
+            "vocab_size": tcfg.vocab_size, "hidden_size": tcfg.hidden_size,
+            "num_hidden_layers": tcfg.num_layers,
+            "num_attention_heads": tcfg.num_heads,
+            "intermediate_size": tcfg.intermediate_size,
+            "max_position_embeddings": tcfg.max_position_embeddings,
+            "layer_norm_eps": tcfg.layer_norm_eps,
+            "hidden_act": tcfg.hidden_act}, mods.text_encoder,
+            "pytorch_model.bin")}
+
+    def save(state, path):
+        torch.save({k: v.detach().cpu() for k, v in state.items()}, path)
+
+    for sub, (config, module, weights) in parts.items():
+        os.makedirs(os.path.join(base, sub))
+        with open(os.path.join(base, sub, "config.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(config, f)
+        save(module.state_dict(), os.path.join(base, sub, weights))
+    os.makedirs(os.path.join(base, "scheduler"))
+    with open(os.path.join(base, "scheduler", "scheduler_config.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(dataclasses.asdict(NoiseScheduleConfig()), f)
+    make_tiny_tokenizer_files(os.path.join(base, "tokenizer"), extra_words=[
+        "a", "photo", "of", "face", "in", "monet", "style"])
+    artifact = os.path.join(root, "e4t")
+    save_config({"pretrained_model_name_or_path": base,
+                 "placeholder_token": "*s", "domain_class_token": "face",
+                 "domain_embed_scale": 0.1}, artifact)
+    save(mods.e4t_encoder.state_dict(), os.path.join(artifact, "encoder.pt"))
+    save(pipe.offsets, os.path.join(artifact, "weight_offsets.pt"))
+    return artifact
+
+
+def _tower_times(pipe):
+    """One batch-8 ViT-H encode (512px pixels) and one VAE decode (64x64
+    latents) in bf16 and with the int8 towers on dynamic and on the
+    pipeline's calibrated scales: CUDA events, median of 5."""
+    import torch
+
+    from e4t_diffusion_torch.diffusion.pipeline import _aux_sites
+    from e4t_diffusion_torch.ops import quant
+
+    n = SERVE_BATCH
+    gen = torch.Generator("cuda").manual_seed(9)
+    mods = pipe.modules
+    pixel = torch.rand(n, 3, RESOLUTION, RESOLUTION, device="cuda",
+                       generator=gen) * 2.0 - 1.0
+    z = torch.randn(n, 4, RESOLUTION // 8, RESOLUTION // 8, device="cuda",
+                    generator=gen)
+    runs = {"vit_encode": lambda: mods.e4t_encoder.encode_image(pixel),
+            "vae_decode": lambda: mods.vae.decode(z)}
+    times = {}
+    with torch.inference_mode():
+        for flavor, amax in (("bf16", None), ("int8_dynamic", None),
+                             ("int8_static", pipe.aux_amax)):
+            with contextlib.ExitStack() as stack:
+                if flavor != "bf16":
+                    for model, sites in _aux_sites(mods, amax):
+                        stack.enter_context(quant.int8_sites(model, sites))
+                for name, fn in runs.items():
+                    times[f"{name}_{flavor}_ms"] = cuda_time_ms(fn, reps=5)
+    return times
+
+
+def phase_serving(smi, pipe):
+    """The batch server (``serve_e4t.main``) as a user runs it: phase 4's
+    weights written as a model directory, 20 prompts at batch 8 (two full
+    batches and one padded), DDIM-4 at 512px, CFG 7.5, a LoRA file of rank
+    4 with non-zero ``up``, ``--int8 --int8_static_act --int8_aux_static``.
+    The first batch calibrates the UNet (E4T_INT8_CALIB_STEPS bf16 steps)
+    and then the towers on that run's final latents. Checks: the manifest
+    and the PNGs; the launches of the whole serve and of one more run of
+    the first batch, derived from the UNet's and the towers' sites; that
+    run's images against the same run with bf16 towers (rel-L2) and
+    without the LoRA file (they differ), and against the served PNGs.
+    Times one ViT-H encode and one VAE decode in bf16 and on the int8
+    towers."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from e4t_diffusion_torch import serve_e4t
+    from e4t_diffusion_torch.diffusion.pipeline import (
+        StableDiffusionE4TPipeline)
+    from e4t_diffusion_torch.models import lora
+
+    n = SERVE_BATCH
+    calib_steps = int(os.environ.get("E4T_INT8_CALIB_STEPS", "8"))
+    unet_conv = 2 * sum(_unet_conv_shapes(n, RESOLUTION).values()) * STEPS
+    unet_quant = 2 * sum(_unet_linear_shapes(n, RESOLUTION).values()) * STEPS
+    aux = _aux_site_shapes(n, RESOLUTION)
+    aux_conv, aux_quant = (sum(aux["conv"].values()),
+                           sum(aux["linear"].values()))
+    per_run = _want(flash_fwd_lowdim=LOWDIM_SITES_PER_STEP * STEPS,
+                    int8_conv=unet_conv + aux_conv,
+                    int8_quantize=unet_quant + aux_quant)
+    n_batches = -(-SERVE_PROMPTS // n)
+    want_serve = {k: n_batches * v for k, v in per_run.items()}
+    want_serve["flash_fwd_lowdim"] += LOWDIM_SITES_PER_STEP * calib_steps
+    words = ["in monet style", "face", "photo"]
+    prompts = [" ".join(["a photo of *s"] + [words[i % 3]] * (1 + i // 3))
+               for i in range(SERVE_PROMPTS)]
+    report = {"phase": "serving", "card": smi, "prompts": SERVE_PROMPTS,
+              "batch": n, "resolution": RESOLUTION, "steps": STEPS,
+              "guidance": 7.5, "calib_steps": calib_steps,
+              "flags": "--int8 --int8_static_act --int8_aux_static "
+                       f"--lora_weights (rank {SERVE_LORA_RANK})",
+              "aux_conv_sites": aux_conv, "aux_quantize_sites": aux_quant}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        artifact = _write_serving_artifact(root, pipe)
+        gen = torch.Generator().manual_seed(11)
+        bank = lora.init_lora_bank(pipe.modules.unet.config,
+                                   SERVE_LORA_RANK, generator=gen)
+        for layers in bank.values():
+            for layer in layers.values():
+                layer["up"] = 0.02 * torch.randn(layer["up"].shape,
+                                                 generator=gen)
+        lora_path = os.path.join(root, "pytorch_lora_weights.bin")
+        torch.save(lora.lora_to_torch(bank), lora_path)
+        image_path = os.path.join(root, "in.png")
+        Image.fromarray(np.random.default_rng(12).integers(
+            0, 256, (RESOLUTION, RESOLUTION, 3), dtype=np.uint8)).save(
+                image_path)
+        with open(os.path.join(root, "prompts.txt"), "w",
+                  encoding="utf-8") as f:
+            f.write("\n".join(prompts) + "\n")
+        out = os.path.join(root, "served")
+        report["write_s"] = time.perf_counter() - t0
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spipe, record = serve_e4t.main([
+            "--pretrained_model_name_or_path", artifact,
+            "--image_path", image_path,
+            "--prompts_file", os.path.join(root, "prompts.txt"),
+            "--batch_size", str(n), "--num_inference_steps", str(STEPS),
+            "--guidance_scale", "7.5", "--height", str(RESOLUTION),
+            "--width", str(RESOLUTION), "--seed", "0", "--output_dir", out,
+            "--int8", "--int8_static_act", "--int8_aux_static",
+            "--lora_weights", lora_path])
+        torch.cuda.synchronize()
+        report["serve_s"] = time.perf_counter() - t0
+        report["launches"] = launches = _read_launches()
+        if launches != want_serve:
+            fail(f"serving: launches {launches}, expected {want_serve}")
+        with open(os.path.join(out, "manifest.jsonl"), encoding="utf-8") as f:
+            rows = [json.loads(line) for line in f]
+        pngs = sorted(p for p in os.listdir(out) if p.endswith(".png"))
+        if ([r["prompt"] for r in rows] != prompts
+                or pngs != [f"{i:05d}.png" for i in range(SERVE_PROMPTS)]):
+            fail(f"serving: manifest {len(rows)} rows, PNGs {pngs}")
+        report["record"] = record
+        report["images_per_s_by_batch"] = [
+            min(n, SERVE_PROMPTS - i * n) / wall
+            for i, wall in enumerate(record["batch_walls_s"])]
+        served0 = np.asarray(Image.open(os.path.join(out, "00000.png")),
+                             np.float32) / 255.0
+
+    first = prompts[:n]
+    pixels = np.random.default_rng(12).integers(
+        0, 256, (RESOLUTION, RESOLUTION, 3), dtype=np.uint8)
+
+    def render(p, want):
+        _reset_launches()
+        out = p(first, pixels, num_inference_steps=STEPS, guidance_scale=7.5,
+                height=RESOLUTION, width=RESOLUTION, seed=0)
+        got = _read_launches()
+        if got != want:
+            fail(f"serving: launches {got}, expected {want}")
+        if not (np.isfinite(out).all() and out.shape == (
+                n, 3, RESOLUTION, RESOLUTION)):
+            fail(f"serving: output {out.shape}, finite "
+                 f"{np.isfinite(out).all()}")
+        return out
+
+    def variant(**kwargs):
+        p = StableDiffusionE4TPipeline(
+            spipe.modules, spipe.offsets, spipe.tokenizer, spipe.e4t_config,
+            already_added_placeholder_token=True, int8="static",
+            act_scales=spipe.act_amax, **kwargs)
+        p.aux_amax = spipe.aux_amax
+        return p
+
+    t0 = time.perf_counter()
+    served = render(spipe, per_run)
+    report["run_s"] = time.perf_counter() - t0
+    report["served_png_vs_run_max_abs"] = float(np.abs(
+        served0 - served[0].transpose(1, 2, 0)).max())
+    bf16_towers = render(
+        variant(lora_bank=spipe.lora_bank, lora_scale=spipe.lora_scale),
+        _want(flash_fwd_lowdim=LOWDIM_SITES_PER_STEP * STEPS,
+              int8_conv=unet_conv, int8_quantize=unet_quant))
+    no_lora = render(variant(int8_aux="static"), per_run)
+    report["int8_towers_vs_bf16_towers_rel_l2"] = _rel(
+        torch.from_numpy(served), torch.from_numpy(bf16_towers))
+    report["lora_on_vs_off_rel_l2"] = _rel(torch.from_numpy(served),
+                                           torch.from_numpy(no_lora))
+    report.update(_tower_times(spipe))
+    print(json.dumps(report))
+    if not (report["served_png_vs_run_max_abs"] <= RERUN_MAX_ABS + 1 / 255
+            and report["int8_towers_vs_bf16_towers_rel_l2"]
+            <= INT8_VS_BF16_REL_L2
+            and report["lora_on_vs_off_rel_l2"] >= LORA_EFFECT_REL_L2):
+        fail(f"serving: {report}")
+    total = {k: want_serve[k] + 2 * per_run[k] + v for k, v in _want(
+        flash_fwd_lowdim=LOWDIM_SITES_PER_STEP * STEPS, int8_conv=unet_conv,
+        int8_quantize=unet_quant).items()}
+    del spipe
+    torch.cuda.empty_cache()
+    return total
+
+
 def _expected_tuning_launches(ucfg, vit_cfg, resolution, routes=False,
                               dtype=None, vae_cfg=None):
     """Launches per tuning step in the compute ``dtype`` (bf16 by default,
@@ -2105,7 +2592,10 @@ def phase_tiny_vs_cpu():
             and err8 <= INT8_SPREAD_OF_ERROR * int8_err):
         fail(f"tiny int8 pipeline, card vs CPU: max-abs {err8} against an "
              f"int8 error of {int8_err}")
+    sched_err = _tiny_schedulers_vs_cpu(cpu, card, offsets, cfg, image,
+                                        latents, steps)
     print(json.dumps({"phase": "tiny_card_vs_cpu", "max_abs": err,
+                      "schedulers_max_abs": sched_err,
                       "int8_calibration_rel": amax_err,
                       "int8_max_abs": err8,
                       "int8_vs_f32_max_abs_cpu": int8_err,
@@ -2113,6 +2603,47 @@ def phase_tiny_vs_cpu():
                       "fused_gn_launches": gn_launches,
                       "fused_gn_vs_off_max_abs_cpu": float(
                           np.abs(outs_gn[0] - outs[0]).max())}))
+
+
+def _tiny_schedulers_vs_cpu(cpu, card, offsets, cfg, image, latents, steps):
+    """The tiny f32 pipeline under PLMS, LMS, Euler and Euler-ancestral on
+    the card and on the CPU, each side drawing Euler-ancestral's per-step
+    noise from one CPU generator (the card's and the CPU's generators give
+    other numbers for one seed): max-abs of the images by sampler."""
+    import numpy as np
+    import torch
+
+    from e4t_diffusion_torch.diffusion import pipeline as pl
+    from e4t_diffusion_torch.utils.tokenizer import (
+        CLIPTokenizer, make_tiny_tokenizer_files)
+
+    errors = {}
+    saved = pl._step_noise
+    with tempfile.TemporaryDirectory() as tok_dir:
+        make_tiny_tokenizer_files(tok_dir, extra_words=["a", "photo", "of",
+                                                        "face"])
+        try:
+            for name in ("plms", "lms", "euler", "euler_ancestral"):
+                outs = []
+                for mods in (cpu, card):
+                    noise = torch.Generator().manual_seed(7)
+                    pl._step_noise = (
+                        lambda shape, generator, device, dtype, g=noise:
+                        torch.randn(shape, generator=g).to(device, dtype))
+                    pipe = pl.StableDiffusionE4TPipeline(
+                        mods, offsets, CLIPTokenizer.from_pretrained(
+                            tok_dir, model_max_length=16), cfg)
+                    outs.append(pipe(PROMPTS[:1] + ["a *s face"], image,
+                                     num_inference_steps=steps,
+                                     guidance_scale=7.5,
+                                     num_images_per_prompt=2,
+                                     latents=latents, scheduler_type=name))
+                errors[name] = float(np.abs(outs[0] - outs[1]).max())
+        finally:
+            pl._step_noise = saved
+    if not all(e <= TINY_CARD_VS_CPU_MAX_ABS for e in errors.values()):
+        fail(f"tiny pipeline, card vs CPU by sampler: max-abs {errors}")
+    return errors
 
 
 @contextlib.contextmanager
@@ -3122,6 +3653,23 @@ def kernels_line(cases, paths):
                         "library_ms", "bound_ms", "route_bound_ms")},
         "per_site": [{k: c[k] for k in conv_keys}
                      for c in cases["int8_conv"]]})
+    vae = cases["int8_conv_vae"]
+    kernels[-1]["max_abs_err"] = max(
+        [kernels[-1]["max_abs_err"]]
+        + [max(c["out_max_abs"], c["f32_out_max_abs"]) for c in vae])
+    kernels[-1]["per_vae_decode"] = {
+        key: sum(c["sites_per_decode"] * c[key] for c in vae)
+        for key in ("ms", "dynamic_ms", "plain_ms", "library_ms",
+                    "bound_ms")}
+    kernels[-1]["vae_routes"] = (
+        "quant.int8_conv2d from bf16 NCHW x: ms on a static scale, "
+        "dynamic_ms with the live abs-max; n_tile_fill: the share of the "
+        "160-channel tiles that O fills")
+    kernels[-1]["vae_per_site"] = [
+        {k: c[k] for k in ("c", "o", "h", "w", "k", "stride", "pad",
+                           "sites_per_decode", "n_tile_fill", "ms",
+                           "dynamic_ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")} for c in vae]
     quants = cases["int8_quantize"]
     site = max(quants, key=lambda c: c["sites_per_unet_pass"] * c["ms"])
     q_keys = ("shape", "sites_per_unet_pass", "ms", "plain_ms", "bound_ms",
@@ -3148,6 +3696,24 @@ def kernels_line(cases, paths):
                                    for c in quants)
                           for key in ("ms", "plain_ms", "bound_ms")},
         "per_site": [{k: c[k] for k in q_keys} for c in quants]})
+    aux_q = cases["int8_quantize_aux"]
+    conv1 = cases["vit_conv1"]
+    kernels[-1]["max_abs_err"] = max(
+        [kernels[-1]["max_abs_err"], conv1["out_max_abs"]]
+        + [c["out_max_abs"] for c in aux_q])
+    kernels[-1]["per_aux_run"] = {
+        key: sum(c["sites_per_aux_run"] * c[key] for c in aux_q)
+        for key in ("ms", "plain_ms", "bound_ms")}
+    kernels[-1]["aux_per_site"] = [
+        {**{k: c[k] for k in q_keys if k != "sites_per_unet_pass"},
+         "sites_per_aux_run": c["sites_per_aux_run"]} for c in aux_q]
+    kernels[-1]["vit_conv1_route"] = {
+        k: conv1[k] for k in ("n", "c", "o", "h", "w", "k", "stride",
+                              "route_checks", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "library")}
+    kernels[-1]["vit_conv1_route"]["route"] = (
+        "quant.int8_patch_conv: this kernel on NHWC x, then torch._int_mm "
+        "over the patch matrix (K 588 padded to 592), static scale")
 
     gn = cases["group_norm"]
     gn_all = gn["unet"] + gn["vae_decode"] + gn["vae_encode"] + [
@@ -3272,8 +3838,10 @@ def main():
     run("build", phase_build)
     cases = run("kernels", phase_kernels)
     sampling, pipe, image, warm_s = run("sampling", phase_main_path, smi)
+    schedulers = run("schedulers", phase_schedulers, smi, pipe, image)
     int8_sampling = run("int8_sampling", phase_int8_sampling, smi, pipe,
                         image)
+    serving = run("serving", phase_serving, smi, pipe)
     routes_sampling = run("routes_sampling", phase_routes_sampling, smi,
                           pipe, image, warm_s)
     f32_sampling = run("f32_sampling", phase_f32_sampling, smi, pipe, image)
@@ -3296,7 +3864,8 @@ def main():
     f32_pretraining = run("f32_pretraining", phase_f32_pretraining, smi,
                           data)
     data.cleanup()
-    paths = {"sampling": sampling, "int8_sampling": int8_sampling,
+    paths = {"sampling": sampling, "schedulers": schedulers,
+             "int8_sampling": int8_sampling, "serving": serving,
              "routes_sampling": routes_sampling,
              "f32_sampling": f32_sampling, "tuning": tuning,
              "routes_tuning": routes_tuning,

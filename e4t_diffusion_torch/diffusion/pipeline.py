@@ -14,6 +14,11 @@ their activation ranges once, on the pipeline's first call.
 
 Entry points run on ``cuda`` unless the caller passes another device
 (``device="cpu"``); without a GPU and without that request they raise.
+
+Beyond that path: the six schedulers of ``diffusion/schedulers.py``, LoRA
+adapters folded after the offsets (``models/lora.py``), the int8 ViT-H and
+VAE decode (``int8_aux``, dynamic or calibrated) and per-step trajectories
+(``make_trajectory_fn``).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 
 from e4t_diffusion_torch.diffusion.schedulers import (
     DDIMScheduler, NoiseScheduleConfig, SCHEDULER_MAPPING)
+from e4t_diffusion_torch.models import lora as lora_mod
 from e4t_diffusion_torch.models import weight_offsets as wo
 from e4t_diffusion_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from e4t_diffusion_torch.models.e4t_encoder import E4TEncoder, E4TEncoderConfig
@@ -119,24 +125,40 @@ def preprocess_image(image) -> np.ndarray:
     return 2.0 * arr.transpose(0, 3, 1, 2) - 1.0
 
 
+def _step_noise(shape, generator, device, dtype) -> torch.Tensor:
+    """A stochastic sampler's per-step standard normal noise, drawn from the
+    run's generator."""
+    return torch.randn(shape, generator=generator, device=device,
+                       dtype=dtype)
+
+
 def _build_denoise_loop(modules: E4TModules, scheduler, num_steps: int,
                         guidance_scale: float, domain_embed_scale: float,
                         eta: float) -> Callable:
-    """The one denoise loop of sampling and calibration:
+    """The one denoise loop of sampling, calibration and trajectories:
     ``run_loop(unet_apply, latents, pixel_values, inputs_embeds,
-    placeholder_idx, uncond_ids, class_embed, generator) -> latents``, where
-    ``unet_apply`` calls the UNet on the run's folded weights."""
+    placeholder_idx, uncond_ids, class_embed, generator, on_step=None) ->
+    latents``, where ``unet_apply`` calls the UNet on the run's folded
+    weights. The model is evaluated once per entry of the scheduler's
+    ``timesteps`` (PNDM: ``num_steps + 1``), its carry comes from
+    ``init_carry``, and every step of a stochastic scheduler (and of DDIM at
+    eta > 0) takes noise from ``generator``. ``on_step(latents)`` sees each
+    post-step latent."""
     do_cfg = guidance_scale > 1.0
     step_kwargs = ({"eta": eta} if eta > 0.0
                    and isinstance(scheduler, DDIMScheduler) else {})
+    stochastic = getattr(scheduler, "stochastic", False) or bool(step_kwargs)
     text, e4t = modules.text_encoder, modules.e4t_encoder
 
     def run_loop(unet_apply, latents, pixel_values, inputs_embeds,
-                 placeholder_idx, uncond_ids, class_embed, generator):
+                 placeholder_idx, uncond_ids, class_embed, generator,
+                 on_step=None):
         device = latents.device
         state = scheduler.init(num_steps, device)
         if hasattr(scheduler, "init_noise_sigma"):
             latents = latents * scheduler.init_noise_sigma(state)
+        if hasattr(scheduler, "init_carry"):
+            state = scheduler.init_carry(state, latents.shape, latents.dtype)
         bsz = latents.shape[0]
         uncond_states, _ = text(uncond_ids)
         uncond_b = uncond_states.expand(bsz, -1, -1)
@@ -160,17 +182,19 @@ def _build_denoise_loop(modules: E4TModules, scheduler, num_steps: int,
             eps_c = unet_apply(latents_in, t_b,
                                cond_states.to(uncond_b.dtype))
             eps = eps_u + guidance_scale * (eps_c - eps_u) if do_cfg else eps_c
-            noise = (torch.randn(latents.shape, generator=generator,
-                                 device=device, dtype=latents.dtype)
-                     if step_kwargs else None)
+            noise = (_step_noise(latents.shape, generator, device,
+                                 latents.dtype) if stochastic else None)
             state, latents = scheduler.step(state, i, eps, latents,
                                             noise=noise, **step_kwargs)
+            if on_step is not None:
+                on_step(latents)
         return latents
 
     return run_loop
 
 
 INT8_MODES = (False, True, "static", "static_pc")
+INT8_AUX_MODES = (False, True, "static")
 INT8_ATTN_MODES = (False, True, "qk", "qkpv")
 
 
@@ -194,8 +218,32 @@ def _serving_int8_mode(int8: Union[bool, str]) -> Union[bool, str]:
     return int8
 
 
-def _folded_apply(unet, offsets):
-    folded = wo.fold_offset_bank(unet, offsets)
+def _check_modes(int8, int8_aux, int8_attn) -> None:
+    for name, value, modes in (("int8", int8, INT8_MODES),
+                               ("int8_aux", int8_aux, INT8_AUX_MODES),
+                               ("int8_attn", int8_attn, INT8_ATTN_MODES)):
+        if value not in modes:
+            raise ValueError(f"{name}={value!r}: one of {modes}")
+
+
+def _check_extra(what: str, wanted: bool, given) -> None:
+    if wanted != (given is not None):
+        raise ValueError(f"{what} is {'required' if wanted else 'not taken'}"
+                         f" by this function's flags")
+
+
+def _folded_apply(unet, offsets, lora_bank=None, lora_scale=None):
+    """The run's effective UNet weights: the offsets folded in, then the
+    LoRA adapters (both in f32, cast once to each weight's type), and a
+    ``unet_apply`` that calls the UNet on them."""
+    if lora_bank is None:
+        folded = wo.fold_offset_bank(unet, offsets)
+    else:
+        params = dict(unet.named_parameters())
+        folded = wo.fold_offset_bank(unet, offsets, dtype=torch.float32)
+        folded.update(lora_mod.fold_lora_bank({**params, **folded},
+                                              lora_bank, lora_scale))
+        folded = {k: v.to(params[k].dtype) for k, v in folded.items()}
 
     def unet_apply(*args, **kwargs):
         return torch.func.functional_call(unet, folded, args, kwargs)
@@ -203,21 +251,56 @@ def _folded_apply(unet, offsets):
     return folded, unet_apply
 
 
+def _unet_sites(unet, folded, int8, act_amax):
+    """The int8 sites of the folded UNet weights (none when ``int8`` is
+    off)."""
+    if not int8:
+        return {}
+    return quant.quantize_params(
+        {**dict(unet.named_parameters()), **folded}, act_amax=act_amax,
+        act_pc=int8 == "static_pc",
+        static_exclude=_static_exclude_for(int8 == "static_pc"))
+
+
+def _aux_sites(modules: E4TModules, aux_amax) -> list:
+    """[(tower, its int8 sites)] of the auxiliary towers, as the JAX
+    package quantizes them: the ViT-H with the default exclusions (so its
+    patch conv ``conv1`` is int8), the VAE with ``DEFAULT_EXCLUDE`` plus the
+    encoder and ``quant_conv`` (its decoder's ``conv_in`` / ``conv_out``
+    stay in the compute type, ``post_quant_conv`` is int8). ``aux_amax``
+    ({"e4t", "vae"} from ``make_aux_calibration_fn``) gives static scales."""
+    aux = aux_amax or {}
+    vit = modules.e4t_encoder.clip_vision
+    vae = modules.vae
+    return [
+        (vit, quant.quantize_params(dict(vit.named_parameters()),
+                                    act_amax=aux.get("e4t"),
+                                    path_of=quant.vit_path)),
+        (vae, quant.quantize_params(
+            dict(vae.named_parameters()), act_amax=aux.get("vae"),
+            exclude=quant.DEFAULT_EXCLUDE + ("encoder", "quant_conv"),
+            path_of=quant.vae_path)),
+    ]
+
+
 def make_sample_fn(modules: E4TModules, scheduler, num_inference_steps: int,
                    guidance_scale: float, domain_embed_scale: float,
                    return_latents: bool = False, eta: float = 0.0,
                    int8: Union[bool, str] = False,
-                   int8_attn: Union[bool, str] = False) -> Callable:
+                   int8_aux: Union[bool, str] = False,
+                   int8_attn: Union[bool, str] = False,
+                   lora_scale: Optional[float] = None) -> Callable:
     """The end-to-end sampling function ``sample(offsets, latents,
     pixel_values, inputs_embeds, placeholder_idx, uncond_ids, class_embed,
-    generator=None, act_amax=None)`` -> images in [0, 1] (or the final
-    latents).
+    generator=None, act_amax=None, aux_amax=None, lora_bank=None)`` ->
+    images in [0, 1] (or the final latents).
 
     ``offsets``: the weight-offset bank; ``latents`` (B, 4, h, w) f32;
     ``pixel_values`` (1, 3, H, W) in [-1, 1]; ``inputs_embeds`` (1 or B, L,
     D) raw prompt token embeddings; ``placeholder_idx`` (B,) positions;
     ``uncond_ids`` (1, L) ids of ""; ``class_embed`` (D,) the domain class
-    token's embedding; ``generator`` draws the per-step noise of eta > 0.
+    token's embedding; ``generator`` draws the per-step noise of the
+    stochastic schedulers (Euler-ancestral, DDIM at eta > 0).
 
     ``int8``: quantize the offset-folded UNet weights once per run
     (``ops/quant.py``) and serve the UNet's linear and conv sites in int8,
@@ -226,12 +309,16 @@ def make_sample_fn(modules: E4TModules, scheduler, num_inference_steps: int,
     calibrated per-channel static ones (``"static_pc"``); the static modes
     take ``act_amax`` from ``make_calibration_fn`` or
     ``quant.load_act_scales``.
+    ``int8_aux``: also quantize the once-per-run towers, the ViT-H and the
+    VAE decode path (``_aux_sites``), once per run, with dynamic activation
+    scales (True) or static ones (``"static"``: ``aux_amax`` from
+    ``make_aux_calibration_fn``); independent of ``int8``.
     ``int8_attn``: run the low-head-dim flash sites on the int8 attention
-    kernel (True or "qk": int8 QK^T; "qkpv": P@V too)."""
-    if int8 not in INT8_MODES:
-        raise ValueError(f"int8={int8!r}: one of {INT8_MODES}")
-    if int8_attn not in INT8_ATTN_MODES:
-        raise ValueError(f"int8_attn={int8_attn!r}: one of {INT8_ATTN_MODES}")
+    kernel (True or "qk": int8 QK^T; "qkpv": P@V too).
+    ``lora_scale``: when set, ``lora_bank`` (``models/lora.py``) is folded
+    into the effective weights after the offsets and before int8
+    quantization."""
+    _check_modes(int8, int8_aux, int8_attn)
     static_act = int8 in ("static", "static_pc")
     attn_mode = "qk" if int8_attn is True else int8_attn
     run_loop = _build_denoise_loop(modules, scheduler, num_inference_steps,
@@ -241,19 +328,19 @@ def make_sample_fn(modules: E4TModules, scheduler, num_inference_steps: int,
     @torch.inference_mode()
     def sample(offsets, latents, pixel_values, inputs_embeds,
                placeholder_idx, uncond_ids, class_embed, generator=None,
-               act_amax=None):
-        if static_act != (act_amax is not None):
-            want = "calibrated ranges" if static_act else "None"
-            raise ValueError(f"int8={int8!r} takes act_amax={want}")
-        folded, unet_apply = _folded_apply(unet, offsets)
-        sites = {}
-        if int8:  # once per run, outside the step loop
-            sites = quant.quantize_params(
-                {**dict(unet.named_parameters()), **folded},
-                act_amax=act_amax, act_pc=int8 == "static_pc",
-                static_exclude=_static_exclude_for(int8 == "static_pc"))
+               act_amax=None, aux_amax=None, lora_bank=None):
+        _check_extra("act_amax", static_act, act_amax)
+        _check_extra("aux_amax", int8_aux == "static", aux_amax)
+        _check_extra("lora_bank", lora_scale is not None, lora_bank)
+        folded, unet_apply = _folded_apply(unet, offsets, lora_bank,
+                                           lora_scale)
+        # quantized once per run, outside the step loop
+        sites = [(unet, _unet_sites(unet, folded, int8, act_amax))]
+        if int8_aux:
+            sites += _aux_sites(modules, aux_amax)
         with contextlib.ExitStack() as stack:
-            stack.enter_context(quant.int8_sites(unet, sites))
+            for model, model_sites in sites:
+                stack.enter_context(quant.int8_sites(model, model_sites))
             if attn_mode:
                 stack.enter_context(int8_flash_attention(attn_mode))
             latents = run_loop(unet_apply, latents, pixel_values,
@@ -270,29 +357,96 @@ def make_sample_fn(modules: E4TModules, scheduler, num_inference_steps: int,
 
 def make_calibration_fn(modules: E4TModules, scheduler, num_calib_steps: int,
                         guidance_scale: float, domain_embed_scale: float,
-                        eta: float = 0.0) -> Callable:
+                        eta: float = 0.0, lora_scale: Optional[float] = None,
+                        return_final_latents: bool = False) -> Callable:
     """Activation-range calibration for static-act int8 serving: a
     ``num_calib_steps`` sampling run in the compute type through the same
     loop as ``make_sample_fn``, recording every UNet site's abs-max
     (``quant.calibration``: the running max over both CFG passes, or the
     tap and cond passes without CFG, and every step). Returns
     ``calibrate(offsets, latents, pixel_values, inputs_embeds,
-    placeholder_idx, uncond_ids, class_embed, generator=None)`` -> the
-    ``act_amax`` of an ``int8="static"`` sample function."""
+    placeholder_idx, uncond_ids, class_embed, generator=None,
+    lora_bank=None)`` -> the ``act_amax`` of an ``int8="static"`` sample
+    function, or ``(act_amax, final latents)`` with
+    ``return_final_latents`` (the representative VAE-decode inputs of
+    ``make_aux_calibration_fn``). With ``lora_scale`` it calibrates on the
+    weights serving uses, the LoRA bank folded in."""
     run_loop = _build_denoise_loop(modules, scheduler, num_calib_steps,
                                    guidance_scale, domain_embed_scale, eta)
     unet = modules.unet
 
     @torch.inference_mode()
     def calibrate(offsets, latents, pixel_values, inputs_embeds,
-                  placeholder_idx, uncond_ids, class_embed, generator=None):
-        _, unet_apply = _folded_apply(unet, offsets)
+                  placeholder_idx, uncond_ids, class_embed, generator=None,
+                  lora_bank=None):
+        _check_extra("lora_bank", lora_scale is not None, lora_bank)
+        _, unet_apply = _folded_apply(unet, offsets, lora_bank, lora_scale)
         with quant.calibration(unet) as amax:
-            run_loop(unet_apply, latents, pixel_values, inputs_embeds,
-                     placeholder_idx, uncond_ids, class_embed, generator)
-        return amax
+            final = run_loop(unet_apply, latents, pixel_values,
+                             inputs_embeds, placeholder_idx, uncond_ids,
+                             class_embed, generator)
+        return (amax, final) if return_final_latents else amax
 
     return calibrate
+
+
+def make_aux_calibration_fn(modules: E4TModules) -> Callable:
+    """Activation-range calibration of the auxiliary towers
+    (``int8_aux="static"``): one ViT-H encode and one VAE decode with every
+    site's abs-max recorded. Returns ``calibrate(pixel_values, latents)`` ->
+    ``{"e4t": the ViT tower's ranges, "vae": the VAE's}``, the ``aux_amax``
+    of ``make_sample_fn``; ``latents`` are representative decode inputs
+    (unscaled, as the denoise loop ends)."""
+    vit, vae = modules.e4t_encoder.clip_vision, modules.vae
+
+    @torch.inference_mode()
+    def calibrate(pixel_values, latents):
+        with quant.calibration(vit) as vit_amax:
+            modules.e4t_encoder.encode_image(pixel_values)
+        with quant.calibration(vae) as vae_amax:
+            vae.decode(latents / vae.config.scaling_factor)
+        return {"e4t": vit_amax, "vae": vae_amax}
+
+    return calibrate
+
+
+def make_trajectory_fn(modules: E4TModules, scheduler,
+                       num_inference_steps: int, guidance_scale: float,
+                       domain_embed_scale: float, eta: float = 0.0,
+                       int8: Union[bool, str] = False,
+                       int8_attn: Union[bool, str] = False) -> Callable:
+    """Per-step latent capture through the same loop as ``make_sample_fn``:
+    ``trajectory(offsets, latents, pixel_values, inputs_embeds,
+    placeholder_idx, uncond_ids, class_embed, generator=None,
+    act_amax=None)`` -> every post-step latent stacked, (n_evals, B, 4, h,
+    w) (PNDM: ``num_inference_steps + 1``). ``int8`` and ``int8_attn`` as
+    in ``make_sample_fn`` (the static modes take ``act_amax``): the record
+    behind the int8-against-bf16 divergence study."""
+    _check_modes(int8, False, int8_attn)
+    static_act = int8 in ("static", "static_pc")
+    attn_mode = "qk" if int8_attn is True else int8_attn
+    run_loop = _build_denoise_loop(modules, scheduler, num_inference_steps,
+                                   guidance_scale, domain_embed_scale, eta)
+    unet = modules.unet
+
+    @torch.inference_mode()
+    def trajectory(offsets, latents, pixel_values, inputs_embeds,
+                   placeholder_idx, uncond_ids, class_embed, generator=None,
+                   act_amax=None):
+        _check_extra("act_amax", static_act, act_amax)
+        folded, unet_apply = _folded_apply(unet, offsets)
+        steps = []
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(quant.int8_sites(
+                unet, _unet_sites(unet, folded, int8, act_amax)))
+            if attn_mode:
+                stack.enter_context(int8_flash_attention(attn_mode))
+            run_loop(unet_apply, latents, pixel_values, inputs_embeds,
+                     placeholder_idx, uncond_ids, class_embed, generator,
+                     on_step=steps.append)
+        return torch.stack(steps)
+
+    return trajectory
 
 
 class StableDiffusionE4TPipeline:
@@ -306,21 +460,27 @@ class StableDiffusionE4TPipeline:
     activation scales) | "static" | "static_pc" (calibrated activation
     ranges: ``act_scales`` from ``quant.load_act_scales``, or a calibration
     run of ``E4T_INT8_CALIB_STEPS`` steps (default 8) on the first call,
-    kept in ``act_amax`` and reused by every later call); ``int8_attn``
-    False | True ("qk") | "qkpv"."""
+    kept in ``act_amax`` and reused by every later call); ``int8_aux``
+    False | True | "static" (the ViT-H and VAE decode in int8; "static"
+    calibrates their ranges once, on the first call, from the UNet
+    calibration's final latents where ``int8`` is static, and keeps them
+    in ``aux_amax``); ``int8_attn`` False | True ("qk") | "qkpv".
+    ``lora_bank`` (``models/lora.py``) is folded into every run's weights
+    at ``lora_scale``."""
 
     def __init__(self, modules: E4TModules, offsets: Dict[str, torch.Tensor],
                  tokenizer, e4t_config, scheduler=None,
                  already_added_placeholder_token: bool = False,
                  int8: Union[bool, str] = False,
-                 int8_attn: Union[bool, str] = False, act_scales=None):
-        if int8 not in INT8_MODES:
-            raise ValueError(f"int8={int8!r}: one of {INT8_MODES}")
-        if int8_attn not in INT8_ATTN_MODES:
-            raise ValueError(f"int8_attn={int8_attn!r}: one of "
-                             f"{INT8_ATTN_MODES}")
-        self.int8, self.int8_attn = int8, int8_attn
+                 int8_attn: Union[bool, str] = False, act_scales=None,
+                 int8_aux: Union[bool, str] = False, lora_bank=None,
+                 lora_scale: float = 1.0):
+        _check_modes(int8, int8_aux, int8_attn)
+        self.int8, self.int8_aux, self.int8_attn = int8, int8_aux, int8_attn
         self.act_amax = act_scales
+        self.aux_amax = None
+        self.lora_bank = lora_bank
+        self.lora_scale = lora_scale if lora_bank is not None else None
         self.modules = modules
         self.device = modules.unet.conv_in.weight.device
         wo.check_bank(offsets, modules.unet.config)
@@ -425,23 +585,39 @@ class StableDiffusionE4TPipeline:
 
         common = (self.offsets, latents, pixel, inputs_embeds, ph_idx,
                   torch.tensor([uncond_ids[0]], device=dev), class_embed)
-        act_amax = None
+        lora = ({"lora_bank": self.lora_bank} if self.lora_bank is not None
+                else {})
+        act_amax = aux_amax = None
+        calib_latents = latents  # the best decode input at hand
         if self.int8 in ("static", "static_pc"):
             if self.act_amax is None:
+                want_final = (self.int8_aux == "static"
+                              and self.aux_amax is None)
                 calibrate = make_calibration_fn(
                     modules, scheduler,
                     int(os.environ.get("E4T_INT8_CALIB_STEPS", "8")),
-                    guidance_scale, des, eta=eta)
-                self.act_amax = calibrate(
-                    *common, torch.Generator(dev).manual_seed(
-                        seed ^ 0x5DEECE66D))
+                    guidance_scale, des, eta=eta, lora_scale=self.lora_scale,
+                    return_final_latents=want_final)
+                out = calibrate(*common, torch.Generator(dev).manual_seed(
+                    seed ^ 0x5DEECE66D), **lora)
+                if want_final:  # the denoised range the decode will see
+                    self.act_amax, calib_latents = out
+                else:
+                    self.act_amax = out
             act_amax = self.act_amax
+        if self.int8_aux == "static":
+            if self.aux_amax is None:
+                self.aux_amax = make_aux_calibration_fn(modules)(
+                    pixel, calib_latents)
+            aux_amax = self.aux_amax
         fn = make_sample_fn(modules, scheduler, num_inference_steps,
                             guidance_scale, des,
                             return_latents=output_type == "latent", eta=eta,
                             int8=_serving_int8_mode(self.int8),
-                            int8_attn=self.int8_attn)
-        out = fn(*common, noise_gen, act_amax=act_amax)
+                            int8_aux=self.int8_aux, int8_attn=self.int8_attn,
+                            lora_scale=self.lora_scale)
+        out = fn(*common, noise_gen, act_amax=act_amax, aux_amax=aux_amax,
+                 **lora)
         if output_type == "pil":
             from PIL import Image
 

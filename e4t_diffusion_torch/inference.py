@@ -3,10 +3,15 @@
 Loads a tuned or pretrained E4T artifact directory, builds the sampling
 pipeline on the GPU (``--device cpu`` to run on the CPU) and renders the
 prompts to a grid image. '::' splits several prompts; ``--batch_prompts``
-samples them as one batch. ``--int8`` (with ``--int8_static_act``,
-``--int8_pc_act``, ``--act_scales``) serves the UNet in int8,
-``--int8_attn`` its large self-attention sites too. ``--vit_gelu_tanh``
-sets ``E4T_VIT_GELU=tanh`` for the run (the ViT-H's MLP on the tanh GELU).
+samples them as one batch. ``--scheduler_type`` picks one of the six
+samplers. ``--int8`` (with ``--int8_static_act``, ``--int8_pc_act``,
+``--act_scales``) serves the UNet in int8, ``--int8_attn`` its large
+self-attention sites too, ``--int8_aux`` (``--int8_aux_static``) the ViT-H
+and the VAE decode. ``--lora_weights`` folds LoRA attention adapters into
+the UNet at ``--lora_scale``. ``--vit_gelu_tanh`` sets
+``E4T_VIT_GELU=tanh`` for the run (the ViT-H's MLP on the tanh GELU).
+The batch server ``serve_e4t`` shares the serving flags (``add_serving_args``)
+and ``build_pipeline``.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from e4t_diffusion_torch.config import (get_e4t_config, getattr_from_config,
 from e4t_diffusion_torch.diffusion.pipeline import (
     E4TModules, StableDiffusionE4TPipeline, resolve_device, resolve_dtype)
 from e4t_diffusion_torch.diffusion.schedulers import SCHEDULER_MAPPING
+from e4t_diffusion_torch.models import lora
 from e4t_diffusion_torch.models.vit import VIT_GELU_KNOB
 from e4t_diffusion_torch.ops import quant
 from e4t_diffusion_torch.utils import artifacts
@@ -27,27 +33,16 @@ from e4t_diffusion_torch.utils.image import image_grid, load_image
 from e4t_diffusion_torch.utils.tokenizer import CLIPTokenizer
 
 
-def parse_args(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+def add_serving_args(parser: argparse.ArgumentParser) -> None:
+    """The flags that pick how a pipeline serves, shared with the batch
+    server: the sampler, the compute type and device, int8 serving and the
+    LoRA adapters."""
     parser.add_argument("--pretrained_model_name_or_path", type=str,
                         required=True,
                         help="artifact dir with config.json, encoder.pt and "
                              "weight_offsets.pt or unet.pt")
-    parser.add_argument("--image_path_or_url", type=str, required=True,
-                        help="path to the input image")
-    parser.add_argument("--prompt", type=str, nargs="?",
-                        default="a photo of *s", help="the prompt to render")
-    parser.add_argument("--num_inference_steps", type=int, default=50)
-    parser.add_argument("--guidance_scale", type=float, default=1.0)
-    parser.add_argument("--num_images_per_prompt", type=int, default=1)
-    parser.add_argument("--height", type=int, default=512)
-    parser.add_argument("--width", type=int, default=512)
-    parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--scheduler_type", type=str, default="ddim",
-                        choices=sorted(SCHEDULER_MAPPING))
-    parser.add_argument("--batch_prompts", action="store_true",
-                        help="run all '::'-separated prompts as one batched "
-                             "sampling run")
+                        choices=list(SCHEDULER_MAPPING))
     parser.add_argument("--dtype", type=str, default="auto",
                         choices=["auto", "bf16", "fp32"],
                         help="compute dtype (auto = bf16 on the GPU, fp32 "
@@ -82,12 +77,51 @@ def parse_args(argv=None):
                              "the int8 kernel: per-head q/k quantization "
                              "with k mean-centred ('qkpv': P@V in int8 "
                              "too); independent of --int8")
+    parser.add_argument("--int8_aux", action="store_true",
+                        help="also serve the once-per-run towers in int8: "
+                             "the ViT-H image encoder (conv1 included) and "
+                             "the VAE decode (post_quant_conv and the "
+                             "decoder but its conv_in / conv_out), with "
+                             "dynamic activation scales; independent of "
+                             "--int8")
+    parser.add_argument("--int8_aux_static", action="store_true",
+                        help="implies --int8_aux: static activation scales "
+                             "for the towers, calibrated by one ViT-H "
+                             "encode and one VAE decode at the first "
+                             "prompt (on the UNet calibration's denoised "
+                             "latents with --int8_static_act)")
+    parser.add_argument("--lora_weights", type=str, default=None,
+                        help="LoRA attention adapters: a diffusers-0.14 "
+                             "attn-procs state dict (pytorch_lora_weights"
+                             ".bin layout), folded into the UNet's weights "
+                             "after the E4T offsets (models/lora.py)")
+    parser.add_argument("--lora_scale", type=float, default=1.0,
+                        help="LoRA scale (the reference processor's "
+                             "default)")
     parser.add_argument("--vit_gelu_tanh", action="store_true",
                         help="serve the ViT-H tower's GELU with the tanh "
                              "approximation: sets E4T_VIT_GELU=tanh for "
                              "the run (open_clip uses exact erf, the "
                              "default); feature deviation bounded in "
                              "tests/test_vit_gelu_knob.py")
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    add_serving_args(parser)
+    parser.add_argument("--image_path_or_url", type=str, required=True,
+                        help="path to the input image")
+    parser.add_argument("--prompt", type=str, nargs="?",
+                        default="a photo of *s", help="the prompt to render")
+    parser.add_argument("--num_inference_steps", type=int, default=50)
+    parser.add_argument("--guidance_scale", type=float, default=1.0)
+    parser.add_argument("--num_images_per_prompt", type=int, default=1)
+    parser.add_argument("--height", type=int, default=512)
+    parser.add_argument("--width", type=int, default=512)
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--batch_prompts", action="store_true",
+                        help="run all '::'-separated prompts as one batched "
+                             "sampling run")
     parser.add_argument("--enable_xformers_memory_efficient_attention",
                         action="store_true",
                         help="accepted for parity with the reference CLI "
@@ -103,6 +137,11 @@ def int8_mode(args):
     if args.int8_static_act:
         return "static"
     return args.int8
+
+
+def int8_aux_mode(args):
+    """--int8_aux_static implies --int8_aux."""
+    return "static" if args.int8_aux_static else args.int8_aux
 
 
 def build_pipeline(args) -> StableDiffusionE4TPipeline:
@@ -146,12 +185,30 @@ def build_pipeline(args) -> StableDiffusionE4TPipeline:
     if args.act_scales and os.path.exists(args.act_scales):
         act_scales = quant.load_act_scales(args.act_scales, device=device)
         print(f"loaded activation ranges from {args.act_scales}")
+    lora_bank = None
+    if args.lora_weights:
+        lora_bank = lora.load_lora_weights(args.lora_weights,
+                                           base["unet_config"], device)
+        print(f"loaded LoRA adapters ({len(lora_bank)} attention sites, "
+              f"scale {args.lora_scale})")
     return StableDiffusionE4TPipeline(modules, loaded["offsets"], tokenizer,
                                       e4t_config, scheduler=scheduler,
                                       already_added_placeholder_token=True,
                                       int8=int8_mode(args),
                                       int8_attn=args.int8_attn or False,
-                                      act_scales=act_scales)
+                                      act_scales=act_scales,
+                                      int8_aux=int8_aux_mode(args),
+                                      lora_bank=lora_bank,
+                                      lora_scale=args.lora_scale)
+
+
+def maybe_save_act_scales(pipe: StableDiffusionE4TPipeline, args) -> None:
+    """After the first render: write freshly calibrated ranges where
+    ``--act_scales`` names a file that does not exist yet."""
+    if (args.act_scales and pipe.act_amax is not None
+            and not os.path.exists(args.act_scales)):
+        quant.save_act_scales(pipe.act_amax, args.act_scales)
+        print(f"saved activation ranges to {args.act_scales}")
 
 
 def main(argv=None):
@@ -168,10 +225,7 @@ def main(argv=None):
         all_images = pipe(prompts, image, **kwargs)
     else:
         all_images = [img for p in prompts for img in pipe(p, image, **kwargs)]
-    if (args.act_scales and pipe.act_amax is not None
-            and not os.path.exists(args.act_scales)):
-        quant.save_act_scales(pipe.act_amax, args.act_scales)
-        print(f"saved activation ranges to {args.act_scales}")
+    maybe_save_act_scales(pipe, args)
     image_grid(all_images, len(prompts),
                args.num_images_per_prompt).save(args.output)
     print(f"DONE! See `{args.output}` for the results!")

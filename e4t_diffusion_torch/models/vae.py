@@ -7,7 +7,8 @@ loader renames the later ``to_q``/``to_k``/``to_v``/``to_out.0`` naming.
 ``encode`` gives the posterior's (mean, logvar) for training, ``decode``
 the image for sampling; ``sample_latent`` draws from the posterior with
 noise the caller passes in. The mid-block attention is single-head einsum
-math.
+math. Every conv and linear site is an ``ops/quant`` drop-in with unchanged
+keys, so int8 serving (``--int8_aux``) quantizes the decoder's.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from e4t_diffusion_torch.models.norm import group_norm_act
+from e4t_diffusion_torch.ops.quant import Conv2d, Linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,10 +47,10 @@ class VAEResnetBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, groups: int):
         super().__init__()
         self.norm1 = nn.GroupNorm(groups, in_ch, eps=1e-6)
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1)
         self.norm2 = nn.GroupNorm(groups, out_ch, eps=1e-6)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
-        self.conv_shortcut = (nn.Conv2d(in_ch, out_ch, 1)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv_shortcut = (Conv2d(in_ch, out_ch, 1)
                               if in_ch != out_ch else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -65,10 +67,10 @@ class VAEAttentionBlock(nn.Module):
     def __init__(self, channels: int, groups: int):
         super().__init__()
         self.group_norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.query = nn.Linear(channels, channels)
-        self.key = nn.Linear(channels, channels)
-        self.value = nn.Linear(channels, channels)
-        self.proj_attn = nn.Linear(channels, channels)
+        self.query = Linear(channels, channels)
+        self.key = Linear(channels, channels)
+        self.value = Linear(channels, channels)
+        self.proj_attn = Linear(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
@@ -99,7 +101,7 @@ class VAEDownsample(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.pad(x, (0, 1, 0, 1)))
@@ -108,7 +110,7 @@ class VAEDownsample(nn.Module):
 class VAEUpsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -157,7 +159,7 @@ class Encoder(nn.Module):
         super().__init__()
         ch = cfg.block_out_channels
         g = cfg.norm_num_groups
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         blocks, out_ch = [], ch[0]
         for bi, c in enumerate(ch):
             in_ch, out_ch = out_ch, c
@@ -166,8 +168,8 @@ class Encoder(nn.Module):
         self.down_blocks = nn.ModuleList(blocks)
         self.mid_block = VAEMidBlock(ch[-1], g)
         self.conv_norm_out = nn.GroupNorm(g, ch[-1], eps=1e-6)
-        self.conv_out = nn.Conv2d(ch[-1], 2 * cfg.latent_channels, 3,
-                                  padding=1)
+        self.conv_out = Conv2d(ch[-1], 2 * cfg.latent_channels, 3,
+                               padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv_in(x)
@@ -182,7 +184,7 @@ class Decoder(nn.Module):
         super().__init__()
         rev = list(reversed(cfg.block_out_channels))
         g = cfg.norm_num_groups
-        self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
         self.mid_block = VAEMidBlock(rev[0], g)
         blocks, out_ch = [], rev[0]
         for bi, c in enumerate(rev):
@@ -191,7 +193,7 @@ class Decoder(nn.Module):
                                    add_upsample=bi != len(rev) - 1))
         self.up_blocks = nn.ModuleList(blocks)
         self.conv_norm_out = nn.GroupNorm(g, rev[-1], eps=1e-6)
-        self.conv_out = nn.Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         x = self.mid_block(self.conv_in(z))
@@ -209,10 +211,10 @@ class AutoencoderKL(nn.Module):
         self.config = config
         self.encoder = Encoder(config)
         self.decoder = Decoder(config)
-        self.quant_conv = nn.Conv2d(2 * config.latent_channels,
-                                    2 * config.latent_channels, 1)
-        self.post_quant_conv = nn.Conv2d(config.latent_channels,
-                                         config.latent_channels, 1)
+        self.quant_conv = Conv2d(2 * config.latent_channels,
+                                 2 * config.latent_channels, 1)
+        self.post_quant_conv = Conv2d(config.latent_channels,
+                                      config.latent_channels, 1)
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         moments = self.quant_conv(

@@ -8,7 +8,9 @@ open_clip with ``output_tokens=True`` and ``proj=None``: ``(pooled,
 tokens)``, pooled = ln_post(cls token), tokens = the un-normalized patch
 tokens. GELU is exact (erf), as in open_clip, unless ``E4T_VIT_GELU=tanh``
 (read per call) asks for the tanh approximation, the reference's serving
-knob (``e4t_diffusion_tpu/models/vit.py:_gelu_tanh_env``).
+knob (``e4t_diffusion_tpu/models/vit.py:_gelu_tanh_env``). The linear
+sites, the packed ``in_proj`` and ``conv1`` are ``ops/quant`` drop-ins with
+unchanged keys, so int8 serving (``--int8_aux``) quantizes them.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from e4t_diffusion_torch.ops import quant
 from e4t_diffusion_torch.ops.attention import dot_product_attention
 
 VIT_GELU_KNOB = "E4T_VIT_GELU"
@@ -60,23 +63,24 @@ class ViTConfig:
                    num_heads=4, mlp_dim=64)
 
 
-class MultiheadSelfAttention(nn.Module):
-    """torch.nn.MultiheadAttention's parameter layout (packed in_proj),
-    computed through the port's attention dispatcher."""
+class MultiheadSelfAttention(quant.InProjSite):
+    """torch.nn.MultiheadAttention's parameter layout (packed in_proj, the
+    int8 site ``<module>.in_proj``), computed through the port's attention
+    dispatcher."""
 
     def __init__(self, width: int, heads: int):
         super().__init__()
         self.heads = heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
-        self.out_proj = nn.Linear(width, width)
+        self.out_proj = quant.Linear(width, width)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, d = x.shape
         h = self.heads
         hd = d // h
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = self.in_proj(x)
         q, k, v = (t.reshape(b, s, h, hd).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
         o = dot_product_attention(q, k, v, scale=1.0 / math.sqrt(hd))
@@ -86,8 +90,8 @@ class MultiheadSelfAttention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, width: int, mlp_dim: int):
         super().__init__()
-        self.c_fc = nn.Linear(width, mlp_dim)
-        self.c_proj = nn.Linear(mlp_dim, width)
+        self.c_fc = quant.Linear(width, mlp_dim)
+        self.c_proj = quant.Linear(mlp_dim, width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.c_proj(F.gelu(self.c_fc(x),
@@ -120,8 +124,8 @@ class VisionTransformer(nn.Module):
     def __init__(self, config: ViTConfig):
         super().__init__()
         cfg = self.config = config
-        self.conv1 = nn.Conv2d(3, cfg.width, cfg.patch_size,
-                               stride=cfg.patch_size, bias=False)
+        self.conv1 = quant.Conv2d(3, cfg.width, cfg.patch_size,
+                                  stride=cfg.patch_size, bias=False)
         scale = cfg.width ** -0.5
         self.class_embedding = nn.Parameter(scale * torch.randn(cfg.width))
         self.positional_embedding = nn.Parameter(

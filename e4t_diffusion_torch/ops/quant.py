@@ -1,4 +1,5 @@
-"""int8 serving quantization for the UNet's linear and conv sites.
+"""int8 serving quantization for the linear and conv sites of the UNet and
+of the auxiliary towers (the ViT-H image encoder and the VAE decoder).
 
 Counterpart of ``e4t_diffusion_tpu/ops/quant.py``, with the same scheme
 (standard symmetric post-training quantization):
@@ -15,22 +16,26 @@ Counterpart of ``e4t_diffusion_tpu/ops/quant.py``, with the same scheme
 The mechanism is weight-driven, as in the JAX package: ``quantize_params``
 turns a UNet state dict into ``{module name: {"q", "s", ["sa" | "sac"]}}``
 for the sites it quantizes, and the ``Linear`` / ``Conv2d`` drop-ins below
-(used by ``models/unet.py`` in place of ``nn.Linear`` / ``nn.Conv2d``, same
-parameters and state-dict keys) run the int8 path while ``int8_sites``
-holds a quantized entry for them. ``calibration`` records each site's
-activation abs-max (``"amax"``) and per-input-channel abs-max (``"amax_c"``)
-instead.
+(used by ``models/unet.py``, ``models/vit.py`` and ``models/vae.py`` in
+place of ``nn.Linear`` / ``nn.Conv2d``, same parameters and state-dict keys)
+run the int8 path while ``int8_sites`` holds a quantized entry for them;
+``InProjSite`` does the same for the ViT's packed ``in_proj_weight``.
+``calibration`` records each site's activation abs-max (``"amax"``) and
+per-input-channel abs-max (``"amax_c"``) instead.
 
 Names: the port keys sites by torch module name ("down_blocks.0.resnets.0
 .conv1"); the exclusion lists and the act-scales file use the JAX package's
-module paths ("down_blocks_0/resnets_0/conv1"), so a list or a file means the
-same sites in both packages.
+module paths ("down_blocks_0/resnets_0/conv1"; ``jax_path`` for the UNet,
+``vae_path`` and ``vit_path`` for the towers), so a list or a file means
+the same sites in both packages.
 
 int8 products: ``torch._int_mm`` for every linear site (a plain large
 product, as XLA's dot is on the TPU), its activation quantized in one pass
 by the kernel of ``csrc/quantize.cu`` (``quantize_activation``), and the
 hand-written kernel of ``ops/int8_conv.py`` for every conv site, which
-quantizes the activation in its own loads.
+quantizes the activation in its own loads; a patch conv (kernel = stride >
+1, no padding: the ViT's ``conv1``) is a product over non-overlapping
+patches, and goes the linear sites' way (``int8_patch_conv``).
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ import contextvars
 import ctypes
 import json
 import os
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -92,6 +97,44 @@ def jax_path(module_name: str) -> str:
     return "/".join(parts)
 
 
+def vae_path(module_name: str) -> str:
+    """A VAE module name in the JAX package's path form:
+    "decoder.up_blocks.0.resnets.1.conv1" -> "decoder/up_blocks_0_resnets_1
+    /conv1", "decoder.mid_block.attentions.0.query" ->
+    "decoder/mid_block/attentions_0/query"."""
+    parts = []
+    for p in module_name.split("."):
+        if p.isdigit():
+            parts[-1] = f"{parts[-1]}_{p}"
+            # the JAX encoder and decoder name a block's layers flat
+            if (len(parts) > 1 and parts[-2].startswith(("up_blocks_",
+                                                         "down_blocks_"))
+                    and not parts[-1].startswith(("up_blocks_",
+                                                  "down_blocks_"))):
+                parts[-2:] = [f"{parts[-2]}_{parts[-1]}"]
+        else:
+            parts.append(p)
+    return "/".join(parts)
+
+
+def vit_path(module_name: str) -> str:
+    """A ViT-tower site name in the JAX package's path form:
+    "transformer.resblocks.3.attn.in_proj" -> "resblocks_3/attn_in_proj",
+    "transformer.resblocks.3.mlp.c_fc" -> "resblocks_3/mlp_c_fc", "conv1"
+    -> "conv1"."""
+    parts = []
+    for p in module_name.split("."):
+        if p == "transformer":
+            continue
+        if p.isdigit():
+            parts[-1] = f"{parts[-1]}_{p}"
+        elif parts and parts[-1] in ("attn", "mlp"):
+            parts[-1] = f"{parts[-1]}_{p}"
+        else:
+            parts.append(p)
+    return "/".join(parts)
+
+
 def module_name(path: Sequence[str]) -> str:
     """Inverse of ``jax_path``: JAX path components -> the torch module name,
     through ``utils/convert``'s component mapping."""
@@ -116,16 +159,24 @@ def _env_list(name: str, default):
     return tuple(x for x in env.split(",") if x)
 
 
+# the packed input projection of torch.nn.MultiheadAttention's layout
+_IN_PROJ = "in_proj_weight"
+
+
 def quantize_params(state_dict: Dict[str, torch.Tensor],
                     act_amax: Optional[Dict[str, QSite]] = None,
                     act_headroom: Optional[float] = None,
                     exclude: Optional[Sequence[str]] = None,
                     static_exclude: Optional[Sequence[str]] = None,
-                    act_pc: Optional[bool] = None) -> Dict[str, QSite]:
-    """The int8 form of every linear / conv weight (ndim 2 or 4) of a UNet
-    state dict whose module is not excluded -> ``{module name: {"q": int8,
+                    act_pc: Optional[bool] = None,
+                    path_of: Callable[[str], str] = jax_path
+                    ) -> Dict[str, QSite]:
+    """The int8 form of every linear / conv weight (ndim 2 or 4) of a state
+    dict (the UNet's, or a tower's with ``path_of`` its ``vae_path`` /
+    ``vit_path``) whose module is not excluded -> ``{site name: {"q": int8,
     "s": (O,) f32, ["sa": () f32 | "sac": (I,) f32]}}``. Linear "q" is
     (O, I); conv "q" is (O, kh, kw, I), the layout of the int8 conv kernel.
+    A packed ``<module>.in_proj_weight`` is the site ``<module>.in_proj``.
 
     The rules of the JAX package's ``quantize_params``:
     ``exclude`` (default ``E4T_INT8_EXCLUDE``, else ``DEFAULT_EXCLUDE``)
@@ -133,11 +184,11 @@ def quantize_params(state_dict: Dict[str, torch.Tensor],
     {"amax", "amax_c"}}`` from ``calibration``) gives each site a static
     scale ``"sa" = max(amax * headroom, 1e-8) / 127`` unless a substring of
     ``static_exclude`` (default ``E4T_INT8_STATIC_EXCLUDE``, else none) is
-    in its JAX path; ``act_pc`` (default ``E4T_INT8_ACT_PC``) folds the
-    per-channel ``"sac" = a_c ** alpha * max(a_c ** (1 - alpha)) / 127``
-    into the weight's input axis (dim 1) before quantizing, where the site's
-    calibration has ``"amax_c"``. ``act_headroom`` defaults to
-    ``E4T_INT8_CALIB_HEADROOM`` (1.0)."""
+    in its JAX path (``path_of`` of the site name); ``act_pc`` (default
+    ``E4T_INT8_ACT_PC``) folds the per-channel ``"sac" = a_c ** alpha *
+    max(a_c ** (1 - alpha)) / 127`` into the weight's input axis (dim 1)
+    before quantizing, where the site's calibration has ``"amax_c"``.
+    ``act_headroom`` defaults to ``E4T_INT8_CALIB_HEADROOM`` (1.0)."""
     if act_headroom is None:
         act_headroom = float(os.environ.get("E4T_INT8_CALIB_HEADROOM", "1.0"))
     if act_pc is None:
@@ -151,10 +202,15 @@ def quantize_params(state_dict: Dict[str, torch.Tensor],
 
     out: Dict[str, QSite] = {}
     for key, w in state_dict.items():
-        if not key.endswith(".weight") or w.dim() not in (2, 4):
+        if key.endswith(".weight"):
+            name = key[: -len(".weight")]
+        elif key.endswith(_IN_PROJ):
+            name = key[: -len(_IN_PROJ)] + "in_proj"
+        else:
             continue
-        name = key[: -len(".weight")]
-        path = jax_path(name)
+        if w.dim() not in (2, 4):
+            continue
+        path = path_of(name)
         if any(c in exclude for c in path.split("/") + ["kernel"]):
             continue
         calib = act_amax.get(name, {})
@@ -288,6 +344,37 @@ def int8_linear(x: torch.Tensor, site: QSite,
     return y
 
 
+def int8_patch_conv(x: torch.Tensor, site: QSite,
+                    bias: Optional[torch.Tensor], patch: int) -> torch.Tensor:
+    """``int8_conv`` of the JAX package for a patch conv (kernel = stride =
+    ``patch``, no padding) on NCHW: its patches do not overlap, so it is
+    the product of the (N * gh * gw, patch * patch * C) patch matrix by the
+    (O, patch * patch * C) weight. x goes NHWC and is quantized by
+    ``quantize_activation`` (the kernel of ``csrc/quantize.cu`` on CUDA,
+    per-channel "sac" along C), the int8 patches are gathered, K is
+    zero-padded to ``torch._int_mm``'s multiple of 8, and the exact int32
+    sums are rescaled as ``float(acc) * (sx * s)`` in x's type, then the
+    bias: ``int8_conv_act_reference``'s values."""
+    q = site["q"]
+    o, kh, kw, c = q.shape
+    n, _, h, w = x.shape
+    gh, gw = h // patch, w // patch
+    xq, sx = quantize_activation(
+        x[:, :, :gh * patch, :gw * patch].permute(0, 2, 3, 1), site, -1)
+    cols = xq.reshape(n, gh, patch, gw, patch, c).permute(
+        0, 1, 3, 2, 4, 5).reshape(n * gh * gw, kh * kw * c)
+    qw = q.reshape(o, kh * kw * c)
+    pad = -cols.shape[1] % 8
+    if pad:
+        cols, qw = F.pad(cols, (0, pad)), F.pad(qw, (0, pad))
+    acc = _int_mm(cols, qw)
+    y = (acc.float() * (sx * site["s"])).to(x.dtype)
+    y = y.reshape(n, gh, gw, o).permute(0, 3, 1, 2)
+    if bias is not None:
+        y = y + bias.to(x.dtype)[None, :, None, None]
+    return y
+
+
 def int8_conv2d(x: torch.Tensor, site: QSite, bias: Optional[torch.Tensor],
                 stride: int, padding: int) -> torch.Tensor:
     """``int8_conv`` of the JAX package on NCHW: the int8 conv kernel
@@ -295,8 +382,11 @@ def int8_conv2d(x: torch.Tensor, site: QSite, bias: Optional[torch.Tensor],
     site's per-channel ``"sac"``, its static ``"sa"`` or the live abs-max
     scale (``dynamic_scale``), then fuses the rescale and bias; the weight's
     channels are zero-padded to the kernel's multiple of 16 where needed
-    (conv_in's 4, when it is not excluded)."""
+    (conv_in's 4, when it is not excluded). A patch conv (square kernel =
+    stride > 1, no padding) goes to ``int8_patch_conv``."""
     q = site["q"]
+    if q.shape[1] == q.shape[2] == stride > 1 and padding == 0:
+        return int8_patch_conv(x, site, bias, stride)
     pad = -q.shape[3] % _conv.CHANNEL_ALIGN
     if pad:
         q = F.pad(q, (0, pad))
@@ -360,21 +450,43 @@ class Conv2d(nn.Conv2d):
         return super().forward(x)
 
 
+class InProjSite(nn.Module):
+    """A module holding torch.nn.MultiheadAttention's packed
+    ``in_proj_weight`` (3 D, D) and ``in_proj_bias``: its ``in_proj`` runs
+    ``int8_linear`` while ``int8_sites`` holds an entry for the site
+    ``<module>.in_proj``, and the packed parameters keep their keys."""
+
+    def in_proj(self, x: torch.Tensor) -> torch.Tensor:
+        site = _site(self)
+        if site is not None:
+            return int8_linear(x, site, self.in_proj_bias)
+        _observe(self, x, -1)
+        return F.linear(x, self.in_proj_weight, self.in_proj_bias)
+
+
 def site_modules(model: nn.Module) -> Dict[str, nn.Module]:
-    """{module name: module} of ``model``'s int8-capable sites."""
-    return {name: m for name, m in model.named_modules()
-            if isinstance(m, (Linear, Conv2d))}
+    """{site name: module} of ``model``'s int8-capable sites."""
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, (Linear, Conv2d)):
+            out[name] = m
+        elif isinstance(m, InProjSite):
+            out[f"{name}.in_proj" if name else "in_proj"] = m
+    return out
 
 
 @contextlib.contextmanager
 def int8_sites(model: nn.Module, sites: Dict[str, QSite]) -> Iterator[None]:
     """While active, the sites of ``model`` named in ``sites`` (from
-    ``quantize_params``) run int8; every other site is unchanged."""
+    ``quantize_params``) run int8, besides those of enclosing contexts
+    (the UNet's and each tower's); every other site is unchanged."""
     modules = site_modules(model)
     unknown = sorted(set(sites) - set(modules))
     if unknown:
         raise KeyError(f"no int8-capable site named {unknown[:4]}")
-    token = _SITES.set({modules[name]: site for name, site in sites.items()})
+    token = _SITES.set({**(_SITES.get() or {}),
+                        **{modules[name]: site
+                           for name, site in sites.items()}})
     try:
         yield
     finally:

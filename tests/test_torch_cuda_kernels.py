@@ -344,6 +344,99 @@ def test_cuda_int8_conv_act_matches_reference(n, h, w, c, o, k, stride, pad,
                                                   bias, dtype, stride, pad))
 
 
+def _conv_site(o, c, k, x, mode, g):
+    """A quantized conv site of x's channels in scale mode ``mode``, with
+    the (act scale, per-channel) the conv's plain version takes."""
+    from e4t_diffusion_torch.ops import quant
+
+    w = torch.randn(o, c, k, k, device="cuda", generator=g)
+    ax = x.float().abs()
+    if mode == "sac":
+        sac = ax.amax(dim=(0, 2, 3)).clamp(min=1e-3) / 127.0
+        site = quant.quantize_kernel(w * sac.reshape(1, -1, 1, 1))
+        site["sac"] = sac
+    else:
+        site = quant.quantize_kernel(w)
+        if mode == "sa":
+            site["sa"] = ax.amax() * 0.8 / 127.0
+    site["q"] = site["q"].permute(0, 2, 3, 1).contiguous()
+    act = site.get("sac", site.get("sa", quant.dynamic_scale(x)))
+    return site, act.reshape(-1), mode == "sac"
+
+
+# the VAE decoder's conv shapes (reduced batch; the full batch 8 in
+# chip_smoke.py): output widths 512, 256 and 128 against the kernel's
+# 160-channel tile, rows of 128 to 512 pixels in 64-column tiles,
+# post_quant_conv's 4 channels, and one batch-8 512x512 site whose f32
+# activation holds 2.7e8 elements
+VAE_CONV_CASES = [
+    (1, 64, 64, 512, 512, 3, 1, 1),
+    (1, 128, 128, 512, 512, 3, 1, 1),
+    (1, 256, 256, 512, 256, 3, 1, 1),
+    (1, 512, 512, 256, 256, 3, 1, 1),
+    (1, 512, 512, 256, 128, 3, 1, 1),
+    (1, 512, 512, 128, 128, 3, 1, 1),
+    (2, 256, 256, 512, 256, 1, 1, 0),
+    (2, 512, 512, 256, 128, 1, 1, 0),
+    (8, 64, 64, 4, 4, 1, 1, 0),
+    (8, 512, 512, 256, 128, 3, 1, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dynamic", "sa", "sac"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h,w,c,o,k,stride,pad", VAE_CONV_CASES)
+def test_cuda_int8_conv_at_vae_shapes(n, h, w, c, o, k, stride, pad, dtype,
+                                      mode):
+    """The conv site's route (``quant.int8_conv2d``) at the VAE decoder's
+    shapes against ``int8_conv_act_reference``, bit for bit."""
+    from e4t_diffusion_torch.ops import int8_conv as ic
+    from e4t_diffusion_torch.ops import quant
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator("cuda").manual_seed(8)
+    x = torch.randn(n, c, h, w, device="cuda", generator=g).to(dtype)
+    site, act, per_channel = _conv_site(o, c, k, x, mode, g)
+    bias = torch.randn(o, device="cuda", generator=g).to(dtype)
+    before = ic.int8_conv_act.launches
+    out = quant.int8_conv2d(x, site, bias, stride, pad)
+    torch.cuda.synchronize()
+    assert ic.int8_conv_act.launches == before + 1
+    ref = ic.int8_conv_act_reference(x, site["q"], act, per_channel,
+                                     site["s"], bias, stride, pad)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dynamic", "sa", "sac"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_patch_conv_route_at_vit_conv1(dtype, mode):
+    """The ViT-H's conv1 (3 -> 1280, 14x14 at stride 14, no bias) on its
+    route, the quantization kernel and ``torch._int_mm`` over the patch
+    matrix, against the int8 conv's plain version, bit for bit, at batch 8;
+    it launches the quantization kernel once and the conv kernel never."""
+    from e4t_diffusion_torch.ops import int8_conv as ic
+    from e4t_diffusion_torch.ops import quant
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator("cuda").manual_seed(9)
+    x = torch.randn(8, 3, 224, 224, device="cuda", generator=g).to(dtype)
+    site, act, per_channel = _conv_site(1280, 3, 14, x, mode, g)
+    counts = (quant.quantize_activation.launches, ic.int8_conv_act.launches)
+    out = quant.int8_conv2d(x, site, None, 14, 0)
+    torch.cuda.synchronize()
+    assert (quant.quantize_activation.launches,
+            ic.int8_conv_act.launches) == (counts[0] + 1, counts[1])
+    ref = ic.int8_conv_act_reference(x, site["q"], act, per_channel,
+                                     site["s"], None, 14, 0)
+    assert out.shape == ref.shape == (8, 1280, 16, 16)
+    assert out.dtype == dtype and torch.equal(out, ref)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["dynamic", "sa", "sac"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -102,3 +102,38 @@ def rel_l2(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def sampling_args(jm, params, modules, sds, batch=2, seed=0):
+    """The same inputs, made with numpy from ``seed``, for the JAX
+    package's and the port's ``make_sample_fn`` on the tiny modules:
+    (JAX positional arguments up to the noise key, the port's up to the
+    generator). ``batch`` latents, one prompt with the placeholder at
+    position 3, "" ids of zeros, class token 5."""
+    import torch
+
+    from e4t_diffusion_tpu.models.clip_text import embed_tokens
+
+    rng = np.random.default_rng(seed)
+    length = jm.text_encoder.config.max_position_embeddings
+    ids = rng.integers(1, 40, (1, length))
+    latents = rng.standard_normal((batch, 4, 8, 8)).astype(np.float32)
+    pixel = rng.uniform(-1, 1, (1, 3, 32, 32)).astype(np.float32)
+    ph_idx = np.full((batch,), 3)
+    uncond = np.zeros((1, length), np.int64)
+    text = params["text"]
+    jax_args = (params["unet"], params["offsets"], params["vae"], text,
+                params["e4t"], jnp.asarray(latents), jnp.asarray(pixel),
+                embed_tokens(text, jnp.asarray(ids, jnp.int32)),
+                jnp.asarray(ph_idx, jnp.int32),
+                jnp.asarray(uncond, jnp.int32),
+                embed_tokens(text, jnp.asarray([[5]], jnp.int32))[0, 0],
+                jax.random.PRNGKey(1))
+    te = modules.text_encoder
+    with torch.no_grad():
+        port_args = (sds["offsets"], torch.from_numpy(latents),
+                     torch.from_numpy(pixel),
+                     te.embed_tokens(torch.from_numpy(ids)),
+                     torch.from_numpy(ph_idx), torch.from_numpy(uncond),
+                     te.embed_tokens(torch.tensor([5]))[0])
+    return jax_args, port_args

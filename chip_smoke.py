@@ -64,12 +64,40 @@ Phases (any failure exits non-zero; each prints its wall seconds):
 14. routes_pretraining: one step from the same weights with both routes
    on, its loss and grad norm against phase 13's first step;
 15. f32_pretraining: two steps with ``--mixed_precision no`` (the CLI's
-   default) at the largest batch of 16, 8 and 4 that the card holds.
-In phases 4 to 8, 10 and 12 to 15 (4b and 5b included) the kernels'
-launch counters, set to 0 just before each run and read just after, must
-show the path went through every kernel it routes to, as many times as its
-attention, conv, linear and GroupNorm sites give. The two routes are off
-by default, and off in every other phase but where phase 10 names one.
+   default) at the largest batch of 16, 8 and 4 that the card holds;
+10b. unclip (after f32_sampling, before tuning): the Stable-unCLIP
+   image-variation path at full SD2.1-unclip width (SD2 UNet with
+   64-dim heads and the projection class embedding, the 23-layer
+   OpenCLIP-H text encoder, the HF ViT-H image encoder with its
+   projection, the 768px VAE, a normalizer) with seeded random bf16
+   weights, written as a diffusers-format directory and run through
+   ``image_variation_augmentation.main --mode unclip`` at its defaults
+   (2 source images, 4 variations each, DPM++ 20 steps, CFG 10, 768px):
+   8 JPEGs; then the CLI's pipeline called directly: images finite and in
+   [0, 1], the same seed twice bit for bit, noise level 500 against 0, a
+   CFG-1.0 call at batch 4, one call with both opt-in routes on (every
+   GroupNorm on its kernel, the mid block's 144-token self-attention on the
+   short-sequence kernel) against the routes off, one batch-8 UNet pass on the flash kernel against einsum,
+   one UNet pass and one 768px VAE decode with the routes on against off,
+   peak memory, a profile;
+10c. clip_score: ``evaluate_clip_scores.main`` with a full-width
+   ``CLIPScorer`` (ViT-H-14 and the 24-layer OpenCLIP-H text tower, f32,
+   seeded random weights written as an open_clip state dict) over the
+   unclip phase's JPEGs: scores finite and in [-1, 1], a source image
+   against itself 1 within 1e-3, the scores with ``E4T_SHORTSEQ_MH_ATTN=8``
+   (the ViT-H's sites on the f32 short-sequence kernel) against the route
+   off.
+Phase 9 also runs the tiny unCLIP pipeline in f32 on the card against the
+CPU with the same draws. The kernels phase holds the low-dim forward at
+the unCLIP UNet's three flash sites (d64: BH 40 x 9216², 80 x 2304², 160 x
+576²) and the GroupNorm kernel at every site of an SD2-unclip UNet pass
+(batch 8, 96²) and a 768px VAE decode (batch 4).
+In phases 4 to 8, 10, 10b, 10c and 12 to 15 (4b and 5b included) the
+kernels' launch counters, set to 0 just before each run and read just
+after, must show the path went through every kernel it routes to, as many
+times as its attention, conv, linear and GroupNorm sites give. The two
+routes are off by default, and off in every other phase but where phases
+10, 10b and 10c name one.
 
 The second-to-last line of output is a JSON ``kernels`` record, the last
 ``{"ok": true, "device": {...}}``.
@@ -1029,11 +1057,12 @@ def _patch_conv_case(n, gen):
 
 
 def _group_norm_sites(unet_config, vae_config, batch, resolution,
-                      device="meta"):
+                      device="meta", parts=None):
     """{"unet", "unet_tap", "vae_decode", "vae_encode": {(C, H, W, groups,
     eps, act, layout): sites}}: the GroupNorm sites of one UNet pass (full,
     and the tap pass that stops after the mid block), one VAE decode and
-    one VAE encode, read off forwards of bf16 models on ``device``.
+    one VAE encode (or only the ``parts`` named), read off forwards of bf16
+    models on ``device``.
     The layout ("nchw" or "nhwc", channels-last memory) is the one a site's
     input has on the card: the meta device does not carry it ("nchw")."""
     import torch
@@ -1055,21 +1084,30 @@ def _group_norm_sites(unet_config, vae_config, batch, resolution,
         return plain(x, norm, act)
 
     side = resolution // 8
+    # the Stable-unCLIP UNet's projection class embedding takes class labels
+    def labels():
+        return ({} if unet_config.class_embed_type is None else {
+            "class_labels": torch.zeros(
+                batch, unet_config.projection_class_embeddings_input_dim)})
+
     runs = {
         "unet": lambda: unet(torch.zeros(batch, 4, side, side),
                              torch.zeros(batch), torch.zeros(
-                                 batch, 77, unet_config.cross_attention_dim)),
+                                 batch, 77, unet_config.cross_attention_dim),
+                             **labels()),
         "unet_tap": lambda: unet(torch.zeros(batch, 4, side, side),
                                  torch.zeros(batch), torch.zeros(
                                      batch, 77,
                                      unet_config.cross_attention_dim),
-                                 return_encoder_outputs=True),
+                                 return_encoder_outputs=True, **labels()),
         "vae_decode": lambda: vae.decode(torch.zeros(batch, 4, side, side)),
         "vae_encode": lambda: vae.encode(
             torch.zeros(batch, 3, resolution, resolution))}
     unet_mod.group_norm_act = vae_mod.group_norm_act = record
     try:
         for name, run in runs.items():
+            if parts is not None and name not in parts:
+                continue
             current = sites[name] = {}
             with torch.device(device), torch.inference_mode():
                 run()
@@ -1225,10 +1263,17 @@ TUNING_SITES = ((4096, 4096, 40), (4096, 77, 40), (1024, 1024, 80),
 def phase_kernels():
     import torch
 
+    from e4t_diffusion_torch.ops.shortseq import heads_per_cell
+
     gen = torch.Generator("cuda").manual_seed(0)
     # sampling's two flash sites at 512px, batch 8 (BH = 8 x 8 heads)
     sampling = [_fwd_case(64, 4096, 4096, 40, gen, timed=True),
                 _fwd_case(64, 1024, 1024, 80, gen, timed=True)]
+    # the Stable-unCLIP UNet's three flash sites at 768px, batch 8 (4
+    # variations x CFG; 5, 10 and 20 heads of 64)
+    unclip_flash = [_fwd_case(8 * heads, side * side, side * side, 64, gen,
+                              timed=True) for heads, side in UNCLIP_FLASH]
+    torch.cuda.empty_cache()
     # tuning's forward sites, the ViT-H's (BH = 16 x 16 heads) included,
     # and one shape the JAX package sends to its grid forward (Sk x 256
     # lanes above 8192 x 128)
@@ -1335,6 +1380,25 @@ def phase_kernels():
         for (c, h, w, groups, eps, act, layout), count in sorted(
             encode_sites.items(), key=str)]
     torch.cuda.empty_cache()
+    # the unCLIP path: an SD2-unclip UNet pass at batch 8, 96² latents, and
+    # a 768px VAE decode at batch 4, in the layouts the card gives them
+    ucfg2, vcfg2 = (UNetConfig.sd2_unclip(),
+                    VAEConfig(sample_size=UNCLIP_RESOLUTION))
+    unclip_unet = _group_norm_sites(ucfg2, vcfg2, UNCLIP_BATCH,
+                                    UNCLIP_RESOLUTION, "cuda", ("unet",))
+    unclip_decode = _group_norm_sites(ucfg2, vcfg2, UNCLIP_IMAGES,
+                                      UNCLIP_RESOLUTION, "cuda",
+                                      ("vae_decode",))
+    torch.cuda.empty_cache()
+    for part, batch, sites in (
+            ("unclip_unet", UNCLIP_BATCH, unclip_unet["unet"]),
+            ("vae_decode_768", UNCLIP_IMAGES, unclip_decode["vae_decode"])):
+        group_norm[part] = [
+            _gn_case(batch, c, h, w, groups, eps, act, layout,
+                     torch.bfloat16, gen, timed=True, sites=count)
+            for (c, h, w, groups, eps, act, layout), count in sorted(
+                sites.items(), key=str)]
+        torch.cuda.empty_cache()
     for n_, c, h, w, groups, act, layout, dtype in (
             (1, 32, 7, 9, 32, "silu", "nchw", torch.float32),  # C/G = 1
             (3, 40, 7, 9, 8, "silu", "nchw", torch.bfloat16),  # odd H*W
@@ -1353,6 +1417,12 @@ def phase_kernels():
                                gen, timed=False))
     short = [_shortseq_case(bh, 257, 80, 8, gen, timed=True)
              for bh in (8 * 16, 16 * 16)]
+    # the unCLIP UNet's mid block with the knob on: 144 tokens, BH 8 x 20
+    # heads of 64
+    short.append(_shortseq_case(
+        UNCLIP_BATCH * 20, 144, 64,
+        heads_per_cell(UNCLIP_BATCH * 20, int(ROUTE_KNOBS[
+            "E4T_SHORTSEQ_MH_ATTN"])), gen, timed=True))
     for bh, s_, d, g in ((2, 129, 8, 1), (4, 200, 40, 2), (16, 384, 64, 8),
                          (32, 512, 120, 16)):
         ragged.append(_shortseq_case(bh, s_, d, g, gen, timed=False))
@@ -1363,7 +1433,8 @@ def phase_kernels():
                       (16, 1, 200), (48, 200, 1), (40, 257, 4096)):
         ragged.append(_fwd_case(2, sq, sk, d, gen, timed=False))
     f32_cases = _f32_kernel_cases(gen, n)
-    cases = {"sampling": sampling, "tuning_fwd": tuning_fwd, "grid": grid,
+    cases = {"sampling": sampling, "unclip_flash": unclip_flash,
+             "tuning_fwd": tuning_fwd, "grid": grid,
              "tuning_bwd": tuning_bwd, "grid_bwd": grid_bwd,
              "int8_flash": int8_flash, "int8_conv": int8_conv,
              "int8_quantize": int8_quantize, "int8_conv_vae": int8_conv_vae,
@@ -1383,6 +1454,8 @@ def _f32_kernel_cases(gen, n):
     129 and 65, and at 512 (the flash-shaped kernel above 320)."""
     import torch
 
+    from e4t_diffusion_torch.ops.shortseq import heads_per_cell
+
     f32 = torch.float32
     out = {
         # f32 sampling's two flash sites (batch n, 8 heads)
@@ -1394,8 +1467,12 @@ def _f32_kernel_cases(gen, n):
         + [_fwd_case(256, 257, 257, 80, gen, True, f32)],
         "f32_tuning_bwd": [_bwd_case(128, sq, sk, d, gen, True, f32)
                            for sq, sk, d in TUNING_SITES],
+        # the ViT-H at batch 8 and 16, and the CLIP scorer's ViT-H-14 at
+        # batch 1 (BH 16) with E4T_SHORTSEQ_MH_ATTN's heads per cell
         "f32_shortseq": [_shortseq_case(bh, 257, 80, 8, gen, True, f32)
-                         for bh in (8 * 16, 16 * 16)],
+                         for bh in (8 * 16, 16 * 16)] + [_shortseq_case(
+                             16, 257, 80, heads_per_cell(16, int(ROUTE_KNOBS[
+                                 "E4T_SHORTSEQ_MH_ATTN"])), gen, True, f32)],
         "f32_int8_flash": [
             _int8_flash_case(8 * n, s_, s_, d, mode, gen, True, f32)
             for mode in ("qk", "qkpv") for s_, d in ((4096, 40),
@@ -1533,6 +1610,27 @@ def _routes_on():
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+@contextlib.contextmanager
+def _flash_shapes():
+    """Yields a dict that counts, for the block, the flash forward's calls
+    from ``ops/attention`` by "BHxSqxSkxD" (the wrapper itself counts its
+    launches as always)."""
+    from e4t_diffusion_torch.ops import attention
+
+    shapes, real = {}, attention.flash_fwd
+
+    def tally(q, k, v, *args):
+        key = f"{q.shape[0]}x{q.shape[1]}x{k.shape[1]}x{q.shape[2]}"
+        shapes[key] = shapes.get(key, 0) + 1
+        return real(q, k, v, *args)
+
+    attention.flash_fwd = tally
+    try:
+        yield shapes
+    finally:
+        attention.flash_fwd = real
 
 
 def _want(**counts):
@@ -2596,6 +2694,7 @@ def phase_tiny_vs_cpu():
                                         latents, steps)
     print(json.dumps({"phase": "tiny_card_vs_cpu", "max_abs": err,
                       "schedulers_max_abs": sched_err,
+                      "unclip_max_abs": _tiny_unclip_vs_cpu(),
                       "int8_calibration_rel": amax_err,
                       "int8_max_abs": err8,
                       "int8_vs_f32_max_abs_cpu": int8_err,
@@ -2943,6 +3042,511 @@ def phase_f32_tuning(smi):
 # checkpoint at 2 and a sample after every step (one prompt, one input,
 # DDIM-4), then 1 step resumed from that checkpoint; the images written for
 # it, of mixed sizes and aspect ratios (PNG and JPEG)
+# the Stable-unCLIP path at the augmentation CLI's defaults: 4 variations
+# of each source image at 768px, CFG 10 (the UNet runs both halves at once:
+# batch 8), DPM++ 20 steps, noise level 0
+UNCLIP_RESOLUTION = 768
+UNCLIP_IMAGES = 4
+UNCLIP_BATCH = 2 * UNCLIP_IMAGES
+UNCLIP_STEPS = 20
+UNCLIP_GUIDANCE = 10.0
+# (heads, latent side) of its flash sites: 64-dim heads at 96², 48², 24²
+UNCLIP_FLASH = ((5, 96), (10, 48), (20, 24))
+# the source images the phase writes (H, W): one square, one not
+UNCLIP_SOURCES = ((640, 640), (600, 900))
+# a 768px VAE decode in bf16 chains 30 GroupNorm sites: with the routes on
+# and off it is held against the same decode in f32, and the routes-on
+# error may be at most this multiple of the routes-off (ATen) error; a site
+# that normalised wrongly would be O(1) off
+ROUTE_DECODE_ERROR_RATIO = 2.0
+# a whole bf16 call's images with both opt-in routes on against off, same
+# seed: bf16 rounding apart through 20 UNet passes and the decode (measured
+# 1.8e-2 on an H100 80GB HBM3 at 700 W); a site that normalised wrongly is
+# O(1) off
+UNCLIP_ROUTES_IMAGES_REL_L2 = 5e-2
+# peak device memory over a warm call: 3.8 GB of bf16 weights, the 768px
+# decode's activations and its 1.36 GB f32 mid-attention scores (measured
+# 8.77 GB on an H100 80GB HBM3 at 700 W)
+UNCLIP_PEAK_GB = 12.0
+# CLIP-I of a source image against itself (features L2-normalised in f32)
+CLIP_SELF_SCORE_ABS = 1e-3
+# the scorer runs in f32: its scores (absolute) and one image's features
+# (rel-L2) with the short-sequence route on against off are held to the f32
+# path's tolerance, F32_PATH_REL_L2
+
+
+def _expected_unclip_launches(ucfg, batch, resolution, steps, dtype=None,
+                              routes=False):
+    """Launches of one unCLIP call: one UNet pass a step at ``batch`` (CFG's
+    two halves batched), a site on the short-sequence kernel where the
+    port's ``shortseq_route`` sends it with both opt-in routes on
+    (``routes``: the mid block's 144-token self-attention), else on flash
+    where ``flash_route`` does, with the head count of its block; the
+    image encoder, the text encoder and the VAE's mid attention run einsum
+    (GroupNorm launches are not counted here)."""
+    import torch
+
+    from e4t_diffusion_torch.models.weight_offsets import attention_sites
+    from e4t_diffusion_torch.ops.attention import flash_route, shortseq_route
+    from e4t_diffusion_torch.ops.flash_lowdim import launch_route
+
+    dtype = dtype or torch.bfloat16
+    side = resolution // 8
+    levels = len(ucfg.block_out_channels)
+    want = dict.fromkeys(KERNEL_ROWS, 0)
+    for path, dim, _ in attention_sites(ucfg):
+        block, index = path.split(".")[:2]
+        level = (levels - 1 - int(index) if block == "up_blocks"
+                 else int(index) if block == "down_blocks" else levels - 1)
+        heads = ucfg.heads_for_block(level)
+        sq = (side >> level) ** 2
+        sk = sq if path.endswith("attn1") else 77
+        d = dim // heads
+        q_shape, k_shape = (batch, heads, sq, d), (batch, heads, sk, d)
+        with _routes_on() if routes else contextlib.nullcontext():
+            short = shortseq_route(q_shape, k_shape, "cuda")
+        if short:
+            want["flash_fwd_shortseq" + (
+                "_f32" if dtype == torch.float32 else "")] += steps
+        elif flash_route(q_shape, k_shape, "cuda"):
+            want[f"flash_fwd_{launch_route(d, dtype)}"] += steps
+    return want
+
+
+def _write_unclip_model(root, mods):
+    """The unCLIP modules (bf16) as a diffusers-format
+    stable-diffusion-2-1-unclip directory: unet/, vae/, text_encoder/,
+    image_encoder/, image_normalizer/, scheduler/ (v-prediction),
+    image_noising_scheduler/, tokenizer/."""
+    import dataclasses
+
+    import torch
+
+    from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
+    from e4t_diffusion_torch.utils.tokenizer import make_tiny_tokenizer_files
+
+    tcfg = mods.text_encoder.config
+    icfg = mods.image_encoder.config
+    vis = icfg.vision
+    parts = {
+        "unet": (dataclasses.asdict(mods.unet.config), mods.unet,
+                 "diffusion_pytorch_model.bin"),
+        "vae": (dataclasses.asdict(mods.vae.config), mods.vae,
+                "diffusion_pytorch_model.bin"),
+        "text_encoder": ({
+            "vocab_size": tcfg.vocab_size, "hidden_size": tcfg.hidden_size,
+            "num_hidden_layers": tcfg.num_layers,
+            "num_attention_heads": tcfg.num_heads,
+            "intermediate_size": tcfg.intermediate_size,
+            "max_position_embeddings": tcfg.max_position_embeddings,
+            "layer_norm_eps": tcfg.layer_norm_eps,
+            "hidden_act": tcfg.hidden_act}, mods.text_encoder,
+            "pytorch_model.bin"),
+        "image_encoder": ({
+            "hidden_size": vis.hidden_size,
+            "num_hidden_layers": vis.num_layers,
+            "num_attention_heads": vis.num_heads,
+            "intermediate_size": vis.intermediate_size,
+            "image_size": vis.image_size, "patch_size": vis.patch_size,
+            "projection_dim": icfg.projection_dim,
+            "hidden_act": vis.hidden_act}, mods.image_encoder,
+            "pytorch_model.bin"),
+        "image_normalizer": ({"embedding_dim": icfg.projection_dim},
+                             mods.image_normalizer,
+                             "diffusion_pytorch_model.bin")}
+    for sub, (config, module, weights) in parts.items():
+        os.makedirs(os.path.join(root, sub))
+        with open(os.path.join(root, sub, "config.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(config, f)
+        torch.save({k: v.detach().cpu() for k, v in
+                    module.state_dict().items()},
+                   os.path.join(root, sub, weights))
+    for sub, config in (
+            ("scheduler", NoiseScheduleConfig(prediction_type="v_prediction")),
+            ("image_noising_scheduler", mods.noise_aug_schedule)):
+        os.makedirs(os.path.join(root, sub))
+        with open(os.path.join(root, sub, "scheduler_config.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(dataclasses.asdict(config), f)
+    make_tiny_tokenizer_files(os.path.join(root, "tokenizer"),
+                              extra_words=["a", "photo", "of", "face"])
+    return root
+
+
+def _unclip_modules():
+    """The full-width SD2.1-unclip stack, seeded random bf16 weights on the
+    card, with a normalizer of positive std."""
+    import torch
+
+    from e4t_diffusion_torch.diffusion.unclip_pipeline import UnCLIPModules
+    from e4t_diffusion_torch.models.clip_text import CLIPTextConfig
+    from e4t_diffusion_torch.models.unclip import CLIPVisionProjectionConfig
+    from e4t_diffusion_torch.models.unet import UNetConfig
+    from e4t_diffusion_torch.models.vae import VAEConfig
+
+    torch.manual_seed(20)
+    mods = UnCLIPModules.create(
+        UNetConfig.sd2_unclip(), VAEConfig(sample_size=UNCLIP_RESOLUTION),
+        CLIPTextConfig.sd2(), CLIPVisionProjectionConfig(),
+        dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(21)
+    norm = mods.image_normalizer
+    with torch.no_grad():
+        norm.mean.copy_(0.1 * torch.randn(norm.mean.shape, generator=gen,
+                                          device="cuda"))
+        norm.std.copy_(0.5 + torch.rand(norm.std.shape, generator=gen,
+                                        device="cuda"))
+    return mods
+
+
+def _unclip_unet_checks(pipe):
+    """One batch-8 UNet pass at 96² with the flash sites on the kernel
+    against einsum attention everywhere, and with both routes on against
+    off (rel-L2); one 768px VAE decode with the routes on and off, each
+    against the decode in f32 (``ROUTE_DECODE_ERROR_RATIO``)."""
+    import copy
+
+    import torch
+
+    from e4t_diffusion_torch.ops.attention import flash_threshold
+
+    mods = pipe.modules
+    ucfg = mods.unet.config
+    side = UNCLIP_RESOLUTION // 8
+    gen = torch.Generator("cuda").manual_seed(22)
+    x = torch.randn(UNCLIP_BATCH, 4, side, side, device="cuda",
+                    generator=gen)
+    ctx = torch.randn(UNCLIP_BATCH, 77, ucfg.cross_attention_dim,
+                      device="cuda", generator=gen)
+    labels = torch.randn(UNCLIP_BATCH,
+                         ucfg.projection_class_embeddings_input_dim,
+                         device="cuda", generator=gen)
+    z = torch.randn(UNCLIP_IMAGES, 4, side, side, device="cuda",
+                    generator=gen)
+    t = torch.full((UNCLIP_BATCH,), 500, device="cuda")
+    out = {}
+    with torch.inference_mode():
+        eps = mods.unet(x, t, ctx, class_labels=labels).float()
+        with flash_threshold(1 << 62):
+            eps_plain = mods.unet(x, t, ctx, class_labels=labels).float()
+        out["unet_kernel_vs_einsum_rel_l2"] = _rel(eps, eps_plain)
+        del eps_plain
+        torch.cuda.empty_cache()
+        img = mods.vae.decode(z).float()
+        with _routes_on():
+            out["unet_routes_on_vs_off_rel_l2"] = _rel(
+                mods.unet(x, t, ctx, class_labels=labels), eps)
+            img_on = mods.vae.decode(z).float()
+        del eps
+        vae32 = copy.deepcopy(mods.vae).float()
+        ref = vae32.decode(z.float())
+        del vae32
+    decode = {"vae_decode_routes_on_vs_off_rel_l2": _rel(img_on, img),
+              "vae_decode_routes_off_vs_f32_rel_l2": _rel(img, ref),
+              "vae_decode_routes_on_vs_f32_rel_l2": _rel(img_on, ref)}
+    if not (max(out.values()) <= UNET_ROUTE_REL_L2
+            and decode["vae_decode_routes_on_vs_f32_rel_l2"]
+            <= ROUTE_DECODE_ERROR_RATIO
+            * decode["vae_decode_routes_off_vs_f32_rel_l2"]):
+        fail(f"unclip: UNet / VAE route checks {out} {decode}")
+    return {**out, **decode}
+
+
+def phase_unclip(smi, root):
+    """The Stable-unCLIP augmentation CLI at its defaults on a written
+    full-width SD2.1-unclip directory, then its pipeline called directly.
+    Returns (the CLI run's launches, the files the clip_score phase
+    reads)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from e4t_diffusion_torch import image_variation_augmentation as aug
+    from e4t_diffusion_torch.data.dataset import load_image_rgb
+
+    report = {"phase": "unclip", "card": smi,
+              "resolution": UNCLIP_RESOLUTION, "steps": UNCLIP_STEPS,
+              "guidance": UNCLIP_GUIDANCE,
+              "images_per_source": UNCLIP_IMAGES}
+    t0 = time.perf_counter()
+    mods = _unclip_modules()
+    ucfg, vcfg = mods.unet.config, mods.vae.config
+    report["params"] = sum(p.numel() for m in mods.all()
+                           for p in m.parameters())
+    model_dir = _write_unclip_model(os.path.join(root, "sd21-unclip"), mods)
+    del mods
+    torch.cuda.empty_cache()
+    src = os.path.join(root, "sources")
+    os.makedirs(src)
+    rng = np.random.default_rng(23)
+    for i, (h, w) in enumerate(UNCLIP_SOURCES):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                        ).save(os.path.join(src, f"{i}.png"))
+    report["write_s"] = time.perf_counter() - t0
+
+    per_call = _expected_unclip_launches(ucfg, UNCLIP_BATCH,
+                                         UNCLIP_RESOLUTION, UNCLIP_STEPS)
+    # 5 self-attention sites at each of 96², 48² and 24² (the mid block's
+    # 144 tokens and every 77-token cross-attention stay on einsum)
+    if per_call != _want(flash_fwd_lowdim=15 * UNCLIP_STEPS):
+        fail(f"unclip: derived launches {per_call}")
+    out = os.path.join(root, "variations")
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = aug.main(["--train_image_dataset", src, "--save_dir", out,
+                     "--mode", "unclip", "--unclip_model_path", model_dir])
+    torch.cuda.synchronize()
+    report["cli_s"] = time.perf_counter() - t0
+    launches = _read_launches()
+    want_cli = {k: len(UNCLIP_SOURCES) * v for k, v in per_call.items()}
+    if launches != want_cli:
+        fail(f"unclip CLI: launches {launches}, expected {want_cli}")
+    jpgs = sorted(f for f in os.listdir(out) if f.endswith(".jpg"))
+    if len(jpgs) != len(UNCLIP_SOURCES) * UNCLIP_IMAGES:
+        fail(f"unclip CLI: {len(jpgs)} JPEGs in {out}")
+
+    image = load_image_rgb(os.path.join(src, "1.png"))  # not square
+
+    def call(want, **kwargs):
+        args = dict(num_images_per_prompt=UNCLIP_IMAGES,
+                    num_inference_steps=UNCLIP_STEPS,
+                    guidance_scale=UNCLIP_GUIDANCE, noise_level=0, seed=7,
+                    output_type="np")
+        args.update(kwargs)
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images = pipe(image, **args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = _read_launches()
+        if got != want:
+            fail(f"unclip {kwargs}: launches {got}, expected {want}")
+        if not (images.shape == (UNCLIP_IMAGES, 3, UNCLIP_RESOLUTION,
+                                 UNCLIP_RESOLUTION)
+                and np.isfinite(images).all() and images.min() >= 0.0
+                and images.max() <= 1.0):
+            fail(f"unclip {kwargs}: images {images.shape}, finite "
+                 f"{np.isfinite(images).all()}, range "
+                 f"[{images.min()}, {images.max()}]")
+        return images, seconds
+
+    first, report["first_call_s"] = call(per_call)
+    torch.cuda.reset_peak_memory_stats()
+    with _flash_shapes() as shapes:
+        second, warm_s = call(per_call)
+    peak = torch.cuda.max_memory_allocated()
+    report.update(warm_call_s=warm_s, images_per_s=UNCLIP_IMAGES / warm_s,
+                  max_memory_allocated_gb=peak / 1e9,
+                  flash_launches_by_shape=shapes,
+                  rerun_bit_equal=bool(np.array_equal(first, second)))
+    if not report["rerun_bit_equal"]:
+        fail(f"unclip: two same-seed calls differ by "
+             f"{float(np.abs(first - second).max())}")
+    if peak > UNCLIP_PEAK_GB * 1e9:
+        fail(f"unclip: peak memory {peak / 1e9} GB above {UNCLIP_PEAK_GB}")
+    want_shapes = {f"{UNCLIP_BATCH * h}x{s * s}x{s * s}x64": 5 * UNCLIP_STEPS
+                   for h, s in UNCLIP_FLASH}
+    if shapes != want_shapes:
+        fail(f"unclip: flash launches by shape {shapes}, expected "
+             f"{want_shapes}")
+    noised, _ = call(per_call, noise_level=500)
+    report["noise_level_500_vs_0_rel_l2"] = _rel(torch.from_numpy(noised),
+                                                 torch.from_numpy(first))
+    if not report["noise_level_500_vs_0_rel_l2"] > 1e-3:
+        fail(f"unclip: noise level 500 against 0: {report}")
+    no_cfg = _expected_unclip_launches(ucfg, UNCLIP_IMAGES,
+                                       UNCLIP_RESOLUTION, UNCLIP_STEPS)
+    # at batch 4 the 576-token sites' scores (106 MB) fall under 128 MiB
+    if no_cfg != _want(flash_fwd_lowdim=10 * UNCLIP_STEPS):
+        fail(f"unclip: derived launches without CFG {no_cfg}")
+    _, report["cfg_1_call_s"] = call(no_cfg, guidance_scale=1.0)
+    gn = _group_norm_sites(ucfg, vcfg, 1, UNCLIP_RESOLUTION,
+                           parts=("unet", "vae_decode"))
+    report["group_norm_sites"] = {
+        "unet_pass": sum(gn["unet"].values()),
+        "vae_decode": sum(gn["vae_decode"].values())}
+    want_routes = dict(_expected_unclip_launches(
+        ucfg, UNCLIP_BATCH, UNCLIP_RESOLUTION, UNCLIP_STEPS, routes=True),
+        group_norm=(UNCLIP_STEPS * report["group_norm_sites"]["unet_pass"]
+                    + report["group_norm_sites"]["vae_decode"]))
+    with _routes_on():
+        routed, report["routes_call_s"] = call(want_routes)
+    report["routes_on_vs_off_images_rel_l2"] = _rel(
+        torch.from_numpy(routed), torch.from_numpy(first))
+    if not (report["routes_on_vs_off_images_rel_l2"]
+            <= UNCLIP_ROUTES_IMAGES_REL_L2):
+        fail(f"unclip: routes on against off: {report}")
+    report.update(_unclip_unet_checks(pipe))
+    report["profile"] = _profile(lambda: pipe(
+        image, num_images_per_prompt=UNCLIP_IMAGES,
+        num_inference_steps=UNCLIP_STEPS, guidance_scale=UNCLIP_GUIDANCE,
+        seed=7, output_type="np"))
+    report["launches_cli"] = launches
+    print(json.dumps(report))
+    del pipe
+    torch.cuda.empty_cache()
+    # the flash kernel's device time over the profiled call: the only port
+    # attention kernel a default call launches
+    families = report["profile"].get("families_ms") or {}
+    per_call = {"launches_by_shape": shapes,
+                "profiled_ms": families.get("port_attention")}
+    return launches, {"variations": out, "source": os.path.join(src, "0.png"),
+                      "tokenizer": os.path.join(model_dir, "tokenizer"),
+                      "flash_per_call": per_call}
+
+
+def _open_clip_file(path):
+    """A full-width ``CLIPScorer`` with seeded random weights, written as an
+    open_clip ViT-H-14 checkpoint (bf16): ``visual.*`` with ``visual.proj``,
+    the text tower at top level, ``logit_scale`` and ``attn_mask``."""
+    import torch
+
+    from e4t_diffusion_torch.models.clip_score import (
+        CLIPScoreConfig, CLIPScorer)
+
+    torch.manual_seed(24)
+    cfg = CLIPScoreConfig()
+    with torch.device("cuda"):
+        scorer = CLIPScorer(cfg)
+    sd = {}
+    for k, v in scorer.state_dict().items():
+        k = ("visual.proj" if k == "visual_proj"
+             else k[len("text."):] if k.startswith("text.") else k)
+        sd[k] = v.detach().to("cpu", torch.bfloat16)
+    length = cfg.text.context_length
+    sd["logit_scale"] = torch.tensor(4.6052)
+    sd["attn_mask"] = torch.full((length, length), float("-inf")).triu(1)
+    torch.save(sd, path)
+    return sum(v.numel() for k, v in scorer.state_dict().items())
+
+
+def phase_clip_score(smi, root, data):
+    """``evaluate_clip_scores.main`` over the unclip phase's JPEGs with a
+    full-width scorer: the route off (default), then with
+    ``E4T_SHORTSEQ_MH_ATTN=8``, then a source image against itself; and
+    one JPEG's image features with the route on against off."""
+    import shutil
+
+    import torch
+
+    from e4t_diffusion_torch import evaluate_clip_scores as score
+
+    report = {"phase": "clip_score", "card": smi}
+    weights = os.path.join(root, "open_clip_vit_h14.pt")
+    t0 = time.perf_counter()
+    report["params"] = _open_clip_file(weights)
+    report["write_s"] = time.perf_counter() - t0
+    n = len(os.listdir(data["variations"]))
+    args = ["--generated_dir", data["variations"], "--source_image",
+            data["source"], "--prompt", "a photo of *s", "--class_word",
+            "face", "--open_clip_weights", weights, "--tokenizer_dir",
+            data["tokenizer"]]
+
+    def run(argv, want):
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        record = score.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = _read_launches()
+        if got != want:
+            fail(f"clip_score: launches {got}, expected {want}")
+        if not all(math.isfinite(record[k]) and -1.0 <= record[k] <= 1.0
+                   for k in ("clip_i", "clip_t")):
+            fail(f"clip_score: {record}")
+        return record, seconds, got
+
+    off, report["off_s"], _ = run(args, _want())
+    # the ViT-H's 32 attention sites at 257 tokens, BH 16, in f32: one
+    # image-features call for the source and one for each JPEG
+    with _routes_on():
+        on, report["on_s"], launches = run(args, _want(
+            flash_fwd_shortseq_f32=32 * (n + 1)))
+    self_dir = os.path.join(root, "self")
+    os.makedirs(self_dir)
+    shutil.copy(data["source"], self_dir)
+    itself, _, _ = run(["--generated_dir", self_dir,
+                        *args[2:]], _want())
+    report.update(route_off=off, route_on=on, source_vs_itself=itself,
+                  launches_on=launches)
+    # one JPEG's image features with the route on against off: a mean of
+    # cosines could hide a wrong feature
+    scorer = score.load_scorer(weights, "cuda")
+    jpg = os.path.join(data["variations"],
+                       sorted(os.listdir(data["variations"]))[0])
+    pixels = torch.from_numpy(score.load_pixels(jpg, 224)).cuda()
+    feats = {}
+    for route, want in (("off", _want()),
+                        ("on", _want(flash_fwd_shortseq_f32=32))):
+        with contextlib.ExitStack() as stack:
+            if route == "on":
+                stack.enter_context(_routes_on())
+            _reset_launches()
+            with torch.inference_mode():
+                feats[route] = scorer.image_features(pixels)
+            torch.cuda.synchronize()
+            if _read_launches() != want:
+                fail(f"clip_score: image features, route {route}: "
+                     f"launches {_read_launches()}, expected {want}")
+    report["image_features_on_vs_off_rel_l2"] = _rel(feats["on"],
+                                                     feats["off"])
+    del scorer, feats
+    torch.cuda.empty_cache()
+    print(json.dumps(report))
+    if not (off["n_images"] == on["n_images"] == n
+            and abs(itself["clip_i"] - 1.0) <= CLIP_SELF_SCORE_ABS
+            and max(abs(on[k] - off[k]) for k in ("clip_i", "clip_t"))
+            <= F32_PATH_REL_L2
+            and report["image_features_on_vs_off_rel_l2"]
+            <= F32_PATH_REL_L2):
+        fail(f"clip_score: {report}")
+    return launches
+
+
+def _tiny_unclip_vs_cpu():
+    """The tiny unCLIP pipeline in f32 on the card and on the CPU, the same
+    latents and augmentation noise passed to both: max-abs of the
+    images."""
+    import numpy as np
+    import torch
+
+    from e4t_diffusion_torch.diffusion.unclip_pipeline import (
+        StableUnCLIPImg2ImgPipeline, UnCLIPModules)
+    from e4t_diffusion_torch.utils.tokenizer import (
+        CLIPTokenizer, make_tiny_tokenizer_files)
+
+    torch.manual_seed(25)
+    cpu = UnCLIPModules.tiny(device="cpu")
+    card = UnCLIPModules.tiny(device="cuda")
+    with torch.no_grad():
+        cpu.image_normalizer.std.uniform_(0.5, 1.5)
+    for src, dst in zip(cpu.all(), card.all()):
+        dst.load_state_dict(src.state_dict(), strict=True)
+    rng = np.random.default_rng(26)
+    image = rng.integers(0, 256, (40, 32, 3), dtype=np.uint8)
+    latents = rng.standard_normal((2, 4, 8, 8)).astype(np.float32)
+    aug_noise = rng.standard_normal((2, 16)).astype(np.float32)
+    outs = []
+    with tempfile.TemporaryDirectory() as tok_dir:
+        make_tiny_tokenizer_files(tok_dir, extra_words=["photo"])
+        for mods in (cpu, card):
+            pipe = StableUnCLIPImg2ImgPipeline(
+                mods, CLIPTokenizer.from_pretrained(tok_dir,
+                                                    model_max_length=16))
+            outs.append(pipe(image, prompt="photo", num_inference_steps=3,
+                             guidance_scale=10.0, noise_level=300,
+                             num_images_per_prompt=2, latents=latents,
+                             aug_noise=aug_noise, output_type="np"))
+    err = float(np.abs(outs[0] - outs[1]).max())
+    if not err <= TINY_CARD_VS_CPU_MAX_ABS:
+        fail(f"tiny unCLIP pipeline, card vs CPU: max-abs {err}")
+    return err
+
+
 PRETRAIN_STEPS = 3
 PRETRAIN_BATCH = 16
 PRETRAIN_IMAGES = 40
@@ -3558,12 +4162,14 @@ def phase_f32_pretraining(smi, data):
          f"{refused}")
 
 
-def kernels_line(cases, paths):
+def kernels_line(cases, paths, unclip_call):
     """The kernels record: one row per kernel, its launches on each path
     (``paths``: launch counts by path) and its times at the main path's
-    heaviest site, with every timed site beside it."""
-    fwd_cases = cases["sampling"] + cases["tuning_fwd"] + [cases["grid"]] + [
-        c for c in cases["ragged"] if c["kernel"] != "flash_bwd"]
+    heaviest site, with every timed site beside it; ``unclip_call``: the
+    unclip phase's flash launches by shape and their profiled time."""
+    fwd_cases = (cases["sampling"] + cases["unclip_flash"]
+                 + cases["tuning_fwd"] + [cases["grid"]] + [
+                     c for c in cases["ragged"] if c["kernel"] != "flash_bwd"])
     bwd_cases = cases["tuning_bwd"] + [cases["grid_bwd"]] + [
         c for c in cases["ragged"] if c["kernel"] == "flash_bwd"]
     timed_keys = ("bh", "sq", "sk", "d", "ms", "plain_ms", "bound_ms",
@@ -3614,6 +4220,20 @@ def kernels_line(cases, paths):
               cases["int8_flash"])]
     kernels[1]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:95"
     kernels[2]["also_replaces"] = "e4t_diffusion_tpu/ops/flash_kernels.py:582"
+    # the unCLIP UNet's three d64 sites as the kernels phase timed them, and
+    # one warm call of the unclip phase: its launches at each shape and the
+    # kernel's device time over the profiled call (None: not measured);
+    # the bound is that of the launches counted
+    kernels[0]["unclip_sites"] = [
+        {k: c[k] for k in timed_keys + ("parent_ms",)}
+        for c in cases["unclip_flash"]]
+    shapes = unclip_call["launches_by_shape"]
+    kernels[0]["per_unclip_call"] = {
+        "launches_by_shape": shapes,
+        "profiled_ms": unclip_call["profiled_ms"],
+        "bound_ms": sum(
+            shapes.get(f"{c['bh']}x{c['sq']}x{c['sk']}x{c['d']}", 0)
+            * c["bound_ms"] for c in cases["unclip_flash"])}
     kernels[3]["at"] = kernels[3]["at"].replace(
         "bf16", "int8 q/k, bf16 v, mode qk")
     kernels[3]["per_site"] = [
@@ -3716,7 +4336,9 @@ def kernels_line(cases, paths):
         "over the patch matrix (K 588 padded to 592), static scale")
 
     gn = cases["group_norm"]
-    gn_all = gn["unet"] + gn["vae_decode"] + gn["vae_encode"] + [
+    gn_parts = ("unet", "vae_decode", "vae_encode", "unclip_unet",
+                "vae_decode_768")
+    gn_all = [c for part in gn_parts for c in gn[part]] + [
         c for c in cases["ragged"] if c["kernel"] == "group_norm"]
     gn_keys = ("n", "c", "h", "w", "groups", "act", "layout", "sites", "ms",
                "wall_ms", "parent_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3747,8 +4369,10 @@ def kernels_line(cases, paths):
         "per_unet_pass": per_run("unet"),
         "per_vae_decode": per_run("vae_decode"),
         "per_vae_encode_batch_16": per_run("vae_encode"),
+        "per_unclip_unet_pass_batch_8": per_run("unclip_unet"),
+        "per_vae_decode_768_batch_4": per_run("vae_decode_768"),
         "per_site": {part: [{k: c[k] for k in gn_keys} for c in gn[part]]
-                     for part in ("unet", "vae_decode", "vae_encode")}})
+                     for part in gn_parts}})
     short = [c for c in cases["shortseq"] + cases["ragged"]
              if c["kernel"] == "flash_fwd_shortseq"]
     kernels.append(entry("flash_fwd_shortseq", "flash_fwd_shortseq.cu", 896,
@@ -3847,6 +4471,11 @@ def main():
     f32_sampling = run("f32_sampling", phase_f32_sampling, smi, pipe, image)
     del pipe
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        unclip, unclip_files = run("unclip", phase_unclip, smi, root)
+        clip_score = run("clip_score", phase_clip_score, smi, root,
+                         unclip_files)
+    torch.cuda.empty_cache()
     tuning, first_step = run("tuning", phase_tuning, smi)
     torch.cuda.empty_cache()
     routes_tuning, _ = run("routes_tuning", phase_tuning, smi, 2, True,
@@ -3867,14 +4496,16 @@ def main():
     paths = {"sampling": sampling, "schedulers": schedulers,
              "int8_sampling": int8_sampling, "serving": serving,
              "routes_sampling": routes_sampling,
-             "f32_sampling": f32_sampling, "tuning": tuning,
+             "f32_sampling": f32_sampling, "unclip": unclip,
+             "clip_score": clip_score, "tuning": tuning,
              "routes_tuning": routes_tuning,
              "f32_tuning_vs_cpu": f32_tuning_tiny, "f32_tuning": f32_tuning,
              "pretraining": pretraining,
              "routes_pretraining": routes_pretraining,
              "f32_pretraining": f32_pretraining}
 
-    kernels = kernels_line(cases, paths)
+    kernels = kernels_line(cases, paths,
+                           unclip_files["flash_per_call"])
     print(json.dumps({"phase_seconds": timings,
                       "profiler_empty": PROFILER_EMPTY}))
     print(smi)

@@ -1,4 +1,5 @@
-"""CLIP text encoder (SD v1 / openai ViT-L-14 text tower).
+"""CLIP text encoder (SD v1's openai ViT-L-14 text tower; SD v2's
+OpenCLIP-H tower through ``CLIPTextConfig.sd2``).
 
 Counterpart of ``e4t_diffusion_tpu/models/clip_text.py``, with Hugging Face
 ``CLIPTextModel`` parameter names (``text_model.embeddings...``,
@@ -9,7 +10,9 @@ pre-computed ``inputs_embeds`` so the E4T domain embedding can be written
 into the placeholder slot (training differentiates through it, and
 through the token table when the text encoder is trained), and the pooled
 output is hidden_state[:, 0] (the reference fork's quirk), not the
-eot-token pooling of stock CLIP.
+eot-token pooling of stock CLIP. ``CLIPEncoder(causal=False)`` holds the
+non-causal layers of the Hugging Face CLIP vision tower
+(``models/e4t_encoder_legacy.py``).
 """
 from __future__ import annotations
 
@@ -36,6 +39,13 @@ class CLIPTextConfig:
     hidden_act: str = "quick_gelu"  # SD v1 / openai CLIP; SD v2 uses "gelu"
 
     @classmethod
+    def sd2(cls) -> "CLIPTextConfig":
+        """SD v2.x text encoder: the OpenCLIP ViT-H text tower in HF layout,
+        cut to the penultimate layer (23 layers), GELU."""
+        return cls(hidden_size=1024, num_layers=23, num_heads=16,
+                   intermediate_size=4096, hidden_act="gelu")
+
+    @classmethod
     def tiny(cls) -> "CLIPTextConfig":
         return cls(vocab_size=1000, hidden_size=32, num_layers=2,
                    num_heads=4, intermediate_size=64,
@@ -43,10 +53,11 @@ class CLIPTextConfig:
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, causal: bool = True):
         super().__init__()
         d = cfg.hidden_size
         self.num_heads = cfg.num_heads
+        self.causal = causal
         self.q_proj = nn.Linear(d, d)
         self.k_proj = nn.Linear(d, d)
         self.v_proj = nn.Linear(d, d)
@@ -62,7 +73,7 @@ class CLIPAttention(nn.Module):
 
         o = einsum_attention(heads(self.q_proj(x)), heads(self.k_proj(x)),
                              heads(self.v_proj(x)), scale=1.0 / math.sqrt(hd),
-                             causal=True)
+                             causal=self.causal)
         return self.out_proj(o.transpose(1, 2).reshape(b, s, d))
 
 
@@ -80,10 +91,10 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, causal: bool = True):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.self_attn = CLIPAttention(cfg)
+        self.self_attn = CLIPAttention(cfg, causal)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = CLIPMLP(cfg)
 
@@ -93,9 +104,9 @@ class CLIPEncoderLayer(nn.Module):
 
 
 class CLIPEncoder(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, causal: bool = True):
         super().__init__()
-        self.layers = nn.ModuleList(CLIPEncoderLayer(cfg)
+        self.layers = nn.ModuleList(CLIPEncoderLayer(cfg, causal)
                                     for _ in range(cfg.num_layers))
 
 

@@ -1,8 +1,13 @@
-"""Stable Diffusion v1 UNet (UNet2DConditionModel) with the E4T feature tap.
+"""Stable Diffusion UNet (UNet2DConditionModel) with the E4T feature tap.
 
 Counterpart of ``e4t_diffusion_tpu/models/unet.py``, with diffusers'
 parameter names, so a diffusers ``unet`` state dict (and the UNet half of
-the reference's ``unet.pt``) loads strictly. NCHW throughout.
+the reference's ``unet.pt``) loads strictly. NCHW throughout. The SD v2
+family is covered too: per-block head counts (``attention_head_dim`` a
+tuple, read through ``heads_for_block``), ``use_linear_projection``
+(``proj_in`` / ``proj_out`` are linear layers over the flattened tokens)
+and ``class_embed_type="projection"`` (Stable-unCLIP: an MLP over
+``class_labels`` added to the time embedding).
 
 ``return_encoder_outputs``: ``True`` exits after the mid block and returns
 the E4T tap (conv_in output, every down-block residual and downsampler
@@ -17,17 +22,19 @@ Every linear and conv site is a ``quant.Linear`` / ``quant.Conv2d``
 activation range under ``quant.calibration``; otherwise it is the plain
 layer.
 
-``E4T_FUSED_QKV`` (the reference's fused q/k/v projection layout,
-``e4t_diffusion_tpu/models/unet.py:_fused_qkv_enabled``) has no counterpart
-here yet: while it is set to a true value, building or running the UNet
-raises a ValueError that names it.
+``E4T_FUSED_QKV`` (read per call, the reference's parse: anything but
+unset, "", "0" or "false" is on) computes q/k/v as one product against the
+concatenated ``to_q`` / ``to_k`` / ``to_v`` weights (k/v only for
+cross-attention). The parameters stay separate, so a checkpoint loads
+either way. As in the reference, the fused product is a plain matmul: the
+three projections are not int8 sites while it is on.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import os
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -40,21 +47,14 @@ from e4t_diffusion_torch.ops.attention import dot_product_attention
 FUSED_QKV_KNOB = "E4T_FUSED_QKV"
 
 
-def check_fused_qkv_knob() -> None:
-    """Raise while ``E4T_FUSED_QKV`` is true by the reference's parse
-    (anything but unset, "", "0" or "false"): the port has no fused-QKV
-    layout yet, and running the separate projections under that knob would
-    hide it."""
-    value = os.environ.get(FUSED_QKV_KNOB, "0")
-    if value not in ("0", "false", ""):
-        raise ValueError(f"{FUSED_QKV_KNOB}={value!r}: the PyTorch port has "
-                         f"no fused-QKV layout yet; unset {FUSED_QKV_KNOB} "
-                         f"(or set it to 0)")
+def fused_qkv_enabled() -> bool:
+    """True while ``E4T_FUSED_QKV`` is on by the reference's parse."""
+    return os.environ.get(FUSED_QKV_KNOB, "0") not in ("0", "false", "")
 
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """SD v1 UNet hyperparameters (defaults = SD v1-4/v1-5)."""
+    """SD UNet hyperparameters (defaults = SD v1-4/v1-5)."""
     sample_size: int = 64
     in_channels: int = 4
     out_channels: int = 4
@@ -74,13 +74,48 @@ class UNetConfig:
     )
     block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
-    # number of heads (diffusers v0.14 naming quirk), the same in every block
-    attention_head_dim: int = 8
+    # number of heads (diffusers v0.14 naming quirk): an int for every
+    # block (SD v1), or one per block (SD v2: (5, 10, 20, 20), 64-dim heads)
+    attention_head_dim: Union[int, Tuple[int, ...]] = 8
     cross_attention_dim: int = 768
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
+    # SD v2 family: linear proj_in / proj_out, and the Stable-unCLIP
+    # projection class embedding over a
+    # projection_class_embeddings_input_dim-wide class_labels
+    use_linear_projection: bool = False
+    class_embed_type: Optional[str] = None
+    projection_class_embeddings_input_dim: Optional[int] = None
+
+    def heads_for_block(self, block_index: int) -> int:
+        if isinstance(self.attention_head_dim, int):
+            return self.attention_head_dim
+        return self.attention_head_dim[block_index]
+
+    @property
+    def is_sd2_family(self) -> bool:
+        """Any of the SD v2 options (what the E4T paths do not take)."""
+        return (not isinstance(self.attention_head_dim, int)
+                or self.use_linear_projection
+                or self.class_embed_type is not None)
+
+    @classmethod
+    def sd2(cls, sample_size: int = 96) -> "UNetConfig":
+        """Stable Diffusion v2.x (768px family): 64-dim heads, linear
+        transformer projections, 1024-wide OpenCLIP-H text context."""
+        return cls(sample_size=sample_size, attention_head_dim=(5, 10, 20, 20),
+                   cross_attention_dim=1024, use_linear_projection=True)
+
+    @classmethod
+    def sd2_unclip(cls) -> "UNetConfig":
+        """stabilityai/stable-diffusion-2-1-unclip: SD v2 plus the
+        projection class embedding over the noise-augmented image embedding
+        concatenated with its noise-level embedding (1024 + 1024)."""
+        return dataclasses.replace(
+            cls.sd2(sample_size=96), class_embed_type="projection",
+            projection_class_embeddings_input_dim=2048)
 
     @classmethod
     def tiny(cls, cross_attention_dim: int = 32) -> "UNetConfig":
@@ -158,15 +193,25 @@ class Attention(nn.Module):
         self.to_v = quant.Linear(context_dim, inner, bias=False)
         self.to_out = nn.ModuleList([quant.Linear(inner, query_dim)])
 
+    def _qkv(self, x: torch.Tensor, context: Optional[torch.Tensor]):
+        if not fused_qkv_enabled():
+            ctx = x if context is None else context
+            return self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        wq, wk, wv = self.to_q.weight, self.to_k.weight, self.to_v.weight
+        if context is None:
+            return F.linear(x, torch.cat([wq, wk, wv])).chunk(3, dim=-1)
+        k, v = F.linear(context, torch.cat([wk, wv])).chunk(2, dim=-1)
+        return F.linear(x, wq), k, v
+
     def forward(self, x: torch.Tensor, context: torch.Tensor = None
                 ) -> torch.Tensor:
-        context = x if context is None else context
         b, sq, _ = x.shape
-        sk = context.shape[1]
+        sk = sq if context is None else context.shape[1]
         h, hd = self.heads, self.dim_head
-        q = self.to_q(x).reshape(b, sq, h, hd).transpose(1, 2)
-        k = self.to_k(context).reshape(b, sk, h, hd).transpose(1, 2)
-        v = self.to_v(context).reshape(b, sk, h, hd).transpose(1, 2)
+        q, k, v = self._qkv(x, context)
+        q = q.reshape(b, sq, h, hd).transpose(1, 2)
+        k = k.reshape(b, sk, h, hd).transpose(1, 2)
+        v = v.reshape(b, sk, h, hd).transpose(1, 2)
         o = dot_product_attention(q, k, v, scale=1.0 / math.sqrt(hd))
         return self.to_out[0](o.transpose(1, 2).reshape(b, sq, h * hd))
 
@@ -210,26 +255,36 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """Spatial transformer: GN -> 1x1 proj_in -> block -> 1x1 proj_out,
-    plus the residual."""
+    """Spatial transformer: GN -> proj_in -> block -> proj_out, plus the
+    residual. The projections are 1x1 convs, or (``linear``, SD v2's
+    use_linear_projection) linear layers applied after the flatten."""
 
     def __init__(self, channels: int, context_dim: int, heads: int,
-                 groups: int):
+                 groups: int, linear: bool = False):
         super().__init__()
+        self.linear = linear
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.proj_in = quant.Conv2d(channels, channels, 1)
+        proj = ((lambda: quant.Linear(channels, channels)) if linear
+                else (lambda: quant.Conv2d(channels, channels, 1)))
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(
             channels, context_dim, heads, channels // heads)])
-        self.proj_out = quant.Conv2d(channels, channels, 1)
+        self.proj_out = proj()
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        y = self.proj_in(group_norm_act(x, self.norm))
-        y = y.flatten(2).transpose(1, 2)                 # (B, HW, C)
+        y = group_norm_act(x, self.norm)
+        if self.linear:                                  # (B, HW, C)
+            y = self.proj_in(y.flatten(2).transpose(1, 2))
+        else:
+            y = self.proj_in(y).flatten(2).transpose(1, 2)
         for block in self.transformer_blocks:
             y = block(y, context)
-        y = y.transpose(1, 2).reshape(b, c, h, w)
-        return self.proj_out(y) + x
+        if self.linear:
+            y = self.proj_out(y).transpose(1, 2).reshape(b, c, h, w)
+        else:
+            y = self.proj_out(y.transpose(1, 2).reshape(b, c, h, w))
+        return y + x
 
 
 class Downsample2D(nn.Module):
@@ -256,13 +311,14 @@ class DownBlock2D(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, temb_ch: int, num_layers: int,
                  cross_attn: bool, add_downsample: bool, heads: int,
-                 context_dim: int, groups: int, eps: float):
+                 context_dim: int, groups: int, eps: float,
+                 linear: bool = False):
         super().__init__()
         self.resnets = nn.ModuleList(
             ResnetBlock2D(in_ch if i == 0 else out_ch, out_ch, temb_ch,
                           groups, eps) for i in range(num_layers))
         self.attentions = (nn.ModuleList(
-            Transformer2DModel(out_ch, context_dim, heads, groups)
+            Transformer2DModel(out_ch, context_dim, heads, groups, linear)
             for _ in range(num_layers)) if cross_attn else None)
         self.downsamplers = (nn.ModuleList([Downsample2D(out_ch)])
                              if add_downsample else None)
@@ -286,7 +342,8 @@ class UpBlock2D(nn.Module):
 
     def __init__(self, in_ch: int, prev_ch: int, out_ch: int, temb_ch: int,
                  num_layers: int, cross_attn: bool, add_upsample: bool,
-                 heads: int, context_dim: int, groups: int, eps: float):
+                 heads: int, context_dim: int, groups: int, eps: float,
+                 linear: bool = False):
         super().__init__()
         resnets = []
         for i in range(num_layers):
@@ -296,7 +353,7 @@ class UpBlock2D(nn.Module):
                                          groups, eps))
         self.resnets = nn.ModuleList(resnets)
         self.attentions = (nn.ModuleList(
-            Transformer2DModel(out_ch, context_dim, heads, groups)
+            Transformer2DModel(out_ch, context_dim, heads, groups, linear)
             for _ in range(num_layers)) if cross_attn else None)
         self.upsamplers = (nn.ModuleList([Upsample2D(out_ch)])
                            if add_upsample else None)
@@ -313,10 +370,10 @@ class UpBlock2D(nn.Module):
 
 class UNetMidBlock2DCrossAttn(nn.Module):
     def __init__(self, ch: int, temb_ch: int, heads: int, context_dim: int,
-                 groups: int, eps: float):
+                 groups: int, eps: float, linear: bool = False):
         super().__init__()
         self.attentions = nn.ModuleList([
-            Transformer2DModel(ch, context_dim, heads, groups)])
+            Transformer2DModel(ch, context_dim, heads, groups, linear)])
         self.resnets = nn.ModuleList([
             ResnetBlock2D(ch, ch, temb_ch, groups, eps),
             ResnetBlock2D(ch, ch, temb_ch, groups, eps)])
@@ -329,12 +386,13 @@ class UNetMidBlock2DCrossAttn(nn.Module):
 
 class UNet2DConditionModel(nn.Module):
     """forward(sample NCHW, timesteps, encoder_hidden_states,
-    return_encoder_outputs=False) -> eps (NCHW); the E4T tap list with
-    ``True``; ``(eps, tap)`` with ``"with_eps"``."""
+    return_encoder_outputs=False, class_labels=None) -> eps (NCHW); the E4T
+    tap list with ``True``; ``(eps, tap)`` with ``"with_eps"``.
+    ``class_labels`` (B, projection_class_embeddings_input_dim) is required
+    with ``class_embed_type="projection"``."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
-        check_fused_qkv_knob()
         cfg = self.config = config
         for btype in (*cfg.down_block_types, *cfg.up_block_types):
             if btype not in ("CrossAttnDownBlock2D", "DownBlock2D",
@@ -342,13 +400,20 @@ class UNet2DConditionModel(nn.Module):
                 raise ValueError(f"Unsupported block {btype}")
         if cfg.mid_block_type != "UNetMidBlock2DCrossAttn":
             raise ValueError(f"Unsupported mid block {cfg.mid_block_type}")
+        if cfg.class_embed_type not in (None, "projection"):
+            raise ValueError(f"Unsupported class_embed_type "
+                             f"{cfg.class_embed_type}")
         ch = cfg.block_out_channels
         temb_ch = ch[0] * 4
-        heads = cfg.attention_head_dim
         cad = cfg.cross_attention_dim
         groups, eps = cfg.norm_num_groups, cfg.norm_eps
+        linear = cfg.use_linear_projection
         self.conv_in = quant.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch[0], temb_ch)
+        self.class_embedding = (
+            TimestepEmbedding(cfg.projection_class_embeddings_input_dim,
+                              temb_ch)
+            if cfg.class_embed_type == "projection" else None)
 
         down = []
         out_ch = ch[0]
@@ -357,11 +422,13 @@ class UNet2DConditionModel(nn.Module):
             down.append(DownBlock2D(
                 in_ch, out_ch, temb_ch, cfg.layers_per_block,
                 cross_attn=btype == "CrossAttnDownBlock2D",
-                add_downsample=bi != len(ch) - 1, heads=heads,
-                context_dim=cad, groups=groups, eps=eps))
+                add_downsample=bi != len(ch) - 1,
+                heads=cfg.heads_for_block(bi), context_dim=cad,
+                groups=groups, eps=eps, linear=linear))
         self.down_blocks = nn.ModuleList(down)
-        self.mid_block = UNetMidBlock2DCrossAttn(ch[-1], temb_ch, heads, cad,
-                                                 groups, eps)
+        self.mid_block = UNetMidBlock2DCrossAttn(
+            ch[-1], temb_ch, cfg.heads_for_block(len(ch) - 1), cad, groups,
+            eps, linear)
         up = []
         rev = list(reversed(ch))
         prev_ch = ch[-1]
@@ -371,8 +438,9 @@ class UNet2DConditionModel(nn.Module):
             up.append(UpBlock2D(
                 in_ch, prev_ch, out_ch, temb_ch, cfg.layers_per_block + 1,
                 cross_attn=btype == "CrossAttnUpBlock2D",
-                add_upsample=bi != len(ch) - 1, heads=heads,
-                context_dim=cad, groups=groups, eps=eps))
+                add_upsample=bi != len(ch) - 1,
+                heads=cfg.heads_for_block(len(ch) - 1 - bi), context_dim=cad,
+                groups=groups, eps=eps, linear=linear))
             prev_ch = out_ch
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = nn.GroupNorm(groups, ch[0], eps=eps)
@@ -380,8 +448,8 @@ class UNet2DConditionModel(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                return_encoder_outputs: Union[bool, str] = False):
-        check_fused_qkv_knob()
+                return_encoder_outputs: Union[bool, str] = False,
+                class_labels: Optional[torch.Tensor] = None):
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         if timesteps.dim() == 0:
@@ -393,6 +461,11 @@ class UNet2DConditionModel(nn.Module):
         t_emb = get_timestep_embedding(timesteps, cfg.block_out_channels[0],
                                        cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(t_emb.to(dtype))
+        if self.class_embedding is not None:
+            if class_labels is None:
+                raise ValueError("class_labels required when "
+                                 "class_embed_type='projection'")
+            temb = temb + self.class_embedding(class_labels.to(dtype))
 
         x = self.conv_in(x)
         down_res = [x]

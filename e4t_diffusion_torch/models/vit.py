@@ -11,6 +11,8 @@ tokens. GELU is exact (erf), as in open_clip, unless ``E4T_VIT_GELU=tanh``
 knob (``e4t_diffusion_tpu/models/vit.py:_gelu_tanh_env``). The linear
 sites, the packed ``in_proj`` and ``conv1`` are ``ops/quant`` drop-ins with
 unchanged keys, so int8 serving (``--int8_aux``) quantizes them.
+``Transformer(cfg, causal=True)`` is open_clip's causal text transformer
+(the CLIP scorer's text tower); a causal site stays on einsum attention.
 """
 from __future__ import annotations
 
@@ -68,9 +70,10 @@ class MultiheadSelfAttention(quant.InProjSite):
     int8 site ``<module>.in_proj``), computed through the port's attention
     dispatcher."""
 
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, causal: bool = False):
         super().__init__()
         self.heads = heads
+        self.causal = causal
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = quant.Linear(width, width)
@@ -83,7 +86,8 @@ class MultiheadSelfAttention(quant.InProjSite):
         qkv = self.in_proj(x)
         q, k, v = (t.reshape(b, s, h, hd).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
-        o = dot_product_attention(q, k, v, scale=1.0 / math.sqrt(hd))
+        o = dot_product_attention(q, k, v, scale=1.0 / math.sqrt(hd),
+                                  causal=self.causal)
         return self.out_proj(o.transpose(1, 2).reshape(b, s, d))
 
 
@@ -99,10 +103,10 @@ class MLP(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, causal: bool = False):
         super().__init__()
         self.ln_1 = nn.LayerNorm(cfg.width, eps=cfg.layer_norm_eps)
-        self.attn = MultiheadSelfAttention(cfg.width, cfg.num_heads)
+        self.attn = MultiheadSelfAttention(cfg.width, cfg.num_heads, causal)
         self.ln_2 = nn.LayerNorm(cfg.width, eps=cfg.layer_norm_eps)
         self.mlp = MLP(cfg.width, cfg.mlp_dim)
 
@@ -112,9 +116,9 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, causal: bool = False):
         super().__init__()
-        self.resblocks = nn.ModuleList(ResidualAttentionBlock(cfg)
+        self.resblocks = nn.ModuleList(ResidualAttentionBlock(cfg, causal)
                                        for _ in range(cfg.num_layers))
 
 

@@ -3,7 +3,9 @@ artifacts, loaded and saved.
 
 Counterpart of ``e4t_diffusion_tpu/utils/artifacts.py``.
 An SD base directory holds ``unet/ vae/ text_encoder/ tokenizer/
-scheduler/`` subfolders (``.bin`` or ``.safetensors``). An E4T artifact
+scheduler/`` subfolders (``.bin`` or ``.safetensors``); a Stable-unCLIP
+directory adds ``image_encoder/ image_normalizer/`` and an optional
+``image_noising_scheduler/`` (``load_sd_unclip``). An E4T artifact
 directory holds ``config.json``, ``encoder.pt`` and either
 ``weight_offsets.pt`` (pretraining) or ``unet.pt`` (tuning: the whole UNet
 with the offsets embedded), plus an optional ``text_encoder.pt`` and
@@ -50,12 +52,8 @@ def _read_json(path: str) -> dict:
 
 
 def unet_config_from_diffusers(cfg: dict) -> UNetConfig:
+    """The keys the JAX package's reader takes; the rest are ignored."""
     heads = cfg.get("attention_head_dim", 8)
-    if (isinstance(heads, (list, tuple)) or cfg.get("use_linear_projection")
-            or cfg.get("class_embed_type")):
-        raise NotImplementedError(
-            "only the SD v1 UNet is ported (one head count for every block, "
-            "conv projections, no class embedding)")
     return UNetConfig(
         sample_size=cfg.get("sample_size", 64),
         in_channels=cfg.get("in_channels", 4),
@@ -66,12 +64,17 @@ def unet_config_from_diffusers(cfg: dict) -> UNetConfig:
         up_block_types=tuple(cfg["up_block_types"]),
         block_out_channels=tuple(cfg["block_out_channels"]),
         layers_per_block=cfg.get("layers_per_block", 2),
-        attention_head_dim=heads,
+        attention_head_dim=(tuple(heads) if isinstance(heads, (list, tuple))
+                            else heads),
         cross_attention_dim=cfg.get("cross_attention_dim", 768),
         norm_num_groups=cfg.get("norm_num_groups", 32),
         norm_eps=cfg.get("norm_eps", 1e-5),
         flip_sin_to_cos=cfg.get("flip_sin_to_cos", True),
         freq_shift=cfg.get("freq_shift", 0),
+        use_linear_projection=cfg.get("use_linear_projection", False),
+        class_embed_type=cfg.get("class_embed_type", None),
+        projection_class_embeddings_input_dim=cfg.get(
+            "projection_class_embeddings_input_dim", None),
     )
 
 
@@ -127,6 +130,7 @@ def _load_weights(subdir: str) -> dict:
 
 def _text_state_dict(sd: dict) -> dict:
     # transformers keeps a non-parameter position_ids buffer in the file
+    # (the text and the vision towers alike)
     return {k: v for k, v in sd.items() if not k.endswith("position_ids")}
 
 
@@ -141,12 +145,18 @@ def _vae_state_dict(sd: dict) -> dict:
     return out
 
 
-def load_sd_base(path: str) -> Dict[str, Any]:
-    """Configs + state dicts + tokenizer path of a local diffusers-format
-    SD v1 checkpoint directory."""
+def _load_common(path: str, sd1_only: bool = False) -> Dict[str, Any]:
+    """unet/ vae/ text_encoder/ scheduler/ and the tokenizer path;
+    ``sd1_only``: an SD v2-family UNet raises NotImplementedError before
+    any weights are read."""
     out: Dict[str, Any] = {}
     out["unet_config"] = unet_config_from_diffusers(
         _read_json(os.path.join(path, "unet", "config.json")))
+    if sd1_only and out["unet_config"].is_sd2_family:
+        raise NotImplementedError(
+            f"{path}: an SD v2-family UNet (per-block head counts, linear "
+            f"projections or a class embedding); E4T sampling, tuning and "
+            f"pretraining take an SD v1 base only")
     out["unet"] = _load_weights(os.path.join(path, "unet"))
     out["vae_config"] = vae_config_from_diffusers(
         _read_json(os.path.join(path, "vae", "config.json")))
@@ -158,6 +168,49 @@ def load_sd_base(path: str) -> Dict[str, Any]:
     out["schedule_config"] = schedule_config_from_diffusers(
         _read_json(os.path.join(path, "scheduler", "scheduler_config.json")))
     out["tokenizer_dir"] = os.path.join(path, "tokenizer")
+    return out
+
+
+def load_sd_base(path: str) -> Dict[str, Any]:
+    """Configs + state dicts + tokenizer path of a local diffusers-format
+    SD v1 checkpoint directory, the base of every E4T path (sampling,
+    tuning, pretraining). E4T on an SD v2-family UNet is not ported: such a
+    base raises NotImplementedError."""
+    return _load_common(path, sd1_only=True)
+
+
+def load_sd_unclip(path: str) -> Dict[str, Any]:
+    """Configs + state dicts + tokenizer path of a local diffusers-format
+    Stable-unCLIP directory (stabilityai/stable-diffusion-2-1-unclip
+    layout): ``load_sd_base``'s folders plus ``image_encoder/``,
+    ``image_normalizer/`` and, when present, ``image_noising_scheduler/``
+    ("noise_aug_schedule"). The state dicts load strictly into
+    ``diffusion/unclip_pipeline.UnCLIPModules`` (a stray key raises
+    there)."""
+    from e4t_diffusion_torch.models.e4t_encoder_legacy import CLIPVisionConfig
+    from e4t_diffusion_torch.models.unclip import CLIPVisionProjectionConfig
+
+    out = _load_common(path)
+    icfg = _read_json(os.path.join(path, "image_encoder", "config.json"))
+    out["image_encoder_config"] = CLIPVisionProjectionConfig(
+        vision=CLIPVisionConfig(
+            hidden_size=icfg.get("hidden_size", 1280),
+            num_layers=icfg.get("num_hidden_layers", 32),
+            num_heads=icfg.get("num_attention_heads", 16),
+            intermediate_size=icfg.get("intermediate_size", 5120),
+            image_size=icfg.get("image_size", 224),
+            patch_size=icfg.get("patch_size", 14),
+            hidden_act=icfg.get("hidden_act", "gelu")),
+        projection_dim=icfg.get("projection_dim", 1024))
+    out["image_encoder"] = _text_state_dict(
+        _load_weights(os.path.join(path, "image_encoder")))
+    out["image_normalizer"] = _load_weights(
+        os.path.join(path, "image_normalizer"))
+    noise_aug = os.path.join(path, "image_noising_scheduler",
+                             "scheduler_config.json")
+    if os.path.exists(noise_aug):
+        out["noise_aug_schedule"] = schedule_config_from_diffusers(
+            _read_json(noise_aug))
     return out
 
 

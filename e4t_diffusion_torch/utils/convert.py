@@ -1,12 +1,19 @@
 """State-dict helpers: weights carried across from the JAX package, and
 ``.pt`` / ``.bin`` / safetensors loading.
 
-``state_dicts_from_jax`` maps the JAX package's parameter trees (numpy
-arrays, flax layout) onto the port's state dicts, which use the diffusers /
-Hugging Face / open_clip / reference-artifact names. It is the port's own
-copy of the mapping in the JAX package's ``unet_to_torch``,
-``offset_bank_to_torch``, ``vae_to_torch``, ``clip_text_to_torch`` and
-``e4t_encoder_to_torch``. Conventions:
+``state_dicts_from_jax`` (E4T) and ``unclip_state_dicts_from_jax``
+(Stable-unCLIP) map the JAX package's parameter trees (numpy arrays, flax
+layout) onto the port's state dicts, which use the diffusers / Hugging Face
+/ open_clip / reference-artifact names; ``clip_scorer_from_jax`` and
+``e4t_encoder_legacy_from_jax`` do the same for the CLIP scorer and the
+legacy encoder. They are the port's own copy of the mapping in the JAX
+package's ``unet_to_torch``, ``offset_bank_to_torch``, ``vae_to_torch``,
+``clip_text_to_torch``, ``e4t_encoder_to_torch`` and the inverses of its
+``clip_vision_hf_from_torch``, ``clip_vision_with_projection_from_torch``,
+``image_normalizer_from_torch``, ``e4t_encoder_legacy_from_torch`` and
+``scorer_from_open_clip``. The SD v2 UNet needs nothing apart: its linear
+``proj_in`` / ``proj_out`` are Dense kernels (transposed like any other) and
+its ``class_embedding.linear_{1,2}`` are named as in diffusers. Conventions:
 
 - flax Dense kernel (in, out)      -> torch Linear weight (out, in)
 - flax Conv kernel (h, w, i, o)    -> torch Conv2d weight (o, i, h, w)
@@ -100,6 +107,31 @@ def offsets_from_jax(bank: Mapping) -> StateDict:
     return out
 
 
+def _norm(out: StateDict, base: str, params: Mapping) -> None:
+    _leaf(out, base, "scale", params["scale"])
+    _leaf(out, base, "bias", params["bias"])
+
+
+def _dense(out: StateDict, base: str, params: Mapping) -> None:
+    for k, v in params.items():
+        _leaf(out, base, k, v)
+
+
+def _clip_layers(out: StateDict, prefix: str, params: Mapping,
+                 num_layers: int) -> None:
+    """The JAX ``CLIPEncoderLayer``s ``layers_{i}`` -> Hugging Face
+    ``{prefix}{i}.`` keys (the text and the vision towers alike)."""
+    for i in range(num_layers):
+        t = f"{prefix}{i}."
+        f = params[f"layers_{i}"]
+        for name in ("layer_norm1", "layer_norm2"):
+            _norm(out, t + name, f[name])
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense(out, t + "self_attn." + proj, f["self_attn"][proj])
+        for tname, fname in (("mlp.fc1", "mlp_fc1"), ("mlp.fc2", "mlp_fc2")):
+            _dense(out, t + tname, f[fname])
+
+
 def clip_text_from_jax(params: Mapping, num_layers: int) -> StateDict:
     p = "text_model."
     out: StateDict = {
@@ -108,51 +140,44 @@ def clip_text_from_jax(params: Mapping, num_layers: int) -> StateDict:
         p + "embeddings.position_embedding.weight":
             _tensor(params["position_embedding"]),
     }
-    for i in range(num_layers):
-        t = f"{p}encoder.layers.{i}."
-        f = params[f"layers_{i}"]
-        for name in ("layer_norm1", "layer_norm2"):
-            _leaf(out, t + name, "scale", f[name]["scale"])
-            _leaf(out, t + name, "bias", f[name]["bias"])
-        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            _leaf(out, t + "self_attn." + proj, "kernel",
-                  f["self_attn"][proj]["kernel"])
-            _leaf(out, t + "self_attn." + proj, "bias",
-                  f["self_attn"][proj]["bias"])
-        for tname, fname in (("mlp.fc1", "mlp_fc1"), ("mlp.fc2", "mlp_fc2")):
-            _leaf(out, t + tname, "kernel", f[fname]["kernel"])
-            _leaf(out, t + tname, "bias", f[fname]["bias"])
-    _leaf(out, p + "final_layer_norm", "scale",
-          params["final_layer_norm"]["scale"])
-    _leaf(out, p + "final_layer_norm", "bias",
-          params["final_layer_norm"]["bias"])
+    _clip_layers(out, p + "encoder.layers.", params, num_layers)
+    _norm(out, p + "final_layer_norm", params["final_layer_norm"])
     return out
 
 
-def e4t_encoder_from_jax(params: Mapping, num_vit_layers: int) -> StateDict:
-    """JAX E4T encoder params -> the reference ``encoder.pt`` layout."""
-    out: StateDict = {}
-    vit = params["clip_vision"]
-    p = "clip_vision."
-    _leaf(out, p + "conv1", "kernel", vit["conv1"]["kernel"])
-    out[p + "class_embedding"] = _tensor(vit["class_embedding"])
-    out[p + "positional_embedding"] = _tensor(vit["positional_embedding"])
-    for name in ("ln_pre", "ln_post"):
-        _leaf(out, p + name, "scale", vit[name]["scale"])
-        _leaf(out, p + name, "bias", vit[name]["bias"])
-    for i in range(num_vit_layers):
+def _resblocks_from_jax(out: StateDict, p: str, params: Mapping,
+                        num_layers: int) -> None:
+    """JAX ``ViTBlock``s ``resblocks_{i}`` -> open_clip
+    ``{p}transformer.resblocks.{i}.`` keys (vision and text towers)."""
+    for i in range(num_layers):
         t = f"{p}transformer.resblocks.{i}."
-        f = vit[f"resblocks_{i}"]
+        f = params[f"resblocks_{i}"]
         for name in ("ln_1", "ln_2"):
-            _leaf(out, t + name, "scale", f[name]["scale"])
-            _leaf(out, t + name, "bias", f[name]["bias"])
+            _norm(out, t + name, f[name])
         out[t + "attn.in_proj_weight"] = _t(f["attn_in_proj"]["kernel"])
         out[t + "attn.in_proj_bias"] = _tensor(f["attn_in_proj"]["bias"])
         for tname, fname in (("attn.out_proj", "attn_out_proj"),
                              ("mlp.c_fc", "mlp_c_fc"),
                              ("mlp.c_proj", "mlp_c_proj")):
-            _leaf(out, t + tname, "kernel", f[fname]["kernel"])
-            _leaf(out, t + tname, "bias", f[fname]["bias"])
+            _dense(out, t + tname, f[fname])
+
+
+def _vit_from_jax(out: StateDict, p: str, vit: Mapping,
+                  num_layers: int) -> None:
+    """A JAX ``VisionTransformer`` -> open_clip ``VisionTransformer`` keys
+    under ``p``."""
+    _leaf(out, p + "conv1", "kernel", vit["conv1"]["kernel"])
+    out[p + "class_embedding"] = _tensor(vit["class_embedding"])
+    out[p + "positional_embedding"] = _tensor(vit["positional_embedding"])
+    for name in ("ln_pre", "ln_post"):
+        _norm(out, p + name, vit[name])
+    _resblocks_from_jax(out, p, vit, num_layers)
+
+
+def e4t_encoder_from_jax(params: Mapping, num_vit_layers: int) -> StateDict:
+    """JAX E4T encoder params -> the reference ``encoder.pt`` layout."""
+    out: StateDict = {}
+    _vit_from_jax(out, "clip_vision.", params["clip_vision"], num_vit_layers)
     for tname, fname in (("unet_feature_embedder.0", "unet_feature_embedder_0"),
                          ("unet_feature_embedder.2", "unet_feature_embedder_2"),
                          ("feature_linear", "feature_linear"),
@@ -187,6 +212,87 @@ def state_dicts_from_jax(params_np: Mapping[str, Any], modules
     if "e4t" in params_np:
         out["e4t"] = e4t_encoder_from_jax(
             params_np["e4t"], modules.e4t_encoder.config.vit.num_layers)
+    return out
+
+
+def clip_vision_hf_from_jax(params: Mapping, num_layers: int,
+                            prefix: str = "vision_model.") -> StateDict:
+    """A JAX HF-layout ``CLIPVisionModel`` -> transformers'
+    ``CLIPVisionModel`` keys under ``prefix``."""
+    p = prefix
+    out: StateDict = {
+        p + "embeddings.class_embedding": _tensor(params["class_embedding"]),
+        p + "embeddings.position_embedding.weight":
+            _tensor(params["position_embedding"])}
+    _leaf(out, p + "embeddings.patch_embedding", "kernel",
+          params["patch_embedding"]["kernel"])
+    for name in ("pre_layrnorm", "post_layernorm"):
+        _norm(out, p + name, params[name])
+    _clip_layers(out, p + "encoder.layers.", params, num_layers)
+    return out
+
+
+def clip_vision_with_projection_from_jax(params: Mapping, num_layers: int
+                                         ) -> StateDict:
+    """JAX ``CLIPVisionModelWithProjection`` -> transformers' keys."""
+    out = clip_vision_hf_from_jax(params["vision_model"], num_layers)
+    _leaf(out, "visual_projection", "kernel",
+          params["visual_projection"]["kernel"])
+    return out
+
+
+def image_normalizer_from_jax(params: Mapping) -> StateDict:
+    """JAX normalizer {mean, std} (D,) -> diffusers' (1, D) tensors."""
+    return {k: _tensor(params[k]).reshape(1, -1) for k in ("mean", "std")}
+
+
+def e4t_encoder_legacy_from_jax(params: Mapping, num_layers: int
+                                ) -> StateDict:
+    """JAX ``E4TEncoderLegacy`` params -> the reference's legacy encoder
+    keys (``clip_vision.vision_model.*``, ``linear``, ``final_linear``)."""
+    out = clip_vision_hf_from_jax(params["clip_vision"], num_layers,
+                                  prefix="clip_vision.vision_model.")
+    for name in ("linear", "final_linear"):
+        _dense(out, name, params[name])
+    return out
+
+
+def clip_scorer_from_jax(params: Mapping, config) -> StateDict:
+    """JAX ``CLIPScorer`` params -> the port's ``CLIPScorer`` state dict
+    (``visual.*``, ``visual_proj``, ``text.*``; a ``CLIPScoreConfig``
+    supplies the layer counts)."""
+    out: StateDict = {"visual_proj": _tensor(params["visual_proj"])}
+    _vit_from_jax(out, "visual.", params["visual"], config.vit.num_layers)
+    txt = params["text"]
+    _resblocks_from_jax(out, "text.", txt, config.text.num_layers)
+    out["text.token_embedding.weight"] = _tensor(txt["token_embedding"])
+    out["text.positional_embedding"] = _tensor(txt["positional_embedding"])
+    out["text.text_projection"] = _tensor(txt["text_projection"])
+    _norm(out, "text.ln_final", txt["ln_final"])
+    return out
+
+
+def unclip_state_dicts_from_jax(params_np: Mapping[str, Any], modules
+                                ) -> Dict[str, StateDict]:
+    """{"unet", "vae", "text", "image_encoder", "image_normalizer"} JAX
+    parameter trees (numpy) -> the port's state dicts under the same keys;
+    ``modules`` (an ``UnCLIPModules``) supplies the layer counts. Load the
+    result with ``modules.load_state_dicts`` (strict)."""
+    out = {}
+    if "unet" in params_np:
+        out["unet"] = unet_from_jax(params_np["unet"])
+    if "vae" in params_np:
+        out["vae"] = vae_from_jax(params_np["vae"])
+    if "text" in params_np:
+        out["text"] = clip_text_from_jax(
+            params_np["text"], modules.text_encoder.config.num_layers)
+    if "image_encoder" in params_np:
+        out["image_encoder"] = clip_vision_with_projection_from_jax(
+            params_np["image_encoder"],
+            modules.image_encoder.config.vision.num_layers)
+    if "image_normalizer" in params_np:
+        out["image_normalizer"] = image_normalizer_from_jax(
+            params_np["image_normalizer"])
     return out
 
 

@@ -7,14 +7,17 @@ kernels' operand types, on the CPU.
 - ``E4T_FLASH_THRESHOLD_BYTES``: ``flash_threshold_bytes()`` case by case
   against the reference's rule (its override stack, else the knob, else 128
   MiB), with and without a ``flash_threshold`` context.
-- ``E4T_FUSED_QKV``: building or running the port's UNet raises, naming
-  the knob, wherever the reference's parse turns it on.
+- ``E4T_FUSED_QKV``: on wherever the reference's parse turns it on; the
+  fused q/k/v product against the separate projections (self- and
+  cross-attention, and the whole tiny UNet, 1e-5) and against the JAX UNet
+  under the knob, same weights, rel-L2 1e-5.
 - The kernels' operand types (``flash_lowdim.operand_dtype``): bf16 or f32,
   never f16 or a mix; and the int8 attention's plain version with an f32 v
   and an f32 output against the JAX int8 path in f32.
 """
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,23 +119,59 @@ def test_flash_threshold_knob(knob, context, monkeypatch):
 
 @pytest.mark.parametrize("value", ["1", "true", "yes", "0", "false", ""])
 def test_fused_qkv_knob_raises(value, monkeypatch):
-    """The port has no fused-QKV layout: wherever the reference's parse
-    turns ``E4T_FUSED_QKV`` on, building and running the UNet raise a
-    ValueError naming it; elsewhere both go on."""
+    """``E4T_FUSED_QKV`` is on wherever the reference's parse turns it on,
+    and the UNet runs under every value (the knob once raised, before the
+    port had the fused layout): the same eps as with the knob off, within
+    1e-5."""
     ucfg = unet.UNetConfig.tiny()
+    torch.manual_seed(0)
     model = unet.UNet2DConditionModel(ucfg)
-    x = torch.zeros(1, ucfg.in_channels, 8, 8)
-    ctx = torch.zeros(1, 4, ucfg.cross_attention_dim)
+    x = torch.randn(1, ucfg.in_channels, 8, 8)
+    ctx = torch.randn(1, 4, ucfg.cross_attention_dim)
+    monkeypatch.setenv("E4T_FUSED_QKV", "0")
+    with torch.no_grad():
+        want = model(x, torch.tensor([1]), ctx)
     monkeypatch.setenv("E4T_FUSED_QKV", value)
-    if jax_unet._fused_qkv_enabled():
-        with pytest.raises(ValueError, match="E4T_FUSED_QKV"):
-            unet.UNet2DConditionModel(ucfg)
-        with pytest.raises(ValueError, match="E4T_FUSED_QKV"):
-            model(x, torch.tensor([1]), ctx)
-    else:
-        unet.UNet2DConditionModel(ucfg)
-        with torch.no_grad():
-            assert model(x, torch.tensor([1]), ctx).shape == x.shape
+    assert unet.fused_qkv_enabled() == jax_unet._fused_qkv_enabled()
+    with torch.no_grad():
+        got = model(x, torch.tensor([1]), ctx)
+    assert rel_l2(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_fused_qkv_matches_separate(cross, monkeypatch):
+    """One attention site, fused against separate projections on the same
+    parameters (the state dict does not depend on the knob)."""
+    torch.manual_seed(1)
+    attn = unet.Attention(32, 24 if cross else 32, heads=4, dim_head=8)
+    x = torch.randn(2, 16, 32)
+    ctx = torch.randn(2, 7, 24) if cross else None
+    monkeypatch.setenv("E4T_FUSED_QKV", "0")
+    keys = set(attn.state_dict())
+    with torch.no_grad():
+        want = attn(x, ctx)
+    monkeypatch.setenv("E4T_FUSED_QKV", "1")
+    assert set(attn.state_dict()) == keys
+    with torch.no_grad():
+        got = attn(x, ctx)
+    assert rel_l2(got, want) <= 1e-5
+
+
+def test_fused_qkv_unet_matches_jax(tiny, monkeypatch):
+    """The tiny UNet under ``E4T_FUSED_QKV=1`` in both packages, same
+    weights and inputs, rel-L2 1e-5."""
+    jm, params, modules = tiny
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 4, 8, 8)).astype(np.float32)
+    t = np.array([10, 700])
+    ctx = rng.standard_normal((2, 16, 32)).astype(np.float32)
+    monkeypatch.setenv("E4T_FUSED_QKV", "1")  # read while jit traces
+    want = jax.jit(jm.unet.apply)({"params": params["unet"]}, jnp.asarray(x),
+                                  jnp.asarray(t), jnp.asarray(ctx))
+    with torch.no_grad():
+        got = modules.unet(torch.from_numpy(x), torch.from_numpy(t),
+                           torch.from_numpy(ctx))
+    assert rel_l2(got, want) <= 1e-5
 
 
 @pytest.mark.parametrize("dtypes,want", [

@@ -65,6 +65,24 @@ Phases (any failure exits non-zero; each prints its wall seconds):
    on, its loss and grad norm against phase 13's first step;
 15. f32_pretraining: two steps with ``--mixed_precision no`` (the CLI's
    default) at the largest batch of 16, 8 and 4 that the card holds;
+16. parallel: (a) the flash forward and backward on each half of the
+   heads (the batch where the heads are odd) against the whole call, bit
+   for bit; (b) 6 tuning steps (batch 16, 512px, ``--tensor_parallel
+   1``), 6 bf16 pretraining steps and 6 ``--zero1`` steps through a
+   one-rank NCCL process group against the same steps without it, bit for
+   bit (metrics, trainables, optimizer state, checkpoint), the median of
+   the warm steps with and without the group and the gradient bytes dp > 1
+   all-reduces per update; (c) the inference CLI with
+   ``--data_parallel_serving`` and a 2-step ``pretrain_e4t --zero1`` under
+   ``torchrun --nproc_per_node 1`` against the same runs without torchrun,
+   bit for bit (the grid, the checkpoint, the artifacts); (e) the bf16
+   UNet's noise prediction and input gradient at tp=2, two ranks on the
+   one card over gloo, against tp=1 and f32 (within ``TP_BF16_RATIO``
+   times bf16's own error); (d) with two or more cards, a dp=2 f32
+   pretraining step and tp=2 and dp=2 sampling under NCCL against world
+   size 1 (``python3 chip_smoke.py --multi-card`` runs (d) alone,
+   ``--parallel`` the whole phase alone); the world sizes run and the card
+   count on a line of their own;
 10b. unclip (after f32_sampling, before tuning): the Stable-unCLIP
    image-variation path at full SD2.1-unclip width (SD2 UNet with
    64-dim heads and the projection class embedding, the 23-layer
@@ -92,7 +110,7 @@ CPU with the same draws. The kernels phase holds the low-dim forward at
 the unCLIP UNet's three flash sites (d64: BH 40 x 9216², 80 x 2304², 160 x
 576²) and the GroupNorm kernel at every site of an SD2-unclip UNet pass
 (batch 8, 96²) and a 768px VAE decode (batch 4).
-In phases 4 to 8, 10, 10b, 10c and 12 to 15 (4b and 5b included) the
+In phases 4 to 8, 10, 10b, 10c and 12 to 16 (4b and 5b included) the
 kernels' launch counters, set to 0 just before each run and read just
 after, must show the path went through every kernel it routes to, as many
 times as its attention, conv, linear and GroupNorm sites give. The two
@@ -107,6 +125,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2473,44 +2492,25 @@ def _expected_tuning_launches(ucfg, vit_cfg, resolution, routes=False,
     return want
 
 
-def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
-                 dtype=None, batch=16):
-    """Phase-2 tuning at full width through ``tuning_e4t.tune`` with the
-    CLI's defaults (batch 16, 512px, lr 1.6e-5, clip 1.0) in ``dtype``
-    (bf16, ``--mixed_precision bf16``, by default; f32 is ``no``), from
-    seeded weights. ``routes``: both opt-in routes on, and the first step's
-    loss and grad norm held against ``routes_off``, the first step's
-    metrics of a run with the routes off. Returns (launches, the first
-    step's metrics)."""
+def _tuning_world(resolution):
+    """Full-width tuning inputs from seeds: the modules (f32), the offset
+    bank, the tokenizer with the placeholder, the class token's id and a
+    random resolution x resolution image."""
     import numpy as np
     import torch
 
-    from e4t_diffusion_torch import tuning_e4t
     from e4t_diffusion_torch.diffusion.pipeline import E4TModules
-    from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
     from e4t_diffusion_torch.models import weight_offsets as wo
     from e4t_diffusion_torch.models.clip_text import CLIPTextConfig
     from e4t_diffusion_torch.models.e4t_encoder import E4TEncoderConfig
     from e4t_diffusion_torch.models.unet import UNetConfig
     from e4t_diffusion_torch.models.vae import VAEConfig
-    from e4t_diffusion_torch.templates import resolve_templates
     from e4t_diffusion_torch.training.setup import resolve_class_token
     from e4t_diffusion_torch.utils.tokenizer import (
         CLIPTokenizer, make_tiny_tokenizer_files)
 
-    dtype = dtype or torch.bfloat16
-    f32 = _f32(dtype)
-
-    def cli_args(max_steps):
-        return tuning_e4t.parse_args([
-            "--pretrained_model_name_or_path", "-", "--train_image_path",
-            "-", "--max_train_steps", str(max_steps), "--mixed_precision",
-            "no" if f32 else "bf16", "--train_batch_size", str(batch)])
-
-    args = cli_args(steps)
     ucfg, ecfg = UNetConfig(), E4TEncoderConfig()
     torch.manual_seed(0)
-    t0 = time.perf_counter()
     modules = E4TModules.create(ucfg, VAEConfig(), CLIPTextConfig(), ecfg,
                                 dtype=torch.float32, device="cuda")
     offsets = wo.init_offset_bank(
@@ -2522,7 +2522,40 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
     tokenizer.add_tokens("*s")  # its id lies inside the 49,408-row table
     class_id = resolve_class_token(tokenizer, "face")
     image = np.random.default_rng(0).integers(
-        0, 256, (args.resolution, args.resolution, 3), dtype=np.uint8)
+        0, 256, (resolution, resolution, 3), dtype=np.uint8)
+    return modules, offsets, tokenizer, class_id, image
+
+
+def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
+                 dtype=None, batch=16):
+    """Phase-2 tuning at full width through ``tuning_e4t.tune`` with the
+    CLI's defaults (batch 16, 512px, lr 1.6e-5, clip 1.0) in ``dtype``
+    (bf16, ``--mixed_precision bf16``, by default; f32 is ``no``), from
+    seeded weights. ``routes``: both opt-in routes on, and the first step's
+    loss and grad norm held against ``routes_off``, the first step's
+    metrics of a run with the routes off. Returns (launches, the first
+    step's metrics)."""
+    import torch
+
+    from e4t_diffusion_torch import tuning_e4t
+    from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
+    from e4t_diffusion_torch.models.vae import VAEConfig
+    from e4t_diffusion_torch.templates import resolve_templates
+
+    dtype = dtype or torch.bfloat16
+    f32 = _f32(dtype)
+
+    def cli_args(max_steps):
+        return tuning_e4t.parse_args([
+            "--pretrained_model_name_or_path", "-", "--train_image_path",
+            "-", "--max_train_steps", str(max_steps), "--mixed_precision",
+            "no" if f32 else "bf16", "--train_batch_size", str(batch)])
+
+    args = cli_args(steps)
+    t0 = time.perf_counter()
+    modules, offsets, tokenizer, class_id, image = _tuning_world(
+        args.resolution)
+    ucfg, ecfg = modules.unet.config, modules.e4t_encoder.config
     setup_s = time.perf_counter() - t0
 
     def sums(tensors, dtype=None):
@@ -3724,10 +3757,11 @@ def _pretrain_args(data_dir, out_dir, *extra):
         str(RESOLUTION), "--seed", "0", *extra])
 
 
-def _pretrain_run(args, world, routes=False):
+def _pretrain_run(args, world, routes=False, mesh=None):
     """One ``pretrain_e4t.pretrain`` call as ``main`` makes it (its loader
-    from ``make_loader``), with the launch counters set to 0 just before and
-    read just after. Returns (result, launches, wall seconds)."""
+    from ``make_loader``; ``mesh``: a process group's grid), with the launch
+    counters set to 0 just before and read just after. Returns (result,
+    launches, wall seconds)."""
     import torch
 
     from e4t_diffusion_torch import pretrain_e4t
@@ -3736,7 +3770,7 @@ def _pretrain_run(args, world, routes=False):
     from e4t_diffusion_torch.utils.trackers import make_tracker
 
     modules, offsets, tokenizer, placeholder_id, class_id = world
-    loader, _ = pretrain_e4t.make_loader(args)
+    loader, _ = pretrain_e4t.make_loader(args, mesh)
     dtype = pretrain_e4t.resolve_train_dtype(args.mixed_precision, "cuda")
     _reset_launches()
     torch.cuda.synchronize()
@@ -3745,7 +3779,7 @@ def _pretrain_run(args, world, routes=False):
         result = pretrain_e4t.pretrain(
             args, modules, offsets, tokenizer, placeholder_id, class_id,
             resolve_templates(args.prompt_template), NoiseScheduleConfig(),
-            dtype, loader, make_tracker(None, args.output_dir))
+            dtype, loader, make_tracker(None, args.output_dir), mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return result, _read_launches(), wall
@@ -3792,7 +3826,7 @@ def _checkpoints_checked(report):
             for key in ("exp_avg", "exp_avg_sq", "step"):
                 if not torch.equal(state[key].cpu(), saved[i][key]):
                     fail(f"{what} {path}: AdamW {key} of tensor {i} differs")
-        if not torch.equal(generator.get_state(), payload["generator"]):
+        if not torch.equal(generator.get_state(), payload["generators"][0]):
             fail(f"{what} {path}: generator state differs")
         report.setdefault(what, []).append(
             {"path": os.path.basename(path), "step": payload["step"],
@@ -3801,15 +3835,15 @@ def _checkpoints_checked(report):
                  path, artifacts.TRAIN_STATE_FILE))})
 
     def checked_save(output_dir, step, trainable, optimizer, updates,
-                     generator, async_save=False):
+                     generator, async_save=False, mesh=None):
         path = save(output_dir, step, trainable, optimizer, updates,
-                    generator, async_save)
+                    generator, async_save, mesh)
         artifacts.wait_for_checkpoints()
         compare("saved", path, trainable, optimizer, generator)
         return path
 
-    def checked_restore(path, trainable, optimizer, generator):
-        out = restore(path, trainable, optimizer, generator)
+    def checked_restore(path, trainable, optimizer, generator, rank=0):
+        out = restore(path, trainable, optimizer, generator, rank)
         compare("restored", path, trainable, optimizer, generator)
         return out
 
@@ -4162,6 +4196,634 @@ def phase_f32_pretraining(smi, data):
          f"{refused}")
 
 
+# ---- the parallel phase ----------------------------------------------------
+
+# (a): flash sites (B, H, S, D, with the backward) run on two halves and on
+# the whole: the heads split where H is even (tensor parallelism's cut),
+# else the batch (the unCLIP UNet's first block has 5 heads)
+PARALLEL_SPLIT_SITES = ((16, 8, 4096, 40, True), (8, 8, 1024, 80, True),
+                        (8, 5, 9216, 64, False))
+# (b): updates a world-1 run takes; the first warms up, the rest are timed
+# (their median)
+PARALLEL_STEPS = 6
+# (c): the CLIs' runs, with and without torchrun
+PARALLEL_CLI_BATCH = 4
+PARALLEL_CLI_STEPS = 2
+PARALLEL_CLI_TIMEOUT_S = 300
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _host_copy(groups):
+    """{group: {name: tensor}} copied to the host (a later run's tensors
+    are compared with these bit for bit)."""
+    return {g: {k: t.detach().to("cpu", copy=True) for k, t in grp.items()}
+            for g, grp in groups.items()}
+
+
+def _same_bits(a, b, what):
+    import torch
+
+    if {g: sorted(x) for g, x in a.items()} != {g: sorted(x)
+                                                 for g, x in b.items()}:
+        fail(f"parallel: {what}: other tensors")
+    bad = [f"{g}.{k}" for g in a for k in a[g]
+           if not torch.equal(a[g][k], b[g][k])]
+    if bad:
+        fail(f"parallel: {what}: {len(bad)} tensors differ, e.g. {bad[:3]}")
+
+
+def _optimizer_tensors(state):
+    """An optimizer state dict's per-tensor state, on the host."""
+    return {str(i): {k: v.detach().cpu() for k, v in st.items()}
+            for i, st in state["state"].items()}
+
+
+def _checkpoint_held(ckpt):
+    """What a train-state checkpoint must hold bit for bit across two runs:
+    its trainables, optimizer state and every rank's generator state."""
+    return {"checkpoint trainables": ckpt["trainable"],
+            "checkpoint optimizer": _optimizer_tensors(ckpt["optimizer"]),
+            "checkpoint generators": {str(i): {"state": g} for i, g in
+                                      enumerate(ckpt["generators"])}}
+
+
+def _split_heads_checks():
+    """(a) One split, no collective: the flash forward (and at the training
+    sites the backward) on each half of the heads, put back together,
+    equals the whole call bit for bit."""
+    import torch
+
+    from e4t_diffusion_torch.ops.flash_bwd import flash_bwd
+    from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    report = []
+    for b, h, s, d, backward in PARALLEL_SPLIT_SITES:
+        q, k, v, dout = (torch.randn((b, h, s, d), generator=gen,
+                                     device="cuda", dtype=torch.bfloat16)
+                         for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        axis = 1 if h % 2 == 0 else 0
+
+        def call(q, k, v, dout):
+            bb, hh = q.shape[:2]
+            flat = [t.reshape(bb * hh, s, d).contiguous()
+                    for t in (q, k, v, dout)]
+            out, lse = flash_fwd(*flat[:3], scale)
+            outs = [out, lse]
+            if backward:
+                outs += flash_bwd(*flat[:3], out, lse, flat[3], scale)
+            return [t.reshape(bb, hh, *t.shape[1:]) for t in outs]
+
+        whole = call(q, k, v, dout)
+        n = q.shape[axis] // 2
+        halves = [call(*(t.narrow(axis, i * n, n) for t in (q, k, v, dout)))
+                  for i in range(2)]
+        torch.cuda.synchronize()
+        names = ["out", "lse", "dq", "dk", "dv"][:len(whole)]
+        for name, ref, a, c in zip(names, whole, *halves):
+            if not torch.equal(torch.cat([a, c], dim=axis), ref):
+                fail(f"parallel: split {'heads' if axis else 'batch'} at "
+                     f"BH {b * h} {s}²/d{d}: {name} differs from the whole "
+                     f"call")
+        report.append({"bh": b * h, "s": s, "d": d,
+                       "split": "heads" if axis else "batch",
+                       "checked": names, "bit_equal": True})
+    return report
+
+
+def _world1_runs(data_dir, mesh):
+    """(b) The dp path at world size 1 under NCCL: PARALLEL_STEPS tuning
+    steps (batch 16, 512px, ``--tensor_parallel 1``), bf16 pretraining
+    steps and ``--zero1`` pretraining steps, each from seeded weights,
+    without the process group and through it (``mesh``), bit for bit: the
+    metrics, the trainables after the updates, the optimizer state
+    (unsharded) and the checkpoint the last step wrote; each run's step
+    time is the median of its steps after the first. Returns (report, the
+    launches of the runs through the group)."""
+    import gc
+
+    import torch
+
+    from e4t_diffusion_torch import tuning_e4t
+    from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
+    from e4t_diffusion_torch.parallel import mesh as pmesh
+    from e4t_diffusion_torch.templates import resolve_templates
+    from e4t_diffusion_torch.utils import artifacts
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    report, launches = {}, _want()
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    runs = {}
+    for tag, m in (("tuning", None), ("tuning_group", mesh)):
+        modules, offsets, tokenizer, class_id, image = _tuning_world(
+            RESOLUTION)
+        args = tuning_e4t.parse_args([
+            "--pretrained_model_name_or_path", "-", "--train_image_path",
+            "-", "--max_train_steps", str(PARALLEL_STEPS),
+            "--mixed_precision", "bf16", "--train_batch_size", "16",
+            "--tensor_parallel", "1"])
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = tuning_e4t.tune(args, modules, offsets, tokenizer, "*s",
+                                 resolve_templates("normal"), class_id,
+                                 image, NoiseScheduleConfig(),
+                                 torch.bfloat16, mesh=m)
+        torch.cuda.synchronize()
+        runs[tag] = {"wall_s": time.perf_counter() - t0,
+                     "step_s": result["step_seconds"],
+                     "metrics": result["metrics"],
+                     "launches": _read_launches(),
+                     "grad_bytes": 4 * sum(t.numel() for g in result[
+                         "trainable"].values() for t in g.values()),
+                     "held": {"trainables": _host_copy(
+                         result["trainable"])}}
+        del modules, offsets, result
+        free()
+    for tag, m, extra in (("pretraining", None, ()),
+                          ("pretraining_group", mesh, ()),
+                          ("zero1_group", mesh, ("--zero1",))):
+        world = _pretraining_world()
+        with tempfile.TemporaryDirectory() as out:
+            args = _pretrain_args(data_dir, out, "--mixed_precision", "bf16",
+                                  "--max_train_steps",
+                                  str(PARALLEL_STEPS),
+                                  "--n_save_sample", "0",
+                                  "--checkpointing_steps",
+                                  str(PARALLEL_STEPS), *extra)
+            result, counts, wall = _pretrain_run(args, world, mesh=m)
+            state = pmesh.consolidated_state_dict(result["optimizer"])
+            ckpt = torch.load(os.path.join(out,
+                                           f"checkpoint-{PARALLEL_STEPS}",
+                                           artifacts.TRAIN_STATE_FILE),
+                              map_location="cpu", weights_only=True)
+        runs[tag] = {"wall_s": wall, "step_s": result["step_seconds"],
+                     "metrics": result["metrics"], "launches": counts,
+                     "grad_bytes": 4 * sum(t.numel() for g in result[
+                         "trainable"].values() for t in g.values()),
+                     "held": {"trainables": _host_copy(result["trainable"]),
+                              "optimizer": _optimizer_tensors(state),
+                              **_checkpoint_held(ckpt)}}
+        del world, result, state
+        free()
+    for ref, tag in (("tuning", "tuning_group"),
+                     ("pretraining", "pretraining_group"),
+                     ("pretraining", "zero1_group")):
+        a, b = runs[ref], runs[tag]
+        if a["metrics"] != b["metrics"]:
+            fail(f"parallel: {tag}: metrics {b['metrics']} against "
+                 f"{a['metrics']} without the group")
+        if a["launches"] != b["launches"]:
+            fail(f"parallel: {tag}: launches {b['launches']} against "
+                 f"{a['launches']}")
+        for part, tensors in a["held"].items():
+            _same_bits(tensors, b["held"][part], f"{tag}, {part}")
+        add(b["launches"])
+        report[tag] = {"bit_equal": True, "metrics": b["metrics"][-1],
+                       "warm_step_s_median": statistics.median(
+                           b["step_s"][1:]),
+                       "warm_step_s_median_without_group": statistics.median(
+                           a["step_s"][1:]),
+                       "step_s": b["step_s"],
+                       "step_s_without_group": a["step_s"],
+                       "wall_s": b["wall_s"],
+                       "wall_s_without_group": a["wall_s"],
+                       # what dp > 1 all-reduces (f32); dp = 1 skips it
+                       "dp_all_reduce_bytes_per_update": b["grad_bytes"],
+                       "launches": b["launches"]}
+    for kernel in ("flash_fwd_lowdim", "flash_fwd_wide", "flash_bwd"):
+        if not launches[kernel]:
+            fail(f"parallel: the world-1 steps launched no {kernel}")
+    return report, launches
+
+
+def _run_cli(module, argv, torchrun):
+    """``python -m module argv`` from the checkout's root, under ``torchrun
+    --nproc_per_node 1`` or not; fails on a non-zero exit. Returns the wall
+    seconds."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    launcher = (["-m", "torch.distributed.run", "--nproc_per_node", "1",
+                 "--master_addr", "localhost", "--master_port",
+                 str(_free_port())] if torchrun else [])
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *launcher, "-m", module, *argv],
+                          cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=PARALLEL_CLI_TIMEOUT_S)
+    if proc.returncode:
+        fail(f"parallel: {module}{' under torchrun' if torchrun else ''} "
+             f"exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def _torchrun_clis(data_dir):
+    """(c) The CLIs under ``torchrun --nproc_per_node 1``: the inference CLI
+    with ``--data_parallel_serving`` and a PARALLEL_CLI_STEPS-step
+    ``pretrain_e4t --zero1``, each also launched without torchrun, on a
+    written full-width model directory (seeded bf16 weights); the images
+    and the checkpoint bit for bit."""
+    import types
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from e4t_diffusion_torch.diffusion.pipeline import E4TModules
+    from e4t_diffusion_torch.models import weight_offsets as wo
+    from e4t_diffusion_torch.models.clip_text import CLIPTextConfig
+    from e4t_diffusion_torch.models.e4t_encoder import E4TEncoderConfig
+    from e4t_diffusion_torch.models.unet import UNetConfig
+    from e4t_diffusion_torch.models.vae import VAEConfig
+    from e4t_diffusion_torch.utils import artifacts
+
+    report = {}
+    with tempfile.TemporaryDirectory() as root:
+        torch.manual_seed(0)
+        mods = E4TModules.create(UNetConfig(), VAEConfig(), CLIPTextConfig(),
+                                 E4TEncoderConfig(), dtype=torch.bfloat16,
+                                 device="cuda")
+        offsets = wo.init_offset_bank(
+            mods.unet.config, torch.Generator("cuda").manual_seed(1),
+            device="cuda")
+        artifact = _write_serving_artifact(
+            root, types.SimpleNamespace(modules=mods, offsets=offsets))
+        del mods, offsets
+        torch.cuda.empty_cache()
+        image = os.path.join(root, "in.png")
+        Image.fromarray(np.random.default_rng(0).integers(
+            0, 256, (RESOLUTION, RESOLUTION, 3), dtype=np.uint8)).save(image)
+        infer = ["--pretrained_model_name_or_path", artifact,
+                 "--image_path_or_url", image, "--prompt", PROMPTS[0],
+                 "--num_inference_steps", str(STEPS), "--guidance_scale",
+                 "7.5", "--num_images_per_prompt", "2", "--height",
+                 str(RESOLUTION), "--width", str(RESOLUTION), "--seed", "0",
+                 "--data_parallel_serving"]
+        pre = ["--pretrained_model_name_or_path", os.path.join(root, "sd"),
+               "--train_image_dataset", data_dir, "--domain_class_token",
+               "face", "--prompt_template", "normal", "--train_batch_size",
+               str(PARALLEL_CLI_BATCH), "--resolution", str(RESOLUTION),
+               "--max_train_steps", str(PARALLEL_CLI_STEPS),
+               "--checkpointing_steps", str(PARALLEL_CLI_STEPS),
+               "--n_save_sample", "0", "--mixed_precision", "bf16",
+               "--zero1", "--report_to", "tensorboard", "--seed", "0"]
+        grids, states = {}, {}
+        for torchrun in (False, True):
+            tag = "torchrun" if torchrun else "plain"
+            grid = os.path.join(root, f"grid-{tag}.png")
+            report[f"inference_{tag}_s"] = _run_cli(
+                "e4t_diffusion_torch.inference", infer + ["--output", grid],
+                torchrun)
+            grids[tag] = np.asarray(Image.open(grid))
+            out = os.path.join(root, f"pre-{tag}")
+            report[f"pretrain_{tag}_s"] = _run_cli(
+                "e4t_diffusion_torch.pretrain_e4t",
+                pre + ["--output_dir", out], torchrun)
+            ckpt = torch.load(os.path.join(
+                out, f"checkpoint-{PARALLEL_CLI_STEPS}",
+                artifacts.TRAIN_STATE_FILE), map_location="cpu",
+                weights_only=True)
+            step_dir = os.path.join(out, str(PARALLEL_CLI_STEPS))
+            states[tag] = {**_checkpoint_held(ckpt), "artifact": {
+                name: torch.load(os.path.join(step_dir, name),
+                                 map_location="cpu", weights_only=True)
+                for name in ("weight_offsets.pt", "encoder.pt")}}
+        if grids["plain"].shape != (RESOLUTION, 2 * RESOLUTION, 3):
+            fail(f"parallel: inference grid {grids['plain'].shape}")
+        if not np.array_equal(grids["plain"], grids["torchrun"]):
+            fail("parallel: the inference CLI under torchrun rendered other "
+                 "images")
+        for part, tensors in states["plain"].items():
+            _same_bits(tensors, states["torchrun"][part],
+                       f"pretrain_e4t --zero1 under torchrun, {part}")
+    report["bit_equal"] = True
+    return report
+
+
+# (d): the multi-card runs, f32 (the CPU tests' tolerances): a pretraining
+# step at dp=2 (one row a rank) against world 1 at two rows, with the same
+# draws; sampling at tp=2 and at dp=2 against world 1
+MULTI_CARD_TIMEOUT_S = 600
+MULTI_LOSS_REL = 1e-5
+MULTI_UPDATE_REL = 1e-3
+MULTI_IMAGE_TOL = 1e-4
+
+
+def _multi_card_work(mesh_for):
+    """(d)'s work on this process's card: ``mesh_for(tp)`` gives the grid
+    (None: one process). Returns {"step": metrics, before and after of the
+    trainables (host), "images": {"tp": ..., "dp": ...}}, the images of
+    the whole batch."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from e4t_diffusion_torch.config import AttributeDict
+    from e4t_diffusion_torch.diffusion.pipeline import (
+        E4TModules, StableDiffusionE4TPipeline)
+    from e4t_diffusion_torch.diffusion.schedulers import DDPMScheduler
+    from e4t_diffusion_torch.models import weight_offsets as wo
+    from e4t_diffusion_torch.parallel import mesh as pmesh
+    from e4t_diffusion_torch.templates import resolve_templates
+    from e4t_diffusion_torch.training import train_step as ts
+    from e4t_diffusion_torch.training.setup import TemplateSampler
+
+    out = {}
+    modules, offsets, tokenizer, placeholder_id, class_id = \
+        _pretraining_world()
+    sampler = TemplateSampler(resolve_templates("normal"), tokenizer, "*s",
+                              placeholder_id, seed=0)
+    ids, ph = sampler.sample(2)
+    rng = np.random.default_rng(0)
+    side = RESOLUTION // 8
+    batch = {k: torch.as_tensor(v).to("cuda") for k, v in {
+        "pixel_values": rng.uniform(-1, 1, (2, 3, RESOLUTION, RESOLUTION)
+                                    ).astype(np.float32),
+        "input_ids": ids, "placeholder_idx": ph,
+        "uncond_ids": sampler.uncond_ids, "class_token_id": class_id,
+        "noise": rng.standard_normal((2, 4, side, side)).astype(np.float32),
+        "timesteps": rng.integers(0, 1000, (2,)),
+        "posterior_noise": rng.standard_normal((2, 4, side, side)).astype(
+            np.float32)}.items()}
+    mesh = mesh_for(1) or pmesh.Mesh()
+    batch = {k: (v[mesh.rows(2)] if k in ts._PER_SAMPLE else v)
+             for k, v in batch.items()}
+    cfg = ts.E4TTrainConfig(train_unet=False, max_grad_norm=None)
+    trainable, _ = ts.split_trainable(modules, offsets, cfg, torch.float32)
+    before = _host_copy(trainable)
+    flat = [t for g in trainable.values() for t in g.values()]
+    opt = ts.make_optimizer(flat, 1.6e-5)
+    step = ts.make_train_step(modules, DDPMScheduler(), cfg, trainable, opt,
+                              lambda n: 1.6e-5, mesh=mesh)
+    out["step"] = {"metrics": {k: float(v) for k, v in step(batch).items()},
+                   "before": before, "after": _host_copy(trainable)}
+    del modules, offsets, trainable, opt, step, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["images"] = {}
+    for kind, tp in (("tp", 2), ("dp", 1)):
+        grid = mesh_for(tp)
+        if grid is None and out["images"]:  # one process: one reference
+            out["images"][kind] = out["images"]["tp"]
+            continue
+        torch.manual_seed(0)
+        mods = E4TModules.create(dtype=torch.float32, device="cuda")
+        bank = wo.init_offset_bank(mods.unet.config,
+                                   torch.Generator("cuda").manual_seed(1),
+                                   device="cuda")
+        if grid is not None:
+            pmesh.apply_tensor_parallel(mods.unet, grid)
+        pipe = StableDiffusionE4TPipeline(
+            mods, bank, tokenizer, AttributeDict({
+                "placeholder_token": "*s", "domain_class_token": "face",
+                "domain_embed_scale": 0.1}),
+            already_added_placeholder_token=True, mesh=grid,
+            data_parallel=grid is not None and kind == "dp")
+        image = np.random.default_rng(1).integers(
+            0, 256, (RESOLUTION, RESOLUTION, 3), dtype=np.uint8)
+        out["images"][kind] = pipe(PROMPTS, image, num_inference_steps=STEPS,
+                                   guidance_scale=7.5,
+                                   num_images_per_prompt=1, seed=0)
+        del mods, pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _multi_card_rank(rank, world, port, out_dir):
+    """One rank of (d), on card ``rank``, in a NCCL group of ``world``."""
+    import torch
+    import torch.distributed as dist
+
+    from e4t_diffusion_torch.parallel import mesh as pmesh
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pmesh.initialize(rank, world, torch.device("cuda", rank),
+                     init_method=f"tcp://localhost:{port}")
+    try:
+        out = _multi_card_work(lambda tp: pmesh.get_mesh(tp))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(target, world, timeout, what):
+    """``world`` processes (spawn) running ``target(rank, world, port,
+    out_dir)``, each saving ``out_dir/rank<r>.pt``; the saved objects in
+    rank order. A rank that fails or outlives ``timeout`` fails the run
+    (the others are killed)."""
+    import multiprocessing
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out_dir:
+        port = _free_port()
+        procs = [ctx.Process(target=target, args=(r, world, port, out_dir))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode for p in procs):
+            fail(f"parallel: {what} ranks exited "
+                 f"{[p.exitcode for p in procs]}")
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+
+# (e): the bf16 UNet at tp=2, two ranks on one card over gloo (NCCL refuses
+# two ranks a card; gloo moves the CUDA tensors through the host): the
+# noise prediction and its input gradient at batch TP_BF16_BATCH, 512px,
+# against tp=1 in bf16 and against f32. Each row-parallel site's partial
+# products are f32 (cuBLAS's accumulator, not rounded to bf16) summed over
+# tp in f32, then rounded to bf16 once, as tp=1 rounds its product once.
+TP_BF16_BATCH = 2
+TP_BF16_TIMEOUT_S = 300
+# bf16's own error sets the scale: tp=1 and tp=2 are two bf16 roundings of
+# one f32 computation, each its own distance from f32. Held: tp=2's rel-L2
+# against f32, and against tp=1, at most TP_BF16_RATIO times tp=1's
+# against f32 (eps and dx), and tp=2 against tp=1 below TP_BF16_REL_L2
+TP_BF16_RATIO = 1.5
+TP_BF16_REL_L2 = 5e-2
+
+
+def _tp_bf16_work(mesh, dtype):
+    """The full-width UNet (seeded) in ``dtype``, split over ``mesh``'s tp
+    (None: whole), on one seeded batch: eps and d(sum(eps * dout))/dx, f32
+    on the host."""
+    import torch
+
+    from e4t_diffusion_torch.models.unet import (UNet2DConditionModel,
+                                                 UNetConfig)
+    from e4t_diffusion_torch.parallel import mesh as pmesh
+
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(UNetConfig())
+    unet.to(dtype).eval().requires_grad_(False)
+    if mesh is not None:
+        pmesh.apply_tensor_parallel(unet, mesh)
+    gen = torch.Generator("cuda").manual_seed(1)
+    side = RESOLUTION // 8
+    x = torch.randn((TP_BF16_BATCH, 4, side, side), generator=gen,
+                    device="cuda")
+    ctx = torch.randn((TP_BF16_BATCH, 77, unet.config.cross_attention_dim),
+                      generator=gen, device="cuda")
+    dout = torch.randn(x.shape, generator=gen, device="cuda")
+    t = torch.linspace(100, 900, TP_BF16_BATCH, device="cuda").long()
+    x = x.to(dtype).requires_grad_(True)
+    eps = unet(x, t, ctx.to(dtype))
+    (eps.float() * dout).sum().backward()
+    out = {"eps": eps.detach().float().cpu(), "dx": x.grad.float().cpu()}
+    del unet, x, eps
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_bf16_rank(rank, world, port, out_dir):
+    """One rank of (e), on card 0, in a gloo group of ``world``."""
+    import torch
+    import torch.distributed as dist
+
+    from e4t_diffusion_torch.parallel import mesh as pmesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        out = _tp_bf16_work(pmesh.get_mesh(world), torch.bfloat16)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_bf16_checks():
+    """(e): the bf16 tp=2 UNet pass and backward against tp=1 and f32."""
+    import torch
+
+    f32 = _tp_bf16_work(None, torch.float32)
+    one = _tp_bf16_work(None, torch.bfloat16)
+    ranks = _spawn_ranks(_tp_bf16_rank, 2, TP_BF16_TIMEOUT_S, "bf16 tp=2")
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    report = {"batch": TP_BF16_BATCH, "resolution": RESOLUTION,
+              "rel_l2_limit": TP_BF16_REL_L2, "ratio_limit": TP_BF16_RATIO}
+    for key in ("eps", "dx"):
+        if not torch.isfinite(ranks[0][key]).all():
+            fail(f"parallel: bf16 tp=2 {key} is not finite")
+        if not torch.equal(ranks[0][key], ranks[1][key]):
+            fail(f"parallel: bf16 tp=2 ranks' {key} differ")
+        got = {"tp2_vs_tp1": rel(ranks[0][key], one[key]),
+               "tp1_vs_f32": rel(one[key], f32[key]),
+               "tp2_vs_f32": rel(ranks[0][key], f32[key])}
+        report[key] = got
+        scale = TP_BF16_RATIO * got["tp1_vs_f32"]
+        if not (got["tp2_vs_tp1"] <= min(scale, TP_BF16_REL_L2)
+                and got["tp2_vs_f32"] <= scale):
+            fail(f"parallel: bf16 tp=2 {key}: {got}")
+    return report
+
+
+def _multi_card_checks():
+    """(d) Two cards under NCCL: a dp=2 f32 pretraining step against world
+    1 with the same draws (loss, update), tp=2 and dp=2 sampling against
+    world 1, within the CPU tests' tolerances. Returns the differences."""
+    import torch
+
+    ref = _multi_card_work(lambda tp: None)
+    torch.cuda.empty_cache()
+    ranks = _spawn_ranks(_multi_card_rank, 2, MULTI_CARD_TIMEOUT_S,
+                         "multi-card")
+    report = {}
+    want = ref["step"]
+    for r, got in enumerate(ranks):
+        rel = abs(got["step"]["metrics"]["loss"] - want["metrics"]["loss"]) \
+            / abs(want["metrics"]["loss"])
+        updates = {}
+        for g, tensors in want["after"].items():
+            keys = sorted(tensors)
+            start = torch.cat([want["before"][g][k].ravel()
+                               for k in keys]).double()
+            a = torch.cat([got["step"]["after"][g][k].ravel()
+                           for k in keys]).double() - start
+            b = torch.cat([tensors[k].ravel() for k in keys]).double() - start
+            updates[g] = float((a - b).norm() / b.norm())
+        diffs = {kind: float(abs(got["images"][kind] - img).max())
+                 for kind, img in ref["images"].items()}
+        if not (rel <= MULTI_LOSS_REL and max(updates.values())
+                <= MULTI_UPDATE_REL and max(diffs.values())
+                <= MULTI_IMAGE_TOL):
+            fail(f"parallel: rank {r} of 2 cards: loss rel {rel}, updates "
+                 f"{updates}, images {diffs}")
+        report[f"rank{r}"] = {"loss_rel": rel, "update_rel": updates,
+                              "image_max_abs": diffs}
+    return report
+
+
+def phase_parallel(smi, data_dir):
+    """The parallel layer on the card (``parallel/mesh.py``): (a) the flash
+    kernels on each half of the heads against the whole call, (b) the
+    tuning, pretraining and ZeRO-1 steps through a one-rank NCCL process
+    group against the same steps without one, (c) the inference and
+    pretraining CLIs under ``torchrun --nproc_per_node 1`` against the same
+    runs without it, (e) the bf16 UNet at tp=2 on the one card (two gloo
+    ranks) against tp=1 and f32, and (d) with two or more cards, the
+    multi-rank runs. Every other comparison on one card is bit for bit.
+    Returns the launches of (b)'s runs through the group."""
+    import torch
+    import torch.distributed as dist
+
+    from e4t_diffusion_torch.parallel import mesh as pmesh
+
+    report = {"phase": "parallel", "card": smi,
+              "split_heads": _split_heads_checks()}
+    pmesh.initialize(0, 1, torch.device("cuda"),
+                     init_method=f"tcp://localhost:{_free_port()}")
+    try:
+        report["world1"], launches = _world1_runs(data_dir, pmesh.get_mesh())
+    finally:
+        dist.destroy_process_group()
+    report["cli"] = _torchrun_clis(data_dir)
+    report["tp2_bf16_one_card_gloo"] = _tp_bf16_checks()
+    worlds = [1]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        report["multi_card"] = _multi_card_checks()
+        worlds.append(2)
+    print(json.dumps(report))
+    print(json.dumps({"parallel_worlds": worlds, "cards": cards}))
+    return launches
+
+
 def kernels_line(cases, paths, unclip_call):
     """The kernels record: one row per kernel, its launches on each path
     (``paths``: launch counts by path) and its times at the main path's
@@ -4460,6 +5122,19 @@ def main():
         os.environ.pop(knob, None)
     smi = run("environment", phase_environment)
     run("build", phase_build)
+    if sys.argv[1:] == ["--parallel"]:
+        # the parallel phase alone
+        with tempfile.TemporaryDirectory() as data_dir:
+            _write_pretraining_images(data_dir, PRETRAIN_IMAGES)
+            run("parallel", phase_parallel, smi, data_dir)
+        return
+    if sys.argv[1:] == ["--multi-card"]:
+        # (d) of the parallel phase alone, on a machine of two or more cards
+        if torch.cuda.device_count() < 2:
+            fail("--multi-card needs two cards")
+        print(json.dumps({"multi_card": run("multi_card",
+                                            _multi_card_checks)}))
+        return
     cases = run("kernels", phase_kernels)
     sampling, pipe, image, warm_s = run("sampling", phase_main_path, smi)
     schedulers = run("schedulers", phase_schedulers, smi, pipe, image)
@@ -4492,6 +5167,8 @@ def main():
                              smi, first_step, data)
     f32_pretraining = run("f32_pretraining", phase_f32_pretraining, smi,
                           data)
+    torch.cuda.empty_cache()
+    parallel = run("parallel", phase_parallel, smi, data.name)
     data.cleanup()
     paths = {"sampling": sampling, "schedulers": schedulers,
              "int8_sampling": int8_sampling, "serving": serving,
@@ -4502,7 +5179,7 @@ def main():
              "f32_tuning_vs_cpu": f32_tuning_tiny, "f32_tuning": f32_tuning,
              "pretraining": pretraining,
              "routes_pretraining": routes_pretraining,
-             "f32_pretraining": f32_pretraining}
+             "f32_pretraining": f32_pretraining, "parallel": parallel}
 
     kernels = kernels_line(cases, paths,
                            unclip_files["flash_per_call"])

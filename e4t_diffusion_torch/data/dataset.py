@@ -223,6 +223,11 @@ class E4TDataLoader:
     HF ``datasets`` name (``streaming`` for its iterable form). Yields
     ``{"pixel_values": (B, 3, resolution, resolution) float32 in [-1, 1]}``
     forever; a partial last batch of a finite source is dropped.
+    Several processes (``process_index`` / ``process_count``, by default
+    the rank and world size of ``torch.distributed``; under tensor
+    parallelism the caller passes the dp rank and dp): each reads its own
+    samples, the tar source by shards, a folder or HF dataset (streamed or
+    not) by its blocks of the one seeded order (``_mine``).
     ``num_workers`` > 1 decodes and transforms on that many threads, each
     with its own transform seeded ``seed + 1000 * (worker + 1)``; the
     sample order is then the order of completion."""
@@ -238,7 +243,6 @@ class E4TDataLoader:
         self.batch_size = batch_size
         self.resolution = resolution
         self.random_crop = random_crop
-        self.transform = self._transform(seed)
         self.num_workers = num_workers
         self.seed = seed
         self.use_tar = use_tar or ".tar" in source
@@ -246,6 +250,7 @@ class E4TDataLoader:
         rank, world = process_index_and_count()
         self.process_index = rank if process_index is None else process_index
         self.process_count = world if process_count is None else process_count
+        self.transform = self._transform(seed)
         self.shuffle_buffer = shuffle_buffer
         self.prefetch = prefetch
         self.num_samples = None
@@ -273,11 +278,9 @@ class E4TDataLoader:
             if not files:
                 raise FileNotFoundError(f"no images under {self.source}")
             self.num_samples = len(files)
-            rng = np.random.default_rng(self.seed)
-            while True:
-                for i in rng.permutation(len(files)):
-                    p = files[int(i)]
-                    yield p, (lambda p=p: load_image_rgb(p))
+            for i in self._my_indices(len(files)):
+                p = files[i]
+                yield p, (lambda p=p: load_image_rgb(p))
         else:
             from datasets import load_dataset
 
@@ -285,20 +288,42 @@ class E4TDataLoader:
                               streaming=self.streaming)
             if self.streaming:
                 ds = ds.shuffle(seed=self.seed, buffer_size=10000)
+                pos = 0
                 while True:
                     for n, ex in enumerate(ds):
-                        yield (f"{self.source}[stream #{n}]",
-                               lambda ex=ex: np.asarray(
-                                   ex["image"].convert("RGB")))
+                        if self._mine(pos):
+                            yield (f"{self.source}[stream #{n}]",
+                                   lambda ex=ex: np.asarray(
+                                       ex["image"].convert("RGB")))
+                        pos += 1
             else:
                 self.num_samples = len(ds)
-                rng = np.random.default_rng(self.seed)
-                while True:
-                    for i in rng.permutation(len(ds)):
-                        i = int(i)
-                        yield (f"{self.source}[{i}]",
-                               lambda i=i: np.asarray(
-                                   ds[i]["image"].convert("RGB")))
+                for i in self._my_indices(len(ds)):
+                    yield (f"{self.source}[{i}]",
+                           lambda i=i: np.asarray(
+                               ds[i]["image"].convert("RGB")))
+
+    def _my_indices(self, n: int) -> Iterator[int]:
+        """This process's sample indices of a finite source: the seeded
+        permutations, one after another, dealt out in blocks of
+        ``batch_size``, block k to process k mod ``process_count``. At step
+        s the processes' batches, in process order, are then the batch a
+        single process reads at step s with ``batch_size`` times as many
+        samples."""
+        rng = np.random.default_rng(self.seed)
+        pos = 0
+        while True:
+            for i in rng.permutation(n):
+                if self._mine(pos):
+                    yield int(i)
+                pos += 1
+
+    def _mine(self, pos: int) -> bool:
+        """Whether position ``pos`` of the one ordered stream is this
+        process's: its block of ``batch_size`` in each group of
+        ``process_count`` blocks."""
+        return (pos // self.batch_size) % self.process_count \
+            == self.process_index
 
     def _batch_iter(self) -> Iterator[Dict[str, np.ndarray]]:
         batch = []

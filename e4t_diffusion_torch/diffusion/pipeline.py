@@ -19,6 +19,16 @@ Beyond that path: the six schedulers of ``diffusion/schedulers.py``, LoRA
 adapters folded after the offsets (``models/lora.py``), the int8 ViT-H and
 VAE decode (``int8_aux``, dynamic or calibrated) and per-step trajectories
 (``make_trajectory_fn``).
+
+Several ranks (``parallel/mesh.py``): a UNet split over tp
+(``mesh.apply_tensor_parallel``) samples as it is; with ``data_parallel``
+each dp rank draws the whole batch's initial latents and per-step noise
+from the seed, keeps its rows, and the images are gathered, so the ranks
+render one card's images. Every rank quantizes int8 sites by the same
+scales: a live activation abs-max is the MAX over every rank
+(``quant.amax_reduction``), calibrated ranges are MAX-reduced
+(``mesh.reduce_calibration``), and a row-parallel shard's weight scales
+are the whole kernel's (``mesh.kernel_scale_reducer``).
 """
 from __future__ import annotations
 
@@ -40,7 +50,9 @@ from e4t_diffusion_torch.models.unet import (
     UNet2DConditionModel, UNetConfig, pool_encoder_features, tap_feature_dim)
 from e4t_diffusion_torch.models.vae import AutoencoderKL, VAEConfig
 from e4t_diffusion_torch.ops import quant
-from e4t_diffusion_torch.ops.attention import int8_flash_attention
+from e4t_diffusion_torch.ops.attention import (batch_shards,
+                                               int8_flash_attention)
+from e4t_diffusion_torch.parallel import mesh as pmesh
 
 
 def resolve_device(device: Union[str, torch.device, None] = None
@@ -137,13 +149,15 @@ def _build_denoise_loop(modules: E4TModules, scheduler, num_steps: int,
                         eta: float) -> Callable:
     """The one denoise loop of sampling, calibration and trajectories:
     ``run_loop(unet_apply, latents, pixel_values, inputs_embeds,
-    placeholder_idx, uncond_ids, class_embed, generator, on_step=None) ->
-    latents``, where ``unet_apply`` calls the UNet on the run's folded
-    weights. The model is evaluated once per entry of the scheduler's
-    ``timesteps`` (PNDM: ``num_steps + 1``), its carry comes from
-    ``init_carry``, and every step of a stochastic scheduler (and of DDIM at
-    eta > 0) takes noise from ``generator``. ``on_step(latents)`` sees each
-    post-step latent."""
+    placeholder_idx, uncond_ids, class_embed, generator, on_step=None,
+    batch_rows=None) -> latents``, where ``unet_apply`` calls the UNet on the
+    run's folded weights. The model is evaluated once per entry of the
+    scheduler's ``timesteps`` (PNDM: ``num_steps + 1``), its carry comes
+    from ``init_carry``, and every step of a stochastic scheduler (and of
+    DDIM at eta > 0) takes noise from ``generator``. ``on_step(latents)``
+    sees each post-step latent. ``batch_rows`` (first row, whole batch): the
+    latents are those rows of a larger batch (data-parallel serving); each
+    step's noise is drawn for the whole batch and cut to them."""
     do_cfg = guidance_scale > 1.0
     step_kwargs = ({"eta": eta} if eta > 0.0
                    and isinstance(scheduler, DDIMScheduler) else {})
@@ -152,7 +166,7 @@ def _build_denoise_loop(modules: E4TModules, scheduler, num_steps: int,
 
     def run_loop(unet_apply, latents, pixel_values, inputs_embeds,
                  placeholder_idx, uncond_ids, class_embed, generator,
-                 on_step=None):
+                 on_step=None, batch_rows=None):
         device = latents.device
         state = scheduler.init(num_steps, device)
         if hasattr(scheduler, "init_noise_sigma"):
@@ -182,8 +196,12 @@ def _build_denoise_loop(modules: E4TModules, scheduler, num_steps: int,
             eps_c = unet_apply(latents_in, t_b,
                                cond_states.to(uncond_b.dtype))
             eps = eps_u + guidance_scale * (eps_c - eps_u) if do_cfg else eps_c
-            noise = (_step_noise(latents.shape, generator, device,
-                                 latents.dtype) if stochastic else None)
+            noise = None
+            if stochastic:
+                row0, whole = batch_rows or (0, bsz)
+                noise = _step_noise((whole,) + tuple(latents.shape[1:]),
+                                    generator, device,
+                                    latents.dtype)[row0:row0 + bsz]
             state, latents = scheduler.step(state, i, eps, latents,
                                             noise=noise, **step_kwargs)
             if on_step is not None:
@@ -234,15 +252,16 @@ def _check_extra(what: str, wanted: bool, given) -> None:
 
 def _folded_apply(unet, offsets, lora_bank=None, lora_scale=None):
     """The run's effective UNet weights: the offsets folded in, then the
-    LoRA adapters (both in f32, cast once to each weight's type), and a
-    ``unet_apply`` that calls the UNet on them."""
+    LoRA adapters (both in f32, cast once to each weight's type; each cut
+    to this rank's shard on a UNet split over tp), and a ``unet_apply``
+    that calls the UNet on them."""
     if lora_bank is None:
         folded = wo.fold_offset_bank(unet, offsets)
     else:
         params = dict(unet.named_parameters())
         folded = wo.fold_offset_bank(unet, offsets, dtype=torch.float32)
         folded.update(lora_mod.fold_lora_bank({**params, **folded},
-                                              lora_bank, lora_scale))
+                                              lora_bank, lora_scale, unet))
         folded = {k: v.to(params[k].dtype) for k, v in folded.items()}
 
     def unet_apply(*args, **kwargs):
@@ -253,13 +272,31 @@ def _folded_apply(unet, offsets, lora_bank=None, lora_scale=None):
 
 def _unet_sites(unet, folded, int8, act_amax):
     """The int8 sites of the folded UNet weights (none when ``int8`` is
-    off)."""
+    off); on a UNet split over tp a row-parallel shard takes the whole
+    kernel's scales."""
     if not int8:
         return {}
     return quant.quantize_params(
         {**dict(unet.named_parameters()), **folded}, act_amax=act_amax,
         act_pc=int8 == "static_pc",
-        static_exclude=_static_exclude_for(int8 == "static_pc"))
+        static_exclude=_static_exclude_for(int8 == "static_pc"),
+        kernel_reduce=pmesh.kernel_scale_reducer(unet))
+
+
+def _parallel_contexts(stack: contextlib.ExitStack, mesh, rows) -> None:
+    """A sampling run's parallel contexts: the routes count the whole
+    batch where the rows are split over dp, and every live int8 activation
+    abs-max is the MAX over every rank."""
+    if mesh is None or not mesh.distributed:
+        return
+    if rows is not None:
+        stack.enter_context(batch_shards(mesh.dp))
+
+    def world_max(amax):
+        amax = amax.reshape(1).clone()
+        return mesh.all_reduce(amax, torch.distributed.ReduceOp.MAX)[0]
+
+    stack.enter_context(quant.amax_reduction(world_max))
 
 
 def _aux_sites(modules: E4TModules, aux_amax) -> list:
@@ -289,11 +326,13 @@ def make_sample_fn(modules: E4TModules, scheduler, num_inference_steps: int,
                    int8: Union[bool, str] = False,
                    int8_aux: Union[bool, str] = False,
                    int8_attn: Union[bool, str] = False,
-                   lora_scale: Optional[float] = None) -> Callable:
+                   lora_scale: Optional[float] = None,
+                   mesh: Optional[pmesh.Mesh] = None,
+                   rows: Optional[tuple] = None) -> Callable:
     """The end-to-end sampling function ``sample(offsets, latents,
     pixel_values, inputs_embeds, placeholder_idx, uncond_ids, class_embed,
     generator=None, act_amax=None, aux_amax=None, lora_bank=None)`` ->
-    images in [0, 1] (or the final latents).
+    images in [0, 1] (or the final latents) of its rows.
 
     ``offsets``: the weight-offset bank; ``latents`` (B, 4, h, w) f32;
     ``pixel_values`` (1, 3, H, W) in [-1, 1]; ``inputs_embeds`` (1 or B, L,
@@ -317,7 +356,10 @@ def make_sample_fn(modules: E4TModules, scheduler, num_inference_steps: int,
     kernel (True or "qk": int8 QK^T; "qkpv": P@V too).
     ``lora_scale``: when set, ``lora_bank`` (``models/lora.py``) is folded
     into the effective weights after the offsets and before int8
-    quantization."""
+    quantization.
+    ``mesh``: the (dp, tp) grid of a run over several ranks; ``rows``
+    (first row, whole batch): the latents are those rows of the batch
+    (data-parallel serving), as in ``_build_denoise_loop``."""
     _check_modes(int8, int8_aux, int8_attn)
     static_act = int8 in ("static", "static_pc")
     attn_mode = "qk" if int8_attn is True else int8_attn
@@ -339,13 +381,14 @@ def make_sample_fn(modules: E4TModules, scheduler, num_inference_steps: int,
         if int8_aux:
             sites += _aux_sites(modules, aux_amax)
         with contextlib.ExitStack() as stack:
+            _parallel_contexts(stack, mesh, rows)
             for model, model_sites in sites:
                 stack.enter_context(quant.int8_sites(model, model_sites))
             if attn_mode:
                 stack.enter_context(int8_flash_attention(attn_mode))
             latents = run_loop(unet_apply, latents, pixel_values,
                                inputs_embeds, placeholder_idx, uncond_ids,
-                               class_embed, generator)
+                               class_embed, generator, batch_rows=rows)
             if return_latents:
                 return latents
             images = modules.vae.decode(
@@ -358,7 +401,9 @@ def make_sample_fn(modules: E4TModules, scheduler, num_inference_steps: int,
 def make_calibration_fn(modules: E4TModules, scheduler, num_calib_steps: int,
                         guidance_scale: float, domain_embed_scale: float,
                         eta: float = 0.0, lora_scale: Optional[float] = None,
-                        return_final_latents: bool = False) -> Callable:
+                        return_final_latents: bool = False,
+                        mesh: Optional[pmesh.Mesh] = None,
+                        rows: Optional[tuple] = None) -> Callable:
     """Activation-range calibration for static-act int8 serving: a
     ``num_calib_steps`` sampling run in the compute type through the same
     loop as ``make_sample_fn``, recording every UNet site's abs-max
@@ -370,7 +415,9 @@ def make_calibration_fn(modules: E4TModules, scheduler, num_calib_steps: int,
     function, or ``(act_amax, final latents)`` with
     ``return_final_latents`` (the representative VAE-decode inputs of
     ``make_aux_calibration_fn``). With ``lora_scale`` it calibrates on the
-    weights serving uses, the LoRA bank folded in."""
+    weights serving uses, the LoRA bank folded in. ``mesh`` and ``rows`` as
+    in ``make_sample_fn``: the ranges are then MAX-reduced over the ranks
+    (``mesh.reduce_calibration``)."""
     run_loop = _build_denoise_loop(modules, scheduler, num_calib_steps,
                                    guidance_scale, domain_embed_scale, eta)
     unet = modules.unet
@@ -381,10 +428,13 @@ def make_calibration_fn(modules: E4TModules, scheduler, num_calib_steps: int,
                   lora_bank=None):
         _check_extra("lora_bank", lora_scale is not None, lora_bank)
         _, unet_apply = _folded_apply(unet, offsets, lora_bank, lora_scale)
-        with quant.calibration(unet) as amax:
+        with contextlib.ExitStack() as stack:
+            _parallel_contexts(stack, mesh, rows)
+            amax = stack.enter_context(quant.calibration(unet))
             final = run_loop(unet_apply, latents, pixel_values,
                              inputs_embeds, placeholder_idx, uncond_ids,
-                             class_embed, generator)
+                             class_embed, generator, batch_rows=rows)
+        pmesh.reduce_calibration(amax, unet, mesh or pmesh.Mesh())
         return (amax, final) if return_final_latents else amax
 
     return calibrate
@@ -466,7 +516,13 @@ class StableDiffusionE4TPipeline:
     calibration's final latents where ``int8`` is static, and keeps them
     in ``aux_amax``); ``int8_attn`` False | True ("qk") | "qkpv".
     ``lora_bank`` (``models/lora.py``) is folded into every run's weights
-    at ``lora_scale``."""
+    at ``lora_scale``.
+
+    ``mesh`` (``parallel/mesh.get_mesh``): the (dp, tp) grid of a run over
+    several ranks, its UNet split over tp by ``mesh.apply_tensor_parallel``
+    beforehand; ``data_parallel``: each dp rank samples its rows of the
+    batch (which dp must divide) and every rank gets the whole batch's
+    images."""
 
     def __init__(self, modules: E4TModules, offsets: Dict[str, torch.Tensor],
                  tokenizer, e4t_config, scheduler=None,
@@ -474,8 +530,15 @@ class StableDiffusionE4TPipeline:
                  int8: Union[bool, str] = False,
                  int8_attn: Union[bool, str] = False, act_scales=None,
                  int8_aux: Union[bool, str] = False, lora_bank=None,
-                 lora_scale: float = 1.0):
+                 lora_scale: float = 1.0,
+                 mesh: Optional[pmesh.Mesh] = None,
+                 data_parallel: bool = False):
         _check_modes(int8, int8_aux, int8_attn)
+        self.mesh = mesh or pmesh.Mesh()
+        self.data_parallel = data_parallel
+        if int8 == "static_pc" and self.mesh.tp > 1:
+            raise NotImplementedError("per-channel activation scales "
+                                      "(static_pc) under tensor parallelism")
         self.int8, self.int8_aux, self.int8_attn = int8, int8_aux, int8_attn
         self.act_amax = act_scales
         self.aux_amax = None
@@ -582,6 +645,15 @@ class StableDiffusionE4TPipeline:
                                         num_images_per_prompt), device=dev)
         pixel = torch.from_numpy(preprocess_image(image)).to(dev)
         noise_gen = torch.Generator(dev).manual_seed(seed ^ 0x5DEECE66D)
+        rows = None
+        if self.data_parallel:
+            rows = (self.mesh.rows(b).start, b)
+            # per-sample prompt embeddings are split, one prompt's kept
+            split = pmesh.shard_batch({"latents": latents, "ph_idx": ph_idx,
+                                       "embeds": inputs_embeds}, self.mesh)
+            latents, ph_idx = split["latents"], split["ph_idx"]
+            inputs_embeds = split["embeds"]
+        parallel = {"mesh": self.mesh, "rows": rows}
 
         common = (self.offsets, latents, pixel, inputs_embeds, ph_idx,
                   torch.tensor([uncond_ids[0]], device=dev), class_embed)
@@ -597,7 +669,7 @@ class StableDiffusionE4TPipeline:
                     modules, scheduler,
                     int(os.environ.get("E4T_INT8_CALIB_STEPS", "8")),
                     guidance_scale, des, eta=eta, lora_scale=self.lora_scale,
-                    return_final_latents=want_final)
+                    return_final_latents=want_final, **parallel)
                 out = calibrate(*common, torch.Generator(dev).manual_seed(
                     seed ^ 0x5DEECE66D), **lora)
                 if want_final:  # the denoised range the decode will see
@@ -609,15 +681,21 @@ class StableDiffusionE4TPipeline:
             if self.aux_amax is None:
                 self.aux_amax = make_aux_calibration_fn(modules)(
                     pixel, calib_latents)
+                # the rows' ranges made the same on every rank
+                with torch.inference_mode():
+                    for amax in self.aux_amax.values():
+                        pmesh.reduce_calibration(amax, None, self.mesh)
             aux_amax = self.aux_amax
         fn = make_sample_fn(modules, scheduler, num_inference_steps,
                             guidance_scale, des,
                             return_latents=output_type == "latent", eta=eta,
                             int8=_serving_int8_mode(self.int8),
                             int8_aux=self.int8_aux, int8_attn=self.int8_attn,
-                            lora_scale=self.lora_scale)
+                            lora_scale=self.lora_scale, **parallel)
         out = fn(*common, noise_gen, act_amax=act_amax, aux_amax=aux_amax,
                  **lora)
+        if self.data_parallel:
+            out = self.mesh.gather_rows(out)
         if output_type == "pil":
             from PIL import Image
 

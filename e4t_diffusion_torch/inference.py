@@ -10,6 +10,10 @@ self-attention sites too, ``--int8_aux`` (``--int8_aux_static``) the ViT-H
 and the VAE decode. ``--lora_weights`` folds LoRA attention adapters into
 the UNet at ``--lora_scale``. ``--vit_gelu_tanh`` sets
 ``E4T_VIT_GELU=tanh`` for the run (the ViT-H's MLP on the tanh GELU).
+Under ``torchrun --nproc_per_node N`` (one process a card),
+``--tensor_parallel T`` splits the UNet's attention and feed-forward sites
+over T ranks and ``--data_parallel_serving`` splits the batch over the
+other N / T; rank 0 writes the grid.
 The batch server ``serve_e4t`` shares the serving flags (``add_serving_args``)
 and ``build_pipeline``.
 """
@@ -28,6 +32,7 @@ from e4t_diffusion_torch.diffusion.schedulers import SCHEDULER_MAPPING
 from e4t_diffusion_torch.models import lora
 from e4t_diffusion_torch.models.vit import VIT_GELU_KNOB
 from e4t_diffusion_torch.ops import quant
+from e4t_diffusion_torch.parallel import mesh as pmesh
 from e4t_diffusion_torch.utils import artifacts
 from e4t_diffusion_torch.utils.image import image_grid, load_image
 from e4t_diffusion_torch.utils.tokenizer import CLIPTokenizer
@@ -104,6 +109,17 @@ def add_serving_args(parser: argparse.ArgumentParser) -> None:
                              "the run (open_clip uses exact erf, the "
                              "default); feature deviation bounded in "
                              "tests/test_vit_gelu_knob.py")
+    parser.add_argument("--tensor_parallel", type=int, default=1,
+                        help="tensor-parallel serving degree: the UNet's "
+                             "attention and feed-forward sites split over "
+                             "this many ranks of a torchrun launch, flash "
+                             "attention on each rank's heads")
+    parser.add_argument("--data_parallel_serving", action="store_true",
+                        help="split each sampling batch over the dp ranks "
+                             "of a torchrun launch (the processes left "
+                             "after --tensor_parallel); the batch must be "
+                             "divisible by dp, and the images equal one "
+                             "card's")
 
 
 def parse_args(argv=None):
@@ -151,7 +167,8 @@ def build_pipeline(args) -> StableDiffusionE4TPipeline:
         # before its encode program is traced
         os.environ[VIT_GELU_KNOB] = "tanh"
     dtype = resolve_dtype(args.dtype, torch.device(args.device))
-    device = resolve_device(args.device)
+    device = pmesh.maybe_initialize_distributed(resolve_device(args.device))
+    mesh = pmesh.get_mesh(tp=args.tensor_parallel)
     config = load_config(args.pretrained_model_name_or_path)
     sd_path = getattr_from_config(config, "pretrained_model_name_or_path")
     e4t_config = get_e4t_config(config)
@@ -179,6 +196,11 @@ def build_pipeline(args) -> StableDiffusionE4TPipeline:
     # encoder: the placeholder slot is overwritten before encoding)
     modules.text_encoder.resize_token_embeddings(
         len(tokenizer), torch.Generator(device).manual_seed(0))
+    pmesh.apply_tensor_parallel(modules.unet, mesh)
+    if mesh.distributed:
+        print(f"parallel serving mesh: {mesh.describe()}"
+              + (" (batch dp-sharded)" if args.data_parallel_serving
+                 else ""))
     scheduler = SCHEDULER_MAPPING[args.scheduler_type](
         base["schedule_config"])
     act_scales = None
@@ -199,13 +221,15 @@ def build_pipeline(args) -> StableDiffusionE4TPipeline:
                                       act_scales=act_scales,
                                       int8_aux=int8_aux_mode(args),
                                       lora_bank=lora_bank,
-                                      lora_scale=args.lora_scale)
+                                      lora_scale=args.lora_scale, mesh=mesh,
+                                      data_parallel=args.data_parallel_serving)
 
 
 def maybe_save_act_scales(pipe: StableDiffusionE4TPipeline, args) -> None:
     """After the first render: write freshly calibrated ranges where
-    ``--act_scales`` names a file that does not exist yet."""
-    if (args.act_scales and pipe.act_amax is not None
+    ``--act_scales`` names a file that does not exist yet (rank 0; the
+    ranges are the same on every rank)."""
+    if (args.act_scales and pipe.act_amax is not None and pipe.mesh.is_main
             and not os.path.exists(args.act_scales)):
         quant.save_act_scales(pipe.act_amax, args.act_scales)
         print(f"saved activation ranges to {args.act_scales}")
@@ -226,9 +250,11 @@ def main(argv=None):
     else:
         all_images = [img for p in prompts for img in pipe(p, image, **kwargs)]
     maybe_save_act_scales(pipe, args)
-    image_grid(all_images, len(prompts),
-               args.num_images_per_prompt).save(args.output)
-    print(f"DONE! See `{args.output}` for the results!")
+    if pipe.mesh.is_main:
+        image_grid(all_images, len(prompts),
+                   args.num_images_per_prompt).save(args.output)
+        print(f"DONE! See `{args.output}` for the results!")
+    pipe.mesh.barrier()
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ from typing import Dict, Optional
 import torch
 
 from e4t_diffusion_torch.models.weight_offsets import attention_sites
+from e4t_diffusion_torch.parallel.mesh import local_shard
 from e4t_diffusion_torch.utils.convert import load_state_dict_file
 
 # adapter name -> the projection it adapts, under the attention module
@@ -75,12 +76,13 @@ def init_lora_bank(unet_config, rank: int = 4,
 
 
 def fold_lora_bank(weights: Dict[str, torch.Tensor], bank: Bank,
-                   scale: float = 1.0) -> Dict[str, torch.Tensor]:
+                   scale: float = 1.0, unet=None) -> Dict[str, torch.Tensor]:
     """``{parameter name: W + scale * up @ down}`` for every adapted
     projection; ``weights`` maps the UNet's parameter names to the weights
     to fold into (the offset-folded ones where the offsets apply). Computed
     in f32 and cast to the weight's type. Call after
-    ``weight_offsets.fold_offset_bank``."""
+    ``weight_offsets.fold_offset_bank``. On a ``unet`` split over tp each
+    delta is cut as its weight is."""
     out = {}
     for site, layers in bank.items():
         for lora_key, proj in LORA_TO_PROJ.items():
@@ -89,6 +91,8 @@ def fold_lora_bank(weights: Dict[str, torch.Tensor], bank: Bank,
             layer = layers[lora_key]
             delta = (layer["up"].float().to(w.device)
                      @ layer["down"].float().to(w.device))
+            if unet is not None:
+                delta = local_shard(unet, name, delta)
             out[name] = (w.float() + float(scale) * delta).to(w.dtype)
     return out
 

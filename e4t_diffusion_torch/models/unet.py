@@ -43,6 +43,7 @@ from torch import nn
 from e4t_diffusion_torch.models.norm import group_norm_act
 from e4t_diffusion_torch.ops import quant
 from e4t_diffusion_torch.ops.attention import dot_product_attention
+from e4t_diffusion_torch.parallel import mesh as pmesh
 
 FUSED_QKV_KNOB = "E4T_FUSED_QKV"
 
@@ -181,13 +182,16 @@ class ResnetBlock2D(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head attention with bias-free q/k/v projections."""
+    """Multi-head attention with bias-free q/k/v projections. Split over tp
+    (``parallel/mesh.apply_tensor_parallel``: ``tp`` set, ``heads`` the
+    local count) it computes its local heads and sums ``to_out`` over tp."""
 
     def __init__(self, query_dim: int, context_dim: int, heads: int,
                  dim_head: int):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
+        self.tp: Optional[pmesh.TPGroup] = None
         self.to_q = quant.Linear(query_dim, inner, bias=False)
         self.to_k = quant.Linear(context_dim, inner, bias=False)
         self.to_v = quant.Linear(context_dim, inner, bias=False)
@@ -208,12 +212,21 @@ class Attention(nn.Module):
         b, sq, _ = x.shape
         sk = sq if context is None else context.shape[1]
         h, hd = self.heads, self.dim_head
+        tp = self.tp
+        if tp is not None:
+            x = pmesh.copy_to_tp(x, tp)
+            if context is not None:
+                context = pmesh.copy_to_tp(context, tp)
         q, k, v = self._qkv(x, context)
         q = q.reshape(b, sq, h, hd).transpose(1, 2)
         k = k.reshape(b, sk, h, hd).transpose(1, 2)
         v = v.reshape(b, sk, h, hd).transpose(1, 2)
-        o = dot_product_attention(q, k, v, scale=1.0 / math.sqrt(hd))
-        return self.to_out[0](o.transpose(1, 2).reshape(b, sq, h * hd))
+        o = dot_product_attention(q, k, v, scale=1.0 / math.sqrt(hd),
+                                  head_shards=1 if tp is None else tp.size)
+        o = o.transpose(1, 2).reshape(b, sq, h * hd)
+        if tp is None:
+            return self.to_out[0](o)
+        return pmesh.row_parallel(self.to_out[0], o, tp)
 
 
 class GEGLU(nn.Module):
@@ -227,15 +240,22 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """diffusers FeedForward with GEGLU: net = [GEGLU, Dropout, Linear]."""
+    """diffusers FeedForward with GEGLU: net = [GEGLU, Dropout, Linear].
+    Split over tp (``tp`` set), the GEGLU projection holds this rank's rows
+    of the hidden half and of the gate half, and ``net.2`` is summed over
+    tp."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Dropout(0.0),
                                   quant.Linear(dim * mult, dim)])
+        self.tp: Optional[pmesh.TPGroup] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+        if self.tp is None:
+            return self.net[2](self.net[0](x))
+        h = self.net[0](pmesh.copy_to_tp(x, self.tp))
+        return pmesh.row_parallel(self.net[2], h, self.tp)
 
 
 class BasicTransformerBlock(nn.Module):

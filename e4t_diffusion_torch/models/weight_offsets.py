@@ -23,6 +23,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from e4t_diffusion_torch.parallel.mesh import local_shard
+
 WO_KEYS = ("wo_q", "wo_k", "wo_v")
 _WO_TO_PROJ = {"wo_q": "to_q", "wo_k": "to_k", "wo_v": "to_v"}
 _LINEARS = ("linear1", "linear2", "linear_column", "linear_row")
@@ -137,7 +139,9 @@ def fold_offset_bank(unet: torch.nn.Module, bank: Dict[str, torch.Tensor],
     the fold is computed in f32 and cast to ``dtype`` (default: the
     weight's). ``weights`` supplies W (default: the UNet's own parameters);
     training passes its f32 trainables, and the fold is differentiable in
-    both W and the bank."""
+    both W and the bank. On a UNet split over tp each offset is cut as its
+    weight is (``parallel/mesh.local_shard``): every rank evaluates the
+    whole bank, so the bank's gradient on a rank is its shard's share."""
     groups: Dict[Tuple[int, int], List[str]] = {}
     for key, t in bank.items():
         if key.endswith(".linear1.weight"):
@@ -152,6 +156,7 @@ def fold_offset_bank(unet: torch.nn.Module, bank: Dict[str, torch.Tensor],
             site, wo = prefix.rsplit(".", 1)
             name = f"{site}.{_WO_TO_PROJ[wo]}.weight"
             w = params[name]
+            o = local_shard(unet, name, o)
             folded[name] = (w.float() * (1.0 + o.to(w.device))).to(
                 dtype or w.dtype)
     return folded

@@ -24,6 +24,13 @@ Counterpart of ``e4t_diffusion_tpu/ops/attention.py``. Tensors are
 - ``int8_flash_attention(mode)``: while active, flash sites with a head dim
   below 128 quantize q/k (and v in "qkpv" mode) per head and run the int8
   kernel of ``ops/flash_int8.py`` (serving only; forward only).
+
+Both routes decide on a site's global shape, so a site goes to the same
+kernel on every (dp, tp) grid as on one card (and as in the JAX package,
+which traces global shapes): the local batch times ``batch_shards`` (the
+dp a data-parallel step or serving run puts in force) and the local heads
+times ``head_shards`` (tp at a head-split attention site). The kernels run
+on the local shapes.
 """
 from __future__ import annotations
 
@@ -56,6 +63,9 @@ _NEG_INF = -1e30
 # the threshold flash_threshold() put in force in this context, if any
 _THRESHOLD_OVERRIDE: contextvars.ContextVar = contextvars.ContextVar(
     "flash_threshold", default=None)
+# the number of data-parallel ranks batch_shards() put in force
+_BATCH_SHARDS: contextvars.ContextVar = contextvars.ContextVar(
+    "batch_shards", default=1)
 # the mode int8_flash_attention() put in force in this context, if any
 _INT8_MODE: contextvars.ContextVar = contextvars.ContextVar(
     "int8_flash_attention", default=None)
@@ -212,6 +222,21 @@ def flash_threshold(score_bytes: Optional[int]) -> Iterator[None]:
         _THRESHOLD_OVERRIDE.reset(token)
 
 
+@contextlib.contextmanager
+def batch_shards(dp: int) -> Iterator[None]:
+    """While active, the routes count a site's batch as ``dp`` times its
+    local batch: each of ``dp`` data-parallel ranks holds its rows."""
+    token = _BATCH_SHARDS.set(dp)
+    try:
+        yield
+    finally:
+        _BATCH_SHARDS.reset(token)
+
+
+def batch_shards_in_force() -> int:
+    return _BATCH_SHARDS.get()
+
+
 def flash_threshold_bytes() -> int:
     """The score-size threshold ``flash_route`` applies in this context: a
     ``flash_threshold`` in force wins (the reference's
@@ -225,13 +250,16 @@ def flash_threshold_bytes() -> int:
 
 def flash_route(q_shape: Sequence[int], k_shape: Sequence[int],
                 device: torch.device, has_bias: bool = False,
-                causal: bool = False) -> bool:
+                causal: bool = False, head_shards: int = 1) -> bool:
     """True where ``dot_product_attention`` sends a site to flash: a CUDA
     device, no bias, not causal, seq >= 128 and an f32 score tensor above
     ``flash_threshold_bytes()`` (128 MiB unless ``flash_threshold`` or
-    ``E4T_FLASH_THRESHOLD_BYTES`` says otherwise). The reference's rule with ``device.type == "cuda"`` in
-    place of ``default_backend() == "tpu"``."""
-    b, h, sq = q_shape[0], q_shape[1], q_shape[2]
+    ``E4T_FLASH_THRESHOLD_BYTES`` says otherwise), counted on the global
+    shape (``q_shape`` is local: its batch times ``batch_shards``, its heads
+    times ``head_shards``). The reference's rule with ``device.type ==
+    "cuda"`` in place of ``default_backend() == "tpu"``."""
+    b = q_shape[0] * _BATCH_SHARDS.get()
+    h, sq = q_shape[1] * head_shards, q_shape[2]
     score_bytes = b * h * sq * k_shape[2] * 4
     return (torch.device(device).type == "cuda" and not has_bias
             and not causal and sq >= FLASH_MIN_SEQ
@@ -282,14 +310,19 @@ def shortseq_mh_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def shortseq_route(q_shape: Sequence[int], k_shape: Sequence[int],
                    device: torch.device, has_bias: bool = False,
-                   causal: bool = False) -> bool:
+                   causal: bool = False, head_shards: int = 1) -> bool:
     """True where ``dot_product_attention`` sends a site to the
     short-sequence kernel: ``E4T_SHORTSEQ_MH_ATTN`` > 0, a CUDA device, no
     bias, not causal, self-attention (seq of q equal to that of k), 128 <
-    seq <= 512, ``round_up(head_dim, 8) < 128`` and an even batch x heads.
-    The reference's ``_use_shortseq_mh`` with ``device.type == "cuda"`` in
-    place of ``default_backend() == "tpu"``."""
+    seq <= 512, ``round_up(head_dim, 8) < 128`` and an even batch x heads,
+    on the global shape as ``flash_route`` counts it (and an even local
+    batch x heads, which the kernel takes). The reference's
+    ``_use_shortseq_mh`` with ``device.type == "cuda"`` in place of
+    ``default_backend() == "tpu"``."""
     b, h, sq, d = q_shape
+    if (b * h) % 2:
+        return False
+    b, h = b * _BATCH_SHARDS.get(), h * head_shards
     return (shortseq.heads_knob() > 0
             and torch.device(device).type == "cuda" and not has_bias
             and not causal and sq == k_shape[2]
@@ -300,13 +333,16 @@ def shortseq_route(q_shape: Sequence[int], k_shape: Sequence[int],
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None,
                           bias: Optional[torch.Tensor] = None,
-                          causal: bool = False) -> torch.Tensor:
+                          causal: bool = False,
+                          head_shards: int = 1) -> torch.Tensor:
     """The short-sequence kernel where ``shortseq_route`` says so, else
-    einsum attention for small score tensors and flash for large ones."""
+    einsum attention for small score tensors and flash for large ones.
+    ``head_shards``: q/k/v hold 1/head_shards of the site's heads (a
+    head-split site under tensor parallelism), which the routes count."""
     if shortseq_route(q.shape, k.shape, q.device, has_bias=bias is not None,
-                      causal=causal):
+                      causal=causal, head_shards=head_shards):
         return shortseq_mh_attention(q, k, v, scale=scale)
     if flash_route(q.shape, k.shape, q.device, has_bias=bias is not None,
-                   causal=causal):
+                   causal=causal, head_shards=head_shards):
         return flash_attention(q, k, v, scale=scale)
     return einsum_attention(q, k, v, scale=scale, bias=bias, causal=causal)

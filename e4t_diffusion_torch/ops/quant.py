@@ -77,6 +77,10 @@ _SITES: contextvars.ContextVar = contextvars.ContextVar("int8_sites",
 # (modules -> name, the amax dict being filled) while calibration() is active
 _CALIB: contextvars.ContextVar = contextvars.ContextVar("calibration",
                                                         default=None)
+# the all-reduce a live activation abs-max goes through while
+# amax_reduction() is active (parallel serving: the MAX over every rank)
+_AMAX_REDUCE: contextvars.ContextVar = contextvars.ContextVar(
+    "amax_reduction", default=None)
 
 
 def env_truthy(name: str, default: str = "0") -> bool:
@@ -141,11 +145,18 @@ def module_name(path: Sequence[str]) -> str:
     return ".".join(unet_component(c) for c in path)
 
 
-def quantize_kernel(w: torch.Tensor) -> QSite:
+def quantize_kernel(w: torch.Tensor,
+                    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                    = None) -> QSite:
     """Symmetric per-output-channel int8 of a torch weight ((O, I) or (O, I,
-    kh, kw)): the output channel is dim 0, the scale reduces over the rest."""
+    kh, kw)): the output channel is dim 0, the scale reduces over the rest
+    (and, for a shard of a row-parallel kernel, over the other shards:
+    ``reduce`` maps the local per-channel abs-max to the whole kernel's)."""
     w32 = w.float()
-    s = torch.clamp(w32.abs().amax(dim=tuple(range(1, w.dim()))), min=_EPS)
+    amax = w32.abs().amax(dim=tuple(range(1, w.dim())))
+    if reduce is not None:
+        amax = reduce(amax)
+    s = torch.clamp(amax, min=_EPS)
     s = s / 127.0
     shape = (-1,) + (1,) * (w.dim() - 1)
     q = torch.clamp(torch.round(w32 / s.reshape(shape)), -127, 127)
@@ -169,7 +180,9 @@ def quantize_params(state_dict: Dict[str, torch.Tensor],
                     exclude: Optional[Sequence[str]] = None,
                     static_exclude: Optional[Sequence[str]] = None,
                     act_pc: Optional[bool] = None,
-                    path_of: Callable[[str], str] = jax_path
+                    path_of: Callable[[str], str] = jax_path,
+                    kernel_reduce: Optional[
+                        Callable[[str, torch.Tensor], torch.Tensor]] = None
                     ) -> Dict[str, QSite]:
     """The int8 form of every linear / conv weight (ndim 2 or 4) of a state
     dict (the UNet's, or a tower's with ``path_of`` its ``vae_path`` /
@@ -188,7 +201,10 @@ def quantize_params(state_dict: Dict[str, torch.Tensor],
     ``E4T_INT8_ACT_PC``) folds the per-channel ``"sac" = a_c ** alpha *
     max(a_c ** (1 - alpha)) / 127`` into the weight's input axis (dim 1)
     before quantizing, where the site's calibration has ``"amax_c"``.
-    ``act_headroom`` defaults to ``E4T_INT8_CALIB_HEADROOM`` (1.0)."""
+    ``act_headroom`` defaults to ``E4T_INT8_CALIB_HEADROOM`` (1.0).
+    ``kernel_reduce(site name, per-channel abs-max)`` (tensor parallelism:
+    ``parallel/mesh.kernel_scale_reducer``) makes a shard's weight scales
+    those of the whole kernel."""
     if act_headroom is None:
         act_headroom = float(os.environ.get("E4T_INT8_CALIB_HEADROOM", "1.0"))
     if act_pc is None:
@@ -202,6 +218,7 @@ def quantize_params(state_dict: Dict[str, torch.Tensor],
 
     out: Dict[str, QSite] = {}
     for key, w in state_dict.items():
+        reduce = None
         if key.endswith(".weight"):
             name = key[: -len(".weight")]
         elif key.endswith(_IN_PROJ):
@@ -213,6 +230,8 @@ def quantize_params(state_dict: Dict[str, torch.Tensor],
         path = path_of(name)
         if any(c in exclude for c in path.split("/") + ["kernel"]):
             continue
+        if kernel_reduce is not None:
+            reduce = lambda amax, name=name: kernel_reduce(name, amax)
         calib = act_amax.get(name, {})
         static_here = ("amax" in calib and not any(
             p in f"{path}/kernel" for p in static_exclude))
@@ -222,10 +241,10 @@ def quantize_params(state_dict: Dict[str, torch.Tensor],
             sac = (amax_c ** pc_alpha
                    * torch.max(amax_c ** (1.0 - pc_alpha)) / 127.0)
             shape = (1, -1) + (1,) * (w.dim() - 2)
-            site = quantize_kernel(w.float() * sac.reshape(shape))
+            site = quantize_kernel(w.float() * sac.reshape(shape), reduce)
             site["sac"] = sac
         else:
-            site = quantize_kernel(w)
+            site = quantize_kernel(w, reduce)
             if static_here:
                 amax = calib["amax"].float().to(w.device)
                 site["sa"] = torch.clamp(amax * act_headroom, min=_EPS) / 127.0
@@ -240,7 +259,26 @@ def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
     abs-max is exact in x's own type, so it is one reduction of x, with no
     f32 copy."""
     amax = torch.linalg.vector_norm(x, float("inf"), dtype=torch.float32)
-    return torch.clamp(amax, min=_EPS) / 127.0
+    return torch.clamp(_reduced(amax), min=_EPS) / 127.0
+
+
+def _reduced(amax: torch.Tensor) -> torch.Tensor:
+    reduce = _AMAX_REDUCE.get()
+    return amax if reduce is None else reduce(amax)
+
+
+@contextlib.contextmanager
+def amax_reduction(reduce: Callable[[torch.Tensor], torch.Tensor]
+                   ) -> Iterator[None]:
+    """While active, every live (dynamic) activation abs-max passes
+    ``reduce`` before it becomes a scale: parallel serving makes it the MAX
+    over every rank, so each rank quantizes a site as one card quantizes
+    the whole batch."""
+    token = _AMAX_REDUCE.set(reduce)
+    try:
+        yield
+    finally:
+        _AMAX_REDUCE.reset(token)
 
 
 def quantize_activation_reference(x: torch.Tensor, site: QSite,
@@ -260,7 +298,7 @@ def quantize_activation_reference(x: torch.Tensor, site: QSite,
         return q.to(torch.int8), torch.ones((), device=x.device)
     s = site.get("sa")
     if s is None:
-        s = torch.clamp(x32.abs().amax(), min=_EPS) / 127.0
+        s = torch.clamp(_reduced(x32.abs().amax()), min=_EPS) / 127.0
     q = torch.clamp(torch.round(x32 / s), -127, 127)
     return q.to(torch.int8), s
 
@@ -331,17 +369,67 @@ def _int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def int8_linear(x: torch.Tensor, site: QSite,
-                bias: Optional[torch.Tensor]) -> torch.Tensor:
+                bias: Optional[torch.Tensor],
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``int8_dense`` of the JAX package: int8 x @ q^T in int32, times
-    ``sx * s`` in f32, cast to x's dtype, then the bias in that dtype."""
+    ``sx * s`` in f32, cast to ``out_dtype`` (default x's dtype), then the
+    bias in that dtype."""
     xq, sx = quantize_activation(x, site, -1)
     q = site["q"]
     acc = _int_mm(xq.reshape(-1, q.shape[1]), q)
-    y = (acc.float() * (sx * site["s"])).to(x.dtype)
+    y = (acc.float() * (sx * site["s"])).to(out_dtype or x.dtype)
     y = y.reshape(*x.shape[:-1], q.shape[0])
     if bias is not None:
-        y = y + bias.to(x.dtype)
+        y = y + bias.to(y.dtype)
     return y
+
+
+class _F32Linear(torch.autograd.Function):
+    """x @ w^T with an f32 output from operands of a narrower type: on the
+    card one cuBLAS product that keeps its f32 accumulator
+    (``torch.mm(out_dtype=)``), on the CPU the product of f32 copies. The
+    backward is ``F.linear``'s, in the operands' type."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.is_cuda:
+            y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        else:
+            y = torch.mm(x2.float(), w.float().t())
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        grad = grad.to(x.dtype)
+        dx = grad @ w if ctx.needs_input_grad[0] else None
+        dw = (grad.reshape(-1, grad.shape[-1]).t()
+              @ x.reshape(-1, x.shape[-1])) if ctx.needs_input_grad[1] \
+            else None
+        return dx, dw
+
+
+def linear_partial(module: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel linear site's partial product on this rank's input
+    columns, in f32 and without the bias (``parallel/mesh.row_parallel``
+    sums it over tp): int8 while ``int8_sites`` holds the site, else the
+    plain product with an f32 output, its activation range recorded under
+    ``calibration``. A live int8 scale must be the MAX over the tp ranks'
+    columns, so it needs ``amax_reduction`` (which parallel sampling
+    enters)."""
+    site = _site(module)
+    if site is None:
+        _observe(module, x, -1)
+        if x.dtype == torch.float32:
+            return F.linear(x, module.weight)
+        return _F32Linear.apply(x, module.weight)
+    if "sa" not in site and _AMAX_REDUCE.get() is None:
+        raise RuntimeError(
+            "a live int8 scale at a row-parallel site needs "
+            "quant.amax_reduction (the MAX over the tp ranks)")
+    return int8_linear(x, site, None, out_dtype=torch.float32)
 
 
 def int8_patch_conv(x: torch.Tensor, site: QSite,

@@ -20,6 +20,18 @@ the newest, the learning-rate schedule at its update count). At update 1
 and every ``--log_steps`` it renders ``--n_save_sample`` inputs with each
 ``--save_sample_prompt`` through DDIM on the current weights (0 renders
 nothing). SIGTERM saves the train state at the next update and exits.
+
+Several cards: ``torchrun --nproc_per_node N -m
+e4t_diffusion_torch.pretrain_e4t ...`` runs one process a card (NCCL).
+``--train_batch_size`` is per rank: the global batch is it times dp (the
+ranks left after ``--tensor_parallel``), each dp rank reading its own
+images and drawing its own templates, noise and timesteps (seeded
+``--seed`` plus its dp rank). ``--zero1`` shards AdamW's state over dp;
+``--tensor_parallel T`` splits the frozen UNet's attention and
+feed-forward sites over T ranks. A SIGTERM seen by any rank stops every
+rank at the same update. Rank 0 alone writes weights, checkpoints (every
+rank's generator state and the unsharded optimizer state), samples and
+tracker logs.
 """
 from __future__ import annotations
 
@@ -32,14 +44,14 @@ import numpy as np
 import torch
 
 from e4t_diffusion_torch.config import AttributeDict
-from e4t_diffusion_torch.data.dataset import (E4TDataLoader,
-                                              process_index_and_count)
+from e4t_diffusion_torch.data.dataset import E4TDataLoader
 from e4t_diffusion_torch.data.prefetch import device_prefetch, to_device
 from e4t_diffusion_torch.diffusion.pipeline import (
     E4TModules, StableDiffusionE4TPipeline, resolve_device)
 from e4t_diffusion_torch.diffusion.schedulers import (
     DDIMScheduler, DDPMScheduler, NoiseScheduleConfig)
 from e4t_diffusion_torch.models import weight_offsets as wo
+from e4t_diffusion_torch.parallel import mesh as pmesh
 from e4t_diffusion_torch.templates import resolve_templates
 from e4t_diffusion_torch.training.setup import (
     TemplateSampler, build_modules, init_e4t_encoder_params,
@@ -143,6 +155,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; runs on the GPU unless 'cpu' "
                              "is given")
+    parser.add_argument("--zero1", action="store_true", default=False,
+                        help="shard the optimizer state over the dp ranks "
+                             "of a torchrun launch (ZeRO-1); checkpoints "
+                             "keep the unsharded layout")
+    parser.add_argument("--tensor_parallel", type=int, default=1,
+                        help="split the frozen UNet's attention and "
+                             "feed-forward sites over this many ranks of a "
+                             "torchrun launch (a (dp, tp) grid)")
     return parser.parse_args(argv)
 
 
@@ -172,7 +192,8 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
              offsets: Dict[str, torch.Tensor], tokenizer,
              placeholder_id: int, class_token_id: int, templates: List[str],
              schedule_config: NoiseScheduleConfig, dtype: torch.dtype,
-             loader: Iterable, tracker=None) -> Dict:
+             loader: Iterable, tracker=None,
+             mesh: Optional[pmesh.Mesh] = None) -> Dict:
     """Phase-1 pretraining from loaded modules (f32) and the offset bank:
     the function ``main`` calls after loading. ``loader`` yields
     ``{"pixel_values": (B, 3, S, S)}`` numpy batches. Writes artifacts,
@@ -184,11 +205,12 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
     batch), "sampled" (the updates that wrote a sample grid under
     ``samples/``), "last_samples" (the last grid's float images, or None:
     only the last is held, the grids are on disk), "saved" (artifact
-    dirs)}."""
+    dirs)}. ``mesh``: the (dp, tp) grid of a torchrun launch (its UNet split
+    over tp beforehand); ``loader`` then yields this dp rank's batches."""
     device = modules.unet.conv_in.weight.device
     tracker = tracker or NullTracker()
-    rank, world = process_index_and_count()
-    is_main = rank == 0
+    mesh = mesh or pmesh.Mesh()
+    is_main = mesh.is_main
     gas = args.gradient_accumulation_steps
     cfg = E4TTrainConfig(
         domain_embed_scale=args.domain_embed_scale,
@@ -210,11 +232,17 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
     schedule = make_lr_schedule(args.lr_scheduler, scale_learning_rate(args),
                                 args.lr_warmup_steps * gas,
                                 args.max_train_steps * gas)
-    optimizer = make_optimizer(params, schedule(0))
+    optimizer = make_optimizer(
+        params, schedule(0),
+        zero1_group=mesh.dp_group if args.zero1 and mesh.distributed
+        else None)
+    if args.zero1:
+        print(f"ZeRO-1: optimizer state sharded over dp={mesh.dp}")
     step_fn = make_train_step(modules, DDPMScheduler(schedule_config), cfg,
                               trainable, optimizer, schedule,
-                              accumulate_steps=gas)
-    generator = torch.Generator(device).manual_seed(args.seed)
+                              accumulate_steps=gas, mesh=mesh)
+    # each dp rank draws its own noise, timesteps and posteriors
+    generator = torch.Generator(device).manual_seed(args.seed + mesh.dp_rank)
 
     global_step = 0
     resumed_from = artifacts.resolve_checkpoint(args.output_dir,
@@ -224,14 +252,15 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
               f"Starting a new training run.")
     if resumed_from is not None:
         restored = artifacts.restore_train_state(resumed_from, trainable,
-                                                 optimizer, generator)
+                                                 optimizer, generator,
+                                                 rank=mesh.rank)
         step_fn.resume(restored["updates"])
         global_step = restored["step"]
         print(f"Resuming from checkpoint {resumed_from} (step "
               f"{global_step}, {restored['updates']} updates)")
 
     sampler = TemplateSampler(templates, tokenizer, args.placeholder_token,
-                              placeholder_id, seed=args.seed)
+                              placeholder_id, seed=args.seed + mesh.dp_rank)
     static = {"uncond_ids": torch.as_tensor(sampler.uncond_ids,
                                             device=device),
               "class_token_id": torch.tensor(class_token_id, device=device)}
@@ -262,6 +291,8 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
                 already_added_placeholder_token=True)
         inputs, grid, images = _sample_grid(args, sample_pipe, pixel_values,
                                             sample_seeds)
+        if not is_main:  # a tp rank of rank 0's group: its share is done
+            return
         sampled.append(step)
         last_samples = images
         sample_dir = os.path.join(args.output_dir, "samples")
@@ -284,20 +315,23 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
         print(f"[*] Weights saved at {out}")
 
     def save_state(step: int, async_save: bool) -> None:
+        # every rank takes part (generator states, ZeRO-1's shards)
+        path = artifacts.save_train_state(
+            args.output_dir, step, trainable, optimizer,
+            step_fn.counts["updates"], generator, async_save=async_save,
+            mesh=mesh)
         if is_main:
-            path = artifacts.save_train_state(
-                args.output_dir, step, trainable, optimizer,
-                step_fn.counts["updates"], generator, async_save=async_save)
             print(f"Saved state to {path}" + (" (async)" if async_save
                                               else ""))
 
     print("***** Running training *****")
     print(f"  Instantaneous batch size per device = {args.train_batch_size}")
     print(f"  Total train batch size (w. parallel, distributed & "
-          f"accumulation) = {args.train_batch_size * world * gas}")
+          f"accumulation) = {args.train_batch_size * mesh.dp * gas}")
     print(f"  Gradient Accumulation steps = {gas}")
     print(f"  Total optimization steps = {args.max_train_steps}")
-    timer = StepTimer(warmup_steps=2, batch_size=args.train_batch_size * world)
+    timer = StepTimer(warmup_steps=2,
+                      batch_size=args.train_batch_size * mesh.dp)
     history, seconds, waits = [], [], []
     shutdown = GracefulShutdown()
     batches = iter(device_prefetch(loader, place, depth=2, device=device))
@@ -318,21 +352,26 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
             timer.step()
             metrics["lr"] = optimizer.param_groups[0]["lr"]
             history.append(metrics)
-            print(f"step {global_step}: " + ", ".join(
-                f"{k} {v:.6g}" for k, v in metrics.items())
-                + f", {seconds[-1]:.3f} s")
+            if is_main:
+                print(f"step {global_step}: " + ", ".join(
+                    f"{k} {v:.6g}" for k, v in metrics.items())
+                    + f", {seconds[-1]:.3f} s")
             tracker.log({**{f"train/{k}": v for k, v in metrics.items()
                             if k != "grad_norm"}, **timer.metrics()},
                         global_step)
             if global_step % args.checkpointing_steps == 0:
                 save_weights(global_step)
                 save_state(global_step, args.async_checkpointing)
-            if is_main and args.n_save_sample > 0 and (
+            # rank 0's tp group renders (its UNet shards take part)
+            if mesh.dp_rank == 0 and args.n_save_sample > 0 and (
                     global_step == 1 or global_step % args.log_steps == 0):
                 sample(pixel_values, global_step)
-            if shutdown.requested:
-                print(f"Preemption ({shutdown.describe()}): checkpointing "
-                      f"at step {global_step}")
+            # a signal to any rank stops every rank at this update
+            if mesh.any_rank(shutdown.requested, device):
+                why = (shutdown.describe() if shutdown.requested
+                       else "a signal to another rank")
+                print(f"Preemption ({why}): checkpointing at step "
+                      f"{global_step}")
                 # written now: it must land inside the grace window
                 save_state(global_step, async_save=False)
                 break
@@ -345,6 +384,7 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
         print(", ".join(f"{k}: {v:.4f}" for k, v in timer.metrics().items()))
     save_weights(global_step)
     artifacts.wait_for_checkpoints()
+    mesh.barrier()
     tracker.finish()
     return {"trainable": trainable, "optimizer": optimizer,
             "global_step": global_step, "resumed_from": resumed_from,
@@ -389,10 +429,13 @@ def load_e4t_start(args: argparse.Namespace, modules: E4TModules,
     return offsets
 
 
-def make_loader(args: argparse.Namespace):
+def make_loader(args: argparse.Namespace,
+                mesh: Optional[pmesh.Mesh] = None):
     """(the run's ``E4TDataLoader``, the step it starts at): the loader's
     seed is ``--seed`` plus the step of the checkpoint a resumed run starts
-    from, as in the JAX CLI."""
+    from, as in the JAX CLI; under ``mesh`` it reads this dp rank's share
+    (the ranks of one tp group read the same images)."""
+    mesh = mesh or pmesh.Mesh()
     resume = artifacts.resolve_checkpoint(args.output_dir,
                                           args.resume_from_checkpoint)
     start = int(os.path.basename(resume).split("-")[1]) if resume else 0
@@ -400,13 +443,17 @@ def make_loader(args: argparse.Namespace):
         args.train_image_dataset, batch_size=args.train_batch_size,
         resolution=args.resolution, random_crop=True, seed=args.seed + start,
         use_tar=args.webdataset, streaming=args.iterable_dataset,
-        num_workers=args.dataloader_num_workers)
+        num_workers=args.dataloader_num_workers,
+        process_index=mesh.dp_rank, process_count=mesh.dp)
     return loader, start
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = pmesh.maybe_initialize_distributed(resolve_device(args.device))
+    mesh = pmesh.get_mesh(tp=args.tensor_parallel)
+    if mesh.distributed:
+        print(f"mesh: {mesh.describe()}")
     dtype = resolve_train_dtype(args.mixed_precision, device)
     base = artifacts.load_sd_base(args.pretrained_model_name_or_path)
     enc_cfg = artifacts.e4t_encoder_config_from_args(
@@ -416,6 +463,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     modules = build_modules(base, enc_cfg, device=device)
     modules.load_state_dicts({k: base[k] for k in ("unet", "vae", "text")})
     offsets = load_e4t_start(args, modules, device)
+    if pmesh.apply_tensor_parallel(modules.unet, mesh):
+        print(f"tensor parallelism: UNet kernels sharded over "
+              f"tp={mesh.tp}")
     tokenizer, placeholder_id = prepare_tokenizer(
         base, args.placeholder_token, modules.text_encoder, seed=args.seed)
     class_token_id = resolve_class_token(tokenizer, args.domain_class_token)
@@ -423,20 +473,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.prompt_template in ("normal", "face", "art"):
         print(f"Using the default {len(templates)} templates!")
 
-    loader, start = make_loader(args)
+    loader, start = make_loader(args, mesh)
     if loader.num_samples:
         print(f"dataset size: {loader.num_samples}")
     tracker = make_tracker(args.report_to,
                            os.path.join(args.output_dir, args.logging_dir),
-                           config=vars(args),
-                           is_main=process_index_and_count()[0] == 0)
+                           config=vars(args), is_main=mesh.is_main)
     t0 = time.perf_counter()
     result = pretrain(args, modules, offsets, tokenizer, placeholder_id,
                       class_token_id, templates, base["schedule_config"],
-                      dtype, loader, tracker)
+                      dtype, loader, tracker, mesh)
     wall = time.perf_counter() - t0
     done = result["global_step"] - start
-    if done > 0:
+    if done > 0 and mesh.is_main:
         print(f"Training wall-clock: {wall:.2f}s ({done} steps, "
               f"{done / wall:.3f} steps/s)")
     return result

@@ -11,7 +11,10 @@ prompt and the extra images dropped. It writes ``<index>.png`` and
 every batch but the first, which absorbs the one-time int8 calibrations
 and is reported apart. It takes the inference CLI's serving flags
 (``--scheduler_type``, ``--int8*``, ``--act_scales``, ``--lora_*``,
-``--dtype``, ``--device``; ``inference.add_serving_args``).
+``--dtype``, ``--device``, ``--tensor_parallel``,
+``--data_parallel_serving``; ``inference.add_serving_args``). Under
+torchrun every rank renders each batch (its rows with
+``--data_parallel_serving``) and rank 0 writes the files and the record.
 
     python -m e4t_diffusion_torch.serve_e4t \\
         --pretrained_model_name_or_path DIR --image_path IMG \\
@@ -71,6 +74,10 @@ def main(argv=None):
     if not (args.interactive or prompts):
         sys.exit(f"no prompts in {args.prompts_file}")
     pipe = inference.build_pipeline(args)
+    is_main = pipe.mesh.is_main
+    if args.interactive and pipe.mesh.distributed:
+        sys.exit("--interactive serves from one process: launch it without "
+                 "torchrun")
     image = load_image(args.image_path)
     os.makedirs(args.output_dir, exist_ok=True)
 
@@ -112,13 +119,15 @@ def main(argv=None):
         sys.exit("invalid prompts (fix before serving):\n" + "\n".join(bad))
     bs = max(1, args.batch_size)
     walls = []
-    with open(os.path.join(args.output_dir, "manifest.jsonl"), "w",
-              encoding="utf-8") as manifest:
+    with open(os.path.join(args.output_dir, "manifest.jsonl") if is_main
+              else os.devnull, "w", encoding="utf-8") as manifest:
         for start in range(0, len(prompts), bs):
             chunk = prompts[start:start + bs]
             padded = chunk + [chunk[-1]] * (bs - len(chunk))
             images, wall = render(padded, args.seed + start)
             walls.append(wall)
+            if not is_main:
+                continue
             for i, (prompt, img) in enumerate(zip(chunk, images)):
                 path = os.path.join(args.output_dir, f"{start + i:05d}.png")
                 img.save(path)
@@ -140,7 +149,9 @@ def main(argv=None):
               "batch_size": bs, "first_batch_wall_s": walls[0],
               "steady_wall_s": sum(walls[1:]), "batch_walls_s": walls,
               "note": note}
-    print(json.dumps(record))
+    if is_main:
+        print(json.dumps(record))
+    pipe.mesh.barrier()
     return pipe, record
 
 

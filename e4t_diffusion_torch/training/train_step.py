@@ -22,6 +22,15 @@ nothing_saveable)``. The step runs all-flash (``flash_threshold(0)``, as the
 JAX step traces): flash keeps no score tensor for the backward. The
 threshold in force is re-entered inside the rematerialised call, because
 its recomputation runs during the backward, outside the step's context.
+
+Several ranks (``parallel/mesh.py``): each rank runs the step on its own
+batch (``train_batch_size`` is per rank); on update calls the gradients are
+averaged over dp in f32 before the bf16 rounding, the clip and AdamW, and
+the logged losses are averaged over dp. Under tensor parallelism the UNet's
+split parameters hold this rank's shard, the gradient of a split site's
+offsets is summed over tp (each rank folds its shard of the offset; a site
+left whole is replicated) and the clip's global norm counts every shard
+once. One path clips every grid, the one-process mesh's included.
 """
 from __future__ import annotations
 
@@ -38,8 +47,11 @@ from e4t_diffusion_torch.diffusion.schedulers import DDPMScheduler
 from e4t_diffusion_torch.models import weight_offsets as wo
 from e4t_diffusion_torch.models.unet import pool_encoder_features
 from e4t_diffusion_torch.models.vae import sample_latent
-from e4t_diffusion_torch.ops.attention import (flash_threshold,
+from e4t_diffusion_torch.ops.attention import (batch_shards,
+                                               batch_shards_in_force,
+                                               flash_threshold,
                                                flash_threshold_bytes)
+from e4t_diffusion_torch.parallel.mesh import Mesh
 
 ParamGroups = Dict[str, Dict[str, torch.Tensor]]
 TOKEN_TABLE = "text_model.embeddings.token_embedding.weight"
@@ -133,7 +145,8 @@ def encode_latents(modules: E4TModules, pixel_values: torch.Tensor,
 def e4t_loss_fn(modules: E4TModules, ddpm: DDPMScheduler,
                 cfg: E4TTrainConfig, trainable: ParamGroups,
                 batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                reg_scale: float = 1.0
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The shared E4T loss -> (loss, {"loss", "loss_diff", "loss_reg"}).
 
@@ -145,7 +158,10 @@ def e4t_loss_fn(modules: E4TModules, ddpm: DDPMScheduler,
     posterior drawn from ``posterior_noise`` when given, else from
     ``generator``); optionally ``noise`` (like latents) and ``timesteps``
     (B,), which are otherwise drawn from ``generator``, after the
-    posterior. The compute dtype is the frozen VAE's."""
+    posterior. The compute dtype is the frozen VAE's. ``reg_scale``
+    multiplies the regulariser, a sum over the batch's rows: a dp rank
+    passes dp, so that the mean over the ranks is the sum over the global
+    batch, as one card computes it."""
     dtype = modules.vae.quant_conv.weight.dtype
     latents = batch.get("latents")
     if latents is None:
@@ -182,9 +198,10 @@ def e4t_loss_fn(modules: E4TModules, ddpm: DDPMScheduler,
         unet, trainable["offsets"], weights=trainable.get("unet"),
         dtype=dtype))
     threshold = flash_threshold_bytes()
+    shards = batch_shards_in_force()
 
     def unet_call(x, t, context, tap):
-        with flash_threshold(threshold):
+        with flash_threshold(threshold), batch_shards(shards):
             return functional_call(unet, unet_params, (x, t, context),
                                    {"return_encoder_outputs": tap})
 
@@ -207,7 +224,7 @@ def e4t_loss_fn(modules: E4TModules, ddpm: DDPMScheduler,
     pred = unet_apply(noisy, timesteps, cond_states, False)
     target = ddpm.target(latents, noise, timesteps)
     loss_diff = torch.mean((pred.float() - target.float()) ** 2)
-    loss_reg = cfg.reg_lambda * torch.sum(word.float() ** 2)
+    loss_reg = cfg.reg_lambda * reg_scale * torch.sum(word.float() ** 2)
     loss = loss_diff + loss_reg
     return loss, {"loss": loss.detach(), "loss_diff": loss_diff.detach(),
                   "loss_reg": loss_reg.detach()}
@@ -215,27 +232,33 @@ def e4t_loss_fn(modules: E4TModules, ddpm: DDPMScheduler,
 
 def make_optimizer(params: List[torch.Tensor], learning_rate: float,
                    weight_decay: float = 1e-2,
-                   use_8bit: bool = False) -> torch.optim.Optimizer:
+                   use_8bit: bool = False,
+                   zero1_group=None) -> torch.optim.Optimizer:
     """AdamW at torch's defaults (the reference's optimizer) over every
     trainable; ``make_train_step`` clips the global gradient norm first
-    when ``max_grad_norm`` is set."""
+    when ``max_grad_norm`` is set. ``zero1_group`` (a dp process group):
+    ZeRO-1, each rank keeping the AdamW state of its share of the tensors
+    and broadcasting them after its update (``ZeroRedundancyOptimizer``);
+    ``parallel/mesh.consolidated_state_dict`` gives the unsharded layout."""
     if use_8bit:
         raise NotImplementedError(
             "8-bit AdamW (training/optim8bit.py) is not ported yet")
-    return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=weight_decay)
+    kwargs = dict(lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                  weight_decay=weight_decay)
+    if zero1_group is not None:
+        from torch.distributed.optim import ZeroRedundancyOptimizer
 
-
-def _global_norm(params: List[torch.Tensor]) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(p.grad.float()) for p in params]))
+        return ZeroRedundancyOptimizer(params, torch.optim.AdamW,
+                                       process_group=zero1_group, **kwargs)
+    return torch.optim.AdamW(params, **kwargs)
 
 
 def make_train_step(modules: E4TModules, ddpm: DDPMScheduler,
                     cfg: E4TTrainConfig, trainable: ParamGroups,
                     optimizer: torch.optim.Optimizer,
                     schedule: Callable[[int], float],
-                    accumulate_steps: int = 1) -> Callable:
+                    accumulate_steps: int = 1,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """``step(batch, generator=None) -> metrics``: the loss and its
     gradients all-flash (``flash_threshold(0)``), over ``micro_batches``
     sequential chunks; every ``accumulate_steps``-th call, the gradient
@@ -247,9 +270,23 @@ def make_train_step(modules: E4TModules, ddpm: DDPMScheduler,
 
     ``step.counts`` holds {"calls", "updates"}, both 0 for a new run;
     ``step.resume(updates)`` sets them for a run restored after
-    ``updates`` optimizer updates, so the schedule goes on from there."""
+    ``updates`` optimizer updates, so the schedule goes on from there.
+
+    ``mesh``: the (dp, tp) grid (``parallel/mesh.get_mesh``); the losses
+    come back averaged over dp, the gradients are reduced as the module
+    docstring says."""
     params = [t for group in trainable.values() for t in group.values()]
     counts = {"calls": 0, "updates": 0}
+    mesh = mesh or Mesh()
+    specs = getattr(modules.unet, "tp_specs", {})
+    sharded = [t for name, t in trainable.get("unet", {}).items()
+               if name in specs]
+    # the offsets of the split sites: each tp rank folds its shard of them,
+    # so its gradient is its shard's share; a site left whole is replicated
+    split_sites = {name[:-len(".to_q.weight")] for name in specs
+                   if name.endswith(".to_q.weight")}
+    tp_partial = [t for key, t in trainable.get("offsets", {}).items()
+                  if key.rsplit(".wo_", 1)[0] in split_sites]
 
     def step(batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None
@@ -260,27 +297,29 @@ def make_train_step(modules: E4TModules, ddpm: DDPMScheduler,
             raise ValueError(f"batch {bsz} does not split into {mb} "
                              f"micro-batches")
         metrics: Dict[str, torch.Tensor] = {}
-        with flash_threshold(0):
+        with flash_threshold(0), batch_shards(mesh.dp):
             for i in range(mb):
                 chunk = {k: (v.chunk(mb)[i] if k in _PER_SAMPLE
                              and v is not None else v)
                          for k, v in batch.items()}
                 loss, m = e4t_loss_fn(modules, ddpm, cfg, trainable, chunk,
-                                      generator)
+                                      generator, reg_scale=mesh.dp)
                 (loss / (mb * accumulate_steps)).backward()
                 for k, v in m.items():
                     metrics[k] = metrics.get(k, 0.0) + v / mb
+        metrics = mesh.dp_mean(metrics)
         counts["calls"] += 1
         if counts["calls"] % accumulate_steps:
             return metrics
+        mesh.reduce_gradients(params, tp_partial)
         if cfg.grads_bf16:
             for p in params:
                 p.grad.copy_(p.grad.to(torch.bfloat16))
+        norm = mesh.global_grad_norm(params, sharded)
         if cfg.max_grad_norm is not None:
-            metrics["grad_norm"] = torch.nn.utils.clip_grad_norm_(
-                params, cfg.max_grad_norm)
-        else:
-            metrics["grad_norm"] = _global_norm(params)
+            coef = torch.clamp(cfg.max_grad_norm / (norm + 1e-6), max=1.0)
+            torch._foreach_mul_([p.grad for p in params], coef)
+        metrics["grad_norm"] = norm
         for group in optimizer.param_groups:
             group["lr"] = schedule(counts["updates"])
         optimizer.step()

@@ -14,6 +14,14 @@ As in the reference, the image is transformed once and VAE-encoded once
 outside the loop (the latent posterior is drawn a single time); each step
 draws fresh noise, timesteps (from a ``torch.Generator`` seeded with
 ``--seed``) and templates.
+
+Several cards: ``torchrun --nproc_per_node N -m
+e4t_diffusion_torch.tuning_e4t ... [--tensor_parallel T]`` runs one process
+a card. ``--train_batch_size`` is per dp rank (N / T ranks), each drawing
+its own posterior, noise, timesteps and templates (seeded ``--seed`` plus
+its dp rank); ``--tensor_parallel`` splits the trained UNet's attention and
+feed-forward sites (and so their AdamW moments) over T ranks. Rank 0 writes
+the artifacts, the UNet gathered to its unsplit layout.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from e4t_diffusion_torch.data.dataset import load_image_rgb, make_transform
 from e4t_diffusion_torch.diffusion.pipeline import E4TModules, resolve_device
 from e4t_diffusion_torch.diffusion.schedulers import (DDPMScheduler,
                                                       NoiseScheduleConfig)
+from e4t_diffusion_torch.parallel import mesh as pmesh
 from e4t_diffusion_torch.templates import resolve_templates
 from e4t_diffusion_torch.training.setup import (
     TemplateSampler, build_modules, make_lr_schedule, prepare_tokenizer,
@@ -100,6 +109,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; runs on the GPU unless 'cpu' "
                              "is given")
+    parser.add_argument("--tensor_parallel", type=int, default=1,
+                        help="split the trained UNet's attention and "
+                             "feed-forward sites over this many ranks of a "
+                             "torchrun launch (a (dp, tp) grid)")
     return parser.parse_args(argv)
 
 
@@ -116,15 +129,17 @@ def tune(args: argparse.Namespace, modules: E4TModules,
          offsets: Dict[str, torch.Tensor], tokenizer, placeholder_token: str,
          templates: List[str], class_token_id: int, image: np.ndarray,
          schedule_config: NoiseScheduleConfig, dtype: torch.dtype,
-         save: Optional[Callable[[int, Dict, Image.Image], None]] = None
-         ) -> Dict:
+         save: Optional[Callable[[int, Dict, Image.Image], None]] = None,
+         mesh: Optional[pmesh.Mesh] = None) -> Dict:
     """Phase-2 tuning on one image (HWC uint8), from loaded modules (f32)
     and the offset bank: the function ``main`` calls after loading.
     ``save(global_step, trainable, domain_image)`` runs every
     ``checkpointing_steps`` updates. Returns {"trainable", "domain_image",
     "global_step", "metrics" (per call, floats), "step_seconds" (per call,
-    synchronised wall time)}."""
+    synchronised wall time)}. ``mesh``: the (dp, tp) grid of a torchrun
+    launch, the UNet split over tp beforehand."""
     device = modules.unet.conv_in.weight.device
+    mesh = mesh or pmesh.Mesh()
     gas = args.gradient_accumulation_steps
     chw = make_transform(args.resolution, random_crop_flag=True,
                          seed=args.seed)(image)
@@ -153,11 +168,12 @@ def tune(args: argparse.Namespace, modules: E4TModules,
     optimizer = make_optimizer(params, schedule(0))
     step_fn = make_train_step(modules, DDPMScheduler(schedule_config), cfg,
                               trainable, optimizer, schedule,
-                              accumulate_steps=gas)
+                              accumulate_steps=gas, mesh=mesh)
+    seed = args.seed + mesh.dp_rank  # each dp rank draws its own
     sampler = TemplateSampler(templates, tokenizer, placeholder_token,
                               tokenizer.convert_tokens_to_ids(
-                                  placeholder_token), seed=args.seed)
-    generator = torch.Generator(device).manual_seed(args.seed)
+                                  placeholder_token), seed=seed)
+    generator = torch.Generator(device).manual_seed(seed)
     # the replicated image is VAE-encoded once: one posterior draw
     latents = encode_latents(modules, pixel_values, generator)
     static = {
@@ -167,6 +183,8 @@ def tune(args: argparse.Namespace, modules: E4TModules,
 
     print("***** Running training *****")
     print(f"  Instantaneous batch size per device = {args.train_batch_size}")
+    print(f"  Total train batch size (w. parallel, distributed & "
+          f"accumulation) = {args.train_batch_size * mesh.dp * gas}")
     print(f"  Gradient Accumulation steps = {gas}")
     print(f"  Total optimization steps = {args.max_train_steps}")
     history, seconds, global_step = [], [], 0
@@ -184,10 +202,11 @@ def tune(args: argparse.Namespace, modules: E4TModules,
         history.append(metrics)
         if (step + 1) % gas == 0:
             global_step += 1
-            print(f"step {global_step}: " + ", ".join(
-                f"{k} {v:.6g}" for k, v in metrics.items())
-                + f", lr {schedule(global_step - 1):.3g}, "
-                f"{seconds[-1]:.3f} s")
+            if mesh.is_main:
+                print(f"step {global_step}: " + ", ".join(
+                    f"{k} {v:.6g}" for k, v in metrics.items())
+                    + f", lr {schedule(global_step - 1):.3g}, "
+                    f"{seconds[-1]:.3f} s")
             if save is not None and global_step % args.checkpointing_steps == 0:
                 save(global_step, trainable, domain_image)
     return {"trainable": trainable, "domain_image": domain_image,
@@ -198,7 +217,10 @@ def tune(args: argparse.Namespace, modules: E4TModules,
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
     dtype = resolve_train_dtype(args.mixed_precision, torch.device(args.device))
-    device = resolve_device(args.device)
+    device = pmesh.maybe_initialize_distributed(resolve_device(args.device))
+    mesh = pmesh.get_mesh(tp=args.tensor_parallel)
+    if mesh.distributed:
+        print(f"mesh: {mesh.describe()}")
     pretrained_args = load_config(args.pretrained_model_name_or_path)
     base = artifacts.load_sd_base(
         pretrained_args.pretrained_model_name_or_path)
@@ -215,6 +237,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                               for k in ("unet", "vae", "text", "e4t")})
     print(f"Loaded the pre-trained model from "
           f"{args.pretrained_model_name_or_path}")
+    if pmesh.apply_tensor_parallel(modules.unet, mesh):
+        print(f"tensor parallelism: UNet kernels sharded over "
+              f"tp={mesh.tp}")
     tokenizer, _ = prepare_tokenizer(base, pretrained_args.placeholder_token,
                                      modules.text_encoder, seed=args.seed)
     class_token_id = resolve_class_token(tokenizer,
@@ -230,22 +255,29 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     def save_weights(step: int, trainable: Dict,
                      domain_image: Image.Image) -> None:
+        # every rank takes part in gathering the split UNet; rank 0 writes
+        unet_state = (pmesh.full_state_dict(modules.unet, mesh)
+                      if mesh.tp > 1 else modules.unet.state_dict())
+        if not mesh.is_main:
+            mesh.barrier()
+            return
         config = dict(vars(args))
         config["pretrained_args"] = pretrained_args.to_dict()
         out = artifacts.save_e4t_weights(
             args.output_dir, step, config,
             {**modules.e4t_encoder.state_dict(), **frozen_vit},
-            modules.unet.state_dict(), trainable["offsets"],
+            unet_state, trainable["offsets"],
             text_state=(modules.text_encoder.state_dict()
                         if args.train_text_encoder else None),
             domain_image=domain_image)
         print(f"[*] Weights saved at {out}")
+        mesh.barrier()
 
     t0 = time.perf_counter()
     result = tune(args, modules, loaded["offsets"], tokenizer,
                   pretrained_args.placeholder_token, templates,
                   class_token_id, image, base["schedule_config"], dtype,
-                  save=save_weights)
+                  save=save_weights, mesh=mesh)
     print(f"Training wall-clock: {time.perf_counter() - t0:.2f}s "
           f"({args.max_train_steps} steps)")
     save_weights(result["global_step"], result["trainable"],

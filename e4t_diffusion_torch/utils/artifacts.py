@@ -40,6 +40,7 @@ from e4t_diffusion_torch.models.e4t_encoder import E4TEncoderConfig
 from e4t_diffusion_torch.models.unet import UNetConfig, tap_feature_dim
 from e4t_diffusion_torch.models.vae import VAEConfig
 from e4t_diffusion_torch.models.vit import ViTConfig
+from e4t_diffusion_torch.parallel.mesh import Mesh, consolidated_state_dict
 from e4t_diffusion_torch.utils.convert import load_state_dict_file
 
 _VAE_ATTN_RENAME = {"to_q": "query", "to_k": "key", "to_v": "value",
@@ -351,18 +352,29 @@ def save_train_state(output_dir: str, step: int,
                      trainable: Dict[str, Dict[str, torch.Tensor]],
                      optimizer: torch.optim.Optimizer, updates: int,
                      generator: torch.Generator,
-                     async_save: bool = False) -> str:
+                     async_save: bool = False,
+                     mesh: Optional[Mesh] = None) -> str:
     """Checkpoint the train state as ``output_dir/checkpoint-<step>``.
     ``trainable``: {group: {name: tensor}}; ``updates``: the optimizer
     updates made (the schedule's count). The state is copied to the host
     here, at the step boundary; ``async_save`` writes it on a background
-    thread (one save in flight: a new one waits for the last)."""
+    thread (one save in flight: a new one waits for the last).
+
+    Several ranks (``mesh``): every rank calls it; the file keeps every
+    rank's generator state (``"generators"``, in rank order) and the
+    optimizer state in the unsharded layout (gathered under ZeRO-1), and
+    rank 0 alone writes it (the trainables are the same on every rank)."""
+    mesh = mesh or Mesh()
     path = os.path.abspath(os.path.join(output_dir, f"checkpoint-{step}"))
     wait_for_checkpoints()
+    generators = mesh.all_gather_object(generator.get_state())
+    optimizer_state = consolidated_state_dict(optimizer)
+    if not mesh.is_main:
+        return path
     payload = {"step": int(step), "updates": int(updates),
                "trainable": _to_host(trainable),
-               "optimizer": _to_host(optimizer.state_dict()),
-               "generator": generator.get_state()}
+               "optimizer": _to_host(optimizer_state),
+               "generators": generators}
     os.makedirs(output_dir, exist_ok=True)
     if not async_save:
         _write_train_state(path, payload)
@@ -410,10 +422,13 @@ def resolve_checkpoint(output_dir: str,
 def restore_train_state(path: str,
                         trainable: Dict[str, Dict[str, torch.Tensor]],
                         optimizer: torch.optim.Optimizer,
-                        generator: torch.Generator) -> Dict[str, int]:
+                        generator: torch.Generator,
+                        rank: int = 0) -> Dict[str, int]:
     """Load a ``save_train_state`` checkpoint in place: the trainable
-    tensors (every group and name must match), the optimizer's state and
-    the generator's. Returns {"step", "updates"}."""
+    tensors (every group and name must match), the optimizer's state (a
+    ZeRO-1 optimizer keeps its share) and the generator's: rank ``rank``'s
+    saved state; a rank the checkpoint holds none for (it was saved by
+    fewer ranks) keeps its own seeding. Returns {"step", "updates"}."""
     wait_for_checkpoints()
     payload = torch.load(os.path.join(path, TRAIN_STATE_FILE),
                          map_location="cpu", weights_only=True)
@@ -426,5 +441,9 @@ def restore_train_state(path: str,
             for name, t in group.items():
                 t.copy_(saved[g][name])
     optimizer.load_state_dict(payload["optimizer"])
-    generator.set_state(payload["generator"])
+    # a checkpoint written by one process before the list held its state
+    # under "generator"
+    generators = payload.get("generators") or [payload["generator"]]
+    if rank < len(generators):
+        generator.set_state(generators[rank])
     return {"step": int(payload["step"]), "updates": int(payload["updates"])}

@@ -69,7 +69,9 @@ def make_tracker(report_to: Optional[str], logging_dir: str,
                  project: str = "e4t", config: Optional[Dict] = None,
                  is_main: bool = True) -> NullTracker:
     """The tracker ``--report_to`` names ("tensorboard" or "wandb"); a
-    ``NullTracker`` for None and on every process but the main one."""
+    ``NullTracker`` for None, on every process but the main one, and where
+    neither wandb nor tensorboardX is installed (the card's machine has
+    neither)."""
     if not is_main or report_to is None:
         return NullTracker()
     if report_to == "wandb":
@@ -79,5 +81,10 @@ def make_tracker(report_to: Optional[str], logging_dir: str,
             print("[trackers] wandb unavailable; falling back to tensorboard")
             report_to = "tensorboard"
     if report_to == "tensorboard":
-        return TensorBoardTracker(logging_dir, config)
+        try:
+            return TensorBoardTracker(logging_dir, config)
+        except ImportError:
+            print("[trackers] tensorboardX unavailable; not logging (the "
+                  "metrics are printed)")
+            return NullTracker()
     raise ValueError(f"unknown tracker {report_to!r}")

@@ -367,7 +367,7 @@ def test_tuning_cli_no_resolves_to_f32_on_gpu(artifact_dir, tmp_path,
     root, src = artifact_dir
     seen = []
 
-    def tune(args, *rest, save=None):
+    def tune(args, *rest, save=None, mesh=None):
         seen.append(rest[-1])  # the dtype
         raise KeyboardInterrupt  # stop before a step runs
 
@@ -387,11 +387,17 @@ def test_tuning_cli_no_resolves_to_f32_on_gpu(artifact_dir, tmp_path,
     assert not (tmp_path / "out").exists()
     required = ["--pretrained_model_name_or_path", str(tmp_path / "missing"),
                 "--train_image_path", str(tmp_path / "in.png")]
-    for later in (["--use_8bit_adam"], ["--tensor_parallel", "2"],
-                  ["--profile_steps", "2"], ["--report_to", "tensorboard"],
-                  ["--remat_policy", "dots"]):
+    for later in (["--use_8bit_adam"], ["--profile_steps", "2"],
+                  ["--report_to", "tensorboard"], ["--remat_policy", "dots"]):
         with pytest.raises(SystemExit):
             tuning_e4t.parse_args(required + later)
+    # --tensor_parallel is taken and reaches the mesh, which needs a
+    # torchrun launch of two processes for tp=2
+    assert tuning_e4t.parse_args(
+        required + ["--tensor_parallel", "2"]).tensor_parallel == 2
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        tuning_e4t.main(required + ["--tensor_parallel", "2", "--device",
+                                    "cpu"])
     args = tuning_e4t.parse_args(required + [
         "--enable_xformers_memory_efficient_attention",
         "--dataloader_num_workers", "4", "--revision", "main",

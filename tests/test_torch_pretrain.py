@@ -618,10 +618,18 @@ def test_cli_needs_a_gpu_unless_asked_for_cpu(base_dir, tmp_path):
 def test_cli_refuses_unported_flags_and_checks_the_class_token(base_dir,
                                                                tmp_path):
     argv = _pretrain_argv(base_dir, tmp_path / "out", "--device", "cpu")
-    for later in (["--use_8bit_adam"], ["--zero1"], ["--tensor_parallel", "2"],
-                  ["--profile_steps", "2"], ["--profile_dir", "x"]):
+    for later in (["--use_8bit_adam"], ["--profile_steps", "2"],
+                  ["--profile_dir", "x"]):
         with pytest.raises(SystemExit):
             pretrain_e4t.parse_args(argv + later)
+    # the multi-card flags are taken and reach the mesh: tp=2 needs a
+    # torchrun launch of two processes
+    args = pretrain_e4t.parse_args(argv + ["--zero1", "--tensor_parallel",
+                                           "2"])
+    assert (args.zero1, args.tensor_parallel) == (True, 2)
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        pretrain_e4t.main(argv + ["--tensor_parallel", "2"])
+    assert not (tmp_path / "out").exists()
     args = pretrain_e4t.parse_args(argv + [
         "--enable_xformers_memory_efficient_attention", "--max_grad_norm",
         "0.5", "--num_train_epochs", "3", "--revision", "main"])

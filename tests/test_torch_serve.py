@@ -16,6 +16,7 @@ from PIL import Image
 from e4t_diffusion_torch import inference, serve_e4t
 from e4t_diffusion_torch.models import lora
 from e4t_diffusion_torch.models.unet import UNetConfig
+from e4t_diffusion_torch.parallel import mesh as pmesh
 
 from test_torch_pipeline import PROMPTS, artifact_dir  # noqa: F401
 
@@ -80,15 +81,30 @@ def test_inference_cli_schedulers_lora_and_int8_aux(artifact_dir,  # noqa: F811
 
 @pytest.mark.parametrize("flags", [["--tensor_parallel", "2"],
                                    ["--data_parallel_serving"]])
-def test_parallel_serving_flags_are_refused(flags):
-    """Tensor- and data-parallel serving are not ported: argparse refuses
-    their flags in both entry points."""
-    with pytest.raises(SystemExit):
+def test_parallel_serving_flags_are_refused(flags, monkeypatch):
+    """Tensor- and data-parallel serving are ported (the name is the one
+    this test had while they were not): both entry points take their flags
+    and build_pipeline reaches the mesh first. One process is the
+    one-process mesh (dp=1); tp=2 there asks for a torchrun launch."""
+    for k in pmesh.TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    parsed = [
         inference.parse_args(["--pretrained_model_name_or_path", "-",
-                              "--image_path_or_url", "-", *flags])
-    with pytest.raises(SystemExit):
+                              "--image_path_or_url", "-", "--device", "cpu",
+                              *flags]),
         serve_e4t.parse_args(["--pretrained_model_name_or_path", "-",
-                              "--image_path", "-", *flags])
+                              "--image_path", "-", "--device", "cpu",
+                              *flags])]
+    for args in parsed:
+        if args.tensor_parallel > 1:
+            with pytest.raises(ValueError,
+                               match="torchrun --nproc_per_node 2"):
+                inference.build_pipeline(args)
+        else:
+            assert args.data_parallel_serving
+            # past the mesh, the artifact directory "-" is read
+            with pytest.raises(FileNotFoundError):
+                inference.build_pipeline(args)
 
 
 def _serve(root, out_dir, prompts, output_dir, *extra):

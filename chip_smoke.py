@@ -67,8 +67,8 @@ Phases (any failure exits non-zero; each prints its wall seconds):
    default) at the largest batch of 16, 8 and 4 that the card holds;
 16. parallel: (a) the flash forward and backward on each half of the
    heads (the batch where the heads are odd) against the whole call, bit
-   for bit; (b) 6 tuning steps (batch 16, 512px, ``--tensor_parallel
-   1``), 6 bf16 pretraining steps and 6 ``--zero1`` steps through a
+   for bit; (b) 4 tuning steps (batch 16, 512px, ``--tensor_parallel
+   1``), 4 bf16 pretraining steps and 4 ``--zero1`` steps through a
    one-rank NCCL process group against the same steps without it, bit for
    bit (metrics, trainables, optimizer state, checkpoint), the median of
    the warm steps with and without the group and the gradient bytes dp > 1
@@ -105,12 +105,32 @@ Phases (any failure exits non-zero; each prints its wall seconds):
    against itself 1 within 1e-3, the scores with ``E4T_SHORTSEQ_MH_ATTN=8``
    (the ViT-H's sites on the f32 short-sequence kernel) against the route
    off.
+15b. training_extras (after f32_pretraining, before parallel): the
+   training CLIs' last flags. (a) The 8-bit AdamW kernel
+   (``csrc/adam8bit.cu``) against its plain version at every trainable
+   tensor of a tuning step, two updates from the same gradients, codes,
+   scales and parameters bit for bit, timed beside the plain version and
+   torch's f32 AdamW on the same tensors (a yardstick, not the same
+   function), and at pretraining's trainables; (b) 5 tuning steps with
+   ``--use_8bit_adam`` (batch 16, 512px, ``--report_to tensorboard``,
+   ``--profile_steps 1``): updates 1 and 2 held against the plain version
+   fed the same gradients (``_adam8bit_held``), the first step against
+   phase 7's, the optimizer state's bytes, peak memory and the warm step
+   against phase 7's; (c) 3 tuning steps with ``--remat_policy dots`` at the largest of
+   16, 8 and 4 that fits: the first step, peak memory and the warm step
+   against phase 7's; (d) 11 pretraining steps with ``--use_8bit_adam
+   --zero1`` through a one-rank NCCL group (``--profile_steps 1``: the
+   window [10, 11)), a checkpoint at step 10 read back bit for bit at its
+   save and at the restore of one resumed step, updates 1, 2 and the
+   resumed 11 held against the plain version; (e) the two traces parsed:
+   their host ops and device-kernel events (printed with the phase times,
+   beside ``profiler_empty``);
 Phase 9 also runs the tiny unCLIP pipeline in f32 on the card against the
 CPU with the same draws. The kernels phase holds the low-dim forward at
 the unCLIP UNet's three flash sites (d64: BH 40 x 9216², 80 x 2304², 160 x
 576²) and the GroupNorm kernel at every site of an SD2-unclip UNet pass
 (batch 8, 96²) and a 768px VAE decode (batch 4).
-In phases 4 to 8, 10, 10b, 10c and 12 to 16 (4b and 5b included) the
+In phases 4 to 8, 10, 10b, 10c and 12 to 16 (4b, 5b and 15b included) the
 kernels' launch counters, set to 0 just before each run and read just
 after, must show the path went through every kernel it routes to, as many
 times as its attention, conv, linear and GroupNorm sites give. The two
@@ -262,6 +282,27 @@ def cuda_time_ms(fn, reps=20):
     return times[len(times) // 2]
 
 
+@contextlib.contextmanager
+def _tee_stdout(copy):
+    """Standard output written through as always and also into ``copy``
+    (a text buffer) for the block."""
+    real = sys.stdout
+
+    class Tee:
+        def write(self, text):
+            copy.write(text)
+            return real.write(text)
+
+        def flush(self):
+            real.flush()
+
+    sys.stdout = Tee()
+    try:
+        yield
+    finally:
+        sys.stdout = real
+
+
 # profiler sessions that came back with no device record, and device_time
 # calls that fell back to CUDA events after three of them (printed with the
 # phase times)
@@ -378,13 +419,14 @@ def phase_environment():
 
 def phase_build():
     """One nvcc per kernel source, all started together."""
-    from e4t_diffusion_torch.ops import (_build, flash_bwd, flash_int8,
-                                         flash_lowdim, groupnorm, int8_conv,
-                                         quant, shortseq)
+    from e4t_diffusion_torch.ops import (_build, adam8bit, flash_bwd,
+                                         flash_int8, flash_lowdim, groupnorm,
+                                         int8_conv, quant, shortseq)
 
     sources = [flash_lowdim.SOURCE, flash_bwd.SOURCE, flash_int8.SOURCE,
                int8_conv.SOURCE, groupnorm.SOURCE, shortseq.SOURCE,
-               flash_lowdim.F32_SOURCE, quant.QUANTIZE_SOURCE]
+               flash_lowdim.F32_SOURCE, quant.QUANTIZE_SOURCE,
+               adam8bit.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = list(pool.map(_build.build, sources))
@@ -398,6 +440,8 @@ def phase_build():
             if m:
                 args = re.findall(r"L[a-z](\d+)E", m.group(2) + "E")
                 name = f"{m.group(1)}<{','.join(args) or m.group(2)}>"
+            elif "adam8bit_kernel" in ln:
+                name = "adam8bit_kernel"
             elif "registers" in ln or re.search(
                     r"(?<!\d)[1-9]\d* bytes spill", ln):
                 usage[src].append(f"{name}: {ln.split(':', 1)[-1].strip()}")
@@ -1566,13 +1610,15 @@ KERNEL_ROWS = ("flash_fwd_lowdim", "flash_fwd_wide", "flash_bwd",
                "flash_fwd_int8", "int8_conv", "int8_quantize", "group_norm",
                "flash_fwd_shortseq", "flash_fwd_lowdim_f32",
                "flash_fwd_wide_f32", "flash_bwd_f32", "flash_fwd_shortseq_f32",
-               "flash_fwd_int8_qk_f32", "flash_fwd_int8_qkpv_f32")
+               "flash_fwd_int8_qk_f32", "flash_fwd_int8_qkpv_f32",
+               "adam8bit")
 # low-dim flash sites per sampling step at batch >= 5: 10 per UNet forward,
 # two forwards a step; the d=160 sites stay on einsum below 128 MiB
 LOWDIM_SITES_PER_STEP = 20
 
 
 def _reset_launches():
+    from e4t_diffusion_torch.ops.adam8bit import adam8bit_update
     from e4t_diffusion_torch.ops.flash_bwd import flash_bwd
     from e4t_diffusion_torch.ops.flash_int8 import flash_fwd_int8
     from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd
@@ -1587,9 +1633,11 @@ def _reset_launches():
     int8_conv.launches = int8_conv_act.launches = 0
     quantize_activation.launches = 0
     fused_group_norm.launches = 0
+    adam8bit_update.launches = 0
 
 
 def _read_launches():
+    from e4t_diffusion_torch.ops.adam8bit import adam8bit_update
     from e4t_diffusion_torch.ops.flash_bwd import flash_bwd
     from e4t_diffusion_torch.ops.flash_int8 import flash_fwd_int8
     from e4t_diffusion_torch.ops.flash_lowdim import flash_fwd
@@ -1612,7 +1660,8 @@ def _read_launches():
             "flash_bwd_f32": flash_bwd.launches["f32"],
             "flash_fwd_shortseq_f32": flash_fwd_shortseq.launches["f32"],
             "flash_fwd_int8_qk_f32": flash_fwd_int8.launches["qk_f32"],
-            "flash_fwd_int8_qkpv_f32": flash_fwd_int8.launches["qkpv_f32"]}
+            "flash_fwd_int8_qkpv_f32": flash_fwd_int8.launches["qkpv_f32"],
+            "adam8bit": adam8bit_update.launches}
 
 
 @contextlib.contextmanager
@@ -2527,17 +2576,24 @@ def _tuning_world(resolution):
 
 
 def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
-                 dtype=None, batch=16):
+                 dtype=None, batch=16, extra=(), name=None, untimed=1):
     """Phase-2 tuning at full width through ``tuning_e4t.tune`` with the
     CLI's defaults (batch 16, 512px, lr 1.6e-5, clip 1.0) in ``dtype``
     (bf16, ``--mixed_precision bf16``, by default; f32 is ``no``), from
-    seeded weights. ``routes``: both opt-in routes on, and the first step's
-    loss and grad norm held against ``routes_off``, the first step's
-    metrics of a run with the routes off. Returns (launches, the first
-    step's metrics)."""
+    seeded weights; ``extra``: more CLI flags (the training extras, whose
+    run ``name`` prints; ``untimed``: the first calls left out of the warm
+    step's time). ``routes``: both opt-in routes on, and the first
+    step's loss and grad norm held against ``routes_off``, the first step's
+    metrics of a run with the routes off. Returns (launches, summary: the
+    first step's metrics, peak memory, the warm step's seconds (the calls
+    after the first outside a profile window), the optimizer's state
+    bytes, the trace directory and the printed output)."""
+    import io
+
     import torch
 
     from e4t_diffusion_torch import tuning_e4t
+    from e4t_diffusion_torch.training.optim8bit import state_bytes
     from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
     from e4t_diffusion_torch.models.vae import VAEConfig
     from e4t_diffusion_torch.templates import resolve_templates
@@ -2549,7 +2605,8 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
         return tuning_e4t.parse_args([
             "--pretrained_model_name_or_path", "-", "--train_image_path",
             "-", "--max_train_steps", str(max_steps), "--mixed_precision",
-            "no" if f32 else "bf16", "--train_batch_size", str(batch)])
+            "no" if f32 else "bf16", "--train_batch_size", str(batch),
+            *extra])
 
     args = cli_args(steps)
     t0 = time.perf_counter()
@@ -2581,11 +2638,13 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
                                templates, class_id, image,
                                NoiseScheduleConfig(), dtype)
 
+    printed = io.StringIO()
     _reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with _routes_on() if routes else contextlib.nullcontext():
+    with (_routes_on() if routes else contextlib.nullcontext()), \
+            _tee_stdout(printed):
         result = run(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2612,6 +2671,8 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
     per_step = _expected_tuning_launches(ucfg, ecfg.vit, args.resolution,
                                          routes, dtype)
     want = {k: steps * v for k, v in per_step.items()}
+    if args.use_8bit_adam:
+        want["adam8bit"] = steps  # one launch an update
     if routes:
         # the replicated image is VAE-encoded once a run
         want["group_norm"] += sum(_group_norm_sites(
@@ -2627,14 +2688,23 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
         if not max(rel.values()) <= TUNING_ROUTE_REL:
             fail(f"tuning, routes on vs off, first step: {rel} "
                  f"({metrics[0]} against {routes_off})")
-    else:
+    elif not extra:
         report["profile"] = _profile(lambda: run(cli_args(1)))
-    # after the first step where there is one
-    steady = result["step_seconds"][1:] or result["step_seconds"]
+    # after the untimed calls where there are more, outside the profile
+    # window
+    window = range(2, 2 + args.profile_steps)
+    steady = [t for i, t in enumerate(result["step_seconds"])
+              if i >= untimed and i not in window] or result["step_seconds"]
     s_per_step = sum(steady) / len(steady)
+    summary = {"first_step": metrics[0], "peak_gb": peak / 1e9,
+               "s_per_step": s_per_step,
+               "step_seconds": result["step_seconds"],
+               "optimizer_state_bytes": state_bytes(result["optimizer"]),
+               "profile_dir": result["profile_dir"],
+               "printed": printed.getvalue()}
     print(json.dumps({
-        "phase": ("routes_tuning" if routes else "f32_tuning" if f32
-                  else "tuning"), "card": smi,
+        "phase": name or ("routes_tuning" if routes else "f32_tuning" if f32
+                          else "tuning"), "card": smi, "flags": list(extra),
         "dtype": str(dtype)[6:],
         "knobs": ROUTE_KNOBS if routes else {}, "setup_s": setup_s,
         "batch": args.train_batch_size, "resolution": args.resolution,
@@ -2643,9 +2713,11 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
                                 for t in g.values()),
         "step_seconds": result["step_seconds"], "s_per_step": s_per_step,
         "samples_per_s": args.train_batch_size / s_per_step,
-        "max_memory_allocated_gb": peak / 1e9, "metrics": metrics,
-        "launches": launches, "launches_per_step": per_step, **report}))
-    return launches, metrics[0]
+        "max_memory_allocated_gb": peak / 1e9,
+        "optimizer_state_bytes": summary["optimizer_state_bytes"],
+        "metrics": metrics, "launches": launches,
+        "launches_per_step": per_step, **report}))
+    return launches, summary
 
 
 def phase_tiny_vs_cpu():
@@ -2970,8 +3042,8 @@ def _tiny_tuning_step(device, state, offsets, resolution):
     seen = []
     make = tuning_e4t.make_optimizer
 
-    def recording_optimizer(params, lr):
-        opt = make(params, lr)
+    def recording_optimizer(params, lr, **options):
+        opt = make(params, lr, **options)
         step = opt.step
 
         def record_then_step(*a, **kw):
@@ -3804,9 +3876,12 @@ def _checksums(tensors, dtype=None):
 def _checkpoints_checked(report):
     """While active, every train-state save is read back after it is
     written, and every restore after it is loaded, and held bit for bit
-    against the live trainables, AdamW moments and generator state."""
+    against the live trainables, optimizer state (AdamW's moments, or the
+    8-bit AdamW's codes and scales in their dtypes; unsharded under
+    ZeRO-1) and generator state."""
     import torch
 
+    from e4t_diffusion_torch.parallel.mesh import consolidated_state_dict
     from e4t_diffusion_torch.utils import artifacts
 
     save, restore = artifacts.save_train_state, artifacts.restore_train_state
@@ -3822,10 +3897,20 @@ def _checkpoints_checked(report):
                     fail(f"{what} {path}: trainable {g}/{k} differs")
                 n += t.numel()
         saved = payload["optimizer"]["state"]
-        for i, state in optimizer.state_dict()["state"].items():
-            for key in ("exp_avg", "exp_avg_sq", "step"):
-                if not torch.equal(state[key].cpu(), saved[i][key]):
-                    fail(f"{what} {path}: AdamW {key} of tensor {i} differs")
+        live = consolidated_state_dict(optimizer)["state"]
+        if set(live) != set(saved):
+            fail(f"{what} {path}: optimizer state of other tensors")
+        for i, state in live.items():
+            if set(state) != set(saved[i]):
+                fail(f"{what} {path}: optimizer state keys {sorted(state)} "
+                     f"against {sorted(saved[i])}")
+            for key, value in state.items():
+                same = (value.dtype == saved[i][key].dtype and torch.equal(
+                    value.cpu(), saved[i][key])) if isinstance(
+                    value, torch.Tensor) else value == saved[i][key]
+                if not same:
+                    fail(f"{what} {path}: optimizer {key} of tensor {i} "
+                         f"differs")
         if not torch.equal(generator.get_state(), payload["generators"][0]):
             fail(f"{what} {path}: generator state differs")
         report.setdefault(what, []).append(
@@ -4097,7 +4182,8 @@ def phase_pretraining(smi):
     print(json.dumps(report))
     out.cleanup()
     total = {k: launches[k] + launches2[k] for k in launches}
-    return total, first_metrics, data
+    return total, {"first_step": first_metrics, "peak_gb": peak / 1e9,
+                   "s_per_step": s_per_step}, data
 
 
 def phase_routes_pretraining(smi, first_step, data):
@@ -4196,6 +4282,494 @@ def phase_f32_pretraining(smi, data):
          f"{refused}")
 
 
+# ---- the training extras ---------------------------------------------------
+
+# (b): 8-bit tuning calls: the first two are held against the plain
+# version (EXTRAS_HELD_UPDATES), the third is profiled (--profile_steps 1:
+# calls [2, 3)), the fourth and fifth are timed
+EXTRAS_8BIT_STEPS = 5
+# (b), (d): the 8-bit updates whose every EXTRAS_HELD_SHARE-th tensor (and
+# the largest, and the first with a ragged tail) is held against the plain
+# version fed the same gradients: the second reads the codes the first
+# stored; the resumed pretraining update reads the restored ones
+EXTRAS_HELD_UPDATES = (1, 2)
+EXTRAS_HELD_SHARE = 10
+# (c): the dots policy at the largest of these batches that fits
+DOTS_BATCHES = (16, 8, 4)
+# (d): 8-bit pretraining updates, a checkpoint at EXTRAS_PRETRAIN_CKPT, the
+# profile window [10, 11); one more update resumed from the checkpoint
+EXTRAS_PRETRAIN_STEPS = 11
+EXTRAS_PRETRAIN_CKPT = 10
+# (a): f32 operations an element of the 8-bit update (dequantize 2, the
+# moments 7, the step 4, the decay 4, two requantizations of 10, the two
+# absmax 2); its bytes: g and p read and p written (f32), both moments'
+# codes read and written (int8), and 16 bytes of scales a block
+ADAM8BIT_OPS_PER_ELEMENT = 39
+TRACKER_SILENT = "[trackers] tensorboardX unavailable"
+# device-kernel events in the training extras' traces (printed with the
+# phase times, beside profiler_empty)
+TRACE_DEVICE_KERNELS = {}
+
+
+def _adam8bit_work(shapes):
+    """(elements, blocks, the bound) of one 8-bit update of tensors of
+    ``shapes``."""
+    n = sum(math.prod(s) for s in shapes)
+    blocks = sum(-(-math.prod(s) // 256) for s in shapes)
+    return n, blocks, _bound(12 * n + 4 * 256 * blocks + 16 * blocks,
+                             ADAM8BIT_OPS_PER_ELEMENT * 256 * blocks, 0,
+                             flop_rate=F32_FLOP_PER_S)
+
+
+def _adam8bit_hyper(count):
+    from e4t_diffusion_torch.training import optim8bit as o8
+
+    return o8.Adam8bitHyper(
+        lr=1.6e-5, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-2,
+        b1c=o8.bias_correction(0.9, count),
+        b2c=o8.bias_correction(0.999, count))
+
+
+def _adam8bit_tensors(shapes, seed):
+    """Seeded parameters and gradients of ``shapes`` on the card, with a
+    new 8-bit state each."""
+    import torch
+
+    from e4t_diffusion_torch.training import optim8bit as o8
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    params = [0.05 * torch.randn(s, generator=gen, device="cuda")
+              for s in shapes]
+    grads = [1e-3 * torch.randn(s, generator=gen, device="cuda")
+             for s in shapes]
+    return params, grads, [o8.init_state(p) for p in params]
+
+
+def _adam8bit_checks(shapes, require_edges=True):
+    """(a) The kernel against its plain version at ``shapes`` (every
+    trainable tensor of a tuning step, which holds ragged tails and
+    tensors of more than 4096 blocks: ``require_edges``; or pretraining's):
+    two updates from the same gradients on each side, then the parameters,
+    codes and scales compared (bit for bit predicted; a code off by more
+    than one fails); the kernel's time an update (CUDA events around its
+    launch on a built pointer table; its device time under the profiler
+    beside it), the wrapper's (the table built on the host included), the
+    plain version's and torch's f32 AdamW's on the same tensors (a
+    yardstick: not the same function), and the bound."""
+    import gc
+
+    import torch
+
+    from e4t_diffusion_torch.ops import adam8bit
+    from e4t_diffusion_torch.training import optim8bit as o8
+
+    sizes = [math.prod(s) for s in shapes]
+    if require_edges and (not any(n % 256 for n in sizes)
+                          or max(sizes) <= 4096 * 256):
+        fail("training_extras (a): the shapes hold no ragged tail or no "
+             "tensor of more than 4096 blocks")
+    params, grads, states = _adam8bit_tensors(shapes, 17)
+    plain = [p.clone() for p in params]
+    plain_states = [o8.init_state(p) for p in plain]
+    for count in (1, 2):
+        h = _adam8bit_hyper(count)
+        adam8bit.adam8bit_update(params, grads, states, h)
+        for p, g, st in zip(plain, grads, plain_states):
+            o8.adam8bit_reference(p, g, st, h)
+    torch.cuda.synchronize()
+    diff = {"params_differing": 0, "scales_differing": 0,
+            "codes_off_by_one": 0, "codes_off_by_more": 0}
+    max_abs = 0.0
+    for p, q, st, sq in zip(params, plain, states, plain_states):
+        diff["params_differing"] += int((p != q).sum())
+        max_abs = max(max_abs, float((p - q).abs().max()))
+        for key in ("mu_scale", "nu_scale"):
+            diff["scales_differing"] += int((st[key] != sq[key]).sum())
+        for key in ("mu_q", "nu_q"):
+            d = (st[key].int() - sq[key].int()).abs()
+            diff["codes_off_by_one"] += int((d == 1).sum())
+            diff["codes_off_by_more"] += int((d > 1).sum())
+    if any(diff.values()):
+        fail(f"training_extras (a): the 8-bit kernel against its plain "
+             f"version, not bit for bit: {diff}")
+    h = _adam8bit_hyper(3)
+
+    def kernel_run():
+        adam8bit.adam8bit_update(params, grads, states, h)
+
+    def plain_run():
+        for p, g, st in zip(plain, grads, plain_states):
+            o8.adam8bit_reference(p, g, st, h)
+
+    table, blocks = adam8bit.pointer_table(params, grads, states)
+    ms = cuda_time_ms(lambda: adam8bit.launch_table(table, blocks, h),
+                      reps=10)
+    profiled_ms, how = device_time(kernel_run, reps=5)
+    wall_ms = cuda_time_ms(kernel_run, reps=5)
+    plain_ms = cuda_time_ms(plain_run, reps=2)
+    del plain, plain_states
+    gc.collect()
+    # the wrapper's host time an update (no wait): its table kept, and
+    # rebuilt for gradients at other addresses, as a training step's are
+    moved = [g.clone() for g in grads]
+
+    def host_ms(grad_lists):
+        times = []
+        for gs in grad_lists:
+            t0 = time.perf_counter()
+            adam8bit.adam8bit_update(params, gs, states, h)
+            times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        return statistics.median(times)
+
+    host = {"host_new_grads_ms": host_ms([moved, grads] * 3),
+            "host_ms": host_ms([grads] * 5)}
+    del moved
+    gc.collect()
+    for p, g in zip(params, grads):
+        p.grad = g
+    adamw = torch.optim.AdamW(params, lr=1.6e-5, betas=(0.9, 0.999),
+                              eps=1e-8, weight_decay=1e-2)
+    adamw_ms = cuda_time_ms(adamw.step, reps=3)
+    state_bytes = sum(v.numel() * v.element_size() for st in states
+                      for v in st.values() if isinstance(v, torch.Tensor))
+    del adamw, params, grads, states, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, blocks, bound = _adam8bit_work(shapes)
+    return {"tensors": len(shapes), "elements": n, "blocks": blocks,
+            "updates_compared": 2, "bit_equal": not any(diff.values()),
+            **diff, "max_abs_err": max_abs, "ms": ms,
+            "profiled_ms": profiled_ms, "profiled_by": how,
+            "wall_ms": wall_ms, **host, "plain_ms": plain_ms,
+            "adamw_f32_ms": adamw_ms, "state_bytes": state_bytes,
+            "launches_per_update": 1, **bound}
+
+
+@contextlib.contextmanager
+def _adam8bit_held(what, updates=EXTRAS_HELD_UPDATES):
+    """Every 8-bit AdamW update whose count is in ``updates``, made by the
+    run inside the block (through the optimizer as the CLI calls it), held
+    against the plain version fed the same gradients: before the update
+    the parameters, gradients and states of every EXTRAS_HELD_SHARE-th
+    tensor of a group, its largest and its first with a ragged tail are
+    copied; after it the plain version updates the copies, which must
+    equal the kernel's parameters, codes and scales bit for bit. Yields
+    the record: the updates held, tensors and elements compared."""
+    import torch
+    from torch.optim.optimizer import (register_optimizer_step_post_hook,
+                                       register_optimizer_step_pre_hook)
+
+    from e4t_diffusion_torch.training import optim8bit as o8
+
+    record = {"updates": [], "tensors": 0, "elements": 0}
+    held = []
+
+    def pick(params):
+        sizes = [p.numel() for p in params]
+        idx = set(range(0, len(params), EXTRAS_HELD_SHARE))
+        idx.add(max(range(len(params)), key=sizes.__getitem__))
+        idx.update([i for i, n in enumerate(sizes) if n % 256][:1])
+        return [params[i] for i in sorted(idx)]
+
+    def pre(opt, args, kwargs):
+        if not isinstance(opt, o8.AdamW8bit):
+            return
+        for group in opt.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            count = opt.state[params[0]].get("step", 0) + 1
+            if count not in updates:
+                continue
+            b1, b2 = group["betas"]
+            hyper = o8.Adam8bitHyper(
+                lr=group["lr"], b1=b1, b2=b2, eps=group["eps"],
+                weight_decay=group["weight_decay"],
+                b1c=o8.bias_correction(b1, count),
+                b2c=o8.bias_correction(b2, count),
+                step_bf16=group["step_bf16"])
+            for p in pick(params):
+                st = opt.state[p]
+                copy = ({k: st[k].clone() for k in o8.STATE_KEYS} if st
+                        else o8.init_state(p))
+                held.append((p, p.detach().clone(), p.grad.clone(), copy,
+                             hyper))
+            record["updates"].append(count)
+
+    def post(opt, args, kwargs):
+        if not isinstance(opt, o8.AdamW8bit):
+            return
+        for p, q, g, st, hyper in held:
+            o8.adam8bit_reference(q, g, st, hyper)
+            real = opt.state[p]
+            if not torch.equal(p.detach(), q) or not all(
+                    torch.equal(real[k], st[k]) for k in o8.STATE_KEYS):
+                fail(f"training_extras ({what}): update "
+                     f"{record['updates'][-1]} of a {tuple(p.shape)} tensor "
+                     f"differs from the plain version fed its gradient")
+            record["tensors"] += 1
+            record["elements"] += p.numel()
+        held.clear()
+
+    handles = (register_optimizer_step_pre_hook(pre),
+               register_optimizer_step_post_hook(post))
+    try:
+        yield record
+    finally:
+        for h in handles:
+            h.remove()
+    if sorted(set(record["updates"])) != sorted(updates):
+        fail(f"training_extras ({what}): held updates {record['updates']}, "
+             f"expected {list(updates)}")
+
+
+def _trace_summary(profile_dir, what):
+    """The one trace ``--profile_steps`` wrote into ``profile_dir``: it
+    parses, and holds host ops of a step (convolutions, products); its
+    event counts, device kernels among them."""
+    import glob
+
+    files = glob.glob(os.path.join(profile_dir or "", "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"training_extras ({what}): traces {files} in {profile_dir}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    ops = {e.get("name") for e in events if e.get("cat") == "cpu_op"}
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    if "aten::convolution" not in ops or not ops & {"aten::mm",
+                                                    "aten::addmm"}:
+        fail(f"training_extras ({what}): the trace holds no step's host ops")
+    TRACE_DEVICE_KERNELS[what] = len(kernels)
+    return {"file": os.path.basename(files[0]),
+            "bytes": os.path.getsize(files[0]), "events": len(events),
+            "host_ops": sum(e.get("cat") == "cpu_op" for e in events),
+            "device_kernels": len(kernels),
+            "adam8bit_kernels": sum("adam8bit" in k for k in kernels)}
+
+
+def _first_step_against(metrics, ref, what):
+    rel = {k: abs(metrics[k] - ref[k]) / abs(ref[k])
+           for k in ("loss", "grad_norm")}
+    if not max(rel.values()) <= TUNING_LOSS_REL:
+        fail(f"training_extras ({what}): the first step {metrics} against "
+             f"{ref}")
+    return {"rel": rel, "bit_equal": all(metrics[k] == ref[k]
+                                         for k in ("loss", "grad_norm"))}
+
+
+def _extras_tuning(smi, ref):
+    """(b) 8-bit tuning and (c) the dots policy, each from phase 7's
+    seeded weights, against phase 7's run (``ref``)."""
+    import gc
+    import importlib.util
+
+    import torch
+
+    report, launches = {}, _want()
+    with tempfile.TemporaryDirectory() as out, \
+            _adam8bit_held("b") as held:
+        counts, run = phase_tuning(
+            smi, EXTRAS_8BIT_STEPS, extra=(
+                "--use_8bit_adam", "--report_to", "tensorboard",
+                "--profile_steps", "1", "--output_dir", out),
+            name="training_extras_8bit",
+            untimed=max(EXTRAS_HELD_UPDATES))
+        trace = _trace_summary(run["profile_dir"], "tuning")
+        logs = os.path.join(out, "logs")
+        tensorboard = importlib.util.find_spec("tensorboardX") is not None
+        if tensorboard and not os.listdir(logs):
+            fail("training_extras (b): no TensorBoard events written")
+        if not tensorboard and TRACKER_SILENT not in run["printed"]:
+            fail("training_extras (b): the tracker did not say it logs "
+                 "nothing without tensorboardX")
+    if trace["adam8bit_kernels"] not in (0, 1):
+        fail(f"training_extras (b): {trace['adam8bit_kernels']} 8-bit "
+             f"kernels in the one traced step")
+    for k, v in counts.items():
+        launches[k] += v
+    report["tuning_8bit"] = {
+        "first_step_vs_phase_7": _first_step_against(
+            run["first_step"], ref["first_step"], "b"),
+        "optimizer_state_bytes": run["optimizer_state_bytes"],
+        "peak_gb": run["peak_gb"], "phase_7_peak_gb": ref["peak_gb"],
+        "peak_drop_gb": ref["peak_gb"] - run["peak_gb"],
+        "warm_s_per_step": run["s_per_step"],
+        "phase_7_warm_s_per_step": ref["s_per_step"],
+        "step_seconds": run["step_seconds"], "trace": trace,
+        "held_against_plain": held,
+        "tracker": "tensorboardX" if tensorboard else "says it logs "
+                   "nothing (no tensorboardX)"}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    refused = []
+    for batch in DOTS_BATCHES:
+        try:
+            counts, run = phase_tuning(
+                smi, TUNING_STEPS, extra=("--remat_policy", "dots"),
+                batch=batch, name="training_extras_dots")
+        except torch.cuda.OutOfMemoryError as err:
+            refused.append({"batch": batch, "error": str(err)[:200]})
+        else:
+            break
+        gc.collect()  # the failed steps' tensors, freed with the traceback
+        torch.cuda.empty_cache()
+    else:
+        fail(f"training_extras (c): no batch of {DOTS_BATCHES} fits: "
+             f"{refused}")
+    for k, v in counts.items():
+        launches[k] += v
+    report["tuning_dots"] = {
+        "batch": batch, "out_of_memory": refused,
+        "peak_gb": run["peak_gb"], "phase_7_peak_gb": ref["peak_gb"],
+        "warm_s_per_step": run["s_per_step"],
+        "phase_7_warm_s_per_step": ref["s_per_step"],
+        "step_seconds": run["step_seconds"]}
+    if batch == 16:
+        report["tuning_dots"]["first_step_vs_phase_7"] = _first_step_against(
+            run["first_step"], ref["first_step"], "c")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def _extras_pretraining(data, ref):
+    """(d) 8-bit pretraining under ZeRO-1 through a one-rank NCCL group:
+    EXTRAS_PRETRAIN_STEPS updates with a checkpoint at
+    EXTRAS_PRETRAIN_CKPT and the profile window [10, 11), then one update
+    resumed from the checkpoint; each checkpoint read back bit for bit at
+    its save and its restore; the first step against phase 13's (``ref``)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    from e4t_diffusion_torch.parallel import mesh as pmesh
+    from e4t_diffusion_torch.training.optim8bit import (AdamW8bit,
+                                                        state_bytes)
+
+    pmesh.initialize(0, 1, torch.device("cuda"),
+                     init_method=f"tcp://localhost:{_free_port()}")
+    try:
+        world = _pretraining_world()
+        ucfg, vit = world[0].unet.config, world[0].e4t_encoder.config.vit
+        per_step = _expected_pretraining_launches(ucfg, vit, RESOLUTION)
+        out = tempfile.TemporaryDirectory()
+        flags = ("--mixed_precision", "bf16", "--n_save_sample", "0",
+                 "--use_8bit_adam", "--zero1", "--checkpointing_steps",
+                 str(EXTRAS_PRETRAIN_CKPT), "--max_train_steps",
+                 str(EXTRAS_PRETRAIN_STEPS), "--profile_steps", "1")
+        checks = {}
+        torch.cuda.reset_peak_memory_stats()
+        with _checkpoints_checked(checks), _adam8bit_held("d") as held:
+            result, launches, wall = _pretrain_run(
+                _pretrain_args(data.name, out.name, *flags), world,
+                mesh=pmesh.get_mesh())
+        peak = torch.cuda.max_memory_allocated()
+        metrics = result["metrics"]
+        _metrics_finite(metrics, "training_extras (d)")
+        opt = result["optimizer"]
+        if len(metrics) != EXTRAS_PRETRAIN_STEPS or not (
+                isinstance(opt, ZeroRedundancyOptimizer)
+                and isinstance(opt.optim, AdamW8bit)):
+            fail(f"training_extras (d): {len(metrics)} updates on "
+                 f"{type(opt).__name__}")
+        want = {k: EXTRAS_PRETRAIN_STEPS * v for k, v in per_step.items()}
+        want["adam8bit"] = EXTRAS_PRETRAIN_STEPS
+        if launches != want:
+            fail(f"training_extras (d): launches {launches}, expected "
+                 f"{want}")
+        trace = _trace_summary(result["profile_dir"], "pretraining")
+        shapes = [tuple(t.shape) for g in result["trainable"].values()
+                  for t in g.values()]
+        report = {
+            "updates": EXTRAS_PRETRAIN_STEPS, "wall_s": wall,
+            "first_step_vs_phase_13": _first_step_against(
+                metrics[0], ref["first_step"], "d"),
+            "optimizer_state_bytes": state_bytes(opt),
+            "peak_gb": peak / 1e9, "phase_13_peak_gb": ref["peak_gb"],
+            "step_seconds": result["step_seconds"],
+            "phase_13_warm_s_per_step": ref["s_per_step"], "trace": trace,
+            "held_against_plain": held, "last_metrics": metrics[-1]}
+        del result, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        with _checkpoints_checked(checks), _adam8bit_held(
+                "d, resumed", (EXTRAS_PRETRAIN_CKPT + 1,)) as held_resumed:
+            resumed, launches2, _ = _pretrain_run(
+                _pretrain_args(data.name, out.name, *flags,
+                               "--resume_from_checkpoint", "latest"),
+                world, mesh=pmesh.get_mesh())
+        ckpt = f"checkpoint-{EXTRAS_PRETRAIN_CKPT}"
+        if resumed["resumed_from"] != os.path.join(out.name, ckpt) or len(
+                resumed["metrics"]) != 1 or resumed["profile_dir"]:
+            fail(f"training_extras (d): resumed from "
+                 f"{resumed['resumed_from']}, {resumed['metrics']}")
+        _metrics_finite(resumed["metrics"], "training_extras (d), resumed")
+        want = dict(per_step, adam8bit=1)
+        if launches2 != want:
+            fail(f"training_extras (d), resumed: launches {launches2}")
+        if [c["path"] for c in checks.get("saved", [])] != [ckpt] or [
+                c["path"] for c in checks.get("restored", [])] != [ckpt]:
+            fail(f"training_extras (d): checkpoints {checks}")
+        report.update(checkpoints=checks, resumed=resumed["metrics"][0],
+                      resumed_held_against_plain=held_resumed)
+        del resumed, world
+        out.cleanup()
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    report["adam8bit_at_pretraining_shapes"] = _adam8bit_checks(
+        shapes, require_edges=False)
+    total = {k: launches[k] + launches2[k] for k in launches}
+    return report, total
+
+
+def phase_training_extras(smi, tuning_ref, pretraining_ref, data):
+    """The training CLIs' last flags on the card: (a) the 8-bit AdamW
+    kernel at every trainable tensor of a tuning step against its plain
+    version, (b) tuning with ``--use_8bit_adam`` (and the tracker and a
+    trace), (c) tuning with ``--remat_policy dots``, (d) pretraining with
+    ``--use_8bit_adam --zero1`` (a checkpoint, a resumed update, a trace),
+    (e) the traces parsed. Returns (the launches of (b)-(d), (a)'s
+    record)."""
+    import gc
+
+    import torch
+
+    from e4t_diffusion_torch.training.train_step import (E4TTrainConfig,
+                                                         split_trainable)
+
+    modules, offsets = _tuning_world(RESOLUTION)[:2]
+    trainable, _ = split_trainable(modules, offsets,
+                                   E4TTrainConfig(train_unet=True),
+                                   torch.bfloat16)
+    shapes = [tuple(t.shape) for g in trainable.values()
+              for t in g.values()]
+    del modules, offsets, trainable
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = {"phase": "training_extras", "card": smi,
+              "adam8bit": _adam8bit_checks(shapes)}
+    tuning, launches = _extras_tuning(smi, tuning_ref)
+    report.update(tuning)
+    report["pretraining_8bit_zero1"], counts = _extras_pretraining(
+        data, pretraining_ref)
+    for k, v in counts.items():
+        launches[k] += v
+    want = EXTRAS_8BIT_STEPS + EXTRAS_PRETRAIN_STEPS + 1
+    if launches["adam8bit"] != want:
+        fail(f"training_extras: {launches['adam8bit']} 8-bit AdamW "
+             f"launches, expected {want}")
+    report["launches"] = launches
+    print(json.dumps(report))
+    return launches, report["adam8bit"]
+
+
 # ---- the parallel phase ----------------------------------------------------
 
 # (a): flash sites (B, H, S, D, with the backward) run on two halves and on
@@ -4204,8 +4778,8 @@ def phase_f32_pretraining(smi, data):
 PARALLEL_SPLIT_SITES = ((16, 8, 4096, 40, True), (8, 8, 1024, 80, True),
                         (8, 5, 9216, 64, False))
 # (b): updates a world-1 run takes; the first warms up, the rest are timed
-# (their median)
-PARALLEL_STEPS = 6
+# (their median); 4, cut from 6 to make room for the training extras
+PARALLEL_STEPS = 4
 # (c): the CLIs' runs, with and without torchrun
 PARALLEL_CLI_BATCH = 4
 PARALLEL_CLI_STEPS = 2
@@ -4824,11 +5398,12 @@ def phase_parallel(smi, data_dir):
     return launches
 
 
-def kernels_line(cases, paths, unclip_call):
+def kernels_line(cases, paths, unclip_call, adam8bit):
     """The kernels record: one row per kernel, its launches on each path
     (``paths``: launch counts by path) and its times at the main path's
     heaviest site, with every timed site beside it; ``unclip_call``: the
-    unclip phase's flash launches by shape and their profiled time."""
+    unclip phase's flash launches by shape and their profiled time;
+    ``adam8bit``: the training extras' check of the 8-bit AdamW kernel."""
     fwd_cases = (cases["sampling"] + cases["unclip_flash"]
                  + cases["tuning_fwd"] + [cases["grid"]] + [
                      c for c in cases["ragged"] if c["kernel"] != "flash_bwd"])
@@ -5047,6 +5622,32 @@ def kernels_line(cases, paths, unclip_call):
                                         "parent_ms")}
         for c in cases["shortseq"]]
     kernels += _f32_rows(cases, entry, timed_keys)
+    kernels.append({
+        "name": "adam8bit", "route": "cuda",
+        "source": "e4t_diffusion_torch/csrc/adam8bit.cu",
+        "replaces": "e4t_diffusion_tpu/training/optim8bit.py:109",
+        "replaces_note": "XLA code in the JAX package (adam_core :109-117 "
+                         "with _q_blocks :43 and _dq_blocks :60), no "
+                         "Pallas kernel",
+        "launches": sum(p["adam8bit"] for p in paths.values()),
+        "launches_by_path": {k: p["adam8bit"] for k, p in paths.items()},
+        "max_abs_err": adam8bit["max_abs_err"], "ms": adam8bit["ms"],
+        "plain_ms": adam8bit["plain_ms"], "bound_ms": adam8bit["bound_ms"],
+        "bound_by": adam8bit["bound_by"], "library_ms": None,
+        "adamw_f32_ms": adam8bit["adamw_f32_ms"],
+        "at": f"all {adam8bit['tensors']} trainable tensors of a tuning "
+              f"step, {adam8bit['elements']} f32 elements, one launch an "
+              f"update",
+        "times": "ms: CUDA events around the launch on a built pointer "
+                 "table, median of 10; profiled_ms: its device time under "
+                 "torch.profiler; wall_ms: CUDA events around the wrapper "
+                 "(the table built on the host included); adamw_f32_ms: "
+                 "torch's f32 AdamW on the same tensors, a yardstick (not "
+                 "the same function)",
+        "check": {k: adam8bit[k] for k in (
+            "updates_compared", "bit_equal", "params_differing",
+            "scales_differing", "codes_off_by_one", "codes_off_by_more",
+            "profiled_ms", "profiled_by", "wall_ms", "state_bytes")}})
     return kernels
 
 
@@ -5151,22 +5752,25 @@ def main():
         clip_score = run("clip_score", phase_clip_score, smi, root,
                          unclip_files)
     torch.cuda.empty_cache()
-    tuning, first_step = run("tuning", phase_tuning, smi)
+    tuning, tuning_ref = run("tuning", phase_tuning, smi)
     torch.cuda.empty_cache()
     routes_tuning, _ = run("routes_tuning", phase_tuning, smi, 2, True,
-                           first_step)
+                           tuning_ref["first_step"])
     torch.cuda.empty_cache()
     run("tiny_card_vs_cpu", phase_tiny_vs_cpu)
     f32_tuning_tiny = run("f32_tuning_vs_cpu", phase_f32_tuning_vs_cpu)
     f32_tuning = run("f32_tuning", phase_f32_tuning, smi)
     torch.cuda.empty_cache()
-    pretraining, first_step, data = run("pretraining", phase_pretraining,
-                                        smi)
+    pretraining, pretraining_ref, data = run("pretraining",
+                                             phase_pretraining, smi)
     torch.cuda.empty_cache()
     routes_pretraining = run("routes_pretraining", phase_routes_pretraining,
-                             smi, first_step, data)
+                             smi, pretraining_ref["first_step"], data)
     f32_pretraining = run("f32_pretraining", phase_f32_pretraining, smi,
                           data)
+    torch.cuda.empty_cache()
+    extras, adam8bit = run("training_extras", phase_training_extras, smi,
+                           tuning_ref, pretraining_ref, data)
     torch.cuda.empty_cache()
     parallel = run("parallel", phase_parallel, smi, data.name)
     data.cleanup()
@@ -5179,12 +5783,14 @@ def main():
              "f32_tuning_vs_cpu": f32_tuning_tiny, "f32_tuning": f32_tuning,
              "pretraining": pretraining,
              "routes_pretraining": routes_pretraining,
-             "f32_pretraining": f32_pretraining, "parallel": parallel}
+             "f32_pretraining": f32_pretraining,
+             "training_extras": extras, "parallel": parallel}
 
     kernels = kernels_line(cases, paths,
-                           unclip_files["flash_per_call"])
+                           unclip_files["flash_per_call"], adam8bit)
     print(json.dumps({"phase_seconds": timings,
-                      "profiler_empty": PROFILER_EMPTY}))
+                      "profiler_empty": PROFILER_EMPTY,
+                      "trace_device_kernels": TRACE_DEVICE_KERNELS}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

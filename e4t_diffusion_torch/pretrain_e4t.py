@@ -20,6 +20,11 @@ the newest, the learning-rate schedule at its update count). At update 1
 and every ``--log_steps`` it renders ``--n_save_sample`` inputs with each
 ``--save_sample_prompt`` through DDIM on the current weights (0 renders
 nothing). SIGTERM saves the train state at the next update and exits.
+``--use_8bit_adam`` keeps AdamW's moments in block-quantized int8
+(``training/optim8bit.py``, one kernel launch an update on the card; the
+checkpoints carry its codes and scales); ``--profile_steps N`` writes a
+``torch.profiler`` trace of updates [10, 10+N) on the main rank into
+``--profile_dir`` (by default ``<output_dir>/profile``).
 
 Several cards: ``torchrun --nproc_per_node N -m
 e4t_diffusion_torch.pretrain_e4t ...`` runs one process a card (NCCL).
@@ -36,6 +41,7 @@ tracker logs.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from typing import Dict, Iterable, List, Optional, Sequence
@@ -62,7 +68,7 @@ from e4t_diffusion_torch.training.train_step import (
 from e4t_diffusion_torch.tuning_e4t import resolve_train_dtype
 from e4t_diffusion_torch.utils import artifacts, convert
 from e4t_diffusion_torch.utils.image import image_grid, to_pil
-from e4t_diffusion_torch.utils.profiling import StepTimer
+from e4t_diffusion_torch.utils.profiling import StepTimer, trace
 from e4t_diffusion_torch.utils.runtime import GracefulShutdown
 from e4t_diffusion_torch.utils.trackers import NullTracker, make_tracker
 
@@ -145,10 +151,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="compute dtype: 'no' is f32 (on the GPU "
                              "through the f32 attention kernels); fp16 and "
                              "bf16 both mean bf16")
+    parser.add_argument("--use_8bit_adam", action="store_true",
+                        help="AdamW with block-quantized int8 moments "
+                             "(2.03 bytes a parameter for both, against 8)")
     parser.add_argument("--lr_scheduler", type=str, default="constant")
     parser.add_argument("--lr_warmup_steps", type=int, default=0)
     parser.add_argument("--local_rank", type=int, default=-1,
                         help="accepted and ignored")
+    parser.add_argument("--profile_steps", type=int, default=0,
+                        help="write a torch.profiler trace of updates "
+                             "[10, 10+N) on the main rank (0: none)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="trace output dir (default <output>/profile)")
     parser.add_argument("--vit_config", type=str, default=None,
                         choices=[None, "tiny"],
                         help="test geometry of the vision tower")
@@ -205,7 +219,7 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
     batch), "sampled" (the updates that wrote a sample grid under
     ``samples/``), "last_samples" (the last grid's float images, or None:
     only the last is held, the grids are on disk), "saved" (artifact
-    dirs)}. ``mesh``: the (dp, tp) grid of a torchrun launch (its UNet split
+    dirs), "profile_dir" (where a trace was written, else None)}. ``mesh``: the (dp, tp) grid of a torchrun launch (its UNet split
     over tp beforehand); ``loader`` then yields this dp rank's batches."""
     device = modules.unet.conv_in.weight.device
     tracker = tracker or NullTracker()
@@ -233,7 +247,7 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
                                 args.lr_warmup_steps * gas,
                                 args.max_train_steps * gas)
     optimizer = make_optimizer(
-        params, schedule(0),
+        params, schedule(0), use_8bit=args.use_8bit_adam,
         zero1_group=mesh.dp_group if args.zero1 and mesh.distributed
         else None)
     if args.zero1:
@@ -335,6 +349,11 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
     history, seconds, waits = [], [], []
     shutdown = GracefulShutdown()
     batches = iter(device_prefetch(loader, place, depth=2, device=device))
+    # the profile window: updates [10, 10 + profile_steps), main rank
+    profile_dir = args.profile_dir or os.path.join(args.output_dir,
+                                                   "profile")
+    window = contextlib.ExitStack()
+    traced = None
     try:
         while global_step < args.max_train_steps:
             t0 = time.perf_counter()
@@ -349,6 +368,14 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
             if step_fn.counts["calls"] % gas:
                 continue
             global_step += 1
+            if args.profile_steps and is_main:
+                # the step is synchronised: the window holds whole updates
+                if global_step == 10 and traced is None:
+                    window.enter_context(trace(profile_dir))
+                    traced = profile_dir
+                elif traced and global_step == 10 + args.profile_steps:
+                    window.close()
+                    print(f"[profiler] trace written to {profile_dir}")
             timer.step()
             metrics["lr"] = optimizer.param_groups[0]["lr"]
             history.append(metrics)
@@ -378,6 +405,7 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
     except KeyboardInterrupt:
         print("Summoning checkpoint...")
     finally:
+        window.close()  # a window past the loop's end closes with it
         shutdown.restore()
         batches.close()
     if timer.metrics():
@@ -390,7 +418,8 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
             "global_step": global_step, "resumed_from": resumed_from,
             "metrics": history, "step_seconds": seconds,
             "wait_seconds": waits, "sampled": sampled,
-            "last_samples": last_samples, "saved": saved}
+            "last_samples": last_samples, "saved": saved,
+            "profile_dir": traced}
 
 
 def load_e4t_start(args: argparse.Namespace, modules: E4TModules,

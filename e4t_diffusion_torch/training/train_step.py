@@ -17,11 +17,20 @@ weights and moments. The frozen modules are cast to the compute dtype once
 inside the differentiated region, so phase 2 trains both factors.
 
 Memory: each UNet call is rematerialised (``torch.utils.checkpoint``,
-non-reentrant), the counterpart of ``jax.checkpoint(...,
-nothing_saveable)``. The step runs all-flash (``flash_threshold(0)``, as the
+non-reentrant) under ``remat_policy``: "nothing", the counterpart of
+``jax.checkpoint(..., nothing_saveable)``, recomputes the whole call in the
+backward; "dots", the counterpart of ``dots_saveable``, keeps the outputs of
+the matrix products and convolutions (``aten.mm``, ``addmm``, ``bmm``,
+``baddbmm``, ``convolution``; selective checkpointing) and recomputes the
+rest, the flash kernels' forward among it (the JAX package recomputes its
+Pallas calls too). The step runs all-flash (``flash_threshold(0)``, as the
 JAX step traces): flash keeps no score tensor for the backward. The
 threshold in force is re-entered inside the rematerialised call, because
 its recomputation runs during the backward, outside the step's context.
+
+Optimizer: AdamW in f32, or with ``use_8bit`` the block-quantized 8-bit
+AdamW of ``training/optim8bit.py`` (the kernel of ``csrc/adam8bit.cu`` on
+the card), also as ZeRO-1's inner optimizer.
 
 Several ranks (``parallel/mesh.py``): each rank runs the step on its own
 batch (``train_batch_size`` is per rank); on update calls the gradients are
@@ -35,12 +44,14 @@ once. One path clips every grid, the one-process mesh's included.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from e4t_diffusion_torch.diffusion.pipeline import E4TModules
 from e4t_diffusion_torch.diffusion.schedulers import DDPMScheduler
@@ -52,6 +63,7 @@ from e4t_diffusion_torch.ops.attention import (batch_shards,
                                                flash_threshold,
                                                flash_threshold_bytes)
 from e4t_diffusion_torch.parallel.mesh import Mesh
+from e4t_diffusion_torch.training.optim8bit import AdamW8bit
 
 ParamGroups = Dict[str, Dict[str, torch.Tensor]]
 TOKEN_TABLE = "text_model.embeddings.token_embedding.weight"
@@ -59,6 +71,31 @@ _CLIP_VISION = "clip_vision."
 # batch entries with one row per sample, split across micro-batches
 _PER_SAMPLE = ("latents", "pixel_values", "input_ids", "placeholder_idx",
                "noise", "timesteps", "posterior_noise")
+REMAT_POLICIES = ("nothing", "dots")
+# the ops whose outputs "dots" keeps: jax.checkpoint_policies.dots_saveable
+# keeps dot_general and conv_general_dilated
+_aten = torch.ops.aten
+DOT_OPS = frozenset((_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+                     _aten.baddbmm.default, _aten.convolution.default))
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable, *args, policy: str = "nothing"):
+    """``fn(*args)`` rematerialised in the backward under ``policy``
+    (``REMAT_POLICIES``): "nothing" keeps only the inputs, "dots" also the
+    outputs of the matrix products and convolutions."""
+    if policy == "nothing":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_saveable))
+    raise ValueError(f"remat_policy {policy!r}: one of {REMAT_POLICIES}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +113,8 @@ class E4TTrainConfig:
     # >1: split the step's batch into this many sequential chunks, one
     # backward each, gradients averaged (the activation peak is one chunk)
     micro_batches: int = 1
+    # what the UNet calls keep for the backward (REMAT_POLICIES)
+    remat_policy: str = "nothing"
 
 
 def split_trainable(modules: E4TModules, offsets: Dict[str, torch.Tensor],
@@ -87,7 +126,8 @@ def split_trainable(modules: E4TModules, offsets: Dict[str, torch.Tensor],
     so; the encoder's ViT tower only with ``train_clip_vision``.
 
     Trainable tensors are f32 and require grad: the modules' own
-    parameters, and f32 copies of the bank's tensors. Frozen modules (and
+    parameters, and f32 contiguous copies of the bank's tensors (the 8-bit
+    AdamW kernel takes contiguous tensors). Frozen modules (and
     a frozen ViT tower) are cast to ``dtype``, the compute dtype, and
     require no grad."""
     for m in modules.all():
@@ -96,7 +136,8 @@ def split_trainable(modules: E4TModules, offsets: Dict[str, torch.Tensor],
               "text": (modules.text_encoder, cfg.train_text_encoder),
               "vae": (modules.vae, False)}
     trainable: ParamGroups = {"offsets": {
-        k: v.detach().to(torch.float32).clone().requires_grad_(True)
+        k: v.detach().to(torch.float32).clone(
+            memory_format=torch.contiguous_format).requires_grad_(True)
         for k, v in offsets.items()}}
     frozen: ParamGroups = {}
     for name, (module, train) in groups.items():
@@ -206,7 +247,7 @@ def e4t_loss_fn(modules: E4TModules, ddpm: DDPMScheduler,
                                    {"return_encoder_outputs": tap})
 
     def unet_apply(x, t, context, tap):
-        return checkpoint(unet_call, x, t, context, tap, use_reentrant=False)
+        return remat(unet_call, x, t, context, tap, policy=cfg.remat_policy)
 
     tap = unet_apply(noisy, timesteps, uncond_states, True)
     domain_embed = functional_call(
@@ -236,21 +277,25 @@ def make_optimizer(params: List[torch.Tensor], learning_rate: float,
                    zero1_group=None) -> torch.optim.Optimizer:
     """AdamW at torch's defaults (the reference's optimizer) over every
     trainable; ``make_train_step`` clips the global gradient norm first
-    when ``max_grad_norm`` is set. ``zero1_group`` (a dp process group):
-    ZeRO-1, each rank keeping the AdamW state of its share of the tensors
-    and broadcasting them after its update (``ZeroRedundancyOptimizer``);
+    when ``max_grad_norm`` is set. ``use_8bit``: the 8-bit AdamW
+    (``optim8bit.AdamW8bit``, the same hyper-parameters; the train step
+    sets its ``step_bf16`` from ``E4TTrainConfig.grads_bf16``).
+    ``zero1_group`` (a dp
+    process group): ZeRO-1, each rank keeping the optimizer state of its
+    share of the tensors and broadcasting them after its update
+    (``ZeroRedundancyOptimizer``);
     ``parallel/mesh.consolidated_state_dict`` gives the unsharded layout."""
-    if use_8bit:
-        raise NotImplementedError(
-            "8-bit AdamW (training/optim8bit.py) is not ported yet")
     kwargs = dict(lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
                   weight_decay=weight_decay)
+    cls = torch.optim.AdamW
+    if use_8bit:
+        cls = AdamW8bit
     if zero1_group is not None:
         from torch.distributed.optim import ZeroRedundancyOptimizer
 
-        return ZeroRedundancyOptimizer(params, torch.optim.AdamW,
+        return ZeroRedundancyOptimizer(params, cls,
                                        process_group=zero1_group, **kwargs)
-    return torch.optim.AdamW(params, **kwargs)
+    return cls(params, **kwargs)
 
 
 def make_train_step(modules: E4TModules, ddpm: DDPMScheduler,
@@ -322,6 +367,9 @@ def make_train_step(modules: E4TModules, ddpm: DDPMScheduler,
         metrics["grad_norm"] = norm
         for group in optimizer.param_groups:
             group["lr"] = schedule(counts["updates"])
+            if "step_bf16" in group:
+                # the 8-bit step in the gradients' dtype, as JAX's takes it
+                group["step_bf16"] = cfg.grads_bf16
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         counts["updates"] += 1

@@ -15,6 +15,15 @@ outside the loop (the latent posterior is drawn a single time); each step
 draws fresh noise, timesteps (from a ``torch.Generator`` seeded with
 ``--seed``) and templates.
 
+Options of the JAX CLI's training extras: ``--use_8bit_adam`` (AdamW with
+block-quantized int8 moments, ``training/optim8bit.py``, one kernel launch
+an update on the card), ``--remat_policy dots`` (the UNet calls keep their
+matrix products' and convolutions' outputs for the backward),
+``--profile_steps N`` (a ``torch.profiler`` trace of steps [2, 2+N) into
+``--profile_dir``, by default ``<output_dir>/profile``) and ``--report_to``
+(the losses and learning rate each update to TensorBoard or wandb under
+``<output_dir>/<logging_dir>``; none by default).
+
 Several cards: ``torchrun --nproc_per_node N -m
 e4t_diffusion_torch.tuning_e4t ... [--tensor_parallel T]`` runs one process
 a card. ``--train_batch_size`` is per dp rank (N / T ranks), each drawing
@@ -26,6 +35,8 @@ the artifacts, the UNet gathered to its unsplit layout.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -44,9 +55,11 @@ from e4t_diffusion_torch.training.setup import (
     TemplateSampler, build_modules, make_lr_schedule, prepare_tokenizer,
     resolve_class_token, scale_learning_rate)
 from e4t_diffusion_torch.training.train_step import (
-    E4TTrainConfig, encode_latents, make_optimizer, make_train_step,
-    split_trainable)
+    REMAT_POLICIES, E4TTrainConfig, encode_latents, make_optimizer,
+    make_train_step, split_trainable)
 from e4t_diffusion_torch.utils import artifacts
+from e4t_diffusion_torch.utils.profiling import trace
+from e4t_diffusion_torch.utils.trackers import make_tracker
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -84,24 +97,39 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="accepted and ignored; flash attention is "
                              "always used")
     parser.add_argument("--train_text_encoder", action="store_true")
+    parser.add_argument("--profile_steps", type=int, default=0,
+                        help="write a torch.profiler trace of steps "
+                             "[2, 2+N) (0: none)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="trace output dir (default <output>/profile)")
     parser.add_argument("--remat_policy", type=str, default="nothing",
-                        choices=["nothing"],
+                        choices=list(REMAT_POLICIES),
                         help="UNet rematerialisation: 'nothing' recomputes "
-                             "the whole UNet call in the backward")
+                             "the whole UNet call in the backward (least "
+                             "memory); 'dots' keeps the matrix products' "
+                             "and convolutions' outputs (less recompute, "
+                             "more activation memory)")
     parser.add_argument("--grads_bf16", action="store_true",
                         help="round gradients to bf16 before the update, "
                              "as the JAX package does; here they stay f32 "
                              "tensors, so it saves no memory")
+    parser.add_argument("--report_to", type=str, default=None,
+                        choices=["tensorboard", "wandb"],
+                        help="log the losses and learning rate each update "
+                             "(none by default)")
     parser.add_argument("--revision", type=str, default=None,
                         help="accepted and ignored")
     parser.add_argument("--output_dir", type=str, default="e4t-model")
     parser.add_argument("--logging_dir", type=str, default="logs",
-                        help="accepted and ignored (no tracker yet)")
+                        help="the tracker's directory, under --output_dir")
     parser.add_argument("--mixed_precision", type=str, default="no",
                         choices=["no", "fp16", "bf16"],
                         help="compute dtype: 'no' is f32 (on the GPU "
                              "through the f32 attention kernels); fp16 and "
                              "bf16 both mean bf16")
+    parser.add_argument("--use_8bit_adam", action="store_true",
+                        help="AdamW with block-quantized int8 moments "
+                             "(2.03 bytes a parameter for both, against 8)")
     parser.add_argument("--lr_scheduler", type=str, default="constant")
     parser.add_argument("--lr_warmup_steps", type=int, default=0)
     parser.add_argument("--local_rank", type=int, default=-1,
@@ -134,10 +162,14 @@ def tune(args: argparse.Namespace, modules: E4TModules,
     """Phase-2 tuning on one image (HWC uint8), from loaded modules (f32)
     and the offset bank: the function ``main`` calls after loading.
     ``save(global_step, trainable, domain_image)`` runs every
-    ``checkpointing_steps`` updates. Returns {"trainable", "domain_image",
-    "global_step", "metrics" (per call, floats), "step_seconds" (per call,
-    synchronised wall time)}. ``mesh``: the (dp, tp) grid of a torchrun
-    launch, the UNet split over tp beforehand."""
+    ``checkpointing_steps`` updates. Returns {"trainable", "optimizer",
+    "domain_image", "global_step", "metrics" (per call, floats),
+    "step_seconds" (per call, synchronised wall time), "profile_dir" (where
+    a trace was written, else None)}. ``mesh``: the (dp, tp) grid of a
+    torchrun launch, the UNet split over tp beforehand. The tracker of
+    ``--report_to`` (``utils/trackers``, on the main rank) logs each
+    update's losses and learning rate under
+    ``<output_dir>/<logging_dir>``."""
     device = modules.unet.conv_in.weight.device
     mesh = mesh or pmesh.Mesh()
     gas = args.gradient_accumulation_steps
@@ -157,6 +189,7 @@ def tune(args: argparse.Namespace, modules: E4TModules,
         max_grad_norm=args.max_grad_norm,
         grads_bf16=args.grads_bf16,
         micro_batches=args.micro_batches,
+        remat_policy=args.remat_policy,
     )
     trainable, _ = split_trainable(modules, offsets, cfg, dtype)
     params = [t for group in trainable.values() for t in group.values()]
@@ -165,7 +198,11 @@ def tune(args: argparse.Namespace, modules: E4TModules,
     schedule = make_lr_schedule(args.lr_scheduler, scale_learning_rate(args),
                                 args.lr_warmup_steps * gas,
                                 args.max_train_steps * gas)
-    optimizer = make_optimizer(params, schedule(0))
+    optimizer = make_optimizer(params, schedule(0),
+                               use_8bit=args.use_8bit_adam)
+    tracker = make_tracker(args.report_to,
+                           os.path.join(args.output_dir, args.logging_dir),
+                           config=vars(args), is_main=mesh.is_main)
     step_fn = make_train_step(modules, DDPMScheduler(schedule_config), cfg,
                               trainable, optimizer, schedule,
                               accumulate_steps=gas, mesh=mesh)
@@ -188,30 +225,61 @@ def tune(args: argparse.Namespace, modules: E4TModules,
     print(f"  Gradient Accumulation steps = {gas}")
     print(f"  Total optimization steps = {args.max_train_steps}")
     history, seconds, global_step = [], [], 0
-    for step in range(args.max_train_steps * gas):
-        input_ids, ph_idx = sampler.sample(args.train_batch_size)
-        batch = dict(static,
-                     input_ids=torch.as_tensor(input_ids, device=device),
-                     placeholder_idx=torch.as_tensor(ph_idx, device=device))
-        t0 = time.perf_counter()
-        metrics = step_fn(batch, generator)
-        metrics = {k: float(v) for k, v in metrics.items()}
+    # the profile window: calls [2, 2 + profile_steps), after the warm-up
+    profile_dir = args.profile_dir or os.path.join(args.output_dir,
+                                                   "profile")
+    window = contextlib.ExitStack()
+    traced = None
+
+    def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        seconds.append(time.perf_counter() - t0)
-        history.append(metrics)
-        if (step + 1) % gas == 0:
-            global_step += 1
-            if mesh.is_main:
-                print(f"step {global_step}: " + ", ".join(
-                    f"{k} {v:.6g}" for k, v in metrics.items())
-                    + f", lr {schedule(global_step - 1):.3g}, "
-                    f"{seconds[-1]:.3f} s")
-            if save is not None and global_step % args.checkpointing_steps == 0:
-                save(global_step, trainable, domain_image)
-    return {"trainable": trainable, "domain_image": domain_image,
-            "global_step": global_step, "metrics": history,
-            "step_seconds": seconds}
+
+    with window:
+        for step in range(args.max_train_steps * gas):
+            if args.profile_steps and step == 2:
+                sync()
+                window.enter_context(trace(profile_dir))
+                traced = profile_dir
+            elif args.profile_steps and step == 2 + args.profile_steps:
+                sync()
+                window.close()
+                print(f"[profiler] trace written to {profile_dir}")
+            input_ids, ph_idx = sampler.sample(args.train_batch_size)
+            batch = dict(static,
+                         input_ids=torch.as_tensor(input_ids, device=device),
+                         placeholder_idx=torch.as_tensor(ph_idx,
+                                                         device=device))
+            t0 = time.perf_counter()
+            metrics = step_fn(batch, generator)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            sync()
+            seconds.append(time.perf_counter() - t0)
+            history.append(metrics)
+            if (step + 1) % gas == 0:
+                global_step += 1
+                lr = schedule(global_step - 1)
+                if mesh.is_main:
+                    print(f"step {global_step}: " + ", ".join(
+                        f"{k} {v:.6g}" for k, v in metrics.items())
+                        + f", lr {lr:.3g}, {seconds[-1]:.3f} s")
+                tracker.log({"loss": metrics["loss"],
+                             "loss_diff": metrics["loss_diff"],
+                             "loss_reg": metrics["loss_reg"], "lr": lr},
+                            global_step)
+                if (save is not None
+                        and global_step % args.checkpointing_steps == 0):
+                    save(global_step, trainable, domain_image)
+        if traced and 2 + args.profile_steps > args.max_train_steps * gas:
+            sync()  # the window reached past the loop's end
+            window.close()
+            print(f"[profiler] trace written to {profile_dir} (window "
+                  f"clamped to the loop's end)")
+    tracker.finish()
+    return {"trainable": trainable, "optimizer": optimizer,
+            "domain_image": domain_image, "global_step": global_step,
+            "metrics": history, "step_seconds": seconds,
+            "profile_dir": traced}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -1,14 +1,41 @@
-"""Step timing for the training loop.
+"""Profiler traces and step timing for the training loops.
 
-The ``StepTimer`` of ``e4t_diffusion_tpu/utils/profiling.py``: wall time
-between the loop's step boundaries, after a few warm-up steps, as steps/s
-and samples/s. The caller marks a boundary once a step's results are on
-the host (a synchronised point), so the times cover the device's work.
+Counterpart of ``e4t_diffusion_tpu/utils/profiling.py``:
+
+- ``trace(logdir)``: ``torch.profiler`` over the block (host ops, and the
+  card's kernels where CUDA is available), written into ``logdir`` as a
+  Chrome / TensorBoard trace (``<host>_<pid>.<ns>.pt.trace.json``); the
+  CLIs' ``--profile_steps N --profile_dir DIR``;
+- ``StepTimer``: wall time between the loop's step boundaries, after a few
+  warm-up steps, as steps/s and samples/s. The caller marks a boundary
+  once a step's results are on the host (a synchronised point), so the
+  times cover the device's work.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator[torch.profiler.profile]:
+    """Profile the block and write its trace into ``logdir`` (made if
+    missing) when it ends; yields the profiler. The caller synchronises
+    the card at both ends, so the window holds whole steps."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+        yield prof
 
 
 class StepTimer:

@@ -1008,3 +1008,83 @@ def test_cuda_f32_yardsticks_refuse_bf16_and_count_no_launch():
     torch.cuda.synchronize()
     assert counts == (fl.flash_fwd.launches, fb.flash_bwd.launches,
                       shortseq.flash_fwd_shortseq.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step_bf16", [False, True])
+def test_cuda_adam8bit_matches_the_plain_update(step_bf16):
+    """The 8-bit AdamW kernel against its plain version over two updates of
+    one parameter group: a tensor of one element, a ragged tail, one of
+    more than 4096 blocks and one of exact blocks; codes, scales and
+    parameters bit for bit, one launch an update."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from e4t_diffusion_torch.ops import adam8bit
+    from e4t_diffusion_torch.training import optim8bit as o8
+
+    g = torch.Generator("cuda").manual_seed(3)
+    shapes = [(1,), (1000, 3), (4096 * 256 + 300,), (512, 512)]
+    params = [torch.randn(s, device="cuda", generator=g) for s in shapes]
+    plain = [p.clone() for p in params]
+    states = [o8.init_state(p) for p in params]
+    plain_states = [o8.init_state(p) for p in plain]
+    for count in (1, 2):
+        grads = [1e-2 * torch.randn(s, device="cuda", generator=g)
+                 for s in shapes]
+        h = o8.Adam8bitHyper(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                             weight_decay=1e-2,
+                             b1c=o8.bias_correction(0.9, count),
+                             b2c=o8.bias_correction(0.999, count),
+                             step_bf16=step_bf16)
+        before = adam8bit.adam8bit_update.launches
+        adam8bit.adam8bit_update(params, grads, states, h)
+        assert adam8bit.adam8bit_update.launches == before + 1
+        for p, gr, st in zip(plain, grads, plain_states):
+            o8.adam8bit_reference(p, gr, st, h)
+        torch.cuda.synchronize()
+    for p, q, st, sq in zip(params, plain, states, plain_states):
+        assert torch.equal(p, q)
+        for k in o8.STATE_KEYS:
+            assert torch.equal(st[k], sq[k]), k
+    with pytest.raises(TypeError, match="float32"):
+        adam8bit.adam8bit_update([params[0].bfloat16()], [grads[0]],
+                                 [states[0]], h)
+
+
+@pytest.mark.cuda
+def test_cuda_adam8bit_keeps_its_table_while_the_tensors_stay():
+    """The wrapper builds its pointer table once for unchanged tensors and
+    anew (checking them) when a gradient moves; each update still equals
+    the plain version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from e4t_diffusion_torch.ops import adam8bit
+    from e4t_diffusion_torch.training import optim8bit as o8
+
+    g = torch.Generator("cuda").manual_seed(4)
+    shapes = [(1000, 3), (300,)]
+    params = [torch.randn(s, device="cuda", generator=g) for s in shapes]
+    grads = [1e-2 * torch.randn(s, device="cuda", generator=g)
+             for s in shapes]
+    plain = [p.clone() for p in params]
+    states = [o8.init_state(p) for p in params]
+    plain_states = [o8.init_state(p) for p in plain]
+    built = []
+    for count in (1, 2, 3):
+        if count == 3:  # a gradient at another address
+            grads[1] = grads[1].clone()
+        h = o8.Adam8bitHyper(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                             weight_decay=1e-2,
+                             b1c=o8.bias_correction(0.9, count),
+                             b2c=o8.bias_correction(0.999, count))
+        before = adam8bit.adam8bit_update.tables
+        adam8bit.adam8bit_update(params, grads, states, h)
+        built.append(adam8bit.adam8bit_update.tables - before)
+        for p, gr, st in zip(plain, grads, plain_states):
+            o8.adam8bit_reference(p, gr, st, h)
+    torch.cuda.synchronize()
+    assert built == [1, 0, 1]
+    for p, q, st, sq in zip(params, plain, states, plain_states):
+        assert torch.equal(p, q)
+        for k in o8.STATE_KEYS:
+            assert torch.equal(st[k], sq[k]), k

@@ -231,6 +231,55 @@ def test_inference_cli_fp32_resolves_to_f32_on_gpu(artifact_dir,
     assert not (root / "never.png").exists()
 
 
+@pytest.mark.parametrize("profile_dir", [None, "traces"])
+def test_tuning_cli_profiles_steps_2_to_3_with_the_extras(
+        artifact_dir, tmp_path, profile_dir):
+    """Three tiny tuning updates on the CPU with ``--profile_steps 1``
+    (8-bit AdamW, ``dots``, the TensorBoard tracker): a trace of the third
+    call is written into ``--profile_dir``, by default
+    ``<output_dir>/profile``, and holds the step's host ops."""
+    import json
+
+    from e4t_diffusion_torch import tuning_e4t
+
+    root, src = artifact_dir
+    out = tmp_path / "out"
+    extra = ["--profile_dir", str(tmp_path / profile_dir)] if profile_dir \
+        else []
+    calls = []
+    real = tuning_e4t.make_train_step
+
+    def counting(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def wrapped(batch, generator=None):
+            calls.append(torch.autograd.profiler._is_profiler_enabled)
+            return step(batch, generator)
+
+        return wrapped
+
+    tuning_e4t.make_train_step = counting
+    try:
+        tuning_e4t.main([
+            "--pretrained_model_name_or_path", src,
+            "--train_image_path", str(root / "in.png"),
+            "--prompt_template", "a photo of {placeholder_token}",
+            "--resolution", "32", "--train_batch_size", "1",
+            "--max_train_steps", "3", "--output_dir", str(out),
+            "--device", "cpu", "--profile_steps", "1", "--use_8bit_adam",
+            "--remat_policy", "dots", "--report_to", "tensorboard", *extra])
+    finally:
+        tuning_e4t.make_train_step = real
+    assert calls == [False, False, True]
+    where = tmp_path / profile_dir if profile_dir else out / "profile"
+    traces = list(where.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    names = {e.get("name") for e in json.loads(traces[0].read_text())[
+        "traceEvents"]}
+    assert {"aten::mm", "aten::convolution"} <= names
+    assert (out / "3" / "unet.pt").exists()
+
+
 def test_tuned_artifact_loads_strictly(artifact_dir):
     """A tuning artifact (unet.pt with the offsets embedded, plus
     text_encoder.pt) written by the JAX package loads into the port."""
@@ -355,8 +404,8 @@ def test_tuning_cli_no_resolves_to_f32_on_gpu(artifact_dir, tmp_path,
                                               monkeypatch):
     """--mixed_precision no (the default) is f32 on a CUDA device too, and
     the CLI passes it through to ``tune``; fp16 and bf16 are bf16. The
-    flags of later slices are unknown to argparse; the reference's ignored
-    flags parse."""
+    training extras parse to the JAX CLI's defaults and choices; the
+    reference's ignored flags parse."""
     from e4t_diffusion_torch import tuning_e4t
 
     cuda = torch.device("cuda")
@@ -387,10 +436,19 @@ def test_tuning_cli_no_resolves_to_f32_on_gpu(artifact_dir, tmp_path,
     assert not (tmp_path / "out").exists()
     required = ["--pretrained_model_name_or_path", str(tmp_path / "missing"),
                 "--train_image_path", str(tmp_path / "in.png")]
-    for later in (["--use_8bit_adam"], ["--profile_steps", "2"],
-                  ["--report_to", "tensorboard"], ["--remat_policy", "dots"]):
+    args = tuning_e4t.parse_args(required)
+    assert (args.use_8bit_adam, args.profile_steps, args.profile_dir,
+            args.report_to, args.remat_policy, args.logging_dir) == (
+        False, 0, None, None, "nothing", "logs")
+    args = tuning_e4t.parse_args(required + [
+        "--use_8bit_adam", "--profile_steps", "2", "--profile_dir", "p",
+        "--report_to", "tensorboard", "--remat_policy", "dots"])
+    assert (args.use_8bit_adam, args.profile_steps, args.profile_dir,
+            args.report_to, args.remat_policy) == (
+        True, 2, "p", "tensorboard", "dots")
+    for bad in (["--remat_policy", "everything"], ["--report_to", "csv"]):
         with pytest.raises(SystemExit):
-            tuning_e4t.parse_args(required + later)
+            tuning_e4t.parse_args(required + bad)
     # --tensor_parallel is taken and reaches the mesh, which needs a
     # torchrun launch of two processes for tp=2
     assert tuning_e4t.parse_args(

@@ -618,10 +618,17 @@ def test_cli_needs_a_gpu_unless_asked_for_cpu(base_dir, tmp_path):
 def test_cli_refuses_unported_flags_and_checks_the_class_token(base_dir,
                                                                tmp_path):
     argv = _pretrain_argv(base_dir, tmp_path / "out", "--device", "cpu")
-    for later in (["--use_8bit_adam"], ["--profile_steps", "2"],
-                  ["--profile_dir", "x"]):
-        with pytest.raises(SystemExit):
-            pretrain_e4t.parse_args(argv + later)
+    # the training extras parse to the JAX CLI's defaults
+    args = pretrain_e4t.parse_args(argv)
+    assert (args.use_8bit_adam, args.profile_steps, args.profile_dir) == (
+        False, 0, None)
+    args = pretrain_e4t.parse_args(argv + ["--use_8bit_adam",
+                                           "--profile_steps", "2",
+                                           "--profile_dir", "x"])
+    assert (args.use_8bit_adam, args.profile_steps, args.profile_dir) == (
+        True, 2, "x")
+    with pytest.raises(SystemExit):
+        pretrain_e4t.parse_args(argv + ["--profile_steps", "two"])
     # the multi-card flags are taken and reach the mesh: tp=2 needs a
     # torchrun launch of two processes
     args = pretrain_e4t.parse_args(argv + ["--zero1", "--tensor_parallel",
@@ -641,6 +648,52 @@ def test_cli_refuses_unported_flags_and_checks_the_class_token(base_dir,
     two_tokens[two_tokens.index("face")] = "monet style"
     with pytest.raises(ValueError, match="single token"):
         pretrain_e4t.main(two_tokens)
+
+
+def test_cli_8bit_profile_window_and_checkpoint(base_dir, tmp_path):
+    """Eleven tiny updates with ``--use_8bit_adam --profile_steps 1``: the
+    trace of update 11 (the window [10, 11)) is written into
+    ``<output_dir>/profile``; checkpoint-10 holds the 8-bit state (int8
+    codes, f32 scales) of update 10, and restores into a fresh optimizer
+    bit for bit."""
+    import json
+
+    from e4t_diffusion_torch.training.optim8bit import AdamW8bit
+
+    out = tmp_path / "p8"
+    result = pretrain_e4t.main(_pretrain_argv(
+        base_dir, out, "--max_train_steps", "11", "--checkpointing_steps",
+        "10", "--n_save_sample", "0", "--use_8bit_adam", "--profile_steps",
+        "1", "--device", "cpu"))
+    assert result["global_step"] == 11
+    assert result["profile_dir"] == str(out / "profile")
+    traces = list((out / "profile").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    names = {e.get("name") for e in json.loads(traces[0].read_text())[
+        "traceEvents"]}
+    assert {"aten::mm", "aten::convolution"} <= names
+    opt = result["optimizer"]
+    assert isinstance(opt, AdamW8bit)
+    payload = torch.load(out / "checkpoint-10" / "train_state.pt",
+                         weights_only=True)
+    saved = payload["optimizer"]["state"]
+    assert {st["step"] for st in saved.values()} == {10}
+    for st in saved.values():
+        assert st["mu_q"].dtype == st["nu_q"].dtype == torch.int8
+        assert st["mu_scale"].dtype == torch.float32
+    trainable = {g: {k: torch.zeros_like(t) for k, t in grp.items()}
+                 for g, grp in result["trainable"].items()}
+    fresh = ts.make_optimizer([t for g in trainable.values()
+                               for t in g.values()], 1e-3, use_8bit=True)
+    artifacts.restore_train_state(str(out / "checkpoint-10"), trainable,
+                                  fresh, torch.Generator())
+    restored = fresh.state_dict()["state"]
+    assert set(restored) == set(saved)
+    for i, st in saved.items():
+        for k, v in st.items():
+            got = restored[i][k]
+            assert (got == v) if k == "step" else (
+                got.dtype == v.dtype and torch.equal(got, v)), (i, k)
 
 
 def test_cli_sigterm_saves_a_checkpoint_that_restores(base_dir, tmp_path):

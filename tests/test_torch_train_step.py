@@ -19,6 +19,23 @@ second call (compiling MultiSteps itself would take longer than the step).
 Both are applied to the trees raveled into one vector: AdamW, its weight
 decay and the clip are elementwise but for the global norm, so the update
 is the same, and one vector traces in a fraction of the time a tree does.
+The 8-bit AdamW (``use_8bit``) quantizes each tensor in blocks of its own,
+in each framework's layout (a linear kernel is (in, out) in the JAX
+package and (out, in) in the port, so its blocks hold other elements). Its
+first update, from unquantized moments, is applied to one vector of the
+tensors each zero-padded to whole 256-element blocks, whose blocks are
+then each tensor's own (the JAX update pads each tensor so; padding has a
+zero gradient and parameter, and stays zero), and held at UPDATE_TOL; the
+second call's loss against the same compiled step's at those parameters.
+The port's two updates are held against the JAX package's 8-bit AdamW fed
+the gradients the port's step gave its optimizer, in the port's layout, at
+OPT8_TOL (rel-L2 2e-6 to 1.1e-4 measured: the jitted JAX update rounds
+a few codes elsewhere; 4e-6 at most, run op by op): the second update
+dequantizes the codes the first stored. Against the JAX step's own
+second update they differ by rel-L2 1.2-2.3e-2 per group, since the
+gradients' 1e-4 drift and the other layout's blocks move codes by a step
+(14% for a first moment), which f32 AdamW in the port's place also
+reaches (1.0-2.0e-2).
 
 Tolerances, f32 on the CPU: loss terms rel 1e-5 (one reduction of
 O(1) values); gradients rel-L2 1e-4 per group, as the conv stacks' forward
@@ -61,6 +78,7 @@ UPDATE_TOL = 1e-3
 BF16_GRAD_TOL = 4e-3
 BF16_NORM_TOL = 1e-2
 BF16_UPDATE_TOL = 5e-3
+OPT8_TOL = 5e-4
 
 
 def _batch(seed=0, bsz=2):
@@ -155,6 +173,37 @@ def _first_update(tx, grads, params, cast=jnp.float32):
     return float(norm), _unravel(np.asarray(after), spec)
 
 
+def _updates_8bit(tx, params, grads_at, updates=2, block=256):
+    """``params`` after ``updates`` of ``tx``, the i-th with the gradients
+    ``grads_at(i, the parameters then)``, on one vector of the tensors each
+    padded with zeros to whole blocks (``tx``'s state carried over)."""
+    leaves, treedef = jax.tree_util.tree_flatten(params)
+    sizes = [int(np.size(x)) for x in leaves]
+    ends = np.cumsum([n + -n % block for n in sizes])
+
+    def padded(tree):
+        return np.concatenate([
+            np.pad(np.asarray(x, np.float32).ravel(), (0, -n % block))
+            for x, n in zip(jax.tree_util.tree_leaves(tree), sizes)])
+
+    def unpadded(vec):
+        return jax.tree_util.tree_unflatten(treedef, [
+            vec[end - n - -n % block:end - -n % block].reshape(np.shape(x))
+            for x, n, end in zip(leaves, sizes, ends)])
+
+    @jax.jit
+    def run(g, p, state):
+        updates, state = tx.update(g, state, p)
+        return optax.apply_updates(p, updates), state
+
+    vec = padded(params)
+    state, tree = tx.init(vec), params
+    for i in range(updates):
+        vec, state = run(padded(grads_at(i, tree)), vec, state)
+        tree = unpadded(np.asarray(vec))
+    return tree
+
+
 @pytest.fixture(scope="module")
 def world():
     jm, params = jax_tiny(seed=7)
@@ -186,6 +235,16 @@ def world():
         jax_ts.make_optimizer(LR, jcfg),
         jax.tree_util.tree_map(lambda a, b: (np.asarray(a) + np.asarray(b))
                                / 2, raw, raw2), state.trainable)
+    # the 8-bit AdamW's first update (clip 1.0 first) with the first call's
+    # raw gradients, then the same compiled step at those parameters, step
+    # 1: the second call of an 8-bit run
+    after8 = _updates_8bit(jax_ts.make_optimizer(LR, jcfg, use_8bit=True),
+                           state.trainable, lambda i, tree: raw, updates=1)
+    _, metrics8 = step(
+        jax_ts.TrainState(jnp.ones((), jnp.int32),
+                          jax.tree_util.tree_map(jnp.asarray, after8),
+                          state.opt_state),
+        frozen, jax.tree_util.tree_map(jnp.asarray, batch), rng)
     n_text = jm.text_encoder.config.num_layers
     n_vit = jm.e4t_encoder.config.vit.num_layers
 
@@ -211,6 +270,9 @@ def world():
                     np.float32), raw)),
             "grad_norm": bf16_norm,
             "after": port_named(bf16_after)},
+        "after_8bit": port_named(after8),
+        "metrics_8bit_2": floats(metrics8),
+        "noise_2": _noise(rng, 1, batch["latents"].shape),
         "accum": {
             "batch": batch2,
             "noise": _noise(rng, 1, batch2["latents"].shape),
@@ -228,11 +290,11 @@ def _port(world, **overrides):
     return modules, cfg, trainable, frozen
 
 
-def _step_with_grads(modules, cfg, trainable, batch):
+def _step_with_grads(modules, cfg, trainable, batch, **optimizer_options):
     """One port step; returns (metrics, the gradients the optimizer
     applied, i.e. after clipping)."""
     params = [t for g in trainable.values() for t in g.values()]
-    optimizer = ts.make_optimizer(params, LR)
+    optimizer = ts.make_optimizer(params, LR, **optimizer_options)
     seen = {}
     optimizer.register_step_pre_hook(lambda *_: seen.update(
         {g: {k: t.grad.clone() for k, t in group.items()}
@@ -283,6 +345,63 @@ def _assert_params_match(trainable, before, want_after, tol=UPDATE_TOL):
         np.testing.assert_allclose(got, want, atol=1e-6 + 2 * LR)
         assert not np.array_equal(got, start), g
         assert rel_l2(got - start, want - start) <= tol, g
+
+
+def test_8bit_tuning_step_matches_jax(world):
+    """use_8bit, two calls on the same batch (the second's noise drawn at
+    step 1, as JAX's): each call's loss terms against the JAX step's at
+    its own 8-bit run's parameters; the first update against JAX's
+    (UPDATE_TOL); the two updates against the JAX package's 8-bit AdamW
+    fed the gradients the port's step handed its optimizer, in the port's
+    layout (OPT8_TOL: the second update dequantizes the codes the first
+    stored)."""
+    from e4t_diffusion_tpu.training.optim8bit import adamw_8bit
+
+    modules, cfg, trainable, _ = _port(world)
+    before = {g: {k: t.detach().clone() for k, t in group.items()}
+              for g, group in trainable.items()}
+    params = [t for g in trainable.values() for t in g.values()]
+    optimizer = ts.make_optimizer(params, LR, use_8bit=True)
+    seen = []
+    optimizer.register_step_pre_hook(lambda *_: seen.append(
+        {g: {k: t.grad.numpy().copy() for k, t in group.items()}
+         for g, group in trainable.items()}))
+    step = ts.make_train_step(modules, DDPMScheduler(), cfg, trainable,
+                              optimizer, lambda n: LR)
+    for i, (noise, want) in enumerate((
+            (world["noise"], world["metrics"]),
+            (world["noise_2"], world["metrics_8bit_2"]))):
+        metrics = step(_torch_batch(world["batch"], noise))
+        for k in ("loss", "loss_diff", "loss_reg", "grad_norm"):
+            assert float(metrics[k]) == pytest.approx(want[k],
+                                                      rel=LOSS_TOL), k
+        if i == 0:
+            _assert_params_match(trainable, before, world["after_8bit"])
+    assert all(st["step"] == 2 for st in optimizer.state.values())
+    start = {g: {k: t.numpy() for k, t in group.items()}
+             for g, group in before.items()}
+    want = _updates_8bit(adamw_8bit(LR), start, lambda i, tree: seen[i])
+    for g, group in trainable.items():
+        keys = sorted(group)
+        got = np.concatenate([group[k].detach().numpy().ravel()
+                              for k in keys])
+        ref = np.concatenate([want[g][k].ravel() for k in keys])
+        s0 = np.concatenate([start[g][k].ravel() for k in keys])
+        assert rel_l2(got - s0, ref - s0) <= OPT8_TOL, g
+
+
+def test_the_step_sets_the_8bit_step_rounding_from_grads_bf16(world):
+    """The train step hands the 8-bit AdamW its step_bf16 from
+    E4TTrainConfig.grads_bf16, the one place it is set."""
+    for grads_bf16 in (True, False):
+        modules, cfg, trainable, _ = _port(world, grads_bf16=grads_bf16)
+        params = [t for g in trainable.values() for t in g.values()]
+        optimizer = ts.make_optimizer(params, LR, use_8bit=True)
+        assert optimizer.param_groups[0]["step_bf16"] is False
+        step = ts.make_train_step(modules, DDPMScheduler(), cfg, trainable,
+                                  optimizer, lambda n: LR)
+        step(_torch_batch(world["batch"], world["noise"]))
+        assert optimizer.param_groups[0]["step_bf16"] is grads_bf16
 
 
 def test_grads_bf16_matches_jax(world):
@@ -373,13 +492,16 @@ def test_draws_come_from_the_generator(world):
 
 
 def test_optimizer_options():
-    with pytest.raises(NotImplementedError, match="8-bit"):
-        ts.make_optimizer([torch.zeros(1, requires_grad=True)], LR,
-                          use_8bit=True)
-    opt = ts.make_optimizer([torch.zeros(1, requires_grad=True)], LR)
-    group = opt.param_groups[0]
-    assert (group["betas"], group["eps"], group["weight_decay"]) == (
-        (0.9, 0.999), 1e-8, 1e-2)
+    from e4t_diffusion_torch.training.optim8bit import AdamW8bit
+
+    for use_8bit, cls in ((False, torch.optim.AdamW), (True, AdamW8bit)):
+        opt = ts.make_optimizer([torch.zeros(1, requires_grad=True)], LR,
+                                use_8bit=use_8bit)
+        assert type(opt) is cls
+        group = opt.param_groups[0]
+        assert (group["lr"], group["betas"], group["eps"],
+                group["weight_decay"]) == (LR, (0.9, 0.999), 1e-8, 1e-2)
+    assert opt.param_groups[0]["step_bf16"] is False
     # the same hyper-parameters as the JAX package's optax.adamw
     assert isinstance(jax_ts.make_optimizer(LR, jax_ts.E4TTrainConfig()),
                       optax.GradientTransformation)

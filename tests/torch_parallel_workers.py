@@ -101,17 +101,19 @@ def tiny_modules(sds, mesh=None, unet_config=None):
 # ---- training --------------------------------------------------------------
 
 def train_step(mesh, p, cfg, zero1=False):
-    """One update of the tiny train step (``cfg``: E4TTrainConfig fields)
-    on this dp rank's rows of the payload's batch -> metrics, the
-    trainables before and after and the gradients AdamW saw (the UNet's
-    gathered to its unsplit layout) and the optimizer state
-    (unsharded)."""
+    """``p["updates"]`` (default 1) updates of the tiny train step
+    (``cfg``: E4TTrainConfig fields) on this dp rank's rows of the
+    payload's batch (its AdamW 8-bit where the payload says ``use_8bit``)
+    -> the last call's metrics, the trainables before the first and after
+    the last and the gradients AdamW saw last (the UNet's gathered to its
+    unsplit layout), the optimizer state (unsharded over dp; under tp this
+    rank's shards' state) and the trainables' local sizes."""
     modules = tiny_modules(p["sds"], mesh, p.get("unet_config"))
     cfg = ts.E4TTrainConfig(**cfg)
     trainable, _ = ts.split_trainable(modules, p["sds"]["offsets"], cfg,
                                       torch.float32)
     flat = [t for g in trainable.values() for t in g.values()]
-    opt = ts.make_optimizer(flat, p["lr"],
+    opt = ts.make_optimizer(flat, p["lr"], use_8bit=p.get("use_8bit", False),
                             zero1_group=mesh.dp_group if zero1 else None)
     seen = {}
     opt.register_step_pre_hook(lambda *_: seen.update(
@@ -123,7 +125,8 @@ def train_step(mesh, p, cfg, zero1=False):
               for g, group in trainable.items()}
     batch = {k: (v[mesh.rows(v.shape[0])] if k in ts._PER_SAMPLE else v)
              for k, v in p["batch"].items()}
-    metrics = {k: float(v) for k, v in step(batch).items()}
+    for _ in range(p.get("updates", 1)):
+        metrics = {k: float(v) for k, v in step(batch).items()}
     after = {g: {k: t.detach().clone() for k, t in group.items()}
              for g, group in trainable.items()}
     if "unet" in after:
@@ -132,7 +135,8 @@ def train_step(mesh, p, cfg, zero1=False):
     return {"metrics": metrics, "after": after,
             "before": before if mesh.tp == 1 else None, "grads": seen,
             "specs": getattr(modules.unet, "tp_specs", {}),
-            "optimizer": pmesh.consolidated_state_dict(opt)}
+            "optimizer": pmesh.consolidated_state_dict(opt),
+            "numel": [t.numel() for t in flat]}
 
 
 def _unsplit(unet, mesh, tensors):

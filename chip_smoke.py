@@ -73,9 +73,11 @@ Phases (any failure exits non-zero; each prints its wall seconds):
    bit (metrics, trainables, optimizer state, checkpoint), the median of
    the warm steps with and without the group and the gradient bytes dp > 1
    all-reduces per update; (c) the inference CLI with
-   ``--data_parallel_serving`` and a 2-step ``pretrain_e4t --zero1`` under
+   ``--data_parallel_serving`` (2 steps) and a 1-step ``pretrain_e4t
+   --zero1`` under
    ``torchrun --nproc_per_node 1`` against the same runs without torchrun,
-   bit for bit (the grid, the checkpoint, the artifacts); (e) the bf16
+   bit for bit (the grid, the checkpoint, the artifacts), the four
+   processes at once while (a) and (e) run; (e) the bf16
    UNet's noise prediction and input gradient at tp=2, two ranks on the
    one card over gloo, against tp=1 and f32 (within ``TP_BF16_RATIO``
    times bf16's own error); (d) with two or more cards, a dp=2 f32
@@ -125,13 +127,36 @@ Phases (any failure exits non-zero; each prints its wall seconds):
    resumed 11 held against the plain version; (e) the two traces parsed:
    their host ops and device-kernel events (printed with the phase times,
    beside ``profiler_empty``);
-Phase 9 also runs the tiny unCLIP pipeline in f32 on the card against the
+15c. sd2_e4t (after training_extras, before parallel; ``python3
+   chip_smoke.py --sd2`` runs it alone, after the build and its kernel
+   cases): E4T on a full-width SD 2.1 base (``UNetConfig.sd2``, the
+   23-layer OpenCLIP-H text tower, v-prediction, 768px) with seeded
+   random bf16 weights written as a diffusers directory:
+   ``pretrain_e4t.main`` (2 bf16 steps at batch 16, a checkpoint and the
+   artifact), ``tuning_e4t.main`` from that artifact (3 bf16 steps at
+   batch 16; both at the largest of 16, 8 and 4 that fits, their
+   resolution from the UNet's sample_size), each with finite losses and
+   grad norms, every trained group changed and every frozen one bit for
+   bit, and the 8-bit AdamW kernel at every tensor the tuning step trains
+   against its plain version; then ``inference.build_pipeline`` on the
+   tuned artifact: DDIM-4 twice (bit for bit) and DPM++ 2M-4 (2 prompts x
+   4 images, CFG 7.5), a UNet pass on flash against einsum, static int8
+   against bf16, dynamic int8 with ``int8_attn="qkpv"`` and both opt-in
+   routes on (the short-sequence kernel at the 144-token mid block, the
+   GroupNorm kernel) against bf16, a profile;
+Phase 9 also runs the tiny unCLIP pipeline and a tiny SD2-flavoured E4T
+pipeline (v-prediction, DDIM and DPM++) in f32 on the card against the
 CPU with the same draws. The kernels phase holds the low-dim forward at
 the unCLIP UNet's three flash sites (d64: BH 40 x 9216², 80 x 2304², 160 x
-576²) and the GroupNorm kernel at every site of an SD2-unclip UNet pass
-(batch 8, 96²) and a 768px VAE decode (batch 4).
-In phases 4 to 8, 10, 10b, 10c and 12 to 16 (4b, 5b and 15b included) the
-kernels' launch counters, set to 0 just before each run and read just
+576²), the d64 forward and backward at the SD 2.1 training step's eight
+sites (batch 16: BH 80 x 9216², 160 x 2304², 320 x 576² and 144², self
+and 77-token cross attention), the int8 attention kernel at the SD 2.1
+UNet's three d64 serving sites in both modes, the int8 conv and
+quantization kernels at every distinct conv and linear input of an SD 2.1
+UNet pass (batch 8, 768px), and the GroupNorm kernel at every site of an
+SD2-unclip UNet pass (batch 8, 96²) and a 768px VAE decode (batch 4).
+In phases 4 to 8, 10, 10b, 10c and 12 to 16 (4b, 5b, 15b and 15c
+included) the kernels' launch counters, set to 0 just before each run and read just
 after, must show the path went through every kernel it routes to, as many
 times as its attention, conv, linear and GroupNorm sites give. The two
 routes are off by default, and off in every other phase but where phases
@@ -316,6 +341,54 @@ def _note_empty(prof):
         PROFILER_EMPTY["sessions_without_host_events"] += 1
 
 
+# set once _device_events has been held against key_averages in a run
+_DEVICE_EVENTS_HELD = []
+
+
+def _device_events(prof):
+    """{kernel name: [device us, count]} of a profiler session: its device
+    records that are not user annotations, read off kineto's raw events as
+    ``key_averages`` reads them (names demangled, an asynchronous record
+    counted with no time). ``key_averages`` gives the same self device
+    times but first builds the host ops' event tree in Python, which took
+    most of the script's profiling time (seconds to tens of seconds a
+    trace). The first session with device records in a run is held against
+    ``key_averages``: the same names, counts and times (to 1e-6), or the
+    run fails."""
+    import torch
+    from torch.autograd import DeviceType
+
+    rows, names = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        raw = e.name()
+        if raw not in names:
+            names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
+        row = rows.setdefault(names[raw], [0.0, 0])
+        if not (e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            row[0] += e.duration_ns() / 1e3
+        row[1] += 1
+    if rows and not _DEVICE_EVENTS_HELD:
+        ref = {}
+        for evt in prof.key_averages():
+            if (evt.device_type == DeviceType.CUDA
+                    and not getattr(evt, "is_user_annotation", False)):
+                row = ref.setdefault(evt.key, [0.0, 0])
+                row[0] += evt.self_device_time_total
+                row[1] += evt.count
+        bad = [k for k in set(rows) | set(ref)
+               if k not in rows or k not in ref or rows[k][1] != ref[k][1]
+               or abs(rows[k][0] - ref[k][0]) > 1e-6 * max(ref[k][0], 1.0)]
+        if bad:
+            fail(f"profiler: kineto's device records disagree with "
+                 f"key_averages at {len(bad)} kernels, e.g. "
+                 f"{[(k, rows.get(k), ref.get(k)) for k in bad[:3]]}")
+        _DEVICE_EVENTS_HELD.append(len(rows))
+    return rows
+
+
 def device_time(fn, reps=20):
     """(ms, how): the device time of one call, the kernels' device time
     summed under ``torch.profiler`` over ``reps`` calls (after one warm-up),
@@ -330,7 +403,6 @@ def device_time(fn, reps=20):
     kernel takes on the card, and an upper bound on it elsewhere). An empty
     session is never a time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -341,9 +413,7 @@ def device_time(fn, reps=20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(evt.self_device_time_total for evt in prof.key_averages()
-                 if evt.device_type == DeviceType.CUDA
-                 and not getattr(evt, "is_user_annotation", False))
+        us = sum(us for us, _ in _device_events(prof).values())
         if us > 0:
             return us / reps / 1e3, "device"
         _note_empty(prof)
@@ -376,7 +446,6 @@ def _traced(run):
     again (up to three sessions) while a session holds no device record;
     ``traced`` is False when all three were empty."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -386,9 +455,7 @@ def _traced(run):
             run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        if any(evt.device_type == DeviceType.CUDA
-               and evt.self_device_time_total > 0
-               for evt in prof.key_averages()):
+        if any(us > 0 for us, _ in _device_events(prof).values()):
             return prof, wall_us, True
         _note_empty(prof)
     return prof, wall_us, False
@@ -418,14 +485,15 @@ def phase_environment():
 
 
 def phase_build():
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source (per part of ``attention_f32.cu``), all
+    started together."""
     from e4t_diffusion_torch.ops import (_build, adam8bit, flash_bwd,
                                          flash_int8, flash_lowdim, groupnorm,
                                          int8_conv, quant, shortseq)
 
     sources = [flash_lowdim.SOURCE, flash_bwd.SOURCE, flash_int8.SOURCE,
                int8_conv.SOURCE, groupnorm.SOURCE, shortseq.SOURCE,
-               flash_lowdim.F32_SOURCE, quant.QUANTIZE_SOURCE,
+               *flash_lowdim.F32_PARTS, quant.QUANTIZE_SOURCE,
                adam8bit.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -483,14 +551,29 @@ def _f32(dtype):
     return dtype == torch.float32
 
 
-def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None):
+def _chunked(plain, n, *tensors):
+    """``plain`` (a function of (BH, S, D) tensors and more arguments,
+    independent across BH) evaluated over ``n`` slices of BH and joined:
+    the same values, with ``n`` times less of its score tensors live."""
+    import torch
+
+    def run(*rest):
+        parts = [plain(*(t.chunk(n)[i] for t in tensors), *rest)
+                 for i in range(n)]
+        return tuple(torch.cat(group) for group in zip(*parts))
+    return run
+
+
+def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None, plain_chunks=1):
     """The forward kernel of ``dtype`` (bf16 by default, or f32) against its
     plain version in f32, and against the synchronous design it replaced,
     within the same bound (bf16: the wgmma kernel against
     ``flash_fwd_sync``; f32: the register-blocked kernel against
     ``flash_fwd_f32_sync``, out and lse); timed: kernel, plain, SDPA's
     forward in the same type, the bound, and the synchronous design
-    (``parent_ms``)."""
+    (``parent_ms``). ``plain_chunks``: the plain version runs over that
+    many slices of BH (``_chunked``), where its f32 scores would not fit
+    whole, and is then timed over one call (after a warm one)."""
     import torch
     import torch.nn.functional as F
 
@@ -504,8 +587,12 @@ def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None):
     scale = 1.0 / math.sqrt(d)
     out, lse = flash_fwd(q, k, v, scale)
     torch.cuda.synchronize()
-    ref_out, ref_lse = flash_fwd_reference(q.float(), k.float(), v.float(),
-                                           scale)
+
+    def plain():
+        return _chunked(flash_fwd_reference, plain_chunks, q.float(),
+                        k.float(), v.float())(scale)
+
+    ref_out, ref_lse = plain()
     rel = _rel(out, ref_out)
     lse_err = (lse - ref_lse).abs().max().item()
     case = {"kernel": f"flash_fwd_{launch_route(d, dtype)}", "bh": bh,
@@ -533,9 +620,8 @@ def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None):
         size = q.element_size()
         case.update(
             ms=cuda_time_ms(lambda: flash_fwd(q, k, v, scale)),
-            plain_ms=cuda_time_ms(lambda: flash_fwd_reference(
-                q.float(), k.float(), v.float(), scale),
-                reps=3 if _f32(dtype) else 20),
+            plain_ms=cuda_time_ms(plain, reps=1 if plain_chunks > 1
+                                  else 3 if _f32(dtype) else 20),
             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], scale=scale)),
             **_bound(size * (2 * bh * sq * d + 2 * bh * sk * d) + 4 * bh * sq,
@@ -543,12 +629,14 @@ def _fwd_case(bh, sq, sk, d, gen, timed, dtype=None):
                      flop_rate=F32_FLOP_PER_S if _f32(dtype)
                      else BF16_FLOP_PER_S),
             parent_ms=cuda_time_ms(lambda: sync(q, k, v, scale)))
+    if plain_chunks > 1:
+        case["plain_chunks"] = plain_chunks
     del q, k, v, out, lse
     torch.cuda.empty_cache()
     return case
 
 
-def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
+def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None, plain_chunks=1):
     """The backward kernel of ``dtype`` (bf16 by default, or f32), fed by
     the forward kernel's (out, lse), against ``flash_bwd_reference`` in f32
     on the same inputs; timed: kernel, plain, SDPA's backward through
@@ -559,7 +647,8 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
     Also: a second call bit for bit against the first (no atomics), and the
     synchronous design the kernels replaced (``flash_bwd_sync`` in bf16,
     ``flash_bwd_f32_sync`` in f32) against the kernel, within the same
-    bound, and timed beside it (``parent_ms``)."""
+    bound, and timed beside it (``parent_ms``). ``plain_chunks`` as in
+    ``_fwd_case``."""
     import torch
     import torch.nn.functional as F
 
@@ -579,7 +668,8 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
     f32 = [t.float() for t in (q, k, v, out, dout)]
 
     def plain():
-        return flash_bwd_reference(*f32[:4], lse, f32[4], scale)
+        return _chunked(flash_bwd_reference, plain_chunks, *f32[:4], lse,
+                        f32[4])(scale)
 
     refs = plain()
     case = {"kernel": "flash_bwd_f32" if _f32(dtype) else "flash_bwd",
@@ -611,7 +701,8 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
         case.update(
             ms=cuda_time_ms(lambda: flash_bwd(q, k, v, out, lse, dout,
                                               scale)),
-            plain_ms=cuda_time_ms(plain, reps=3 if _f32(dtype) else 20),
+            plain_ms=cuda_time_ms(plain, reps=1 if plain_chunks > 1
+                                  else 3 if _f32(dtype) else 20),
             library_ms=cuda_time_ms(lambda: torch.autograd.grad(
                 lib_out, (qr, kr, vr), dout[None], retain_graph=True)),
             **_bound(q.element_size() * (4 * bh * sq * d + 4 * bh * sk * d)
@@ -621,6 +712,8 @@ def _bwd_case(bh, sq, sk, d, gen, timed, dtype=None):
             parent_ms=cuda_time_ms(lambda: sync(q, k, v, out, lse, dout,
                                                 scale)))
         del qr, kr, vr, lib_out
+    if plain_chunks > 1:
+        case["plain_chunks"] = plain_chunks
     del q, k, v, dout, out, lse, grads, f32
     torch.cuda.empty_cache()
     return case
@@ -705,9 +798,10 @@ def _int8_flash_case(bh, sq, sk, d, mode, gen, timed, dtype=None):
     return case
 
 
-def _unet_conv_shapes(batch, resolution):
+def _unet_conv_shapes(batch, resolution, unet_config=None):
     """{(C, O, H, W, k, stride, pad): sites} of the quantized UNet convs in
-    one SD-v1 forward, read off a forward on the meta device."""
+    one forward of ``unet_config`` (SD v1's by default), read off a forward
+    on the meta device."""
     import torch
 
     from e4t_diffusion_torch.models.unet import (UNet2DConditionModel,
@@ -715,7 +809,7 @@ def _unet_conv_shapes(batch, resolution):
     from e4t_diffusion_torch.ops import quant
 
     with torch.device("meta"):
-        unet = UNet2DConditionModel(UNetConfig())
+        unet = UNet2DConditionModel(unet_config or UNetConfig())
     quantized = quant.quantize_params(dict(unet.named_parameters()))
     shapes = {}
 
@@ -735,9 +829,11 @@ def _unet_conv_shapes(batch, resolution):
     return shapes
 
 
-def _unet_linear_shapes(batch, resolution):
-    """{input shape: sites} of the quantized UNet linear sites in one SD-v1
-    forward, read off a forward on the meta device."""
+def _unet_linear_shapes(batch, resolution, unet_config=None):
+    """{input shape: sites} of the quantized UNet linear sites in one
+    forward of ``unet_config`` (SD v1's by default; SD 2.x's linear
+    proj_in / proj_out among them), read off a forward on the meta
+    device."""
     import torch
 
     from e4t_diffusion_torch.models.unet import (UNet2DConditionModel,
@@ -745,7 +841,7 @@ def _unet_linear_shapes(batch, resolution):
     from e4t_diffusion_torch.ops import quant
 
     with torch.device("meta"):
-        unet = UNet2DConditionModel(UNetConfig())
+        unet = UNet2DConditionModel(unet_config or UNetConfig())
     quantized = quant.quantize_params(dict(unet.named_parameters()))
     shapes = {}
 
@@ -1495,8 +1591,10 @@ def phase_kernels():
     for d, sq, sk in ((40, 100, 63), (80, 64, 65), (64, 129, 129),
                       (16, 1, 200), (48, 200, 1), (40, 257, 4096)):
         ragged.append(_fwd_case(2, sq, sk, d, gen, timed=False))
+    sd2_fwd, sd2_bwd, sd2_int8 = _sd2_kernel_cases(gen)
     f32_cases = _f32_kernel_cases(gen, n)
     cases = {"sampling": sampling, "unclip_flash": unclip_flash,
+             "sd2_fwd": sd2_fwd, "sd2_bwd": sd2_bwd, "sd2_int8": sd2_int8,
              "tuning_fwd": tuning_fwd, "grid": grid,
              "tuning_bwd": tuning_bwd, "grid_bwd": grid_bwd,
              "int8_flash": int8_flash, "int8_conv": int8_conv,
@@ -1757,20 +1855,15 @@ def _profile(run):
     of it the f32 attention kernels take (``csrc/attention_f32.cu``, whose
     kernels are named attn_*). The device numbers are None ("not
     measured") when three sessions held no device record."""
-    from torch.autograd import DeviceType
-
     prof, wall_us, traced = _traced(run)
     rows, attn_us = [], 0.0
-    for evt in prof.key_averages():
-        if (evt.device_type != DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)):
-            # host ops, and annotated ranges such as the optimizer step:
-            # their device time is that of the kernels they hold
-            continue
-        dev_us = evt.self_device_time_total
+    # kernels only: host ops, and annotated ranges such as the optimizer
+    # step, whose device time is that of the kernels they hold, are not
+    # device records
+    for key, (dev_us, count) in _device_events(prof).items():
         if dev_us > 0:
-            rows.append((dev_us, evt.key[:80], evt.count))
-            if "attn_" in evt.key:
+            rows.append((dev_us, key[:80], count))
+            if "attn_" in key:
                 attn_us += dev_us
     if not traced:
         return {"wall_ms": wall_us / 1e3, "device_busy_ms": None,
@@ -2527,7 +2620,7 @@ def _expected_tuning_launches(ucfg, vit_cfg, resolution, routes=False,
             passes = 2
         if (side >> level) ** 2 < FLASH_MIN_SEQ:
             continue
-        d = dim // ucfg.attention_head_dim
+        d = dim // ucfg.heads_for_block(level)
         want[f"flash_fwd_{launch_route(d, dtype)}"] += 2 * passes
         want["flash_bwd" + sfx] += passes
     vit_short = _vit_shortseq_sites(vit_cfg, 1) if routes else 0
@@ -2606,7 +2699,7 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
             "--pretrained_model_name_or_path", "-", "--train_image_path",
             "-", "--max_train_steps", str(max_steps), "--mixed_precision",
             "no" if f32 else "bf16", "--train_batch_size", str(batch),
-            *extra])
+            "--resolution", str(RESOLUTION), *extra])
 
     args = cli_args(steps)
     t0 = time.perf_counter()
@@ -2800,6 +2893,7 @@ def phase_tiny_vs_cpu():
     print(json.dumps({"phase": "tiny_card_vs_cpu", "max_abs": err,
                       "schedulers_max_abs": sched_err,
                       "unclip_max_abs": _tiny_unclip_vs_cpu(),
+                      "sd2_e4t_max_abs": _tiny_sd2_vs_cpu(),
                       "int8_calibration_rel": amax_err,
                       "int8_max_abs": err8,
                       "int8_vs_f32_max_abs_cpu": int8_err,
@@ -3218,11 +3312,14 @@ def _expected_unclip_launches(ucfg, batch, resolution, steps, dtype=None,
     return want
 
 
-def _write_unclip_model(root, mods):
-    """The unCLIP modules (bf16) as a diffusers-format
-    stable-diffusion-2-1-unclip directory: unet/, vae/, text_encoder/,
-    image_encoder/, image_normalizer/, scheduler/ (v-prediction),
-    image_noising_scheduler/, tokenizer/."""
+def _write_sd_model(root, unet, vae, text_encoder, extra=None,
+                    noise_aug_schedule=None):
+    """An SD v2-family model as a diffusers-format directory: unet/, vae/,
+    text_encoder/ (their configs and weights as the modules hold them),
+    scheduler/ (v-prediction), tokenizer/ (character-level, its ids inside
+    the 49,408-row table); ``extra``: more folders, {name: (config,
+    module, weight file)}; ``noise_aug_schedule``: an
+    image_noising_scheduler/ folder."""
     import dataclasses
 
     import torch
@@ -3230,13 +3327,11 @@ def _write_unclip_model(root, mods):
     from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
     from e4t_diffusion_torch.utils.tokenizer import make_tiny_tokenizer_files
 
-    tcfg = mods.text_encoder.config
-    icfg = mods.image_encoder.config
-    vis = icfg.vision
+    tcfg = text_encoder.config
     parts = {
-        "unet": (dataclasses.asdict(mods.unet.config), mods.unet,
+        "unet": (dataclasses.asdict(unet.config), unet,
                  "diffusion_pytorch_model.bin"),
-        "vae": (dataclasses.asdict(mods.vae.config), mods.vae,
+        "vae": (dataclasses.asdict(vae.config), vae,
                 "diffusion_pytorch_model.bin"),
         "text_encoder": ({
             "vocab_size": tcfg.vocab_size, "hidden_size": tcfg.hidden_size,
@@ -3245,20 +3340,9 @@ def _write_unclip_model(root, mods):
             "intermediate_size": tcfg.intermediate_size,
             "max_position_embeddings": tcfg.max_position_embeddings,
             "layer_norm_eps": tcfg.layer_norm_eps,
-            "hidden_act": tcfg.hidden_act}, mods.text_encoder,
+            "hidden_act": tcfg.hidden_act}, text_encoder,
             "pytorch_model.bin"),
-        "image_encoder": ({
-            "hidden_size": vis.hidden_size,
-            "num_hidden_layers": vis.num_layers,
-            "num_attention_heads": vis.num_heads,
-            "intermediate_size": vis.intermediate_size,
-            "image_size": vis.image_size, "patch_size": vis.patch_size,
-            "projection_dim": icfg.projection_dim,
-            "hidden_act": vis.hidden_act}, mods.image_encoder,
-            "pytorch_model.bin"),
-        "image_normalizer": ({"embedding_dim": icfg.projection_dim},
-                             mods.image_normalizer,
-                             "diffusion_pytorch_model.bin")}
+        **(extra or {})}
     for sub, (config, module, weights) in parts.items():
         os.makedirs(os.path.join(root, sub))
         with open(os.path.join(root, sub, "config.json"), "w",
@@ -3267,9 +3351,11 @@ def _write_unclip_model(root, mods):
         torch.save({k: v.detach().cpu() for k, v in
                     module.state_dict().items()},
                    os.path.join(root, sub, weights))
-    for sub, config in (
-            ("scheduler", NoiseScheduleConfig(prediction_type="v_prediction")),
-            ("image_noising_scheduler", mods.noise_aug_schedule)):
+    schedules = {"scheduler": NoiseScheduleConfig(
+        prediction_type="v_prediction")}
+    if noise_aug_schedule is not None:
+        schedules["image_noising_scheduler"] = noise_aug_schedule
+    for sub, config in schedules.items():
         os.makedirs(os.path.join(root, sub))
         with open(os.path.join(root, sub, "scheduler_config.json"), "w",
                   encoding="utf-8") as f:
@@ -3277,6 +3363,29 @@ def _write_unclip_model(root, mods):
     make_tiny_tokenizer_files(os.path.join(root, "tokenizer"),
                               extra_words=["a", "photo", "of", "face"])
     return root
+
+
+def _write_unclip_model(root, mods):
+    """The unCLIP modules (bf16) as a diffusers-format
+    stable-diffusion-2-1-unclip directory: ``_write_sd_model``'s folders,
+    image_encoder/, image_normalizer/ and image_noising_scheduler/."""
+    icfg = mods.image_encoder.config
+    vis = icfg.vision
+    return _write_sd_model(
+        root, mods.unet, mods.vae, mods.text_encoder, extra={
+            "image_encoder": ({
+                "hidden_size": vis.hidden_size,
+                "num_hidden_layers": vis.num_layers,
+                "num_attention_heads": vis.num_heads,
+                "intermediate_size": vis.intermediate_size,
+                "image_size": vis.image_size, "patch_size": vis.patch_size,
+                "projection_dim": icfg.projection_dim,
+                "hidden_act": vis.hidden_act}, mods.image_encoder,
+                "pytorch_model.bin"),
+            "image_normalizer": ({"embedding_dim": icfg.projection_dim},
+                                 mods.image_normalizer,
+                                 "diffusion_pytorch_model.bin")},
+        noise_aug_schedule=mods.noise_aug_schedule)
 
 
 def _unclip_modules():
@@ -3612,6 +3721,69 @@ def phase_clip_score(smi, root, data):
     return launches
 
 
+def _tiny_sd2_vs_cpu():
+    """The tiny E4T world on an SD2-flavoured base (per-block heads, linear
+    projections, a gelu text tower, v-prediction) in f32 on the card and
+    on the CPU, the same latents given to both: max-abs of the images by
+    sampler (DDIM, DPM++ 2M)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from e4t_diffusion_torch.config import AttributeDict
+    from e4t_diffusion_torch.diffusion.pipeline import (
+        E4TModules, StableDiffusionE4TPipeline)
+    from e4t_diffusion_torch.diffusion.schedulers import (
+        SCHEDULER_MAPPING, NoiseScheduleConfig)
+    from e4t_diffusion_torch.models import weight_offsets as wo
+    from e4t_diffusion_torch.models.clip_text import CLIPTextConfig
+    from e4t_diffusion_torch.models.e4t_encoder import E4TEncoderConfig
+    from e4t_diffusion_torch.models.unet import UNetConfig, tap_feature_dim
+    from e4t_diffusion_torch.models.vae import VAEConfig
+    from e4t_diffusion_torch.utils.tokenizer import (
+        CLIPTokenizer, make_tiny_tokenizer_files)
+
+    ucfg = dataclasses.replace(UNetConfig.tiny(), attention_head_dim=(4, 2),
+                               use_linear_projection=True)
+    tcfg = dataclasses.replace(CLIPTextConfig.tiny(), hidden_act="gelu")
+    ecfg = E4TEncoderConfig.tiny(word_embedding_dim=tcfg.hidden_size,
+                                 unet_feature_dim=tap_feature_dim(ucfg))
+    torch.manual_seed(27)
+    cpu = E4TModules.create(ucfg, VAEConfig.tiny(), tcfg, ecfg,
+                            device="cpu")
+    card = E4TModules.create(ucfg, VAEConfig.tiny(), tcfg, ecfg,
+                             device="cuda")
+    for src, dst in zip(cpu.all(), card.all()):
+        dst.load_state_dict(src.state_dict(), strict=True)
+    offsets = wo.init_offset_bank(ucfg, torch.Generator().manual_seed(28))
+    cfg = AttributeDict({"placeholder_token": "*s",
+                         "domain_class_token": "face",
+                         "domain_embed_scale": 0.1})
+    rng = np.random.default_rng(29)
+    image = rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    latents = rng.standard_normal((4, 4, 8, 8)).astype(np.float32)
+    errors = {}
+    with tempfile.TemporaryDirectory() as tok_dir:
+        make_tiny_tokenizer_files(tok_dir, extra_words=["a", "photo", "of",
+                                                        "face"])
+        for name in ("ddim", "dpm_solver++"):
+            outs = []
+            for mods in (cpu, card):
+                pipe = StableDiffusionE4TPipeline(
+                    mods, offsets, CLIPTokenizer.from_pretrained(
+                        tok_dir, model_max_length=16), cfg,
+                    scheduler=SCHEDULER_MAPPING[name](NoiseScheduleConfig(
+                        prediction_type="v_prediction")))
+                outs.append(pipe(PROMPTS[:1] + ["a *s face"], image,
+                                 num_inference_steps=3, guidance_scale=7.5,
+                                 num_images_per_prompt=2, latents=latents))
+            errors[name] = float(np.abs(outs[0] - outs[1]).max())
+    if not all(e <= TINY_CARD_VS_CPU_MAX_ABS for e in errors.values()):
+        fail(f"tiny SD2 E4T pipeline, card vs CPU: max-abs {errors}")
+    return errors
+
+
 def _tiny_unclip_vs_cpu():
     """The tiny unCLIP pipeline in f32 on the card and on the CPU, the same
     latents and augmentation noise passed to both: max-abs of the
@@ -3681,12 +3853,12 @@ def _expected_sampling_launches(ucfg, vit_cfg, batch, resolution, steps,
     dtype = dtype or torch.bfloat16
     side = resolution // 8
     levels = len(ucfg.block_out_channels)
-    heads = ucfg.attention_head_dim
     want = dict.fromkeys(KERNEL_ROWS, 0)
     for path, dim, _ in attention_sites(ucfg):
         block, index = path.split(".")[:2]
         level = (levels - 1 - int(index) if block == "up_blocks"
                  else int(index) if block == "down_blocks" else levels - 1)
+        heads = ucfg.heads_for_block(level)
         sq = (side >> level) ** 2
         sk = sq if path.endswith("attn1") else 77
         d = dim // heads
@@ -3751,18 +3923,25 @@ def _write_square_images(folder, n, side, seed=1):
 
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:side, 0:side]
-    sizes = {"png": [], "jpg": []}
-    for i in range(n):
-        phase = rng.uniform(0, 2 * np.pi, 3)
+    # the draws in order, then the images made and encoded side by side
+    draws = [(rng.uniform(0, 2 * np.pi, 3), rng.normal(0, 6, (side, side, 3)))
+             for _ in range(n)]
+
+    def write(i):
+        phase, grain = draws[i]
         base = np.stack([127 + 100 * np.sin(xx / (40 + 30 * c) + phase[c]
                                             + yy / 97) for c in range(3)], -1)
-        img = (base + rng.normal(0, 6, (side, side, 3))).clip(0, 255).astype(
-            np.uint8)
+        img = (base + grain).clip(0, 255).astype(np.uint8)
         ext = "jpg" if i % 2 else "png"
         path = os.path.join(folder, f"{i:03d}.{ext}")
         Image.fromarray(img).save(path, **({"quality": 95} if ext == "jpg"
                                            else {}))
-        sizes[ext].append(os.path.getsize(path))
+        return ext, os.path.getsize(path)
+
+    sizes = {"png": [], "jpg": []}
+    with ThreadPoolExecutor(8) as pool:
+        for ext, size in pool.map(write, range(n)):
+            sizes[ext].append(size)
     return sizes
 
 
@@ -4345,13 +4524,13 @@ def _adam8bit_tensors(shapes, seed):
     return params, grads, [o8.init_state(p) for p in params]
 
 
-def _adam8bit_checks(shapes, require_edges=True):
+def _adam8bit_checks(shapes, require_edges=True, timed=True):
     """(a) The kernel against its plain version at ``shapes`` (every
     trainable tensor of a tuning step, which holds ragged tails and
     tensors of more than 4096 blocks: ``require_edges``; or pretraining's):
     two updates from the same gradients on each side, then the parameters,
     codes and scales compared (bit for bit predicted; a code off by more
-    than one fails); the kernel's time an update (CUDA events around its
+    than one fails); ``timed``: the kernel's time an update (CUDA events around its
     launch on a built pointer table; its device time under the profiler
     beside it), the wrapper's (the table built on the host included), the
     plain version's and torch's f32 AdamW's on the same tensors (a
@@ -4366,8 +4545,8 @@ def _adam8bit_checks(shapes, require_edges=True):
     sizes = [math.prod(s) for s in shapes]
     if require_edges and (not any(n % 256 for n in sizes)
                           or max(sizes) <= 4096 * 256):
-        fail("training_extras (a): the shapes hold no ragged tail or no "
-             "tensor of more than 4096 blocks")
+        fail(f"8-bit AdamW check: the {len(shapes)} shapes hold no ragged "
+             f"tail or no tensor of more than 4096 blocks")
     params, grads, states = _adam8bit_tensors(shapes, 17)
     plain = [p.clone() for p in params]
     plain_states = [o8.init_state(p) for p in plain]
@@ -4390,8 +4569,15 @@ def _adam8bit_checks(shapes, require_edges=True):
             diff["codes_off_by_one"] += int((d == 1).sum())
             diff["codes_off_by_more"] += int((d > 1).sum())
     if any(diff.values()):
-        fail(f"training_extras (a): the 8-bit kernel against its plain "
-             f"version, not bit for bit: {diff}")
+        fail(f"the 8-bit AdamW kernel against its plain version at "
+             f"{len(shapes)} tensors, not bit for bit: {diff}")
+    if not timed:
+        del params, grads, states, plain, plain_states
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"tensors": len(shapes), "elements": sum(sizes),
+                "updates_compared": 2, "bit_equal": True, **diff,
+                "max_abs_err": max_abs}
     h = _adam8bit_hyper(3)
 
     def kernel_run():
@@ -4780,9 +4966,11 @@ PARALLEL_SPLIT_SITES = ((16, 8, 4096, 40, True), (8, 8, 1024, 80, True),
 # (b): updates a world-1 run takes; the first warms up, the rest are timed
 # (their median); 4, cut from 6 to make room for the training extras
 PARALLEL_STEPS = 4
-# (c): the CLIs' runs, with and without torchrun
+# (c): the CLIs' runs, with and without torchrun: pretraining updates
+# (cut from 2 for the sd2_e4t phase) and sampling steps (cut from 4)
 PARALLEL_CLI_BATCH = 4
-PARALLEL_CLI_STEPS = 2
+PARALLEL_CLI_STEPS = 1
+PARALLEL_CLI_SAMPLE_STEPS = 2
 PARALLEL_CLI_TIMEOUT_S = 300
 
 
@@ -4986,33 +5174,61 @@ def _world1_runs(data_dir, mesh):
     return report, launches
 
 
-def _run_cli(module, argv, torchrun):
-    """``python -m module argv`` from the checkout's root, under ``torchrun
-    --nproc_per_node 1`` or not; fails on a non-zero exit. Returns the wall
-    seconds."""
+def _start_clis(runs, log_dir):
+    """Start ``python -m module argv`` for every (name, module, argv,
+    torchrun) of ``runs`` from the checkout's root, under ``torchrun
+    --nproc_per_node 1`` or not, all at once on the one card, their output
+    into ``log_dir``. Returns the handle ``_wait_clis`` takes."""
     repo = os.path.dirname(os.path.abspath(__file__))
-    launcher = (["-m", "torch.distributed.run", "--nproc_per_node", "1",
-                 "--master_addr", "localhost", "--master_port",
-                 str(_free_port())] if torchrun else [])
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, *launcher, "-m", module, *argv],
-                          cwd=repo, env=env, capture_output=True, text=True,
-                          timeout=PARALLEL_CLI_TIMEOUT_S)
-    if proc.returncode:
-        fail(f"parallel: {module}{' under torchrun' if torchrun else ''} "
-             f"exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
-             f"{proc.stderr[-4000:]}")
-    return time.perf_counter() - t0
+    procs = {}
+    for name, module, argv, torchrun in runs:
+        launcher = (["-m", "torch.distributed.run", "--nproc_per_node", "1",
+                     "--master_addr", "localhost", "--master_port",
+                     str(_free_port())] if torchrun else [])
+        log = open(os.path.join(log_dir, f"{name}.log"), "w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, *launcher, "-m", module, *argv], cwd=repo,
+            env=env, stdout=log, stderr=subprocess.STDOUT), log)
+    return time.perf_counter(), procs
 
 
-def _torchrun_clis(data_dir):
+def _wait_clis(started):
+    """Wait for the processes ``_start_clis`` started; fail on a non-zero
+    exit or at PARALLEL_CLI_TIMEOUT_S, and stop every one still running
+    whenever this returns or raises. Returns {name: wall seconds from the
+    common start to its exit}."""
+    t0, procs = started
+    walls = {}
+    try:
+        for name, (proc, log) in procs.items():
+            rc = proc.wait(timeout=max(
+                1.0, PARALLEL_CLI_TIMEOUT_S - (time.perf_counter() - t0)))
+            walls[name] = time.perf_counter() - t0
+            if rc:
+                log.seek(0)
+                fail(f"parallel: {name} exited {rc}:\n{log.read()[-6000:]}")
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return walls
+
+
+@contextlib.contextmanager
+def _torchrun_clis(data_dir, report):
     """(c) The CLIs under ``torchrun --nproc_per_node 1``: the inference CLI
     with ``--data_parallel_serving`` and a PARALLEL_CLI_STEPS-step
     ``pretrain_e4t --zero1``, each also launched without torchrun, on a
     written full-width model directory (seeded bf16 weights); the images
-    and the checkpoint bit for bit."""
+    and the checkpoint bit for bit. The four processes start on entry and
+    run while the block does (each spends most of its wall starting,
+    loading and writing, and none reads what another writes); on exit
+    they are waited for and compared, their walls and the verdict put in
+    ``report``."""
     import types
 
     import numpy as np
@@ -5027,7 +5243,6 @@ def _torchrun_clis(data_dir):
     from e4t_diffusion_torch.models.vae import VAEConfig
     from e4t_diffusion_torch.utils import artifacts
 
-    report = {}
     with tempfile.TemporaryDirectory() as root:
         torch.manual_seed(0)
         mods = E4TModules.create(UNetConfig(), VAEConfig(), CLIPTextConfig(),
@@ -5045,7 +5260,8 @@ def _torchrun_clis(data_dir):
             0, 256, (RESOLUTION, RESOLUTION, 3), dtype=np.uint8)).save(image)
         infer = ["--pretrained_model_name_or_path", artifact,
                  "--image_path_or_url", image, "--prompt", PROMPTS[0],
-                 "--num_inference_steps", str(STEPS), "--guidance_scale",
+                 "--num_inference_steps", str(PARALLEL_CLI_SAMPLE_STEPS),
+                 "--guidance_scale",
                  "7.5", "--num_images_per_prompt", "2", "--height",
                  str(RESOLUTION), "--width", str(RESOLUTION), "--seed", "0",
                  "--data_parallel_serving"]
@@ -5058,17 +5274,27 @@ def _torchrun_clis(data_dir):
                "--n_save_sample", "0", "--mixed_precision", "bf16",
                "--zero1", "--report_to", "tensorboard", "--seed", "0"]
         grids, states = {}, {}
-        for torchrun in (False, True):
-            tag = "torchrun" if torchrun else "plain"
-            grid = os.path.join(root, f"grid-{tag}.png")
-            report[f"inference_{tag}_s"] = _run_cli(
-                "e4t_diffusion_torch.inference", infer + ["--output", grid],
-                torchrun)
-            grids[tag] = np.asarray(Image.open(grid))
+        tags = {"plain": False, "torchrun": True}
+        started = _start_clis(
+            [(f"inference_{tag}_s", "e4t_diffusion_torch.inference",
+              infer + ["--output", os.path.join(root, f"grid-{tag}.png")],
+              torchrun) for tag, torchrun in tags.items()]
+            + [(f"pretrain_{tag}_s", "e4t_diffusion_torch.pretrain_e4t",
+                pre + ["--output_dir", os.path.join(root, f"pre-{tag}")],
+                torchrun) for tag, torchrun in tags.items()], root)
+        try:
+            yield
+        except BaseException:
+            for proc, log in started[1].values():
+                proc.kill()
+                proc.wait()
+                log.close()
+            raise
+        report.update(_wait_clis(started))
+        for tag in tags:
+            grids[tag] = np.asarray(Image.open(
+                os.path.join(root, f"grid-{tag}.png")))
             out = os.path.join(root, f"pre-{tag}")
-            report[f"pretrain_{tag}_s"] = _run_cli(
-                "e4t_diffusion_torch.pretrain_e4t",
-                pre + ["--output_dir", out], torchrun)
             ckpt = torch.load(os.path.join(
                 out, f"checkpoint-{PARALLEL_CLI_STEPS}",
                 artifacts.TRAIN_STATE_FILE), map_location="cpu",
@@ -5087,7 +5313,6 @@ def _torchrun_clis(data_dir):
             _same_bits(tensors, states["torchrun"][part],
                        f"pretrain_e4t --zero1 under torchrun, {part}")
     report["bit_equal"] = True
-    return report
 
 
 # (d): the multi-card runs, f32 (the CPU tests' tolerances): a pretraining
@@ -5378,16 +5603,18 @@ def phase_parallel(smi, data_dir):
 
     from e4t_diffusion_torch.parallel import mesh as pmesh
 
-    report = {"phase": "parallel", "card": smi,
-              "split_heads": _split_heads_checks()}
+    report = {"phase": "parallel", "card": smi, "cli": {}}
+    # (a) and (e) check values only and hold a few GB (batch 2 at most), so
+    # they run beside (c)'s processes; (b) is timed, so it runs alone
+    with _torchrun_clis(data_dir, report["cli"]):
+        report["split_heads"] = _split_heads_checks()
+        report["tp2_bf16_one_card_gloo"] = _tp_bf16_checks()
     pmesh.initialize(0, 1, torch.device("cuda"),
                      init_method=f"tcp://localhost:{_free_port()}")
     try:
         report["world1"], launches = _world1_runs(data_dir, pmesh.get_mesh())
     finally:
         dist.destroy_process_group()
-    report["cli"] = _torchrun_clis(data_dir)
-    report["tp2_bf16_one_card_gloo"] = _tp_bf16_checks()
     worlds = [1]
     cards = torch.cuda.device_count()
     if cards >= 2:
@@ -5398,16 +5625,527 @@ def phase_parallel(smi, data_dir):
     return launches
 
 
-def kernels_line(cases, paths, unclip_call, adam8bit):
+# ---------------------------------------------------------------------------
+# E4T on an SD v2-family base: stabilityai/stable-diffusion-2-1 at 768px
+# ---------------------------------------------------------------------------
+
+# SD 2.1 as its published unet/, text_encoder/ and scheduler/ configs give
+# it (UNetConfig.sd2, CLIPTextConfig.sd2, v-prediction): 64-dim heads, 5,
+# 10 and 20 of them at levels 0-2 and 20 at the mid block; 768px, 96²
+# latents. Training runs at the CLIs' batch 16, or the largest of these
+# that fits; sampling at 2 prompts x 4 images, CFG 7.5
+SD2_RESOLUTION = 768
+SD2_TRAIN_BATCHES = (16, 8, 4)
+SD2_PRETRAIN_STEPS = 2
+SD2_TUNING_STEPS = 3
+# the static int8 run's calibration trajectory (E4T_INT8_CALIB_STEPS; the
+# serving default is 8)
+SD2_CALIB_STEPS = 2
+# (heads, latent side) of the UNet's attention levels at 768px: levels 0-2
+# and the mid block, whose 144 tokens reach flash in training
+SD2_LEVELS = ((5, 96), (10, 48), (20, 24), (20, 12))
+# the largest share of the f32 score tensor a plain version may hold at
+# once (its other temporaries are a few times that)
+PLAIN_SCORE_BYTES = 4 << 30
+
+
+def _sd2_kernel_cases(gen, batch=16):
+    """(fwd, bwd, int8): the flash forward and backward at d64 at the SD
+    2.1 training step's sites, batch 16 at 768px: self-attention and the
+    77-token cross attention at every level, the mid block's 144 tokens
+    included (BH = batch x heads), each against its plain version (over
+    slices of BH where the scores would not fit whole) and its synchronous
+    design, timed beside SDPA and the bound. The sampling run's d64 flash
+    sites (batch 8: BH 40 9216², 80 2304², 160 576²) are the unCLIP UNet's,
+    timed in ``unclip_flash``. ``int8``: the int8 kernels at the SD 2.1
+    UNet's serving shapes (batch 8, 768px), untimed: the int8 attention
+    kernel at those three d64 sites in both modes, the conv kernel at every
+    distinct quantized conv and the quantization kernel at every distinct
+    linear input (the 1024-wide cross context and the linear proj_in /
+    proj_out among them), each against its plain version at the tolerances
+    of the SD v1 cases."""
+    import torch
+
+    from e4t_diffusion_torch.models.unet import UNetConfig
+
+    fwd, bwd = [], []
+    for heads, side in SD2_LEVELS:
+        bh, sq = batch * heads, side * side
+        for sk in (sq, 77):
+            chunks = max(1, -(-bh * sq * sk * 4 // PLAIN_SCORE_BYTES))
+            fwd.append(_fwd_case(bh, sq, sk, 64, gen, timed=True,
+                                 plain_chunks=chunks))
+            bwd.append(_bwd_case(bh, sq, sk, 64, gen, timed=True,
+                                 plain_chunks=chunks))
+            torch.cuda.empty_cache()
+    n, ucfg = len(PROMPTS) * IMAGES_PER_PROMPT, UNetConfig.sd2()
+    int8 = [_int8_flash_case(n * heads, side * side, side * side, 64, mode,
+                             gen, timed=False)
+            for mode in ("qk", "qkpv") for heads, side in SD2_LEVELS[:3]]
+    int8 += [_conv_case(n, *key, gen, timed=False, sites=sites)
+             for key, sites in sorted(
+                 _unet_conv_shapes(n, SD2_RESOLUTION, ucfg).items())]
+    int8 += [_quantize_case(shape, gen, timed=False, sites=sites)
+             for shape, sites in sorted(
+                 _unet_linear_shapes(n, SD2_RESOLUTION, ucfg).items())]
+    return fwd, bwd, int8
+
+
+def _sd2_step_shapes(ucfg, vit_cfg, batch, resolution):
+    """{"BHxSqxSkxD": [forward launches, backward launches]} of one
+    training step (tuning or pretraining) at ``batch``: every UNet site
+    with at least FLASH_MIN_SEQ query tokens (the step is all-flash), the
+    tap pass's down and mid blocks and the full pass's every block, each
+    forward run twice under whole-call remat; the frozen ViT's forward.
+    ``_expected_tuning_launches`` counts the same launches by kernel."""
+    from e4t_diffusion_torch.models.weight_offsets import attention_sites
+    from e4t_diffusion_torch.ops.attention import FLASH_MIN_SEQ
+
+    side = resolution // 8
+    levels = len(ucfg.block_out_channels)
+    shapes = {}
+    for path, dim, _ in attention_sites(ucfg):
+        block, index = path.split(".")[:2]
+        if block == "up_blocks":
+            level, passes = levels - 1 - int(index), 1
+        else:
+            level = int(index) if block == "down_blocks" else levels - 1
+            passes = 2
+        sq = (side >> level) ** 2
+        if sq < FLASH_MIN_SEQ:
+            continue
+        heads = ucfg.heads_for_block(level)
+        sk = sq if path.endswith("attn1") else 77
+        key = f"{batch * heads}x{sq}x{sk}x{dim // heads}"
+        counts = shapes.setdefault(key, [0, 0])
+        counts[0] += 2 * passes
+        counts[1] += passes
+    tokens = vit_cfg.grid ** 2 + 1
+    if tokens >= FLASH_MIN_SEQ:
+        key = (f"{batch * vit_cfg.num_heads}x{tokens}x{tokens}x"
+               f"{vit_cfg.width // vit_cfg.num_heads}")
+        shapes.setdefault(key, [0, 0])[0] += vit_cfg.num_layers
+    return shapes
+
+
+def _sd2_base(root):
+    """(a) The seeded SD 2.1 diffusers directory (bf16 weights): UNet,
+    VAE and the OpenCLIP-H text tower through ``_write_sd_model``, with a
+    v-prediction schedule; no image encoder, no class embedding."""
+    import torch
+
+    from e4t_diffusion_torch.models.clip_text import (CLIPTextConfig,
+                                                      CLIPTextModel)
+    from e4t_diffusion_torch.models.unet import (UNet2DConditionModel,
+                                                 UNetConfig)
+    from e4t_diffusion_torch.models.vae import AutoencoderKL, VAEConfig
+
+    torch.manual_seed(30)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(UNetConfig.sd2())
+        vae = AutoencoderKL(VAEConfig(sample_size=SD2_RESOLUTION))
+        text = CLIPTextModel(CLIPTextConfig.sd2())
+    for m in (unet, vae, text):
+        m.to(torch.bfloat16)
+    path = _write_sd_model(os.path.join(root, "sd2"), unet, vae, text)
+    n_params = sum(p.numel() for m in (unet, vae, text)
+                   for p in m.parameters())
+    del unet, vae, text
+    torch.cuda.empty_cache()
+    return path, n_params
+
+
+@contextlib.contextmanager
+def _trained_groups(module, name, frozen_of, trained_of, report, dtype):
+    """While active, ``module.<name>`` (the training function a CLI's main
+    calls: ``pretrain`` or ``tune``) records in ``report`` which of its
+    frozen groups changed a bit and which trained groups did not change
+    (``frozen_of`` / ``trained_of``: its positional arguments -> {group:
+    tensors}; the frozen ones compared in the compute ``dtype``, as the
+    trainer holds them; the trained ones after the run are the result's
+    "trainable" groups, in the same order), and its result under
+    "result"."""
+    real = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        frozen = frozen_of(args)
+        before = {g: _checksums(t, dtype) for g, t in frozen.items()}
+        trained = {g: _checksums(t) for g, t in trained_of(args).items()}
+        result = real(*args, **kwargs)
+        report["frozen_changed"] = sorted(
+            g for g, t in frozen.items() if _checksums(t) != before[g])
+        report["trained_unchanged"] = sorted(
+            g for g in trained if _checksums(
+                result["trainable"][g].values()) == trained[g])
+        report["result"] = result
+        return result
+
+    setattr(module, name, wrapped)
+    try:
+        yield report
+    finally:
+        setattr(module, name, real)
+
+
+def _sd2_train(module, name, argv, frozen_of, trained_of, what):
+    """One in-process CLI run (``module.main(argv + --train_batch_size
+    b)``) at the largest batch of SD2_TRAIN_BATCHES that fits, the launch
+    counters set to 0 just before and read just after; the trained groups
+    changed, the frozen ones bit for bit, loss and grad norm finite at
+    every step (bf16). Returns the report."""
+    import gc
+
+    import torch
+
+    for batch in SD2_TRAIN_BATCHES:
+        report = {"batch": batch, "oom_at": [b for b in SD2_TRAIN_BATCHES
+                                              if b > batch]}
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with _trained_groups(module, name, frozen_of, trained_of,
+                                 report, torch.bfloat16):
+                module.main(argv + ["--train_batch_size", str(batch)])
+        except torch.cuda.OutOfMemoryError:
+            report.pop("result", None)
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        torch.cuda.synchronize()
+        report["wall_s"] = time.perf_counter() - t0
+        report["launches"] = _read_launches()
+        report["max_memory_allocated_gb"] = (
+            torch.cuda.max_memory_allocated() / 1e9)
+        result = report.pop("result")
+        metrics = result["metrics"]
+        if not all(math.isfinite(m[k]) for m in metrics
+                   for k in ("loss", "loss_diff", "loss_reg", "grad_norm")):
+            fail(f"sd2_e4t {what}: non-finite metrics {metrics}")
+        if report["frozen_changed"] or report["trained_unchanged"]:
+            fail(f"sd2_e4t {what}: frozen groups changed "
+                 f"{report['frozen_changed']} or trained groups unchanged "
+                 f"{report['trained_unchanged']}")
+        report["metrics"] = metrics
+        report["trainable_shapes"] = [tuple(t.shape) for g in result[
+            "trainable"].values() for t in g.values()]
+        report["step_seconds"] = result["step_seconds"]
+        warm = result["step_seconds"][1:] or result["step_seconds"]
+        report["warm_s_per_step"] = sum(warm) / len(warm)
+        report["samples_per_s"] = batch / report["warm_s_per_step"]
+        del result
+        gc.collect()
+        torch.cuda.empty_cache()
+        return report
+    fail(f"sd2_e4t {what}: no batch of {SD2_TRAIN_BATCHES} fits")
+
+
+def _sd2_sampling(pipe, image, report):
+    """(d) The tuned artifact's pipeline: DDIM-4 twice (the rerun bit for
+    bit) and DPM++ 2M-4 at 768px, 2 prompts x 4 images, CFG 7.5, each run's
+    launches against ``_expected_sampling_launches``; one UNet pass on
+    flash against einsum; static int8 (calibrated on SD2_CALIB_STEPS
+    steps), and dynamic int8 with the int8 attention kernel and both
+    opt-in routes on, against bf16, final latents, with their launches
+    derived from the SD2 UNet's int8, attention and GroupNorm sites."""
+    import numpy as np
+    import torch
+
+    from e4t_diffusion_torch.diffusion.pipeline import (
+        StableDiffusionE4TPipeline)
+    from e4t_diffusion_torch.models.vae import VAEConfig
+    from e4t_diffusion_torch.ops.attention import flash_threshold
+
+    mods = pipe.modules
+    dev = mods.unet.conv_in.weight.device
+    ucfg, vit = mods.unet.config, mods.e4t_encoder.config.vit
+    n = len(PROMPTS) * IMAGES_PER_PROMPT
+    per_run = _expected_sampling_launches(ucfg, vit, n, SD2_RESOLUTION,
+                                          STEPS)
+    # 5 self-attention sites at each of 96², 48² and 24² a pass, two passes
+    # a step; cross-attention, the mid block and the ViT-H stay on einsum
+    if per_run != _want(flash_fwd_lowdim=30 * STEPS):
+        fail(f"sd2_e4t: sampling launch derivation {per_run}")
+    kwargs = dict(num_inference_steps=STEPS, guidance_scale=7.5,
+                  num_images_per_prompt=IMAGES_PER_PROMPT, seed=0)
+    runs, images = {}, {}
+    for name, scheduler in (("ddim_first", "ddim"), ("ddim_warm", "ddim"),
+                            ("dpm", "dpm_solver++")):
+        if name == "ddim_warm":
+            torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe(PROMPTS, image, scheduler_type=scheduler, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        if out.shape != (n, 3, SD2_RESOLUTION, SD2_RESOLUTION) or not (
+                np.isfinite(out).all() and 0.0 <= out.min()
+                and out.max() <= 1.0):
+            fail(f"sd2_e4t {name}: images {out.shape}, finite "
+                 f"{np.isfinite(out).all()}")
+        if launches != per_run:
+            fail(f"sd2_e4t {name}: launches {launches}, expected {per_run}")
+        runs[name] = {"s": seconds, "images_per_s": n / seconds,
+                      "launches": launches}
+        images[name] = out
+    runs["ddim_warm"]["max_memory_allocated_gb"] = (
+        torch.cuda.max_memory_allocated() / 1e9)
+    report["runs"] = runs
+    report["launches_per_step"] = {k: v // STEPS for k, v in per_run.items()
+                                   if v}
+    report["rerun_bit_equal"] = bool(np.array_equal(images["ddim_first"],
+                                                    images["ddim_warm"]))
+    if not report["rerun_bit_equal"]:
+        fail(f"sd2_e4t: two same-seed DDIM runs differ by "
+             f"{float(np.abs(images['ddim_first'] - images['ddim_warm']).max())}")
+    gen = torch.Generator(dev).manual_seed(31)
+    side = SD2_RESOLUTION // 8
+    x = torch.randn(n, 4, side, side, device=dev, generator=gen)
+    ctx = torch.randn(n, 77, ucfg.cross_attention_dim, device=dev,
+                      generator=gen)
+    t = torch.full((n,), 500, device=dev)
+    with torch.inference_mode():
+        eps = mods.unet(x, t, ctx).float()
+        with flash_threshold(1 << 62):
+            eps_plain = mods.unet(x, t, ctx).float()
+    report["unet_kernel_vs_einsum_rel_l2"] = _rel(eps, eps_plain)
+    del eps, eps_plain, x, ctx
+    if not report["unet_kernel_vs_einsum_rel_l2"] <= UNET_ROUTE_REL_L2:
+        fail(f"sd2_e4t: UNet eps, kernel vs einsum: {report}")
+
+    conv_sites = sum(_unet_conv_shapes(n, SD2_RESOLUTION, ucfg).values())
+    linear_sites = sum(_unet_linear_shapes(n, SD2_RESOLUTION,
+                                           ucfg).values())
+    int8 = StableDiffusionE4TPipeline(
+        mods, pipe.offsets, pipe.tokenizer, pipe.e4t_config,
+        scheduler=pipe.scheduler, already_added_placeholder_token=True,
+        int8="static")
+    want8 = _want(flash_fwd_lowdim=30 * (SD2_CALIB_STEPS + STEPS),
+                  int8_conv=2 * conv_sites * STEPS,
+                  int8_quantize=2 * linear_sites * STEPS)
+    lat_kwargs = dict(kwargs, output_type="latent")
+    saved = os.environ.get("E4T_INT8_CALIB_STEPS")
+    os.environ["E4T_INT8_CALIB_STEPS"] = str(SD2_CALIB_STEPS)
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        lat8 = torch.from_numpy(int8(PROMPTS, image, **lat_kwargs))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+    finally:
+        if saved is None:
+            os.environ.pop("E4T_INT8_CALIB_STEPS", None)
+        else:
+            os.environ["E4T_INT8_CALIB_STEPS"] = saved
+    lat = torch.from_numpy(pipe(PROMPTS, image, **lat_kwargs))
+    report["int8_static"] = {
+        "s_with_calibration": seconds, "launches": launches,
+        "conv_sites_per_unet_pass": conv_sites,
+        "linear_sites_per_unet_pass": linear_sites,
+        "calibrated_sites": len(int8.act_amax),
+        "linear_projection_sites": sum(
+            k.endswith(("proj_in", "proj_out")) for k in int8.act_amax),
+        "final_latents_vs_bf16_rel_l2": _rel(lat8, lat)}
+    if launches != want8:
+        fail(f"sd2_e4t int8: launches {launches}, expected {want8}")
+    if not (torch.isfinite(lat8).all() and report["int8_static"][
+            "final_latents_vs_bf16_rel_l2"] <= INT8_VS_BF16_REL_L2):
+        fail(f"sd2_e4t int8 against bf16: {report['int8_static']}")
+    # the opt-in routes on this base: dynamic int8 with the int8 attention
+    # kernel ("qkpv") at the d64 flash sites, E4T_FUSED_GN=1, and
+    # E4T_SHORTSEQ_MH_ATTN=8 (the mid block's 144 tokens and the ViT-H on
+    # the short-sequence kernel); final latents against bf16
+    routed = StableDiffusionE4TPipeline(
+        mods, pipe.offsets, pipe.tokenizer, pipe.e4t_config,
+        scheduler=pipe.scheduler, already_added_placeholder_token=True,
+        int8=True, int8_attn="qkpv")
+    attn = _expected_unclip_launches(ucfg, n, SD2_RESOLUTION, 2 * STEPS,
+                                     routes=True)
+    if attn != _want(flash_fwd_lowdim=30 * STEPS,
+                     flash_fwd_shortseq=2 * STEPS):
+        fail(f"sd2_e4t: routed sampling launch derivation {attn}")
+    gn_sites = sum(_group_norm_sites(
+        ucfg, VAEConfig(sample_size=SD2_RESOLUTION), 1, SD2_RESOLUTION,
+        parts=("unet",))["unet"].values())
+    want_routed = _want(
+        flash_fwd_int8=attn["flash_fwd_lowdim"],
+        flash_fwd_shortseq=attn["flash_fwd_shortseq"]
+        + _vit_shortseq_sites(vit, n),
+        group_norm=2 * STEPS * gn_sites, int8_conv=2 * conv_sites * STEPS,
+        int8_quantize=2 * linear_sites * STEPS)
+    with _routes_on():
+        _reset_launches()
+        t0 = time.perf_counter()
+        lat_routed = torch.from_numpy(routed(PROMPTS, image, **lat_kwargs))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+    report["int8_attn_qkpv_routes_on"] = {
+        "knobs": ROUTE_KNOBS, "s": seconds, "launches": launches,
+        "group_norm_sites_per_unet_pass": gn_sites,
+        "final_latents_vs_bf16_rel_l2": _rel(lat_routed, lat)}
+    if launches != want_routed:
+        fail(f"sd2_e4t int8 attention, routes on: launches {launches}, "
+             f"expected {want_routed}")
+    if not (torch.isfinite(lat_routed).all()
+            and report["int8_attn_qkpv_routes_on"][
+                "final_latents_vs_bf16_rel_l2"] <= INT8_VS_BF16_REL_L2):
+        fail(f"sd2_e4t int8 attention, routes on, against bf16: "
+             f"{report['int8_attn_qkpv_routes_on']}")
+    del int8, routed, lat8, lat, lat_routed
+    report["profile_ddim"] = _profile(lambda: pipe(PROMPTS, image,
+                                                   **kwargs))
+    return runs
+
+
+def phase_sd2_e4t(smi, data_dir):
+    """E4T on a full-width SD 2.1 base (seeded random weights) through the
+    port's CLIs, in process: (a) the diffusers directory; (b)
+    ``pretrain_e4t`` on the pretraining phase's images, SD2_PRETRAIN_STEPS
+    bf16 steps at 768px, a checkpoint and the artifact; (c) ``tuning_e4t``
+    from that artifact, SD2_TUNING_STEPS bf16 steps; (d) sampling from the
+    tuned artifact (``inference.build_pipeline``). Both training runs take
+    the batch 16 the CLIs default to, or the largest of SD2_TRAIN_BATCHES
+    that fits, and their resolution from the UNet's sample_size; every
+    launch count is derived from the port's own routes. Returns (the
+    launches of (b), (c) and a (d) run by path, the tuning step's flash
+    launches by shape)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from e4t_diffusion_torch import inference, pretrain_e4t, tuning_e4t
+    from e4t_diffusion_torch.models.clip_text import CLIPTextConfig
+    from e4t_diffusion_torch.models.e4t_encoder import E4TEncoderConfig
+    from e4t_diffusion_torch.models.unet import UNetConfig, tap_feature_dim
+    from e4t_diffusion_torch.utils import artifacts
+
+    ucfg, vit = UNetConfig.sd2(), E4TEncoderConfig().vit
+    if not (tap_feature_dim(ucfg) == 10880
+            and CLIPTextConfig.sd2().hidden_size == 1024):
+        fail("sd2_e4t: the SD 2.1 configs are not SD 2.1's")
+    report = {"phase": "sd2_e4t", "card": smi,
+              "resolution": SD2_RESOLUTION}
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        sd, report["base_params"] = _sd2_base(root)
+        report["write_base_s"] = time.perf_counter() - t0
+
+        def head(e4t):
+            return [p for n, p in e4t.named_parameters()
+                    if not n.startswith("clip_vision.")]
+
+        pre_out = os.path.join(root, "pre")
+        pre = _sd2_train(
+            pretrain_e4t, "pretrain", [
+                "--pretrained_model_name_or_path", sd,
+                "--train_image_dataset", data_dir,
+                "--domain_class_token", "face", "--prompt_template",
+                "normal", "--max_train_steps", str(SD2_PRETRAIN_STEPS),
+                "--checkpointing_steps", str(SD2_PRETRAIN_STEPS),
+                "--n_save_sample", "0", "--mixed_precision", "bf16",
+                "--report_to", "tensorboard", "--output_dir", pre_out,
+                "--seed", "0"],
+            lambda a: {"unet": list(a[1].unet.parameters()),
+                       "vae": list(a[1].vae.parameters()),
+                       "text": list(a[1].text_encoder.parameters()),
+                       "vit": list(a[1].e4t_encoder.clip_vision
+                                   .parameters())},
+            lambda a: {"offsets": list(a[2].values()),
+                       "e4t": head(a[1].e4t_encoder)}, "pretraining")
+        art = os.path.join(pre_out, str(SD2_PRETRAIN_STEPS))
+        ckpt = os.path.join(pre_out, f"checkpoint-{SD2_PRETRAIN_STEPS}",
+                            artifacts.TRAIN_STATE_FILE)
+        if not (os.path.exists(ckpt) and sorted(os.listdir(art)) == [
+                "config.json", "encoder.pt", "weight_offsets.pt"]):
+            fail(f"sd2_e4t pretraining: no checkpoint or artifact in "
+                 f"{os.listdir(pre_out)}")
+        per_step = _expected_tuning_launches(ucfg, vit, SD2_RESOLUTION)
+        want = {k: SD2_PRETRAIN_STEPS * v for k, v in per_step.items()}
+        if pre["launches"] != want:
+            fail(f"sd2_e4t pretraining: launches {pre['launches']}, "
+                 f"expected {want}")
+        del pre["trainable_shapes"]
+        pre["launches_per_step"] = per_step
+        pre["flash_by_shape_per_step"] = _sd2_step_shapes(
+            ucfg, vit, pre["batch"], SD2_RESOLUTION)
+        report["pretraining"] = pre
+        paths["sd2_pretraining"] = pre["launches"]
+
+        image = os.path.join(root, "subject.png")
+        Image.fromarray(np.random.default_rng(32).integers(
+            0, 256, (SD2_RESOLUTION, SD2_RESOLUTION, 3),
+            dtype=np.uint8)).save(image)
+        tune_out = os.path.join(root, "tune")
+        tune = _sd2_train(
+            tuning_e4t, "tune", [
+                "--pretrained_model_name_or_path", art,
+                "--train_image_path", image,
+                "--max_train_steps", str(SD2_TUNING_STEPS),
+                "--mixed_precision", "bf16", "--output_dir", tune_out,
+                "--seed", "0"],
+            lambda a: {"vae": list(a[1].vae.parameters()),
+                       "vit": list(a[1].e4t_encoder.clip_vision
+                                   .parameters())},
+            lambda a: {"unet": list(a[1].unet.parameters()),
+                       "offsets": list(a[2].values()),
+                       "e4t": head(a[1].e4t_encoder)}, "tuning")
+        want = {k: SD2_TUNING_STEPS * v for k, v in per_step.items()}
+        if tune["launches"] != want:
+            fail(f"sd2_e4t tuning: launches {tune['launches']}, expected "
+                 f"{want}")
+        tune["launches_per_step"] = per_step
+        tune["flash_by_shape_per_step"] = _sd2_step_shapes(
+            ucfg, vit, tune["batch"], SD2_RESOLUTION)
+        # the 8-bit AdamW kernel at every distinct shape this step trains
+        # (the whole SD 2.1 UNet, the offsets at its sites, the 1024-wide
+        # encoder) against its plain version, bit for bit
+        tune["adam8bit_at_sd2_tuning_shapes"] = _adam8bit_checks(
+            sorted(set(tune.pop("trainable_shapes"))), timed=False)
+        report["tuning"] = tune
+        paths["sd2_tuning"] = tune["launches"]
+        tuned = os.path.join(tune_out, str(SD2_TUNING_STEPS))
+        if not os.path.exists(os.path.join(tuned, "unet.pt")):
+            fail(f"sd2_e4t tuning: no artifact in {tune_out}")
+
+        t0 = time.perf_counter()
+        pipe = inference.build_pipeline(inference.parse_args([
+            "--pretrained_model_name_or_path", tuned,
+            "--image_path_or_url", image]))
+        report["load_tuned_s"] = time.perf_counter() - t0
+        subject = np.asarray(Image.open(image))
+        sampling = {}
+        runs = _sd2_sampling(pipe, subject, sampling)
+        report["sampling"] = sampling
+        paths["sd2_sampling"] = runs["ddim_warm"]["launches"]
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps(report))
+    return paths, tune["flash_by_shape_per_step"]
+
+
+def kernels_line(cases, paths, unclip_call, adam8bit, sd2_step=None):
     """The kernels record: one row per kernel, its launches on each path
     (``paths``: launch counts by path) and its times at the main path's
     heaviest site, with every timed site beside it; ``unclip_call``: the
     unclip phase's flash launches by shape and their profiled time;
-    ``adam8bit``: the training extras' check of the 8-bit AdamW kernel."""
+    ``adam8bit``: the training extras' check of the 8-bit AdamW kernel;
+    ``sd2_step``: the SD 2.1 tuning step's flash launches by shape
+    (``_sd2_step_shapes``)."""
     fwd_cases = (cases["sampling"] + cases["unclip_flash"]
-                 + cases["tuning_fwd"] + [cases["grid"]] + [
-                     c for c in cases["ragged"] if c["kernel"] != "flash_bwd"])
-    bwd_cases = cases["tuning_bwd"] + [cases["grid_bwd"]] + [
+                 + cases["sd2_fwd"] + cases["tuning_fwd"] + [cases["grid"]]
+                 + [c for c in cases["ragged"]
+                    if c["kernel"] != "flash_bwd"])
+    bwd_cases = cases["tuning_bwd"] + cases["sd2_bwd"] + [
+        cases["grid_bwd"]] + [
         c for c in cases["ragged"] if c["kernel"] == "flash_bwd"]
     timed_keys = ("bh", "sq", "sk", "d", "ms", "plain_ms", "bound_ms",
                   "bound_by", "library_ms")
@@ -5436,9 +6174,11 @@ def kernels_line(cases, paths, unclip_call, adam8bit):
     low = [c for c in fwd_cases if c["kernel"] == "flash_fwd_lowdim"]
     wide = [c for c in fwd_cases if c["kernel"] == "flash_fwd_wide"]
     int8_flash = cases["int8_flash"] + [
-        c for c in cases["ragged"] if c["kernel"] == "flash_fwd_int8"]
+        c for c in cases["ragged"] + cases["sd2_int8"]
+        if c["kernel"] == "flash_fwd_int8"]
     convs = cases["int8_conv"] + [
-        c for c in cases["ragged"] if c["kernel"] == "int8_conv"]
+        c for c in cases["ragged"] + cases["sd2_int8"]
+        if c["kernel"] == "int8_conv"]
     kernels = [
         entry("flash_fwd_lowdim", "flash_fwd_lowdim.cu", 286,
               cases["sampling"][0], [c["out_max_abs"] for c in low],
@@ -5464,6 +6204,25 @@ def kernels_line(cases, paths, unclip_call, adam8bit):
     kernels[0]["unclip_sites"] = [
         {k: c[k] for k in timed_keys + ("parent_ms",)}
         for c in cases["unclip_flash"]]
+    # the SD 2.1 training step's d64 sites at batch 16, 768px (E4T on an
+    # SD2 base; its sampling sites are the unCLIP UNet's), and the step's
+    # sum: each shape's time and bound times its launches a step
+    for index, key in ((0, "sd2_fwd"), (2, "sd2_bwd")):
+        kernels[index]["sd2_training_sites"] = [
+            {k: c[k] for k in timed_keys + ("parent_ms", "plain_chunks")
+             if k in c} for c in cases[key]]
+    if sd2_step is not None:
+        for index, key, which in ((0, "sd2_fwd", 0), (2, "sd2_bwd", 1)):
+            timed = {f"{c['bh']}x{c['sq']}x{c['sk']}x{c['d']}": c
+                     for c in cases[key]}
+            counted = {shape: n[which] for shape, n in sd2_step.items()
+                       if shape in timed}
+            kernels[index]["per_sd2_training_step"] = {
+                "launches_by_shape": counted,
+                **{t: sum(n * timed[shape][t]
+                          for shape, n in counted.items())
+                   for t in ("ms", "bound_ms", "library_ms",
+                             "parent_ms")}}
     shapes = unclip_call["launches_by_shape"]
     kernels[0]["per_unclip_call"] = {
         "launches_by_shape": shapes,
@@ -5541,7 +6300,8 @@ def kernels_line(cases, paths, unclip_call, adam8bit):
         "launches_by_path": {k: p["int8_quantize"]
                              for k, p in paths.items()},
         "max_abs_err": max(c["out_max_abs"] for c in quants + [
-            c for c in cases["ragged"] if c["kernel"] == "int8_quantize"]),
+            c for c in cases["ragged"] + cases["sd2_int8"]
+            if c["kernel"] == "int8_quantize"]),
         "ms": site["ms"], "plain_ms": site["plain_ms"],
         "bound_ms": site["bound_ms"], "bound_by": site["bound_by"],
         "library_ms": None,
@@ -5729,6 +6489,18 @@ def main():
             _write_pretraining_images(data_dir, PRETRAIN_IMAGES)
             run("parallel", phase_parallel, smi, data_dir)
         return
+    if sys.argv[1:] == ["--sd2"]:
+        # the SD 2.1 kernel cases and the sd2_e4t phase alone
+        cases = {}
+        gen = torch.Generator("cuda").manual_seed(0)
+        cases["sd2_fwd"], cases["sd2_bwd"], cases["sd2_int8"] = run(
+            "sd2_kernels", _sd2_kernel_cases, gen)
+        print(json.dumps({"phase": "sd2_kernels", **cases}))
+        with tempfile.TemporaryDirectory() as data_dir:
+            _write_pretraining_images(data_dir, PRETRAIN_IMAGES)
+            run("sd2_e4t", phase_sd2_e4t, smi, data_dir)
+        print(json.dumps({"phase_seconds": timings}))
+        return
     if sys.argv[1:] == ["--multi-card"]:
         # (d) of the parallel phase alone, on a machine of two or more cards
         if torch.cuda.device_count() < 2:
@@ -5772,6 +6544,8 @@ def main():
     extras, adam8bit = run("training_extras", phase_training_extras, smi,
                            tuning_ref, pretraining_ref, data)
     torch.cuda.empty_cache()
+    sd2, sd2_step = run("sd2_e4t", phase_sd2_e4t, smi, data.name)
+    torch.cuda.empty_cache()
     parallel = run("parallel", phase_parallel, smi, data.name)
     data.cleanup()
     paths = {"sampling": sampling, "schedulers": schedulers,
@@ -5784,10 +6558,11 @@ def main():
              "pretraining": pretraining,
              "routes_pretraining": routes_pretraining,
              "f32_pretraining": f32_pretraining,
-             "training_extras": extras, "parallel": parallel}
+             "training_extras": extras, **sd2, "parallel": parallel}
 
     kernels = kernels_line(cases, paths,
-                           unclip_files["flash_per_call"], adam8bit)
+                           unclip_files["flash_per_call"], adam8bit,
+                           sd2_step)
     print(json.dumps({"phase_seconds": timings,
                       "profiler_empty": PROFILER_EMPTY,
                       "trace_device_kernels": TRACE_DEVICE_KERNELS}))

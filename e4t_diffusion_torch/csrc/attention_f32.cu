@@ -44,6 +44,16 @@
 #include "flash_common.cuh"
 #include "wgmma_common.cuh"
 
+// Built in parts that compile side by side (ops/_build.py: a library
+// "attention_f32@<n>" is this file with E4T_PART=n): each part keeps only
+// its entry points below, and so instantiates only their kernels. 1: the
+// flash forward, 2: the backward, 3: the short-sequence forward, 4: the
+// synchronous designs, 5: the int8 "qk" forward.
+#ifndef E4T_PART
+#error "attention_f32.cu is built in parts: define E4T_PART (1 to 5)"
+#endif
+#define E4T_IN_PART(n) (E4T_PART == (n))
+
 namespace {
 
 constexpr int kT = 256;  // threads per block: a 16 x 16 grid
@@ -1552,6 +1562,7 @@ bool bad_shape(int bh, int sq, int sk, int d, int max_d) {
 // of 8, up to 256 (flash forward and backward), 128 (short-sequence) or 120
 // (int8). Each runs on ``stream``, allocates nothing, does not synchronise
 // and returns cudaGetLastError() after its launches.
+#if E4T_IN_PART(1)
 extern "C" int e4t_attn_fwd_f32(const void* q, const void* k, const void* v, void* out,
                                 void* lse, int bh, int sq, int sk, int d, float scale,
                                 void* stream) {
@@ -1562,7 +1573,9 @@ extern "C" int e4t_attn_fwd_f32(const void* q, const void* k, const void* v, voi
                                                       d, s);
   });
 }
+#endif
 
+#if E4T_IN_PART(3)
 extern "C" int e4t_attn_fwd_shortseq_f32(const void* q, const void* k, const void* v,
                                          void* out, int bh, int s_len, int d, float scale,
                                          void* stream) {
@@ -1572,7 +1585,9 @@ extern "C" int e4t_attn_fwd_shortseq_f32(const void* q, const void* k, const voi
     return launch_f32_short<decltype(dk)::value>(q, k, v, scale, out, bh, s_len, d, s);
   });
 }
+#endif
 
+#if E4T_IN_PART(5)
 extern "C" int e4t_attn_fwd_int8_qk_f32(const void* q, const void* k, const void* v,
                                         const void* sc, void* out, void* lse, int bh,
                                         int sq, int sk, int d, void* stream) {
@@ -1582,10 +1597,12 @@ extern "C" int e4t_attn_fwd_int8_qk_f32(const void* q, const void* k, const void
     return launch_f32_fwd_int8<decltype(dk)::value>(q, k, v, sc, out, lse, bh, sq, sk, s);
   });
 }
+#endif
 
 // The synchronous design of the int8 "qk" attention
 // (attn_fwd_f32_sync_kernel<int8_t, DK, false>), kept as its yardstick: the
 // same arguments as e4t_attn_fwd_int8_qk_f32.
+#if E4T_IN_PART(4)
 extern "C" int e4t_attn_fwd_int8_qk_f32_sync(const void* q, const void* k, const void* v,
                                              const void* sc, void* out, void* lse, int bh,
                                              int sq, int sk, int d, void* stream) {
@@ -1596,7 +1613,9 @@ extern "C" int e4t_attn_fwd_int8_qk_f32_sync(const void* q, const void* k, const
                                                           sq, sk, d, s);
   });
 }
+#endif
 
+#if E4T_IN_PART(2)
 extern "C" int e4t_attn_bwd_f32(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta,
                                 void* dq, void* dk, void* dv, int bh, int sq, int sk, int d,
@@ -1608,11 +1627,13 @@ extern "C" int e4t_attn_bwd_f32(const void* q, const void* k, const void* v,
                                                 sq, sk, d, scale, s);
   });
 }
+#endif
 
 // The synchronous designs the redesigned kernels replaced (4 x 4 score
 // blocks of scalar shared loads, tiles staged between two block barriers,
 // D padded to 16 / 32), kept as their yardsticks: the same arguments as
 // the entry points above.
+#if E4T_IN_PART(4)
 extern "C" int e4t_attn_fwd_f32_sync(const void* q, const void* k, const void* v,
                                      void* out, void* lse, int bh, int sq, int sk, int d,
                                      float scale, void* stream) {
@@ -1646,3 +1667,4 @@ extern "C" int e4t_attn_bwd_f32_sync(const void* q, const void* k, const void* v
                                             sk, d, scale, s);
   });
 }
+#endif

@@ -612,7 +612,9 @@ class StableDiffusionE4TPipeline:
                else domain_embed_scale)
         scheduler = self.scheduler
         if scheduler_type is not None:
-            scheduler = SCHEDULER_MAPPING[scheduler_type](NoiseScheduleConfig())
+            # another sampler on the pipeline's noise schedule (its
+            # prediction type among it: v on an SD 2.x base)
+            scheduler = SCHEDULER_MAPPING[scheduler_type](scheduler.config)
 
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         prepared = [self._prepare_prompt(p) for p in prompts]

@@ -1,6 +1,7 @@
 """E4T inference CLI: ``python -m e4t_diffusion_torch.inference``.
 
-Loads a tuned or pretrained E4T artifact directory, builds the sampling
+Loads a tuned or pretrained E4T artifact directory (or a registry name,
+``utils/hub.py``, found under ``$E4T_MODELS_DIR``), builds the sampling
 pipeline on the GPU (``--device cpu`` to run on the CPU) and renders the
 prompts to a grid image. '::' splits several prompts; ``--batch_prompts``
 samples them as one batch. ``--scheduler_type`` picks one of the six
@@ -34,6 +35,7 @@ from e4t_diffusion_torch.models.vit import VIT_GELU_KNOB
 from e4t_diffusion_torch.ops import quant
 from e4t_diffusion_torch.parallel import mesh as pmesh
 from e4t_diffusion_torch.utils import artifacts
+from e4t_diffusion_torch.utils.hub import resolve_model_dir
 from e4t_diffusion_torch.utils.image import image_grid, load_image
 from e4t_diffusion_torch.utils.tokenizer import CLIPTokenizer
 
@@ -132,8 +134,12 @@ def parse_args(argv=None):
     parser.add_argument("--num_inference_steps", type=int, default=50)
     parser.add_argument("--guidance_scale", type=float, default=1.0)
     parser.add_argument("--num_images_per_prompt", type=int, default=1)
-    parser.add_argument("--height", type=int, default=512)
-    parser.add_argument("--width", type=int, default=512)
+    parser.add_argument("--height", type=int, default=None,
+                        help="default: the base UNet's sample_size x 8 "
+                             "(512 for SD v1, 768 for SD 2.1; the JAX "
+                             "CLI's default is 512 on every base)")
+    parser.add_argument("--width", type=int, default=None,
+                        help="default: as --height")
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--batch_prompts", action="store_true",
                         help="run all '::'-separated prompts as one batched "
@@ -169,6 +175,8 @@ def build_pipeline(args) -> StableDiffusionE4TPipeline:
     dtype = resolve_dtype(args.dtype, torch.device(args.device))
     device = pmesh.maybe_initialize_distributed(resolve_device(args.device))
     mesh = pmesh.get_mesh(tp=args.tensor_parallel)
+    args.pretrained_model_name_or_path = resolve_model_dir(
+        args.pretrained_model_name_or_path)
     config = load_config(args.pretrained_model_name_or_path)
     sd_path = getattr_from_config(config, "pretrained_model_name_or_path")
     e4t_config = get_e4t_config(config)

@@ -10,7 +10,9 @@ reference ``encoder.pt`` parameter names (``clip_vision.*``,
   axis of the last layer; kept deliberately);
 - ``fuse``: each vector, concatenated with the embedded 10,880-dim UNet
   feature, goes through a shared linear and its own per-index linear, is
-  mean-pooled, LeakyReLU'd and projected to the word-embedding dim.
+  mean-pooled, LeakyReLU'd and projected to the word-embedding dim: the
+  text tower's width, 768 for SD v1's CLIP-L and 1024 for SD 2.x's
+  OpenCLIP-H (``word_embedding_dim``; the UNet tap is 10,880 wide in both).
 
 The 129 per-index linears are held stacked, (n, out, in), and applied as
 one batched product; state-dict hooks keep the reference's
@@ -79,7 +81,7 @@ class E4TEncoder(nn.Module):
 
     def fuse(self, clip_feats: torch.Tensor,
              unet_pooled_features: torch.Tensor) -> torch.Tensor:
-        """(B, n, hidden) x (B, 10880) -> (B, word_dim)."""
+        """(B, n, hidden) x (B, unet_feature_dim) -> (B, word_dim)."""
         dtype = self.feature_linear.weight.dtype
         u = self.unet_feature_embedder(unet_pooled_features.to(dtype))
         u_b = u[:, None, :].expand(*clip_feats.shape[:2], u.shape[-1])

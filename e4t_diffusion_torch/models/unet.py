@@ -13,7 +13,8 @@ and ``class_embed_type="projection"`` (Stable-unCLIP: an MLP over
 the E4T tap (conv_in output, every down-block residual and downsampler
 output, the mid output); ``"with_eps"`` runs the full forward and returns
 ``(eps, tap)``. ``pool_encoder_features`` mean-pools the tap to the
-10,880-dim feature of SD v1. The E4T weight offsets are folded into the
+10,880-dim feature of SD v1 and of the SD v2 family alike (the same
+``block_out_channels``). The E4T weight offsets are folded into the
 attention projections from outside (``models/weight_offsets.py``).
 
 Every linear and conv site is a ``quant.Linear`` / ``quant.Conv2d``
@@ -94,13 +95,6 @@ class UNetConfig:
         if isinstance(self.attention_head_dim, int):
             return self.attention_head_dim
         return self.attention_head_dim[block_index]
-
-    @property
-    def is_sd2_family(self) -> bool:
-        """Any of the SD v2 options (what the E4T paths do not take)."""
-        return (not isinstance(self.attention_head_dim, int)
-                or self.use_linear_projection
-                or self.class_embed_type is not None)
 
     @classmethod
     def sd2(cls, sample_size: int = 96) -> "UNetConfig":
@@ -509,7 +503,8 @@ class UNet2DConditionModel(nn.Module):
 
 def tap_feature_dim(config: UNetConfig) -> int:
     """Channel count of the pooled E4T tap: conv_in + every down-block
-    residual (+downsampler) + mid output. 10,880 for SD v1."""
+    residual (+downsampler) + mid output. 10,880 for SD v1 and SD 2.x,
+    whose ``block_out_channels`` are the same."""
     total = config.block_out_channels[0]
     for bi, _ in enumerate(config.down_block_types):
         ch = config.block_out_channels[bi]
@@ -521,5 +516,6 @@ def tap_feature_dim(config: UNetConfig) -> int:
 
 def pool_encoder_features(down_block_samples: Sequence[torch.Tensor]
                           ) -> torch.Tensor:
-    """Spatial mean-pool + concat of the NCHW tap -> (B, 10880) for SD v1."""
+    """Spatial mean-pool + concat of the NCHW tap -> (B, tap_feature_dim):
+    (B, 10880) for SD v1 and SD 2.x."""
     return torch.cat([s.mean(dim=(2, 3)) for s in down_block_samples], dim=-1)

@@ -2,7 +2,8 @@
 
 Counterpart of ``e4t_diffusion_tpu/models/weight_offsets.py``. Each
 attention projection (to_q/to_k/to_v of attn1 and attn2 in every
-transformer block: 96 sites in SD v1) owns a no-input hypernetwork
+transformer block: 96 sites in SD v1 and in SD 2.x) owns a no-input
+hypernetwork
 
     v -> linear1: 1->row, linear2: 1->col  (rank-1 seed vx vy^T)
       -> linear_column: row->row, column-wise -> linear_row: col->col, row-wise
@@ -74,7 +75,9 @@ def init_offset_bank(unet_config, generator: Optional[torch.Generator] = None,
     """A freshly initialised bank (f32) for every attention site."""
     bank = {}
     for path, qdim, kvdim in attention_sites(unet_config):
-        inner = qdim  # heads * dim_head == query_dim in SD v1 blocks
+        # heads * dim_head == query_dim: SD v1's 8 heads of qdim / 8 and
+        # SD 2.x's per-block heads of 64 (5, 10, 20 x 64) alike
+        inner = qdim
         for wo, row in (("wo_q", qdim), ("wo_k", kvdim), ("wo_v", kvdim)):
             p = f"{path}.{wo}"
             bank[f"{p}.v"] = torch.ones(1, device=device)
@@ -135,7 +138,8 @@ def fold_offset_bank(unet: torch.nn.Module, bank: Dict[str, torch.Tensor],
                      ) -> Dict[str, torch.Tensor]:
     """Effective projection weights W * (1 + O) for every site, as
     {parameter name: tensor} for ``torch.func.functional_call``. The 96
-    hypernetworks are evaluated batched by offset shape (6 groups in SD v1);
+    hypernetworks are evaluated batched by offset shape (6 groups in SD v1,
+    the same in SD 2.x, whose cross sites are 1024 wide);
     the fold is computed in f32 and cast to ``dtype`` (default: the
     weight's). ``weights`` supplies W (default: the UNet's own parameters);
     training passes its f32 trainables, and the fold is differentiable in
@@ -160,3 +164,17 @@ def fold_offset_bank(unet: torch.nn.Module, bank: Dict[str, torch.Tensor],
             folded[name] = (w.float() * (1.0 + o.to(w.device))).to(
                 dtype or w.dtype)
     return folded
+
+
+def offset_linear_apply(bank: Dict[str, torch.Tensor], prefix: str,
+                        weight: torch.Tensor, x: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = x W_eff^T (+ bias) with W_eff = W * (1 + O), O the offset of the
+    hypernetwork at ``prefix`` of ``bank`` (e.g. ``"<site>.wo_q"``) and
+    ``weight`` W in torch (out, in) layout; differentiable in x, W, the
+    bias and the hypernetwork, by the product rule. Counterpart of the JAX
+    package's ``offset_linear_apply``: one layer of the fold that
+    ``fold_offset_bank`` applies to every site."""
+    o = compute_offsets(bank, [prefix])[0]
+    w_eff = weight * (1.0 + o.to(weight.dtype))
+    return torch.nn.functional.linear(x, w_eff, bias)

@@ -5,8 +5,11 @@ interface (no PyTorch headers, so a build takes seconds), at first use,
 into ``build/e4t_torch_kernels/`` at the root of the checkout. The file
 name carries a hash of the source, the shared ``csrc/*.cuh`` headers and
 the flags, so an edited source rebuilds and a stale library is never
-loaded. ``launch`` calls a library's entry point on the current CUDA
-stream and raises on the CUDA error it returns.
+loaded. A name ``<source>@<n>`` is part n of a source built in parts: the
+same file compiled with ``E4T_PART=n`` defined, which keeps only that
+part's entry points (and so instantiates only their kernels), so that the
+parts compile side by side. ``launch`` calls a library's entry point on
+the current CUDA stream and raises on the CUDA error it returns.
 """
 from __future__ import annotations
 
@@ -44,12 +47,21 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _source_and_flags(name: str):
+    """(the ``.cu`` file, nvcc's flags) of ``name`` (``<source>`` or
+    ``<source>@<part>``)."""
+    source, _, part = name.partition("@")
+    flags = NVCC_FLAGS + ((f"-DE4T_PART={int(part)}",) if part else ())
+    return CSRC_DIR / f"{source}.cu", flags
+
+
 def library_path(name: str) -> Path:
+    source, flags = _source_and_flags(name)
     digest = hashlib.sha256()
-    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+    for path in [source, *sorted(CSRC_DIR.glob("*.cuh"))]:
         digest.update(path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{name.replace('@', '-p')}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> str:
@@ -64,8 +76,9 @@ def build(name: str) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    source, flags = _source_and_flags(name)
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+        [nvcc_path(), *flags, "-o", tmp, str(source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

@@ -36,7 +36,7 @@ import torch
 
 from e4t_diffusion_torch.ops import _build
 from e4t_diffusion_torch.ops.flash_lowdim import (
-    F32_SOURCE, _check, _check_kernel_inputs, _require_f32_cuda)
+    F32_BWD, F32_SYNC, _check, _check_kernel_inputs, _require_f32_cuda)
 
 SOURCE = "flash_bwd"
 
@@ -78,7 +78,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     f32 = _check_kernel_operands(q, k, v, out, lse, dout) == torch.float32
-    grads = _launch(F32_SOURCE if f32 else SOURCE,
+    grads = _launch(F32_BWD if f32 else SOURCE,
                     "e4t_attn_bwd_f32" if f32 else "e4t_flash_bwd",
                     q, k, v, out, lse, dout, scale)
     flash_bwd.launches["f32" if f32 else "bf16"] += 1
@@ -116,7 +116,7 @@ def flash_bwd_f32_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_shapes(q, k, v, out, lse, dout)
     _require_f32_cuda("flash_bwd_f32_sync", q, k, v, out, dout)
     _check_kernel_operands(q, k, v, out, lse, dout)
-    return _launch(F32_SOURCE, "e4t_attn_bwd_f32_sync", q, k, v, out, lse,
+    return _launch(F32_SYNC, "e4t_attn_bwd_f32_sync", q, k, v, out, lse,
                    dout, scale)
 
 

@@ -40,7 +40,8 @@ from typing import Optional, Tuple
 import torch
 
 from e4t_diffusion_torch.ops import _build
-from e4t_diffusion_torch.ops.flash_lowdim import F32_SOURCE, KERNEL_DTYPES
+from e4t_diffusion_torch.ops.flash_lowdim import (F32_INT8, F32_SYNC,
+                                                  KERNEL_DTYPES)
 
 SOURCE = "flash_fwd_int8"
 MODES = ("qk", "qkpv")
@@ -200,7 +201,7 @@ def flash_fwd_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel_inputs(q, k, v, sc, mode, out_dtype)
     key = launch_key(mode, out_dtype)
     if key == "qk_f32":
-        out, lse = _launch(F32_SOURCE, "e4t_attn_fwd_int8_qk_f32", q, k, v, sc,
+        out, lse = _launch(F32_INT8, "e4t_attn_fwd_int8_qk_f32", q, k, v, sc,
                            out_dtype)
     else:
         out, lse = _launch(SOURCE, "e4t_flash_fwd_int8", q, k, v, sc,
@@ -231,7 +232,7 @@ def flash_fwd_int8_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel_inputs(q, k, v, sc, mode, out_dtype)
     key = launch_key(mode, out_dtype)
     if key == "qk_f32":
-        return _launch(F32_SOURCE, "e4t_attn_fwd_int8_qk_f32_sync", q, k, v,
+        return _launch(F32_SYNC, "e4t_attn_fwd_int8_qk_f32_sync", q, k, v,
                        sc, out_dtype)
     return _launch(SOURCE, "e4t_flash_fwd_int8_sync", q, k, v, sc, out_dtype,
                    int(mode == "qkpv"), int(key == "qkpv_f32"), block_k)

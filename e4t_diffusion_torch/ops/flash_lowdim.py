@@ -44,10 +44,15 @@ import torch
 from e4t_diffusion_torch.ops import _build
 
 SOURCE = "flash_fwd_lowdim"
-# the f32 kernels of every attention wrapper
+# the f32 kernels of every attention wrapper, built in five parts that
+# compile side by side: the flash forward, the backward, the short-sequence
+# forward, the synchronous designs kept as yardsticks and the int8 "qk"
+# forward
 F32_SOURCE = "attention_f32"
+F32_PARTS = F32_FWD, F32_BWD, F32_SHORT, F32_SYNC, F32_INT8 = tuple(
+    f"{F32_SOURCE}@{part}" for part in range(1, 6))
 # the floating types of the kernels' operands: the bf16 kernels and the f32
-# ones of F32_SOURCE
+# ones of F32_PARTS
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # head dims (multiples of 8) the kernels take; from WIDE_MIN_D the forward
 # stands for the TPU's d >= 128 kernels and counts apart
@@ -143,7 +148,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     dtype = _check_kernel_inputs(q, k, v)
-    out, lse = _launch(*((F32_SOURCE, "e4t_attn_fwd_f32")
+    out, lse = _launch(*((F32_FWD, "e4t_attn_fwd_f32")
                          if dtype == torch.float32
                          else (SOURCE, "e4t_flash_fwd")), q, k, v, scale)
     flash_fwd.launches[launch_route(q.shape[2], dtype)] += 1
@@ -176,7 +181,7 @@ def flash_fwd_f32_sync(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     _require_f32_cuda("flash_fwd_f32_sync", q, k, v)
     _check_kernel_inputs(q, k, v)
-    return _launch(F32_SOURCE, "e4t_attn_fwd_f32_sync", q, k, v, scale)
+    return _launch(F32_SYNC, "e4t_attn_fwd_f32_sync", q, k, v, scale)
 
 
 def _require_f32_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -43,7 +43,7 @@ import os
 import torch
 
 from e4t_diffusion_torch.ops import _build
-from e4t_diffusion_torch.ops.flash_lowdim import (F32_SOURCE,
+from e4t_diffusion_torch.ops.flash_lowdim import (F32_SHORT, F32_SYNC,
                                                    _require_f32_cuda,
                                                    check_operands)
 
@@ -137,7 +137,7 @@ def flash_fwd_shortseq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     f32 = _check_kernel_inputs(q, k, v) == torch.float32
-    out = _launch(*((F32_SOURCE, "e4t_attn_fwd_shortseq_f32") if f32
+    out = _launch(*((F32_SHORT, "e4t_attn_fwd_shortseq_f32") if f32
                     else (SOURCE, "e4t_flash_fwd_shortseq")), q, k, v, scale)
     flash_fwd_shortseq.launches["f32" if f32 else "bf16"] += 1
     return out
@@ -171,5 +171,5 @@ def flash_fwd_shortseq_f32_sync(q: torch.Tensor, k: torch.Tensor,
     _check(q, k, v, g)
     _require_f32_cuda("flash_fwd_shortseq_f32_sync", q, k, v)
     _check_kernel_inputs(q, k, v)
-    return _launch(F32_SOURCE, "e4t_attn_fwd_shortseq_f32_sync", q, k, v,
+    return _launch(F32_SYNC, "e4t_attn_fwd_shortseq_f32_sync", q, k, v,
                    scale)

@@ -60,9 +60,9 @@ from e4t_diffusion_torch.models import weight_offsets as wo
 from e4t_diffusion_torch.parallel import mesh as pmesh
 from e4t_diffusion_torch.templates import resolve_templates
 from e4t_diffusion_torch.training.setup import (
-    TemplateSampler, build_modules, init_e4t_encoder_params,
-    make_lr_schedule, prepare_tokenizer, resolve_class_token,
-    scale_learning_rate)
+    TemplateSampler, build_modules, default_resolution,
+    init_e4t_encoder_params, make_lr_schedule, prepare_tokenizer,
+    resolve_class_token, scale_learning_rate)
 from e4t_diffusion_torch.training.train_step import (
     E4TTrainConfig, make_optimizer, make_train_step, split_trainable)
 from e4t_diffusion_torch.tuning_e4t import resolve_train_dtype
@@ -100,7 +100,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--webdataset", action="store_true", default=False)
     parser.add_argument("--iterable_dataset", action="store_true",
                         default=False)
-    parser.add_argument("--resolution", type=int, default=512)
+    parser.add_argument("--resolution", type=int, default=None,
+                        help="image side (default: the base UNet's "
+                             "sample_size x 8, 512 for SD v1, 768 for "
+                             "SD 2.1; the JAX CLI's default is 512 on "
+                             "every base)")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--gradient_accumulation_steps", type=int, default=1)
     parser.add_argument("--micro_batches", type=int, default=1,
@@ -410,7 +414,10 @@ def pretrain(args: argparse.Namespace, modules: E4TModules,
         batches.close()
     if timer.metrics():
         print(", ".join(f"{k}: {v:.4f}" for k, v in timer.metrics().items()))
-    save_weights(global_step)
+    # the last update's artifact, unless its checkpointing step wrote it
+    if not saved or saved[-1] != os.path.join(args.output_dir,
+                                              str(global_step)):
+        save_weights(global_step)
     artifacts.wait_for_checkpoints()
     mesh.barrier()
     tracker.finish()
@@ -485,6 +492,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         print(f"mesh: {mesh.describe()}")
     dtype = resolve_train_dtype(args.mixed_precision, device)
     base = artifacts.load_sd_base(args.pretrained_model_name_or_path)
+    if args.resolution is None:
+        args.resolution = default_resolution(base["unet_config"],
+                                             base["vae_config"])
     enc_cfg = artifacts.e4t_encoder_config_from_args(
         AttributeDict(vars(args)),
         word_embedding_dim=base["text_config"].hidden_size,

@@ -50,8 +50,10 @@ def parse_args(argv=None):
                         help="distinct prompts per sampling run")
     parser.add_argument("--num_inference_steps", type=int, default=50)
     parser.add_argument("--guidance_scale", type=float, default=7.5)
-    parser.add_argument("--height", type=int, default=512)
-    parser.add_argument("--width", type=int, default=512)
+    parser.add_argument("--height", type=int, default=None,
+                        help="default: the base UNet's sample_size x 8 "
+                             "(512 for SD v1, 768 for SD 2.1)")
+    parser.add_argument("--width", type=int, default=None)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--output_dir", type=str, default="served")
     return parser.parse_args(argv)

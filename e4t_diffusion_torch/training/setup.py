@@ -33,6 +33,14 @@ def build_modules(base: Dict, e4t_cfg: E4TEncoderConfig,
                              dtype=torch.float32, device=device)
 
 
+def default_resolution(unet_config, vae_config) -> int:
+    """The image side the UNet was trained at: its latent ``sample_size``
+    times the VAE's downsampling (512 for SD v1, 768 for SD 2.1), the
+    training CLIs' ``--resolution`` when none is given."""
+    return unet_config.sample_size * 2 ** (
+        len(vae_config.block_out_channels) - 1)
+
+
 def init_e4t_encoder_params(modules: E4TModules, seed: int = 0) -> None:
     """Re-initialise the E4T encoder (head and ViT tower) in place from
     ``seed``, on its device: a fresh encoder is built there with the

@@ -126,8 +126,9 @@ def split_trainable(modules: E4TModules, offsets: Dict[str, torch.Tensor],
     so; the encoder's ViT tower only with ``train_clip_vision``.
 
     Trainable tensors are f32 and require grad: the modules' own
-    parameters, and f32 contiguous copies of the bank's tensors (the 8-bit
-    AdamW kernel takes contiguous tensors). Frozen modules (and
+    parameters, and f32 contiguous copies of the bank's tensors on the
+    UNet's device (a bank loaded from an artifact arrives on the CPU; the
+    8-bit AdamW kernel takes contiguous tensors). Frozen modules (and
     a frozen ViT tower) are cast to ``dtype``, the compute dtype, and
     require no grad."""
     for m in modules.all():
@@ -135,8 +136,9 @@ def split_trainable(modules: E4TModules, offsets: Dict[str, torch.Tensor],
     groups = {"unet": (modules.unet, cfg.train_unet),
               "text": (modules.text_encoder, cfg.train_text_encoder),
               "vae": (modules.vae, False)}
+    device = modules.unet.conv_in.weight.device
     trainable: ParamGroups = {"offsets": {
-        k: v.detach().to(torch.float32).clone(
+        k: v.detach().to(device, torch.float32).clone(
             memory_format=torch.contiguous_format).requires_grad_(True)
         for k, v in offsets.items()}}
     frozen: ParamGroups = {}

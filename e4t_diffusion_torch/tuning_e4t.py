@@ -52,12 +52,13 @@ from e4t_diffusion_torch.diffusion.schedulers import (DDPMScheduler,
 from e4t_diffusion_torch.parallel import mesh as pmesh
 from e4t_diffusion_torch.templates import resolve_templates
 from e4t_diffusion_torch.training.setup import (
-    TemplateSampler, build_modules, make_lr_schedule, prepare_tokenizer,
-    resolve_class_token, scale_learning_rate)
+    TemplateSampler, build_modules, default_resolution, make_lr_schedule,
+    prepare_tokenizer, resolve_class_token, scale_learning_rate)
 from e4t_diffusion_torch.training.train_step import (
     REMAT_POLICIES, E4TTrainConfig, encode_latents, make_optimizer,
     make_train_step, split_trainable)
 from e4t_diffusion_torch.utils import artifacts
+from e4t_diffusion_torch.utils.hub import resolve_model_dir
 from e4t_diffusion_torch.utils.profiling import trace
 from e4t_diffusion_torch.utils.trackers import make_tracker
 
@@ -77,7 +78,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="If None, take the template from pretrained args.")
     parser.add_argument("--unfreeze_clip_vision", action="store_true",
                         default=False)
-    parser.add_argument("--resolution", type=int, default=512)
+    parser.add_argument("--resolution", type=int, default=None,
+                        help="image side (default: the base UNet's "
+                             "sample_size x 8, 512 for SD v1, 768 for "
+                             "SD 2.1; the JAX CLI's default is 512 on "
+                             "every base)")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--gradient_accumulation_steps", type=int, default=1)
     parser.add_argument("--micro_batches", type=int, default=1,
@@ -173,7 +178,9 @@ def tune(args: argparse.Namespace, modules: E4TModules,
     device = modules.unet.conv_in.weight.device
     mesh = mesh or pmesh.Mesh()
     gas = args.gradient_accumulation_steps
-    chw = make_transform(args.resolution, random_crop_flag=True,
+    resolution = args.resolution or default_resolution(
+        modules.unet.config, modules.vae.config)
+    chw = make_transform(resolution, random_crop_flag=True,
                          seed=args.seed)(image)
     domain_image = Image.fromarray(
         ((chw.transpose(1, 2, 0) + 1.0) * 127.5).round().astype(np.uint8))
@@ -289,9 +296,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     mesh = pmesh.get_mesh(tp=args.tensor_parallel)
     if mesh.distributed:
         print(f"mesh: {mesh.describe()}")
+    args.pretrained_model_name_or_path = resolve_model_dir(
+        args.pretrained_model_name_or_path)
     pretrained_args = load_config(args.pretrained_model_name_or_path)
     base = artifacts.load_sd_base(
         pretrained_args.pretrained_model_name_or_path)
+    if args.resolution is None:
+        args.resolution = default_resolution(base["unet_config"],
+                                             base["vae_config"])
     enc_cfg = artifacts.e4t_encoder_config_from_args(
         pretrained_args, word_embedding_dim=base["text_config"].hidden_size,
         unet_config=base["unet_config"])

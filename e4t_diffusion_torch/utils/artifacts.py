@@ -146,18 +146,11 @@ def _vae_state_dict(sd: dict) -> dict:
     return out
 
 
-def _load_common(path: str, sd1_only: bool = False) -> Dict[str, Any]:
-    """unet/ vae/ text_encoder/ scheduler/ and the tokenizer path;
-    ``sd1_only``: an SD v2-family UNet raises NotImplementedError before
-    any weights are read."""
+def _load_common(path: str) -> Dict[str, Any]:
+    """unet/ vae/ text_encoder/ scheduler/ and the tokenizer path."""
     out: Dict[str, Any] = {}
     out["unet_config"] = unet_config_from_diffusers(
         _read_json(os.path.join(path, "unet", "config.json")))
-    if sd1_only and out["unet_config"].is_sd2_family:
-        raise NotImplementedError(
-            f"{path}: an SD v2-family UNet (per-block head counts, linear "
-            f"projections or a class embedding); E4T sampling, tuning and "
-            f"pretraining take an SD v1 base only")
     out["unet"] = _load_weights(os.path.join(path, "unet"))
     out["vae_config"] = vae_config_from_diffusers(
         _read_json(os.path.join(path, "vae", "config.json")))
@@ -174,10 +167,12 @@ def _load_common(path: str, sd1_only: bool = False) -> Dict[str, Any]:
 
 def load_sd_base(path: str) -> Dict[str, Any]:
     """Configs + state dicts + tokenizer path of a local diffusers-format
-    SD v1 checkpoint directory, the base of every E4T path (sampling,
-    tuning, pretraining). E4T on an SD v2-family UNet is not ported: such a
-    base raises NotImplementedError."""
-    return _load_common(path, sd1_only=True)
+    SD checkpoint directory, the base of every E4T path (sampling, tuning,
+    pretraining): SD v1 or the SD v2 family (per-block head counts, linear
+    projections, the 1024-wide OpenCLIP-H text tower, v-prediction), as the
+    JAX package's loader takes it. A Stable-unCLIP UNet loads too; it needs
+    ``class_labels``, so the E4T paths raise at its first call."""
+    return _load_common(path)
 
 
 def load_sd_unclip(path: str) -> Dict[str, Any]:

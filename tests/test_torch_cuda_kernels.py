@@ -121,9 +121,17 @@ WGMMA_WIDE_BWD_CASES = [(8, 256, 256, 160), (8, 256, 77, 160),
                         (2, 65, 63, 192), (3, 1, 130, 256), (2, 129, 300, 224),
                         (2, 200, 2, 128), (2, 300, 77, 256), (2, 257, 129, 160)]
 
+# the d64 backward at the SD 2.1 training step's sites (768px: 96², 48²,
+# 24² and the mid block's 12² latents; self and 77-token cross attention),
+# BH cut to 8
+SD2_BWD_CASES = [(8, 9216, 9216, 64), (8, 9216, 77, 64),
+                 (8, 2304, 2304, 64), (8, 2304, 77, 64), (8, 576, 576, 64),
+                 (8, 576, 77, 64), (8, 144, 144, 64), (8, 144, 77, 64)]
+
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,sq,sk,d", WGMMA_BWD_CASES + WGMMA_WIDE_BWD_CASES)
+@pytest.mark.parametrize("bh,sq,sk,d", WGMMA_BWD_CASES + WGMMA_WIDE_BWD_CASES
+                         + SD2_BWD_CASES)
 def test_cuda_wgmma_backward_matches_reference_and_sync(bh, sq, sk, d):
     """The wgmma backward against the plain version and against the
     synchronous design it replaced, within the same bound; two calls on the

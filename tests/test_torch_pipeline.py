@@ -461,7 +461,7 @@ def test_tuning_cli_no_resolves_to_f32_on_gpu(artifact_dir, tmp_path,
         "--dataloader_num_workers", "4", "--revision", "main",
         "--local_rank", "0", "--logging_dir", "x"])
     assert (args.train_batch_size, args.max_train_steps, args.resolution,
-            args.device) == (16, 15, 512, "cuda")
+            args.device) == (16, 15, None, "cuda")
 
 
 def test_inference_cli_accepts_the_reference_xformers_flag(tmp_path):

@@ -102,8 +102,9 @@ def test_parallel_serving_flags_are_refused(flags, monkeypatch):
                 inference.build_pipeline(args)
         else:
             assert args.data_parallel_serving
-            # past the mesh, the artifact directory "-" is read
-            with pytest.raises(FileNotFoundError):
+            # past the mesh, the artifact name "-" is resolved
+            # (utils/hub.py): neither a local path nor a registry name
+            with pytest.raises(AssertionError, match="neither a local path"):
                 inference.build_pipeline(args)
 
 

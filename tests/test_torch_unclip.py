@@ -145,7 +145,11 @@ def test_sd2_configs_match_jax():
     assert {"class_embedding.linear_1.weight",
             "down_blocks.0.attentions.0.proj_in.weight",
             "up_blocks.3.attentions.2.proj_out.bias"} <= keys
-    assert cfg.is_sd2_family and not unet_mod.UNetConfig().is_sd2_family
+    v1 = unet_mod.UNetConfig()
+    assert (not isinstance(cfg.attention_head_dim, int)
+            and cfg.use_linear_projection)
+    assert (isinstance(v1.attention_head_dim, int)
+            and not v1.use_linear_projection)
 
 
 def _vision_config_pair():
@@ -485,9 +489,66 @@ def test_load_sd_unclip_stray_key_raises(unclip_dir, tmp_path, folder, file):
 
 
 def test_e4t_loader_refuses_sd2_base(unclip_dir):
-    """The E4T paths' loader names an SD2-family UNet and stops."""
-    with pytest.raises(NotImplementedError, match="SD v2-family UNet"):
-        artifacts.load_sd_base(unclip_dir)
+    """``load_sd_base`` reads the Stable-unCLIP directory (an SD v2-family
+    base), as the JAX package's loader does; an E4T pipeline on its UNet,
+    whose projection class embedding needs ``class_labels``, raises the
+    JAX package's ValueError at its first UNet call in both packages and
+    returns no images."""
+    from e4t_diffusion_tpu.config import AttributeDict as JaxAttributeDict
+    from e4t_diffusion_tpu.diffusion.pipeline import E4TModules as JaxMods
+    from e4t_diffusion_tpu.diffusion.pipeline import (
+        StableDiffusionE4TPipeline as JaxE4TPipeline)
+    from e4t_diffusion_tpu.models import weight_offsets as jax_wo
+    from e4t_diffusion_tpu.models.e4t_encoder import (
+        E4TEncoderConfig as JaxEncoderConfig)
+
+    from e4t_diffusion_torch.config import AttributeDict
+    from e4t_diffusion_torch.diffusion.pipeline import (
+        E4TModules, StableDiffusionE4TPipeline)
+    from e4t_diffusion_torch.models import weight_offsets as wo
+
+    base = artifacts.load_sd_base(unclip_dir)
+    ucfg = base["unet_config"]
+    assert (ucfg.class_embed_type == "projection"
+            and ucfg.use_linear_projection)
+    width = base["text_config"].hidden_size
+    enc_cfg = artifacts.e4t_encoder_config_from_args(
+        AttributeDict({"vit_config": "tiny"}), word_embedding_dim=width,
+        unet_config=ucfg)
+    e4t_config = {"placeholder_token": "*s", "domain_class_token": "photo",
+                  "domain_embed_scale": 0.1}
+    length = base["text_config"].max_position_embeddings
+    image = np.random.default_rng(5).integers(0, 256, (32, 32, 3),
+                                              dtype=np.uint8)
+    modules = E4TModules.create(ucfg, base["vae_config"],
+                                base["text_config"], enc_cfg,
+                                dtype=torch.float32, device="cpu")
+    modules.load_state_dicts({k: base[k] for k in ("unet", "vae", "text")})
+    pipe = StableDiffusionE4TPipeline(
+        modules, wo.init_offset_bank(ucfg, torch.Generator().manual_seed(0)),
+        CLIPTokenizer.from_pretrained(base["tokenizer_dir"],
+                                      model_max_length=length),
+        AttributeDict(e4t_config))
+    with pytest.raises(ValueError, match="class_labels required"):
+        pipe("a photo of *s", image, num_inference_steps=1)
+
+    jl = jax_artifacts.load_sd_base(unclip_dir)
+    jm = JaxMods.create(jl["unet_config"], jl["vae_config"],
+                        jl["text_config"], JaxEncoderConfig.tiny(
+                            word_embedding_dim=width,
+                            unet_feature_dim=enc_cfg.unet_feature_dim))
+    rng = np.random.default_rng(6)
+    params = {k: jl[k] for k in ("unet", "vae", "text")}
+    params["e4t"] = _fill(_init_shapes(
+        jm.e4t_encoder, jnp.zeros((1, 3, 32, 32)),
+        jnp.zeros((1, enc_cfg.unet_feature_dim))), rng)
+    params["offsets"] = jax_wo.init_offset_bank(jax.random.PRNGKey(0),
+                                                jl["unet_config"])
+    jpipe = JaxE4TPipeline(jm, params, JaxTokenizer.from_pretrained(
+        jl["tokenizer_dir"], model_max_length=length),
+        JaxAttributeDict(e4t_config))
+    with pytest.raises(ValueError, match="class_labels required"):
+        jpipe("a photo of *s", image, num_inference_steps=1)
 
 
 def _write_sources(folder):

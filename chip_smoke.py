@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; each prints its wall seconds):
 1. environment: the card's name and power limit, torch / CUDA / nvcc
    versions, TF32 switched off for matmuls and convolutions;
-2. build: nvcc compiles every kernel source of the port, all at once;
+2. build: nvcc compiles every kernel source of the port, all at once,
+   and g++ the data loader's native image transform beside them;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes and at ragged shapes, with times, the work's
    bound and a library call of the same function as a yardstick; the int8
@@ -16,6 +17,16 @@ Phases (any failure exits non-zero; each prints its wall seconds):
 4. sampling: StableDiffusionE4TPipeline at full SD-v1 width (UNet, VAE,
    CLIP-L text, ViT-H-14 E4T encoder) with seeded random bf16 weights,
    two prompts x 4 images at 512px, CFG 7.5, DDIM and DPM++ 2M;
+4a. components: ``time_components`` on phase 4's modules (batch 8,
+   512px): per-call ms by CUDA events of the UNet forward (bf16, int8 on
+   dynamic and static scales, the int8 attention over bf16 and over static
+   int8), the forward with the E4T tap, the text encoder, the ViT-H encode
+   and the VAE decode (bf16 and their int8 towers), the fuse head and the
+   offset fold, with ``*_mfu`` against the bf16 peak (``utils/flops.py``);
+   each row's launches against its calls, every MFU in (0, 1];
+4a'. vit_ablations: ``time_vit`` on phase 4's ViT-H tower at batch 8:
+   base, tanh GELU, no attention products, no block LayerNorms, and the
+   short-sequence route (32 launches a forward);
 4b. schedulers: the same under PLMS (STEPS + 1 model evaluations), LMS,
    Euler and Euler-ancestral, each twice with one seed;
 5. int8_sampling: the same pipeline serving the UNet in int8: static
@@ -29,6 +40,13 @@ Phases (any failure exits non-zero; each prints its wall seconds):
    VAE decode in int8); the manifest and PNGs, the int8 towers against
    bf16 towers, LoRA on against off, one ViT-H encode and one VAE decode
    timed in bf16 and in int8;
+5c. validate_real_weights: the one-command real-weights chain
+   (``python -m e4t_diffusion_torch.validate_real_weights``) on phase 5b's
+   model directory, started when 5b ends and run beside phases 6 to 10c:
+   the checkpoint staged onto ``--sd_dir``, one tuning step and bf16 and
+   static int8 sampling at 2 steps, each a process; its record's keys, the
+   staged config, the tuned artifact, the samples and a finite int8 delta
+   checked after phase 10c;
 6. routes_sampling: phase 4's pipeline with the two opt-in routes on,
    ``E4T_FUSED_GN=1`` (every UNet and VAE GroupNorm on the GroupNorm
    kernel) and ``E4T_SHORTSEQ_MH_ATTN=8`` (the ViT-H's 257-token sites on
@@ -55,7 +73,9 @@ Phases (any failure exits non-zero; each prints its wall seconds):
    largest batch of 16, 8 and 4 that the card holds;
 13. pretraining: phase-1 pretraining (``pretrain_e4t.pretrain``, what the
    CLI runs after loading) at the same width, bf16 compute, batch 16,
-   512px, from 40 written images of mixed sizes through the loader and the
+   512px, from 40 written images of mixed sizes through the loader (its
+   native transform, the default: held within 2/127.5 of cv2's on every
+   written image, both timed a batch) and the
    device prefetch: 3 steps with a checkpoint at step 2 and a DDIM-4
    sample after each, then one step resumed from that checkpoint; the
    checkpoint read back bit for bit at its save and its restore, the
@@ -155,10 +175,11 @@ UNet's three d64 serving sites in both modes, the int8 conv and
 quantization kernels at every distinct conv and linear input of an SD 2.1
 UNet pass (batch 8, 768px), and the GroupNorm kernel at every site of an
 SD2-unclip UNet pass (batch 8, 96²) and a 768px VAE decode (batch 4).
-In phases 4 to 8, 10, 10b, 10c and 12 to 16 (4b, 5b, 15b and 15c
-included) the kernels' launch counters, set to 0 just before each run and read just
-after, must show the path went through every kernel it routes to, as many
-times as its attention, conv, linear and GroupNorm sites give. The two
+In phases 4 to 8, 10, 10b, 10c and 12 to 16 (4a, 4a', 4b, 5b, 15b and
+15c included) the kernels' launch counters, set to 0 just before each run
+and read just after, must show the path went through every kernel it
+routes to, as many times as its attention, conv, linear and GroupNorm
+sites give. The two
 routes are off by default, and off in every other phase but where phases
 10, 10b and 10c name one.
 
@@ -262,15 +283,18 @@ IMAGES_PER_PROMPT = 4
 RESOLUTION = 512
 TUNING_STEPS = 3
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
-# flop/s, f32 flop/s; exp2 on the special-function units: 16 per clock per SM (CUDA C++
-# Programming Guide throughput table, compute capability 9.0) x 132 SMs x
-# 1.98 GHz boost clock.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; dense bf16 and int8
+# tensor-core rates and f32 on the CUDA cores (FFMA) from the port's
+# utils/flops.py; exp2 on the special-function units: 16 per clock per SM
+# (CUDA C++ Programming Guide throughput table, compute capability 9.0) x
+# 132 SMs x 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-# f32 on the CUDA cores (FFMA), outside the tensor cores
-F32_FLOP_PER_S = 67e12
-INT8_OP_PER_S = 1979e12
+try:
+    from e4t_diffusion_torch.utils.flops import (
+        H100_BF16_PEAK as BF16_FLOP_PER_S, H100_F32_PEAK as F32_FLOP_PER_S,
+        H100_INT8_PEAK as INT8_OP_PER_S)
+except ImportError:  # not a checkout: main() says so and fails
+    BF16_FLOP_PER_S = F32_FLOP_PER_S = INT8_OP_PER_S = None
 EXP_PER_S = 16 * 132 * 1.98e9
 
 
@@ -491,13 +515,18 @@ def phase_build():
                                          flash_int8, flash_lowdim, groupnorm,
                                          int8_conv, quant, shortseq)
 
+    from e4t_diffusion_torch.data import native_ops
+
     sources = [flash_lowdim.SOURCE, flash_bwd.SOURCE, flash_int8.SOURCE,
                int8_conv.SOURCE, groupnorm.SOURCE, shortseq.SOURCE,
                *flash_lowdim.F32_PARTS, quant.QUANTIZE_SOURCE,
                adam8bit.SOURCE]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
+    # the loader's native transform (g++) beside the nvcc builds
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        native = pool.submit(native_ops.build)
         logs = list(pool.map(_build.build, sources))
+        native_lib = native.result()
     seconds = time.perf_counter() - t0
     usage = {}
     for src, log in zip(sources, logs):
@@ -514,6 +543,9 @@ def phase_build():
                     r"(?<!\d)[1-9]\d* bytes spill", ln):
                 usage[src].append(f"{name}: {ln.split(':', 1)[-1].strip()}")
     print(json.dumps({"phase": "build", "sources": sources,
+                      "native": os.path.relpath(native_lib, os.path.dirname(
+                          os.path.abspath(__file__))),
+                      "native_build": native_ops.build_log().splitlines()[0],
                       "seconds": round(seconds, 3), "ptxas": usage}))
     # the wgmma kernels and the register-blocked f32 ones (attn_f32_*) hold
     # their accumulators in registers: a spill would move them through local
@@ -1031,13 +1063,14 @@ def _quantize_case(shape, gen, timed, sites=None):
     return case
 
 
-def _aux_site_shapes(batch, resolution):
+def _aux_site_shapes(batch, resolution, towers=("e4t", "vae")):
     """The int8 sites of one ViT-H encode and one VAE decode of an int8-aux
-    run at ``batch`` and ``resolution``, read off forwards on the meta
-    device: {"conv": {(C, O, H, W, k, stride, pad): sites} of the decoder's
-    quantized convs (the conv kernel's), "linear": {input shape: sites} of
-    the quantized linear sites and of the ViT-H's patch conv, whose NHWC
-    input goes to the quantization kernel}."""
+    run at ``batch`` and ``resolution`` (``towers``: of those named only),
+    read off forwards on the meta device: {"conv": {(C, O, H, W, k, stride,
+    pad): sites} of the decoder's quantized convs (the conv kernel's),
+    "linear": {input shape: sites} of the quantized linear sites and of the
+    ViT-H's patch conv, whose NHWC input goes to the quantization
+    kernel}."""
     import types
 
     import torch
@@ -1049,9 +1082,9 @@ def _aux_site_shapes(batch, resolution):
     from e4t_diffusion_torch.ops import quant
 
     with torch.device("meta"):
-        towers = types.SimpleNamespace(vae=AutoencoderKL(VAEConfig()),
-                                       e4t_encoder=E4TEncoder(
-                                           E4TEncoderConfig()))
+        mods = types.SimpleNamespace(vae=AutoencoderKL(VAEConfig()),
+                                     e4t_encoder=E4TEncoder(
+                                         E4TEncoderConfig()))
     shapes = {"conv": {}, "linear": {}}
 
     def record(mod, args):
@@ -1068,15 +1101,17 @@ def _aux_site_shapes(batch, resolution):
                                  mod.stride[0], mod.padding[0])
         shapes[part][key] = shapes[part].get(key, 0) + 1
 
-    for model, sites in _aux_sites(towers, None):
+    for model, sites in _aux_sites(mods, None):
         modules = quant.site_modules(model)
         for name in sites:
             modules[name].register_forward_pre_hook(record)
     with torch.device("meta"):
-        towers.e4t_encoder.encode_image(
-            torch.zeros(batch, 3, resolution, resolution))
-        towers.vae.decode(torch.zeros(batch, 4, resolution // 8,
-                                      resolution // 8))
+        if "e4t" in towers:
+            mods.e4t_encoder.encode_image(
+                torch.zeros(batch, 3, resolution, resolution))
+        if "vae" in towers:
+            mods.vae.decode(torch.zeros(batch, 4, resolution // 8,
+                                        resolution // 8))
     return shapes
 
 
@@ -2066,6 +2101,123 @@ def phase_main_path(smi):
     return launches, pipe, image, second_s
 
 
+COMPONENT_ITERS = 10
+VIT_ABLATION_ITERS = 10
+
+
+def phase_components(smi, pipe):
+    """``time_components.time_components`` in process on the main path's
+    SD v1 modules (bf16) and offsets, batch 8, 512px: every row, bf16, int8
+    on dynamic and on calibrated static scales, the int8 attention rows,
+    each row's launches (reset just before it, read just after) against
+    those derived from its calls, and every ``*_mfu`` in (0, 1]."""
+    from e4t_diffusion_torch import time_components as tc
+
+    n = len(PROMPTS) * IMAGES_PER_PROMPT
+    per_fwd = LOWDIM_SITES_PER_STEP // 2
+    unet_conv = sum(_unet_conv_shapes(n, RESOLUTION).values())
+    unet_quant = sum(_unet_linear_shapes(n, RESOLUTION).values())
+    tower = {t: _aux_site_shapes(n, RESOLUTION, (t,)) for t in ("e4t", "vae")}
+    results, launches, forwards = {}, {}, {}
+    total = _want()
+    for row in tc.ROWS:
+        _reset_launches()
+        res = tc.time_components(pipe.modules, pipe.offsets, n, RESOLUTION,
+                                 COMPONENT_ITERS, rows=[row])
+        got = _read_launches()
+        calls = res["calls"][row]
+        calib = res["calib_calls"].get(row, 0)
+        forwards[row] = calls + calib
+        if row.startswith("unet_fwd"):
+            attn = row.endswith("_attn")
+            int8 = row in ("unet_fwd_int8", "unet_fwd_int8_static",
+                           "unet_fwd_int8_static_attn")
+            want = _want(
+                flash_fwd_lowdim=per_fwd * (calib + (0 if attn else calls)),
+                flash_fwd_int8=per_fwd * calls if attn else 0,
+                int8_conv=unet_conv * calls if int8 else 0,
+                int8_quantize=unet_quant * calls if int8 else 0)
+        elif "int8" in row:
+            shapes = tower["e4t" if row.startswith("vit") else "vae"]
+            want = _want(int8_conv=sum(shapes["conv"].values()) * calls,
+                         int8_quantize=sum(shapes["linear"].values()) * calls)
+        else:
+            want = _want()
+        if got != want:
+            fail(f"components: {row}: launches {got}, expected {want} "
+                 f"({calls} calls, {calib} calibration)")
+        for k, v in got.items():
+            total[k] += v
+        launches[row] = {k: v for k, v in got.items() if v}
+        results.update({k: v for k, v in res.items()
+                        if k.startswith(row + "_")})
+    mfu = {k: v for k, v in results.items() if k.endswith("_mfu")}
+    flash_per_unet_fwd = {
+        row: (launches[row].get("flash_fwd_lowdim", 0)
+              + launches[row].get("flash_fwd_int8", 0)) / forwards[row]
+        for row in tc.ROWS if row.startswith("unet_fwd")}
+    report = {"phase": "components", "card": smi, "batch": n,
+              "resolution": RESOLUTION, "iters": COMPONENT_ITERS,
+              **results, "est_cfg_step_ms": sum(results[f"{r}_ms"] for r in (
+                  "unet_fwd_with_tap", "unet_fwd", "text_encoder",
+                  "e4t_fuse")),
+              "flash_launches_per_unet_forward": flash_per_unet_fwd,
+              "launches": launches}
+    print(json.dumps(report))
+    if sorted(mfu) != sorted(f"{r}_mfu" for r in tc.row_flops(
+            pipe.modules, n, RESOLUTION)):
+        fail(f"components: MFU rows {sorted(mfu)}")
+    if not all(0.0 < v <= 1.0 for v in mfu.values()):
+        fail(f"components: an MFU outside (0, 1]: {mfu}")
+    if set(flash_per_unet_fwd.values()) != {per_fwd}:
+        fail(f"components: flash launches per UNet forward "
+             f"{flash_per_unet_fwd}, derived {per_fwd}")
+    return total
+
+
+def phase_vit_ablations(smi, pipe):
+    """``time_vit.time_vit`` in process on the main path's ViT-H-14 tower
+    (bf16) at batch 8: base, gelu_tanh, no_attn, no_ln (towers sharing its
+    weights) and shortseq (``E4T_SHORTSEQ_MH_ATTN=8``): the shortseq row's
+    launches are the short-sequence kernel's, 32 a forward (its layers'
+    sites, by the port's route), the other rows' none; every ``*_mfu`` in
+    (0, 1]."""
+    from e4t_diffusion_torch import time_vit
+
+    batch = len(PROMPTS) * IMAGES_PER_PROMPT
+    tower = pipe.modules.e4t_encoder.clip_vision
+    sites = _vit_shortseq_sites(tower.config, batch)
+    if sites != tower.config.num_layers:
+        fail(f"vit_ablations: {sites} short-sequence sites, expected "
+             f"{tower.config.num_layers}")
+    results, launches = {}, {}
+    total = _want()
+    for row in time_vit.CONFIGS:
+        _reset_launches()
+        res = time_vit.time_vit(tower, batch, VIT_ABLATION_ITERS, [row])
+        got = _read_launches()
+        want = _want(flash_fwd_shortseq=sites * res["calls"][row]
+                     if row == "shortseq" else 0)
+        if got != want:
+            fail(f"vit_ablations: {row}: launches {got}, expected {want}")
+        for k, v in got.items():
+            total[k] += v
+        launches[row] = {k: v for k, v in got.items() if v}
+        results.update({k: v for k, v in res.items()
+                        if k.startswith(row + "_")})
+    report = {"phase": "vit_ablations", "card": smi, "batch": batch,
+              "iters": VIT_ABLATION_ITERS, **results,
+              "shortseq_launches_per_forward": launches["shortseq"].get(
+                  "flash_fwd_shortseq", 0) / (VIT_ABLATION_ITERS + 1),
+              "launches": launches}
+    print(json.dumps(report))
+    mfu = [v for k, v in results.items() if k.endswith("_mfu")]
+    if len(mfu) != len(time_vit.CONFIGS) or not all(
+            0.0 < v <= 1.0 for v in mfu):
+        fail(f"vit_ablations: an MFU outside (0, 1]: {results}")
+    return total
+
+
 def _vit_shortseq_sites(vit_cfg, batch):
     """The ViT-H's attention sites that take the short-sequence route (all
     of its layers, or none), decided by the port's own route with both
@@ -2437,9 +2589,11 @@ def _tower_times(pipe):
     return times
 
 
-def phase_serving(smi, pipe):
+def phase_serving(smi, pipe, root):
     """The batch server (``serve_e4t.main``) as a user runs it: phase 4's
-    weights written as a model directory, 20 prompts at batch 8 (two full
+    weights written as a model directory under ``root`` (``root/sd``, the
+    artifact ``root/e4t``; the caller keeps it for the
+    ``validate_real_weights`` chain), 20 prompts at batch 8 (two full
     batches and one padded), DDIM-4 at 512px, CFG 7.5, a LoRA file of rank
     4 with non-zero ``up``, ``--int8 --int8_static_act --int8_aux_static``.
     The first batch calibrates the UNet (E4T_INT8_CALIB_STEPS bf16 steps)
@@ -2481,56 +2635,55 @@ def phase_serving(smi, pipe):
               "flags": "--int8 --int8_static_act --int8_aux_static "
                        f"--lora_weights (rank {SERVE_LORA_RANK})",
               "aux_conv_sites": aux_conv, "aux_quantize_sites": aux_quant}
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        artifact = _write_serving_artifact(root, pipe)
-        gen = torch.Generator().manual_seed(11)
-        bank = lora.init_lora_bank(pipe.modules.unet.config,
-                                   SERVE_LORA_RANK, generator=gen)
-        for layers in bank.values():
-            for layer in layers.values():
-                layer["up"] = 0.02 * torch.randn(layer["up"].shape,
-                                                 generator=gen)
-        lora_path = os.path.join(root, "pytorch_lora_weights.bin")
-        torch.save(lora.lora_to_torch(bank), lora_path)
-        image_path = os.path.join(root, "in.png")
-        Image.fromarray(np.random.default_rng(12).integers(
-            0, 256, (RESOLUTION, RESOLUTION, 3), dtype=np.uint8)).save(
-                image_path)
-        with open(os.path.join(root, "prompts.txt"), "w",
-                  encoding="utf-8") as f:
-            f.write("\n".join(prompts) + "\n")
-        out = os.path.join(root, "served")
-        report["write_s"] = time.perf_counter() - t0
-        _reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        spipe, record = serve_e4t.main([
-            "--pretrained_model_name_or_path", artifact,
-            "--image_path", image_path,
-            "--prompts_file", os.path.join(root, "prompts.txt"),
-            "--batch_size", str(n), "--num_inference_steps", str(STEPS),
-            "--guidance_scale", "7.5", "--height", str(RESOLUTION),
-            "--width", str(RESOLUTION), "--seed", "0", "--output_dir", out,
-            "--int8", "--int8_static_act", "--int8_aux_static",
-            "--lora_weights", lora_path])
-        torch.cuda.synchronize()
-        report["serve_s"] = time.perf_counter() - t0
-        report["launches"] = launches = _read_launches()
-        if launches != want_serve:
-            fail(f"serving: launches {launches}, expected {want_serve}")
-        with open(os.path.join(out, "manifest.jsonl"), encoding="utf-8") as f:
-            rows = [json.loads(line) for line in f]
-        pngs = sorted(p for p in os.listdir(out) if p.endswith(".png"))
-        if ([r["prompt"] for r in rows] != prompts
-                or pngs != [f"{i:05d}.png" for i in range(SERVE_PROMPTS)]):
-            fail(f"serving: manifest {len(rows)} rows, PNGs {pngs}")
-        report["record"] = record
-        report["images_per_s_by_batch"] = [
-            min(n, SERVE_PROMPTS - i * n) / wall
-            for i, wall in enumerate(record["batch_walls_s"])]
-        served0 = np.asarray(Image.open(os.path.join(out, "00000.png")),
-                             np.float32) / 255.0
+    t0 = time.perf_counter()
+    artifact = _write_serving_artifact(root, pipe)
+    gen = torch.Generator().manual_seed(11)
+    bank = lora.init_lora_bank(pipe.modules.unet.config,
+                               SERVE_LORA_RANK, generator=gen)
+    for layers in bank.values():
+        for layer in layers.values():
+            layer["up"] = 0.02 * torch.randn(layer["up"].shape,
+                                             generator=gen)
+    lora_path = os.path.join(root, "pytorch_lora_weights.bin")
+    torch.save(lora.lora_to_torch(bank), lora_path)
+    image_path = os.path.join(root, "in.png")
+    Image.fromarray(np.random.default_rng(12).integers(
+        0, 256, (RESOLUTION, RESOLUTION, 3), dtype=np.uint8)).save(
+            image_path)
+    with open(os.path.join(root, "prompts.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("\n".join(prompts) + "\n")
+    out = os.path.join(root, "served")
+    report["write_s"] = time.perf_counter() - t0
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spipe, record = serve_e4t.main([
+        "--pretrained_model_name_or_path", artifact,
+        "--image_path", image_path,
+        "--prompts_file", os.path.join(root, "prompts.txt"),
+        "--batch_size", str(n), "--num_inference_steps", str(STEPS),
+        "--guidance_scale", "7.5", "--height", str(RESOLUTION),
+        "--width", str(RESOLUTION), "--seed", "0", "--output_dir", out,
+        "--int8", "--int8_static_act", "--int8_aux_static",
+        "--lora_weights", lora_path])
+    torch.cuda.synchronize()
+    report["serve_s"] = time.perf_counter() - t0
+    report["launches"] = launches = _read_launches()
+    if launches != want_serve:
+        fail(f"serving: launches {launches}, expected {want_serve}")
+    with open(os.path.join(out, "manifest.jsonl"), encoding="utf-8") as f:
+        rows = [json.loads(line) for line in f]
+    pngs = sorted(p for p in os.listdir(out) if p.endswith(".png"))
+    if ([r["prompt"] for r in rows] != prompts
+            or pngs != [f"{i:05d}.png" for i in range(SERVE_PROMPTS)]):
+        fail(f"serving: manifest {len(rows)} rows, PNGs {pngs}")
+    report["record"] = record
+    report["images_per_s_by_batch"] = [
+        min(n, SERVE_PROMPTS - i * n) / wall
+        for i, wall in enumerate(record["batch_walls_s"])]
+    served0 = np.asarray(Image.open(os.path.join(out, "00000.png")),
+                         np.float32) / 255.0
 
     first = prompts[:n]
     pixels = np.random.default_rng(12).integers(
@@ -2634,40 +2787,6 @@ def _expected_tuning_launches(ucfg, vit_cfg, resolution, routes=False,
     return want
 
 
-def _tuning_world(resolution):
-    """Full-width tuning inputs from seeds: the modules (f32), the offset
-    bank, the tokenizer with the placeholder, the class token's id and a
-    random resolution x resolution image."""
-    import numpy as np
-    import torch
-
-    from e4t_diffusion_torch.diffusion.pipeline import E4TModules
-    from e4t_diffusion_torch.models import weight_offsets as wo
-    from e4t_diffusion_torch.models.clip_text import CLIPTextConfig
-    from e4t_diffusion_torch.models.e4t_encoder import E4TEncoderConfig
-    from e4t_diffusion_torch.models.unet import UNetConfig
-    from e4t_diffusion_torch.models.vae import VAEConfig
-    from e4t_diffusion_torch.training.setup import resolve_class_token
-    from e4t_diffusion_torch.utils.tokenizer import (
-        CLIPTokenizer, make_tiny_tokenizer_files)
-
-    ucfg, ecfg = UNetConfig(), E4TEncoderConfig()
-    torch.manual_seed(0)
-    modules = E4TModules.create(ucfg, VAEConfig(), CLIPTextConfig(), ecfg,
-                                dtype=torch.float32, device="cuda")
-    offsets = wo.init_offset_bank(
-        ucfg, torch.Generator("cuda").manual_seed(1), device="cuda")
-    with tempfile.TemporaryDirectory() as tok_dir:
-        make_tiny_tokenizer_files(tok_dir, extra_words=[
-            "a", "photo", "of", "the", "face"])
-        tokenizer = CLIPTokenizer.from_pretrained(tok_dir)
-    tokenizer.add_tokens("*s")  # its id lies inside the 49,408-row table
-    class_id = resolve_class_token(tokenizer, "face")
-    image = np.random.default_rng(0).integers(
-        0, 256, (resolution, resolution, 3), dtype=np.uint8)
-    return modules, offsets, tokenizer, class_id, image
-
-
 def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
                  dtype=None, batch=16, extra=(), name=None, untimed=1):
     """Phase-2 tuning at full width through ``tuning_e4t.tune`` with the
@@ -2685,7 +2804,7 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
 
     import torch
 
-    from e4t_diffusion_torch import tuning_e4t
+    from e4t_diffusion_torch import seeded, tuning_e4t
     from e4t_diffusion_torch.training.optim8bit import state_bytes
     from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
     from e4t_diffusion_torch.models.vae import VAEConfig
@@ -2703,7 +2822,7 @@ def phase_tuning(smi, steps=TUNING_STEPS, routes=False, routes_off=None,
 
     args = cli_args(steps)
     t0 = time.perf_counter()
-    modules, offsets, tokenizer, class_id, image = _tuning_world(
+    modules, offsets, tokenizer, class_id, image = seeded.tuning_world(
         args.resolution)
     ucfg, ecfg = modules.unet.config, modules.e4t_encoder.config
     setup_s = time.perf_counter() - t0
@@ -3835,6 +3954,9 @@ F32_PRETRAIN_BATCHES = (16, 8, 4)
 LOADER_LARGE_SIDE = 1024
 LOADER_LARGE_IMAGES = 32
 LOADER_WORKERS = 4
+# the native transform against cv2's INTER_AREA, which works in fixed
+# point: ~1.5 LSB in uint8 space
+NATIVE_VS_CV2_MAX_ABS = 2.0 / 127.5
 
 
 def _expected_sampling_launches(ucfg, vit_cfg, batch, resolution, steps,
@@ -3888,32 +4010,6 @@ def _expected_pretraining_launches(ucfg, vit_cfg, resolution, routes=False,
     return want
 
 
-def _write_pretraining_images(folder, n, seed=0):
-    """``n`` images of mixed sizes (short side 320-768, so the resize both
-    shrinks and enlarges; aspect 1 to 1.75, portrait and landscape) and
-    formats, so the loader's cv2 INTER_AREA resize and crops run."""
-    import numpy as np
-    from PIL import Image
-
-    rng = np.random.default_rng(seed)
-    os.makedirs(os.path.join(folder, "nested"), exist_ok=True)
-    sizes = []
-    for i in range(n):
-        short = int(rng.integers(320, 769))
-        long = int(short * rng.uniform(1.0, 1.75))
-        h, w = (short, long) if i % 2 else (long, short)
-        # smooth content (JPEG-friendly), a seeded gradient plus noise
-        yy, xx = np.mgrid[0:h, 0:w]
-        base = (np.stack([xx * 255 // w, yy * 255 // h,
-                          (xx + yy) * 255 // (h + w)], -1) + rng.integers(
-            0, 32, (h, w, 3))).clip(0, 255).astype(np.uint8)
-        sub = "nested" if i % 3 == 0 else ""
-        ext = "jpg" if i % 2 else "png"
-        Image.fromarray(base).save(os.path.join(folder, sub, f"{i:03d}.{ext}"))
-        sizes.append((h, w))
-    return sizes
-
-
 def _write_square_images(folder, n, side, seed=1):
     """``n`` side x side images, half PNG and half JPEG (quality 95), of
     smooth seeded content with grain. Returns {"png": [bytes], "jpg":
@@ -3960,80 +4056,53 @@ def _loader_seconds(loader, batches=3):
     return seconds
 
 
-def _pretraining_world(seed=0):
-    """Full-width modules (f32, seeded), the encoder and offset bank the CLI
-    starts from (``pretrain_e4t.load_e4t_start``: the seeded init), the
-    tokenizer with the placeholder, and the ids."""
-    import torch
-
-    from e4t_diffusion_torch import pretrain_e4t
-    from e4t_diffusion_torch.diffusion.pipeline import E4TModules
-    from e4t_diffusion_torch.models.clip_text import CLIPTextConfig
-    from e4t_diffusion_torch.models.e4t_encoder import E4TEncoderConfig
-    from e4t_diffusion_torch.models.unet import UNetConfig
-    from e4t_diffusion_torch.models.vae import VAEConfig
-    from e4t_diffusion_torch.training.setup import resolve_class_token
-    from e4t_diffusion_torch.utils.tokenizer import (
-        CLIPTokenizer, make_tiny_tokenizer_files)
-
-    torch.manual_seed(seed)
-    modules = E4TModules.create(UNetConfig(), VAEConfig(), CLIPTextConfig(),
-                                E4TEncoderConfig(), dtype=torch.float32,
-                                device="cuda")
-    with tempfile.TemporaryDirectory() as base_dir:
-        # a base directory without encoder.pt / weight_offsets.pt: the
-        # encoder is initialised from --seed, the bank drawn from it
-        args = pretrain_e4t.parse_args([
-            "--pretrained_model_name_or_path", base_dir,
-            "--train_image_dataset", "-", "--domain_class_token", "face",
-            "--seed", str(seed)])
-        offsets = pretrain_e4t.load_e4t_start(args, modules,
-                                              torch.device("cuda"))
-        make_tiny_tokenizer_files(base_dir, extra_words=[
-            "a", "photo", "of", "the", "face"])
-        tokenizer = CLIPTokenizer.from_pretrained(base_dir)
-    tokenizer.add_tokens("*s")  # its id lies inside the 49,408-row table
-    return (modules, offsets, tokenizer, tokenizer.convert_tokens_to_ids(
-        "*s"), resolve_class_token(tokenizer, "face"))
-
-
 def _pretrain_args(data_dir, out_dir, *extra):
-    from e4t_diffusion_torch import pretrain_e4t
+    from e4t_diffusion_torch import seeded
 
-    return pretrain_e4t.parse_args([
-        "--pretrained_model_name_or_path", "-",
-        "--train_image_dataset", data_dir, "--domain_class_token", "face",
-        "--prompt_template", "normal", "--output_dir", out_dir,
-        "--train_batch_size", str(PRETRAIN_BATCH), "--resolution",
-        str(RESOLUTION), "--seed", "0", *extra])
+    return seeded.pretrain_args(data_dir, out_dir, *extra,
+                                batch=PRETRAIN_BATCH, resolution=RESOLUTION)
 
 
 def _pretrain_run(args, world, routes=False, mesh=None):
-    """One ``pretrain_e4t.pretrain`` call as ``main`` makes it (its loader
-    from ``make_loader``; ``mesh``: a process group's grid), with the launch
-    counters set to 0 just before and read just after. Returns (result,
-    launches, wall seconds)."""
+    """One ``seeded.pretrain`` call (its loader from
+    ``pretrain_e4t.make_loader``; ``mesh``: a process group's grid), with
+    the launch counters set to 0 just before and read just after. Returns
+    (result, launches, wall seconds)."""
     import torch
 
-    from e4t_diffusion_torch import pretrain_e4t
-    from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
-    from e4t_diffusion_torch.templates import resolve_templates
-    from e4t_diffusion_torch.utils.trackers import make_tracker
+    from e4t_diffusion_torch import pretrain_e4t, seeded
 
-    modules, offsets, tokenizer, placeholder_id, class_id = world
     loader, _ = pretrain_e4t.make_loader(args, mesh)
-    dtype = pretrain_e4t.resolve_train_dtype(args.mixed_precision, "cuda")
     _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _routes_on() if routes else contextlib.nullcontext():
-        result = pretrain_e4t.pretrain(
-            args, modules, offsets, tokenizer, placeholder_id, class_id,
-            resolve_templates(args.prompt_template), NoiseScheduleConfig(),
-            dtype, loader, make_tracker(None, args.output_dir), mesh)
+        result = seeded.pretrain(args, world, loader, mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    result["loader_transform"] = loader.transform_kind
     return result, _read_launches(), wall
+
+
+def _native_vs_cv2(folder):
+    """The largest difference between the loader's two transforms (the
+    native one and ``E4T_DISABLE_NATIVE=1``'s cv2 one, center crops, one
+    seed so the same flips) over every image of ``folder``, and the
+    images compared."""
+    import numpy as np
+
+    from e4t_diffusion_torch.data import native_ops
+    from e4t_diffusion_torch.data.dataset import (
+        list_image_files_recursively, load_image_rgb, make_transform)
+
+    native = native_ops.make_native_transform(RESOLUTION, False, seed=0)
+    cv2 = make_transform(RESOLUTION, False, seed=0)
+    files = list_image_files_recursively(folder)
+    worst = 0.0
+    for path in files:
+        img = load_image_rgb(path)
+        worst = max(worst, float(np.abs(native(img) - cv2(img)).max()))
+    return worst, len(files)
 
 
 def _checksums(tensors, dtype=None):
@@ -4192,7 +4261,7 @@ def phase_pretraining(smi):
     import torch
     from PIL import Image
 
-    from e4t_diffusion_torch import tuning_e4t
+    from e4t_diffusion_torch import seeded, tuning_e4t
     from e4t_diffusion_torch.data.dataset import E4TDataLoader
     from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
     from e4t_diffusion_torch.models import weight_offsets as wo
@@ -4202,10 +4271,26 @@ def phase_pretraining(smi):
 
     data = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
-    sizes = _write_pretraining_images(data.name, PRETRAIN_IMAGES)
+    sizes = seeded.write_pretraining_images(data.name, PRETRAIN_IMAGES)
     images_s = time.perf_counter() - t0
-    loader_s = _loader_seconds(E4TDataLoader(data.name, PRETRAIN_BATCH,
-                                             RESOLUTION, seed=0))
+    # the loader's default transform is the native one; cv2's beside it
+    loader = E4TDataLoader(data.name, PRETRAIN_BATCH, RESOLUTION, seed=0)
+    if loader.transform_kind != "native":
+        fail(f"pretraining: the loader took {loader.transform_kind}")
+    loader_s = _loader_seconds(loader)
+    os.environ["E4T_DISABLE_NATIVE"] = "1"
+    try:
+        loader = E4TDataLoader(data.name, PRETRAIN_BATCH, RESOLUTION, seed=0)
+    finally:
+        del os.environ["E4T_DISABLE_NATIVE"]
+    if loader.transform_kind != "cv2":
+        fail(f"pretraining: E4T_DISABLE_NATIVE=1 took "
+             f"{loader.transform_kind}")
+    loader_cv2_s = _loader_seconds(loader)
+    native_vs_cv2, n_compared = _native_vs_cv2(data.name)
+    if not native_vs_cv2 <= NATIVE_VS_CV2_MAX_ABS:
+        fail(f"pretraining: the native transform is {native_vs_cv2} from "
+             f"cv2's (at most {NATIVE_VS_CV2_MAX_ABS})")
     # the published model's domain, FFHQ + CelebA-HQ, is 1024x1024 photos:
     # the loader on such images, one decode thread and LOADER_WORKERS
     with tempfile.TemporaryDirectory() as large:
@@ -4216,7 +4301,7 @@ def phase_pretraining(smi):
             for workers in (0, LOADER_WORKERS)}
 
     t0 = time.perf_counter()
-    world = _pretraining_world()
+    world = seeded.pretraining_world()
     modules, offsets = world[:2]
     setup_s = time.perf_counter() - t0
     ucfg, ecfg = modules.unet.config, modules.e4t_encoder.config
@@ -4249,6 +4334,9 @@ def phase_pretraining(smi):
     with _checkpoints_checked(checks):
         result, launches, wall = _pretrain_run(args, world)
     peak = torch.cuda.max_memory_allocated()
+    if result["loader_transform"] != "native":
+        fail(f"pretraining: the run's loader took "
+             f"{result['loader_transform']}")
     metrics = result["metrics"]
     _metrics_finite(metrics, "pretraining")
     if len(metrics) != PRETRAIN_STEPS:
@@ -4297,6 +4385,10 @@ def phase_pretraining(smi):
         "step_seconds": result["step_seconds"], "s_per_step": s_per_step,
         "samples_per_s": args.train_batch_size / s_per_step,
         "loader_s_per_batch": loader_s,
+        "loader_cv2_s_per_batch": loader_cv2_s,
+        "loader_transform": result["loader_transform"],
+        "native_vs_cv2_max_abs": native_vs_cv2,
+        "native_vs_cv2_images": n_compared,
         "loader_large": {
             "side": LOADER_LARGE_SIDE, "n": LOADER_LARGE_IMAGES,
             "mean_file_bytes": {k: sum(v) / len(v)
@@ -4374,7 +4466,9 @@ def phase_routes_pretraining(smi, first_step, data):
 
     import torch
 
-    world = _pretraining_world()
+    from e4t_diffusion_torch import seeded
+
+    world = seeded.pretraining_world()
     ucfg, vit = world[0].unet.config, world[0].e4t_encoder.config.vit
     with tempfile.TemporaryDirectory() as out:
         args = _pretrain_args(data.name, out, "--mixed_precision", "bf16",
@@ -4410,9 +4504,11 @@ def phase_f32_pretraining(smi, data):
 
     import torch
 
+    from e4t_diffusion_torch import seeded
+
     refused = []
     for batch in F32_PRETRAIN_BATCHES:
-        world = _pretraining_world()
+        world = seeded.pretraining_world()
         ucfg, vit = world[0].unet.config, world[0].e4t_encoder.config.vit
         head = _checksums([p for n, p in world[0].e4t_encoder
                            .named_parameters()
@@ -4833,6 +4929,7 @@ def _extras_pretraining(data, ref):
     import torch.distributed as dist
     from torch.distributed.optim import ZeroRedundancyOptimizer
 
+    from e4t_diffusion_torch import seeded
     from e4t_diffusion_torch.parallel import mesh as pmesh
     from e4t_diffusion_torch.training.optim8bit import (AdamW8bit,
                                                         state_bytes)
@@ -4840,7 +4937,7 @@ def _extras_pretraining(data, ref):
     pmesh.initialize(0, 1, torch.device("cuda"),
                      init_method=f"tcp://localhost:{_free_port()}")
     try:
-        world = _pretraining_world()
+        world = seeded.pretraining_world()
         ucfg, vit = world[0].unet.config, world[0].e4t_encoder.config.vit
         per_step = _expected_pretraining_launches(ucfg, vit, RESOLUTION)
         out = tempfile.TemporaryDirectory()
@@ -4927,10 +5024,11 @@ def phase_training_extras(smi, tuning_ref, pretraining_ref, data):
 
     import torch
 
+    from e4t_diffusion_torch import seeded
     from e4t_diffusion_torch.training.train_step import (E4TTrainConfig,
                                                          split_trainable)
 
-    modules, offsets = _tuning_world(RESOLUTION)[:2]
+    modules, offsets = seeded.tuning_world(RESOLUTION)[:2]
     trainable, _ = split_trainable(modules, offsets,
                                    E4TTrainConfig(train_unet=True),
                                    torch.bfloat16)
@@ -5074,7 +5172,7 @@ def _world1_runs(data_dir, mesh):
 
     import torch
 
-    from e4t_diffusion_torch import tuning_e4t
+    from e4t_diffusion_torch import seeded, tuning_e4t
     from e4t_diffusion_torch.diffusion.schedulers import NoiseScheduleConfig
     from e4t_diffusion_torch.parallel import mesh as pmesh
     from e4t_diffusion_torch.templates import resolve_templates
@@ -5092,7 +5190,7 @@ def _world1_runs(data_dir, mesh):
 
     runs = {}
     for tag, m in (("tuning", None), ("tuning_group", mesh)):
-        modules, offsets, tokenizer, class_id, image = _tuning_world(
+        modules, offsets, tokenizer, class_id, image = seeded.tuning_world(
             RESOLUTION)
         args = tuning_e4t.parse_args([
             "--pretrained_model_name_or_path", "-", "--train_image_path",
@@ -5120,7 +5218,7 @@ def _world1_runs(data_dir, mesh):
     for tag, m, extra in (("pretraining", None, ()),
                           ("pretraining_group", mesh, ()),
                           ("zero1_group", mesh, ("--zero1",))):
-        world = _pretraining_world()
+        world = seeded.pretraining_world()
         with tempfile.TemporaryDirectory() as out:
             args = _pretrain_args(data_dir, out, "--mixed_precision", "bf16",
                                   "--max_train_steps",
@@ -5174,6 +5272,84 @@ def _world1_runs(data_dir, mesh):
     return report, launches
 
 
+VALIDATION_TIMEOUT_S = 600
+VALIDATION_KEYS = {"metric", "prompt", "staged_ckpt", "tuned_ckpt",
+                   "bf16_sample", "int8_sample", "int8_vs_bf16",
+                   "clip_scores"}
+
+
+def _start_validation(root):
+    """Start ``python -m e4t_diffusion_torch.validate_real_weights`` in the
+    background on the serving phase's model directory (``root/sd``, its
+    artifact ``root/e4t``) as the one-command chain runs it: the checkpoint
+    staged onto ``--sd_dir``, 1 tuning step (the CLI's defaults: f32,
+    batch 4, 512px, 8-bit AdamW), then bf16 and static int8 sampling at 2
+    steps, each step a process of its own. Stopped at exit if still
+    running. Returns (the ``_start_clis`` handle, its output directory)."""
+    import atexit
+
+    import numpy as np
+    from PIL import Image
+
+    out = os.path.join(root, "validation")
+    domain = os.path.join(root, "domain.png")
+    Image.fromarray(np.random.default_rng(21).integers(
+        0, 256, (RESOLUTION, RESOLUTION, 3), dtype=np.uint8)).save(domain)
+    started = _start_clis([(
+        "validate_real_weights", "e4t_diffusion_torch.validate_real_weights",
+        ["--e4t_ckpt", os.path.join(root, "e4t"),
+         "--sd_dir", os.path.join(root, "sd"), "--domain_image", domain,
+         "--tune_steps", "1", "--num_inference_steps", "2",
+         "--resolution", str(RESOLUTION), "--seed", "0", "--out_dir", out],
+        False)], root)
+
+    def stop():
+        for proc, _ in started[1].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return started, out
+
+
+def phase_validate_real_weights(smi, started, out):
+    """Wait for ``_start_validation``'s chain and check its record: the JAX
+    script's keys, the staged config naming ``--sd_dir``, the tuned
+    artifact, both samples at 512px, a finite int8-vs-bf16 delta."""
+    import numpy as np
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    walls = _wait_clis(started, VALIDATION_TIMEOUT_S, "validate_real_weights")
+    waited = time.perf_counter() - t0
+    with open(os.path.join(out, "validation.json"), encoding="utf-8") as f:
+        record = json.load(f)
+    if set(record) != VALIDATION_KEYS:
+        fail(f"validate_real_weights: keys {sorted(record)}")
+    with open(os.path.join(record["staged_ckpt"], "config.json"),
+              encoding="utf-8") as f:
+        staged = json.load(f)["pretrained_model_name_or_path"]
+    sd_dir = os.path.join(os.path.dirname(out), "sd")
+    tuned = sorted(os.listdir(record["tuned_ckpt"]))
+    sizes = []
+    for key in ("bf16_sample", "int8_sample"):
+        with Image.open(record[key]) as img:
+            sizes.append(img.size)
+    delta = record["int8_vs_bf16"]
+    report = {"phase": "validate_real_weights", "card": smi,
+              "chain_s": walls["validate_real_weights"], "waited_s": waited,
+              "record": record, "tuned_files": tuned, "sample_sizes": sizes}
+    print(json.dumps(report))
+    if not (staged == os.path.abspath(sd_dir)
+            and {"config.json", "encoder.pt", "unet.pt"} <= set(tuned)
+            and sizes == [(RESOLUTION, RESOLUTION)] * 2
+            and np.isfinite(delta["rel_l2"]) and np.isfinite(delta["psnr_db"])
+            and 0.0 < delta["rel_l2"] < 1.0):
+        fail(f"validate_real_weights: {report}")
+    return report
+
+
 def _start_clis(runs, log_dir):
     """Start ``python -m module argv`` for every (name, module, argv,
     torchrun) of ``runs`` from the checkout's root, under ``torchrun
@@ -5194,21 +5370,21 @@ def _start_clis(runs, log_dir):
     return time.perf_counter(), procs
 
 
-def _wait_clis(started):
+def _wait_clis(started, timeout=PARALLEL_CLI_TIMEOUT_S, what="parallel"):
     """Wait for the processes ``_start_clis`` started; fail on a non-zero
-    exit or at PARALLEL_CLI_TIMEOUT_S, and stop every one still running
-    whenever this returns or raises. Returns {name: wall seconds from the
-    common start to its exit}."""
+    exit or at ``timeout`` seconds from their start, and stop every one
+    still running whenever this returns or raises. Returns {name: wall
+    seconds from the common start to its exit}."""
     t0, procs = started
     walls = {}
     try:
         for name, (proc, log) in procs.items():
             rc = proc.wait(timeout=max(
-                1.0, PARALLEL_CLI_TIMEOUT_S - (time.perf_counter() - t0)))
+                1.0, timeout - (time.perf_counter() - t0)))
             walls[name] = time.perf_counter() - t0
             if rc:
                 log.seek(0)
-                fail(f"parallel: {name} exited {rc}:\n{log.read()[-6000:]}")
+                fail(f"{what}: {name} exited {rc}:\n{log.read()[-6000:]}")
     finally:
         for proc, log in procs.values():
             if proc.poll() is None:
@@ -5334,6 +5510,7 @@ def _multi_card_work(mesh_for):
     import numpy as np
     import torch
 
+    from e4t_diffusion_torch import seeded
     from e4t_diffusion_torch.config import AttributeDict
     from e4t_diffusion_torch.diffusion.pipeline import (
         E4TModules, StableDiffusionE4TPipeline)
@@ -5346,7 +5523,7 @@ def _multi_card_work(mesh_for):
 
     out = {}
     modules, offsets, tokenizer, placeholder_id, class_id = \
-        _pretraining_world()
+        seeded.pretraining_world()
     sampler = TemplateSampler(resolve_templates("normal"), tokenizer, "*s",
                               placeholder_id, seed=0)
     ids, ph = sampler.sample(2)
@@ -6468,6 +6645,7 @@ def main():
         fail("run from a checkout of the repository (e4t_diffusion_torch/ "
              "is missing)")
     sys.path.insert(0, repo)
+    from e4t_diffusion_torch import seeded
 
     timings = {}
 
@@ -6479,14 +6657,15 @@ def main():
               flush=True)
         return out
 
-    for knob in ROUTE_KNOBS:  # the default paths run with the routes off
+    # the default paths: the routes off, the loader's native transform on
+    for knob in (*ROUTE_KNOBS, "E4T_DISABLE_NATIVE"):
         os.environ.pop(knob, None)
     smi = run("environment", phase_environment)
     run("build", phase_build)
     if sys.argv[1:] == ["--parallel"]:
         # the parallel phase alone
         with tempfile.TemporaryDirectory() as data_dir:
-            _write_pretraining_images(data_dir, PRETRAIN_IMAGES)
+            seeded.write_pretraining_images(data_dir, PRETRAIN_IMAGES)
             run("parallel", phase_parallel, smi, data_dir)
         return
     if sys.argv[1:] == ["--sd2"]:
@@ -6497,7 +6676,7 @@ def main():
             "sd2_kernels", _sd2_kernel_cases, gen)
         print(json.dumps({"phase": "sd2_kernels", **cases}))
         with tempfile.TemporaryDirectory() as data_dir:
-            _write_pretraining_images(data_dir, PRETRAIN_IMAGES)
+            seeded.write_pretraining_images(data_dir, PRETRAIN_IMAGES)
             run("sd2_e4t", phase_sd2_e4t, smi, data_dir)
         print(json.dumps({"phase_seconds": timings}))
         return
@@ -6510,10 +6689,15 @@ def main():
         return
     cases = run("kernels", phase_kernels)
     sampling, pipe, image, warm_s = run("sampling", phase_main_path, smi)
+    components = run("components", phase_components, smi, pipe)
+    vit_ablations = run("vit_ablations", phase_vit_ablations, smi, pipe)
     schedulers = run("schedulers", phase_schedulers, smi, pipe, image)
     int8_sampling = run("int8_sampling", phase_int8_sampling, smi, pipe,
                         image)
-    serving = run("serving", phase_serving, smi, pipe)
+    served = tempfile.TemporaryDirectory()
+    serving = run("serving", phase_serving, smi, pipe, served.name)
+    # the real-weights chain's three processes run beside the next phases
+    validation = _start_validation(served.name)
     routes_sampling = run("routes_sampling", phase_routes_sampling, smi,
                           pipe, image, warm_s)
     f32_sampling = run("f32_sampling", phase_f32_sampling, smi, pipe, image)
@@ -6524,6 +6708,9 @@ def main():
         clip_score = run("clip_score", phase_clip_score, smi, root,
                          unclip_files)
     torch.cuda.empty_cache()
+    run("validate_real_weights", phase_validate_real_weights, smi,
+        *validation)
+    served.cleanup()
     tuning, tuning_ref = run("tuning", phase_tuning, smi)
     torch.cuda.empty_cache()
     routes_tuning, _ = run("routes_tuning", phase_tuning, smi, 2, True,
@@ -6548,7 +6735,8 @@ def main():
     torch.cuda.empty_cache()
     parallel = run("parallel", phase_parallel, smi, data.name)
     data.cleanup()
-    paths = {"sampling": sampling, "schedulers": schedulers,
+    paths = {"sampling": sampling, "components": components,
+             "vit_ablations": vit_ablations, "schedulers": schedulers,
              "int8_sampling": int8_sampling, "serving": serving,
              "routes_sampling": routes_sampling,
              "f32_sampling": f32_sampling, "unclip": unclip,

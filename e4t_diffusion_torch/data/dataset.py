@@ -7,7 +7,7 @@ The port's own copy of ``e4t_diffusion_tpu/data/dataset.py``:
   sorted), tar shards (brace patterns, stdlib ``tarfile``, shards dealt out
   by process, undecodable members skipped), and an HF ``datasets`` name
   (imported only when used);
-- the transform: SmallestMaxSize with cv2.INTER_AREA (the reference's
+- the transform: SmallestMaxSize with area resampling (the reference's
   interpolation=3), center or random crop, a p=0.5 horizontal flip and
   x / 127.5 - 1, HWC uint8 -> CHW float32. The draws come from numpy's
   ``default_rng(seed)`` in the same order, so a seed gives the JAX
@@ -15,11 +15,14 @@ The port's own copy of ``e4t_diffusion_tpu/data/dataset.py``:
 - ``E4TDataLoader``: batches of ``{"pixel_values": (B, 3, S, S)}`` from a
   background thread, or from N decode workers.
 
-The JAX loader takes its native C++ transform when that is built; the port
-has no copy of it yet and always runs this numpy/cv2 transform, which
-gives the same arrays as the JAX loader with ``E4T_DISABLE_NATIVE=1``.
-The process index and count come from ``torch.distributed`` when it is
-initialised, else 0 and 1. cv2 is imported only when a resize is needed.
+The loader takes the transform the JAX loader takes: the native C++ one
+(``data/native_ops``, the port's copy of ``native/e4t_image.cc``, built at
+first use) unless ``E4T_DISABLE_NATIVE=1``, then the numpy/cv2 one
+(``make_transform``, cv2.INTER_AREA). The two differ by up to 2/127.5 a
+pixel; each gives the JAX loader's arrays bit for bit under the same
+setting. A native build that fails raises. The process index and count
+come from ``torch.distributed`` when it is initialised, else 0 and 1. cv2
+is imported only when a resize is needed.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ import threading
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from e4t_diffusion_torch.data import native_ops
 
 _IMAGE_EXTS = ("jpg", "jpeg", "png", "gif")
 
@@ -230,7 +235,9 @@ class E4TDataLoader:
     not) by its blocks of the one seeded order (``_mine``).
     ``num_workers`` > 1 decodes and transforms on that many threads, each
     with its own transform seeded ``seed + 1000 * (worker + 1)``; the
-    sample order is then the order of completion."""
+    sample order is then the order of completion. ``transform_kind``:
+    "native" or "cv2", chosen at construction (``E4T_DISABLE_NATIVE``) for
+    the loader and every decode worker."""
 
     def __init__(self, source: str, batch_size: int, resolution: int = 512,
                  random_crop: bool = True, seed: int = 42,
@@ -250,6 +257,10 @@ class E4TDataLoader:
         rank, world = process_index_and_count()
         self.process_index = rank if process_index is None else process_index
         self.process_count = world if process_count is None else process_count
+        self.transform_kind = ("native" if native_ops.native_enabled()
+                               else "cv2")
+        if self.transform_kind == "native":
+            native_ops.load()  # a failed build raises here, not per image
         self.transform = self._transform(seed)
         self.shuffle_buffer = shuffle_buffer
         self.prefetch = prefetch
@@ -258,6 +269,9 @@ class E4TDataLoader:
             self.num_samples, self.num_shards = get_dataset_size(source)
 
     def _transform(self, seed: int):
+        if self.transform_kind == "native":
+            return native_ops.make_native_transform(
+                self.resolution, self.random_crop, seed=seed)
         return make_transform(self.resolution, self.random_crop, seed=seed)
 
     def _raw_iter(self):

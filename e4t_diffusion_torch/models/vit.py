@@ -6,9 +6,16 @@ Counterpart of ``e4t_diffusion_tpu/models/vit.py``, with open_clip's
 of the reference's ``encoder.pt`` loads strictly. Output contract of
 open_clip with ``output_tokens=True`` and ``proj=None``: ``(pooled,
 tokens)``, pooled = ln_post(cls token), tokens = the un-normalized patch
-tokens. GELU is exact (erf), as in open_clip, unless ``E4T_VIT_GELU=tanh``
-(read per call) asks for the tanh approximation, the reference's serving
-knob (``e4t_diffusion_tpu/models/vit.py:_gelu_tanh_env``). The linear
+tokens. GELU is exact (erf), as in open_clip, unless the config's
+``gelu_approximate`` or ``E4T_VIT_GELU=tanh`` (read per call), the
+reference's serving knob (``e4t_diffusion_tpu/models/vit.py:
+_gelu_tanh_env``), asks for the tanh approximation: either one set gives
+tanh, so the config field cannot turn the knob off, nor the knob the field
+(the reference's ``cfg.gelu_approximate or _gelu_tanh_env()``). The
+config's ``ablate_attn`` (the attention output is v: the projections stay,
+the score and PV products go) and ``ablate_ln`` (no ``ln_1`` / ``ln_2``
+in any block, nor their parameters) are the reference's timing ablations
+(``time_vit.py``), never used in serving. The linear
 sites, the packed ``in_proj`` and ``conv1`` are ``ops/quant`` drop-ins with
 unchanged keys, so int8 serving (``--int8_aux``) quantizes them.
 ``Transformer(cfg, causal=True)`` is open_clip's causal text transformer
@@ -31,10 +38,12 @@ from e4t_diffusion_torch.ops.attention import dot_product_attention
 VIT_GELU_KNOB = "E4T_VIT_GELU"
 
 
-def gelu_approximate() -> str:
-    """``F.gelu``'s ``approximate`` for the MLP: "tanh" while
-    ``E4T_VIT_GELU=tanh``, else "none" (exact erf)."""
-    return "tanh" if os.environ.get(VIT_GELU_KNOB, "") == "tanh" else "none"
+def gelu_approximate(config_tanh: bool = False) -> str:
+    """``F.gelu``'s ``approximate`` for the MLP: "tanh" when the config asks
+    for it (``config_tanh``) or while ``E4T_VIT_GELU=tanh``, else "none"
+    (exact erf)."""
+    return ("tanh" if config_tanh
+            or os.environ.get(VIT_GELU_KNOB, "") == "tanh" else "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +55,11 @@ class ViTConfig:
     num_heads: int = 16
     mlp_dim: int = 5120
     layer_norm_eps: float = 1e-5
+    # tanh-approximate GELU (see the module docstring for the knob)
+    gelu_approximate: bool = False
+    # timing ablations (time_vit.py), never used in serving
+    ablate_attn: bool = False
+    ablate_ln: bool = False
 
     @property
     def grid(self) -> int:
@@ -70,10 +84,12 @@ class MultiheadSelfAttention(quant.InProjSite):
     int8 site ``<module>.in_proj``), computed through the port's attention
     dispatcher."""
 
-    def __init__(self, width: int, heads: int, causal: bool = False):
+    def __init__(self, width: int, heads: int, causal: bool = False,
+                 ablate_attn: bool = False):
         super().__init__()
         self.heads = heads
         self.causal = causal
+        self.ablate_attn = ablate_attn
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = quant.Linear(width, width)
@@ -84,6 +100,8 @@ class MultiheadSelfAttention(quant.InProjSite):
         h = self.heads
         hd = d // h
         qkv = self.in_proj(x)
+        if self.ablate_attn:  # projections kept, attention products skipped
+            return self.out_proj(qkv.chunk(3, dim=-1)[2])
         q, k, v = (t.reshape(b, s, h, hd).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
         o = dot_product_attention(q, k, v, scale=1.0 / math.sqrt(hd),
@@ -92,23 +110,27 @@ class MultiheadSelfAttention(quant.InProjSite):
 
 
 class MLP(nn.Module):
-    def __init__(self, width: int, mlp_dim: int):
+    def __init__(self, width: int, mlp_dim: int, gelu_tanh: bool = False):
         super().__init__()
         self.c_fc = quant.Linear(width, mlp_dim)
         self.c_proj = quant.Linear(mlp_dim, width)
+        self.gelu_tanh = gelu_tanh
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(F.gelu(self.c_fc(x),
-                                  approximate=gelu_approximate()))
+        return self.c_proj(F.gelu(
+            self.c_fc(x), approximate=gelu_approximate(self.gelu_tanh)))
 
 
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, cfg: ViTConfig, causal: bool = False):
         super().__init__()
-        self.ln_1 = nn.LayerNorm(cfg.width, eps=cfg.layer_norm_eps)
-        self.attn = MultiheadSelfAttention(cfg.width, cfg.num_heads, causal)
-        self.ln_2 = nn.LayerNorm(cfg.width, eps=cfg.layer_norm_eps)
-        self.mlp = MLP(cfg.width, cfg.mlp_dim)
+        norm = (nn.Identity if cfg.ablate_ln else
+                lambda: nn.LayerNorm(cfg.width, eps=cfg.layer_norm_eps))
+        self.ln_1 = norm()
+        self.attn = MultiheadSelfAttention(cfg.width, cfg.num_heads, causal,
+                                           cfg.ablate_attn)
+        self.ln_2 = norm()
+        self.mlp = MLP(cfg.width, cfg.mlp_dim, cfg.gelu_approximate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x))

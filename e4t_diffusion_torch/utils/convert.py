@@ -153,7 +153,8 @@ def _resblocks_from_jax(out: StateDict, p: str, params: Mapping,
         t = f"{p}transformer.resblocks.{i}."
         f = params[f"resblocks_{i}"]
         for name in ("ln_1", "ln_2"):
-            _norm(out, t + name, f[name])
+            if name in f:  # absent under the ViT's ablate_ln
+                _norm(out, t + name, f[name])
         out[t + "attn.in_proj_weight"] = _t(f["attn_in_proj"]["kernel"])
         out[t + "attn.in_proj_bias"] = _tensor(f["attn_in_proj"]["bias"])
         for tname, fname in (("attn.out_proj", "attn_out_proj"),

@@ -1,9 +1,10 @@
 """The port's input pipeline against the JAX package's: the folder and
 tar-shard sources of ``E4TDataLoader`` give the same batches bit for bit
-for a seed (the JAX loader with its native transform off,
-``E4T_DISABLE_NATIVE=1``, so both run the cv2 transform), process sharding
-over tar shards, the threaded decode workers, undecodable files, and
-``device_prefetch``."""
+for a seed (both loaders with their native transform off,
+``E4T_DISABLE_NATIVE=1`` for the whole module, so both run the cv2
+transform; ``tests/test_torch_native_ops.py`` holds the native one),
+process sharding over tar shards, the threaded decode workers, undecodable
+files, and ``device_prefetch``."""
 import io
 import json
 import os
@@ -23,6 +24,11 @@ from e4t_diffusion_torch.data.prefetch import device_prefetch, to_device
 # (height, width) of the written images: portrait, landscape, square, and
 # sides below, at and above the 32px resolution
 SIZES = [(48, 40), (36, 60), (32, 32), (70, 45), (40, 90), (33, 50)]
+
+
+@pytest.fixture(autouse=True)
+def _cv2_transform(monkeypatch):
+    monkeypatch.setenv("E4T_DISABLE_NATIVE", "1")
 
 
 def _image(rng, h, w):

@@ -3,9 +3,14 @@
 ``run_ranks(fn, world, payload, tmp)`` starts ``world`` processes (spawn),
 forms a gloo process group over a ``FileStore`` in each, calls ``fn(rank,
 world, payload)`` there with one torch thread and returns every rank's
-result, in rank order. A rank that raises, or a run that outlives its
-timeout, fails the call with the ranks' tracebacks. This module imports
-the port and torch only: the ranks load no JAX.
+result, in rank order. ``run_launched_ranks(fn, world, per_node, payload,
+tmp)`` instead gives each process the environment ``torchrun --nnodes
+world/per_node --nproc_per_node per_node`` gives it (``RANK``,
+``LOCAL_RANK = RANK % per_node``, ``NODE_RANK``, ``MASTER_ADDR`` /
+``MASTER_PORT`` on localhost ...) and forms no group: the code under test
+joins it. A rank that raises, or a run that outlives its timeout, fails
+the call with the ranks' tracebacks. This module imports the port and
+torch only: the ranks load no JAX.
 """
 import contextlib
 import multiprocessing
@@ -34,11 +39,14 @@ from e4t_diffusion_torch.utils.tokenizer import CLIPTokenizer
 TIMEOUT_S = 100
 
 
-def _entry(fn, rank, world, tmp, payload_path):
+def _entry(fn, rank, world, tmp, payload_path, env=None):
     torch.set_num_threads(1)
     try:
-        store = dist.FileStore(os.path.join(tmp, "store"), world)
-        pmesh.initialize(rank, world, torch.device("cpu"), store=store)
+        if env is None:
+            store = dist.FileStore(os.path.join(tmp, "store"), world)
+            pmesh.initialize(rank, world, torch.device("cpu"), store=store)
+        else:
+            os.environ.update(env)
         payload = torch.load(payload_path, weights_only=False)
         out = fn(rank, world, payload)
         torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
@@ -51,14 +59,36 @@ def _entry(fn, rank, world, tmp, payload_path):
             dist.destroy_process_group()
 
 
-def run_ranks(fn, world, payload, tmp, timeout=TIMEOUT_S):
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_launched_ranks(fn, world, per_node, payload, tmp,
+                       timeout=TIMEOUT_S):
+    """``world`` ranks as ``world // per_node`` nodes of ``per_node``,
+    each with torchrun's environment and no process group yet."""
+    port = str(_free_port())
+    envs = [{"MASTER_ADDR": "localhost", "MASTER_PORT": port,
+             "RANK": str(r), "WORLD_SIZE": str(world),
+             "LOCAL_RANK": str(r % per_node),
+             "LOCAL_WORLD_SIZE": str(per_node),
+             "NODE_RANK": str(r // per_node),
+             "GROUP_RANK": str(r // per_node)} for r in range(world)]
+    return run_ranks(fn, world, payload, tmp, timeout, envs)
+
+
+def run_ranks(fn, world, payload, tmp, timeout=TIMEOUT_S, envs=None):
     tmp = str(tmp)
     os.makedirs(tmp, exist_ok=True)
     payload_path = os.path.join(tmp, "payload.pt")
     torch.save(payload, payload_path)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_entry, args=(fn, r, world, tmp,
-                                               payload_path))
+    procs = [ctx.Process(target=_entry, args=(
+        fn, r, world, tmp, payload_path, envs[r] if envs else None))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -223,6 +253,35 @@ def pretrain_sigterm(rank, world, p):
             "restored_trainable": trainable,
             "optimizer": pmesh.consolidated_state_dict(result["optimizer"]),
             "restored_optimizer": pmesh.consolidated_state_dict(opt)}
+
+
+def pretrain_cli(rank, world, p):
+    """The pretraining CLI as a launched rank, joining the group from the
+    environment itself; each rank writes under its own ``rank<r>/`` of the
+    payload's root (so what each rank wrote can be told apart). Returns the
+    metrics, every file under the rank's directory, and on rank 0 the
+    artifact's tensors."""
+    from e4t_diffusion_torch import pretrain_e4t
+
+    out = os.path.join(p["root"], f"rank{rank}")
+    real_templates = pretrain_e4t.resolve_templates
+    pretrain_e4t.resolve_templates = lambda name: p["templates"]
+    try:
+        result = pretrain_e4t.main([*p["argv"], "--output_dir", out])
+    finally:
+        pretrain_e4t.resolve_templates = real_templates
+    mesh = pmesh.get_mesh()
+    artifact = {}
+    step_dir = os.path.join(out, str(result["global_step"]))
+    if os.path.isdir(step_dir):
+        for name in ("encoder.pt", "weight_offsets.pt"):
+            artifact[name] = torch.load(os.path.join(step_dir, name))
+    files = sorted(os.path.relpath(os.path.join(d, f), out)
+                   for d, _, names in os.walk(out) for f in names)
+    return {"rank": mesh.rank, "world": mesh.world,
+            "local_rank": int(os.environ["LOCAL_RANK"]),
+            "metrics": result["metrics"], "files": files,
+            "artifact": artifact}
 
 
 # ---- sampling and the UNet -------------------------------------------------

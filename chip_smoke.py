@@ -96,13 +96,17 @@ Phases (any failure exits non-zero; each prints its wall seconds):
    ``--data_parallel_serving`` (2 steps) and a 1-step ``pretrain_e4t
    --zero1`` under
    ``torchrun --nproc_per_node 1`` against the same runs without torchrun,
-   bit for bit (the grid, the checkpoint, the artifacts), the four
-   processes at once while (a) and (e) run; (e) the bf16
+   bit for bit (the grid, the checkpoint, the artifacts), and (g)
+   ``serve_e4t --interactive`` (two prompts and a refused one on its
+   standard input) under one-rank ``torchrun`` against the same without
+   it, the PNGs bit for bit; the six processes at once while (a) and (e)
+   run; (e) the bf16
    UNet's noise prediction and input gradient at tp=2, two ranks on the
    one card over gloo, against tp=1 and f32 (within ``TP_BF16_RATIO``
    times bf16's own error); (d) with two or more cards, a dp=2 f32
    pretraining step and tp=2 and dp=2 sampling under NCCL against world
-   size 1 (``python3 chip_smoke.py --multi-card`` runs (d) alone,
+   size 1 (``python3 chip_smoke.py --multi-card`` runs (d) alone, and
+   sd2_e4t's (f) under NCCL,
    ``--parallel`` the whole phase alone); the world sizes run and the card
    count on a line of their own;
 10b. unclip (after f32_sampling, before tuning): the Stable-unCLIP
@@ -163,7 +167,20 @@ Phases (any failure exits non-zero; each prints its wall seconds):
    4 images, CFG 7.5), a UNet pass on flash against einsum, static int8
    against bf16, dynamic int8 with ``int8_attn="qkpv"`` and both opt-in
    routes on (the short-sequence kernel at the 144-token mid block, the
-   GroupNorm kernel) against bf16, a profile;
+   GroupNorm kernel) against bf16, a profile; (e) ``serve_e4t.main`` on
+   the tuned artifact at 768px, 3 batches of 8 prompts, DDIM-4, ``--int8
+   --int8_pc_act --int8_aux_static --lora_weights`` (a seeded LoRA file at
+   SD 2.1's widths), the first batch calibrating: launches of the serve
+   and of one more run of its first batch derived and asserted, that run
+   against the served PNG, LoRA on against off, int8 final latents against
+   bf16, its device time by kernel; (f) per-channel static int8 at tp=2
+   over two gloo ranks on the one card (each loading the artifact through
+   ``inference.build_pipeline --tensor_parallel 2 --dtype fp32`` beside
+   (e)), batch 2, f32: the ranges calibrated through DDIM-2 against
+   tp=1's, every int8 site's q / s / sac against tp=1's slice bit for bit,
+   one UNet forward's int8 error against f32 within 0.5-1.5x of tp=1's
+   (``--multi-card`` runs the same check under NCCL, one rank a card, on
+   a one-step pretraining artifact of the same base);
 Phase 9 also runs the tiny unCLIP pipeline and a tiny SD2-flavoured E4T
 pipeline (v-prediction, DDIM and DPM++) in f32 on the card against the
 CPU with the same draws. The kernels phase holds the low-dim forward at
@@ -185,6 +202,14 @@ routes are off by default, and off in every other phase but where phases
 
 The second-to-last line of output is a JSON ``kernels`` record, the last
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --profile f32|int8 [--label TEXT]
+
+profiles one path after the build and prints one JSON line: ``f32`` one
+full-width f32 DDIM-4 run and one f32 tuning step (busy share, the f32
+attention kernels' share, the top kernels), ``int8`` a warm static and a
+dynamic int8 DDIM-4 run split by the int8 sites' parts. To compare two
+commits on one card, run each checkout's script in one call.
 """
 import contextlib
 import json
@@ -240,9 +265,8 @@ INT8_VS_BF16_REL_L2 = 0.25
 # LoRA on against off (rank 4, up ~ N(0, 0.02^2)), same weights and
 # inputs: the adapters move the images by more than any rounding does
 LORA_EFFECT_REL_L2 = 1e-2
-# GroupNorm kernel against its f32 plain version: bf16 output rounding
-# (rel-L2 ~2e-3); in f32 only the order of the f32 sums differs
-GN_BF16_REL_L2 = 1e-2
+# GroupNorm kernel against its f32 plain version (GN_BF16_REL_L2 in bf16):
+# in f32 only the order of the f32 sums differs
 GN_F32_MAX_ABS = 1e-4
 # the UNet's eps with both opt-in routes on vs off uses UNET_ROUTE_REL_L2:
 # the GroupNorm kernel and ATen's group_norm round their bf16 outputs apart
@@ -257,10 +281,6 @@ TUNING_ROUTE_REL = 5e-2
 PRETRAIN_ROUTE_REL = 1e-3
 # the knobs and the values the opt-in phases set
 ROUTE_KNOBS = {"E4T_FUSED_GN": "1", "E4T_SHORTSEQ_MH_ATTN": "8"}
-# f32 attention kernels against their plain versions in f32 on the same
-# f32 inputs (out, lse, dq, dk, dv, rel-L2): full f32 FFMA on both sides,
-# the sums taken in another order
-KERNEL_F32_REL_L2 = 1e-5
 # the UNet's eps in f32 with its flash sites on the f32 kernel vs on the
 # kernel's plain version, same weights and inputs; and the ViT-H's tokens
 # with its attention sites on the f32 short-sequence kernel vs on einsum:
@@ -278,57 +298,25 @@ TINY_TUNING_RESOLUTION = 64
 F32_TUNING_BATCHES = (16, 8, 4)
 
 STEPS = 4
-PROMPTS = ["a photo of *s", "a *s face in monet style"]
-IMAGES_PER_PROMPT = 4
-RESOLUTION = 512
 TUNING_STEPS = 3
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; dense bf16 and int8
-# tensor-core rates and f32 on the CUDA cores (FFMA) from the port's
-# utils/flops.py; exp2 on the special-function units: 16 per clock per SM
-# (CUDA C++ Programming Guide throughput table, compute capability 9.0) x
-# 132 SMs x 1.98 GHz boost clock.
-HBM_BYTES_PER_S = 3.35e12
 try:
-    from e4t_diffusion_torch.utils.flops import (
-        H100_BF16_PEAK as BF16_FLOP_PER_S, H100_F32_PEAK as F32_FLOP_PER_S,
-        H100_INT8_PEAK as INT8_OP_PER_S)
+    from e4t_diffusion_torch.timing import (
+        BF16_FLOP_PER_S, F32_FLOP_PER_S, GN_BF16_REL_L2, IMAGES_PER_PROMPT,
+        KERNEL_F32_REL_L2, PROFILER_EMPTY, PROMPTS, RESOLUTION, cuda_time_ms,
+        device_ms, device_time, nvidia_smi_line, small_aware_ms)
+    from e4t_diffusion_torch.timing import (
+        bound as _bound, device_events as _device_events,
+        group_norm_sites as _group_norm_sites, note_empty as _note_empty,
+        rel as _rel, unet_conv_shapes as _unet_conv_shapes,
+        unet_linear_shapes as _unet_linear_shapes)
 except ImportError:  # not a checkout: main() says so and fails
-    BF16_FLOP_PER_S = F32_FLOP_PER_S = INT8_OP_PER_S = None
-EXP_PER_S = 16 * 132 * 1.98e9
+    pass
 
 
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        fail(f"nvidia-smi: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, reps=20):
-    """Median over ``reps`` of one call, timed with CUDA events."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
 
 
 @contextlib.contextmanager
@@ -350,119 +338,6 @@ def _tee_stdout(copy):
         yield
     finally:
         sys.stdout = real
-
-
-# profiler sessions that came back with no device record, and device_time
-# calls that fell back to CUDA events after three of them (printed with the
-# phase times)
-PROFILER_EMPTY = {"sessions": 0, "sessions_without_host_events": 0,
-                  "events_fallbacks": 0}
-
-
-def _note_empty(prof):
-    PROFILER_EMPTY["sessions"] += 1
-    if not len(prof.events()):
-        PROFILER_EMPTY["sessions_without_host_events"] += 1
-
-
-# set once _device_events has been held against key_averages in a run
-_DEVICE_EVENTS_HELD = []
-
-
-def _device_events(prof):
-    """{kernel name: [device us, count]} of a profiler session: its device
-    records that are not user annotations, read off kineto's raw events as
-    ``key_averages`` reads them (names demangled, an asynchronous record
-    counted with no time). ``key_averages`` gives the same self device
-    times but first builds the host ops' event tree in Python, which took
-    most of the script's profiling time (seconds to tens of seconds a
-    trace). The first session with device records in a run is held against
-    ``key_averages``: the same names, counts and times (to 1e-6), or the
-    run fails."""
-    import torch
-    from torch.autograd import DeviceType
-
-    rows, names = {}, {}
-    for e in prof.profiler.kineto_results.events():
-        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
-                or getattr(e, "is_hidden_event", lambda: False)()):
-            continue
-        raw = e.name()
-        if raw not in names:
-            names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
-        row = rows.setdefault(names[raw], [0.0, 0])
-        if not (e.is_async() or e.start_thread_id() != e.end_thread_id()):
-            row[0] += e.duration_ns() / 1e3
-        row[1] += 1
-    if rows and not _DEVICE_EVENTS_HELD:
-        ref = {}
-        for evt in prof.key_averages():
-            if (evt.device_type == DeviceType.CUDA
-                    and not getattr(evt, "is_user_annotation", False)):
-                row = ref.setdefault(evt.key, [0.0, 0])
-                row[0] += evt.self_device_time_total
-                row[1] += evt.count
-        bad = [k for k in set(rows) | set(ref)
-               if k not in rows or k not in ref or rows[k][1] != ref[k][1]
-               or abs(rows[k][0] - ref[k][0]) > 1e-6 * max(ref[k][0], 1.0)]
-        if bad:
-            fail(f"profiler: kineto's device records disagree with "
-                 f"key_averages at {len(bad)} kernels, e.g. "
-                 f"{[(k, rows.get(k), ref.get(k)) for k in bad[:3]]}")
-        _DEVICE_EVENTS_HELD.append(len(rows))
-    return rows
-
-
-def device_time(fn, reps=20):
-    """(ms, how): the device time of one call, the kernels' device time
-    summed under ``torch.profiler`` over ``reps`` calls (after one warm-up),
-    over ``reps`` (how "device"). A small kernel's CUDA-event time around
-    one call is its launch overhead on the host; this is the time the card
-    spends. Now and then a session comes back with no device record at all
-    (seen on the H100 machine in PR 7 once a run, and in three sessions in a
-    row in PR 11): such a session is measured again, and after three empty
-    ones the time is taken by CUDA events around ``reps`` calls in a row,
-    over ``reps`` (how "events_batch": the kernels queue behind each other,
-    so this is device time where a launch takes less host time than a
-    kernel takes on the card, and an upper bound on it elsewhere). An empty
-    session is never a time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(us for us, _ in _device_events(prof).values())
-        if us > 0:
-            return us / reps / 1e3, "device"
-        _note_empty(prof)
-    PROFILER_EMPTY["events_fallbacks"] += 1
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, "events_batch"
-
-
-def device_ms(fn, reps=20):
-    """``device_time``'s milliseconds."""
-    return device_time(fn, reps)[0]
-
-
-def small_aware_ms(fn, floor_ms=0.1):
-    """(ms, how): the device time (``device_time``) where it is below
-    ``floor_ms`` (a CUDA-event time around one call there is the host's
-    launch time), else CUDA events around one call, median of 20."""
-    ms, how = device_time(fn)
-    return (ms, how) if ms < floor_ms else (cuda_time_ms(fn), "events")
 
 
 def _traced(run):
@@ -557,24 +432,6 @@ def phase_build():
     if spills:
         fail(f"ptxas spills in the wgmma, f32 or GroupNorm kernels: "
              f"{spills}")
-
-
-def _bound(n_bytes, flops, exps, int8_ops=0, flop_rate=BF16_FLOP_PER_S):
-    """The least time of the work on the card: bytes over the memory rate
-    against the larger of the products' time (flops over ``flop_rate``, the
-    bf16 tensor cores' or the f32 CUDA cores', plus int8 operations over the
-    int8 rate) and exponentials over the special-function units' rate."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / flop_rate + int8_ops / INT8_OP_PER_S,
-                exps / EXP_PER_S) * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bytes": n_bytes, "flops": flops, "int8_ops": int8_ops,
-            "exps": exps}
-
-
-def _rel(a, b):
-    return ((a.float() - b).norm() / b.norm()).item()
 
 
 def _f32(dtype):
@@ -828,67 +685,6 @@ def _int8_flash_case(bh, sq, sk, d, mode, gen, timed, dtype=None):
     del q, k, v, ops, out, lse
     torch.cuda.empty_cache()
     return case
-
-
-def _unet_conv_shapes(batch, resolution, unet_config=None):
-    """{(C, O, H, W, k, stride, pad): sites} of the quantized UNet convs in
-    one forward of ``unet_config`` (SD v1's by default), read off a forward
-    on the meta device."""
-    import torch
-
-    from e4t_diffusion_torch.models.unet import (UNet2DConditionModel,
-                                                 UNetConfig)
-    from e4t_diffusion_torch.ops import quant
-
-    with torch.device("meta"):
-        unet = UNet2DConditionModel(unet_config or UNetConfig())
-    quantized = quant.quantize_params(dict(unet.named_parameters()))
-    shapes = {}
-
-    def record(mod, args):
-        x = args[0]
-        key = (x.shape[1], mod.out_channels, x.shape[2], x.shape[3],
-               mod.kernel_size[0], mod.stride[0], mod.padding[0])
-        shapes[key] = shapes.get(key, 0) + 1
-
-    for name, m in quant.site_modules(unet).items():
-        if isinstance(m, quant.Conv2d) and name in quantized:
-            m.register_forward_pre_hook(record)
-    side = resolution // 8
-    with torch.device("meta"):
-        unet(torch.zeros(batch, 4, side, side), torch.zeros(batch),
-             torch.zeros(batch, 77, unet.config.cross_attention_dim))
-    return shapes
-
-
-def _unet_linear_shapes(batch, resolution, unet_config=None):
-    """{input shape: sites} of the quantized UNet linear sites in one
-    forward of ``unet_config`` (SD v1's by default; SD 2.x's linear
-    proj_in / proj_out among them), read off a forward on the meta
-    device."""
-    import torch
-
-    from e4t_diffusion_torch.models.unet import (UNet2DConditionModel,
-                                                 UNetConfig)
-    from e4t_diffusion_torch.ops import quant
-
-    with torch.device("meta"):
-        unet = UNet2DConditionModel(unet_config or UNetConfig())
-    quantized = quant.quantize_params(dict(unet.named_parameters()))
-    shapes = {}
-
-    def record(mod, args):
-        key = tuple(args[0].shape)
-        shapes[key] = shapes.get(key, 0) + 1
-
-    for name, m in quant.site_modules(unet).items():
-        if isinstance(m, quant.Linear) and name in quantized:
-            m.register_forward_pre_hook(record)
-    side = resolution // 8
-    with torch.device("meta"):
-        unet(torch.zeros(batch, 4, side, side), torch.zeros(batch),
-             torch.zeros(batch, 77, unet.config.cross_attention_dim))
-    return shapes
 
 
 def _conv_sites(site, x):
@@ -1248,67 +1044,6 @@ def _patch_conv_case(n, gen):
     del xb, wb, site, modes
     torch.cuda.empty_cache()
     return case
-
-
-def _group_norm_sites(unet_config, vae_config, batch, resolution,
-                      device="meta", parts=None):
-    """{"unet", "unet_tap", "vae_decode", "vae_encode": {(C, H, W, groups,
-    eps, act, layout): sites}}: the GroupNorm sites of one UNet pass (full,
-    and the tap pass that stops after the mid block), one VAE decode and
-    one VAE encode (or only the ``parts`` named), read off forwards of bf16
-    models on ``device``.
-    The layout ("nchw" or "nhwc", channels-last memory) is the one a site's
-    input has on the card: the meta device does not carry it ("nchw")."""
-    import torch
-
-    from e4t_diffusion_torch.models import unet as unet_mod
-    from e4t_diffusion_torch.models import vae as vae_mod
-
-    with torch.device(device):
-        unet = unet_mod.UNet2DConditionModel(unet_config).to(torch.bfloat16)
-        vae = vae_mod.AutoencoderKL(vae_config).to(torch.bfloat16)
-    plain = unet_mod.group_norm_act
-    sites = {}
-    current = {}
-
-    def record(x, norm, act=None):
-        key = (x.shape[1], x.shape[2], x.shape[3], norm.num_groups,
-               norm.eps, act, "nchw" if x.is_contiguous() else "nhwc")
-        current[key] = current.get(key, 0) + 1
-        return plain(x, norm, act)
-
-    side = resolution // 8
-    # the Stable-unCLIP UNet's projection class embedding takes class labels
-    def labels():
-        return ({} if unet_config.class_embed_type is None else {
-            "class_labels": torch.zeros(
-                batch, unet_config.projection_class_embeddings_input_dim)})
-
-    runs = {
-        "unet": lambda: unet(torch.zeros(batch, 4, side, side),
-                             torch.zeros(batch), torch.zeros(
-                                 batch, 77, unet_config.cross_attention_dim),
-                             **labels()),
-        "unet_tap": lambda: unet(torch.zeros(batch, 4, side, side),
-                                 torch.zeros(batch), torch.zeros(
-                                     batch, 77,
-                                     unet_config.cross_attention_dim),
-                                 return_encoder_outputs=True, **labels()),
-        "vae_decode": lambda: vae.decode(torch.zeros(batch, 4, side, side)),
-        "vae_encode": lambda: vae.encode(
-            torch.zeros(batch, 3, resolution, resolution))}
-    unet_mod.group_norm_act = vae_mod.group_norm_act = record
-    try:
-        for name, run in runs.items():
-            if parts is not None and name not in parts:
-                continue
-            current = sites[name] = {}
-            with torch.device(device), torch.inference_mode():
-                run()
-    finally:
-        unet_mod.group_norm_act = vae_mod.group_norm_act = plain
-    del unet, vae
-    return sites
 
 
 def _gn_case(n, c, h, w, groups, eps, act, layout, dtype, gen, timed,
@@ -5352,21 +5087,25 @@ def phase_validate_real_weights(smi, started, out):
 
 def _start_clis(runs, log_dir):
     """Start ``python -m module argv`` for every (name, module, argv,
-    torchrun) of ``runs`` from the checkout's root, under ``torchrun
-    --nproc_per_node 1`` or not, all at once on the one card, their output
-    into ``log_dir``. Returns the handle ``_wait_clis`` takes."""
+    torchrun[, stdin]) of ``runs`` from the checkout's root, under
+    ``torchrun --nproc_per_node 1`` or not, all at once on the one card,
+    their output into ``log_dir``, their standard input the file ``stdin``
+    (or none). Returns the handle ``_wait_clis`` takes."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
     procs = {}
-    for name, module, argv, torchrun in runs:
+    for name, module, argv, torchrun, *stdin in runs:
         launcher = (["-m", "torch.distributed.run", "--nproc_per_node", "1",
                      "--master_addr", "localhost", "--master_port",
                      str(_free_port())] if torchrun else [])
         log = open(os.path.join(log_dir, f"{name}.log"), "w+")
-        procs[name] = (subprocess.Popen(
-            [sys.executable, *launcher, "-m", module, *argv], cwd=repo,
-            env=env, stdout=log, stderr=subprocess.STDOUT), log)
+        with open(stdin[0] if stdin else os.devnull,
+                  encoding="utf-8") as source:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, *launcher, "-m", module, *argv], cwd=repo,
+                env=env, stdin=source, stdout=log,
+                stderr=subprocess.STDOUT), log)
     return time.perf_counter(), procs
 
 
@@ -5449,6 +5188,16 @@ def _torchrun_clis(data_dir, report):
                "--checkpointing_steps", str(PARALLEL_CLI_STEPS),
                "--n_save_sample", "0", "--mixed_precision", "bf16",
                "--zero1", "--report_to", "tensorboard", "--seed", "0"]
+        # (g) the interactive server: two prompts and a refused one on its
+        # standard input
+        lines = os.path.join(root, "interactive.txt")
+        with open(lines, "w", encoding="utf-8") as f:
+            f.write("\n".join(INTERACTIVE_LINES) + "\n")
+        serve = ["--pretrained_model_name_or_path", artifact,
+                 "--image_path", image, "--interactive",
+                 "--num_inference_steps", str(PARALLEL_CLI_SAMPLE_STEPS),
+                 "--height", str(RESOLUTION), "--width", str(RESOLUTION),
+                 "--seed", "0"]
         grids, states = {}, {}
         tags = {"plain": False, "torchrun": True}
         started = _start_clis(
@@ -5457,7 +5206,10 @@ def _torchrun_clis(data_dir, report):
               torchrun) for tag, torchrun in tags.items()]
             + [(f"pretrain_{tag}_s", "e4t_diffusion_torch.pretrain_e4t",
                 pre + ["--output_dir", os.path.join(root, f"pre-{tag}")],
-                torchrun) for tag, torchrun in tags.items()], root)
+                torchrun) for tag, torchrun in tags.items()]
+            + [(f"serve_interactive_{tag}_s", "e4t_diffusion_torch.serve_e4t",
+                serve + ["--output_dir", os.path.join(root, f"live-{tag}")],
+                torchrun, lines) for tag, torchrun in tags.items()], root)
         try:
             yield
         except BaseException:
@@ -5485,10 +5237,36 @@ def _torchrun_clis(data_dir, report):
         if not np.array_equal(grids["plain"], grids["torchrun"]):
             fail("parallel: the inference CLI under torchrun rendered other "
                  "images")
+        live = {}
+        for tag in tags:
+            out = os.path.join(root, f"live-{tag}")
+            files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+            if files != INTERACTIVE_FILES:
+                fail(f"parallel: serve_e4t --interactive ({tag}) wrote "
+                     f"{files}")
+            live[tag] = [np.asarray(Image.open(os.path.join(out, f)))
+                         for f in files]
+            with open(os.path.join(root, f"serve_interactive_{tag}_s.log"),
+                      encoding="utf-8") as f:
+                refused = f.read().count("error: ")
+            if refused != 1:
+                fail(f"parallel: serve_e4t --interactive ({tag}) refused "
+                     f"{refused} prompts")
+        if not all(a.shape == (RESOLUTION, RESOLUTION, 3)
+                   and np.array_equal(a, b)
+                   for a, b in zip(live["plain"], live["torchrun"])):
+            fail("parallel: serve_e4t --interactive under torchrun rendered "
+                 "other images")
         for part, tensors in states["plain"].items():
             _same_bits(tensors, states["torchrun"][part],
                        f"pretrain_e4t --zero1 under torchrun, {part}")
     report["bit_equal"] = True
+
+
+# (g): the interactive server's standard input, and what it writes
+INTERACTIVE_LINES = ("a photo of *s", "", "a photo of a face",
+                     "a *s face in monet style")
+INTERACTIVE_FILES = ["interactive-0.png", "interactive-1.png"]
 
 
 # (d): the multi-card runs, f32 (the CPU tests' tolerances): a pretraining
@@ -5602,23 +5380,43 @@ def _multi_card_rank(rank, world, port, out_dir):
         dist.destroy_process_group()
 
 
-def _spawn_ranks(target, world, timeout, what):
+def _spawn_ranks(target, world, timeout, what, args=()):
     """``world`` processes (spawn) running ``target(rank, world, port,
-    out_dir)``, each saving ``out_dir/rank<r>.pt``; the saved objects in
-    rank order. A rank that fails or outlives ``timeout`` fails the run
-    (the others are killed)."""
+    out_dir, *args)``, each saving ``out_dir/rank<r>.pt``; the saved
+    objects in rank order. A rank that fails or outlives ``timeout`` fails
+    the run (the others are killed)."""
+    with _ranks_beside(target, world, timeout, what, args) as ranks:
+        pass
+    return ranks
+
+
+@contextlib.contextmanager
+def _ranks_beside(target, world, timeout, what, args=()):
+    """``_spawn_ranks``'s processes started on entry and run beside the
+    block; on exit they are waited for (``timeout`` from their start) and
+    the list yielded is filled with their saved objects in rank order. A
+    block that raises kills them."""
     import multiprocessing
 
     import torch
 
     ctx = multiprocessing.get_context("spawn")
+    results = []
     with tempfile.TemporaryDirectory() as out_dir:
         port = _free_port()
-        procs = [ctx.Process(target=target, args=(r, world, port, out_dir))
+        procs = [ctx.Process(target=target,
+                             args=(r, world, port, out_dir, *args))
                  for r in range(world)]
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout
+        try:
+            yield results
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.join()
+            raise
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
         for p in procs:
@@ -5626,10 +5424,9 @@ def _spawn_ranks(target, world, timeout, what):
                 p.kill()
                 p.join()
         if any(p.exitcode for p in procs):
-            fail(f"parallel: {what} ranks exited "
-                 f"{[p.exitcode for p in procs]}")
-        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
-                           weights_only=False) for r in range(world)]
+            fail(f"{what}: ranks exited {[p.exitcode for p in procs]}")
+        results.extend(torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                                  weights_only=False) for r in range(world))
 
 
 # (e): the bf16 UNet at tp=2, two ranks on one card over gloo (NCCL refuses
@@ -5706,7 +5503,8 @@ def _tp_bf16_checks():
 
     f32 = _tp_bf16_work(None, torch.float32)
     one = _tp_bf16_work(None, torch.bfloat16)
-    ranks = _spawn_ranks(_tp_bf16_rank, 2, TP_BF16_TIMEOUT_S, "bf16 tp=2")
+    ranks = _spawn_ranks(_tp_bf16_rank, 2, TP_BF16_TIMEOUT_S,
+                         "parallel: bf16 tp=2")
 
     def rel(a, b):
         return float((a.double() - b.double()).norm() / b.double().norm())
@@ -5738,7 +5536,7 @@ def _multi_card_checks():
     ref = _multi_card_work(lambda tp: None)
     torch.cuda.empty_cache()
     ranks = _spawn_ranks(_multi_card_rank, 2, MULTI_CARD_TIMEOUT_S,
-                         "multi-card")
+                         "parallel: multi-card")
     report = {}
     want = ref["step"]
     for r, got in enumerate(ranks):
@@ -6179,6 +5977,546 @@ def _sd2_sampling(pipe, image, report):
     return runs
 
 
+# (e): the batch server on the tuned SD 2.1 artifact with every serving
+# flag; (f): per-channel static int8 at tp=2 on that artifact
+SD2_SERVE_BATCHES = 3
+SD2_SERVE_LORA_RANK = 4
+# the int8 site launches of one DDIM-4 UNet run at batch 8, 768px (as the
+# static int8 run of (d) counts them: 64 conv and 214 linear sites a pass)
+SD2_INT8_LAUNCHES = {"int8_conv": 512, "int8_quantize": 1712}
+# the d64 kernel's share of the serve: {kernel row: marks of its device
+# kernels' names} for the warm batch's device time by kernel
+SD2_SERVE_KERNELS = {"flash_fwd_lowdim": ("flash_fwd_wgmma",),
+                     "int8_conv": ("int8_conv_wgmma", "int8_conv_split"),
+                     "int8_quantize": ("quantize_kernel",)}
+SD2_TP_BATCH = 2
+SD2_TP_TIMEOUT_S = 600
+# (f) runs in f32 (TF32 off), as the CPU test does: its ranges are held to
+# TINY_AMAX_REL, and bf16 would round the row sites' sums apart by ~1e-2
+# (the parallel phase's bf16 tp=2 check) before any range is taken
+SD2_TP_FLAGS = ["--int8", "--int8_pc_act", "--dtype", "fp32"]
+# tp=2's int8 error against f32 (one UNet forward) over tp=1's: the CPU
+# test's band (tests/test_torch_parallel_serve.py)
+SD2_TP_ERROR_RATIO = (0.5, 1.5)
+
+
+def _sd2_lora_file(root, ucfg):
+    """A seeded LoRA file at SD 2.1's widths (rank SD2_SERVE_LORA_RANK, up
+    ~ N(0, 0.02^2)): the cross-attention adapters' k and v take the
+    1024-wide text states."""
+    import torch
+
+    from e4t_diffusion_torch.models import lora
+
+    gen = torch.Generator().manual_seed(33)
+    bank = lora.init_lora_bank(ucfg, SD2_SERVE_LORA_RANK, generator=gen)
+    for layers in bank.values():
+        for layer in layers.values():
+            layer["up"] = 0.02 * torch.randn(layer["up"].shape,
+                                             generator=gen)
+    kv = {layers[k]["down"].shape[1] for site, layers in bank.items()
+          if site.endswith("attn2") for k in ("to_k_lora", "to_v_lora")}
+    if kv != {ucfg.cross_attention_dim} or ucfg.cross_attention_dim != 1024:
+        fail(f"sd2_e4t serving: LoRA k/v widths {kv}")
+    path = os.path.join(root, "sd2_lora.bin")
+    torch.save(lora.lora_to_torch(bank), path)
+    return path
+
+
+def _kernel_device_ms(prof):
+    """{kernel row: device ms} of a profiler session, by
+    SD2_SERVE_KERNELS's name marks (None where it held no device record)."""
+    if prof is None:
+        return {k: None for k in SD2_SERVE_KERNELS}
+    rows = _device_events(prof)
+    return {k: sum(us for name, (us, _) in rows.items()
+                   if any(m in name for m in marks)) / 1e3
+            for k, marks in SD2_SERVE_KERNELS.items()}
+
+
+def _sd2_serving_parts(n, ucfg, vit):
+    """The work of one served run (batch ``n``, SD2_RESOLUTION, DDIM-STEPS,
+    CFG as two UNet passes a step) by kernel row and part: {row: {part:
+    {"launches", "bound_ms", "bound_by": {"bytes" | "operations":
+    launches}}}}, "unet" the UNet's passes (with the ViT-H's sites, which
+    run in the same latent run), "decoder" the VAE decode's. Each launch's
+    bound is ``_bound``'s, as the kernels phase takes it at one site: the
+    d64 flash forward in bf16; the conv site's route from a bf16 NCHW
+    activation (x read once in bf16, the int8 weight, the bf16 output, the
+    int8 products); the quantization (bf16 x read, int8 q written, and the
+    scale: a UNet site's per-channel vector, a tower's scalar)."""
+    from e4t_diffusion_torch.models.weight_offsets import attention_sites
+    from e4t_diffusion_torch.ops.attention import flash_route
+    from e4t_diffusion_torch.ops.flash_lowdim import launch_route
+
+    parts = {"flash_fwd_lowdim": {"unet": []},
+             "int8_conv": {"unet": [], "decoder": []},
+             "int8_quantize": {"unet": [], "decoder": []}}
+    passes = 2 * STEPS
+
+    def flash(bh, sq, sk, d, times):
+        parts["flash_fwd_lowdim"]["unet"] += [_bound(
+            2 * (2 * bh * sq * d + 2 * bh * sk * d) + 4 * bh * sq,
+            4 * bh * sq * sk * d, bh * sq * sk)] * times
+
+    side = SD2_RESOLUTION // 8
+    levels = len(ucfg.block_out_channels)
+    for path, dim, _ in attention_sites(ucfg):
+        block, index = path.split(".")[:2]
+        level = (levels - 1 - int(index) if block == "up_blocks"
+                 else int(index) if block == "down_blocks" else levels - 1)
+        heads = ucfg.heads_for_block(level)
+        sq = (side >> level) ** 2
+        sk = sq if path.endswith("attn1") else 77
+        d = dim // heads
+        if (flash_route((n, heads, sq, d), (n, heads, sk, d), "cuda")
+                and launch_route(d) == "lowdim"):
+            flash(n * heads, sq, sk, d, passes)
+    tokens, d = vit.grid ** 2 + 1, vit.width // vit.num_heads
+    shape = (n, vit.num_heads, tokens, d)
+    if flash_route(shape, shape, "cuda") and launch_route(d) == \
+            "lowdim":
+        flash(n * vit.num_heads, tokens, tokens, d, vit.num_layers)
+
+    def conv(part, shapes, times):
+        for (c, o, h, w, k, stride, pad), sites in shapes.items():
+            ho = (h + 2 * pad - k) // stride + 1
+            wo = (w + 2 * pad - k) // stride + 1
+            parts["int8_conv"][part] += [_bound(
+                2 * n * h * w * c + o * k * k * c + 6 * o
+                + 2 * n * o * ho * wo, 0, 0,
+                int8_ops=2 * n * ho * wo * o * k * k * c)] * (sites * times)
+
+    def quantize(part, shapes, times, per_channel):
+        for shape, sites in shapes.items():
+            n_el = math.prod(shape)
+            parts["int8_quantize"][part] += [_bound(
+                3 * n_el + 4 * (shape[-1] if per_channel else 1), 0, 0)] * (
+                    sites * times)
+
+    towers = _aux_site_shapes(n, SD2_RESOLUTION)
+    vit_sites = _aux_site_shapes(n, SD2_RESOLUTION, towers=("e4t",))
+    conv("unet", _unet_conv_shapes(n, SD2_RESOLUTION, ucfg), passes)
+    conv("decoder", towers["conv"], 1)
+    quantize("unet", _unet_linear_shapes(n, SD2_RESOLUTION, ucfg), passes,
+             True)
+    quantize("unet", vit_sites["linear"], 1, False)
+    vae_linear = {k: v - vit_sites["linear"].get(k, 0)
+                  for k, v in towers["linear"].items()}
+    quantize("decoder", {k: v for k, v in vae_linear.items() if v}, 1,
+             False)
+    out = {}
+    for row, by_part in parts.items():
+        out[row] = {}
+        for part, bounds in by_part.items():
+            by = {}
+            for b in bounds:
+                by[b["bound_by"]] = by.get(b["bound_by"], 0) + 1
+            out[row][part] = {"launches": len(bounds),
+                              "bound_ms": sum(b["bound_ms"] for b in bounds),
+                              "bound_by": by}
+    return out
+
+
+def _sd2_serving(tuned, image_path, root, report, go):
+    """(e) ``serve_e4t.main`` in process on the tuned SD 2.1 artifact at
+    768px: SD2_SERVE_BATCHES batches of 8 prompts, DDIM-4, CFG 7.5, ``--int8
+    --int8_pc_act --int8_aux_static --lora_weights`` (``_sd2_lora_file``).
+    The first batch calibrates the UNet (SD2_CALIB_STEPS bf16 steps) and
+    then the towers. Checks: the manifest and PNGs; the launches of the
+    serve and of one more run of the first batch, derived from the SD 2.1
+    UNet's int8 and d64 flash sites and the towers' int8 sites; that run's
+    images against the served PNG, LoRA on against off, and its final
+    latents against the bf16 pipeline's with the same LoRA; its device
+    time by kernel. The file ``go`` is made once the timed runs are done,
+    so (f)'s ranks run beside the checks. Returns (the serve's launches,
+    the served pipeline)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from e4t_diffusion_torch import serve_e4t
+    from e4t_diffusion_torch.diffusion.pipeline import (
+        StableDiffusionE4TPipeline)
+    from e4t_diffusion_torch.models.e4t_encoder import E4TEncoderConfig
+    from e4t_diffusion_torch.models.unet import UNetConfig
+
+    ucfg, vit = UNetConfig.sd2(), E4TEncoderConfig().vit
+    n = SERVE_BATCH
+    unet_int8 = {
+        "int8_conv": 2 * STEPS * sum(_unet_conv_shapes(
+            n, SD2_RESOLUTION, ucfg).values()),
+        "int8_quantize": 2 * STEPS * sum(_unet_linear_shapes(
+            n, SD2_RESOLUTION, ucfg).values())}
+    if unet_int8 != SD2_INT8_LAUNCHES:
+        fail(f"sd2_e4t serving: int8 launch derivation {unet_int8}")
+    aux = _aux_site_shapes(n, SD2_RESOLUTION)
+    aux_conv, aux_quant = (sum(aux["conv"].values()),
+                           sum(aux["linear"].values()))
+    # a latent run decodes nothing: the ViT-H's sites only
+    vit_sites = _aux_site_shapes(n, SD2_RESOLUTION, towers=("e4t",))
+    flash = _expected_sampling_launches(ucfg, vit, n, SD2_RESOLUTION, STEPS)
+    per_run = _want(flash_fwd_lowdim=flash["flash_fwd_lowdim"],
+                    int8_conv=unet_int8["int8_conv"] + aux_conv,
+                    int8_quantize=unet_int8["int8_quantize"] + aux_quant)
+    per_latent_run = _want(
+        flash_fwd_lowdim=flash["flash_fwd_lowdim"],
+        int8_conv=unet_int8["int8_conv"] + sum(vit_sites["conv"].values()),
+        int8_quantize=unet_int8["int8_quantize"]
+        + sum(vit_sites["linear"].values()))
+    want_serve = {k: SD2_SERVE_BATCHES * v for k, v in per_run.items()}
+    want_serve["flash_fwd_lowdim"] += _expected_sampling_launches(
+        ucfg, vit, n, SD2_RESOLUTION, SD2_CALIB_STEPS)["flash_fwd_lowdim"]
+    words = ["in monet style", "face", "photo"]
+    prompts = [" ".join(["a photo of *s"] + [words[i % 3]] * (1 + i // 3))
+               for i in range(SD2_SERVE_BATCHES * n)]
+    with open(os.path.join(root, "sd2_prompts.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("\n".join(prompts) + "\n")
+    out = os.path.join(root, "sd2_served")
+    report.update({"prompts": len(prompts), "batch": n,
+                   "resolution": SD2_RESOLUTION, "steps": STEPS,
+                   "calib_steps": SD2_CALIB_STEPS,
+                   "flags": "--int8 --int8_pc_act --int8_aux_static "
+                            f"--lora_weights (rank {SD2_SERVE_LORA_RANK})",
+                   "aux_conv_sites": aux_conv,
+                   "aux_quantize_sites": aux_quant})
+    lora_path = _sd2_lora_file(root, ucfg)
+    saved = os.environ.get("E4T_INT8_CALIB_STEPS")
+    os.environ["E4T_INT8_CALIB_STEPS"] = str(SD2_CALIB_STEPS)
+    try:
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spipe, record = serve_e4t.main([
+            "--pretrained_model_name_or_path", tuned,
+            "--image_path", image_path,
+            "--prompts_file", os.path.join(root, "sd2_prompts.txt"),
+            "--batch_size", str(n), "--num_inference_steps", str(STEPS),
+            "--guidance_scale", "7.5", "--height", str(SD2_RESOLUTION),
+            "--width", str(SD2_RESOLUTION), "--seed", "0",
+            "--output_dir", out, "--int8", "--int8_pc_act",
+            "--int8_aux_static", "--lora_weights", lora_path])
+        torch.cuda.synchronize()
+        report["serve_s"] = time.perf_counter() - t0
+        report["launches"] = launches = _read_launches()
+    finally:
+        if saved is None:
+            os.environ.pop("E4T_INT8_CALIB_STEPS", None)
+        else:
+            os.environ["E4T_INT8_CALIB_STEPS"] = saved
+    if launches != want_serve:
+        fail(f"sd2_e4t serving: launches {launches}, expected {want_serve}")
+    if (spipe.int8, spipe.int8_aux) != ("static_pc", "static"):
+        fail(f"sd2_e4t serving: int8 modes {spipe.int8}, {spipe.int8_aux}")
+    with open(os.path.join(out, "manifest.jsonl"), encoding="utf-8") as f:
+        rows = [json.loads(line) for line in f]
+    pngs = sorted(p for p in os.listdir(out) if p.endswith(".png"))
+    if ([r["prompt"] for r in rows] != prompts
+            or pngs != [f"{i:05d}.png" for i in range(len(prompts))]):
+        fail(f"sd2_e4t serving: manifest {len(rows)} rows, PNGs {pngs}")
+    report["record"] = record
+    served0 = np.asarray(Image.open(os.path.join(out, "00000.png")),
+                         np.float32) / 255.0
+    first = prompts[:n]
+    pixels = np.asarray(Image.open(image_path))
+    kwargs = dict(num_inference_steps=STEPS, guidance_scale=7.5,
+                  height=SD2_RESOLUTION, width=SD2_RESOLUTION, seed=0)
+
+    def render(p, want, **extra):
+        _reset_launches()
+        got = p(first, pixels, **kwargs, **extra)
+        if _read_launches() != want:
+            fail(f"sd2_e4t serving: launches {_read_launches()}, "
+                 f"expected {want}")
+        if not np.isfinite(got).all():
+            fail("sd2_e4t serving: a run is not finite")
+        return torch.from_numpy(got)
+
+    def variant(**kw):
+        return StableDiffusionE4TPipeline(
+            spipe.modules, spipe.offsets, spipe.tokenizer, spipe.e4t_config,
+            scheduler=spipe.scheduler, already_added_placeholder_token=True,
+            **kw)
+
+    # one warm batch's device time by kernel (the profiler's raw records);
+    # its images are the direct run held against the served PNGs
+    runs = []
+    prof, wall_us, traced = _traced(lambda: runs.append(render(
+        spipe, per_run)))
+    report["warm_batch"] = {"wall_ms": wall_us / 1e3,
+                            "device_ms_by_kernel": _kernel_device_ms(
+                                prof if traced else None),
+                            "launches": per_run}
+    del prof
+    # the same batch's latent run (the UNet and the ViT-H, no decode),
+    # profiled too: its device time by kernel is the UNet's part, the warm
+    # batch's less it the decoder's; beside each, the launches and the sum
+    # of their bounds
+    parts = _sd2_serving_parts(n, ucfg, vit)
+    lat_runs = []
+    prof, _, lat_traced = _traced(lambda: lat_runs.append(render(
+        spipe, per_latent_run, output_type="latent")))
+    lat_ms = _kernel_device_ms(prof if lat_traced else None)
+    del prof
+    warm_ms = report["warm_batch"]["device_ms_by_kernel"]
+    for row, by_part in parts.items():
+        if sum(p["launches"] for p in by_part.values()) != per_run[row] or (
+                by_part["unet"]["launches"] != per_latent_run[row]):
+            fail(f"sd2_e4t serving: {row}'s parts {by_part} against "
+                 f"{per_run[row]} launches a run, {per_latent_run[row]} a "
+                 f"latent run")
+        by_part["unet"]["ms"] = lat_ms[row]
+        if "decoder" in by_part:
+            by_part["decoder"]["ms"] = (
+                None if None in (warm_ms[row], lat_ms[row])
+                else warm_ms[row] - lat_ms[row])
+    report["warm_batch"]["by_part"] = parts
+    with open(go, "w", encoding="utf-8"):
+        pass
+    served = runs[-1]
+    report["served_png_vs_run_max_abs"] = float(np.abs(
+        served0 - served[0].numpy().transpose(1, 2, 0)).max())
+    no_lora = variant(int8="static_pc", act_scales=spipe.act_amax,
+                      int8_aux="static")
+    no_lora.aux_amax = spipe.aux_amax
+    report["lora_on_vs_off_rel_l2"] = _rel(served, render(no_lora, per_run))
+    lat8 = lat_runs[-1]
+    lat = render(variant(lora_bank=spipe.lora_bank,
+                         lora_scale=spipe.lora_scale),
+                 _want(flash_fwd_lowdim=flash["flash_fwd_lowdim"]),
+                 output_type="latent")
+    report["final_latents_int8_vs_bf16_rel_l2"] = _rel(lat8, lat)
+    del no_lora, served, runs, lat_runs, lat8, lat
+    if not (report["served_png_vs_run_max_abs"] <= RERUN_MAX_ABS + 1 / 255
+            and report["lora_on_vs_off_rel_l2"] >= LORA_EFFECT_REL_L2
+            and report["final_latents_int8_vs_bf16_rel_l2"]
+            <= INT8_VS_BF16_REL_L2):
+        fail(f"sd2_e4t serving: {report}")
+    return launches, spipe
+
+
+def _digest(t):
+    """sha256 of a tensor's dtype, shape and bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode())
+    h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+             .tobytes())
+    return h.hexdigest()
+
+
+def _sd2_tp_pipeline(tuned, image_path, tp=1):
+    """The tuned artifact through ``inference.build_pipeline`` with
+    SD2_TP_FLAGS (f32, per-channel static int8), split over tp."""
+    from e4t_diffusion_torch import inference
+
+    return inference.build_pipeline(inference.parse_args([
+        "--pretrained_model_name_or_path", tuned,
+        "--image_path_or_url", image_path, *SD2_TP_FLAGS,
+        "--tensor_parallel", str(tp)]))
+
+
+def _sd2_tp_work(pipe, pixels):
+    """One process's part of (f) on ``pipe`` (f32, ``int8="static_pc"``;
+    its UNet split over its mesh's tp or whole): the first call calibrates
+    (DDIM-SD2_CALIB_STEPS steps at batch SD2_TP_BATCH, 768px, then one int8
+    step), then one seeded UNet forward on the int8 sites, and at tp=1 also
+    without them. Returns the ranges, the split specs, a digest of each
+    int8 site's q / s / sac (this rank's shards) and the eps, on the
+    host."""
+    import torch
+
+    from e4t_diffusion_torch.diffusion import pipeline as pipeline_mod
+    from e4t_diffusion_torch.ops import quant
+
+    saved = os.environ.get("E4T_INT8_CALIB_STEPS")
+    os.environ["E4T_INT8_CALIB_STEPS"] = str(SD2_CALIB_STEPS)
+    try:
+        pipe(PROMPTS[0], pixels, num_inference_steps=1,
+             num_images_per_prompt=SD2_TP_BATCH, height=SD2_RESOLUTION,
+             width=SD2_RESOLUTION, seed=0, output_type="latent")
+    finally:
+        if saved is None:
+            os.environ.pop("E4T_INT8_CALIB_STEPS", None)
+        else:
+            os.environ["E4T_INT8_CALIB_STEPS"] = saved
+    unet, mesh = pipe.modules.unet, pipe.mesh
+    gen = torch.Generator("cuda").manual_seed(34)
+    side = SD2_RESOLUTION // 8
+    dtype = unet.conv_in.weight.dtype
+    x = torch.randn(SD2_TP_BATCH, 4, side, side, generator=gen,
+                    device="cuda").to(dtype)
+    ctx = torch.randn(SD2_TP_BATCH, 77, unet.config.cross_attention_dim,
+                      generator=gen, device="cuda").to(dtype)
+    t = torch.linspace(100, 900, SD2_TP_BATCH, device="cuda").long()
+    out = {"specs": dict(getattr(unet, "tp_specs", {})),
+           "amax": {k: {n: v.cpu() for n, v in site.items()}
+                    for k, site in pipe.act_amax.items()}}
+    with torch.inference_mode():
+        _, unet_apply = pipeline_mod._folded_apply(unet, pipe.offsets)
+        sites = _sd2_tp_sites(pipe, pipe.act_amax)
+        out["digests"] = {name: {k: _digest(v) for k, v in site.items()}
+                          for name, site in sites.items()}
+        with contextlib.ExitStack() as stack:
+            pipeline_mod._parallel_contexts(stack, mesh, None)
+            stack.enter_context(quant.int8_sites(unet, sites))
+            out["eps_int8"] = unet_apply(x, t, ctx).float().cpu()
+        if not mesh.distributed:
+            out["eps"] = unet_apply(x, t, ctx).float().cpu()
+    return out
+
+
+def _sd2_tp_rank(rank, world, port, out_dir, go, tuned, image_path,
+                 backend="gloo"):
+    """One rank of (f) in a ``backend`` group of ``world``: on card 0 under
+    gloo, on card ``rank`` under NCCL. The tuned artifact is loaded at
+    tp=``world`` (``_sd2_tp_pipeline``) while the parent serves; the work
+    starts when the file ``go`` exists."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from PIL import Image
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        pipe = _sd2_tp_pipeline(tuned, image_path, world)
+        while not os.path.exists(go):
+            time.sleep(0.2)
+        out = _sd2_tp_work(pipe, np.asarray(Image.open(image_path)))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sd2_tp_checks(pipe, one, ranks):
+    """(f): each rank's calibrated ranges against tp=1's (``one``, the
+    work of ``pipe``, to TINY_AMAX_REL of each range), its int8 sites' q /
+    s / sac against the slices of tp=1's on the same ranges (rank 0's), bit
+    for bit by digest, and the int8 eps's error against tp=1's f32 eps
+    within SD2_TP_ERROR_RATIO of tp=1's own."""
+    import torch
+
+    from e4t_diffusion_torch.parallel import mesh as pmesh
+
+    if not torch.equal(ranks[0]["eps_int8"], ranks[1]["eps_int8"]):
+        fail("sd2_e4t tp=2: the ranks' int8 eps differ")
+    amax_err = max(float((r["amax"][name][k] - v).abs().max())
+                   / max(float(v.abs().max()), 1e-30)
+                   for r in ranks for name, site in one["amax"].items()
+                   for k, v in site.items())
+    if any(set(r["amax"]) != set(one["amax"]) for r in ranks) or not (
+            amax_err <= TINY_AMAX_REL):
+        fail(f"sd2_e4t tp=2: calibrated ranges differ by {amax_err}")
+    # tp=1's sites on rank 0's ranges, cut by the ranks' specs
+    whole = _sd2_tp_sites(pipe, {
+        k: {n: v.cuda() for n, v in site.items()}
+        for k, site in ranks[0]["amax"].items()})
+    specs = ranks[0]["specs"]
+    kinds = {}
+    for r, rank in enumerate(ranks):
+        if set(rank["digests"]) != set(whole):
+            fail("sd2_e4t tp=2: the ranks' int8 sites are not tp=1's")
+        for name, ref in whole.items():
+            kind = specs.get(f"{name}.weight")
+            kinds[kind] = kinds.get(kind, 0) + (r == 0)
+            want = dict(ref)
+            if kind == "row":
+                want["q"] = pmesh._split(ref["q"], kind, 2, r)
+                want["sac"] = pmesh._split(ref["sac"][None], kind, 2, r)[0]
+            elif kind is not None:
+                want["q"] = pmesh._split(ref["q"], kind, 2, r)
+                want["s"] = pmesh._split(ref["s"], kind, 2, r)
+            digests = {k: _digest(v) for k, v in want.items()}
+            if digests != rank["digests"][name]:
+                fail(f"sd2_e4t tp=2: rank {r}'s {name} is not tp=1's "
+                     f"slice ({kind})")
+    err_one = _rel(one["eps_int8"], one["eps"])
+    err_tp = _rel(ranks[0]["eps_int8"], one["eps"])
+    lo, hi = SD2_TP_ERROR_RATIO
+    report = {"batch": SD2_TP_BATCH, "resolution": SD2_RESOLUTION,
+              "calib_steps": SD2_CALIB_STEPS, "amax_max_rel_err": amax_err,
+              "sites_by_split": {str(k): v for k, v in kinds.items()},
+              "sites_bit_equal": True,
+              "dtype": "float32",
+              "eps_int8_vs_f32_rel_l2": {"tp1": err_one, "tp2": err_tp},
+              "ratio_band": SD2_TP_ERROR_RATIO}
+    if not (kinds.get("row") and lo * err_one < err_tp < hi * err_one):
+        fail(f"sd2_e4t tp=2: {report}")
+    return report
+
+
+def _sd2_multi_card_checks():
+    """sd2_e4t's (f) under NCCL, one rank a card (``--multi-card``): the
+    seeded SD 2.1 base, a one-step pretraining artifact of it (batch 1,
+    768px, bf16), then per-channel static int8 at tp=2 on cards 0 and 1
+    against tp=1 on card 0, held as ``_sd2_tp_checks`` holds the gloo
+    run."""
+    import gc
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from e4t_diffusion_torch import pretrain_e4t, seeded
+
+    with tempfile.TemporaryDirectory() as root:
+        sd, _ = _sd2_base(root)
+        data = os.path.join(root, "data")
+        seeded.write_pretraining_images(data, PRETRAIN_IMAGES)
+        out = os.path.join(root, "pre")
+        pretrain_e4t.main([
+            "--pretrained_model_name_or_path", sd,
+            "--train_image_dataset", data, "--domain_class_token", "face",
+            "--prompt_template", "normal", "--max_train_steps", "1",
+            "--train_batch_size", "1", "--n_save_sample", "0",
+            "--mixed_precision", "bf16", "--report_to", "tensorboard",
+            "--output_dir", out, "--seed", "0"])
+        art = os.path.join(out, "1")
+        image = os.path.join(root, "subject.png")
+        Image.fromarray(np.random.default_rng(32).integers(
+            0, 256, (SD2_RESOLUTION, SD2_RESOLUTION, 3),
+            dtype=np.uint8)).save(image)
+        go = os.path.join(root, "sd2_tp_go")
+        with open(go, "w", encoding="utf-8"):
+            pass
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with _ranks_beside(_sd2_tp_rank, 2, SD2_TP_TIMEOUT_S,
+                           "sd2_e4t tp=2 (NCCL)",
+                           (go, art, image, "nccl")) as ranks:
+            tp1 = _sd2_tp_pipeline(art, image)
+            one = _sd2_tp_work(tp1, np.asarray(Image.open(image)))
+        report = _sd2_tp_checks(tp1, one, ranks)
+        report.update(backend="nccl", cards=[0, 1],
+                      seconds=time.perf_counter() - t0)
+        del tp1, one, ranks
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
+def _sd2_tp_sites(pipe, amax):
+    """The int8 sites (``static_pc``) of ``pipe``'s offset-folded UNet
+    weights on the ranges ``amax`` (this rank's shards under tp)."""
+    import torch
+
+    from e4t_diffusion_torch.diffusion import pipeline as pipeline_mod
+
+    with torch.inference_mode():
+        folded, _ = pipeline_mod._folded_apply(pipe.modules.unet,
+                                               pipe.offsets)
+        return pipeline_mod._unet_sites(pipe.modules.unet, folded,
+                                        "static_pc", amax)
+
+
 def phase_sd2_e4t(smi, data_dir):
     """E4T on a full-width SD 2.1 base (seeded random weights) through the
     port's CLIs, in process: (a) the diffusers directory; (b)
@@ -6303,6 +6641,31 @@ def phase_sd2_e4t(smi, data_dir):
         report["sampling"] = sampling
         paths["sd2_sampling"] = runs["ddim_warm"]["launches"]
         del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (e) the server; (f)'s two ranks load the artifact beside it and
+        # start their work when it ends, beside the tp=1 side
+        go, serving = os.path.join(root, "sd2_tp_go"), {}
+        t0 = time.perf_counter()
+        with _ranks_beside(_sd2_tp_rank, 2, SD2_TP_TIMEOUT_S,
+                           "sd2_e4t tp=2", (go, tuned, image)) as ranks:
+            paths["sd2_serving"], spipe = _sd2_serving(tuned, image, root,
+                                                       serving, go)
+            serving["seconds"] = time.perf_counter() - t0
+            report["serving"] = serving
+            del spipe
+            gc.collect()
+            torch.cuda.empty_cache()
+            tp1 = _sd2_tp_pipeline(tuned, image)
+            one = _sd2_tp_work(tp1, subject)
+            t1 = time.perf_counter()
+        t2 = time.perf_counter()
+        tp2 = _sd2_tp_checks(tp1, one, ranks)
+        tp2["seconds_after_serving"] = time.perf_counter() - t0 - serving[
+            "seconds"]
+        tp2["ranks_waited_s"] = t2 - t1
+        report["tp2_static_pc_gloo"] = tp2
+        del tp1, one, ranks
         gc.collect()
         torch.cuda.empty_cache()
     print(json.dumps(report))
@@ -6633,7 +6996,124 @@ def _f32_rows(cases, entry, timed_keys):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Profiles of one path (``--profile f32`` / ``--profile int8``)
+# ---------------------------------------------------------------------------
+
+def profile_f32(smi):
+    """One full-width f32 DDIM-4 run (``--dtype fp32``; batch 8, 512px, CFG
+    7.5) and one full-width f32 tuning step (``--mixed_precision no``,
+    batch 16), each under ``torch.profiler`` with this script's checks:
+    the wall time, the device's busy time and share, the f32 attention
+    kernels' time (``csrc/attention_f32.cu``, kernels named attn_*) and
+    share of it, and the kernels that take the most."""
+    import io
+
+    import numpy as np
+    import torch
+
+    with tempfile.TemporaryDirectory() as tok_dir:
+        pipe, _, _ = _full_width_pipeline(tok_dir)
+    for m in pipe.modules.all():
+        m.to(torch.float32)
+    image = np.random.default_rng(0).integers(
+        0, 256, (RESOLUTION, RESOLUTION, 3), dtype=np.uint8)
+    want = _want(flash_fwd_lowdim_f32=LOWDIM_SITES_PER_STEP * STEPS)
+    _, warm_s, _ = _sample(pipe, image, "ddim", want)  # builds, warms
+    _, ddim_s, _ = _sample(pipe, image, "ddim", want)
+    sampling = _profile(lambda: pipe(
+        PROMPTS, image, num_inference_steps=STEPS, guidance_scale=7.5,
+        num_images_per_prompt=IMAGES_PER_PROMPT, height=RESOLUTION,
+        width=RESOLUTION, seed=0))
+    del pipe
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        phase_tuning(smi, steps=1, dtype=torch.float32, batch=16)
+    tuning = json.loads(out.getvalue().strip().splitlines()[-1])
+    return {"f32_ddim4": {"first_s": warm_s, "warm_s": ddim_s,
+                          "profile": sampling},
+            "f32_tuning_step": {
+                "batch": tuning["batch"], "s_per_step": tuning["s_per_step"],
+                "max_memory_allocated_gb": tuning["max_memory_allocated_gb"],
+                "profile": tuning["profile"]}}
+
+
+def profile_int8(smi):
+    """One warm full-width DDIM-4 run with static activation scales (the
+    serving flavor of ``inference.py --int8_static_act``; the first call
+    calibrates) and one with dynamic scales, batch 8, 512px, CFG 7.5, each
+    under ``torch.profiler``, the busy time split into the int8 sites'
+    parts (``_int8_profile``: the conv sites' kernel and PyTorch passes,
+    the linear sites' quantization, ``torch._int_mm`` and the rest)."""
+    import numpy as np
+    import torch
+
+    from e4t_diffusion_torch.diffusion.pipeline import (
+        StableDiffusionE4TPipeline)
+
+    with tempfile.TemporaryDirectory() as tok_dir:
+        pipe, _, _ = _full_width_pipeline(tok_dir)
+    image = np.random.default_rng(0).integers(
+        0, 256, (RESOLUTION, RESOLUTION, 3), dtype=np.uint8)
+    kwargs = dict(num_inference_steps=STEPS, guidance_scale=7.5,
+                  num_images_per_prompt=IMAGES_PER_PROMPT,
+                  height=RESOLUTION, width=RESOLUTION, seed=0)
+    report = {}
+    for name, int8 in (("static", "static"), ("dynamic", True)):
+        serving = StableDiffusionE4TPipeline(
+            pipe.modules, pipe.offsets, pipe.tokenizer, pipe.e4t_config,
+            already_added_placeholder_token=True, int8=int8)
+        walls = []
+        for _ in range(3):  # the first calibrates (static) and builds
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serving(PROMPTS, image, **kwargs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        report[f"{name}_ddim4"] = {
+            "first_s": walls[0], "warm_s": walls[1:],
+            "profile": _int8_profile(
+                lambda: serving(PROMPTS, image, **kwargs))}
+        del serving
+        torch.cuda.empty_cache()
+    return report
+
+
+PROFILES = {"f32": profile_f32, "int8": profile_int8}
+
+
+def parse_mode(argv):
+    """The command line: no argument for the whole run, or one of
+    ``--parallel``, ``--sd2``, ``--multi-card`` and ``--profile f32|int8
+    [--label TEXT]``. Anything else exits with the usage (code 2)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        prog="chip_smoke.py", description="Drive the port on one NVIDIA "
+        "GPU (every phase by default) or one part of it.")
+    parts = parser.add_mutually_exclusive_group()
+    for flag, what in (("--parallel", "the parallel phase alone"),
+                       ("--sd2", "the SD 2.1 kernel cases and the sd2_e4t "
+                                 "phase alone"),
+                       ("--multi-card", "the runs across two cards alone "
+                                        "(needs two cards)")):
+        parts.add_argument(flag, dest="mode", action="store_const",
+                           const=flag[2:], help=what)
+    parts.add_argument("--profile", choices=sorted(PROFILES),
+                       help="profile one path")
+    parser.add_argument("--label", default="",
+                        help="a label for --profile's record")
+    args = parser.parse_args(argv)
+    if args.profile:
+        args.mode = "profile"
+    elif args.label:
+        parser.error("--label goes with --profile")
+    return args
+
+
 def main():
+    args = parse_mode(sys.argv[1:])
     try:
         import torch
     except ImportError:
@@ -6662,13 +7142,13 @@ def main():
         os.environ.pop(knob, None)
     smi = run("environment", phase_environment)
     run("build", phase_build)
-    if sys.argv[1:] == ["--parallel"]:
+    if args.mode == "parallel":
         # the parallel phase alone
         with tempfile.TemporaryDirectory() as data_dir:
             seeded.write_pretraining_images(data_dir, PRETRAIN_IMAGES)
             run("parallel", phase_parallel, smi, data_dir)
         return
-    if sys.argv[1:] == ["--sd2"]:
+    if args.mode == "sd2":
         # the SD 2.1 kernel cases and the sd2_e4t phase alone
         cases = {}
         gen = torch.Generator("cuda").manual_seed(0)
@@ -6680,12 +7160,21 @@ def main():
             run("sd2_e4t", phase_sd2_e4t, smi, data_dir)
         print(json.dumps({"phase_seconds": timings}))
         return
-    if sys.argv[1:] == ["--multi-card"]:
-        # (d) of the parallel phase alone, on a machine of two or more cards
+    if args.mode == "profile":
+        print(json.dumps({"profile": args.profile, "label": args.label,
+                          "card": smi, **run(args.profile,
+                                             PROFILES[args.profile], smi)}))
+        return
+    if args.mode == "multi-card":
+        # (d) of the parallel phase and sd2_e4t's (f) under NCCL, on a
+        # machine of two or more cards
         if torch.cuda.device_count() < 2:
             fail("--multi-card needs two cards")
         print(json.dumps({"multi_card": run("multi_card",
                                             _multi_card_checks)}))
+        print(json.dumps({"sd2_tp2_static_pc_nccl": run(
+            "sd2_multi_card", _sd2_multi_card_checks)}))
+        print(json.dumps({"phase_seconds": timings}))
         return
     cases = run("kernels", phase_kernels)
     sampling, pipe, image, warm_s = run("sampling", phase_main_path, smi)

@@ -40,6 +40,9 @@ import numpy as np
 from e4t_diffusion_torch.data import native_ops
 
 _IMAGE_EXTS = ("jpg", "jpeg", "png", "gif")
+# a closed iterator waits this long for its threads, each of which ends
+# after the item in hand, so none reads a source its caller has removed
+_JOIN_S = 10.0
 
 
 def smallest_max_size(image: np.ndarray, size: int) -> np.ndarray:
@@ -382,7 +385,8 @@ class E4TDataLoader:
             finally:
                 put(None)
 
-        threading.Thread(target=worker, daemon=True).start()
+        thread = threading.Thread(target=worker, daemon=True)
+        thread.start()
         try:
             while True:
                 b = q.get()
@@ -393,6 +397,7 @@ class E4TDataLoader:
                 yield b
         finally:
             stop.set()
+            thread.join(_JOIN_S)
 
     def _iter_threaded(self) -> Iterator[Dict[str, np.ndarray]]:
         """A feeder thread hands decode thunks to ``num_workers`` threads
@@ -462,3 +467,5 @@ class E4TDataLoader:
                     batch = []
         finally:
             stop.set()
+            for t in threads:
+                t.join(_JOIN_S)

@@ -27,8 +27,11 @@ from the seed, keeps its rows, and the images are gathered, so the ranks
 render one card's images. Every rank quantizes int8 sites by the same
 scales: a live activation abs-max is the MAX over every rank
 (``quant.amax_reduction``), calibrated ranges are MAX-reduced
-(``mesh.reduce_calibration``), and a row-parallel shard's weight scales
-are the whole kernel's (``mesh.kernel_scale_reducer``).
+(``mesh.reduce_calibration``, per-channel ranges gathered to the
+unsplit layout), a row-parallel shard's weight scales are the whole
+kernel's (``mesh.kernel_scale_reducer``) and its per-channel activation
+scales the slice of the whole vector's at its input columns
+(``mesh.channel_scale_shard``).
 """
 from __future__ import annotations
 
@@ -273,14 +276,16 @@ def _folded_apply(unet, offsets, lora_bank=None, lora_scale=None):
 def _unet_sites(unet, folded, int8, act_amax):
     """The int8 sites of the folded UNet weights (none when ``int8`` is
     off); on a UNet split over tp a row-parallel shard takes the whole
-    kernel's scales."""
+    kernel's scales and its input columns' slice of the per-channel
+    activation scales."""
     if not int8:
         return {}
     return quant.quantize_params(
         {**dict(unet.named_parameters()), **folded}, act_amax=act_amax,
         act_pc=int8 == "static_pc",
         static_exclude=_static_exclude_for(int8 == "static_pc"),
-        kernel_reduce=pmesh.kernel_scale_reducer(unet))
+        kernel_reduce=pmesh.kernel_scale_reducer(unet),
+        act_shard=pmesh.channel_scale_shard(unet))
 
 
 def _parallel_contexts(stack: contextlib.ExitStack, mesh, rows) -> None:
@@ -536,9 +541,6 @@ class StableDiffusionE4TPipeline:
         _check_modes(int8, int8_aux, int8_attn)
         self.mesh = mesh or pmesh.Mesh()
         self.data_parallel = data_parallel
-        if int8 == "static_pc" and self.mesh.tp > 1:
-            raise NotImplementedError("per-channel activation scales "
-                                      "(static_pc) under tensor parallelism")
         self.int8, self.int8_aux, self.int8_attn = int8, int8_aux, int8_attn
         self.act_amax = act_scales
         self.aux_amax = None

@@ -182,6 +182,8 @@ def quantize_params(state_dict: Dict[str, torch.Tensor],
                     act_pc: Optional[bool] = None,
                     path_of: Callable[[str], str] = jax_path,
                     kernel_reduce: Optional[
+                        Callable[[str, torch.Tensor], torch.Tensor]] = None,
+                    act_shard: Optional[
                         Callable[[str, torch.Tensor], torch.Tensor]] = None
                     ) -> Dict[str, QSite]:
     """The int8 form of every linear / conv weight (ndim 2 or 4) of a state
@@ -204,7 +206,10 @@ def quantize_params(state_dict: Dict[str, torch.Tensor],
     ``act_headroom`` defaults to ``E4T_INT8_CALIB_HEADROOM`` (1.0).
     ``kernel_reduce(site name, per-channel abs-max)`` (tensor parallelism:
     ``parallel/mesh.kernel_scale_reducer``) makes a shard's weight scales
-    those of the whole kernel."""
+    those of the whole kernel; ``act_shard(site name, sac)``
+    (``parallel/mesh.channel_scale_shard``) cuts the ``"sac"`` computed on
+    the whole calibrated ``"amax_c"`` to the input channels the site's
+    weight shard holds, before it is folded and stored."""
     if act_headroom is None:
         act_headroom = float(os.environ.get("E4T_INT8_CALIB_HEADROOM", "1.0"))
     if act_pc is None:
@@ -240,6 +245,8 @@ def quantize_params(state_dict: Dict[str, torch.Tensor],
                                  * act_headroom, min=_EPS)
             sac = (amax_c ** pc_alpha
                    * torch.max(amax_c ** (1.0 - pc_alpha)) / 127.0)
+            if act_shard is not None:
+                sac = act_shard(name, sac)
             shape = (1, -1) + (1,) * (w.dim() - 2)
             site = quantize_kernel(w.float() * sac.reshape(shape), reduce)
             site["sac"] = sac

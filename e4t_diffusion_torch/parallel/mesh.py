@@ -30,6 +30,7 @@ card; gloo only when the caller asks for the CPU.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -42,6 +43,10 @@ TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
                 "LOCAL_RANK")
 # gradient all-reduce buckets: at most this many f32 elements (256 MiB)
 _BUCKET_ELEMS = 1 << 26
+# how long a rank waits in a ``patient_group`` collective for the others:
+# there a person, not the work, sets the pace (the world group's own
+# timeout, 10 minutes under NCCL, would abort the waiting ranks)
+PATIENT_TIMEOUT = datetime.timedelta(days=7)
 
 
 def maybe_initialize_distributed(device: torch.device) -> torch.device:
@@ -160,6 +165,26 @@ class Mesh:
         t = torch.stack([values[k].float() for k in keys])
         self.all_reduce(t, group=self.dp_group).div_(self.dp)
         return dict(zip(keys, t.unbind()))
+
+    def broadcast_object(self, obj: Any, group: Any = None) -> Any:
+        """Rank 0's ``obj`` on every rank (pickled over ``group``, by
+        default the world group)."""
+        if not self.distributed:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=(
+            self.world_group if group is None else group))
+        return box[0]
+
+    def patient_group(self) -> Any:
+        """A gloo group over the world group's ranks whose collectives wait
+        PATIENT_TIMEOUT (None without a process group): for the ranks that
+        wait on rank 0 while it waits on a person. Every rank calls it, in
+        one order, as it would ``dist.new_group``."""
+        if not self.distributed:
+            return None
+        return dist.new_group(dist.get_process_group_ranks(self.world_group),
+                              timeout=PATIENT_TIMEOUT, backend="gloo")
 
     def all_gather_object(self, obj: Any) -> List[Any]:
         """Every rank's ``obj``, in rank order."""
@@ -490,6 +515,26 @@ def kernel_scale_reducer(unet: nn.Module
         return amax
 
     return reduce
+
+
+def channel_scale_shard(unet: nn.Module
+                        ) -> Optional[Callable[[str, torch.Tensor],
+                                               torch.Tensor]]:
+    """For ``quant.quantize_params`` on a UNet split over tp: a
+    row-parallel site's per-input-channel activation scales (``"sac"``,
+    computed on the whole calibrated vector, so its ``max_c`` term is the
+    unsplit one's) cut to this rank's input columns by the split of its
+    weight; a column-split or replicated site keeps the whole vector. None
+    for an unsplit UNet."""
+    if getattr(unet, "tp_site", None) is None:
+        return None
+
+    def shard(site_name: str, sac: torch.Tensor) -> torch.Tensor:
+        if not is_row_split(unet, site_name):
+            return sac
+        return local_shard(unet, f"{site_name}.weight", sac[None])[0]
+
+    return shard
 
 
 def reduce_calibration(amax: Dict[str, Dict[str, torch.Tensor]],

@@ -23,7 +23,21 @@ torchrun every rank renders each batch (its rows with
 
 prompts.txt: one prompt per line, each with the placeholder token (e.g.
 "*s"); blank lines and '#' comments are skipped. ``--interactive`` reads
-prompts from standard input instead, one render each at batch 1.
+prompts from standard input instead, one render each at batch 1, and
+writes ``interactive-<i>.png``. Under torchrun rank 0 alone reads standard
+input and hands each line to every rank (over a gloo group of their own, in
+which the others wait for a person's next line as long as it takes, and
+not the world group, whose timeout would abort them); every rank renders
+it with the
+same seed (under ``--data_parallel_serving`` the prompt repeated dp times,
+so the batch divides, and the first image kept, as the JAX server does),
+a prompt without the placeholder is refused on every rank alike, and
+rank 0 writes the image:
+
+    echo "a photo of *s" | torchrun --nproc_per_node 2 \
+        -m e4t_diffusion_torch.serve_e4t --interactive \
+        --pretrained_model_name_or_path DIR --image_path IMG \
+        --tensor_parallel 2
 """
 from __future__ import annotations
 
@@ -65,6 +79,28 @@ def read_prompts(path: str):
     return [ln for ln in lines if ln and not ln.startswith("#")]
 
 
+def interactive_prompts(mesh, stream=None):
+    """The non-blank lines of ``stream`` (standard input), stripped, on
+    every rank: rank 0 alone reads, and each line, then ``None`` at the end
+    of input, is broadcast to every rank, so every rank leaves the loop at
+    the same line. The broadcast goes over ``mesh.patient_group()``: the
+    other ranks wait there while rank 0 waits on a person, for as long as
+    it takes, where the world group's timeout would abort them."""
+    stream = sys.stdin if stream is None else stream
+    group = mesh.patient_group()
+    while True:
+        prompt = None
+        if mesh.is_main:
+            for line in iter(stream.readline, ""):
+                if line.strip():
+                    prompt = line.strip()
+                    break
+        prompt = mesh.broadcast_object(prompt, group)
+        if prompt is None:
+            return
+        yield prompt
+
+
 def main(argv=None):
     """Serve as the flags say. Returns the pipeline and the final record
     (None in interactive mode), for callers that drive the server in
@@ -77,9 +113,6 @@ def main(argv=None):
         sys.exit(f"no prompts in {args.prompts_file}")
     pipe = inference.build_pipeline(args)
     is_main = pipe.mesh.is_main
-    if args.interactive and pipe.mesh.distributed:
-        sys.exit("--interactive serves from one process: launch it without "
-                 "torchrun")
     image = load_image(args.image_path)
     os.makedirs(args.output_dir, exist_ok=True)
 
@@ -95,20 +128,30 @@ def main(argv=None):
         return images, wall
 
     if args.interactive:
-        print("interactive mode: one prompt per line (Ctrl-D to exit)")
+        # under data-parallel serving the batch must divide by dp: the
+        # prompt is repeated over dp and the first image kept
+        n_rep = pipe.mesh.dp if args.data_parallel_serving else 1
+        if is_main:
+            print("interactive mode: one prompt per line (Ctrl-D to exit)",
+                  flush=True)
         idx = 0
-        for line in sys.stdin:
-            if not line.strip():
-                continue
+        for prompt in interactive_prompts(pipe.mesh):
             try:
-                images, wall = render([line.strip()], args.seed + idx)
+                # every rank holds the same prompt, so every rank refuses
+                # it alike, before any collective
+                pipe._prepare_prompt(prompt)
+                images, wall = render([prompt] * n_rep, args.seed + idx)
             except ValueError as e:  # e.g. no placeholder token
-                print(f"error: {e}")
+                if is_main:
+                    print(f"error: {e}", flush=True)
                 continue
-            path = os.path.join(args.output_dir, f"interactive-{idx}.png")
-            images[0].save(path)
-            print(f"{path}  ({wall:.2f}s)")
+            if is_main:
+                path = os.path.join(args.output_dir,
+                                    f"interactive-{idx}.png")
+                images[0].save(path)
+                print(f"{path}  ({wall:.2f}s)", flush=True)
             idx += 1
+        pipe.mesh.barrier()
         return pipe, None
 
     bad = []

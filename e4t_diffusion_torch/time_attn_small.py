@@ -32,25 +32,28 @@ Otherwise each shape: the kernel against its plain version (bf16 rounding,
 rel-L2 <= 1e-2) and against the synchronous design (``*_sync``, where the
 checkout has it), then the kernel, the synchronous design and SDPA's
 forward on the same q/k/v: the device time under ``torch.profiler``
-(``chip_smoke.device_ms``) where it is under 0.1 ms, since a CUDA-event
+(``timing.device_ms``) where it is under 0.1 ms, since a CUDA-event
 time there is the host's launch time, else CUDA events around one call,
 median of 20 after a warm-up. The int8 kernels run at the route's kv tile
 (``flash_int8.quant_tile``), where the checkout has it. Prints the card's
 ``nvidia-smi`` line, then one JSON line. Needs a GPU; imports no JAX.
 """
 import argparse
+import importlib.util
 import json
 import math
 import os
 import shutil
 import sys
 
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 # (BH, S, d): the ViT-H's 257-token sites when sampling at batch 8 (BH 128)
 # and tuning at batch 16 (BH 256), and the ends of the route's range
 SHORTSEQ_SHAPES = ((128, 257, 80), (256, 257, 80), (256, 129, 80),
                    (256, 512, 120))
-# the f32 FFMA rate (chip_smoke.F32_FLOP_PER_S) and the f32 kernel's
-# tolerance against its plain version (chip_smoke.KERNEL_F32_REL_L2)
+# the f32 FFMA rate (timing.F32_FLOP_PER_S) and the f32 kernel's tolerance
+# against its plain version (timing.KERNEL_F32_REL_L2)
 F32_FLOP_PER_S = 67e12
 F32_REL_L2 = 1e-5
 # (BH, S, d): the UNet's two low-dim flash sites when sampling at batch 8
@@ -110,14 +113,12 @@ F32_ABLATIONS = {
 
 
 def ablated_copy(repo, part, ablations=ABLATIONS):
-    """A copy of ``repo``'s package and chip_smoke.py under
-    build/ablate-<part>/ with the kernels changed as ``ablations[part]``
+    """A copy of ``repo``'s package under build/ablate-<part>/ with the kernels changed as ``ablations[part]``
     says; returns the copy's root."""
     root = os.path.join(repo, "build", f"ablate-{part}")
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(repo, "e4t_diffusion_torch"),
                     os.path.join(root, "e4t_diffusion_torch"))
-    shutil.copy(os.path.join(repo, "chip_smoke.py"), root)
     for kernel, edits in ablations[part].items():
         path = os.path.join(root, KERNELS[kernel])
         with open(path) as f:
@@ -133,9 +134,9 @@ def ablated_copy(repo, part, ablations=ABLATIONS):
 
 
 def shortseq_bound_args(bh, s, d, f32=False):
-    """The arguments of ``chip_smoke._bound`` for the short-sequence
-    forward's work: q, k, v read and out written once, 4 S^2 D flops at the
-    bf16 or the f32 rate, one exponential per score."""
+    """The arguments of ``timing.bound`` for the short-sequence forward's
+    work: q, k, v read and out written once, 4 S^2 D flops at the bf16 or
+    the f32 rate, one exponential per score."""
     return ((4 if f32 else 2) * 4 * bh * s * d, 4 * bh * s * s * d,
             bh * s * s), ({"flop_rate": F32_FLOP_PER_S} if f32 else {})
 
@@ -146,8 +147,7 @@ def _rel(a, b):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--repo", default=os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__))))
+    parser.add_argument("--repo", default=HERE)
     parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     parser.add_argument("--ablate", choices=sorted(ABLATIONS))
     parser.add_argument("--label", default="")
@@ -163,15 +163,20 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         sys.exit("time_attn_small: needs an NVIDIA GPU")
-    # the timed checkout's own helpers (older checkouts have these too)
-    from chip_smoke import _bound, cuda_time_ms, device_ms, nvidia_smi_line
+    # this checkout's helpers beside the timed checkout's package
+    spec = importlib.util.spec_from_file_location(
+        "e4t_timing", os.path.join(HERE, "e4t_diffusion_torch", "timing.py"))
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
+    _bound, cuda_time_ms = timing.bound, timing.cuda_time_ms
+    device_ms, nvidia_smi_line = timing.device_ms, timing.nvidia_smi_line
     from e4t_diffusion_torch.ops import attention
     from e4t_diffusion_torch.ops import flash_int8 as fi
     from e4t_diffusion_torch.ops import shortseq as ss
 
     def timed(fn):
         """(ms, how): the device time where it is under 0.1 ms, else CUDA
-        events (``chip_smoke.small_aware_ms``)."""
+        events (``timing.small_aware_ms``)."""
         ms = device_ms(fn)
         return (ms, "device") if ms < 0.1 else (cuda_time_ms(fn), "events")
 

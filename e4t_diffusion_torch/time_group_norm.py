@@ -11,17 +11,17 @@ one by default), so one call can time two commits on one card, in turns:
 unpack the other with ``git archive`` into a git-ignored directory and run
 the script on each.
 
-The sites are this checkout's ``chip_smoke._group_norm_sites(…, "cuda")``:
+The sites are this checkout's ``timing.group_norm_sites(…, "cuda")``:
 (C, H, W, groups, eps, act, layout) with their counts, in the memory layout
 the card gives each site's input (NCHW, or channels-last). At each, on a
 seeded bf16 input with bf16 weight and bias: the kernel
 (``groupnorm.fused_group_norm``) held against its plain version in f32
-(rel-L2 <= 1e-2, ``chip_smoke.GN_BF16_REL_L2``) and against the first
+(rel-L2 <= 1e-2, ``timing.GN_BF16_REL_L2``) and against the first
 design (``group_norm_sync``, where the checkout has it), then timed beside
 it, ``F.group_norm`` then ``F.silu`` and the bound (x read once, y written
 once, weight and bias read once, at 3.35 TB/s). Times are the device time
 under ``torch.profiler`` where it is under 0.1 ms, else CUDA events around
-one call, median of 20 after a warm-up (``chip_smoke.small_aware_ms``, with
+one call, median of 20 after a warm-up (``timing.small_aware_ms``, with
 its fallback to CUDA events around 20 calls when the profiler records no
 device time). Prints the card's ``nvidia-smi`` line, then one JSON line:
 the sums per UNet pass and per decode, the decode's sums by (H, layout),
@@ -50,18 +50,19 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         sys.exit("time_group_norm: needs an NVIDIA GPU")
+    # this checkout's helpers beside the timed checkout's package
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+        "e4t_timing", os.path.join(HERE, "e4t_diffusion_torch", "timing.py"))
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
     from e4t_diffusion_torch.models.unet import UNetConfig
     from e4t_diffusion_torch.models.vae import VAEConfig
     from e4t_diffusion_torch.ops import groupnorm as gn
 
-    smi = smoke.nvidia_smi_line()
+    smi = timing.nvidia_smi_line()
     print(smi)
     sync = getattr(gn, "group_norm_sync", None)
-    sites = smoke._group_norm_sites(UNetConfig(), VAEConfig(), BATCH,
+    sites = timing.group_norm_sites(UNetConfig(), VAEConfig(), BATCH,
                                     RESOLUTION, "cuda")
     torch.cuda.empty_cache()
     gen = torch.Generator("cuda").manual_seed(0)
@@ -91,23 +92,23 @@ def main(argv=None):
                                           eps, act)
             row = {"c": c, "h": h, "w": w, "groups": groups, "act": act,
                    "layout": layout, "sites": count,
-                   "out_rel_l2": smoke._rel(out, ref)}
+                   "out_rel_l2": timing.rel(out, ref)}
             del ref
-            if not row["out_rel_l2"] <= smoke.GN_BF16_REL_L2:
+            if not row["out_rel_l2"] <= timing.GN_BF16_REL_L2:
                 sys.exit(f"time_group_norm: the kernel disagrees with its "
                          f"plain version: {row}")
-            row["ms"], row["ms_by"] = smoke.small_aware_ms(kernel)
+            row["ms"], row["ms_by"] = timing.small_aware_ms(kernel)
             if sync is not None:
-                row["sync_vs_kernel_rel_l2"] = smoke._rel(
+                row["sync_vs_kernel_rel_l2"] = timing.rel(
                     out, sync(x, weight, bias, groups, eps, act).float())
-                if not row["sync_vs_kernel_rel_l2"] <= smoke.GN_BF16_REL_L2:
+                if not row["sync_vs_kernel_rel_l2"] <= timing.GN_BF16_REL_L2:
                     sys.exit(f"time_group_norm: the kernel disagrees with "
                              f"group_norm_sync: {row}")
-                row["sync_ms"], row["sync_ms_by"] = smoke.small_aware_ms(
+                row["sync_ms"], row["sync_ms_by"] = timing.small_aware_ms(
                     lambda: sync(x, weight, bias, groups, eps, act))
-            row["library_ms"], row["library_ms_by"] = smoke.small_aware_ms(
+            row["library_ms"], row["library_ms_by"] = timing.small_aware_ms(
                 library)
-            row["bound_ms"] = smoke._bound(
+            row["bound_ms"] = timing.bound(
                 2 * x.numel() * x.element_size()
                 + 2 * c * weight.element_size(), 0, 0)["bound_ms"]
             rows.append(row)

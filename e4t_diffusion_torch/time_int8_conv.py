@@ -15,7 +15,7 @@ part of its work taken out, to see what bounds it (``ABLATIONS``); the copy
 goes to ``build/ablate-conv-<part>/`` and is not checked (an ablated output
 is wrong).
 
-The shapes are this checkout's ``chip_smoke._unet_conv_shapes(8, 512)``. At
+The shapes are this checkout's ``timing.unet_conv_shapes(8, 512)``. At
 each, on seeded operands: the kernel (``int8_conv``: int8 NHWC x and OHWI w,
 bf16 NCHW out with the rescale and bias) held bit for bit against the
 synchronous design (``int8_conv_sync``, where the checkout has it) or else
@@ -27,7 +27,7 @@ other; cuDNN's bf16 ``F.conv2d`` of the same shapes; and two bounds: the
 kernel's (int8 x and w read once, the output written once, the int8
 operations at 1,979 TOP/s) and the route's (x read once in bf16). Times are
 the device time under ``torch.profiler`` where it is under 0.1 ms
-(``chip_smoke.device_ms``), else CUDA events around one call, median of 20
+(``timing.device_ms``), else CUDA events around one call, median of 20
 after a warm-up. Prints the card's ``nvidia-smi`` line, then one JSON line.
 Needs a GPU; imports no JAX.
 """
@@ -102,16 +102,17 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         sys.exit("time_int8_conv: needs an NVIDIA GPU")
+    # this checkout's helpers beside the timed checkout's package
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+        "e4t_timing", os.path.join(HERE, "e4t_diffusion_torch", "timing.py"))
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
     from e4t_diffusion_torch.ops import int8_conv as ic
     from e4t_diffusion_torch.ops import quant
 
     def timed(fn):
-        ms = smoke.device_ms(fn)
-        return ms if ms < 0.1 else smoke.cuda_time_ms(fn)
+        ms = timing.device_ms(fn)
+        return ms if ms < 0.1 else timing.cuda_time_ms(fn)
 
     # the old route: PyTorch quantization, the NHWC permute, the kernel
     quantize = getattr(quant, "quantize_activation_reference",
@@ -123,16 +124,16 @@ def main(argv=None):
                             (sx * site["s"]).float(), bias, x.dtype, stride,
                             pad)
 
-    smi = smoke.nvidia_smi_line()
+    smi = timing.nvidia_smi_line()
     print(smi)
     torch.backends.cudnn.allow_tf32 = False
     sync = getattr(ic, "int8_conv_sync", None)
     gen = torch.Generator("cuda").manual_seed(0)
     check = not args.ablate
-    n = len(smoke.PROMPTS) * smoke.IMAGES_PER_PROMPT
+    n = len(timing.PROMPTS) * timing.IMAGES_PER_PROMPT
     rows = []
     for (c, o, h, w, k, stride, pad), sites in sorted(
-            smoke._unet_conv_shapes(n, smoke.RESOLUTION).items()):
+            timing.unet_conv_shapes(n, timing.RESOLUTION).items()):
         x = torch.randint(-127, 128, (n, h, w, c), device="cuda",
                           generator=gen, dtype=torch.int8)
         wt = torch.randint(-127, 128, (o, k, k, c), device="cuda",
@@ -178,10 +179,10 @@ def main(argv=None):
         ho, wo = out.shape[2:]
         ops = 2 * n * ho * wo * o * k * k * c
         out_bytes = 2 * n * o * ho * wo
-        row["bound_ms"] = smoke._bound(n * h * w * c + o * k * k * c + 6 * o
+        row["bound_ms"] = timing.bound(n * h * w * c + o * k * k * c + 6 * o
                                        + out_bytes, 0, 0,
                                        int8_ops=ops)["bound_ms"]
-        row["route_bound_ms"] = smoke._bound(2 * n * h * w * c + o * k * k * c
+        row["route_bound_ms"] = timing.bound(2 * n * h * w * c + o * k * k * c
                                              + 6 * o + out_bytes, 0, 0,
                                              int8_ops=ops)["bound_ms"]
         rows.append(row)

@@ -1,4 +1,5 @@
-"""``chip_smoke.py``'s profiler helpers when ``torch.profiler`` records no
+"""The profiler helpers of ``chip_smoke.py`` and ``e4t_diffusion_torch/
+timing.py`` when ``torch.profiler`` records no
 device time, as it now and then does on the card's machine: on the CPU no
 session holds a device record, so every session here is such a session.
 ``device_time`` must then time by CUDA events (stubbed here by the host's
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 import chip_smoke
+from e4t_diffusion_torch import timing
 from e4t_diffusion_torch.ops import quant
 
 
@@ -36,8 +38,11 @@ class _HostEvent:
 def host_timers(monkeypatch):
     monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    monkeypatch.setattr(chip_smoke, "PROFILER_EMPTY",
-                        dict.fromkeys(chip_smoke.PROFILER_EMPTY, 0))
+    # one fresh record, which timing.py's device_time and chip_smoke.py's
+    # profiles both count into
+    empty = dict.fromkeys(chip_smoke.PROFILER_EMPTY, 0)
+    monkeypatch.setattr(chip_smoke, "PROFILER_EMPTY", empty)
+    monkeypatch.setattr(timing, "PROFILER_EMPTY", empty)
 
 
 def test_device_time_falls_back_to_events_after_three_empty_sessions(
@@ -86,3 +91,26 @@ def test_int8_profile_reads_conv_site_ops_off_the_host(host_timers, mode):
     passes = set(prof["conv_site_op_names"]) & set(
         chip_smoke.CONV_QUANT_PASS_OPS)
     assert "aten::round" in passes
+
+
+@pytest.mark.parametrize("argv, mode, profile, label", [
+    ([], None, None, ""),
+    (["--parallel"], "parallel", None, ""),
+    (["--sd2"], "sd2", None, ""),
+    (["--multi-card"], "multi-card", None, ""),
+    (["--profile", "f32"], "profile", "f32", ""),
+    (["--profile", "int8", "--label", "parent"], "profile", "int8",
+     "parent")])
+def test_chip_smoke_modes(argv, mode, profile, label):
+    args = chip_smoke.parse_mode(argv)
+    assert (args.mode, args.profile, args.label) == (mode, profile, label)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--profile"], ["--profile", "bf16"], ["--label", "x"],
+    ["--sd2", "--parallel"], ["--profile", "f32", "--sd2"], ["extra"]])
+def test_chip_smoke_usage_errors(argv, capsys):
+    with pytest.raises(SystemExit) as err:
+        chip_smoke.parse_mode(argv)
+    assert err.value.code == 2 and "usage: chip_smoke.py" in \
+        capsys.readouterr().err

@@ -107,6 +107,37 @@ def test_folder_loader_matches_jax(folder, monkeypatch, random_crop):
     assert not np.array_equal(got[0], got[1])
 
 
+@pytest.mark.parametrize("streaming", [False, True])
+def test_hf_datasets_loader_matches_jax(monkeypatch, streaming):
+    """The HF ``datasets`` source (a name that is no local path) with
+    ``load_dataset`` patched to build the set here, with no download: the
+    same images in the same order for a seed at dp=1, over more than one
+    pass of the set (the non-streamed permutation drawn again, the stream
+    shuffled by its buffer)."""
+    import datasets
+
+    rng = np.random.default_rng(2)
+    images = [Image.fromarray(_image(rng, h, w)) for h, w in SIZES]
+
+    def load_dataset(name, split, streaming):
+        assert (name, split) == ("local/faces", "train")
+        ds = datasets.Dataset.from_dict({"image": images})
+        return ds.to_iterable_dataset() if streaming else ds
+
+    monkeypatch.setattr(datasets, "load_dataset", load_dataset)
+    kwargs = dict(batch_size=4, resolution=32, seed=7, streaming=streaming,
+                  process_index=0, process_count=1)
+    port = dataset.E4TDataLoader("local/faces", **kwargs)
+    ref = _jax_loader(monkeypatch, "local/faces", **kwargs)
+    got, want = _batches(port, 4), _batches(ref, 4)  # 16 rows, 6 images
+    for a, b in zip(got, want):
+        assert a.shape == (4, 3, 32, 32)
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(got[0], got[1])
+    if not streaming:
+        assert port.num_samples == ref.num_samples == len(SIZES)
+
+
 def test_tar_loader_matches_jax(shards, monkeypatch):
     spec = str(shards / "data-{00..02}.tar")
     assert dataset.get_dataset_size(spec) == \

@@ -170,6 +170,46 @@ def test_row_shard_int8_scales_are_the_whole_kernels():
         assert torch.equal(site["q"], whole["q"].chunk(2, dim=1)[r])
 
 
+def test_row_shard_per_channel_scales_are_the_whole_vectors_slice():
+    """static_pc under tp: quantize_params computes "sac" on the whole
+    calibrated per-channel range, then a row-parallel site keeps the slice
+    at its weight shard's input columns and a column-split site the whole
+    vector (``mesh.channel_scale_shard``); each shard's q, s and sac are
+    tp=1's slices, bit for bit."""
+    import types
+
+    gen = torch.Generator().manual_seed(2)
+    weights = {"to_out.0.weight": torch.randn(6, 8, generator=gen),
+               "to_q.weight": torch.randn(8, 6, generator=gen)}
+    calib = {"to_out.0": {"amax": torch.tensor(3.0),
+                          "amax_c": torch.rand(8, generator=gen) + 0.1},
+             "to_q": {"amax": torch.tensor(2.0),
+                      "amax_c": torch.rand(6, generator=gen) + 0.1}}
+    kwargs = dict(act_amax=calib, act_pc=True, static_exclude=())
+    whole = quant.quantize_params(weights, **kwargs)
+    # the row site's per-output abs-max over both shards: the whole kernel's
+    row_amax = (weights["to_out.0.weight"] * whole["to_out.0"]["sac"]
+                ).abs().amax(dim=1)
+    specs = {"to_out.0.weight": "row", "to_q.weight": "col"}
+    for r in range(2):
+        unet = types.SimpleNamespace(tp_specs=specs,
+                                     tp_site=pmesh.TPGroup(None, 2, r))
+        shard = quant.quantize_params(
+            {k: pmesh.local_shard(unet, k, w) for k, w in weights.items()},
+            kernel_reduce=lambda name, a: (torch.maximum(a, row_amax)
+                                           if name == "to_out.0" else a),
+            act_shard=pmesh.channel_scale_shard(unet), **kwargs)
+        row, col = shard["to_out.0"], shard["to_q"]
+        assert torch.equal(row["sac"], whole["to_out.0"]["sac"].chunk(2)[r])
+        assert torch.equal(row["q"], whole["to_out.0"]["q"].chunk(
+            2, dim=1)[r])
+        assert torch.equal(row["s"], whole["to_out.0"]["s"])
+        assert torch.equal(col["sac"], whole["to_q"]["sac"])
+        assert torch.equal(col["q"], whole["to_q"]["q"].chunk(2)[r])
+        assert torch.equal(col["s"], whole["to_q"]["s"].chunk(2)[r])
+    assert pmesh.channel_scale_shard(torch.nn.Linear(2, 2)) is None
+
+
 def _images(n):
     rng = np.random.default_rng(0)
     return [Image.fromarray(rng.integers(0, 255, (12, 12, 3), dtype=np.uint8))

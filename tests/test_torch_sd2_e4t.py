@@ -737,6 +737,91 @@ def test_jax_artifact_loads_into_the_port(world, sd2_dir, tmp_path):
     assert Image.open(tmp_path / "grid.png").size == (16, 16)
 
 
+# the LoRA fold against the JAX package's on the same numpy weights (the
+# tolerance of tests/test_torch_lora.py) and its scale
+LORA_FOLD_TOL = 1e-6
+LORA_SCALE = 0.7
+
+
+def test_serve_every_flag_on_the_sd2_base(world, sd2_dir, tmp_path):
+    """The batch server on the SD2 base with ``--int8 --int8_pc_act
+    --int8_aux_static --lora_weights`` (a seeded LoRA file whose k/v
+    adapters take the tiny SD2 cross width): three prompts at batch 2, the
+    first batch calibrating. The LoRA fold's UNet weights (offsets folded
+    first) against the JAX package's ``fold_lora_bank`` of the same numpy
+    weights, as plain functions; the served PNGs against the served
+    pipeline called directly on each batch, within one level of 255."""
+    from e4t_diffusion_tpu.models import lora as jax_lora
+
+    from e4t_diffusion_torch import serve_e4t
+    from e4t_diffusion_torch.diffusion.pipeline import _folded_apply
+
+    root, sd = sd2_dir
+    jm, params = world["jm"], _np(world["params"])
+    art = jax_artifacts.save_e4t_weights(
+        str(tmp_path / "art"), 1, {"pretrained_args": dict(
+            E4T_CONFIG, pretrained_model_name_or_path=sd,
+            vit_config="tiny")},
+        params["e4t"], jm.e4t_encoder.config, offsets=params["offsets"])
+    rng = np.random.default_rng(19)
+    bank = jax.tree_util.tree_map(
+        lambda s: (rng.standard_normal(s.shape) * 0.1).astype(np.float32),
+        jax.eval_shape(functools.partial(
+            jax_lora.init_lora_bank, unet_config=jm.unet.config, rank=2),
+            jax.random.PRNGKey(0)))
+    lora_file = tmp_path / "pytorch_lora_weights.bin"
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in jax_lora.lora_to_torch(bank).items()}, lora_file)
+    prompts = [PROMPTS[0], PROMPTS[1], "a photo of the *s"]
+    (tmp_path / "prompts.txt").write_text("\n".join(prompts) + "\n",
+                                          encoding="utf-8")
+    out = tmp_path / "served"
+    pipe, record = serve_e4t.main([
+        "--pretrained_model_name_or_path", art,
+        "--image_path", str(root / "in.png"),
+        "--prompts_file", str(tmp_path / "prompts.txt"), "--batch_size",
+        "2", "--num_inference_steps", "2", "--guidance_scale", "2.0",
+        "--seed", "3", "--device", "cpu", "--output_dir", str(out),
+        "--int8", "--int8_pc_act", "--int8_aux_static",
+        "--lora_weights", str(lora_file), "--lora_scale", str(LORA_SCALE)])
+    assert (pipe.int8, pipe.int8_aux) == ("static_pc", "static")
+    assert record["images"] == 3 and len(record["batch_walls_s"]) == 2
+    assert any("amax_c" in site for site in pipe.act_amax.values())
+    # the cross-attention adapters' k/v take the text width
+    cross = jm.unet.config.cross_attention_dim
+    assert cross == jm.text_encoder.config.hidden_size
+    assert {layers[k]["down"].shape[1] for site, layers in
+            pipe.lora_bank.items() if site.endswith("attn2")
+            for k in ("to_k_lora", "to_v_lora")} == {cross}
+
+    want = jax_convert.unet_to_torch(_np(jax_lora.fold_lora_bank(
+        jax_wo.fold_offset_bank(params["unet"], params["offsets"]), bank,
+        LORA_SCALE)))
+    folded, _ = _folded_apply(pipe.modules.unet, pipe.offsets,
+                              pipe.lora_bank, pipe.lora_scale)
+    lora_names = {f"{site}.{proj}.weight" for site in pipe.lora_bank
+                  for proj in ("to_q", "to_k", "to_v", "to_out.0")}
+    assert len(lora_names) == 4 * len(bank)
+    assert lora_names <= set(folded)
+    for name in lora_names:
+        np.testing.assert_allclose(folded[name].numpy(),
+                                   np.asarray(want[name]),
+                                   atol=LORA_FOLD_TOL, rtol=0, err_msg=name)
+
+    image = Image.open(root / "in.png").convert("RGB")
+    for start in (0, 2):
+        batch = prompts[start:start + 2]
+        batch += [batch[-1]] * (2 - len(batch))
+        alone = pipe(batch, image, num_inference_steps=2,
+                     guidance_scale=2.0, seed=3 + start, output_type="pil")
+        for i in range(min(2, len(prompts) - start)):
+            served = np.asarray(Image.open(out / f"{start + i:05d}.png"))
+            assert served.shape == (16, 16, 3)
+            diff = np.abs(served.astype(np.int16)
+                          - np.asarray(alone[i]).astype(np.int16))
+            assert diff.max() <= 1, (start, i)
+
+
 def test_sd2_widths_round_trip_both_ways(tmp_path):
     """SD 2.x's depths and widths where the converters and artifacts key
     them: a 23-layer text tower and an encoder writing a 1024-wide word

@@ -338,8 +338,94 @@ def sample(pipe, p, **kwargs):
                 num_images_per_prompt=2, seed=7, **kwargs)
 
 
+def unet_int8_sites(pipe, act_amax, int8="static_pc"):
+    """{site: {"q", "s", "sac" | "sa"}} of the pipeline's folded UNet
+    weights at ``act_amax`` (this rank's shards under tp)."""
+    folded, _ = pipeline_mod._folded_apply(pipe.modules.unet, pipe.offsets)
+    return pipeline_mod._unet_sites(pipe.modules.unet, folded, int8,
+                                    act_amax)
+
+
+class _Unread:
+    """A standard input no rank but 0 may read."""
+
+    def readline(self):
+        raise AssertionError("a rank other than 0 read standard input")
+
+    __iter__ = read = readline
+
+
+def interactive(rank, p, extra=()):
+    """``serve_e4t --interactive`` on the payload's artifact with its
+    lines on rank 0's standard input (other ranks' raise if read) ->
+    {"files": what the run wrote, "images": {name: uint8 array},
+    "printed": rank 0's lines}."""
+    import io
+    import sys
+
+    from PIL import Image
+
+    from e4t_diffusion_torch import serve_e4t
+
+    out_dir = os.path.join(p["root"], "interactive")
+    real_stdin, real_stdout = sys.stdin, sys.stdout
+    sys.stdin = (io.StringIO("".join(f"{ln}\n" for ln in p["lines"]))
+                 if rank == 0 else _Unread())
+    sys.stdout = printed = io.StringIO()
+    try:
+        serve_e4t.main([
+            "--pretrained_model_name_or_path", p["artifact"],
+            "--image_path", p["image_path"], "--interactive",
+            "--num_inference_steps", "2", "--guidance_scale", "2.0",
+            "--height", "16", "--width", "16", "--seed", "3",
+            "--device", "cpu", "--output_dir", out_dir, *extra])
+    finally:
+        sys.stdin, sys.stdout = real_stdin, real_stdout
+    files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    return {"files": files, "printed": printed.getvalue().splitlines(),
+            "images": {f: np.asarray(Image.open(os.path.join(out_dir, f)))
+                       for f in files}}
+
+
+class _SlowInput:
+    """A standard input whose first line comes after ``delay`` seconds."""
+
+    def __init__(self, lines, delay):
+        self.lines, self.delay = list(lines), delay
+
+    def readline(self):
+        if self.delay:
+            time.sleep(self.delay)
+            self.delay = 0
+        return self.lines.pop(0) if self.lines else ""
+
+
+# (the world group's timeout, rank 0's wait for its first line) in seconds
+PATIENT_CASE_S = (2, 6)
+
+
+def patient_prompts(rank, p):
+    """``serve_e4t.interactive_prompts`` on a mesh whose world group times
+    out after PATIENT_CASE_S[0] s, while rank 0's first line comes after
+    PATIENT_CASE_S[1] s -> the prompts this rank received."""
+    import datetime
+
+    from e4t_diffusion_torch import serve_e4t
+
+    timeout, delay = PATIENT_CASE_S
+    short = dist.new_group(backend="gloo",
+                           timeout=datetime.timedelta(seconds=timeout))
+    mesh = pmesh.Mesh(dp=2, tp=1, rank=rank, world_group=short,
+                      dp_group=short)
+    stream = (_SlowInput([f"{ln}\n" for ln in p["lines"]], delay)
+              if rank == 0 else _Unread())
+    return list(serve_e4t.interactive_prompts(mesh, stream))
+
+
 def serve_cases(rank, world, p):
-    """The tp=2 UNet and attention, then sampling under dp=2 and tp=2."""
+    """The tp=2 UNet and attention, then sampling under dp=2 and tp=2, the
+    interactive server at dp=2, and the interactive prompts' wait past the
+    world group's timeout."""
     out = {}
     tp2 = pmesh.get_mesh(tp=2)
     out["unet_tp2"] = unet_forward(tp2, p)
@@ -361,10 +447,17 @@ def serve_cases(rank, world, p):
     static = make_pipeline(p, tp2, False, int8="static")
     out["tp_int8_static"] = sample(static, p, guidance_scale=7.5)
     out["tp_int8_amax"] = static.act_amax
+    pc = make_pipeline(p, tp2, False, int8="static_pc")
+    out["tp_int8_pc"] = sample(pc, p, guidance_scale=7.5)
+    out["tp_int8_pc_amax"] = pc.act_amax
+    out["tp_int8_pc_sites"] = unet_int8_sites(pc, pc.act_amax)
+    out["tp_specs"] = pc.modules.unet.tp_specs
     out["tp_ddim"] = sample(make_pipeline(p, tp2, False), p,
                             guidance_scale=7.5)
     out["tp_lora"] = sample(make_pipeline(p, tp2, False, lora=True), p,
                             guidance_scale=7.5)
+    out["interactive"] = interactive(rank, p, ["--data_parallel_serving"])
+    out["patient_prompts"] = patient_prompts(rank, p)
     return out
 
 
@@ -382,6 +475,8 @@ def single_process_sampling(p):
            "lora": sample(make_pipeline(p, mesh, False, lora=True), p,
                           guidance_scale=7.5)}
     out["int8_amax"] = static.act_amax
+    out["int8_pc"] = sample(make_pipeline(p, mesh, False, int8="static_pc"),
+                            p, guidance_scale=7.5)
     aux = make_pipeline(p, mesh, False, int8="static", int8_aux="static")
     out["int8_aux"] = sample(aux, p, guidance_scale=7.5)
     out["aux_amax"] = aux.aux_amax
